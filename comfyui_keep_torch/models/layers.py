@@ -1,0 +1,218 @@
+"""Transformer and fusion blocks of the KEEP arch (reference keep_arch.py),
+ported from comfyui_keep_tpu/models/layers.py: only what KEEP's forward
+reaches. Token tensors are (B, L, C); feature maps NCHW. Parameter names
+are the reference's.
+"""
+
+import torch
+from torch import nn
+
+from comfyui_keep_torch.models.vqgan import ResBlock
+from comfyui_keep_torch.ops import (conv2d, gelu, layer_norm, leaky_relu,
+                                    linear, multi_head_attention,
+                                    softmax_attention)
+
+
+def _ln(m: nn.LayerNorm, x):
+    return layer_norm(x, m.weight, m.bias)
+
+
+def _split_heads(t, heads: int):
+    b, l, inner = t.shape
+    return t.reshape(b, l, heads, inner // heads).transpose(1, 2)
+
+
+def _merge_heads(t):
+    b, h, l, d = t.shape
+    return t.transpose(1, 2).reshape(b, l, h * d)
+
+
+class CrossAttention(nn.Module):
+    """diffusers-0.11 CrossAttention: separate q/k/v, scale dim_head^-0.5."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(query_dim, inner, bias=False)
+        self.to_v = nn.Linear(query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim),
+                                     nn.Dropout(0.0)])
+
+    def project_out(self, out):
+        return linear(_merge_heads(out), self.to_out[0].weight,
+                      self.to_out[0].bias)
+
+    def forward(self, x, context=None):
+        ctx = x if context is None else context
+        q = linear(x, self.to_q.weight)
+        k = linear(ctx, self.to_k.weight)
+        v = linear(ctx, self.to_v.weight)
+        dh = q.shape[-1] // self.heads
+        out = softmax_attention(
+            _split_heads(q, self.heads), _split_heads(k, self.heads),
+            _split_heads(v, self.heads), scale=dh ** -0.5)
+        return self.project_out(out)
+
+    def sparse_causal(self, x, video_length: int):
+        """x: (B*F, D, C). Keys/values of frame i are frame 0's and frame
+        (i-1)'s tokens (SparseCausalAttention)."""
+        bf, d, _ = x.shape
+        b = bf // video_length
+        q = linear(x, self.to_q.weight)
+        k = linear(x, self.to_k.weight)
+        v = linear(x, self.to_v.weight)
+        inner = q.shape[-1]
+        former = torch.clamp(torch.arange(video_length, device=x.device) - 1,
+                             min=0)
+        first = torch.zeros(video_length, dtype=torch.long, device=x.device)
+
+        def gather_ctx(t):  # (B*F, D, inner) -> (B*F, 2D, inner)
+            t = t.reshape(b, video_length, d, inner)
+            t = torch.cat([t[:, first], t[:, former]], dim=2)
+            return t.reshape(bf, 2 * d, inner)
+
+        dh = inner // self.heads
+        out = softmax_attention(
+            _split_heads(q, self.heads),
+            _split_heads(gather_ctx(k), self.heads),
+            _split_heads(gather_ctx(v), self.heads), scale=dh ** -0.5)
+        return self.project_out(out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+
+class FeedForward(nn.Module):
+    """diffusers FeedForward(activation_fn="geglu"): GEGLU -> Linear."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Dropout(0.0),
+                                  nn.Linear(inner, dim)])
+
+    def forward(self, x):
+        proj = self.net[0].proj
+        h, gate = linear(x, proj.weight, proj.bias).chunk(2, dim=-1)
+        return linear(h * gelu(gate), self.net[2].weight, self.net[2].bias)
+
+
+class MultiheadAttention(nn.Module):
+    """nn.MultiheadAttention's parameters (packed in_proj_weight), computed
+    with the port's plain attention."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
+                                                       embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, query, key, value, num_heads: int):
+        return multi_head_attention(query, key, value, self.in_proj_weight,
+                                    self.in_proj_bias, self.out_proj.weight,
+                                    self.out_proj.bias, num_heads)
+
+
+class TransformerSALayer(nn.Module):
+    """Pre-LN multi-head self-attention + GELU MLP."""
+
+    def __init__(self, embed_dim: int, dim_mlp: int):
+        super().__init__()
+        self.self_attn = MultiheadAttention(embed_dim)
+        self.linear1 = nn.Linear(embed_dim, dim_mlp)
+        self.linear2 = nn.Linear(dim_mlp, embed_dim)
+        self.norm1 = nn.LayerNorm(embed_dim)
+        self.norm2 = nn.LayerNorm(embed_dim)
+
+    def forward(self, x, query_pos=None, num_heads: int = 8):
+        h = _ln(self.norm1, x)
+        qk = h if query_pos is None else h + query_pos
+        x = x + self.self_attn(qk, qk, h, num_heads)
+        h = _ln(self.norm2, x)
+        h = linear(gelu(linear(h, self.linear1.weight, self.linear1.bias)),
+                   self.linear2.weight, self.linear2.bias)
+        return x + h
+
+
+class _ConvSeq(nn.Sequential):
+    def __init__(self, cin: int, cout: int):
+        super().__init__(nn.Conv2d(cin, cout, 3, 1, 1), nn.LeakyReLU(0.2),
+                         nn.Conv2d(cout, cout, 3, 1, 1))
+
+    def forward(self, x):
+        x = leaky_relu(conv2d(x, self[0].weight, self[0].bias, padding=1), 0.2)
+        return conv2d(x, self[2].weight, self[2].bias, padding=1)
+
+
+class CFTBlock(nn.Module):
+    """Fuse_sft_block: controllable feature transform of a decoder feature
+    by the encoder skip, dec + w * (dec * scale + shift)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.encode_enc = ResBlock(2 * in_ch, out_ch)
+        self.scale = _ConvSeq(in_ch, out_ch)
+        self.shift = _ConvSeq(in_ch, out_ch)
+
+    def forward(self, enc_feat, dec_feat, w: float = 1.0):
+        h = self.encode_enc(torch.cat([enc_feat, dec_feat], dim=1))
+        return dec_feat + w * (dec_feat * self.scale(h) + self.shift(h))
+
+
+class CFALayer(nn.Module):
+    """CrossFrameFusionLayer: attention from the current frame's features
+    to the previous frame's, then a GEGLU feed-forward."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim)
+        self.norm2 = nn.LayerNorm(dim)
+        self.ff = FeedForward(dim)
+        self.attn = CrossAttention(dim, heads, dim_head)
+
+    def forward(self, curr, prev, residual: bool = True):
+        """curr/prev: (B, C, H, W)."""
+        b, c, h, w = curr.shape
+        x = curr.flatten(2).transpose(1, 2)
+        ctx = prev.flatten(2).transpose(1, 2)
+        res = x
+        x = _ln(self.norm1, self.attn(x, ctx))
+        if residual:
+            x = x + res
+            res = x
+        x = _ln(self.norm2, self.ff(x))
+        if residual:
+            x = x + res
+        return x.transpose(1, 2).reshape(b, c, h, w)
+
+
+class BasicTransformerBlock(nn.Module):
+    """Sparse-causal attention, feed-forward and zero-initialised temporal
+    attention (the Kalman uncertainty estimator's block)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.norm1 = nn.LayerNorm(dim)
+        self.ff = FeedForward(dim)
+        self.norm3 = nn.LayerNorm(dim)
+        self.attn_temp = CrossAttention(dim, heads, dim_head)
+        self.norm_temp = nn.LayerNorm(dim)
+
+    def forward(self, x, video_length: int):
+        """x: (B*F, D, C) -> same."""
+        x = self.attn1.sparse_causal(_ln(self.norm1, x), video_length) + x
+        x = self.ff(_ln(self.norm3, x)) + x
+        bf, d, c = x.shape
+        b = bf // video_length
+        xt = x.reshape(b, video_length, d, c).transpose(1, 2).reshape(
+            b * d, video_length, c)
+        xt = self.attn_temp(_ln(self.norm_temp, xt)) + xt
+        return xt.reshape(b, d, video_length, c).transpose(1, 2).reshape(
+            bf, d, c)
