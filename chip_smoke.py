@@ -18,6 +18,20 @@ the verdict):
   6. main     api.load_models(seed=0) -> load_device(bf16) ->
               processor(bf16).restore_face_stream(21 faces, 20 per chunk):
               faces/s, ms per 20-frame chunk and the kernel launch counts
+  7. kernel   (vq) the nearest-codebook kernel against its plain version at
+              the training step's shape, T = 4096 tokens against N = 1024
+              codes of C = 256, in f32 and bf16, on tokens drawn near codes
+              of varied norms: picks, kernel/plain/addmm+argmin ms, bound
+  8. train_parity  one KEEP stage-II step of a tiny config (GMFlow 128
+              channels, 2 layers, a 64x64 clip of 3 frames), card (kernels)
+              against CPU (plain versions): in f32 the loss terms and
+              per-leaf gradients, the code-pick margins asserted first;
+              in bf16 mixed precision the same at bf16's resolution
+  9. train    options/train_keep_stage2.yml's step at full width (KEEP
+              512x512, VQHQEncoder, GMFlow; B=2 x 8 frames, random weights
+              and clips), f32 as configured, then mixed precision: ms/step,
+              frames/s, peak GiB, losses, launches per step; frozen leaves
+              unchanged, trainable ones moved, the EMA rule held
 The script exits non-zero, printing no verdict, if there is no CUDA device,
 if a kernel does not build or disagrees, or if any phase fails. TF32 is off
 for matmuls and convolutions, so f32 means f32.
@@ -45,6 +59,54 @@ FLOW_TOL_PX = 5e-2           # GMFlow card against CPU, pixels
 KEEP_ATOL, KEEP_RTOL = 5e-3, 1e-2   # KEEP forward tolerance of the golden tests
 FRAMES, WINDOWS, FEAT, CH, HID = 20, 4, 64, 128, 1024
 KERNEL_ITERS = 20    # timed launches per kernel (a quarter for plain versions)
+VQ_T, VQ_N, VQ_C = 4096, 1024, 256   # B=2 x 8 frames x 16x16 latents
+# both dtypes accumulate the products in f32 (bf16 products are exact), so
+# kernel and plain distances differ by summation order only
+VQ_RTOL = 1e-5
+TRAIN_STEPS = 3      # timed steps per training run, after one warm-up step
+# loss terms and per-leaf gradients, card against CPU (and port against JAX
+# in tests/test_torch_training.py)
+LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-4, 2e-3, 1e-7
+# least top-1/top-2 gap, relative to the largest value, of the code logits
+# and of the ground-truth code distances: ~100x their f32 error
+LOGIT_MARGIN_RTOL, DIST_MARGIN_RTOL = 1e-4, 1e-5
+# bf16 mixed precision, card against CPU (and port against JAX in the
+# tests): each loss term, and each leaf's gradient in L2, within 3x the
+# CPU's own bf16-to-f32 distance for it, plus 2 % of the term or the f32
+# gradient tolerance (bf16 rounding moves a weak leaf's gradient as far as
+# its own size, and a small loss term such as the temporal one by 3 %)
+MP_LOSS_RTOL, MP_GRAD_RATIO = 2e-2, 3.0
+
+# options/train_keep_stage2.yml as a dict: the card machine is not specified
+# to have pyyaml. tests/test_torch_training.py checks that the two agree.
+TRAIN_OPT = {
+    "model_type": "KEEPModel",
+    "manual_seed": 0,
+    "network_g": {
+        "type": "KEEP", "img_size": 512, "nf": 64, "ch_mult": [1, 2, 2, 4, 4, 8],
+        "dim_embd": 512, "n_head": 8, "n_layers": 9, "codebook_size": 1024,
+        "cft_list": ["16", "32", "64"], "cfa_list": ["16", "32"],
+        "fix_modules": ["quantize", "generator"], "temp_reg_list": ["32"]},
+    "datasets": {"train": {"num_frame": 8, "batch_size_per_gpu": 2}},
+    "train": {
+        "use_hq_feat_loss": True, "feat_loss_weight": 1.0,
+        "cross_entropy_loss": True, "entropy_loss_weight": 0.5,
+        "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
+        "temporal_opt": {"type": "L1Loss", "loss_weight": 0.1},
+        "temporal_warp_type": "GT",
+        "optim_g": {"type": "Adam", "lr": 1e-4},
+        "scheduler": {"type": "MultiStepLR", "milestones": [400000],
+                      "gamma": 0.5},
+        "total_iter": 500000, "warmup_iter": -1, "ema_decay": 0.995},
+}
+# the tiny configuration of train_parity (the tests' TINY KEEP)
+TINY = dict(img_size=64, nf=32, ch_mult=(1, 2, 2), res_blocks=2,
+            attn_resolutions=(16,), codebook_size=64, emb_dim=32, dim_embd=64,
+            n_head=8, n_layers=2, latent_size=256, cft_list=("32", "64"),
+            cfa_list=("16",), cfa_nhead=2, cfa_dim=16, kalman_attn_head_dim=8,
+            num_uncertainty_layers=1, temp_reg_list=("32",))
+HQ_KEYS = ("img_size", "nf", "ch_mult", "res_blocks", "attn_resolutions",
+           "codebook_size", "emb_dim")
 
 
 def say(phase, **kw):
@@ -253,10 +315,11 @@ def phase_main(torch):
     x20 = np.stack([bgr_u8_to_rgb_pm1(f) for f in faces[:FRAMES]])
     finite = bool(np.isfinite(proc.restore_clip(x20)).all())
     # per chunk that runs GMFlow: K1 13 (6 windows, 6 shifted windows with
-    # the mask, 1 global flow attention), K2 6, K3 1; 2 such chunks here
+    # the mask, 1 global flow attention), K2 6, K3 1; 2 such chunks here.
+    # Serving picks codes by argmax: no nearest-codebook search.
     want = {"attention[dv128]": 12, "attention[dv128+bias]": 12,
             "attention[dv2]": 2, "mlp_fused": 12,
-            "global_correlation_expectation": 2}
+            "global_correlation_expectation": 2, "vq_nearest_indices": 0}
     ok = shapes_ok and finite and counts == want
     say("main", faces=len(outs), chunk_ms=chunk_ms, chunk_ms_runs=runs,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -267,6 +330,264 @@ def phase_main(torch):
         fail(f"main path: launches {counts} (want {want}), shapes "
              f"{shapes_ok}, finite {finite}")
     return counts
+
+
+def phase_vq(torch, iters=KERNEL_ITERS):
+    """The nearest-codebook kernel at the training step's shape. Code n is
+    s_n u_n (u_n of unit expected norm, s_n in [0.5, 2]); token t is a code
+    plus noise, so the ||e||^2 term decides picks and a wrong sign or scale
+    changes them. The last 24 codes repeat the first 24: the kernel must
+    never pick a repeat (ties go to the lowest index). Picks must equal the
+    plain version's wherever the plain distances' best-to-second gap
+    exceeds the tolerance; elsewhere the kernel's pick must lie within the
+    tolerance of the minimum."""
+    from comfyui_keep_torch.ops import kernels as K
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+    dup = 24
+    e = (torch.randn(VQ_N, VQ_C, generator=g, device=dev) / math.sqrt(VQ_C)
+         * (0.5 + 1.5 * torch.rand(VQ_N, 1, generator=g, device=dev)))
+    e[VQ_N - dup:] = e[:dup]
+    pick = torch.randint(0, VQ_N, (VQ_T,), generator=g, device=dev)
+    z = e[pick] + 0.7 * torch.randn(VQ_T, VQ_C, generator=g,
+                                    device=dev) / math.sqrt(VQ_C)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        zc, ec = z.to(dtype).contiguous(), e.to(dtype).contiguous()
+        got = K.vq_nearest_indices(zc, ec).long()
+        torch.cuda.synchronize()
+        ref = K.vq_nearest_indices_plain(zc, ec).long()
+        d = K.codebook_sq_norms(ec) - 2.0 * zc.float() @ ec.float().t()
+        excess = (d.gather(1, got[:, None]) - d.gather(1, ref[:, None]))
+        top2 = (-d).topk(2, dim=-1).values
+        tol = VQ_RTOL * d.abs().max().item()
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        mismatched = int((got != ref)[clear].sum())
+        err = excess.abs().max().item()
+        repeats = int((got >= VQ_N - dup).sum())
+        ms = time_ms(torch, lambda: K.vq_nearest_indices(zc, ec), iters)
+        plain_ms = time_ms(torch, lambda: K.vq_nearest_indices_plain(zc, ec),
+                           max(1, iters // 4))
+        e2 = K.codebook_sq_norms(ec).to(dtype)
+        lib_ms = time_ms(torch, lambda: torch.addmm(
+            e2, zc, ec.t(), alpha=-2).argmin(-1), iters)
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        op_s = 2 * VQ_T * VQ_N * VQ_C / peak
+        byte_s = ((VQ_T + VQ_N) * VQ_C * zc.element_size()
+                  + 4 * (VQ_N + VQ_T)) / HBM
+        row = {"name": "vq_nearest_indices", "dtype": dname,
+               "max_abs_err": err, "tol": tol,
+               "picks_differing": int((got != ref).sum()),
+               "picks_differing_past_tol": mismatched,
+               "tokens_past_tol": int(clear.sum()), "repeat_codes_picked":
+               repeats, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": 1e3 * max(op_s, byte_s),
+               "bound_by": "operations" if op_s >= byte_s else "bytes",
+               "ok": bool(mismatched == 0 and err <= tol and repeats == 0)}
+        say("kernel", **row)
+        rows[("vq_nearest_indices", dname)] = row
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    if bad:
+        fail(f"the vq kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+def rel_margin(x):
+    """Least gap between the largest and second-largest entry of the last
+    axis, relative to the largest |x|."""
+    top2 = x.float().topk(2, dim=-1).values
+    return ((top2[..., 0] - top2[..., 1]).min() / x.abs().max()).item()
+
+
+def tiny_training(torch, device, mixed_precision=False):
+    """A KEEPTrainer on `device` over the tiny configuration with seeded
+    random weights (GMFlow at 128 channels, 2 layers), and its batch: a
+    64x64 clip of 3 frames."""
+    from comfyui_keep_torch.models.gmflow import GMFlow
+    from comfyui_keep_torch.models.keep import KEEP
+    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.training.trainers import KEEPTrainer
+    opt = copy.deepcopy(TRAIN_OPT)
+    opt["network_g"] = {"type": "KEEP", **TINY,
+                        "fix_modules": ["quantize", "generator"]}
+    opt["train"]["mixed_precision"] = mixed_precision
+    hq = VQHQEncoder(**{k: TINY[k] for k in HQ_KEYS}, device="cpu",
+                     generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():  # codes at the latents' scale: clear GT picks
+        hq.quantize.embedding.weight.copy_(0.5 * torch.randn(
+            TINY["codebook_size"], TINY["emb_dim"],
+            generator=torch.Generator().manual_seed(3)))
+    gm = GMFlow(num_layers=2, device="cpu",
+                generator=torch.Generator().manual_seed(7))
+    tr = KEEPTrainer(opt, hq_vqgan=hq, gmflow=gm, device=device)
+    state = tr.make_state(KEEP(device="cpu", **TINY,
+                               generator=torch.Generator().manual_seed(22)))
+    rng = np.random.default_rng(8)
+    batch = {k: torch.as_tensor(rng.random((1, 3, 64, 64, 3),
+                                           dtype=np.float32) * 2 - 1)
+             for k in ("lq", "gt")}
+    return tr, state, batch
+
+
+def pick_margins(torch, tr, state, batch):
+    """Relative top-1/top-2 margins of the code logits and of the
+    ground-truth code distances, from a no-grad forward."""
+    from comfyui_keep_torch.models.vqgan import vq_indices
+    with torch.no_grad():
+        lq = batch["lq"].to(tr.device)
+        _, aux = state.model.apply(lq, flows=tr._flows(lq), return_aux=True)
+        gt = batch["gt"].to(tr.device)
+        z = tr.hq_vqgan.encode(gt.reshape((-1,) + gt.shape[2:]))
+        _, d = vq_indices(tr.hq_vqgan.quantize.embedding.weight, z)
+    return rel_margin(aux["logits"]), rel_margin(-d)
+
+
+def phase_train_parity(torch):
+    """One stage-II micro-step of the tiny configuration: the card (kernels)
+    against the CPU (plain versions), in f32 and in bf16 mixed precision."""
+    from comfyui_keep_torch.ops import kernels as K
+    res = {}
+    for mp in (False, True):
+        for dev in ("cpu", "cuda"):
+            tr, state, batch = tiny_training(torch, dev, mp)
+            if (dev, mp) == ("cpu", False):
+                margins = pick_margins(torch, tr, state, batch)
+                if (margins[0] < LOGIT_MARGIN_RTOL
+                        or margins[1] < DIST_MARGIN_RTOL):
+                    fail(f"train_parity: pick margins {margins} under "
+                         f"{(LOGIT_MARGIN_RTOL, DIST_MARGIN_RTOL)}: a "
+                         f"flipped pick would decide the check")
+            K.reset_launch_counts()
+            logs = tr.backward(state, batch)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            res[dev, mp] = ({k: float(v) for k, v in logs.items()},
+                            {n: p.grad.detach().cpu() for n, p
+                             in state.model.named_parameters()
+                             if p.grad is not None},
+                            dict(K.LAUNCHES))
+    # two flow_from_clip calls (LQ and GT clips) of a 2-layer GMFlow, one
+    # nearest-codebook launch for the GT codes
+    want = {"attention[dv128]": 4, "attention[dv128+bias]": 4,
+            "attention[dv2]": 2, "mlp_fused": 4,
+            "global_correlation_expectation": 2, "vq_nearest_indices": 1}
+    lf, f32 = res["cpu", False][:2]
+    for mp in (False, True):
+        (lc, gc, _), (lg, gg, counts) = res["cpu", mp], res["cuda", mp]
+        if mp:
+            loss_rtol = MP_LOSS_RTOL
+            loss_err = max(abs(lg[k] - v) / (MP_GRAD_RATIO * abs(v - lf[k])
+                                             + MP_LOSS_RTOL * abs(v))
+                           for k, v in lc.items())
+            grad_err = max(((gg[n] - g).norm() / (
+                MP_GRAD_RATIO * (g - f32[n]).norm() + GRAD_RTOL
+                * f32[n].norm() + GRAD_ATOL)).item() for n, g in gc.items())
+        else:
+            loss_rtol = LOSS_RTOL
+            loss_err = max(abs(lg[k] - v) / (LOSS_RTOL * abs(v))
+                           for k, v in lc.items())
+            grad_err = max(((gg[n] - g).abs().max()
+                            / (GRAD_RTOL * g.abs().max() + GRAD_ATOL)).item()
+                           for n, g in gc.items())
+        ok = bool(loss_err <= 1.0 and grad_err <= 1.0
+                  and gc.keys() == gg.keys() and counts == want)
+        precision = "bf16 mixed" if mp else "f32"
+        say("train_parity", precision=precision, losses_cpu=lc,
+            losses_card=lg, loss_err_over_tol=loss_err, loss_rtol=loss_rtol,
+            grad_err_over_tol=grad_err, grad_rtol=GRAD_RTOL,
+            grad_atol=GRAD_ATOL, mp_grad_ratio=MP_GRAD_RATIO if mp else None,
+            leaves=len(gc), logit_margin=margins[0],
+            distance_margin=margins[1],
+            margin_rtol=(LOGIT_MARGIN_RTOL, DIST_MARGIN_RTOL),
+            launches=counts, expected_launches=want, ok=ok)
+        if not ok:
+            fail(f"train_parity ({precision}): the card's step disagrees "
+                 f"with the CPU's")
+
+
+def phase_train(torch):
+    """options/train_keep_stage2.yml's step at full width, f32 as configured
+    and then with mixed precision. Returns each run's launch counts."""
+    from comfyui_keep_torch.models.gmflow import GMFlow
+    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.training.trainers import KEEPTrainer
+    data = TRAIN_OPT["datasets"]["train"]
+    b, t = data["batch_size_per_gpu"], data["num_frame"]
+    hq = VQHQEncoder(**{k: v for k, v in TRAIN_OPT["network_g"].items()
+                        if k in HQ_KEYS}, device="cpu",
+                     generator=torch.Generator().manual_seed(1))
+    gm = GMFlow(device="cpu", generator=torch.Generator().manual_seed(2))
+    # per step: two flow_from_clip calls (LQ and GT clips) of the 6-layer
+    # GMFlow, one nearest-codebook launch for the GT codes
+    per_step = {"attention[dv128]": 12, "attention[dv128+bias]": 12,
+                "attention[dv2]": 2, "mlp_fused": 12,
+                "global_correlation_expectation": 2, "vq_nearest_indices": 1}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    watch = ("feat_emb.weight", "position_emb", "encoder.blocks.0.weight",
+             "hq_encoder.blocks.0.weight", "ft_layers.0.linear1.weight",
+             "idx_pred_layer.1.weight",
+             "kalman_filter.kalman_gain_calculator.3.weight",
+             "cft.32.scale.2.bias", "cfa.16.attn.to_out.0.bias")
+    ema_leaf = "feat_emb.weight"
+    runs = {}
+    for mp in (False, True):
+        opt = copy.deepcopy(TRAIN_OPT)
+        opt["train"]["mixed_precision"] = mp
+        tr = KEEPTrainer(opt, hq_vqgan=copy.deepcopy(hq),
+                         gmflow=copy.deepcopy(gm))
+        state = tr.make_state()
+        size = tr.cfg["img_size"]
+        g = torch.Generator(device="cuda").manual_seed(3)
+        batch = {k: torch.rand((b, t, size, size, 3), generator=g,
+                               device="cuda") * 2 - 1 for k in ("lq", "gt")}
+        params = dict(state.model.named_parameters())
+        before = {n: p.detach().clone() for n, p in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = tr.train_step(state, batch)    # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_STEPS - 1:
+                ema_prev = state.ema[ema_leaf].clone()
+            state, logs = tr.train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+        counts = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        frozen = [n for n, p in params.items() if not p.requires_grad]
+        frozen_same = all(torch.equal(params[n], before[n]) for n in frozen)
+        moved = [n for n, p in params.items() if p.requires_grad
+                 and not torch.equal(p, before[n])]
+        watch_moved = all(n in moved for n in watch)
+        decay = tr.ema_decay
+        want_ema = ema_prev * decay + params[ema_leaf].detach() * (1 - decay)
+        ema_err = (state.ema[ema_leaf] - want_ema).abs().max().item()
+        ema_ok = ema_err <= 1e-7 * want_ema.abs().max().item()
+        finite = all(math.isfinite(v) for v in logs.values())
+        ok = bool(finite and frozen_same and watch_moved and ema_ok
+                  and counts == want)
+        precision = "bf16 mixed" if mp else "f32"
+        say("train", precision=precision, batch=b, frames=t, size=size,
+            steps_timed=TRAIN_STEPS, ms_per_step=step_ms,
+            frames_per_s=b * t / (step_ms / 1e3), peak_mem_gib=peak,
+            losses=logs, launches_per_step={k: v / TRAIN_STEPS
+                                            for k, v in counts.items()},
+            frozen_leaves=len(frozen), frozen_unchanged=frozen_same,
+            trainable_leaves=len(params) - len(frozen),
+            trainable_moved=len(moved), watched_moved=watch_moved,
+            ema_leaf=ema_leaf, ema_max_abs_err=ema_err, finite=finite, ok=ok)
+        if not ok:
+            fail(f"train ({precision}): finite {finite}, frozen unchanged "
+                 f"{frozen_same}, watched leaves moved {watch_moved}, EMA "
+                 f"{ema_ok}, launches {counts} (want {want})")
+        runs["bfloat16" if mp else "float32"] = counts
+        del tr, state, batch, params, before
+        torch.cuda.empty_cache()
+    return runs
 
 
 def main():
@@ -296,9 +617,12 @@ def main():
                    or "spill" in ln] for k, v in _build.build_log.items()})
 
     krows = phase_kernels(torch)
+    vq_rows = phase_vq(torch)
     x, flows = phase_gmflow(torch)
     phase_keep(torch, x, flows)
     counts = phase_main(torch)
+    phase_train_parity(torch)
+    train_counts = phase_train(torch)
 
     srcs = {"attention": ("comfyui_keep_torch/csrc/attention.cu",
                           "comfyui_keep_tpu/ops/pallas_kernels.py:210"),
@@ -306,7 +630,10 @@ def main():
                 "comfyui_keep_torch/csrc/attention.cu",
                 "comfyui_keep_tpu/ops/pallas_kernels.py:142"),
             "mlp_fused": ("comfyui_keep_torch/csrc/mlp.cu",
-                          "comfyui_keep_tpu/ops/pallas_kernels.py:296")}
+                          "comfyui_keep_tpu/ops/pallas_kernels.py:296"),
+            "vq_nearest_indices": (
+                "comfyui_keep_torch/csrc/vq.cu",
+                "comfyui_keep_tpu/ops/pallas_kernels.py:51")}
     table = []
     for (name, dname), r in krows.items():
         if dname != "bfloat16":
@@ -315,6 +642,17 @@ def main():
         table.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": dname, "status": "ported"})
+    # the nearest-codebook kernel runs on the training path: f32 as
+    # configured, bf16 under mixed precision; launches from those runs
+    for (name, dname), r in vq_rows.items():
+        src, replaces = srcs[name]
+        table.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": train_counts[dname][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,18 +1,21 @@
 """KEEP: Kalman-inspired feature propagation for video face restoration
 (reference keep_arch.py), ported from comfyui_keep_tpu/models/keep.py.
 
-The public forward keeps the JAX package's layouts: `KEEP.apply` takes
-(B, T, H, W, 3) in [-1, 1] and flows as (fx, fy) planes (B, T-1, H, W), and
-returns (B, T, H, W, 3). Inside, feature maps are NCHW and the frame
-recurrence (flow-warp of the previous output -> HQ encoder -> Kalman update
--> token transformer -> code pick -> generator with CFT/CFA fusion) is a
-Python loop. The conv, GroupNorm and attention stacks are plain PyTorch.
+The public forwards keep the JAX package's layouts: `KEEP.apply`
+(inference) and `KEEP.forward` (training, with gradients and the auxiliary
+outputs of the losses) take (B, T, H, W, 3) in [-1, 1] and flows as
+(fx, fy) planes (B, T-1, H, W), and return (B, T, H, W, 3). Inside,
+feature maps are NCHW and the frame recurrence (flow-warp of the previous
+output -> HQ encoder -> Kalman update -> token transformer -> code pick ->
+generator with CFT/CFA fusion) is a Python loop. The conv, GroupNorm and
+attention stacks are plain PyTorch.
 """
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from comfyui_keep_torch.models import layers as L
 from comfyui_keep_torch.models.init import default_init_, finish, zero_
@@ -197,11 +200,13 @@ class KEEP(nn.Module):
     def decode_frame(self, quant, enc_feats_t: Dict[str, torch.Tensor],
                      prev_cfa: Dict[str, torch.Tensor], first: bool):
         """Generator pass for one frame with CFT skip fusion and CFA
-        cross-frame fusion. Returns (frame, new cfa features)."""
+        cross-frame fusion. Returns (frame, new cfa features, the
+        temp_reg_list taps {f: (B, c, s, s)} taken after the fusions)."""
         cfg = self.cfg
         cft_idx = {self.gen_tap[f]: f for f in cfg["cft_list"]}
         cfa_idx = {self.gen_tap[f]: f for f in cfg["cfa_list"]}
-        x, new_cfa = quant, {}
+        temp_idx = {self.gen_tap[f]: f for f in cfg["temp_reg_list"]}
+        x, new_cfa, gen_feats = quant, {}, {}
         for j, blk in enumerate(self.generator.blocks):
             x = blk(x)
             if j in cft_idx:
@@ -213,17 +218,26 @@ class KEEP(nn.Module):
                     x = self.cfa[f](x, prev_cfa[f],
                                     residual=cfg["cross_residual"])
                 new_cfa[f] = x
-        return x, new_cfa
+            if j in temp_idx:
+                gen_feats[temp_idx[j]] = x
+        return x, new_cfa, gen_feats
 
-    @torch.no_grad()
-    def apply(self, x, flows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              *, return_aux: bool = False, force_indices=None):
-        """x: (B, T, H, W, 3) in [-1, 1] -> (B, T, H, W, 3).
+    def forward(self, x, flows=None, *, force_indices=None):
+        """The grad-enabled forward of training (the JAX package's
+        KEEP.apply with detach_16=True and return_aux=True).
 
-        flows: (fx, fy) planes, each (B, T-1, H, W) (flow_from_clip), or None
-        for zero flow. force_indices: optional (B, T, L) code indices that
-        replace the argmax picks. return_aux also returns
-        {"logits": (B*T, L, N)}."""
+        x: (B, T, H, W, 3) in [-1, 1]. flows: (fx, fy) planes, each
+        (B, T-1, H, W) (flow_from_clip), or None for zero flow.
+        force_indices: optional (B, T, L) code indices that replace the
+        argmax picks. Returns (outs (B, T, H, W, 3), {"logits": (B*T, L, N),
+        "lq_feat": (B*T, h, w, C), "gen_feat_dict": {f: (B, T, s, s, c)}}).
+
+        Gradients stop where the JAX package stops them: at the flows, the
+        CFT encoder taps, the warped previous output and the picked codes;
+        lq_feat and the Kalman gains keep theirs. While gradients are
+        recorded, what the JAX package rematerialises is recomputed in the
+        backward pass with torch.utils.checkpoint: each res/attn block of the
+        encoders and each frame step after the first."""
         cfg = self.cfg
         b, t, h, w = x.shape[:4]
         if flows is None:
@@ -231,11 +245,12 @@ class KEEP(nn.Module):
                                     device=x.device)
         else:
             fxs, fys = flows
+        fxs, fys = fxs.detach(), fys.detach()
 
         tap = {self.enc_tap[f]: f for f in cfg["cft_list"]}
         xf = x.reshape(b * t, h, w, 3).permute(0, 3, 1, 2)
         z, taps = self.encoder(xf, tap_indices=list(tap))
-        enc_feats = {tap[i]: v.reshape((b, t) + v.shape[1:])
+        enc_feats = {tap[i]: v.detach().reshape((b, t) + v.shape[1:])
                      for i, v in taps.items()}
         z_codes = z.reshape((b, t) + z.shape[1:])
         gains = self.kalman_filter.calc_gain(z_codes)
@@ -243,24 +258,67 @@ class KEEP(nn.Module):
         def forced(i):
             return None if force_indices is None else force_indices[:, i]
 
-        quant, logits0 = self.tokens_to_code(z_codes[:, 0], forced(0))
-        out, cfa = self.decode_frame(
-            quant, {f: enc_feats[f][:, 0] for f in cfg["cft_list"]}, {},
-            first=True)
-        outs, logits = [out], [logits0]
-        for i in range(1, t):
-            warped = flow_warp_xy(out, fxs[:, i - 1], fys[:, i - 1])
+        def code_and_decode(z_hat, i, prev_cfa):
+            quant, logit = self.tokens_to_code(z_hat, forced(i))
+            quant = quant.detach()
+            enc_t = {f: enc_feats[f][:, i] for f in cfg["cft_list"]}
+            return self.decode_frame(quant, enc_t, prev_cfa,
+                                     first=i == 0) + (logit,)
+
+        def step(prev_out, prev_cfa, i):
+            warped = flow_warp_xy(prev_out.detach(), fxs[:, i - 1],
+                                  fys[:, i - 1])
             z_prime = self.hq_encoder(warped)
             g = gains[:, i]
-            z_hat = (1.0 - g) * z_codes[:, i] + g * z_prime
-            quant, logit = self.tokens_to_code(z_hat, forced(i))
-            out, cfa = self.decode_frame(
-                quant, {f: enc_feats[f][:, i] for f in cfg["cft_list"]}, cfa,
-                first=False)
+            return code_and_decode((1.0 - g) * z_codes[:, i] + g * z_prime, i,
+                                   prev_cfa)
+
+        out, cfa, gen_feats, logit = code_and_decode(z_codes[:, 0], 0, {})
+        outs, logits, feats = [out], [logit], [gen_feats]
+        for i in range(1, t):
+            if torch.is_grad_enabled():
+                out, cfa, gen_feats, logit = checkpoint(
+                    step, out, cfa, i, use_reentrant=False)
+            else:
+                out, cfa, gen_feats, logit = step(out, cfa, i)
             outs.append(out)
             logits.append(logit)
+            feats.append(gen_feats)
         res = torch.stack(outs, dim=1).permute(0, 1, 3, 4, 2)
-        if not return_aux:
-            return res
         logits = torch.stack(logits, dim=1)
-        return res, {"logits": logits.reshape((b * t,) + logits.shape[2:])}
+        aux = {"logits": logits.reshape((b * t,) + logits.shape[2:]),
+               "lq_feat": z.permute(0, 2, 3, 1),
+               "gen_feat_dict": {
+                   f: torch.stack([g[f] for g in feats], dim=1).permute(
+                       0, 1, 3, 4, 2) for f in feats[0]}}
+        return res, aux
+
+    @torch.no_grad()
+    def apply(self, x, flows=None, *, return_aux: bool = False,
+              force_indices=None):
+        """Inference forward: x (B, T, H, W, 3) in [-1, 1] ->
+        (B, T, H, W, 3), and with return_aux also forward()'s aux dict.
+        flows and force_indices as for forward()."""
+        res, aux = self.forward(x, flows, force_indices=force_indices)
+        return (res, aux) if return_aux else res
+
+
+def mask_by_ratio(z_codes, mask_ratio: float = 0.0,
+                  generator: Optional[torch.Generator] = None):
+    """Training-time random token masking (keep_arch.py:988-1006):
+    z_codes (B, T, h, w, C); in each frame the int(h*w*(1-mask_ratio))
+    tokens of highest uniform score are kept, the rest zeroed."""
+    if mask_ratio == 0:
+        return z_codes
+    b, t, h, w, _ = z_codes.shape
+    d = h * w
+    keep = int(d * (1 - mask_ratio))
+    scores = torch.rand((b, t, d), generator=generator,
+                        device=z_codes.device)
+    thresh = scores.sort(dim=-1, descending=True).values[..., keep - 1:keep]
+    mask = (scores >= thresh).to(z_codes.dtype).reshape(b, t, h, w, 1)
+    return z_codes * mask
+
+
+def count_parameters(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())

@@ -3,16 +3,20 @@ comfyui_keep_tpu/models/vqgan.py: the encoder and generator as flat block
 plans whose indices match the reference's nn.ModuleList (KEEP taps features
 by flat block index), on NCHW feature maps.
 
-Only what KEEP's forward reaches is here: the plans, the blocks, tapped
-execution and the codebook lookup.
+What KEEP and its stage-II training reach is here: the plans, the blocks,
+tapped (and recomputed) execution, the nearest-code quantizer with its
+lookup, and the VQHQEncoder that gives training its ground-truth codes.
 """
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from comfyui_keep_torch.models.init import default_init_, finish
 from comfyui_keep_torch.ops import (conv2d, group_norm, softmax_attention,
                                     swish, upsample_nearest_2x)
+from comfyui_keep_torch.ops import kernels as K
 from comfyui_keep_torch.ops.norm import GN_EPS
 
 
@@ -168,10 +172,16 @@ class BlockStack(nn.Module):
 
     def forward(self, x, tap_indices: Optional[Sequence[int]] = None):
         """Run every block; with tap_indices also return {i: features after
-        block i}."""
+        block i}. While gradients are recorded, each res/attn block is
+        recomputed in the backward pass instead of keeping its activations
+        (the JAX package's blocks_apply(remat=True))."""
         taps: Dict[int, torch.Tensor] = {}
-        for i, blk in enumerate(self.blocks):
-            x = blk(x)
+        remat = torch.is_grad_enabled()
+        for i, (spec, blk) in enumerate(zip(self.plan, self.blocks)):
+            if remat and spec[0] in ("res", "attn"):
+                x = checkpoint(blk, x, use_reentrant=False)
+            else:
+                x = blk(x)
             if tap_indices is not None and i in tap_indices:
                 taps[i] = x
         return (x, taps) if tap_indices is not None else x
@@ -185,3 +195,94 @@ class VectorQuantizer(nn.Module):
     def lookup(self, indices):
         """get_codebook_feat: indices (...,) -> (..., C)."""
         return self.embedding.weight[indices]
+
+    def nearest(self, z):
+        """z (..., C) -> (...) int32 index of the nearest code, through the
+        nearest-codebook kernel (its plain version on CPU tensors)."""
+        c = z.shape[-1]
+        idx = K.vq_nearest_indices(z.reshape(-1, c).contiguous(),
+                                   self.embedding.weight.contiguous())
+        return idx.reshape(z.shape[:-1])
+
+
+def vq_indices(codebook, z):
+    """Nearest-codebook indices and the distances they come from (the JAX
+    package's vq_indices): z (..., C), codebook (N, C) -> (idx (...),
+    d (..., N)), d = |z|^2 + |e|^2 - 2 z.e with the products in at least
+    f32. Materialises d; the training path uses `VectorQuantizer.nearest`."""
+    ct = torch.promote_types(z.dtype, torch.float32)
+    z2 = (z * z).sum(dim=-1, keepdim=True)
+    e2 = (codebook * codebook).sum(dim=-1)
+    ze = torch.matmul(z.to(ct), codebook.to(ct).t())
+    d = (z2 + e2).to(ct) - 2.0 * ze
+    return d.argmin(dim=-1), d
+
+
+def vq_quantize(quantizer: VectorQuantizer, z, beta: float = 0.25):
+    """z (..., C) -> (z_q straight-through, codebook loss, stats) as the
+    JAX package's vq_quantize. The codes come from the nearest-codebook
+    kernel; stats["mean_distance"], the mean of vq_indices' d, is taken in
+    closed form, mean|z|^2 + mean|e|^2 - 2 mean(z).mean(e), without the
+    (T, N) matrix."""
+    e = quantizer.embedding.weight
+    idx = quantizer.nearest(z.detach()).long()
+    z_q = e[idx]
+    loss = (torch.mean((z_q.detach() - z) ** 2)
+            + beta * torch.mean((z_q - z.detach()) ** 2))
+    z_q = z + (z_q - z).detach()
+    counts = torch.bincount(idx.reshape(-1), minlength=e.shape[0])
+    e_mean = counts.float() / idx.numel()
+    perplexity = torch.exp(-torch.sum(e_mean * torch.log(e_mean + 1e-10)))
+    zf = z.detach().float().reshape(-1, z.shape[-1])
+    ef = e.detach().float()
+    mean_d = ((zf * zf).sum(-1).mean() + (ef * ef).sum(-1).mean()
+              - 2.0 * torch.dot(zf.mean(0), ef.mean(0)))
+    stats = {"perplexity": perplexity, "min_encoding_indices": idx,
+             "mean_distance": mean_d}
+    return z_q, loss, stats
+
+
+class VQHQEncoder(nn.Module):
+    """Encoder + nearest-code quantizer (reference vqgan_arch.py
+    VQHQEncoder): the frozen net whose codes of the ground-truth frames
+    KEEP's stage-II training predicts. Parameter names `encoder.blocks.*`
+    and `quantize.embedding.weight`."""
+
+    def __init__(self, img_size: int = 512, nf: int = 64,
+                 ch_mult: Sequence[int] = (1, 2, 2, 4, 4, 8),
+                 res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
+                 codebook_size: int = 1024, emb_dim: int = 256,
+                 beta: float = 0.25, device="cuda",
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.beta = beta
+        self.encoder = BlockStack(encoder_plan(3, nf, emb_dim, ch_mult,
+                                               res_blocks, img_size,
+                                               attn_resolutions))
+        self.quantize = VectorQuantizer(codebook_size, emb_dim)
+        if generator is not None:
+            default_init_(self, generator)
+            with torch.no_grad():
+                w = self.quantize.embedding.weight
+                w.copy_(torch.empty(w.shape).uniform_(
+                    -1.0 / codebook_size, 1.0 / codebook_size,
+                    generator=generator))
+        finish(self, device, dtype)
+
+    def encode(self, x):
+        """x (N, H, W, 3) in [-1, 1] -> latents (N, h, w, C)."""
+        return self.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def apply(self, x):
+        """x (N, H, W, 3) -> (z, codebook loss, stats): like the JAX twin it
+        returns the encoder's z, not the quantized z_q."""
+        z = self.encode(x)
+        _, loss, stats = vq_quantize(self.quantize, z, self.beta)
+        return z, loss, stats
+
+    def indices(self, x):
+        """x (N, H, W, 3) -> (N, h*w) int32 nearest codes of the latents,
+        one kernel launch for all N*h*w tokens."""
+        z = self.encode(x)
+        return self.quantize.nearest(z).reshape(z.shape[0], -1)

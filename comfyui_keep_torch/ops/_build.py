@@ -18,7 +18,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(_CSRC))
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-SOURCES = ("attention", "mlp")
+SOURCES = ("attention", "mlp", "vq")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +34,9 @@ _SIGNATURES = {
     "mlp": {
         "keep_mlp_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P),
+    },
+    "vq": {
+        "keep_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1,9 +1,11 @@
-"""GMFlow's three hand-written CUDA kernels, each beside its plain version.
+"""The port's hand-written CUDA kernels, each beside its plain version:
+GMFlow's three and the nearest-codebook search of KEEP training.
 
 | wrapper | CUDA source | replaces (comfyui_keep_tpu/ops/pallas_kernels.py) |
 | `attention` | csrc/attention.cu | `attention_pallas` |
 | `global_correlation_expectation` | csrc/attention.cu | `global_correlation_expectation_pallas` |
 | `mlp_fused` | csrc/mlp.cu | `mlp_fused_pallas` |
+| `vq_nearest_indices` | csrc/vq.cu | `vq_nearest_indices_pallas` |
 
 A wrapper given CPU tensors computes its plain version (the CPU tests run
 there). Given CUDA tensors it launches its kernel, or raises on anything the
@@ -23,9 +25,12 @@ from comfyui_keep_torch.ops._build import library
 
 LAUNCHES: Dict[str, int] = {
     "attention[dv128]": 0, "attention[dv128+bias]": 0, "attention[dv2]": 0,
-    "global_correlation_expectation": 0, "mlp_fused": 0}
+    "global_correlation_expectation": 0, "mlp_fused": 0,
+    "vq_nearest_indices": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTH = 128  # q/k width of attention, C of the MLP
+VQ_CODE_TILE = 64   # the codebook size must be a multiple of this
+VQ_MAX_WIDTH = 512
 
 
 def reset_launch_counts():
@@ -189,7 +194,55 @@ def mlp_fused(src, msg, w1a, w1b, w2, gamma, beta, approximate: bool):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K4: nearest-codebook search
+# ---------------------------------------------------------------------------
+
+def codebook_sq_norms(codebook):
+    """||e_n||^2 in f32, (N,)."""
+    e = codebook.float()
+    return (e * e).sum(dim=-1)
+
+
+def vq_nearest_indices_plain(z, codebook):
+    """argmin_n(||e_n||^2 - 2 z.e_n) -> (T,) int32 with the kernel's
+    arithmetic: ||e||^2 and the products in f32 (a bf16 product is exact in
+    f32), ties to the lowest index."""
+    d = codebook_sq_norms(codebook) - 2.0 * torch.matmul(
+        z.float(), codebook.float().t())
+    return d.argmin(dim=-1).to(torch.int32)
+
+
+def vq_nearest_indices(z, codebook):
+    """z: (T, C), codebook: (N, C) in one dtype -> (T,) int32 index of the
+    nearest code. On CUDA: f32 or bf16, N a multiple of 64, C a multiple of
+    16 up to 512."""
+    if not z.is_cuda:
+        return vq_nearest_indices_plain(z, codebook)
+    t, c = z.shape
+    n = codebook.shape[0]
+    if (z.dtype not in _DTYPE_CODE or t < 1 or n % VQ_CODE_TILE or n < 1
+            or c % 16 or not 16 <= c <= VQ_MAX_WIDTH):
+        raise ValueError(f"vq kernel takes f32/bf16, T >= 1, N % "
+                         f"{VQ_CODE_TILE} == 0 and C % 16 == 0 <= "
+                         f"{VQ_MAX_WIDTH}, got T={t} N={n} C={c} {z.dtype}")
+    _check("vq z", z, (t, c), z.dtype, z.device)
+    _check("vq codebook", codebook, (n, c), z.dtype, z.device)
+    # ||e||^2 in f32 outside the kernel, as the Pallas wrapper computes it
+    e2 = codebook_sq_norms(codebook)
+    out = torch.empty(t, dtype=torch.int32, device=z.device)
+    lib = library("vq")
+    with torch.cuda.device(z.device):
+        err = lib.keep_vq_nearest(z.data_ptr(), codebook.data_ptr(),
+                                  e2.data_ptr(), out.data_ptr(), t, n, c,
+                                  _DTYPE_CODE[z.dtype], _stream(z))
+    _raise_on(err, "vq kernel launch")
+    LAUNCHES["vq_nearest_indices"] += 1
+    return out
+
+
 PLAIN = {"attention": attention_plain,
          "global_correlation_expectation":
              global_correlation_expectation_plain,
-         "mlp_fused": mlp_fused_plain}
+         "mlp_fused": mlp_fused_plain,
+         "vq_nearest_indices": vq_nearest_indices_plain}

@@ -14,10 +14,13 @@ GN_EPS = 1e-6
 
 def group_norm(x, weight=None, bias=None, num_groups: int = 32,
                eps: float = GN_EPS):
-    """x: (N, C, H, W)."""
+    """x: (N, C, H, W). A CPU input is made NCHW-contiguous first: torch's
+    CPU GroupNorm backward faults on a channels-last input that needs no
+    gradient while the affine parameters do (torch 2.13)."""
     w = None if weight is None else weight.float()
     b = None if bias is None else bias.float()
-    return F.group_norm(x.float(), num_groups, w, b, eps).to(x.dtype)
+    xf = x.float() if x.is_cuda else x.float().contiguous()
+    return F.group_norm(xf, num_groups, w, b, eps).to(x.dtype)
 
 
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):

@@ -101,9 +101,9 @@ def _flatten(node, path: Tuple[str, ...], out: Dict[str, np.ndarray]):
 
 
 def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX param tree (numpy leaves) -> state dict for `model` (a KEEP or a
-    GMFlow of the port). Raises unless keys and shapes match `model`
-    exactly."""
+    """JAX param tree (numpy leaves) -> state dict for `model` (a KEEP, a
+    GMFlow or a VQHQEncoder of the port; also a gradient tree of the same
+    layout). Raises unless keys and shapes match `model` exactly."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, (), flat)
     want = model.state_dict()
@@ -116,5 +116,5 @@ def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     for k, v in flat.items():
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: shape {v.shape} != {tuple(want[k].shape)}")
-        sd[k] = torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        sd[k] = torch.from_numpy(np.array(v, dtype=np.float32))
     return sd

@@ -1,4 +1,5 @@
-"""The port's three GMFlow kernels (comfyui_keep_torch/ops/kernels.py).
+"""The port's kernels (comfyui_keep_torch/ops/kernels.py): GMFlow's three and
+the nearest-codebook search.
 
 On the CPU: each plain version against the JAX package's Pallas kernel run
 in interpret mode (as tests/test_native_ops.py runs it) and against the JAX
@@ -154,6 +155,58 @@ def test_mlp_erf_plain_vs_jax_unfused_branch():
                                rtol=1e-3)
 
 
+def _margin(d):
+    """Least gap between the smallest and second-smallest entry of each
+    row, relative to max|d|."""
+    s = np.sort(d, axis=-1)
+    return (s[:, 1] - s[:, 0]).min() / np.abs(d).max()
+
+
+@pytest.mark.parametrize("t", [300, 1000])
+def test_vq_plain_vs_pallas_interpret_and_xla_branch(t):
+    """Exact picks against the Pallas kernel in interpret mode and the
+    dispatcher's XLA branch (as tests/test_native_ops.py runs them), on a
+    seed whose distance gaps are asserted first to exceed f32 rounding
+    (1e-6 of max|d|) by far."""
+    rng = np.random.default_rng(10 + t)
+    z = rng.standard_normal((t, 32)).astype(np.float32)
+    cb = rng.standard_normal((64, 32)).astype(np.float32)
+    e2 = (cb.astype(np.float64) ** 2).sum(-1)
+    assert _margin(e2 - 2.0 * z.astype(np.float64) @ cb.T) > 1e-6
+    ours = K.vq_nearest_indices_plain(torch.as_tensor(z), torch.as_tensor(cb))
+    assert ours.dtype == torch.int32 and ours.shape == (t,)
+    xla = P.vq_nearest_indices(jnp.asarray(z), jnp.asarray(cb),
+                               force_xla=True)
+    pallas = P.vq_nearest_indices_pallas(jnp.asarray(z), jnp.asarray(cb),
+                                         tile=128, interpret=True)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(xla))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(pallas))
+
+
+def test_vq_plain_bf16_vs_pallas_interpret():
+    """bf16 inputs: products exact in f32, ||e||^2 in f32, as the Pallas
+    kernel computes them."""
+    rng = np.random.default_rng(12)
+    z = rng.standard_normal((200, 64)).astype(np.float32)
+    cb = rng.standard_normal((128, 64)).astype(np.float32)
+    zb, cbb = _to(z, "bf16"), _to(cb, "bf16")
+    ours = K.vq_nearest_indices_plain(zb, cbb)
+    ref = P.vq_nearest_indices_pallas(_jx(z, "bf16"), _jx(cb, "bf16"),
+                                      tile=128, interpret=True)
+    d = (K.codebook_sq_norms(cbb) - 2.0 * zb.float() @ cbb.float().t()
+         ).numpy()
+    assert _margin(d) > 1e-6
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+def test_vq_ties_go_to_the_lowest_index():
+    cb = torch.randn(64, 16, generator=torch.Generator().manual_seed(0))
+    cb[40:48] = cb[0:8]
+    z = cb[40:48] + 0.01
+    np.testing.assert_array_equal(K.vq_nearest_indices_plain(z, cb).numpy(),
+                                  np.arange(8))
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     rng = np.random.default_rng(7)
     q, k, v = (torch.as_tensor(_np(rng, 2, 64, 128)) for _ in range(3))
@@ -167,5 +220,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
         K.global_correlation_expectation_plain(q, k, grid), rtol=0, atol=0)
     torch.testing.assert_close(K.mlp_fused(*args, approximate=False),
                                K.mlp_fused_plain(*args, approximate=False),
+                               rtol=0, atol=0)
+    z, cb = q[0, :, :32].contiguous(), k[0].reshape(256, 32)[:64]
+    torch.testing.assert_close(K.vq_nearest_indices(z, cb),
+                               K.vq_nearest_indices_plain(z, cb),
                                rtol=0, atol=0)
     assert set(K.LAUNCHES.values()) == {0}

@@ -101,6 +101,38 @@ def test_mlp_matches_plain(cuda, dtype, approximate):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,n,c", [(4096, 1024, 256), (333, 64, 32),
+                                   (1, 128, 512), (70, 192, 16)])
+def test_vq_nearest_indices_matches_plain(cuda, dtype, t, n, c):
+    """Picks equal the plain version's wherever its best-to-second gap
+    exceeds 1e-5 of max|d| (both accumulate in f32); elsewhere the kernel's
+    pick is within that of the minimum. Repeated codes tie: the lowest
+    index wins."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    e = torch.randn(n, c, generator=g, device=cuda) * (
+        0.5 + torch.rand(n, 1, generator=g, device=cuda))
+    e[n // 2:n // 2 + 8] = e[:8]
+    z = e[torch.randint(0, n, (t,), generator=g, device=cuda)] + torch.randn(
+        t, c, generator=g, device=cuda)
+    z, e = z.to(dtype), e.to(dtype)
+    before = K.LAUNCHES["vq_nearest_indices"]
+    got = K.vq_nearest_indices(z, e)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["vq_nearest_indices"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (t,)
+    ref = K.vq_nearest_indices_plain(z, e)
+    d = K.codebook_sq_norms(e) - 2.0 * z.float() @ e.float().t()
+    tol = 1e-5 * d.abs().max()
+    top2 = (-d).topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    assert torch.equal(got[clear], ref[clear])
+    excess = d.gather(1, got.long()[:, None]) - d.gather(1, ref.long()[:, None])
+    assert excess.abs().max() <= tol
+    assert not ((got >= n // 2) & (got < n // 2 + 8)).any()
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 64, 64, device=cuda)
     with pytest.raises(ValueError):
@@ -118,6 +150,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     args = list(_mlp_inputs(cuda, torch.float32, h=96))
     with pytest.raises(ValueError):
         K.mlp_fused(*args, approximate=True)           # H % 64 != 0
+    z = torch.randn(10, 32, device=cuda)
+    with pytest.raises(ValueError):
+        K.vq_nearest_indices(z, torch.randn(100, 32, device=cuda))  # N % 64
+    with pytest.raises(ValueError):
+        K.vq_nearest_indices(z, torch.randn(64, 32, device=cuda,
+                                            dtype=torch.bfloat16))  # dtypes
+    with pytest.raises(ValueError):
+        K.vq_nearest_indices(torch.randn(10, 24, device=cuda),
+                             torch.randn(64, 24, device=cuda))  # C % 16
 
 
 @pytest.mark.cuda

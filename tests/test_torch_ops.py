@@ -80,6 +80,23 @@ def test_group_norm(rng, dtype):
                                np.asarray(ref, np.float32), **tol)
 
 
+def test_group_norm_backward_channels_last_affine_only(rng):
+    """A channels-last input that needs no gradient, with affine parameters
+    that do (a CFT block's first GroupNorm over a frozen generator's
+    features in training): torch's CPU kernel faulted here; the port's
+    group_norm gives the affine gradients of a contiguous input."""
+    x = torch.as_tensor(rng.standard_normal((1, 64, 8, 8), dtype=np.float32))
+    grads = []
+    for t in (x, x.contiguous(memory_format=torch.channels_last)):
+        w = torch.ones(64, requires_grad=True)
+        b = torch.zeros(64, requires_grad=True)
+        (T.group_norm(t, w, b) * torch.arange(64.0)[:, None, None]).sum(
+            ).backward()
+        grads.append((w.grad, b.grad))
+    for a, b_ in zip(*grads):
+        torch.testing.assert_close(a, b_, rtol=1e-6, atol=1e-6)
+
+
 def test_layer_and_instance_norm(rng):
     x = rng.standard_normal((2, 7, 9, 32), dtype=np.float32) * 2 - 1
     g = rng.standard_normal(32, dtype=np.float32)
