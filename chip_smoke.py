@@ -32,6 +32,28 @@ the verdict):
               and clips), f32 as configured, then mixed precision: ms/step,
               frames/s, peak GiB, losses, launches per step; frozen leaves
               unchanged, trainable ones moved, the EMA rule held
+ 10. kernel   (fused_bias_lrelu) the fused bias + leaky ReLU kernel against
+              its plain version at StyleGAN2's largest activation, (4, 32,
+              1024, 1024), and at the mapping MLP's (4, 512), in bf16 and
+              f32: max|d| in units of the last place (at most 1), kernel
+              and plain ms, the bound; then fused_leaky_relu's value, x- and
+              bias-gradients and a second-order term, card against CPU
+ 11. stylegan2_parity  a narrow StyleGAN2 (64x64, channel multiplier 1,
+              narrow 0.25, 64 style features, 2 mapping layers), f32, card
+              (kernels) against CPU (plain versions): the image and the D
+              logits, then one GAN alternation at iteration 16 (R1 and the
+              path penalty both fire) from one warm state (the CPU's after
+              alternation 15) and the same draws: losses, mean path length,
+              Adam moments and updated leaves
+ 12. stylegan2_sample  StyleGAN2Generator config-f at 1024x1024 (512 style
+              features, 8 mapping layers, channel multiplier 2), B=4 codes,
+              bf16 then f32: ms per batch, images/s, peak GiB, a finite
+              image, K5 launches per forward from its counter (25)
+ 13. stylegan2_train  StyleGAN2Model at 256x256 (channel multiplier 2, G and
+              D), B=4 random real images, f32, 16 alternations after a
+              warm-up (R1 once, the path penalty four times): ms of a plain,
+              a path and the R1 + path alternation, peak GiB, losses, K5
+              launches per alternation; the EMA rule, D and G leaves moved
 The script exits non-zero, printing no verdict, if there is no CUDA device,
 if a kernel does not build or disagrees, or if any phase fails. TF32 is off
 for matmuls and convolutions, so f32 means f32.
@@ -76,6 +98,29 @@ LOGIT_MARGIN_RTOL, DIST_MARGIN_RTOL = 1e-4, 1e-5
 # gradient tolerance (bf16 rounding moves a weak leaf's gradient as far as
 # its own size, and a small loss term such as the temporal one by 3 %)
 MP_LOSS_RTOL, MP_GRAD_RATIO = 2e-2, 3.0
+# StyleGAN2 (K5 and its paths)
+K5_SHAPES = ((4, 32, 1024, 1024), (4, 512))   # largest conv act, mapping MLP
+SG2_TOL = dict(atol=2e-3, rtol=1e-2)   # tests/test_stylegan2_golden.py:78
+# the alternation, card against CPU, f32, from one warm state. l_d comes
+# before any update and is held to LOSS_RTOL. R1 and the path penalty are
+# gradient norms through leaky ReLUs: one activation that rounding moves
+# across zero moves them by ~1e-3 of themselves (measured on the CPU at
+# 32x32), and G's gradient reaches it through D's activations. So the losses
+# taken after an update are held to SG2_POST_RTOL; the Adam moments (the
+# last sub-steps' gradients, the running squares) of G and of D, each as one
+# vector over all its leaves, in L2 to SG2_MOMENT_RTOL (a single leaf, such
+# as a noise weight's one-element gradient, a sum of many terms of either
+# sign, moved by 2.7-7 % in card runs); and at least SG2_LEAF_SHARE of all
+# updated elements to GRAD_RTOL * max|update of the leaf| + GRAD_ATOL (0.3
+# to 0.6 % of G's elements fell outside in card runs: Adam divides each
+# element's gradient by its own running size, so a small gradient's error
+# comes through whole). A wrong weight, sign or beta moves every element.
+SG2_POST_RTOL, SG2_MOMENT_RTOL, SG2_LEAF_SHARE = 5e-2, 2e-2, 0.95
+SG2_PARITY = dict(out_size=64, num_style_feat=64, num_mlp=2,
+                  channel_multiplier=1, narrow=0.25)
+SG2_SAMPLE = dict(out_size=1024, num_style_feat=512, num_mlp=8,
+                  channel_multiplier=2)   # config-f
+SG2_BATCH, SG2_TRAIN_SIZE, SG2_ALTERNATIONS = 4, 256, 16
 
 # options/train_keep_stage2.yml as a dict: the card machine is not specified
 # to have pyyaml. tests/test_torch_training.py checks that the two agree.
@@ -319,7 +364,8 @@ def phase_main(torch):
     # Serving picks codes by argmax: no nearest-codebook search.
     want = {"attention[dv128]": 12, "attention[dv128+bias]": 12,
             "attention[dv2]": 2, "mlp_fused": 12,
-            "global_correlation_expectation": 2, "vq_nearest_indices": 0}
+            "global_correlation_expectation": 2, "vq_nearest_indices": 0,
+            "fused_bias_lrelu": 0}
     ok = shapes_ok and finite and counts == want
     say("main", faces=len(outs), chunk_ms=chunk_ms, chunk_ms_runs=runs,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -471,7 +517,8 @@ def phase_train_parity(torch):
     # nearest-codebook launch for the GT codes
     want = {"attention[dv128]": 4, "attention[dv128+bias]": 4,
             "attention[dv2]": 2, "mlp_fused": 4,
-            "global_correlation_expectation": 2, "vq_nearest_indices": 1}
+            "global_correlation_expectation": 2, "vq_nearest_indices": 1,
+            "fused_bias_lrelu": 0}
     lf, f32 = res["cpu", False][:2]
     for mp in (False, True):
         (lc, gc, _), (lg, gg, counts) = res["cpu", mp], res["cuda", mp]
@@ -523,7 +570,8 @@ def phase_train(torch):
     # GMFlow, one nearest-codebook launch for the GT codes
     per_step = {"attention[dv128]": 12, "attention[dv128+bias]": 12,
                 "attention[dv2]": 2, "mlp_fused": 12,
-                "global_correlation_expectation": 2, "vq_nearest_indices": 1}
+                "global_correlation_expectation": 2, "vq_nearest_indices": 1,
+                "fused_bias_lrelu": 0}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     watch = ("feat_emb.weight", "position_emb", "encoder.blocks.0.weight",
              "hq_encoder.blocks.0.weight", "ft_layers.0.linear1.weight",
@@ -590,6 +638,377 @@ def phase_train(torch):
     return runs
 
 
+def ulps(torch, got, ref):
+    """Largest distance in units of the last place between two tensors of
+    one float dtype (bf16 or f32), from their bit patterns."""
+    it = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+
+    def ordered(t):
+        i = t.contiguous().view(it).long()
+        return torch.where(i < 0, -(i & (2 ** (8 * t.element_size() - 1) - 1)),
+                           i)
+    return (ordered(got) - ordered(ref)).abs().max().item()
+
+
+def phase_k5(torch, iters=KERNEL_ITERS):
+    """K5 at StyleGAN2's shapes against its plain version (at most 1 ulp:
+    the same operations in the same order), then fused_leaky_relu's
+    gradients, first and second order, card against CPU."""
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.ops.native import fused_leaky_relu
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for shape in K5_SHAPES:
+            x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            b = torch.randn(shape[1], generator=g, device="cuda").to(dtype)
+            got = K.fused_bias_lrelu(x, b)
+            torch.cuda.synchronize()
+            ref = K.fused_bias_lrelu_plain(x, b)
+            err = (got.float() - ref.float()).abs().max().item()
+            n_ulps = ulps(torch, got, ref)
+            ms = time_ms(torch, lambda: K.fused_bias_lrelu(x, b), iters)
+            plain_ms = time_ms(torch, lambda: K.fused_bias_lrelu_plain(x, b),
+                               max(1, iters // 4))
+            nbytes = 2 * x.numel() * x.element_size() + 4 * shape[1]
+            op_s = 3 * x.numel() / PEAK_F32
+            byte_s = nbytes / HBM
+            row = {"name": "fused_bias_lrelu", "dtype": dname,
+                   "shape": list(shape), "max_abs_err": err,
+                   "max_ulps": n_ulps, "tol_ulps": 1, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": None,
+                   "bound_ms": 1e3 * max(op_s, byte_s),
+                   "bound_by": "operations" if op_s >= byte_s else "bytes",
+                   "ok": bool(n_ulps <= 1)}
+            say("kernel", **row)
+            rows[(tuple(shape), dname)] = row
+            del x, got, ref
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    if bad:
+        fail(f"the fused_bias_lrelu kernel disagrees with its plain version: "
+             f"{bad}")
+    gen = torch.Generator().manual_seed(6)
+    x0, w, v = (torch.randn(4, 32, 64, 64, generator=gen) for _ in range(3))
+    b0 = torch.randn(32, generator=gen)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        x = x0.to(dev).requires_grad_(True)
+        b = b0.to(dev).requires_grad_(True)
+        out = fused_leaky_relu(x, b)
+        gx, gb = torch.autograd.grad((out ** 2 * w.to(dev)).sum(), (x, b),
+                                     create_graph=True)
+        hx, hb = torch.autograd.grad((gx * v.to(dev)).sum(), (x, b))
+        res[dev] = [t.detach().cpu() for t in (out, gx, gb, hx, hb)]
+    errs = [((c - r).abs().max() / r.abs().max()).item()
+            for c, r in zip(res["cuda"], res["cpu"])]
+    ok = bool(errs[0] == 0 and max(errs[1:]) <= 1e-5)
+    say("kernel_grad", name="fused_leaky_relu", shape=[4, 32, 64, 64],
+        value_rel_err=errs[0], gx_rel_err=errs[1], gb_rel_err=errs[2],
+        second_order_x_rel_err=errs[3], second_order_b_rel_err=errs[4],
+        tol=1e-5, ok=ok)
+    if not ok:
+        fail(f"fused_leaky_relu's gradients on the card disagree with the "
+             f"CPU's: {errs}")
+    return rows
+
+
+def sg2_opt(**train):
+    """StyleGAN2Model options: the JAX trainer's defaults (r1 10, path 2,
+    g_reg_every 4, d_reg_every 16, mixing 0.9, Adam 2e-3) with EMA 0.999."""
+    return {"model_type": "StyleGAN2Model", "manual_seed": 0,
+            "train": {"optim_g": {"lr": 2e-3}, "optim_d": {"lr": 2e-3},
+                      "r1_reg_weight": 10.0, "path_reg_weight": 2.0,
+                      "net_g_reg_every": 4, "net_d_reg_every": 16,
+                      "mixing_prob": 0.9, "ema_decay": 0.999, **train}}
+
+
+def g_launches(cfg, styles):
+    """K5 launches of one generator forward: the mapping MLP per style, the
+    first style conv and two per resolution above 4x4."""
+    log = int(math.log2(cfg["out_size"]))
+    return cfg["num_mlp"] * styles + 1 + 2 * (log - 2)
+
+
+def d_launches(size):
+    """K5 launches of one discriminator forward: the first conv, two per
+    ResBlock, the final conv and the first linear layer."""
+    return 1 + 2 * (int(math.log2(size)) - 2) + 1 + 1
+
+
+def alternation_launches(cfg, draws, it, tr):
+    """K5 launches of one alternation at iteration `it` with these draws."""
+    size = cfg["out_size"]
+    n = (g_launches(cfg, len(draws["d_styles"])) + 2 * d_launches(size)
+         + g_launches(cfg, len(draws["g_styles"])) + d_launches(size))
+    if it % tr.net_d_reg_every == 0:
+        n += d_launches(size)
+    if it % tr.net_g_reg_every == 0:
+        n += g_launches(cfg, 1)
+    return n
+
+
+def phase_stylegan2_parity(torch):
+    """A narrow StyleGAN2 in f32, card (K5) against CPU (plain): forward,
+    then one alternation at iteration 16 from the same warm state and
+    draws."""
+    from comfyui_keep_torch.models.stylegan2 import (StyleGAN2Discriminator,
+                                                     StyleGAN2Generator)
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.training.trainers import StyleGAN2Trainer
+    cfg, b = SG2_PARITY, SG2_BATCH
+    size = cfg["out_size"]
+    g_net = StyleGAN2Generator(**cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(7))
+    d_net = StyleGAN2Discriminator(size, channel_multiplier=1, narrow=0.25,
+                                   device="cpu",
+                                   generator=torch.Generator().manual_seed(8))
+    z = torch.randn(b, cfg["num_style_feat"],
+                    generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        img_c, _ = g_net([z])
+        logit_c = d_net(img_c)
+        K.reset_launch_counts()
+        img_g, _ = copy.deepcopy(g_net).cuda()([z.cuda()])
+        logit_g = copy.deepcopy(d_net).cuda()(img_c.cuda())
+        torch.cuda.synchronize()
+    fwd_launches = K.LAUNCHES["fused_bias_lrelu"]
+
+    def within(a, r):
+        return bool(((a.cpu() - r).abs() <= SG2_TOL["atol"]
+                     + SG2_TOL["rtol"] * r.abs()).all())
+    fwd_ok = (within(img_g, img_c) and within(logit_g, logit_c)
+              and fwd_launches == g_launches(cfg, 1) + d_launches(size))
+
+    opt = sg2_opt()
+    opt["network_g"] = dict(cfg)
+    opt["network_d"] = {"out_size": size, "channel_multiplier": 1}
+    rng = np.random.default_rng(10)
+    real = torch.as_tensor(rng.standard_normal((b, 3, size, size),
+                                               dtype=np.float32))
+    # both start from the CPU's state after alternation 15 (weights, both
+    # Adams' moments, EMA): from warm moments an update is proportional to
+    # its gradient, where Adam's first step is sign-like
+    warm = StyleGAN2Trainer(opt, device="cpu")
+    warm_state = warm.make_state(g_net, d_net)
+    warm_state, _ = warm.gan_train_step(warm_state, {"gt": real}, 15)
+    draws = warm.draw(16, b, warm_state.model)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = StyleGAN2Trainer(opt, device=dev)
+        state = tr.make_state(copy.deepcopy(warm_state.model),
+                              copy.deepcopy(warm.disc))
+        # copies: a CPU optimizer would share the warm state's tensors
+        state.optimizer.load_state_dict(copy.deepcopy(
+            warm_state.optimizer.state_dict()))
+        tr.d_optimizer.load_state_dict(copy.deepcopy(
+            warm.d_optimizer.state_dict()))
+        state.ema = {k: v.to(dev, copy=True)
+                     for k, v in warm_state.ema.items()}
+        tr.mean_path_length = warm.mean_path_length
+        before = {("G", n): p.detach().cpu().clone() for n, p
+                  in state.model.named_parameters()}
+        before.update({("D", n): p.detach().cpu().clone() for n, p
+                       in tr.disc.named_parameters()})
+        K.reset_launch_counts()
+        state, logs = tr.gan_train_step(state, {"gt": real}, 16, draws=draws)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        params = {("G", n): p for n, p in state.model.named_parameters()}
+        params.update({("D", n): p for n, p in tr.disc.named_parameters()})
+        opts = {"G": state.optimizer, "D": tr.d_optimizer}
+        runs[dev] = dict(
+            logs={**logs, "mean_path_length": tr.mean_path_length},
+            delta={k: p.detach().cpu() - before[k] for k, p in params.items()},
+            moments={(k, m): opts[k[0]].state[p][m].cpu() for k, p
+                     in params.items() for m in ("exp_avg", "exp_avg_sq")},
+            launches=K.LAUNCHES["fused_bias_lrelu"])
+    c, g = runs["cpu"], runs["cuda"]
+    loss_err = {k: abs(g["logs"][k] - v) / abs(v) for k, v in c["logs"].items()}
+    moment_leaf_err, moment_worst = max(
+        (((g["moments"][k] - r).norm() / r.norm()).item(), f"{k[0][0]}:"
+         f"{k[0][1]}:{k[1]}") for k, r in c["moments"].items() if r.norm() > 0)
+    moment_err = {}
+    for net in ("G", "D"):
+        for m in ("exp_avg", "exp_avg_sq"):
+            keys = [k for k in c["moments"] if k[0][0] == net and k[1] == m]
+            ref = torch.cat([c["moments"][k].reshape(-1) for k in keys])
+            got = torch.cat([g["moments"][k].reshape(-1) for k in keys])
+            moment_err[f"{net}:{m}"] = ((got - ref).norm()
+                                        / ref.norm()).item()
+    outside = total = 0
+    leaf_out = {}
+    for k, r in c["delta"].items():
+        lim = GRAD_RTOL * r.abs().max() + GRAD_ATOL
+        n_out = int(((g["delta"][k] - r).abs() > lim).sum())
+        leaf_out[f"{k[0]}:{k[1]}"] = (n_out, r.numel())
+        outside += n_out
+        total += r.numel()
+    share = 1.0 - outside / total
+    want = alternation_launches(cfg, draws, 16, tr)
+    ok = bool(fwd_ok and loss_err["l_d"] <= LOSS_RTOL
+              and max(loss_err.values()) <= SG2_POST_RTOL
+              and max(moment_err.values()) <= SG2_MOMENT_RTOL
+              and share >= SG2_LEAF_SHARE
+              and g["launches"] == want and c["launches"] == 0)
+    say("stylegan2_parity", config=cfg, batch=b,
+        image_max_abs_err=(img_g.cpu() - img_c).abs().max().item(),
+        logits_max_abs_err=(logit_g.cpu() - logit_c).abs().max().item(),
+        forward_tol=SG2_TOL, forward_launches=fwd_launches,
+        losses_cpu=c["logs"], losses_card=g["logs"], loss_rel_err=loss_err,
+        l_d_rtol=LOSS_RTOL, post_update_rtol=SG2_POST_RTOL,
+        moment_l2_rel_err=moment_err, moment_rtol=SG2_MOMENT_RTOL,
+        moment_worst_leaf=moment_worst, moment_worst_leaf_err=moment_leaf_err,
+        leaf_elements_within=share,
+        leaf_elements_outside_most=sorted(
+            leaf_out.items(), key=lambda kv: -kv[1][0] / kv[1][1])[:4],
+        leaf_share_min=SG2_LEAF_SHARE,
+        leaf_tol=(GRAD_RTOL, GRAD_ATOL), styles=(len(draws["d_styles"]),
+                                                 len(draws["g_styles"])),
+        launches=g["launches"], expected_launches=want, ok=ok)
+    if not ok:
+        fail("stylegan2_parity: the card's StyleGAN2 disagrees with the CPU's")
+
+
+def phase_stylegan2_sample(torch):
+    """Config-f sampling at 1024x1024, B=4, bf16 then f32. Returns the K5
+    launches of one forward per dtype."""
+    from comfyui_keep_torch.models.stylegan2 import StyleGAN2Generator
+    from comfyui_keep_torch.ops import kernels as K
+    cfg, b = SG2_SAMPLE, SG2_BATCH
+    g_net = StyleGAN2Generator(**cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(11))
+    z = torch.randn(b, cfg["num_style_feat"], device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(12))
+    want = g_launches(cfg, 1)
+    counts, images = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        net = copy.deepcopy(g_net).to(dtype) if dtype != torch.float32 \
+            else g_net
+        zd = z.to(dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            net([zd])                                     # warm-up
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net([zd])
+                torch.cuda.synchronize()
+                runs.append(1e3 * (time.perf_counter() - t0))
+            K.reset_launch_counts()
+            img, _ = net([zd])
+            torch.cuda.synchronize()
+        counts[dname] = dict(K.LAUNCHES)
+        ms = float(np.median(runs))
+        finite = bool(torch.isfinite(img).all())
+        shape_ok = tuple(img.shape) == (b, 3, cfg["out_size"], cfg["out_size"])
+        images[dname] = img.float()
+        ok = bool(finite and shape_ok
+                  and counts[dname]["fused_bias_lrelu"] == want)
+        say("stylegan2_sample", dtype=dname, config=cfg, batch=b,
+            ms_per_batch=ms, ms_runs=runs, images_per_s=b / (ms / 1e3),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            image_abs_max=img.float().abs().max().item(), finite=finite,
+            shape_ok=shape_ok, k5_launches=counts[dname]["fused_bias_lrelu"],
+            expected_k5_launches=want, ok=ok)
+        if not ok:
+            fail(f"stylegan2_sample ({dname}): finite {finite}, shape "
+                 f"{shape_ok}, K5 launches {counts[dname]} (want {want})")
+        del img, net
+    diff = (images["bfloat16"] - images["float32"]).abs()
+    say("stylegan2_sample_bf16_vs_f32", max_abs=diff.max().item(),
+        mean_abs=diff.mean().item(),
+        f32_abs_mean=images["float32"].abs().mean().item())
+    del g_net, images, diff
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_stylegan2_train(torch):
+    """StyleGAN2Model at 256x256, B=4, f32: a warm-up alternation at
+    iteration 16, then iterations 1..16. Returns the K5 launches of the 16
+    alternations."""
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.training.trainers import build_model
+    size, b = SG2_TRAIN_SIZE, SG2_BATCH
+    opt = sg2_opt()
+    opt["network_g"] = {"out_size": size, "num_style_feat": 512,
+                        "num_mlp": 8, "channel_multiplier": 2}
+    opt["network_d"] = {"out_size": size, "channel_multiplier": 2}
+    tr = build_model(opt)
+    state = tr.make_state()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    batch = {"gt": torch.rand((b, 3, size, size), generator=g,
+                              device="cuda") * 2 - 1}
+    params = dict(state.model.named_parameters())
+    d_params = dict(tr.disc.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    d_before = {n: p.detach().clone() for n, p in d_params.items()}
+    its = list(range(1, SG2_ALTERNATIONS + 1))
+    cfg = {"out_size": size, "num_mlp": 8}
+    want = sum(alternation_launches(cfg, tr.draw(it, b, state.model), it, tr)
+               for it in its)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = tr.gan_train_step(state, batch, SG2_ALTERNATIONS)   # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    times, all_logs = {}, {}
+    ema_leaf = "style_convs.0.modulated_conv.weight"
+    for it in its:
+        if it == its[-1]:
+            ema_prev = state.ema[ema_leaf].clone()
+        t0 = time.perf_counter()
+        state, logs = tr.gan_train_step(state, batch, it)
+        torch.cuda.synchronize()
+        times[it] = 1e3 * (time.perf_counter() - t0)
+        all_logs[it] = logs
+    counts = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    decay = tr.ema_decay
+    want_ema = ema_prev * decay + params[ema_leaf].detach() * (1 - decay)
+    ema_err = (state.ema[ema_leaf] - want_ema).abs().max().item()
+    ema_ok = ema_err <= 1e-7 * want_ema.abs().max().item()
+    g_moved = [n for n, p in params.items() if not torch.equal(p, before[n])]
+    d_moved = [n for n, p in d_params.items()
+               if not torch.equal(p, d_before[n])]
+    finite = all(math.isfinite(v) for lg in all_logs.values()
+                 for v in lg.values())
+    plain = [t for it, t in times.items() if it % tr.net_g_reg_every]
+    path = [t for it, t in times.items()
+            if it % tr.net_g_reg_every == 0 and it % tr.net_d_reg_every]
+    r1_path = [t for it, t in times.items() if it % tr.net_d_reg_every == 0]
+    n_r1 = sum("l_d_r1" in lg for lg in all_logs.values())
+    n_path = sum("l_g_path" in lg for lg in all_logs.values())
+    ok = bool(finite and tr.mean_path_length > 0 and ema_ok
+              and len(g_moved) == len(params) and len(d_moved) == len(d_params)
+              and n_r1 == 1 and n_path == 4
+              and counts["fused_bias_lrelu"] == want)
+    say("stylegan2_train", size=size, batch=b, alternations=len(its),
+        ms_plain_median=float(np.median(plain)), ms_path_median=float(
+            np.median(path)), ms_r1_path=r1_path, ms_all=times,
+        images_per_s=b / (float(np.median(plain)) / 1e3), peak_mem_gib=peak,
+        losses_last=all_logs[its[-1]], mean_path_length=tr.mean_path_length,
+        r1_alternations=n_r1, path_alternations=n_path,
+        k5_launches=counts["fused_bias_lrelu"], expected_k5_launches=want,
+        k5_launches_per_alternation=counts["fused_bias_lrelu"] / len(its),
+        g_leaves_moved=f"{len(g_moved)}/{len(params)}",
+        d_leaves_moved=f"{len(d_moved)}/{len(d_params)}", ema_leaf=ema_leaf,
+        ema_max_abs_err=ema_err, finite=finite, ok=ok)
+    if not ok:
+        fail(f"stylegan2_train: finite {finite}, mean path length "
+             f"{tr.mean_path_length}, EMA {ema_ok}, G moved {len(g_moved)}/"
+             f"{len(params)}, D moved {len(d_moved)}/{len(d_params)}, R1 "
+             f"{n_r1}, path {n_path}, K5 launches "
+             f"{counts['fused_bias_lrelu']} (want {want})")
+    del tr, state, batch, params, d_params, before, d_before
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -623,6 +1042,10 @@ def main():
     counts = phase_main(torch)
     phase_train_parity(torch)
     train_counts = phase_train(torch)
+    k5_rows = phase_k5(torch)
+    phase_stylegan2_parity(torch)
+    sample_counts = phase_stylegan2_sample(torch)
+    sg2_train_counts = phase_stylegan2_train(torch)
 
     srcs = {"attention": ("comfyui_keep_torch/csrc/attention.cu",
                           "comfyui_keep_tpu/ops/pallas_kernels.py:210"),
@@ -633,7 +1056,10 @@ def main():
                           "comfyui_keep_tpu/ops/pallas_kernels.py:296"),
             "vq_nearest_indices": (
                 "comfyui_keep_torch/csrc/vq.cu",
-                "comfyui_keep_tpu/ops/pallas_kernels.py:51")}
+                "comfyui_keep_tpu/ops/pallas_kernels.py:51"),
+            "fused_bias_lrelu": (
+                "comfyui_keep_torch/csrc/fused_act.cu",
+                "comfyui_keep_tpu/ops/pallas_kernels.py:98")}
     table = []
     for (name, dname), r in krows.items():
         if dname != "bfloat16":
@@ -657,6 +1083,24 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": dname, "status": "ported"})
+    # K5 on StyleGAN2's paths: times at the largest activation; launches of
+    # one 1024x1024 sampling forward in that dtype (the training run's f32
+    # count over its 16 alternations beside it)
+    for (shape, dname), r in k5_rows.items():
+        if shape != K5_SHAPES[0]:
+            continue
+        src, replaces = srcs["fused_bias_lrelu"]
+        table.append({
+            "name": "fused_bias_lrelu", "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": sample_counts[dname]["fused_bias_lrelu"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": dname, "status": "ported",
+            "launches_train_16_alternations": (
+                sg2_train_counts["fused_bias_lrelu"]
+                if dname == "float32" else None)})
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -18,13 +18,14 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(_CSRC))
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-SOURCES = ("attention", "mlp", "vq")
+SOURCES = ("attention", "mlp", "vq", "fused_act")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every exported function: pointers and the stream as c_void_p
 _SIGNATURES = {
     "attention": {
@@ -37,6 +38,9 @@ _SIGNATURES = {
     },
     "vq": {
         "keep_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+    "fused_act": {
+        "keep_fused_bias_lrelu": (_P, _P, _P, _L, _L, _I, _F, _F, _I, _P),
     },
 }
 

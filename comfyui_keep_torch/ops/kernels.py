@@ -1,11 +1,13 @@
 """The port's hand-written CUDA kernels, each beside its plain version:
-GMFlow's three and the nearest-codebook search of KEEP training.
+GMFlow's three, the nearest-codebook search of KEEP training and StyleGAN2's
+fused bias + leaky ReLU.
 
 | wrapper | CUDA source | replaces (comfyui_keep_tpu/ops/pallas_kernels.py) |
 | `attention` | csrc/attention.cu | `attention_pallas` |
 | `global_correlation_expectation` | csrc/attention.cu | `global_correlation_expectation_pallas` |
 | `mlp_fused` | csrc/mlp.cu | `mlp_fused_pallas` |
 | `vq_nearest_indices` | csrc/vq.cu | `vq_nearest_indices_pallas` |
+| `fused_bias_lrelu` | csrc/fused_act.cu | `fused_bias_lrelu_pallas` |
 
 A wrapper given CPU tensors computes its plain version (the CPU tests run
 there). Given CUDA tensors it launches its kernel, or raises on anything the
@@ -26,7 +28,7 @@ from comfyui_keep_torch.ops._build import library
 LAUNCHES: Dict[str, int] = {
     "attention[dv128]": 0, "attention[dv128+bias]": 0, "attention[dv2]": 0,
     "global_correlation_expectation": 0, "mlp_fused": 0,
-    "vq_nearest_indices": 0}
+    "vq_nearest_indices": 0, "fused_bias_lrelu": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTH = 128  # q/k width of attention, C of the MLP
 VQ_CODE_TILE = 64   # the codebook size must be a multiple of this
@@ -241,8 +243,54 @@ def vq_nearest_indices(z, codebook):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K5: fused bias + scaled leaky ReLU
+# ---------------------------------------------------------------------------
+
+def fused_bias_lrelu_plain(x, bias, negative_slope: float = 0.2,
+                           scale: float = 2 ** 0.5):
+    """where(h >= 0, h, h * slope) * scale with h = x + bias (on dim 1) in
+    f32, rounded once to x's dtype: the kernel's arithmetic, operation for
+    operation (an f64 input, which the kernel does not take, stays f64)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    h = x.to(dt) + bias.to(dt).reshape((1, -1) + (1,) * (x.dim() - 2))
+    return (torch.where(h >= 0, h, h * negative_slope) * scale).to(x.dtype)
+
+
+def fused_bias_lrelu(x, bias, negative_slope: float = 0.2,
+                     scale: float = 2 ** 0.5):
+    """x: (N, C, *spatial) or (N, C); bias: (C,). Returns leaky_relu(x +
+    bias, slope) * scale in x's dtype. On CUDA: x f32 or bf16 and
+    contiguous, the bias f32 or of x's dtype (read as f32)."""
+    if not x.is_cuda:
+        return fused_bias_lrelu_plain(x, bias, negative_slope, scale)
+    if x.dtype not in _DTYPE_CODE or x.dim() < 2:
+        raise ValueError(f"fused_bias_lrelu kernel takes (N, C, ...) in "
+                         f"f32/bf16, got {tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("fused_bias_lrelu x: must be contiguous")
+    c = x.shape[1]
+    if bias.dtype not in (torch.float32, x.dtype):
+        raise ValueError(f"fused_bias_lrelu bias: dtype {bias.dtype}")
+    b = bias.float().contiguous()
+    _check("fused_bias_lrelu bias", b, (c,), torch.float32, x.device)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = library("fused_act")
+    with torch.cuda.device(x.device):
+        err = lib.keep_fused_bias_lrelu(
+            x.data_ptr(), b.data_ptr(), out.data_ptr(), x.numel(),
+            x[0, 0].numel(), c, float(negative_slope), float(scale),
+            _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(err, "fused_bias_lrelu kernel launch")
+    LAUNCHES["fused_bias_lrelu"] += 1
+    return out
+
+
 PLAIN = {"attention": attention_plain,
          "global_correlation_expectation":
              global_correlation_expectation_plain,
          "mlp_fused": mlp_fused_plain,
-         "vq_nearest_indices": vq_nearest_indices_plain}
+         "vq_nearest_indices": vq_nearest_indices_plain,
+         "fused_bias_lrelu": fused_bias_lrelu_plain}

@@ -4,23 +4,28 @@ step (reference models/keep_model.py): frozen VQHQEncoder ground-truth
 codes through the nearest-codebook kernel, GMFlow flows through GMFlow's
 kernels, the codebook-feature, cross-entropy, temporal and pixel losses,
 Adam with fix_modules, the LR schedule, EMA, gradient accumulation and bf16
-mixed precision. The other trainers are ROADMAP Queue 1 item 12.
+mixed precision. Slice 3 brings StyleGAN2's GAN alternation
+(StyleGAN2Model, reference models/stylegan2_model.py). The other trainers
+are ROADMAP Queue 1 item 12.
 
 A step is eager: forward, losses, backward and, at the end of each
 accumulation window, the optimizer update; the EMA moves on every
 micro-step, as the JAX package's does.
 """
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
 from comfyui_keep_torch.models.gmflow import GMFlow, flow_from_clip
 from comfyui_keep_torch.models.keep import KEEP, config
+from comfyui_keep_torch.models.stylegan2 import (StyleGAN2Discriminator,
+                                                 StyleGAN2Generator)
 from comfyui_keep_torch.models.vqgan import VQHQEncoder
 from comfyui_keep_torch.ops import flow_warp, resize_flow
-from comfyui_keep_torch.training.losses import build_loss
+from comfyui_keep_torch.training.losses import (build_loss, g_path_regularize,
+                                                r1_penalty)
 from comfyui_keep_torch.training.schedulers import (build_scheduler,
                                                     with_warmup)
 from comfyui_keep_torch.training.state import (TrainState, build_optimizer,
@@ -255,9 +260,199 @@ class KEEPTrainer(BaseTrainer):
         return total, loss_dict, outs
 
 
+class StyleGAN2Trainer(BaseTrainer):
+    """StyleGAN2 trainer (reference models/stylegan2_model.py, the JAX
+    package's StyleGAN2Model): the non-saturating logistic GAN
+    (wgan_softplus), style mixing, lazy R1 every net_d_reg_every iterations
+    and path-length regularisation every net_g_reg_every, with the
+    reference's reg-adjusted Adam: lr * r, betas (0, 0.99 ** r), r =
+    reg_every / (reg_every + 1), for G and D each. Each R1 or path update is
+    an optimizer step of its own, as the JAX package calls tx.update again;
+    every parameter takes part in every step (a zero gradient where it is
+    not reached), as optax updates every leaf.
+
+    The batch is {"gt": (B, 3, H, W)} real images, NCHW as the models. The
+    random inputs of an alternation (style codes, noise, path latents) come
+    from `draw(current_iter, b)`, seeded from manual_seed and the iteration
+    as the JAX package keys it by PRNGKey(current_iter); a caller may pass
+    its own (`gan_train_step(draws=...)`). The discriminator, its optimizer
+    and the running mean path length live on the trainer (`extra_state`,
+    in memory only). Runs on "cuda" unless given device="cpu"."""
+
+    def __init__(self, opt: Dict, device="cuda"):
+        super().__init__(opt, device)
+        if self.accumulate_steps > 1:
+            # the lazy R1 / path updates are extra optimizer steps, which an
+            # accumulation window would mis-count
+            raise ValueError("train.accumulate_steps is not supported for "
+                             "StyleGAN2Model (lazy-regularization double "
+                             "updates)")
+        if self.compute_dtype is not None:
+            raise ValueError("train.mixed_precision is not supported for "
+                             "StyleGAN2Model")
+        g = opt.get("network_g", {})
+        self.g_cfg = {k: g[k] for k in ("num_mlp", "channel_multiplier",
+                                        "narrow") if k in g}
+        self.out_size = g.get("out_size", 64)
+        self.num_style_feat = g.get("num_style_feat", 512)
+        self.d_cfg = opt.get("network_d", {})
+        t = opt.get("train", {})
+        self.r1_reg_weight = t.get("r1_reg_weight", 10.0)
+        self.path_reg_weight = t.get("path_reg_weight", 2.0)
+        self.net_g_reg_every = t.get("net_g_reg_every", 4)
+        self.net_d_reg_every = t.get("net_d_reg_every", 16)
+        self.mixing_prob = t.get("mixing_prob", 0.9)
+        self.mean_path_length = 0.0
+        self.cri_gan = build_loss(t.get("gan_opt", {
+            "type": "GANLoss", "gan_type": "wgan_softplus"}))
+
+    def current_lr(self, it: int) -> float:
+        """The applied generator LR: the reg-adjusted constant lr * r."""
+        base = float(self.opt.get("train", {}).get("optim_g", {}).get(
+            "lr", 2e-3))
+        return base * self.net_g_reg_every / (self.net_g_reg_every + 1)
+
+    def init_model(self) -> StyleGAN2Generator:
+        return StyleGAN2Generator(
+            self.out_size, num_style_feat=self.num_style_feat, device="cpu",
+            generator=torch.Generator().manual_seed(self.seed), **self.g_cfg)
+
+    def _adam(self, params, which: str, reg_every: int):
+        lr = float(self.opt.get("train", {}).get(which, {}).get("lr", 2e-3))
+        r = reg_every / (reg_every + 1)
+        return torch.optim.Adam(params, lr=lr * r, betas=(0.0, 0.99 ** r))
+
+    def make_state(self, model: Optional[StyleGAN2Generator] = None,
+                   disc: Optional[StyleGAN2Discriminator] = None
+                   ) -> TrainState:
+        """The generator (`model`, or one seeded from manual_seed), the
+        discriminator (`disc`, or one of network_d's out_size and
+        channel_multiplier seeded from manual_seed + 99), both trainable on
+        the trainer's device, their ratio'd Adams and the EMA."""
+        model = (self.init_model() if model is None else model).to(
+            self.device).train().requires_grad_(True)
+        if disc is None:
+            disc = StyleGAN2Discriminator(
+                self.d_cfg.get("out_size", self.out_size),
+                channel_multiplier=self.d_cfg.get("channel_multiplier", 2),
+                device="cpu",
+                generator=torch.Generator().manual_seed(self.seed + 99))
+        self.disc = disc.to(self.device).train().requires_grad_(True)
+        self.d_optimizer = self._adam(list(self.disc.parameters()), "optim_d",
+                                      self.net_d_reg_every)
+        optimizer = self._adam(list(model.parameters()), "optim_g",
+                               self.net_g_reg_every)
+        ema = ema_init(model) if self.ema_decay > 0 else None
+        return TrainState(model=model, optimizer=optimizer, ema=ema)
+
+    def extra_state(self) -> Dict:
+        """The discriminator, its optimizer and the running path length."""
+        return {"d_params": self.disc.state_dict(),
+                "d_opt_state": self.d_optimizer.state_dict(),
+                "mean_path_length": self.mean_path_length}
+
+    def load_extra_state(self, data: Dict):
+        self.disc.load_state_dict(data["d_params"])
+        self.d_optimizer.load_state_dict(data["d_opt_state"])
+        self.mean_path_length = float(data["mean_path_length"])
+
+    def _mixing_noise(self, b: int, gen: torch.Generator
+                      ) -> List[torch.Tensor]:
+        """One (B, S) code, and a second one with probability mixing_prob."""
+        def code():
+            return torch.randn((b, self.num_style_feat), generator=gen,
+                               device=self.device)
+        n1 = code()
+        mix = torch.rand((), generator=gen, device=self.device).item()
+        return [n1, code()] if mix < self.mixing_prob else [n1]
+
+    def draw(self, current_iter: int, b: int, model: StyleGAN2Generator
+             ) -> Dict:
+        """The random inputs of one alternation: D's and G's style codes,
+        the per-layer noise both use, and at a path iteration its latents
+        (B // 2 codes), their per-layer noise and the image-shaped noise."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.seed * 1_000_003 + current_iter)
+        d = {"d_styles": self._mixing_noise(b, gen),
+             "g_styles": self._mixing_noise(b, gen),
+             "noise": model.make_noise(b, gen)}
+        if current_iter % self.net_g_reg_every == 0:
+            pb = max(1, b // 2)
+            d["path_latents"] = torch.randn((pb, self.num_style_feat),
+                                            generator=gen, device=self.device)
+            d["path_layer_noise"] = model.make_noise(pb, gen)
+            d["path_noise"] = torch.randn((pb, 3, self.out_size,
+                                           self.out_size), generator=gen,
+                                          device=self.device)
+        return d
+
+    @staticmethod
+    def _step(optimizer: torch.optim.Optimizer, loss):
+        """One optimizer step on d loss / d (every parameter it holds)."""
+        params = [p for grp in optimizer.param_groups for p in grp["params"]]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        for p, g in zip(params, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+
+    def gan_train_step(self, state: TrainState, batch, current_iter: int,
+                       draws: Optional[Dict] = None):
+        """One alternation (stylegan2_model.py:185-254, the JAX package's
+        order): D step, lazy R1, G step, lazy path regularisation, EMA.
+        Returns (state, {name: float loss})."""
+        g_net, d_net = state.model, self.disc
+        real = batch["gt"].to(self.device)
+        b = real.shape[0]
+        dr = self.draw(current_iter, b, g_net) if draws is None else {
+            k: ([t.to(self.device) for t in v] if isinstance(v, list)
+                else v.to(self.device)) for k, v in draws.items()}
+        logs = {}
+
+        with torch.no_grad():
+            fake, _ = g_net(dr["d_styles"], noise=dr["noise"])
+        l_d = (self.cri_gan(d_net(real), True, is_disc=True)
+               + self.cri_gan(d_net(fake), False, is_disc=True))
+        self._step(self.d_optimizer, l_d)
+        logs["l_d"] = l_d.detach()
+
+        if current_iter % self.net_d_reg_every == 0:
+            l_r1 = r1_penalty(d_net, real) * (
+                self.r1_reg_weight / 2 * self.net_d_reg_every)
+            self._step(self.d_optimizer, l_r1)
+            logs["l_d_r1"] = l_r1.detach()
+
+        img, _ = g_net(dr["g_styles"], noise=dr["noise"])
+        l_g = self.cri_gan(d_net(img), True, is_disc=False)
+        self._step(state.optimizer, l_g)
+        logs["l_g"] = l_g.detach()
+
+        if current_iter % self.net_g_reg_every == 0:
+            pen, path_mean, _ = g_path_regularize(
+                lambda lat: g_net([lat], noise=dr["path_layer_noise"])[0],
+                dr["path_latents"], self.mean_path_length,
+                noise=dr["path_noise"])
+            l_path = pen * self.path_reg_weight * self.net_g_reg_every
+            self._step(state.optimizer, l_path)
+            self.mean_path_length = float(path_mean)
+            logs["l_g_path"] = l_path.detach()
+
+        if state.ema is not None:
+            ema_update(state.ema, g_net, self.ema_decay)
+        state.iter += 1
+        return state, {k: float(v) for k, v in logs.items()}
+
+    def train_step(self, state: TrainState, batch):
+        """The train-loop entry point: the alternation of iteration
+        state.iter + 1."""
+        return self.gan_train_step(state, batch, current_iter=state.iter + 1)
+
+
 def build_model(opt: Dict, **kw):
-    """opt["model_type"] -> its trainer; only KEEPModel is ported yet."""
+    """opt["model_type"] -> its trainer: KEEPModel or StyleGAN2Model."""
     if opt["model_type"] == "KEEPModel":
         return KEEPTrainer(opt, **kw)
+    if opt["model_type"] == "StyleGAN2Model":
+        return StyleGAN2Trainer(opt, **kw)
     raise NotImplementedError(f"model_type {opt['model_type']} is not "
                               f"ported yet (ROADMAP Queue 1 item 12)")

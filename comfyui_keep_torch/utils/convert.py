@@ -6,7 +6,8 @@ legacy `cross_fuse` -> `cfa` and `fuse_convs_dict` -> `cft` names, the flow
 net's `flownet.model.*` subtree split off for GMFlow).
 
 `params_from_jax` is the inverse of the JAX package's checkpoint converters
-(`convert_checkpoint`, `convert_gmflow_checkpoint`, and the layout rules of
+(`convert_checkpoint`, `convert_gmflow_checkpoint`,
+`convert_stylegan2_generator` / `_discriminator`, and the layout rules of
 its utils/checkpoint.py): it turns a JAX param tree of numpy arrays into a
 state dict of the port's module, so both packages can run on one set of
 weights. The port keeps its own copy of these rules and imports nothing
@@ -100,12 +101,90 @@ def _flatten(node, path: Tuple[str, ...], out: Dict[str, np.ndarray]):
         out.update(_leaf(path, np.asarray(node)))
 
 
+def _hwio_to_oihw(a) -> np.ndarray:
+    return np.asarray(a).transpose(3, 2, 0, 1)
+
+
+def _stylegan2_generator(tree) -> Dict[str, np.ndarray]:
+    """Inverse of convert_stylegan2_generator: style_mlp layer i is the
+    reference's style_mlp.{i+1} (index 0 is NormStyleCode), NHWC constant,
+    noises and ToRGB bias to NCHW, the modulated conv weight (k, k, in, out)
+    to (1, out, in, k, k), scalar noise weights to (1,)."""
+    out: Dict[str, np.ndarray] = {}
+    for i, lp in enumerate(tree["style_mlp"]):
+        out[f"style_mlp.{i + 1}.weight"] = np.asarray(lp["w"]).T
+        out[f"style_mlp.{i + 1}.bias"] = np.asarray(lp["b"])
+    out["constant_input.weight"] = np.asarray(
+        tree["constant_input"]["weight"]).transpose(0, 3, 1, 2)
+    for k, v in tree["noises"].items():
+        out[f"noises.{k}"] = np.asarray(v).transpose(0, 3, 1, 2)
+
+    def mod_conv(pre, p):
+        out[f"{pre}.modulated_conv.weight"] = _hwio_to_oihw(
+            p["modulated_conv"]["weight"])[None]
+        mod = p["modulated_conv"]["modulation"]
+        out[f"{pre}.modulated_conv.modulation.weight"] = np.asarray(mod["w"]).T
+        out[f"{pre}.modulated_conv.modulation.bias"] = np.asarray(mod["b"])
+
+    def style_conv(pre, p):
+        mod_conv(pre, p)
+        out[f"{pre}.weight"] = np.asarray(p["weight"]).reshape(1)
+        out[f"{pre}.activate.bias"] = np.asarray(p["activate"]["bias"])
+
+    def to_rgb(pre, p):
+        mod_conv(pre, p)
+        out[f"{pre}.bias"] = np.asarray(p["bias"]).transpose(0, 3, 1, 2)
+
+    style_conv("style_conv1", tree["style_conv1"])
+    to_rgb("to_rgb1", tree["to_rgb1"])
+    for i, p in enumerate(tree["style_convs"]):
+        style_conv(f"style_convs.{i}", p)
+    for i, p in enumerate(tree["to_rgbs"]):
+        to_rgb(f"to_rgbs.{i}", p)
+    return out
+
+
+def _stylegan2_discriminator(tree) -> Dict[str, np.ndarray]:
+    """Inverse of convert_stylegan2_discriminator: each ConvLayer's conv and
+    activation bias at the reference's Sequential indices (a FIR smooth
+    first where it downsamples)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def conv_layer(pre, p, conv_at):
+        out[f"{pre}.{conv_at}.weight"] = _hwio_to_oihw(p["conv"]["w"])
+        if "act_bias" in p:
+            out[f"{pre}.{conv_at + 1}.bias"] = np.asarray(p["act_bias"])
+
+    conv_layer("conv_body.0", tree["conv_body"][0], 0)
+    for i, blk in enumerate(tree["conv_body"][1:], start=1):
+        conv_layer(f"conv_body.{i}.conv1", blk["conv1"], 0)
+        conv_layer(f"conv_body.{i}.conv2", blk["conv2"], 1)
+        conv_layer(f"conv_body.{i}.skip", blk["skip"], 1)
+    conv_layer("final_conv", tree["final_conv"], 0)
+    for i, lp in enumerate(tree["final_linear"]):
+        out[f"final_linear.{i}.weight"] = np.asarray(lp["w"]).T
+        out[f"final_linear.{i}.bias"] = np.asarray(lp["b"])
+    return out
+
+
+# port classes whose JAX trees need their own layout rules, by class name
+# (any class in the model's MRO)
+_TREE_RULES = {"StyleGAN2Generator": _stylegan2_generator,
+               "StyleGAN2Discriminator": _stylegan2_discriminator}
+
+
 def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     """JAX param tree (numpy leaves) -> state dict for `model` (a KEEP, a
-    GMFlow or a VQHQEncoder of the port; also a gradient tree of the same
-    layout). Raises unless keys and shapes match `model` exactly."""
+    GMFlow, a VQHQEncoder, a StyleGAN2 generator or discriminator of the
+    port; also a gradient tree of the same layout). Raises unless keys and
+    shapes match `model` exactly."""
+    rules = [_TREE_RULES[c.__name__] for c in type(model).__mro__
+             if c.__name__ in _TREE_RULES]
     flat: Dict[str, np.ndarray] = {}
-    _flatten(tree, (), flat)
+    if rules:
+        flat = rules[0](tree)
+    else:
+        _flatten(tree, (), flat)
     want = model.state_dict()
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))

@@ -1,5 +1,5 @@
-"""The port's kernels (comfyui_keep_torch/ops/kernels.py): GMFlow's three and
-the nearest-codebook search.
+"""The port's kernels (comfyui_keep_torch/ops/kernels.py): GMFlow's three,
+the nearest-codebook search and the fused bias + leaky ReLU.
 
 On the CPU: each plain version against the JAX package's Pallas kernel run
 in interpret mode (as tests/test_native_ops.py runs it) and against the JAX
@@ -15,9 +15,11 @@ import jax.numpy as jnp
 import torch
 
 from comfyui_keep_tpu.models import gmflow as jg
+from comfyui_keep_tpu.ops import native as JN
 from comfyui_keep_tpu.ops import pallas_kernels as P
 from comfyui_keep_tpu.ops.norm import layer_norm as jlayer_norm
 from comfyui_keep_torch.ops import kernels as K
+from comfyui_keep_torch.ops import native as TN
 
 torch.set_num_threads(2)
 # f32: order of summation and exp2 vs exp; bf16: 4 ulps of 8-bit mantissas
@@ -40,7 +42,7 @@ def _jx(a, dtype):
 
 def _f32(x):
     return np.asarray(jnp.asarray(x, jnp.float32)) if not isinstance(
-        x, torch.Tensor) else x.float().numpy()
+        x, torch.Tensor) else x.detach().float().numpy()
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bf16"])
@@ -207,6 +209,95 @@ def test_vq_ties_go_to_the_lowest_index():
                                   np.arange(8))
 
 
+def _flr_inputs(seed, shape=(2, 16, 5, 6)):
+    """x (N, C, H, W) with h = x + b near zero in places, and b (C,)."""
+    rng = np.random.default_rng(seed)
+    x = _np(rng, *shape)
+    x.reshape(-1)[::7] = 0.0
+    b = _np(rng, shape[1])
+    return x, b
+
+
+def _nhwc(a):
+    return np.ascontiguousarray(np.moveaxis(a, 1, -1))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+@pytest.mark.parametrize("shape", [(2, 16, 5, 6), (3, 24)])
+def test_fused_bias_lrelu_plain_vs_pallas_interpret(dtype, shape):
+    """Against fused_bias_lrelu_pallas in interpret mode (channels last, as
+    tests/test_native_ops.py runs it). f32: atol 1e-6 as there. bf16: the
+    Pallas body adds and scales in bf16 (three roundings), the plain
+    version in f32 with one: within 2 bf16 ulps (2 ** -6 relative)."""
+    x, b = _flr_inputs(20, shape)
+    ours = K.fused_bias_lrelu_plain(_to(x, dtype), _to(b, dtype))
+    ref = P.fused_bias_lrelu_pallas(_jx(_nhwc(x), dtype), _jx(b, dtype),
+                                    interpret=True)
+    assert ours.dtype == (torch.bfloat16 if dtype == "bf16"
+                          else torch.float32)
+    tol = (dict(atol=1e-6, rtol=0) if dtype == np.float32
+           else dict(atol=1e-6, rtol=2 ** -6))
+    np.testing.assert_allclose(_nhwc(_f32(ours)), _f32(ref), **tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+def test_fused_leaky_relu_forward_grad_and_second_order_vs_jax(dtype):
+    """ops/native.py fused_leaky_relu (K5's plain version forward, the
+    custom backward) against the JAX package's custom-VJP op: the value,
+    the x- and bias-gradients of sum(out^2 * w), and a second-order term,
+    d/d(x, b) of sum(gx * v) for that gradient gx (what R1 and the path
+    penalty differentiate). The JAX op computes in x's dtype; the bf16 case
+    compares at bf16's resolution."""
+    x, b = _flr_inputs(21)
+    rng = np.random.default_rng(22)
+    w, v = _np(rng, *x.shape), _np(rng, *x.shape)
+
+    def jf(xx, bb):
+        return jnp.sum(JN.fused_leaky_relu(xx, bb).astype(jnp.float32) ** 2
+                       * _nhwc(w))
+
+    def jsecond(xx, bb):
+        gx = jax.grad(jf)(xx, bb).astype(jnp.float32)
+        return jnp.sum(gx * _nhwc(v))
+
+    jx, jb = _jx(_nhwc(x), dtype), _jx(b, dtype)
+    jout = JN.fused_leaky_relu(jx, jb)
+    jgx, jgb = jax.grad(jf, argnums=(0, 1))(jx, jb)
+    jhx, jhb = jax.grad(jsecond, argnums=(0, 1))(jx, jb)
+
+    xt = _to(x, dtype).requires_grad_(True)
+    bt = _to(b, dtype).requires_grad_(True)
+    out = TN.fused_leaky_relu(xt, bt)
+    f = (out.float() ** 2 * torch.as_tensor(w)).sum()
+    gx, gb = torch.autograd.grad(f, (xt, bt), create_graph=True)
+    hx, hb = torch.autograd.grad((gx.float() * torch.as_tensor(v)).sum(),
+                                 (xt, bt))
+    if dtype == np.float32:
+        tol = dict(atol=1e-6, rtol=0)
+        gtol = dict(atol=1e-5, rtol=1e-6)
+    else:
+        tol = gtol = dict(atol=2e-2, rtol=2 ** -6)
+    np.testing.assert_allclose(_nhwc(_f32(out)), _f32(jout), **tol)
+    np.testing.assert_allclose(_nhwc(_f32(gx)), _f32(jgx), **gtol)
+    np.testing.assert_allclose(_f32(gb), _f32(jgb), **dict(
+        gtol, atol=gtol["atol"] * x.size / b.size))
+    np.testing.assert_allclose(_nhwc(_f32(hx)), _f32(jhx), **gtol)
+    np.testing.assert_allclose(_f32(hb), _f32(jhb), **dict(
+        gtol, atol=gtol["atol"] * x.size / b.size))
+    assert np.abs(_f32(hx)).max() > 0   # the second order is not vacuous
+
+
+def test_fused_leaky_relu_backward_keys_on_h_not_on_the_output():
+    """At h = x + b = 0 the output is 0 and the gradient takes the positive
+    branch (h >= 0), as the JAX op's residual does."""
+    x = torch.tensor([[-1.0, 0.5]], requires_grad=True)
+    b = torch.tensor([1.0, -0.5], requires_grad=True)
+    out = TN.fused_leaky_relu(x, b)
+    assert out.abs().max() == 0
+    gx, = torch.autograd.grad(out.sum(), x)
+    np.testing.assert_allclose(gx.numpy(), [[2 ** 0.5, 2 ** 0.5]], rtol=1e-7)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     rng = np.random.default_rng(7)
     q, k, v = (torch.as_tensor(_np(rng, 2, 64, 128)) for _ in range(3))
@@ -224,5 +315,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     z, cb = q[0, :, :32].contiguous(), k[0].reshape(256, 32)[:64]
     torch.testing.assert_close(K.vq_nearest_indices(z, cb),
                                K.vq_nearest_indices_plain(z, cb),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(K.fused_bias_lrelu(q, q[0, :, 0]),
+                               K.fused_bias_lrelu_plain(q, q[0, :, 0]),
                                rtol=0, atol=0)
     assert set(K.LAUNCHES.values()) == {0}

@@ -9,7 +9,9 @@ that has only PyTorch:
 
 Tolerance: max|kernel - plain| <= rtol * max(1, max|plain|), with rtol 1e-4
 in f32 (summation order, exp2 against exp) and 1.6e-2 in bf16 (4 ulps of
-an 8-bit mantissa: the online softmax rounds P at other points).
+an 8-bit mantissa: the online softmax rounds P at other points). The fused
+bias + leaky ReLU does the plain version's operations in its order, so it
+is held bitwise.
 """
 import copy
 
@@ -159,6 +161,98 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         K.vq_nearest_indices(torch.randn(10, 24, device=cuda),
                              torch.randn(64, 24, device=cuda))  # C % 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [
+    ((4, 32, 64, 64), 0),    # 16-byte vectors
+    ((4, 512), 0),           # the linear layers: one value per channel
+    ((3, 5, 7, 9), 0),       # spatial size not a multiple of the vector
+    ((2, 8, 16, 16), 1)])    # a pointer off the 16-byte grid
+def test_fused_bias_lrelu_matches_plain_bitwise(cuda, dtype, shape, offset):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, generator=g, device=cuda).to(dtype)
+    x = x[offset:].reshape(shape)
+    x.view(-1)[::5] = 0.0
+    bias = torch.randn(shape[1], generator=g, device=cuda)
+    before = K.LAUNCHES["fused_bias_lrelu"]
+    for b in (bias, bias.to(dtype)):
+        got = K.fused_bias_lrelu(x, b)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == x.shape
+        assert torch.equal(got, K.fused_bias_lrelu_plain(x, b))
+    assert K.LAUNCHES["fused_bias_lrelu"] == before + 2
+
+
+@pytest.mark.cuda
+def test_fused_leaky_relu_grads_on_card_match_cpu(cuda):
+    """ops/native.py fused_leaky_relu on the card (K5 forward, plain-torch
+    backward) against the CPU: the value bitwise, the x- and bias-gradients
+    and a second-order term (R1's and the path penalty's) to f32 summation
+    order."""
+    from comfyui_keep_torch.ops.native import fused_leaky_relu
+    gen = torch.Generator().manual_seed(4)
+    x0, w, v = (torch.randn(2, 16, 8, 8, generator=gen) for _ in range(3))
+    b0 = torch.randn(16, generator=gen)
+    res = {}
+    for dev in ("cpu", cuda):
+        x = x0.to(dev).requires_grad_(True)
+        b = b0.to(dev).requires_grad_(True)
+        out = fused_leaky_relu(x, b)
+        gx, gb = torch.autograd.grad((out ** 2 * w.to(dev)).sum(), (x, b),
+                                     create_graph=True)
+        hx, hb = torch.autograd.grad((gx * v.to(dev)).sum(), (x, b))
+        res[str(dev)] = [t.detach().cpu() for t in (out, gx, gb, hx, hb)]
+    cpu, card = res["cpu"], res[str(cuda)]
+    assert torch.equal(card[0], cpu[0])
+    for a, r in zip(card[1:], cpu[1:]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_bias_lrelu_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 8, 4, 4, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError):
+        K.fused_bias_lrelu(x.transpose(2, 3), b)            # not contiguous
+    with pytest.raises(ValueError):
+        K.fused_bias_lrelu(x.half(), b)                     # fp16
+    with pytest.raises(ValueError):
+        K.fused_bias_lrelu(x, torch.zeros(4, device=cuda))  # bias shape
+    with pytest.raises(ValueError):
+        K.fused_bias_lrelu(x, torch.zeros(8))               # CPU bias
+    with pytest.raises(ValueError):
+        K.fused_bias_lrelu(x.reshape(-1), b)                # no channel dim
+
+
+@pytest.mark.cuda
+def test_tiny_stylegan2_on_card_matches_cpu(cuda):
+    """A tiny generator and discriminator, f32: the card (K5) against the
+    CPU (its plain version), within the golden tolerance 2e-3 / 1e-2, and
+    K5's launches per forward: 2 mapping layers + 1 + 2 per resolution for
+    G, 1 + 2 per ResBlock + 1 + 1 for D."""
+    from comfyui_keep_torch.models.stylegan2 import (StyleGAN2Discriminator,
+                                                     StyleGAN2Generator)
+    g_net = StyleGAN2Generator(32, num_style_feat=16, num_mlp=2,
+                               channel_multiplier=1, narrow=0.25,
+                               device="cpu")
+    d_net = StyleGAN2Discriminator(32, channel_multiplier=1, narrow=0.25,
+                                   device="cpu")
+    z = torch.randn(4, 16, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        img, _ = g_net([z])
+        logits = d_net(img)
+        K.reset_launch_counts()
+        img_g, _ = copy.deepcopy(g_net).to(cuda)([z.to(cuda)])
+        g_launches = K.LAUNCHES["fused_bias_lrelu"]
+        logits_g = copy.deepcopy(d_net).to(cuda)(img.to(cuda))
+        torch.cuda.synchronize()
+    assert g_launches == 2 + 1 + 2 * 3
+    assert K.LAUNCHES["fused_bias_lrelu"] - g_launches == 1 + 2 * 3 + 1 + 1
+    torch.testing.assert_close(img_g.cpu(), img, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(logits_g.cpu(), logits, atol=2e-3, rtol=1e-2)
 
 
 @pytest.mark.cuda
