@@ -11,52 +11,68 @@ the verdict):
               card at the main path's shapes, in bf16 and f32: max|d| and
               its tolerance, kernel ms, plain ms, one PyTorch library call's
               ms as a yardstick (the port never calls it), and the bound
-  4. gmflow   flow_from_clip on a 2-frame 512x512 clip, f32: card (kernels)
+  4. kernel   (packed_conv2x2, K6) the phase-packed convolution at every
+              shape of the packed 512-level path and at its own shape over
+              the LQ encoder's 20-frame batch, bf16 and f32: max|d| and
+              tolerance, kernel / plain / library ms (cuDNN's conv2d on the
+              same packed tensor, channels-last), the ms of the unpacked
+              3x3 convolution at 512^2 it replaces, and the bound
+  5. gmflow   flow_from_clip on a 2-frame 512x512 clip, f32: card (kernels)
               against CPU (plain versions), max|d| in pixels
-  5. keep     KEEP.apply on the same clip and flows, f32: card against CPU,
-              code picks teacher-forced from the CPU run; outputs and logits
-  6. main     api.load_models(seed=0) -> load_device(bf16) ->
-              processor(bf16).restore_face_stream(21 faces, 20 per chunk):
-              faces/s, ms per 20-frame chunk and the kernel launch counts
-  7. kernel   (vq) the nearest-codebook kernel against its plain version at
+  6. keep     KEEP.apply on the same clip and flows, f32: card against CPU
+              (unpacked), code picks teacher-forced from the CPU run, first
+              unpacked, then phase-packed (prepare_phase512, 24 K6
+              launches); outputs and logits
+  7. main     api.load_models(seed=0) -> load_device(bf16) ->
+              processor(bf16).restore_face_stream(21 faces, 20 per chunk),
+              the 512 level phase-packed as served by default: faces/s, ms
+              per 20-frame chunk and the kernel launch counts (K6: 12 per
+              frame, 264); main_unpacked: the same with phase512=False, its
+              chunk ms (timed in turns with the packed one), K6 = 0, and
+              the packed-against-unpacked uint8 difference (reported)
+  8. stream   restore_face_stream(21 faces, carry_chunks=True): the state
+              carried into a 1-frame second chunk; finite outputs and the
+              launches the path implies (K6 240 + 18)
+  9. kernel   (vq) the nearest-codebook kernel against its plain version at
               the training step's shape, T = 4096 tokens against N = 1024
               codes of C = 256, in f32 and bf16, on tokens drawn near codes
               of varied norms: picks, kernel/plain/addmm+argmin ms, bound
-  8. train_parity  one KEEP stage-II step of a tiny config (GMFlow 128
+ 10. train_parity  one KEEP stage-II step of a tiny config (GMFlow 128
               channels, 2 layers, a 64x64 clip of 3 frames), card (kernels)
               against CPU (plain versions): in f32 the loss terms and
               per-leaf gradients, the code-pick margins asserted first;
               in bf16 mixed precision the same at bf16's resolution
-  9. train    options/train_keep_stage2.yml's step at full width (KEEP
+ 11. train    options/train_keep_stage2.yml's step at full width (KEEP
               512x512, VQHQEncoder, GMFlow; B=2 x 8 frames, random weights
               and clips), f32 as configured, then mixed precision: ms/step,
               frames/s, peak GiB, losses, launches per step; frozen leaves
               unchanged, trainable ones moved, the EMA rule held
- 10. kernel   (fused_bias_lrelu) the fused bias + leaky ReLU kernel against
+ 12. kernel   (fused_bias_lrelu) the fused bias + leaky ReLU kernel against
               its plain version at StyleGAN2's largest activation, (4, 32,
               1024, 1024), and at the mapping MLP's (4, 512), in bf16 and
               f32: max|d| in units of the last place (at most 1), kernel
               and plain ms, the bound; then fused_leaky_relu's value, x- and
               bias-gradients and a second-order term, card against CPU
- 11. stylegan2_parity  a narrow StyleGAN2 (64x64, channel multiplier 1,
+ 13. stylegan2_parity  a narrow StyleGAN2 (64x64, channel multiplier 1,
               narrow 0.25, 64 style features, 2 mapping layers), f32, card
               (kernels) against CPU (plain versions): the image and the D
               logits, then one GAN alternation at iteration 16 (R1 and the
               path penalty both fire) from one warm state (the CPU's after
               alternation 15) and the same draws: losses, mean path length,
               Adam moments and updated leaves
- 12. stylegan2_sample  StyleGAN2Generator config-f at 1024x1024 (512 style
+ 14. stylegan2_sample  StyleGAN2Generator config-f at 1024x1024 (512 style
               features, 8 mapping layers, channel multiplier 2), B=4 codes,
               bf16 then f32: ms per batch, images/s, peak GiB, a finite
               image, K5 launches per forward from its counter (25)
- 13. stylegan2_train  StyleGAN2Model at 256x256 (channel multiplier 2, G and
+ 15. stylegan2_train  StyleGAN2Model at 256x256 (channel multiplier 2, G and
               D), B=4 random real images, f32, 16 alternations after a
               warm-up (R1 once, the path penalty four times): ms of a plain,
               a path and the R1 + path alternation, peak GiB, losses, K5
               launches per alternation; the EMA rule, D and G leaves moved
-The script exits non-zero, printing no verdict, if there is no CUDA device,
-if a kernel does not build or disagrees, or if any phase fails. TF32 is off
-for matmuls and convolutions, so f32 means f32.
+Every phase that counts launches counts K6 too: the training and StyleGAN2
+phases expect none. The script exits non-zero, printing no verdict, if
+there is no CUDA device, if a kernel does not build or disagrees, or if any
+phase fails. TF32 is off for matmuls and convolutions, so f32 means f32.
 """
 import copy
 import json
@@ -121,6 +137,24 @@ SG2_PARITY = dict(out_size=64, num_style_feat=64, num_mlp=2,
 SG2_SAMPLE = dict(out_size=1024, num_style_feat=512, num_mlp=8,
                   channel_multiplier=2)   # config-f
 SG2_BATCH, SG2_TRAIN_SIZE, SG2_ALTERNATIONS = 4, 256, 16
+# K6 at the packed path's shapes, per frame (the LQ encoder batches a chunk's
+# 20 frames): (label, B, Hi = Wi, Cin, Cout, pads, the unpacked 3x3 conv at
+# 512^2 it replaces as (kind, Cin, Cout)). kh = kw = 2 throughout.
+K6_SAME, K6_VALID = ((1, 1), (1, 1)), ((0, 0), (0, 0))
+K6_CASES = (
+    ("encoder conv 0, parity 0->1", 1, 256, 12, 256, K6_SAME, ("conv", 3, 64)),
+    ("res conv2, parity 0->1", 1, 256, 256, 256, K6_SAME, ("conv", 64, 64)),
+    ("res conv1, parity 1->0 (K6's own)", 1, 257, 256, 256, K6_VALID,
+     ("conv", 64, 64)),
+    ("generator res 128->64 conv1", 1, 257, 512, 256, K6_VALID,
+     ("conv", 128, 64)),
+    ("generator final conv", 1, 257, 256, 12, K6_VALID, ("conv", 64, 3)),
+    ("downsample", 1, 257, 256, 64, K6_VALID, ("down", 64, 64)),
+    ("upsample conv", 1, 256, 128, 512, K6_SAME, ("up", 128, 128)),
+    ("res conv1, LQ encoder batch of 20", FRAMES, 257, 256, 256, K6_VALID,
+     ("conv", 64, 64)),
+)
+K6_OWN = K6_CASES[2][0]
 
 # options/train_keep_stage2.yml as a dict: the card machine is not specified
 # to have pyyaml. tests/test_torch_training.py checks that the two agree.
@@ -288,6 +322,77 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
     return rows
 
 
+def phase_k6(torch, iters=KERNEL_ITERS):
+    """K6 at every shape of the packed path, bf16 and f32: max|d| against
+    its plain version within KERNEL_RTOL x the plain output's spread; kernel,
+    plain and library ms (F.conv2d on the same packed tensor, channels-last,
+    through cuDNN: a yardstick the port never calls); the ms of the
+    unpacked cuDNN 3x3 convolution at 512^2 that the packed one replaces
+    (NCHW, as the port's unpacked path runs it); the bound."""
+    import torch.nn.functional as F
+    from comfyui_keep_torch.ops import conv2d, upsample_nearest_2x
+    from comfyui_keep_torch.ops import kernels as K
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+        for label, b, hi, cin, cout, pads, (kind, uci, uco) in K6_CASES:
+            x = torch.randn(b, hi, hi, cin, generator=g,
+                            device="cuda").to(dtype)
+            w = (torch.randn(2, 2, cin, cout, generator=g, device="cuda")
+                 / math.sqrt(4 * cin)).to(dtype)
+            got = K.packed_conv2x2(x, w, pads)
+            torch.cuda.synchronize()
+            ref = K.packed_conv2x2_plain(x, w, pads).float()
+            err = (got.float() - ref).abs().max().item()
+            spread = (ref - ref.mean()).abs().max().item()
+            tol = KERNEL_RTOL[dname] * spread
+            ms = time_ms(torch, lambda: K.packed_conv2x2(x, w, pads), iters)
+            plain_ms = time_ms(torch, lambda: K.packed_conv2x2_plain(
+                x, w, pads), max(1, iters // 4))
+            xl = x.permute(0, 3, 1, 2)           # NCHW view, channels-last
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            lib_ms = time_ms(torch, lambda: F.conv2d(xl, wl,
+                                                     padding=pads[0][0]),
+                             iters)
+            ux = torch.randn(b, uci, 256 if kind == "up" else 512,
+                             256 if kind == "up" else 512, generator=g,
+                             device="cuda").to(dtype)
+            uw = (torch.randn(uco, uci, 3, 3, generator=g, device="cuda")
+                  / math.sqrt(9 * uci)).to(dtype)
+            if kind == "conv":
+                unpacked = lambda: conv2d(ux, uw, padding=1)
+            elif kind == "down":
+                unpacked = lambda: conv2d(ux, uw, stride=2,
+                                          padding=[(0, 1), (0, 1)])
+            else:
+                unpacked = lambda: conv2d(upsample_nearest_2x(ux), uw,
+                                          padding=1)
+            unpacked_ms = time_ms(torch, unpacked, iters)
+            op_s = 2 * got.numel() * 4 * cin / peak
+            byte_s = (x.numel() + w.numel() + got.numel()) * \
+                x.element_size() / HBM
+            row = {"name": "packed_conv2x2", "case": label, "dtype": dname,
+                   "x": [b, hi, hi, cin], "w": [2, 2, cin, cout],
+                   "pads": pads, "max_abs_err": err, "tol": tol,
+                   "ref_spread": spread, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "unpacked_3x3_ms": unpacked_ms,
+                   "unpacked_3x3": [kind, b, uci, uco],
+                   "bound_ms": 1e3 * max(op_s, byte_s),
+                   "bound_by": "operations" if op_s >= byte_s else "bytes",
+                   "ok": bool(err <= tol)}
+            say("kernel", **row)
+            rows[(label, dname)] = row
+            del x, w, got, ref, ux, uw, xl, wl
+    torch.cuda.empty_cache()
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    if bad:
+        fail(f"the packed conv kernel disagrees with its plain version: {bad}")
+    return rows
+
+
 def phase_gmflow(torch):
     from comfyui_keep_torch.models.gmflow import GMFlow, flow_from_clip
     gen = torch.Generator().manual_seed(1)
@@ -309,7 +414,12 @@ def phase_gmflow(torch):
 
 
 def phase_keep(torch, x, flows):
+    """KEEP on the 2-frame clip, f32, card against CPU (unpacked), picks
+    forced from the CPU: the card's unpacked forward, then its packed one,
+    which must launch K6 12 times per frame. A check of its own: the
+    serving runs count the launches of the kernel table."""
     from comfyui_keep_torch.models.keep import KEEP
+    from comfyui_keep_torch.ops import kernels as K
     gen = torch.Generator().manual_seed(2)
     net = KEEP(device="cpu", generator=gen)
     net_cuda = copy.deepcopy(net).cuda()
@@ -319,63 +429,152 @@ def phase_keep(torch, x, flows):
         out_g, aux_g = net_cuda.apply(
             x.cuda(), flows=tuple(f.cuda() for f in flows), return_aux=True,
             force_indices=picks.cuda())
-    d = (out_g.cpu() - out_c).abs()
+        # the serving form: 512-level convolutions phase-packed (K6)
+        packed = net_cuda.prepare_phase512()
+        K.reset_launch_counts()
+        out_p, aux_p = packed.apply(
+            x.cuda(), flows=tuple(f.cuda() for f in flows), return_aux=True,
+            force_indices=picks.cuda())
+        torch.cuda.synchronize()
+        k6 = K.LAUNCHES["packed_conv2x2"]
     lim = KEEP_ATOL + KEEP_RTOL * out_c.abs()
-    dl = (aux_g["logits"].cpu() - aux_c["logits"]).abs()
     llim = KEEP_ATOL + KEEP_RTOL * aux_c["logits"].abs()
-    ok = bool((d <= lim).all() and (dl <= llim).all())
+    d, dp = (out_g.cpu() - out_c).abs(), (out_p.cpu() - out_c).abs()
+    dl = (aux_g["logits"].cpu() - aux_c["logits"]).abs()
+    dlp = (aux_p["logits"].cpu() - aux_c["logits"]).abs()
+    # LQ encoder once over both frames, HQ encoder on frame 1, generator
+    # tail on both: 6 packed convolutions each
+    want_k6 = 12 * x.shape[1]
+    ok = bool((d <= lim).all() and (dl <= llim).all() and (dp <= lim).all()
+              and (dlp <= llim).all() and k6 == want_k6)
     say("keep", max_abs_err=d.max().item(), logits_max_abs_err=dl.max().item(),
-        atol=KEEP_ATOL, rtol=KEEP_RTOL, ok=ok)
+        packed_max_abs_err=dp.max().item(),
+        packed_logits_max_abs_err=dlp.max().item(), atol=KEEP_ATOL,
+        rtol=KEEP_RTOL, packed_k6_launches=k6, expected_k6_launches=want_k6,
+        ok=ok)
     if not ok:
-        fail("KEEP card vs CPU outside atol/rtol")
+        fail(f"KEEP card (unpacked and packed) vs CPU outside atol/rtol, or "
+             f"K6 launches {k6} != {want_k6}")
+
+
+def serving_launches(k6_per_frame_chunks):
+    """Launch counts of one restore_face_stream run with two GMFlow calls
+    (a 20-frame chunk and a 2-frame one): K1 13 per call (6 windows, 6
+    shifted windows with the mask, 1 global flow attention), K2 6, K3 1;
+    serving picks codes by argmax, so no nearest-codebook search; K6 12 per
+    frame of each chunk when KEEP is packed (the LQ encoder 6 once, the HQ
+    encoder 6 per propagated frame, the generator tail 6 per frame)."""
+    return {"attention[dv128]": 12, "attention[dv128+bias]": 12,
+            "attention[dv2]": 2, "mlp_fused": 12,
+            "global_correlation_expectation": 2, "vq_nearest_indices": 0,
+            "fused_bias_lrelu": 0, "packed_conv2x2": k6_per_frame_chunks}
 
 
 def phase_main(torch):
+    """The default processor (packed) and a phase512=False one on the same
+    pack: chunk ms of each, 3 runs in turns (packed, unpacked, unpacked,
+    packed, ...), then the 21-face run of each with its launch counts.
+    Returns (the packed run's counts, the packed processor, the faces)."""
     from comfyui_keep_torch import api
     from comfyui_keep_torch.ops import kernels as K
     from comfyui_keep_torch.utils.image import bgr_u8_to_rgb_pm1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     pack = api.load_models(seed=0).load_device(torch.bfloat16)
-    proc = pack.processor(dtype=torch.bfloat16)
+    procs = {"packed": pack.processor(dtype=torch.bfloat16),
+             "unpacked": pack.processor(dtype=torch.bfloat16,
+                                        phase512=False)}
     rng = np.random.default_rng(3)
     faces = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
              for _ in range(FRAMES + 1)]
-    proc.restore_face_stream(faces[:FRAMES], max_clip_length=FRAMES)  # warm
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        proc.restore_face_stream(faces[:FRAMES], max_clip_length=FRAMES)
-        torch.cuda.synchronize()
-        runs.append(1e3 * (time.perf_counter() - t0))
-    chunk_ms = float(np.median(runs))
+    runs = {k: [] for k in procs}
+    for i in range(4):   # a warm-up pair, then 3 timed pairs in turns
+        order = list(procs) if i % 2 == 0 else list(procs)[::-1]
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            procs[name].restore_face_stream(faces[:FRAMES],
+                                            max_clip_length=FRAMES)
+            torch.cuda.synchronize()
+            if i:
+                runs[name].append(1e3 * (time.perf_counter() - t0))
+    chunk_ms = {k: float(np.median(v)) for k, v in runs.items()}
 
-    K.reset_launch_counts()
-    outs = proc.restore_face_stream(faces, max_clip_length=FRAMES)
-    torch.cuda.synchronize()
-    counts = dict(K.LAUNCHES)
-    shapes_ok = (len(outs) == FRAMES + 1 and all(
-        o.dtype == np.uint8 and o.shape == (512, 512, 3) for o in outs))
+    outs, counts = {}, {}
+    for name, proc in procs.items():
+        K.reset_launch_counts()
+        outs[name] = proc.restore_face_stream(faces, max_clip_length=FRAMES)
+        torch.cuda.synchronize()
+        counts[name] = dict(K.LAUNCHES)
+    proc = procs["packed"]
+    shapes_ok = (len(outs["packed"]) == FRAMES + 1 and all(
+        o.dtype == np.uint8 and o.shape == (512, 512, 3)
+        for o in outs["packed"]))
     # uint8 hides NaN (clip + round), so the network's float output of a
     # full chunk is checked for finiteness too, after the counts are read
     x20 = np.stack([bgr_u8_to_rgb_pm1(f) for f in faces[:FRAMES]])
     finite = bool(np.isfinite(proc.restore_clip(x20)).all())
-    # per chunk that runs GMFlow: K1 13 (6 windows, 6 shifted windows with
-    # the mask, 1 global flow attention), K2 6, K3 1; 2 such chunks here.
-    # Serving picks codes by argmax: no nearest-codebook search.
-    want = {"attention[dv128]": 12, "attention[dv128+bias]": 12,
-            "attention[dv2]": 2, "mlp_fused": 12,
-            "global_correlation_expectation": 2, "vq_nearest_indices": 0,
-            "fused_bias_lrelu": 0}
-    ok = shapes_ok and finite and counts == want
-    say("main", faces=len(outs), chunk_ms=chunk_ms, chunk_ms_runs=runs,
+    want = serving_launches(12 * FRAMES + 12 * 2)
+    ok = shapes_ok and finite and counts["packed"] == want
+    say("main", faces=len(outs["packed"]), chunk_ms=chunk_ms["packed"],
+        chunk_ms_runs=runs["packed"],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-        faces_per_s=FRAMES / (chunk_ms / 1e3), launches=counts,
-        expected_launches=want, outputs_uint8_512=shapes_ok, finite=finite,
-        ok=ok)
+        faces_per_s=FRAMES / (chunk_ms["packed"] / 1e3),
+        launches=counts["packed"], expected_launches=want,
+        outputs_uint8_512=shapes_ok, finite=finite, ok=ok)
     if not ok:
-        fail(f"main path: launches {counts} (want {want}), shapes "
+        fail(f"main path: launches {counts['packed']} (want {want}), shapes "
              f"{shapes_ok}, finite {finite}")
-    return counts
+    # the unpacked path, reported beside it: bf16 argmax picks can flip
+    # between the two summation orders, so their difference is not gated
+    want_u = serving_launches(0)
+    diff = np.stack([np.abs(a.astype(int) - b.astype(int)) for a, b in
+                     zip(outs["packed"], outs["unpacked"])])
+    ok = counts["unpacked"] == want_u
+    say("main_unpacked", chunk_ms=chunk_ms["unpacked"],
+        chunk_ms_runs=runs["unpacked"],
+        faces_per_s=FRAMES / (chunk_ms["unpacked"] / 1e3),
+        packed_over_unpacked=chunk_ms["packed"] / chunk_ms["unpacked"],
+        launches=counts["unpacked"], expected_launches=want_u,
+        packed_vs_unpacked_uint8_max=int(diff.max()),
+        packed_vs_unpacked_uint8_mean=float(diff.mean()), ok=ok)
+    if not ok:
+        fail(f"main_unpacked: launches {counts['unpacked']} (want {want_u})")
+    del procs["unpacked"]
+    return counts["packed"], proc, faces
+
+
+def phase_stream(torch, proc, faces):
+    """restore_face_stream(21 faces, carry_chunks=True) on the packed bf16
+    processor: a 20-frame chunk, then a 1-frame chunk that starts from the
+    carried state (no duplication) with GMFlow on the boundary pair. Then
+    the same two chunks through restore_clip, whose float outputs must be
+    finite."""
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.utils.image import bgr_u8_to_rgb_pm1
+    K.reset_launch_counts()
+    outs = proc.restore_face_stream(faces, max_clip_length=FRAMES,
+                                    carry_chunks=True)
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    # the carried 1-frame chunk: LQ encoder 6, HQ encoder 6 (its frame
+    # propagates from the carry), generator tail 6
+    want = serving_launches(12 * FRAMES + 18)
+    shapes_ok = (len(outs) == FRAMES + 1 and all(
+        o.dtype == np.uint8 and o.shape == (512, 512, 3) for o in outs))
+    x = np.stack([bgr_u8_to_rgb_pm1(f) for f in faces])
+    first, carry = proc.restore_clip(x[:FRAMES], return_carry=True)
+    last = proc.restore_clip(x[FRAMES:], carry, x[FRAMES - 1])
+    finite = bool(np.isfinite(first).all() and np.isfinite(last).all())
+    reset_last = proc.restore_face_stream(faces[FRAMES:])[0]
+    ok = shapes_ok and finite and counts == want
+    say("stream", faces=len(outs), carry_chunks=True, launches=counts,
+        expected_launches=want, outputs_uint8_512=shapes_ok, finite=finite,
+        last_face_differs_from_reset=bool(
+            not np.array_equal(outs[-1], reset_last)), ok=ok)
+    if not ok:
+        fail(f"stream: launches {counts} (want {want}), shapes {shapes_ok}, "
+             f"finite {finite}")
 
 
 def phase_vq(torch, iters=KERNEL_ITERS):
@@ -518,7 +717,7 @@ def phase_train_parity(torch):
     want = {"attention[dv128]": 4, "attention[dv128+bias]": 4,
             "attention[dv2]": 2, "mlp_fused": 4,
             "global_correlation_expectation": 2, "vq_nearest_indices": 1,
-            "fused_bias_lrelu": 0}
+            "fused_bias_lrelu": 0, "packed_conv2x2": 0}
     lf, f32 = res["cpu", False][:2]
     for mp in (False, True):
         (lc, gc, _), (lg, gg, counts) = res["cpu", mp], res["cuda", mp]
@@ -571,7 +770,7 @@ def phase_train(torch):
     per_step = {"attention[dv128]": 12, "attention[dv128+bias]": 12,
                 "attention[dv2]": 2, "mlp_fused": 12,
                 "global_correlation_expectation": 2, "vq_nearest_indices": 1,
-                "fused_bias_lrelu": 0}
+                "fused_bias_lrelu": 0, "packed_conv2x2": 0}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     watch = ("feat_emb.weight", "position_emb", "encoder.blocks.0.weight",
              "hq_encoder.blocks.0.weight", "ft_layers.0.linear1.weight",
@@ -907,13 +1106,15 @@ def phase_stylegan2_sample(torch):
         shape_ok = tuple(img.shape) == (b, 3, cfg["out_size"], cfg["out_size"])
         images[dname] = img.float()
         ok = bool(finite and shape_ok
-                  and counts[dname]["fused_bias_lrelu"] == want)
+                  and counts[dname]["fused_bias_lrelu"] == want
+                  and counts[dname]["packed_conv2x2"] == 0)
         say("stylegan2_sample", dtype=dname, config=cfg, batch=b,
             ms_per_batch=ms, ms_runs=runs, images_per_s=b / (ms / 1e3),
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
             image_abs_max=img.float().abs().max().item(), finite=finite,
             shape_ok=shape_ok, k5_launches=counts[dname]["fused_bias_lrelu"],
-            expected_k5_launches=want, ok=ok)
+            expected_k5_launches=want,
+            k6_launches=counts[dname]["packed_conv2x2"], ok=ok)
         if not ok:
             fail(f"stylegan2_sample ({dname}): finite {finite}, shape "
                  f"{shape_ok}, K5 launches {counts[dname]} (want {want})")
@@ -986,7 +1187,8 @@ def phase_stylegan2_train(torch):
     ok = bool(finite and tr.mean_path_length > 0 and ema_ok
               and len(g_moved) == len(params) and len(d_moved) == len(d_params)
               and n_r1 == 1 and n_path == 4
-              and counts["fused_bias_lrelu"] == want)
+              and counts["fused_bias_lrelu"] == want
+              and counts["packed_conv2x2"] == 0)
     say("stylegan2_train", size=size, batch=b, alternations=len(its),
         ms_plain_median=float(np.median(plain)), ms_path_median=float(
             np.median(path)), ms_r1_path=r1_path, ms_all=times,
@@ -995,6 +1197,7 @@ def phase_stylegan2_train(torch):
         r1_alternations=n_r1, path_alternations=n_path,
         k5_launches=counts["fused_bias_lrelu"], expected_k5_launches=want,
         k5_launches_per_alternation=counts["fused_bias_lrelu"] / len(its),
+        k6_launches=counts["packed_conv2x2"],
         g_leaves_moved=f"{len(g_moved)}/{len(params)}",
         d_leaves_moved=f"{len(d_moved)}/{len(d_params)}", ema_leaf=ema_leaf,
         ema_max_abs_err=ema_err, finite=finite, ok=ok)
@@ -1036,10 +1239,14 @@ def main():
                    or "spill" in ln] for k, v in _build.build_log.items()})
 
     krows = phase_kernels(torch)
+    k6_rows = phase_k6(torch)
     vq_rows = phase_vq(torch)
     x, flows = phase_gmflow(torch)
     phase_keep(torch, x, flows)
-    counts = phase_main(torch)
+    counts, proc, faces = phase_main(torch)
+    phase_stream(torch, proc, faces)
+    del proc
+    torch.cuda.empty_cache()
     phase_train_parity(torch)
     train_counts = phase_train(torch)
     k5_rows = phase_k5(torch)
@@ -1059,7 +1266,9 @@ def main():
                 "comfyui_keep_tpu/ops/pallas_kernels.py:51"),
             "fused_bias_lrelu": (
                 "comfyui_keep_torch/csrc/fused_act.cu",
-                "comfyui_keep_tpu/ops/pallas_kernels.py:98")}
+                "comfyui_keep_tpu/ops/pallas_kernels.py:98"),
+            "packed_conv2x2": ("comfyui_keep_torch/csrc/packed_conv.cu",
+                               "tools/_prof_packedconv.py:42")}
     table = []
     for (name, dname), r in krows.items():
         if dname != "bfloat16":
@@ -1101,6 +1310,20 @@ def main():
             "launches_train_16_alternations": (
                 sg2_train_counts["fused_bias_lrelu"]
                 if dname == "float32" else None)})
+    # K6 at its own shape, (257, 257, 256) VALID, in bf16 as served: its
+    # launches from the 21-face serving run (no main path runs it in f32)
+    for (label, dname), r in k6_rows.items():
+        if label != K6_OWN or dname != "bfloat16":
+            continue
+        src, replaces = srcs["packed_conv2x2"]
+        table.append({
+            "name": "packed_conv2x2", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": counts["packed_conv2x2"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "unpacked_3x3_ms": r["unpacked_3x3_ms"], "dtype": dname,
+            "status": "ported"})
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ from comfyui_keep_tpu/api.py for aligned faces.
 `load_models` builds the models on the host (random weights from a seed,
 or a reference .pth); `load_device` moves them to the card (the CPU only
 when asked) and `offload` back to the host. `processor` runs on the card
-unless the caller asks for the CPU, and moves the pack there if needed.
+unless the caller asks for the CPU, and moves the pack there if needed; its
+KEEP runs the 512 level phase-packed unless asked `phase512=False`.
 """
 from typing import Optional
 
@@ -40,14 +41,15 @@ class KEEPModelPack:
         return self
 
     def processor(self, dtype: Optional[torch.dtype] = None,
-                  device="cuda") -> KEEPFaceProcessor:
+                  device="cuda", phase512: bool = True) -> KEEPFaceProcessor:
         """A processor on `device` in `dtype`; moves the pack to `device`
-        first (in place, as load_device) when it sits elsewhere."""
+        first (in place, as load_device) when it sits elsewhere. phase512
+        as for KEEPFaceProcessor: the pack's own KEEP stays unpacked."""
         device = torch.device(device)
         if next(self.keep.parameters()).device.type != device.type:
             self.load_device(device=device)
         return KEEPFaceProcessor(self.keep, self.gmflow, dtype=dtype,
-                                 device=device)
+                                 device=device, phase512=phase512)
 
 
 def load_models(model_type: str = "KEEP", keep_ckpt: Optional[str] = None,
@@ -83,7 +85,11 @@ def restore_image(pack: KEEPModelPack, img_bgr, final_upscale_factor=1.0,
 def restore_sequence(pack: KEEPModelPack, frames_bgr,
                      final_upscale_factor: float = 1.0,
                      has_aligned_frames: bool = False,
-                     max_clip_length: int = 20, dtype=None, device="cuda"):
-    """KEEP Image Sequence node (aligned frames)."""
+                     max_clip_length: int = 20, carry_chunks: bool = False,
+                     dtype=None, device="cuda"):
+    """KEEP Image Sequence node (aligned frames). carry_chunks=True streams
+    the recurrent state across max_clip_length chunks (the JAX package's
+    extension) instead of the reference's per-chunk reset."""
     return pack.processor(dtype, device).process_image_sequence(
-        frames_bgr, final_upscale_factor, has_aligned_frames, max_clip_length)
+        frames_bgr, final_upscale_factor, has_aligned_frames, max_clip_length,
+        carry_chunks=carry_chunks)

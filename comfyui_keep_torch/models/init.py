@@ -6,6 +6,7 @@ default bounds (Conv2d/Linear: kaiming_uniform(a=sqrt(5)) weights and
 uniform(+-1/sqrt(fan_in)) biases). Weights are drawn on the CPU, so one seed
 gives the same model on every device.
 """
+import copy
 import math
 
 import torch
@@ -34,6 +35,15 @@ def zero_(module: nn.Module):
     with torch.no_grad():
         for p in module.parameters():
             p.zero_()
+
+
+def shared_copy(module: nn.Module) -> nn.Module:
+    """A copy of `module`'s tree of modules that shares every parameter and
+    buffer tensor with it: buffers or submodules added to the copy leave
+    `module` as it is, and no weight is duplicated."""
+    memo = {id(t): t for t in list(module.parameters())
+            + list(module.buffers())}
+    return copy.deepcopy(module, memo)
 
 
 def finish(module: nn.Module, device, dtype=None):

@@ -18,10 +18,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from comfyui_keep_torch.models import layers as L
-from comfyui_keep_torch.models.init import default_init_, finish, zero_
+from comfyui_keep_torch.models.init import (default_init_, finish,
+                                            shared_copy, zero_)
 from comfyui_keep_torch.models.vqgan import (BlockStack, ResBlock,
                                              VectorQuantizer, encoder_plan,
-                                             generator_plan)
+                                             generator_plan,
+                                             packed_generator_tail,
+                                             phase512_prepare,
+                                             phase_encoder_end,
+                                             phase_generator_start)
 from comfyui_keep_torch.ops import conv2d, flow_warp_xy, layer_norm, linear
 
 
@@ -180,6 +185,34 @@ class KEEP(nn.Module):
             zero_(f.attn)
             zero_(f.ff)
 
+    def prepare_phase512(self) -> "KEEP":
+        """Serving-time weight preparation (the JAX package's
+        prepare_phase512 at its default of one level): a copy of this
+        network, sharing its parameters, whose encoders run their top level
+        phase-packed and whose generator runs its final Upsample level
+        packed when no CFT/CFA/temporal tap lands there (ops/phase_pack.py).
+        The packed weights are non-persistent buffers of the copy, so
+        state_dict() keys do not change and this network stays unpacked.
+        Off img_size 512 this network itself is returned. Do not train the
+        copy: gradients would not reach the parameters."""
+        cfg = self.cfg
+        if cfg["img_size"] != 512:
+            return self
+        net = shared_copy(self)
+        # a tap inside the packed prefix is unpacked at tap time, so no
+        # fusion constraint applies to the encoders
+        end = phase_encoder_end(self.enc_plan)
+        if end is not None:
+            phase512_prepare(net.encoder, range(end + 1))
+            phase512_prepare(net.hq_encoder, range(end + 1))
+        fuse = {self.gen_tap[f] for f in (tuple(cfg["cft_list"])
+                                          + tuple(cfg["cfa_list"])
+                                          + tuple(cfg["temp_reg_list"]))}
+        start = phase_generator_start(self.gen_plan, fuse)
+        if start is not None:
+            phase512_prepare(net.generator, range(start, len(self.gen_plan)))
+        return net
+
     # -- forward pieces -------------------------------------------------------
 
     def tokens_to_code(self, z_hat, force_idx=None):
@@ -201,13 +234,19 @@ class KEEP(nn.Module):
                      prev_cfa: Dict[str, torch.Tensor], first: bool):
         """Generator pass for one frame with CFT skip fusion and CFA
         cross-frame fusion. Returns (frame, new cfa features, the
-        temp_reg_list taps {f: (B, c, s, s)} taken after the fusions)."""
+        temp_reg_list taps {f: (B, c, s, s)} taken after the fusions). A
+        prepared generator switches to its packed tail at its first packed
+        Upsample (no fusion tap lands there: prepare_phase512 checks)."""
         cfg = self.cfg
         cft_idx = {self.gen_tap[f]: f for f in cfg["cft_list"]}
         cfa_idx = {self.gen_tap[f]: f for f in cfg["cfa_list"]}
         temp_idx = {self.gen_tap[f]: f for f in cfg["temp_reg_list"]}
+        tail = self.generator.packed_tail_start()
         x, new_cfa, gen_feats = quant, {}, {}
         for j, blk in enumerate(self.generator.blocks):
+            if j == tail:
+                x = packed_generator_tail(self.generator, x, j)
+                break
             x = blk(x)
             if j in cft_idx:
                 f = cft_idx[j]
@@ -222,7 +261,8 @@ class KEEP(nn.Module):
                 gen_feats[temp_idx[j]] = x
         return x, new_cfa, gen_feats
 
-    def forward(self, x, flows=None, *, force_indices=None):
+    def forward(self, x, flows=None, *, force_indices=None, carry=None,
+                return_carry: bool = False):
         """The grad-enabled forward of training (the JAX package's
         KEEP.apply with detach_16=True and return_aux=True).
 
@@ -232,6 +272,13 @@ class KEEP(nn.Module):
         argmax picks. Returns (outs (B, T, H, W, 3), {"logits": (B*T, L, N),
         "lq_feat": (B*T, h, w, C), "gen_feat_dict": {f: (B, T, s, s, c)}}).
 
+        carry / return_carry (the JAX package's streaming extension):
+        carry = (prev_out (B, H, W, 3), {f: (B, s, s, c)} CFA features), as
+        a return_carry=True call returns it after its last frame. With a
+        carry every frame, frame 0 included, propagates from the carried
+        state, so flows then hold T planes, flow 0 mapping frame 0 back to
+        the carried frame. return_carry=True returns ((outs, aux), carry).
+
         Gradients stop where the JAX package stops them: at the flows, the
         CFT encoder taps, the warped previous output and the picked codes;
         lq_feat and the Kalman gains keep theirs. While gradients are
@@ -240,8 +287,10 @@ class KEEP(nn.Module):
         encoders and each frame step after the first."""
         cfg = self.cfg
         b, t, h, w = x.shape[:4]
+        # frame i's flow is plane i - off: T planes with a carry, T-1 without
+        off = 0 if carry is not None else 1
         if flows is None:
-            fxs = fys = torch.zeros((b, t - 1, h, w), dtype=x.dtype,
+            fxs = fys = torch.zeros((b, t - off, h, w), dtype=x.dtype,
                                     device=x.device)
         else:
             fxs, fys = flows
@@ -263,19 +312,24 @@ class KEEP(nn.Module):
             quant = quant.detach()
             enc_t = {f: enc_feats[f][:, i] for f in cfg["cft_list"]}
             return self.decode_frame(quant, enc_t, prev_cfa,
-                                     first=i == 0) + (logit,)
+                                     first=i == 0 and carry is None) + (logit,)
 
         def step(prev_out, prev_cfa, i):
-            warped = flow_warp_xy(prev_out.detach(), fxs[:, i - 1],
-                                  fys[:, i - 1])
+            warped = flow_warp_xy(prev_out.detach(), fxs[:, i - off],
+                                  fys[:, i - off])
             z_prime = self.hq_encoder(warped)
             g = gains[:, i]
             return code_and_decode((1.0 - g) * z_codes[:, i] + g * z_prime, i,
                                    prev_cfa)
 
-        out, cfa, gen_feats, logit = code_and_decode(z_codes[:, 0], 0, {})
-        outs, logits, feats = [out], [logit], [gen_feats]
-        for i in range(1, t):
+        if carry is None:
+            out, cfa, gen_feats, logit = code_and_decode(z_codes[:, 0], 0, {})
+            outs, logits, feats = [out], [logit], [gen_feats]
+        else:
+            out = carry[0].permute(0, 3, 1, 2)
+            cfa = {f: v.permute(0, 3, 1, 2) for f, v in carry[1].items()}
+            outs, logits, feats = [], [], []
+        for i in range(off, t):
             if torch.is_grad_enabled():
                 out, cfa, gen_feats, logit = checkpoint(
                     step, out, cfa, i, use_reentrant=False)
@@ -291,16 +345,23 @@ class KEEP(nn.Module):
                "gen_feat_dict": {
                    f: torch.stack([g[f] for g in feats], dim=1).permute(
                        0, 1, 3, 4, 2) for f in feats[0]}}
-        return res, aux
+        if not return_carry:
+            return res, aux
+        return (res, aux), (out.permute(0, 2, 3, 1),
+                            {f: v.permute(0, 2, 3, 1) for f, v in cfa.items()})
 
     @torch.no_grad()
     def apply(self, x, flows=None, *, return_aux: bool = False,
-              force_indices=None):
+              force_indices=None, carry=None, return_carry: bool = False):
         """Inference forward: x (B, T, H, W, 3) in [-1, 1] ->
-        (B, T, H, W, 3), and with return_aux also forward()'s aux dict.
-        flows and force_indices as for forward()."""
-        res, aux = self.forward(x, flows, force_indices=force_indices)
-        return (res, aux) if return_aux else res
+        (B, T, H, W, 3), and with return_aux also forward()'s aux dict;
+        with return_carry (res, carry). flows, force_indices and the carry
+        as for forward()."""
+        (res, aux), new_carry = self.forward(
+            x, flows, force_indices=force_indices, carry=carry,
+            return_carry=True)
+        res = (res, aux) if return_aux else res
+        return (res, new_carry) if return_carry else res
 
 
 def mask_by_ratio(z_codes, mask_ratio: float = 0.0,

@@ -6,9 +6,15 @@ by flat block index), on NCHW feature maps.
 What KEEP and its stage-II training reach is here: the plans, the blocks,
 tapped (and recomputed) execution, the nearest-code quantizer with its
 lookup, and the VQHQEncoder that gives training its ground-truth codes.
+
+Serving runs the 512 level phase-packed (ops/phase_pack.py):
+`phase512_prepare` packs a stack's weights into non-persistent buffers
+(`block.p512`, ...), after which `BlockStack.forward` runs the encoder's
+packed prefix and `packed_generator_tail` the generator's packed tail.
 """
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -17,6 +23,7 @@ from comfyui_keep_torch.models.init import default_init_, finish
 from comfyui_keep_torch.ops import (conv2d, group_norm, softmax_attention,
                                     swish, upsample_nearest_2x)
 from comfyui_keep_torch.ops import kernels as K
+from comfyui_keep_torch.ops import phase_pack as pp
 from comfyui_keep_torch.ops.norm import GN_EPS
 
 
@@ -170,14 +177,44 @@ class BlockStack(nn.Module):
         self.plan = list(plan)
         self.blocks = nn.ModuleList(make_block(s) for s in self.plan)
 
+    def packed_prefix_end(self) -> Optional[int]:
+        """Index of the Downsample closing the leading run of blocks that
+        carry packed weights (an encoder's packed prefix), or None."""
+        end = None
+        for i, blk in enumerate(self.blocks):
+            if getattr(blk, "p512", None) is None:
+                break
+            if self.plan[i][0] == "down":
+                end = i
+        return end
+
+    def packed_tail_start(self) -> Optional[int]:
+        """Index of the first Upsample carrying packed weights (the start of
+        a generator's packed tail), or None."""
+        return next((j for j, (s, blk) in enumerate(zip(self.plan,
+                                                        self.blocks))
+                     if s[0] == "up" and getattr(blk, "p512", None)
+                     is not None), None)
+
     def forward(self, x, tap_indices: Optional[Sequence[int]] = None):
         """Run every block; with tap_indices also return {i: features after
         block i}. While gradients are recorded, each res/attn block is
         recomputed in the backward pass instead of keeping its activations
-        (the JAX package's blocks_apply(remat=True))."""
+        (the JAX package's blocks_apply(remat=True)). A prepared encoder
+        (phase512_prepare) runs its packed prefix first; its packed weights
+        are not parameters, so it refuses to record gradients."""
         taps: Dict[int, torch.Tensor] = {}
         remat = torch.is_grad_enabled()
-        for i, (spec, blk) in enumerate(zip(self.plan, self.blocks)):
+        i0 = 0
+        end = self.packed_prefix_end()
+        if end is not None:
+            if remat:
+                raise RuntimeError("a phase-packed stack serves only: its "
+                                   "packed weights get no gradients")
+            x = _packed_encoder_prefix(self, x, end, taps, tap_indices)
+            i0 = end + 1
+        for i in range(i0, len(self.plan)):
+            spec, blk = self.plan[i], self.blocks[i]
             if remat and spec[0] in ("res", "attn"):
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
@@ -185,6 +222,144 @@ class BlockStack(nn.Module):
             if tap_indices is not None and i in tap_indices:
                 taps[i] = x
         return (x, taps) if tap_indices is not None else x
+
+
+# ---------------------------------------------------------------------------
+# Phase-packed execution of the 512 level (serving; ops/phase_pack.py)
+# ---------------------------------------------------------------------------
+
+def phase_encoder_end(plan) -> Optional[int]:
+    """Index of the Downsample that exits the top encoder level, if the
+    blocks before it are one conv and then res blocks (so a parity-1 packed
+    map reaches it)."""
+    for i, s in enumerate(plan):
+        if s[0] == "down":
+            return i
+        if s[0] != ("conv" if i == 0 else "res"):
+            return None
+    return None
+
+
+def phase_generator_start(plan, fuse_indices=()) -> Optional[int]:
+    """Index of the final Upsample (into the top level), if every later
+    block is res/norm/conv and no fusion tap lands at or after it."""
+    ups = [i for i, s in enumerate(plan) if s[0] == "up"]
+    if not ups:
+        return None
+    start = ups[-1]
+    if (all(s[0] in ("res", "norm", "conv") for s in plan[start + 1:])
+            and all(f < start for f in fuse_indices)):
+        return start
+    return None
+
+
+class PackedWeights(nn.Module):
+    """One block's packed kernels as non-persistent buffers: `.to()` carries
+    them, `state_dict()` leaves them out."""
+
+    def __init__(self, **tensors):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_buffer(name, t, persistent=False)
+
+
+def packed_weights(conv: nn.Conv2d, packer) -> PackedWeights:
+    """Pack conv's (OIHW) weight and bias with a phase_pack packer, on the
+    host in promote_types(dtype, f32), and round once to the module's dtype
+    on its device."""
+    ct = torch.promote_types(conv.weight.dtype, torch.float32)
+    w = conv.weight.detach().to("cpu", ct).permute(2, 3, 1, 0).numpy()
+    b = None if conv.bias is None else conv.bias.detach().to("cpu", ct).numpy()
+    pw, pb = packer(w, b)
+
+    def dev(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(conv.weight.device, conv.weight.dtype)
+
+    return PackedWeights(w=dev(pw), b=dev(pb))
+
+
+def phase512_prepare(stack: BlockStack, blocks: range) -> BlockStack:
+    """Pack (in place) the weights of `blocks` into non-persistent buffers:
+    an encoder's packed prefix, range(phase_encoder_end + 1), or a
+    generator's packed tail, range(phase_generator_start, len(plan)).
+    Serving only: the trainers keep the unpacked path. Returns the stack."""
+    for i in blocks:
+        spec, blk = stack.plan[i], stack.blocks[i]
+        if spec[0] == "conv":
+            blk.p512 = packed_weights(blk, pp.pack_conv3x3)
+        elif spec[0] == "res":
+            c1 = packed_weights(blk.conv1, pp.pack_conv3x3)
+            c2 = packed_weights(blk.conv2, pp.pack_conv3x3)
+            blk.p512 = PackedWeights(conv1_w=c1.w, conv1_b=c1.b,
+                                     conv2_w=c2.w, conv2_b=c2.b)
+        elif spec[0] == "down":
+            blk.p512 = packed_weights(blk.conv, pp.pack_downsample3x3)
+        elif spec[0] == "up":
+            blk.p512 = packed_weights(blk.conv, pp.pack_upconv3x3)
+        # "norm" uses its unpacked weight and bias
+    return stack
+
+
+def _packed_res_block(blk: ResBlock, x, parity: int, true_hw):
+    p = blk.p512
+    h = pp.packed_group_norm(x, blk.norm1.weight, blk.norm1.bias, true_hw,
+                             eps=GN_EPS, parity=parity, swish_after=True)
+    h = pp.packed_conv(h, p.conv1_w, p.conv1_b, parity)
+    h = pp.packed_group_norm(h, blk.norm2.weight, blk.norm2.bias, true_hw,
+                             eps=GN_EPS, parity=1 - parity, swish_after=True)
+    h = pp.packed_conv(h, p.conv2_w, p.conv2_b, 1 - parity)
+    if blk.conv_out is not None:
+        x = pp.packed_conv1x1(x, blk.conv_out.weight, blk.conv_out.bias,
+                              parity)
+    return h.add_(x)
+
+
+def _packed_encoder_prefix(stack: BlockStack, x, end: int, taps,
+                           tap_indices):
+    """Blocks [0, end] (conv, res*, down) phase-packed on the NCHW input x;
+    returns the NCHW half-resolution map after the Downsample at `end`.
+    Taps inside the packed region are unpacked at tap time."""
+    true_hw = tuple(x.shape[-2:])
+    x = pp.space_to_depth(x)
+    parity = 0
+    for i in range(end):
+        spec, blk = stack.plan[i], stack.blocks[i]
+        if spec[0] == "conv":
+            x = pp.packed_conv(x, blk.p512.w, blk.p512.b, parity)
+            parity ^= 1
+        else:  # res
+            x = _packed_res_block(blk, x, parity, true_hw)
+        if tap_indices is not None and i in tap_indices:
+            taps[i] = pp.depth_to_space(x, parity)
+    # the conv left the map at parity 1: the Downsample takes it VALID
+    down = stack.blocks[end].p512
+    x = pp.packed_downsample(x, down.w, down.b).permute(0, 3, 1,
+                                                        2).contiguous()
+    if tap_indices is not None and end in tap_indices:
+        taps[end] = x
+    return x
+
+
+def packed_generator_tail(stack: BlockStack, x, start: int):
+    """Blocks [start, ...) (the final Upsample, then res*, norm, conv) of a
+    prepared generator, phase-packed, from the NCHW map x; returns the
+    NCHW full-resolution output."""
+    up = stack.blocks[start].p512
+    true_hw = (2 * x.shape[-2], 2 * x.shape[-1])
+    x = pp.packed_upconv(x.permute(0, 2, 3, 1), up.w, up.b)
+    parity = 1
+    for j in range(start + 1, len(stack.plan)):
+        spec, blk = stack.plan[j], stack.blocks[j]
+        if spec[0] == "res":
+            x = _packed_res_block(blk, x, parity, true_hw)
+        elif spec[0] == "norm":
+            x = pp.packed_group_norm(x, blk.weight, blk.bias, true_hw,
+                                     eps=GN_EPS, parity=parity)
+        else:  # conv
+            x = pp.packed_conv(x, blk.p512.w, blk.p512.b, parity)
+            parity ^= 1
+    return pp.depth_to_space(x, parity)
 
 
 class VectorQuantizer(nn.Module):

@@ -18,7 +18,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(_CSRC))
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-SOURCES = ("attention", "mlp", "vq", "fused_act")
+SOURCES = ("attention", "mlp", "vq", "fused_act", "packed_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,9 @@ _SIGNATURES = {
     },
     "fused_act": {
         "keep_fused_bias_lrelu": (_P, _P, _P, _L, _L, _I, _F, _F, _I, _P),
+    },
+    "packed_conv": {
+        "keep_packed_conv": (_P, _P, _P) + (_I,) * 12 + (_P,),
     },
 }
 

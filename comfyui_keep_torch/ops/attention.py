@@ -1,4 +1,4 @@
-"""Attention for the KEEP side: plain PyTorch, softmax in f32.
+"""Attention for the KEEP side: plain PyTorch, softmax in at least f32.
 
 The token counts there are small (256 to 1024), so the scores are formed
 whole, as the JAX package leaves them to XLA. GMFlow's large attentions go
@@ -13,10 +13,12 @@ import torch.nn.functional as F
 def softmax_attention(q, k, v, scale: Optional[float] = None,
                                  bias=None):
     """q: (..., Lq, D), k: (..., Lk, D), v: (..., Lk, Dv) -> (..., Lq, Dv).
-    Scores and softmax in f32, probabilities cast to v's dtype for PV."""
+    Scores and softmax in promote_types(dtype, f32) (f32 for bf16, f64
+    stays f64), probabilities cast to v's dtype for PV."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    ct = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.matmul(q.to(ct), k.to(ct).transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1).to(v.dtype)

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, each beside its plain version:
-GMFlow's three, the nearest-codebook search of KEEP training and StyleGAN2's
-fused bias + leaky ReLU.
+GMFlow's three, the nearest-codebook search of KEEP training, StyleGAN2's
+fused bias + leaky ReLU and the phase-packed convolution.
 
 | wrapper | CUDA source | replaces (comfyui_keep_tpu/ops/pallas_kernels.py) |
 | `attention` | csrc/attention.cu | `attention_pallas` |
@@ -8,6 +8,7 @@ fused bias + leaky ReLU.
 | `mlp_fused` | csrc/mlp.cu | `mlp_fused_pallas` |
 | `vq_nearest_indices` | csrc/vq.cu | `vq_nearest_indices_pallas` |
 | `fused_bias_lrelu` | csrc/fused_act.cu | `fused_bias_lrelu_pallas` |
+| `packed_conv2x2` | csrc/packed_conv.cu | `pallas_conv` (tools/_prof_packedconv.py) |
 
 A wrapper given CPU tensors computes its plain version (the CPU tests run
 there). Given CUDA tensors it launches its kernel, or raises on anything the
@@ -28,7 +29,7 @@ from comfyui_keep_torch.ops._build import library
 LAUNCHES: Dict[str, int] = {
     "attention[dv128]": 0, "attention[dv128+bias]": 0, "attention[dv2]": 0,
     "global_correlation_expectation": 0, "mlp_fused": 0,
-    "vq_nearest_indices": 0, "fused_bias_lrelu": 0}
+    "vq_nearest_indices": 0, "fused_bias_lrelu": 0, "packed_conv2x2": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTH = 128  # q/k width of attention, C of the MLP
 VQ_CODE_TILE = 64   # the codebook size must be a multiple of this
@@ -288,9 +289,69 @@ def fused_bias_lrelu(x, bias, negative_slope: float = 0.2,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K6: phase-packed convolution
+# ---------------------------------------------------------------------------
+
+def packed_conv2x2_plain(x, w, pads):
+    """The kernel's function: the shifted matmuls of each tap summed in
+    promote_types(dtype, f32) and rounded once to x's dtype (an f64 input,
+    which the kernel does not take, stays f64). Reads outside x are zeros."""
+    (pt, pb), (pl, pr) = pads
+    kh, kw = w.shape[:2]
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    ho, wo = xp.shape[1] - kh + 1, xp.shape[2] - kw + 1
+    acc = None
+    for ty in range(kh):
+        for tx in range(kw):
+            term = torch.matmul(xp[:, ty:ty + ho, tx:tx + wo].to(ct),
+                                w[ty, tx].to(ct))
+            acc = term if acc is None else acc + term
+    return acc.to(x.dtype)
+
+
+def packed_conv2x2(x, w, pads):
+    """x: (B, Hi, Wi, Cin) NHWC; w: (kh, kw, Cin, Cout) HWIO; pads:
+    ((top, bottom), (left, right)) zero pads. Returns the stride-1
+    convolution (B, Hi + top + bottom - kh + 1, ..., Cout) in x's dtype. On
+    CUDA: kh, kw in {1, 2}, pads in {0, 1}, Cin and Cout multiples of 4, x
+    and w contiguous, 16-byte aligned and of one dtype (f32 or bf16)."""
+    if not x.is_cuda:
+        return packed_conv2x2_plain(x, w, pads)
+    (pt, pb), (pl, pr) = pads
+    if x.dim() != 4 or w.dim() != 4 or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"packed_conv2x2 takes NHWC x and HWIO w in "
+                         f"f32/bf16, got {tuple(x.shape)}, {tuple(w.shape)} "
+                         f"{x.dtype}")
+    b, hi, wi, cin = x.shape
+    kh, kw, cout = w.shape[0], w.shape[1], w.shape[3]
+    ho, wo = hi + pt + pb - kh + 1, wi + pl + pr - kw + 1
+    if (kh not in (1, 2) or kw not in (1, 2)
+            or any(p not in (0, 1) for p in (pt, pb, pl, pr))
+            or cin % 4 or cout % 4 or min(b, cin, cout, ho, wo) < 1):
+        raise ValueError(f"packed_conv2x2 kernel takes 1-2 taps, pads of 0 "
+                         f"or 1 and channels a multiple of 4, got w "
+                         f"{tuple(w.shape)}, pads {pads}, x {tuple(x.shape)}")
+    _check("packed_conv2x2 x", x, (b, hi, wi, cin), x.dtype, x.device)
+    _check("packed_conv2x2 w", w, (kh, kw, cin, cout), x.dtype, x.device)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("packed_conv2x2: x and w must be 16-byte aligned")
+    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    lib = library("packed_conv")
+    with torch.cuda.device(x.device):
+        err = lib.keep_packed_conv(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                   b, hi, wi, cin, cout, kh, kw, pt, pb, pl,
+                                   pr, _DTYPE_CODE[x.dtype], _stream(x))
+    _raise_on(err, "packed_conv2x2 kernel launch")
+    LAUNCHES["packed_conv2x2"] += 1
+    return out
+
+
 PLAIN = {"attention": attention_plain,
          "global_correlation_expectation":
              global_correlation_expectation_plain,
          "mlp_fused": mlp_fused_plain,
          "vq_nearest_indices": vq_nearest_indices_plain,
-         "fused_bias_lrelu": fused_bias_lrelu_plain}
+         "fused_bias_lrelu": fused_bias_lrelu_plain,
+         "packed_conv2x2": packed_conv2x2_plain}

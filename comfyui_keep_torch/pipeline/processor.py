@@ -4,8 +4,11 @@ modules/keep_processor.py), ported from comfyui_keep_tpu/pipeline/processor.py.
 A stream of aligned 512x512 faces is cut into `max_clip_length` chunks; the
 recurrent state resets at each chunk and a 1-frame chunk is duplicated and
 its first output kept (keep_processor.py:256-275). Each chunk runs GMFlow
-over its frame pairs, then KEEP. Face detection, tracking and paste-back are
-not ported yet, so the unaligned paths raise.
+over its frame pairs, then KEEP. With carry_chunks=True (the JAX package's
+extension) the state streams across chunks instead. As in the JAX package,
+KEEP's 512-level convolutions run phase-packed unless phase512=False.
+Face detection, tracking and paste-back are not ported yet, so the
+unaligned paths raise.
 """
 import copy
 from typing import List, Optional
@@ -41,44 +44,70 @@ class KEEPFaceProcessor:
     GMFlow the flows are zero (the single-image path).
 
     The models must already sit on `device` ("cuda" unless the caller asks
-    for the CPU); `KEEPModelPack.processor` moves them there."""
+    for the CPU); `KEEPModelPack.processor` moves them there. After the
+    dtype cast, KEEP is prepared for phase-packed 512-level convolutions
+    (phase512, the JAX processor's default) on a copy that shares the
+    caller's parameters, so the caller's KEEP stays unpacked."""
 
     def __init__(self, keep: KEEP, gmflow: Optional[GMFlow] = None, dtype=None,
-                 device="cuda"):
+                 device="cuda", phase512: bool = True):
         device = torch.device(device)
         if not (_on(keep, device) and _on(gmflow, device)):
             raise ValueError(f"the models are not on {device}: move them "
                              f"there first (KEEPModelPack.load_device)")
         self.keep = _cast(keep, dtype)
+        if phase512:
+            self.keep = self.keep.prepare_phase512()
         self.gmflow = _cast(gmflow, dtype)
         p = next(self.keep.parameters())
         self.device, self.dtype = p.device, p.dtype
         self.face_size = int(self.keep.cfg.get("img_size", 512))
 
-    def restore_clip(self, clip: np.ndarray) -> np.ndarray:
-        """One chunk: (T, H, W, 3) RGB in [-1, 1] -> (T, H, W, 3) float32."""
-        x = torch.as_tensor(clip[None]).to(self.device, self.dtype)
-        flows = flow_from_clip(self.gmflow, x) if self.gmflow is not None \
-            else None
-        out = self.keep.apply(x, flows=flows)
-        return out[0].float().cpu().numpy()
+    def restore_clip(self, clip: np.ndarray, carry=None,
+                     prev_frame: Optional[np.ndarray] = None,
+                     return_carry: bool = False):
+        """One chunk: (T, H, W, 3) RGB in [-1, 1] -> (T, H, W, 3) float32.
+        With `carry` (a return_carry=True call's, on the chunk whose last
+        input frame was prev_frame) the state streams in, and the boundary
+        flow maps this chunk's frame 0 to prev_frame. return_carry=True
+        returns (out, carry)."""
+        frames = clip if carry is None else np.concatenate(
+            [prev_frame[None], clip])
+        x = torch.as_tensor(frames[None]).to(self.device, self.dtype)
+        flows = (flow_from_clip(self.gmflow, x)
+                 if self.gmflow is not None and x.shape[1] > 1 else None)
+        if carry is not None:
+            x = x[:, 1:]
+        out = self.keep.apply(x, flows=flows, carry=carry,
+                              return_carry=return_carry)
+        if return_carry:
+            out, carry = out
+        out = out[0].float().cpu().numpy()
+        return (out, carry) if return_carry else out
 
     def restore_face_stream(self, faces_bgr_u8: List[np.ndarray],
-                            max_clip_length: int = 20) -> List[np.ndarray]:
-        """Restore a flat stream of aligned faces (uint8 BGR), chunked with
-        the state reset per chunk."""
+                            max_clip_length: int = 20,
+                            carry_chunks: bool = False) -> List[np.ndarray]:
+        """Restore a flat stream of aligned faces (uint8 BGR), chunked.
+        carry_chunks=False resets the state per chunk (the reference);
+        carry_chunks=True streams the Kalman state and the CFA features
+        across chunk boundaries, with no 1-frame duplication."""
         if not faces_bgr_u8:
             return []
         x_all = np.stack([bgr_u8_to_rgb_pm1(f) for f in faces_bgr_u8])
         outs: List[np.ndarray] = []
+        carry = None
         for start in range(0, len(x_all), max_clip_length):
             clip = x_all[start:start + max_clip_length]
-            dup = clip.shape[0] == 1
-            if dup:  # 1-frame duplication (keep_processor.py:266-268)
-                clip = np.concatenate([clip, clip], axis=0)
-            out = self.restore_clip(clip)
-            if dup:
-                out = out[:1]
+            if carry_chunks:
+                out, carry = self.restore_clip(
+                    clip, carry, x_all[start - 1] if start else None,
+                    return_carry=True)
+            elif clip.shape[0] == 1:
+                # 1-frame duplication (keep_processor.py:266-268)
+                out = self.restore_clip(np.concatenate([clip, clip]))[:1]
+            else:
+                out = self.restore_clip(clip)
             outs.extend(rgb_pm1_to_bgr_u8(o) for o in out)
         return outs
 
@@ -115,7 +144,8 @@ class KEEPFaceProcessor:
     def process_image_sequence(self, frames_bgr: List[np.ndarray],
                                final_upscale_factor: float = 1.0,
                                has_aligned_frames: bool = False,
-                               max_clip_length: int = 20) -> List[np.ndarray]:
+                               max_clip_length: int = 20,
+                               carry_chunks: bool = False) -> List[np.ndarray]:
         """Sequence restore of aligned frames. As in the JAX package and the
         reference, aligned frames return the (upscaled) input frames: the
         restored faces are computed but pasted nowhere."""
@@ -126,5 +156,6 @@ class KEEPFaceProcessor:
         faces = [cv2.resize(f, (self.face_size, self.face_size),
                             interpolation=cv2.INTER_LINEAR)
                  for f in frames_bgr]
-        self.restore_face_stream(faces, max_clip_length)
+        self.restore_face_stream(faces, max_clip_length,
+                                 carry_chunks=carry_chunks)
         return [self._resize_bg(f, final_upscale_factor) for f in frames_bgr]

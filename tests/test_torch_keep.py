@@ -132,3 +132,39 @@ def test_keep_apply_parity_teacher_forced(nets, with_flows):
     np.testing.assert_allclose(ours["logits"].numpy(),
                                np.asarray(aux["logits"]), atol=5e-3,
                                rtol=1e-2)
+
+
+def test_keep_carry_streams_chunks_like_jax(nets):
+    """carry / return_carry: a 3-frame chunk, then a 2-frame chunk that
+    starts from the first one's carried output and CFA features, with 2
+    flows (flow 0 maps its frame 0 back to the carried frame). Picks are
+    forced from the JAX run; outputs, logits and both carries compared."""
+    tree, net = nets
+    rng = np.random.default_rng(6)
+    x = rng.random((1, 5, 64, 64, 3), dtype=np.float32) * 2 - 1
+    f1, f2 = (tuple(rng.standard_normal((1, 2, 64, 64), dtype=np.float32)
+                    * 2 for _ in range(2)) for _ in range(2))
+    jcarry = pcarry = None
+    for xs, fl in ((x[:, :3], f1), (x[:, 3:], f2)):
+        (ref, aux), jcarry = jkeep.KEEP.apply(
+            tree, jnp.asarray(xs), flows=tuple(map(jnp.asarray, fl)),
+            remat=False, return_aux=True, carry=jcarry, return_carry=True,
+            **TINY)
+        picks = np.asarray(aux["logits"]).argmax(-1).reshape(1, xs.shape[1],
+                                                             -1)
+        (out, ours), pcarry = net.apply(
+            torch.as_tensor(xs), flows=tuple(map(torch.as_tensor, fl)),
+            return_aux=True, force_indices=torch.as_tensor(picks),
+            carry=pcarry, return_carry=True)
+        assert out.shape == xs.shape
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=5e-3,
+                                   rtol=1e-2)
+        np.testing.assert_allclose(ours["logits"].numpy(),
+                                   np.asarray(aux["logits"]), atol=5e-3,
+                                   rtol=1e-2)
+        np.testing.assert_allclose(pcarry[0].numpy(), np.asarray(jcarry[0]),
+                                   atol=5e-3, rtol=1e-2)
+        assert pcarry[1].keys() == jcarry[1].keys() == {"16"}
+        np.testing.assert_allclose(pcarry[1]["16"].numpy(),
+                                   np.asarray(jcarry[1]["16"]), atol=5e-3,
+                                   rtol=1e-2)

@@ -1,5 +1,6 @@
 """The port's kernels (comfyui_keep_torch/ops/kernels.py): GMFlow's three,
-the nearest-codebook search and the fused bias + leaky ReLU.
+the nearest-codebook search, the fused bias + leaky ReLU and the
+phase-packed convolution.
 
 On the CPU: each plain version against the JAX package's Pallas kernel run
 in interpret mode (as tests/test_native_ops.py runs it) and against the JAX
@@ -298,6 +299,96 @@ def test_fused_leaky_relu_backward_keys_on_h_not_on_the_output():
     np.testing.assert_allclose(gx.numpy(), [[2 ** 0.5, 2 ** 0.5]], rtol=1e-7)
 
 
+def _pallas_conv(x, w, br):
+    """tools/_prof_packedconv.py's pallas_conv (body _kernel), copied with
+    its shape constants as arguments (importing the script runs its TPU
+    timing): the VALID 2x2 convolution of x (H, H, CI) by w (2, 2, CI, CO)
+    as four shifted GEMMs summed in f32, BR output rows per grid step."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    h, ci, co = x.shape[0], x.shape[-1], w.shape[-1]
+    n_out = h - 1
+
+    def kernel(xt_ref, xb_ref, w_ref, o_ref):
+        wj = w_ref[...]
+        acc = jnp.zeros((br * n_out, co), jnp.float32)
+        for ty, xr in ((0, xt_ref), (1, xb_ref)):
+            blk = xr[...]
+            for tx in (0, 1):
+                a = blk[:, tx:tx + n_out, :].reshape(br * n_out, ci)
+                acc += jnp.dot(a, wj[ty, tx], preferred_element_type=jnp.float32)
+        o_ref[...] = acc.astype(o_ref.dtype).reshape(br, n_out, co)
+
+    return pl.pallas_call(
+        kernel, grid=(n_out // br,),
+        in_specs=[pl.BlockSpec((br, h, ci), lambda j: (j, 0, 0),
+                               memory_space=pltpu.VMEM),
+                  pl.BlockSpec((br, h, ci), lambda j: (j, 0, 0),
+                               memory_space=pltpu.VMEM),
+                  pl.BlockSpec((2, 2, ci, co), lambda j: (0, 0, 0, 0),
+                               memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((br, n_out, co), lambda j: (j, 0, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((n_out, n_out, co), x.dtype),
+        interpret=True)(x[:-1], x[1:], w)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+@pytest.mark.parametrize("h,ci,co,br", [(17, 32, 16, 8), (9, 12, 24, 4)])
+def test_packed_conv_plain_vs_pallas_interpret(dtype, h, ci, co, br):
+    """K6's plain version against the Pallas kernel in interpret mode, at
+    K6's own form (a parity-1 packed input, VALID 2x2) cut to small shapes.
+    f32: summation order; bf16: both round the f32 sum once (1 ulp)."""
+    rng = np.random.default_rng(30)
+    x = _np(rng, h, h, ci)
+    w = _np(rng, 2, 2, ci, co, scale=0.05)
+    ours = K.packed_conv2x2_plain(_to(x, dtype)[None], _to(w, dtype),
+                                  ((0, 0), (0, 0)))[0]
+    ref = _pallas_conv(_jx(x, dtype), _jx(w, dtype), br)
+    assert ours.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == np.float32
+           else dict(atol=1e-2, rtol=2 ** -7))
+    np.testing.assert_allclose(_f32(ours), _f32(ref), **tol)
+
+
+PADS = [((pt, pb), (pl_, pr)) for pt in (0, 1) for pb in (0, 1)
+        for pl_ in (0, 1) for pr in (0, 1)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+@pytest.mark.parametrize("taps", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_packed_conv_plain_vs_xla_conv(dtype, taps):
+    """K6's plain version against tools/_prof_packedconv.py's xla_conv
+    reference (lax.conv_general_dilated, NHWC / HWIO) for every taps and
+    pads combination the kernel takes, at channel counts that are multiples
+    of 4 but not of 8 or 32 (the packed first and last convolutions' 12)."""
+    rng = np.random.default_rng(31)
+    for cin, cout in ((12, 20), (36, 12)):
+        x = _np(rng, 2, 7, 9, cin)
+        w = _np(rng, *taps, cin, cout, scale=0.1)
+        for pads in PADS:
+            ours = K.packed_conv2x2_plain(_to(x, dtype), _to(w, dtype), pads)
+            ref = jax.lax.conv_general_dilated(
+                _jx(x, dtype), _jx(w, dtype), (1, 1), list(pads),
+                dimension_numbers=("NHWC", "HWIO", "NHWC"))
+            assert tuple(ours.shape) == ref.shape, pads
+            tol = (dict(atol=1e-5, rtol=1e-5) if dtype == np.float32
+                   else dict(atol=1e-2, rtol=2 ** -7))
+            np.testing.assert_allclose(_f32(ours), _f32(ref), **tol,
+                                       err_msg=str(pads))
+
+
+def test_packed_conv_plain_keeps_float64():
+    x = torch.randn(1, 5, 5, 8, dtype=torch.float64)
+    w = torch.randn(2, 2, 8, 4, dtype=torch.float64)
+    got = K.packed_conv2x2_plain(x, w, ((1, 0), (0, 1)))
+    ref = torch.nn.functional.conv2d(
+        torch.nn.functional.pad(x.permute(0, 3, 1, 2), (0, 1, 1, 0)),
+        w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     rng = np.random.default_rng(7)
     q, k, v = (torch.as_tensor(_np(rng, 2, 64, 128)) for _ in range(3))
@@ -319,4 +410,9 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     torch.testing.assert_close(K.fused_bias_lrelu(q, q[0, :, 0]),
                                K.fused_bias_lrelu_plain(q, q[0, :, 0]),
                                rtol=0, atol=0)
+    x, w = q.reshape(2, 8, 8, 128), k[0].reshape(2, 2, 128, 16)
+    torch.testing.assert_close(K.packed_conv2x2(x, w, ((1, 1), (1, 1))),
+                               K.packed_conv2x2_plain(x, w, ((1, 1), (1, 1))),
+                               rtol=0, atol=0)
     assert set(K.LAUNCHES.values()) == {0}
+    assert "packed_conv2x2" in K.LAUNCHES and "packed_conv2x2" in K.PLAIN

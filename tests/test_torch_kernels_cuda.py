@@ -9,9 +9,10 @@ that has only PyTorch:
 
 Tolerance: max|kernel - plain| <= rtol * max(1, max|plain|), with rtol 1e-4
 in f32 (summation order, exp2 against exp) and 1.6e-2 in bf16 (4 ulps of
-an 8-bit mantissa: the online softmax rounds P at other points). The fused
-bias + leaky ReLU does the plain version's operations in its order, so it
-is held bitwise.
+an 8-bit mantissa: the online softmax rounds P at other points; the
+packed convolution rounds its f32 sum once in both). The fused bias + leaky
+ReLU does the plain version's operations in its order, so it is held
+bitwise.
 """
 import copy
 
@@ -276,4 +277,103 @@ def test_tiny_restore_on_card_matches_cpu(cuda):
     out_g = copy.deepcopy(net).to(cuda).apply(
         x.to(cuda), flows=tuple(f.to(cuda) for f in flows),
         force_indices=picks.to(cuda))
+    torch.testing.assert_close(out_g.cpu(), out, atol=5e-3, rtol=1e-2)
+
+
+PACKED_PADS = [((pt, pb), (pl, pr)) for pt in (0, 1) for pb in (0, 1)
+               for pl in (0, 1) for pr in (0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("taps", [(1, 1), (1, 2), (2, 1), (2, 2)])
+def test_packed_conv_matches_plain(cuda, dtype, taps):
+    """Every taps and pads combination the kernel takes, at channel counts
+    that are multiples of 4 but not of 32 (ragged K slices, masked output
+    columns) and at odd grids that no 64-pixel tile divides; one launch
+    counted per call."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for (b, h, w_, cin, cout) in ((2, 9, 13, 12, 20), (1, 17, 5, 36, 12),
+                                  (3, 11, 11, 256, 68)):
+        x = torch.randn(b, h, w_, cin, generator=g, device=cuda).to(dtype)
+        w = (torch.randn(*taps, cin, cout, generator=g, device=cuda)
+             * 0.1).to(dtype)
+        for pads in PACKED_PADS:
+            before = K.LAUNCHES["packed_conv2x2"]
+            got = K.packed_conv2x2(x, w, pads)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["packed_conv2x2"] == before + 1
+            ref = K.packed_conv2x2_plain(x, w, pads)
+            assert got.dtype == dtype and got.shape == ref.shape, pads
+            assert _rel_err(got, ref) <= RTOL[dtype], (pads, b, h, cin)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_conv_at_the_path_shapes(cuda, dtype):
+    """K6's own shape, (257, 257, 256) VALID, its mirror with pad 1, and the
+    first (Cin 12) and last (Cout 12) convolutions of the packed path."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for hi, cin, cout, pads in ((257, 256, 256, ((0, 0), (0, 0))),
+                                (256, 256, 256, ((1, 1), (1, 1))),
+                                (256, 12, 256, ((1, 1), (1, 1))),
+                                (257, 256, 12, ((0, 0), (0, 0)))):
+        x = torch.randn(1, hi, hi, cin, generator=g, device=cuda).to(dtype)
+        w = (torch.randn(2, 2, cin, cout, generator=g, device=cuda)
+             * 0.05).to(dtype)
+        got = K.packed_conv2x2(x, w, pads)
+        torch.cuda.synchronize()
+        assert _rel_err(got, K.packed_conv2x2_plain(x, w, pads)) \
+            <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_packed_conv_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(1, 8, 8, 16, device=cuda)
+    w = torch.randn(2, 2, 16, 8, device=cuda)
+    same = ((1, 1), (1, 1))
+    before = K.LAUNCHES["packed_conv2x2"]
+    for bad_x, bad_w, pads in (
+            (x.half(), w.half(), same),                        # fp16
+            (x, w.to(torch.bfloat16), same),                   # dtypes differ
+            (x.transpose(1, 2), w, same),                      # not contiguous
+            (x[..., :14].contiguous(), w[:, :, :14].contiguous(), same),
+            (x, w[..., :6].contiguous(), same),                # Cout % 4
+            (x, torch.randn(3, 3, 16, 8, device=cuda), same),  # 3 taps
+            (x, w, ((2, 0), (0, 0))),                          # pad 2
+            (x, w.cpu(), same),                                # CPU weight
+            (torch.randn(1025, device=cuda)[1:].view(1, 8, 8, 16), w, same),
+            (x[:, :1, :1], w, ((0, 0), (0, 0)))):              # empty output
+        with pytest.raises(ValueError):
+            K.packed_conv2x2(bad_x, bad_w, pads)
+    assert K.LAUNCHES["packed_conv2x2"] == before
+
+
+@pytest.mark.cuda
+def test_packed_keep_on_card_matches_unpacked_cpu(cuda):
+    """A narrow KEEP at 512 px, f32: the card's phase-packed forward (K6)
+    against the CPU's unpacked one, picks forced from the CPU, within the
+    golden tolerance. With one ResBlock per level a packed stack pass is 4
+    K6 launches (its first conv or upconv, 2 in the ResBlock, the
+    Downsample or final conv): the LQ encoder once over both frames, the
+    HQ encoder for frame 1, the generator tail per frame, 16 at T = 2."""
+    from comfyui_keep_torch.models.keep import KEEP
+    cfg = dict(img_size=512, nf=32, ch_mult=(1, 2, 2, 2, 2, 2), res_blocks=1,
+               attn_resolutions=(16,), codebook_size=64, emb_dim=32,
+               dim_embd=64, n_head=4, n_layers=1, latent_size=256,
+               cft_list=("32", "64"), cfa_list=("16",), cfa_nhead=2,
+               cfa_dim=16, kalman_attn_head_dim=8, num_uncertainty_layers=1,
+               temp_reg_list=())
+    net = KEEP(device="cpu", generator=torch.Generator().manual_seed(8),
+               **cfg)
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.random((1, 2, 512, 512, 3), dtype=np.float32)
+                        * 2 - 1)
+    out, aux = net.apply(x, return_aux=True)
+    picks = aux["logits"].argmax(-1).reshape(1, 2, -1)
+    packed = copy.deepcopy(net).to(cuda).prepare_phase512()
+    before = K.LAUNCHES["packed_conv2x2"]
+    out_g = packed.apply(x.to(cuda), force_indices=picks.to(cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["packed_conv2x2"] - before == 16
     torch.testing.assert_close(out_g.cpu(), out, atol=5e-3, rtol=1e-2)

@@ -3,8 +3,9 @@ in f32: restore_face_stream with the per-chunk state reset and the 1-frame
 duplication, the aligned process_image / process_image_sequence paths, the
 API's device lifecycle and .pth loading, and the image conversions.
 
-The JAX side runs with KEEP_TPU_NO_PHASE512=1 (its phase-packed convs equal
-the plain ones only up to summation order; the port has the plain form).
+The JAX side runs with KEEP_TPU_NO_PHASE512=1, though at this 64-px size
+neither package packs (tests/test_torch_phase_pack.py holds the packed
+512-level path).
 Restored faces are uint8: the two sides agree to 1 level (f32 noise of
 ~1e-4 can flip a rounding).
 """
@@ -86,6 +87,29 @@ def test_restore_face_stream_matches_jax(procs):
         assert _max_level_diff(o, r) <= 1
 
 
+@pytest.mark.parametrize("n_faces", [5, 4])
+def test_carried_chunks_stream_matches_jax(procs, n_faces):
+    """carry_chunks=True: chunks of 3, the Kalman state and CFA features
+    carried across the boundary, whose flow GMFlow takes from the previous
+    chunk's last input frame; a 1-frame last chunk (4 faces) is not
+    duplicated. The first chunk equals the reset stream's; a later one
+    differs from it."""
+    ref_proc, proc = procs
+    faces = _faces(n_faces, seed=4)
+    ref = ref_proc.restore_face_stream(faces, max_clip_length=3,
+                                       carry_chunks=True)
+    ours = proc.restore_face_stream(faces, max_clip_length=3,
+                                    carry_chunks=True)
+    assert len(ours) == len(ref) == n_faces
+    for o, r in zip(ours, ref):
+        assert o.dtype == np.uint8 and o.shape == (64, 64, 3)
+        assert _max_level_diff(o, r) <= 1
+    reset = proc.restore_face_stream(faces, max_clip_length=3)
+    for a, b in zip(ours[:3], reset[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert any(not np.array_equal(a, b) for a, b in zip(ours[3:], reset[3:]))
+
+
 def test_process_image_aligned_matches_jax(procs):
     """Resize to the face size, restore (a duplicated 1-frame chunk), resize
     by the upscale factor (Lanczos, which can spread a 1-level difference
@@ -107,6 +131,16 @@ def test_process_image_sequence_aligned_matches_jax(procs):
     ours = proc.process_image_sequence(frames, 2.0, has_aligned_frames=True)
     for o, r in zip(ours, ref):
         np.testing.assert_array_equal(o, r)
+    seen = []
+    stream = proc.restore_face_stream
+    proc.restore_face_stream = lambda *a, **kw: seen.append(kw) or stream(
+        *a, **kw)
+    try:
+        proc.process_image_sequence(frames, has_aligned_frames=True,
+                                    max_clip_length=2, carry_chunks=True)
+    finally:
+        del proc.restore_face_stream
+    assert seen == [{"carry_chunks": True}]
     with pytest.raises(NotImplementedError):
         proc.process_image_sequence(frames, has_aligned_frames=False)
     with pytest.raises(NotImplementedError):

@@ -2,11 +2,13 @@
 """Where the time of one main-path chunk of the PyTorch port goes, on one
 NVIDIA GPU.
 
-    python3 tools/torch_profile_chunk.py [--out chiprun_out/profile.txt]
+    python3 tools/torch_profile_chunk.py [--unpacked] [--out chiprun_out/profile.txt]
 
 Runs api.load_models(seed=0) -> load_device(bf16) -> processor(bf16)
 .restore_face_stream on 20 random aligned 512x512 faces (one chunk) once to
-warm up, then once under torch.profiler. Prints one JSON line: the wall time,
+warm up, then once under torch.profiler. The processor runs KEEP's 512
+level phase-packed, as served by default; --unpacked profiles it with
+phase512=False. Prints one JSON line: the wall time,
 the device's busy time (the summed durations of the device-side events,
 which never overlap on one stream) and idle share, and the kernels with the
 most device time, beside the card's name and power limit. The profiler's own
@@ -31,6 +33,8 @@ def main():
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "profile.txt"))
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--unpacked", action="store_true",
+                    help="KEEP's 512-level convolutions unpacked")
     args = ap.parse_args()
 
     import torch
@@ -44,7 +48,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     pack = api.load_models(seed=0).load_device(torch.bfloat16)
-    proc = pack.processor(dtype=torch.bfloat16)
+    proc = pack.processor(dtype=torch.bfloat16, phase512=not args.unpacked)
     rng = np.random.default_rng(3)
     faces = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
              for _ in range(FRAMES)]
@@ -71,7 +75,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({
-        "card": smi, "wall_ms": wall_ms,
+        "card": smi, "phase512": not args.unpacked, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
         "device_events": sum(n for n, _ in by_name.values()),
         "top": [{"name": k[:90], "calls": n, "device_ms": ms}
