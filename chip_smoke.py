@@ -16,7 +16,10 @@ the verdict):
               the LQ encoder's 20-frame batch, bf16 and f32: max|d| and
               tolerance, kernel / plain / library ms (cuDNN's conv2d on the
               same packed tensor, channels-last), the ms of the unpacked
-              3x3 convolution at 512^2 it replaces, and the bound
+              3x3 convolution at 512^2 it replaces, and the bound; at each
+              shape whose output the path masks (pad 1), a second row with
+              the fused bias and parity-1 mask against plain + bias + mask,
+              beside the bias add and mask launches it replaces (unfused_ms)
   5. gmflow   flow_from_clip on a 2-frame 512x512 clip, f32: card (kernels)
               against CPU (plain versions), max|d| in pixels
   6. keep     KEEP.apply on the same clip and flows, f32: card against CPU
@@ -24,12 +27,16 @@ the verdict):
               unpacked, then phase-packed (prepare_phase512, 24 K6
               launches); outputs and logits
   7. main     api.load_models(seed=0) -> load_device(bf16) ->
-              processor(bf16).restore_face_stream(21 faces, 20 per chunk),
-              the 512 level phase-packed as served by default: faces/s, ms
-              per 20-frame chunk and the kernel launch counts (K6: 12 per
-              frame, 264); main_unpacked: the same with phase512=False, its
-              chunk ms (timed in turns with the packed one), K6 = 0, and
-              the packed-against-unpacked uint8 difference (reported)
+              processor(bf16, phase512=True).restore_face_stream(21 faces,
+              20 per chunk), the 512 level phase-packed: faces/s, ms per
+              20-frame chunk and the kernel launch counts (K6: 12 per
+              frame, 264); main_unpacked: the same with phase512=False, K6
+              = 0, and the packed-against-unpacked uint8 difference
+              (reported). Before them, `default`: both chunks timed in turns
+              over 10 pairs, their medians and ratio, and whether ROADMAP's
+              condition for packing by default holds in this run (K6 at its
+              own shape within 1.5x of cuDNN's 2x2, packed median no slower)
+              beside the processor's default
   8. stream   restore_face_stream(21 faces, carry_chunks=True): the state
               carried into a 1-frame second chunk; finite outputs and the
               launches the path implies (K6 240 + 18)
@@ -97,6 +104,7 @@ FLOW_TOL_PX = 5e-2           # GMFlow card against CPU, pixels
 KEEP_ATOL, KEEP_RTOL = 5e-3, 1e-2   # KEEP forward tolerance of the golden tests
 FRAMES, WINDOWS, FEAT, CH, HID = 20, 4, 64, 128, 1024
 KERNEL_ITERS = 20    # timed launches per kernel (a quarter for plain versions)
+MAIN_PAIRS = 10      # packed / unpacked chunk pairs timed in turns
 VQ_T, VQ_N, VQ_C = 4096, 1024, 256   # B=2 x 8 frames x 16x16 latents
 # both dtypes accumulate the products in f32 (bf16 products are exact), so
 # kernel and plain distances differ by summation order only
@@ -385,6 +393,37 @@ def phase_k6(torch, iters=KERNEL_ITERS):
                    "ok": bool(err <= tol)}
             say("kernel", **row)
             rows[(label, dname)] = row
+            if pads == K6_SAME:
+                # the path masks these outputs: the fused bias + parity-1
+                # mask against plain + bias + mask, and against the launches
+                # it replaces (the bias add and the six slice zeroings)
+                bias = torch.randn(cout, generator=g, device="cuda").to(dtype)
+                mc = cout // 4
+                fused = K.packed_conv2x2(x, w, pads, bias, mc)
+                torch.cuda.synchronize()
+                fref = K.packed_conv2x2_plain(x, w, pads, bias, mc).float()
+                ferr = (fused.float() - fref).abs().max().item()
+                fspread = (fref - fref.mean()).abs().max().item()
+                ftol = KERNEL_RTOL[dname] * fspread
+
+                def unfused():
+                    K.mask_parity1_(K.packed_conv2x2(x, w, pads).add_(bias),
+                                    mc)
+                frow = dict(row, case=label + ", + bias + mask",
+                            max_abs_err=ferr, tol=ftol, ref_spread=fspread,
+                            ms=time_ms(torch, lambda: K.packed_conv2x2(
+                                x, w, pads, bias, mc), iters),
+                            plain_ms=time_ms(
+                                torch, lambda: K.packed_conv2x2_plain(
+                                    x, w, pads, bias, mc), max(1, iters // 4)),
+                            unfused_ms=time_ms(torch, unfused, iters),
+                            library_ms=time_ms(torch, lambda: F.conv2d(
+                                xl, wl, bias, padding=1), iters),
+                            library="cuDNN conv2d + bias (no mask)",
+                            ok=bool(ferr <= ftol))
+                say("kernel", **frow)
+                rows[(frow["case"], dname)] = frow
+                del fused, fref
             del x, w, got, ref, ux, uw, xl, wl
     torch.cuda.empty_cache()
     bad = [k for k, r in rows.items() if not r["ok"]]
@@ -470,25 +509,31 @@ def serving_launches(k6_per_frame_chunks):
             "fused_bias_lrelu": 0, "packed_conv2x2": k6_per_frame_chunks}
 
 
-def phase_main(torch):
-    """The default processor (packed) and a phase512=False one on the same
-    pack: chunk ms of each, 3 runs in turns (packed, unpacked, unpacked,
-    packed, ...), then the 21-face run of each with its launch counts.
-    Returns (the packed run's counts, the packed processor, the faces)."""
+def phase_main(torch, k6_own):
+    """The packed processor (phase512=True) and a phase512=False one on the
+    same pack: chunk ms of each over MAIN_PAIRS pairs timed in turns
+    (packed, unpacked, unpacked, packed, ...) after a warm-up pair, the
+    medians and their ratio, and ROADMAP's condition for keeping packing the
+    default (K6 at its own shape within 1.5x of cuDNN's 2x2 in this run, the
+    packed median no slower than the unpacked one) beside the processor's
+    default; then the 21-face run of each with its launch counts. Returns
+    (the packed run's counts, the packed processor, the faces)."""
+    import inspect
     from comfyui_keep_torch import api
     from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.pipeline.processor import KEEPFaceProcessor
     from comfyui_keep_torch.utils.image import bgr_u8_to_rgb_pm1
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     pack = api.load_models(seed=0).load_device(torch.bfloat16)
-    procs = {"packed": pack.processor(dtype=torch.bfloat16),
+    procs = {"packed": pack.processor(dtype=torch.bfloat16, phase512=True),
              "unpacked": pack.processor(dtype=torch.bfloat16,
                                         phase512=False)}
     rng = np.random.default_rng(3)
     faces = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
              for _ in range(FRAMES + 1)]
     runs = {k: [] for k in procs}
-    for i in range(4):   # a warm-up pair, then 3 timed pairs in turns
+    for i in range(MAIN_PAIRS + 1):   # a warm-up pair, then the timed pairs
         order = list(procs) if i % 2 == 0 else list(procs)[::-1]
         for name in order:
             torch.cuda.synchronize()
@@ -499,6 +544,17 @@ def phase_main(torch):
             if i:
                 runs[name].append(1e3 * (time.perf_counter() - t0))
     chunk_ms = {k: float(np.median(v)) for k, v in runs.items()}
+    k6_over_cudnn = k6_own["ms"] / k6_own["library_ms"]
+    holds = bool(k6_over_cudnn <= 1.5
+                 and chunk_ms["packed"] <= chunk_ms["unpacked"])
+    default = inspect.signature(KEEPFaceProcessor).parameters[
+        "phase512"].default
+    say("default", pairs=MAIN_PAIRS, packed_median_ms=chunk_ms["packed"],
+        unpacked_median_ms=chunk_ms["unpacked"],
+        packed_over_unpacked=chunk_ms["packed"] / chunk_ms["unpacked"],
+        k6_own_ms=k6_own["ms"], cudnn_2x2_ms=k6_own["library_ms"],
+        k6_over_cudnn=k6_over_cudnn, k6_limit=1.5,
+        packing_condition_holds=holds, processor_default_phase512=default)
 
     outs, counts = {}, {}
     for name, proc in procs.items():
@@ -1243,7 +1299,7 @@ def main():
     vq_rows = phase_vq(torch)
     x, flows = phase_gmflow(torch)
     phase_keep(torch, x, flows)
-    counts, proc, faces = phase_main(torch)
+    counts, proc, faces = phase_main(torch, k6_rows[(K6_OWN, "bfloat16")])
     phase_stream(torch, proc, faces)
     del proc
     torch.cuda.empty_cache()

@@ -8,7 +8,7 @@ from comfyui_keep_tpu/api.py for aligned faces.
 or a reference .pth); `load_device` moves them to the card (the CPU only
 when asked) and `offload` back to the host. `processor` runs on the card
 unless the caller asks for the CPU, and moves the pack there if needed; its
-KEEP runs the 512 level phase-packed unless asked `phase512=False`.
+KEEP runs the 512 level phase-packed only when asked `phase512=True`.
 """
 from typing import Optional
 
@@ -41,7 +41,7 @@ class KEEPModelPack:
         return self
 
     def processor(self, dtype: Optional[torch.dtype] = None,
-                  device="cuda", phase512: bool = True) -> KEEPFaceProcessor:
+                  device="cuda", phase512: bool = False) -> KEEPFaceProcessor:
         """A processor on `device` in `dtype`; moves the pack to `device`
         first (in place, as load_device) when it sits elsewhere. phase512
         as for KEEPFaceProcessor: the pack's own KEEP stays unpacked."""

@@ -1,13 +1,19 @@
 // Phase-packed convolution for Hopper (sm_90a): a stride-1 convolution of
 // at most 2 x 2 taps over an NHWC input with zero pads of at most one cell,
-//   out[b, i, j, :] = sum_{ty < kh, tx < kw} x[b, i + ty - pt, j + tx - pl, :]
-//                                            . w[ty, tx]
+//   out[b, i, j, n] = sum_{ty < kh, tx < kw} x[b, i + ty - pt, j + tx - pl, :]
+//                                            . w[ty, tx, :, n]  [+ bias[n]]
 // (reads outside the input are zeros), x NHWC, w HWIO, out NHWC in x's
-// dtype, the products summed in f32 and rounded once.
+// dtype, the products and the bias summed in f32 and rounded once. With
+// mask_c > 0 (Cout = 4 mask_c) the output is a parity-1 phase-packed map
+// and its pad half-cells are zeroed after the bias: phase block q =
+// n / mask_c (qy = q / 2, qx = q % 2) of the first cell row if qy = 0, of
+// the last if qy = 1, of the first cell column if qx = 0, of the last if
+// qx = 1 (ops/phase_pack.py:_mask_parity1_).
 //
 // Replaces tools/_prof_packedconv.py: pallas_conv (body _kernel), the VALID
 // 2x2 convolution of a parity-1 phase-packed tensor as four shifted GEMMs
-// summed in f32. One kernel serves every packed convolution of
+// summed in f32 (called without bias and mask, the kernel computes exactly
+// that function). One kernel serves every packed convolution of
 // ops/phase_pack.py: 2x2 with pad 1 (parity 0 -> 1, the packed upconv) and
 // VALID (parity 1 -> 0, the packed downsample); it also takes the one-tap
 // and one-sided-pad forms of the JAX package's deeper packed levels, which
@@ -19,184 +25,335 @@
 // What bounds it on the H100: at the (257, 257, 256) shape 34.4 GFLOP
 // against 68 MB moved, ~500 flop/byte, so the arithmetic bounds it: 35 us
 // in bf16 on the tensor cores (989 TFLOP/s), 0.51 ms in f32 on the CUDA
-// cores (67 TFLOP/s).
+// cores (67 TFLOP/s). Every K step of the implicit GEMM is a shifted patch
+// of the input, so the input is re-read from L2 once per tap (4x), and each
+// block reads the whole weight slab (512 KB) from L2.
 //
-// What the design does about it: an implicit GEMM with rows = output
-// pixels, K = taps x Cin, N = Cout. A block of 128 threads owns a 64-pixel
-// x 64-channel output tile; it walks the taps and, for each, Cin in slices
-// of 32 channels. Each slice's 64 x 32 input patch (the 64 pixels' shifted
-// reads, zero-filled at pads and past ragged channels) and 32 x 64 weight
-// slice are staged in shared memory with 8- or 16-byte loads (Cin and Cout
-// are multiples of 4); the tile accumulates in registers across all slices:
-// WMMA fragments (bf16 in, f32 out; each warp a 32 x 32 quarter) for bf16,
-// FMA with no TF32 for f32. bf16 tiles then pass through an f32 shared tile
-// to masked 4-wide stores. At 256^2 outputs one frame gives 1024 x Cout/64
-// blocks, enough for 132 SMs. Nothing is pipelined: cp.async or TMA staging,
-// wgmma and fused bias / mask epilogues are left for the work that makes the
-// kernel fast.
+// bf16 (the packed path's dtype): packed_conv_wgmma_kernel, an implicit
+// GEMM with M = output pixels, N = Cout, K = taps x Cin. A block of 2
+// warpgroups owns 128 pixels x BN channels (BN 256 when Cout > 64, so at
+// the hot shapes each input patch is read once per tap; BN 64 for the
+// narrow outputs) and walks K in steps of 64 input channels of one tap
+// (128 bytes of bf16, one 128-byte swizzle row), channel block by channel
+// block, the taps of a block in turn: a tap's patch is its neighbour's
+// shifted by a pixel, so those copies go through L1 (cp.async.ca). Each
+// step's 128 x 64 input patch and 64 x BN weight slice go through a
+// 4-stage shared-memory ring filled by 16-byte cp.async with zero-fill
+// (8-byte when Cin or Cout is not a multiple of 8), which serves the pad
+// cells, the pixels past the end and the channels past Cin; three steps
+// load ahead of the tensor cores. Each warpgroup multiplies its 64 pixels
+// by the slice with wgmma m64nBNk16 (A K-major, B N-major as the HWIO
+// weight lies, both 128-byte swizzled, accumulators in registers), then
+// waits for its previous step only, so one step multiplies while the next
+// loads. The epilogue adds the bias in f32, rounds once to bf16 into
+// shared memory and writes 16-byte coalesced rows, zeroing a masked
+// pixel's pad half-cells on the way, so a packed op is one launch with
+// no separate bias add or mask zeroing. What bounds it now: the
+// bytes each SM pulls from L2 per step (16 KB of patch, 32 KB of weights
+// that every block re-reads), ~17 B/clock/SM at its own shape, which
+// holds it near 35 % of the bf16 peak (~1.7x cuDNN's 2x2). Multicasting
+// the weight slice across a 2-block cluster with TMA would halve the
+// larger part.
+//
+// f32 (no main path; the card's f32 checks): packed_conv_f32_kernel, the
+// first design: 64 pixels x 64 channels a block of 128 threads, K slices of
+// 32 channels staged by 16-byte loads, FMA into registers, no TF32.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace keep {
-
-constexpr int kPcCols = 64;  // output channels per block
-constexpr int kPcK = 32;     // input channels of one K slice
-constexpr int kPcLdc = kPcCols + 4;  // f32 epilogue tile row stride
 
 struct PcGeom {
   int Hi, Wi, Cin, Cout, kh, kw, pt, pl, Ho, Wo;
   long long M;  // B * Ho * Wo output pixels
 };
 
-// 4 consecutive elements as one load: 8 bytes of bf16, 16 bytes of f32
-// (all-zero bits are 0.0 in both)
-template <typename T> struct Vec4;
-template <> struct Vec4<bf16> {
-  using type = uint2;
-  static __device__ __forceinline__ type zero() { return make_uint2(0, 0); }
-};
-template <> struct Vec4<float> {
-  using type = float4;
-  static __device__ __forceinline__ type zero() {
-    return make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+// the fused epilogue: bias (Cout values, f32 or bf16, or none) and the
+// parity-1 mask (mask_c > 0)
+struct PcEpi {
+  const void* bias;
+  int bias_bf16;
+  int mask_c;
 };
 
-template <typename T> struct PcLayout {
-  static constexpr int lda = kPcK + Pad<T>::v;     // input patch row stride
-  static constexpr int ldb = kPcCols + Pad<T>::v;  // weight slice row stride
-  static constexpr size_t a_bytes = align128(sizeof(T) * kRows * lda);
-  static constexpr size_t ab_bytes =
-      a_bytes + align128(sizeof(T) * kPcK * ldb);
-  static constexpr size_t c_bytes = sizeof(float) * kRows * kPcLdc;
-  static constexpr size_t bytes = ab_bytes > c_bytes ? ab_bytes : c_bytes;
-};
+__device__ __forceinline__ float pc_bias(const PcEpi& e, int n) {
+  if (e.bias == nullptr) return 0.f;
+  return e.bias_bf16 ? __bfloat162float(static_cast<const bf16*>(e.bias)[n])
+                     : static_cast<const float*>(e.bias)[n];
+}
 
-template <typename T> struct PcAcc;
+// pad-cell flags of output pixel p: bit 0 first row, 1 last row, 2 first
+// column, 3 last column (0 without a mask)
+__device__ __forceinline__ int pc_edges(const PcGeom& g, const PcEpi& e,
+                                        long long p) {
+  if (e.mask_c <= 0) return 0;
+  const long long rem = p % ((long long)g.Ho * g.Wo);
+  const int i = (int)(rem / g.Wo), j = (int)(rem % g.Wo);
+  return (i == 0) | ((i == g.Ho - 1) << 1) | ((j == 0) << 2) |
+         ((j == g.Wo - 1) << 3);
+}
 
-// bf16: warp w owns the 32 x 32 quarter (w / 2, w % 2) as 2 x 2 fragments
-template <> struct PcAcc<bf16> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      acc[2][2];
+// whether output channel n (< 4 mask_c) of a pixel with these edge flags is
+// a pad half-cell; its phase block q = n / mask_c by comparisons
+__device__ __forceinline__ bool pc_masked(int edges, int mask_c, int n) {
+  const bool q1 = n >= mask_c, qy = n >= 2 * mask_c, q3 = n >= 3 * mask_c;
+  const bool qx = q1 ^ qy ^ q3;
+  return ((edges & 1) && !qy) || ((edges & 2) && qy) ||
+         ((edges & 4) && !qx) || ((edges & 8) && qx);
+}
 
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) nvcuda::wmma::fill_fragment(acc[m][n], 0.f);
-  }
+// ---------------------------------------------------------------------------
+// bf16: wgmma implicit GEMM
+// ---------------------------------------------------------------------------
 
-  __device__ __forceinline__ void mma(const bf16* As, const bf16* Bs) {
-    using namespace nvcuda;
-    constexpr int lda = PcLayout<bf16>::lda, ldb = PcLayout<bf16>::ldb;
-    const int wr = threadIdx.x / 64, wc = (threadIdx.x / 32) % 2;
-#pragma unroll
-    for (int k = 0; k < kPcK; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        wmma::load_matrix_sync(a[m], As + (32 * wr + 16 * m) * lda + k, lda);
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-        wmma::load_matrix_sync(b[n], Bs + k * ldb + 32 * wc + 16 * n, ldb);
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-          wmma::mma_sync(acc[m][n], a[m], b[n], acc[m][n]);
-    }
-  }
+constexpr int kWgRows = 128;     // output pixels per block (2 x 64)
+constexpr int kWgK = 64;         // input channels per K step
+constexpr int kWgStages = 4;
+constexpr int kWgAhead = kWgStages - 1;  // K steps loading ahead
+constexpr int kWgThreads = 256;
+constexpr int kNoRow = -(1 << 29);  // row_i of a pixel past the end
 
-  // the tile through an f32 shared tile (which overlays the staging
-  // buffers: the caller synchronises first) to 4-wide masked stores
-  __device__ __forceinline__ void store(unsigned char* smem, bf16* out,
-                                        long long m0, int n0,
-                                        const PcGeom& g) {
-    using namespace nvcuda;
-    float* Cs = reinterpret_cast<float*>(smem);
-    const int wr = threadIdx.x / 64, wc = (threadIdx.x / 32) % 2;
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-        wmma::store_matrix_sync(
-            Cs + (32 * wr + 16 * m) * kPcLdc + 32 * wc + 16 * n, acc[m][n],
-            kPcLdc, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * (kPcCols / 4); i += kThreads) {
-      const int r = i / (kPcCols / 4), c = 4 * (i % (kPcCols / 4));
-      const long long p = m0 + r;
-      if (p >= g.M || n0 + c >= g.Cout) continue;
-      const float* s = Cs + r * kPcLdc + c;
-      __nv_bfloat162 lo = __floats2bfloat162_rn(s[0], s[1]);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(s[2], s[3]);
-      uint2 v;
-      v.x = *reinterpret_cast<const unsigned*>(&lo);
-      v.y = *reinterpret_cast<const unsigned*>(&hi);
-      *reinterpret_cast<uint2*>(out + p * g.Cout + n0 + c) = v;
-    }
-  }
-};
-
-// f32: thread t owns rows 4 (t / 8) .. + 3 against columns t % 8 + 8 j
-template <> struct PcAcc<float> {
-  float acc[4][8];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-  }
-
-  __device__ __forceinline__ void mma(const float* As, const float* Bs) {
-    constexpr int lda = PcLayout<float>::lda, ldb = PcLayout<float>::ldb;
-    const int tr = threadIdx.x / 8, tc = threadIdx.x % 8;
-    const float* At = As + 4 * tr * lda;
-#pragma unroll 8
-    for (int k = 0; k < kPcK; ++k) {
-      float a[4], b[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = At[r * lda + k];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[k * ldb + tc + 8 * j];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(a[r], b[j], acc[r][j]);
-    }
-  }
-
-  __device__ __forceinline__ void store(unsigned char*, float* out,
-                                        long long m0, int n0,
-                                        const PcGeom& g) {
-    const int tr = threadIdx.x / 8, tc = threadIdx.x % 8;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const long long p = m0 + 4 * tr + r;
-      if (p >= g.M) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int co = n0 + tc + 8 * j;
-        if (co < g.Cout) out[p * g.Cout + co] = acc[r][j];
-      }
-    }
-  }
+template <int BN>
+struct WgLayout {
+  static constexpr int a_bytes = kWgRows * kWgK * 2;  // 16 KB, 128-B rows
+  static constexpr int b_bytes = kWgK * BN * 2;       // BN/64 blocks of 8 KB
+  static constexpr int stage = a_bytes + b_bytes;
+  static constexpr int out_row = BN * 2;              // epilogue tile row
+  static constexpr int ring = kWgStages * stage;
+  static constexpr int bytes = ring + 1024;           // + 1024-B alignment
+  static_assert(kWgRows * out_row <= ring, "epilogue tile overlays the ring");
 };
 
 // x: (B, Hi, Wi, Cin); w: (kh, kw, Cin, Cout); out: (B, Ho, Wo, Cout).
-// Grid (ceil(M / 64), ceil(Cout / 64)), 128 threads.
-template <typename T>
+// Grid (ceil(M / 128), ceil(Cout / BN)), 256 threads.
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    packed_conv_wgmma_kernel(const bf16* __restrict__ x,
+                             const bf16* __restrict__ w,
+                             bf16* __restrict__ out, PcGeom g, PcEpi e) {
+  using Lay = WgLayout<BN>;
+  constexpr int NACC = BN / 2;  // f32 accumulators per thread
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ long long row_pix[kWgRows];  // pixel index of (i - pt, j - pl)
+  __shared__ int row_i[kWgRows], row_j[kWgRows];  // i - pt (kNoRow), j - pl
+  __shared__ int row_edges[kWgRows];  // pc_edges of each output pixel
+  __shared__ float bias_s[BN];
+
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 B
+  unsigned char* smem = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const long long m0 = (long long)blockIdx.x * kWgRows;
+  const int n0 = blockIdx.y * BN;
+  if (tid < kWgRows) {
+    const long long p = m0 + tid;
+    const long long hw = (long long)g.Ho * g.Wo;
+    const long long rem = p % hw;
+    const int i = (int)(rem / g.Wo) - g.pt, j = (int)(rem % g.Wo) - g.pl;
+    row_pix[tid] = ((p / hw) * g.Hi + i) * g.Wi + j;
+    row_i[tid] = p < g.M ? i : kNoRow;
+    row_j[tid] = j;
+    row_edges[tid] = pc_edges(g, e, p);
+  }
+  for (int i = tid; i < BN; i += kWgThreads)
+    bias_s[i] = n0 + i < g.Cout ? pc_bias(e, n0 + i) : 0.f;
+  __syncthreads();
+
+  const int cblocks = (g.Cin + kWgK - 1) / kWgK;
+  const int steps = g.kh * g.kw * cblocks;
+  const bool a16 = (g.Cin & 7) == 0, b16 = (g.Cout & 7) == 0;
+
+  // 16-byte copies: each thread's 4 input rows and weight column are fixed
+  // across K steps, so their geometry stays in registers
+  constexpr int kAPer = kWgRows * (kWgK / 8) / kWgThreads;  // 4
+  const int a_c = (tid & 7) * 8;                           // channel in step
+  long long a_pix[kAPer];
+  int a_i[kAPer], a_j[kAPer];
+  uint32_t a_dst[kAPer];
+#pragma unroll
+  for (int k = 0; k < kAPer; ++k) {
+    const int r = (tid >> 3) + 32 * k;
+    a_pix[k] = row_pix[r];
+    a_i[k] = row_i[r];
+    a_j[k] = row_j[r];
+    a_dst[k] = sm90::swz(r, tid & 7, 128);
+  }
+  constexpr int kBCpr = BN / 8;                 // 16-byte chunks per K row
+  constexpr int kBRpi = kWgThreads / kBCpr;     // K rows per pass
+  const int b_nn = (tid % kBCpr) * 8, b_kr = tid / kBCpr;
+  const uint32_t b_dst = (b_nn >> 6) * (kWgK * 128) +
+                         sm90::swz(b_kr, (b_nn & 63) >> 3, 128);
+  const bool b_col_ok = n0 + b_nn < g.Cout;
+
+  // K step s: input channels c0 .. c0 + 63 of tap s % taps -> stage s % 4
+  // (consecutive taps read the same channels of neighbouring pixels, which
+  // the L1 still holds)
+  const int taps = g.kh * g.kw;
+  auto load_step = [&](int s) {
+    const int tap = s % taps, c0 = (s / taps) * kWgK;
+    const int ty = tap / g.kw, tx = tap % g.kw;
+    const uint32_t sa = base + (s % kWgStages) * Lay::stage;
+    const uint32_t sb = sa + Lay::a_bytes;
+    // input patch: 128 pixels x 64 channels, K-major 128-byte rows
+    if (a16) {
+      const long long shift = (long long)ty * g.Wi + tx;
+      const bool c_ok = c0 + a_c < g.Cin;
+#pragma unroll
+      for (int k = 0; k < kAPer; ++k) {
+        const int ii = a_i[k] + ty, jj = a_j[k] + tx;
+        const bool ok = c_ok && ii >= 0 && ii < g.Hi && jj >= 0 && jj < g.Wi;
+        const bf16* src = ok ? x + (a_pix[k] + shift) * g.Cin + c0 + a_c : x;
+        sm90::cp_async16_l1(sa + a_dst[k], src, ok ? 16 : 0);
+      }
+    } else {  // 8-byte copies, Cin a multiple of 4
+      for (int i = tid; i < kWgRows * (kWgK / 4); i += kWgThreads) {
+        const int r = i / (kWgK / 4), cc = (i % (kWgK / 4)) * 4;
+        const int ii = row_i[r] + ty, jj = row_j[r] + tx;
+        const bool ok = c0 + cc < g.Cin && ii >= 0 && ii < g.Hi && jj >= 0 &&
+                        jj < g.Wi;
+        const bf16* src =
+            ok ? x + (row_pix[r] + (long long)ty * g.Wi + tx) * g.Cin + c0 + cc
+               : x;
+        sm90::cp_async8(sa + sm90::swz(r, cc >> 3, 128) + (cc & 7) * 2, src,
+                        ok ? 8 : 0);
+      }
+    }
+    // weight slice: 64 input channels x BN outputs, N-major: 64-wide output
+    // blocks of 64 K rows x 128 B, 8 KB apart
+    const bf16* wt = w + ((size_t)tap * g.Cin + c0) * g.Cout + n0;
+    if (b16) {
+#pragma unroll
+      for (int k = 0; k < kWgK / kBRpi; ++k) {
+        const int kr = b_kr + kBRpi * k;
+        const bool ok = b_col_ok && c0 + kr < g.Cin;
+        const bf16* src = ok ? wt + (size_t)kr * g.Cout + b_nn : w;
+        sm90::cp_async16(sb + b_dst + kBRpi * k * 128, src, ok ? 16 : 0);
+      }
+    } else {  // 8-byte copies, Cout a multiple of 4
+      for (int i = tid; i < kWgK * (BN / 4); i += kWgThreads) {
+        const int kr = i / (BN / 4), nn = (i % (BN / 4)) * 4;
+        const bool ok = c0 + kr < g.Cin && n0 + nn < g.Cout;
+        const bf16* src = ok ? wt + (size_t)kr * g.Cout + nn : w;
+        sm90::cp_async8(sb + (nn >> 6) * (kWgK * 128) +
+                            sm90::swz(kr, (nn & 63) >> 3, 128) + (nn & 7) * 2,
+                        src, ok ? 8 : 0);
+      }
+    }
+  };
+
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kWgAhead; ++s) {
+    if (s < steps) load_step(s);
+    sm90::cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    sm90::cp_async_wait<kWgAhead - 1>();  // this thread's copies of step s
+    sm90::fence_async_smem();
+    __syncthreads();  // every copy of step s is visible to wgmma
+    const uint32_t sa = base + (s % kWgStages) * Lay::stage;
+    const uint32_t sb = sa + Lay::a_bytes;
+    sm90::wg_fence();
+#pragma unroll
+    for (int k = 0; k < kWgK / 16; ++k)
+      sm90::Wgmma<BN>::mma(
+          acc, sm90::desc_sw128(sa + wg * 64 * 128 + 32 * k, 16, 1024),
+          sm90::desc_sw128(sb + 16 * 128 * k, kWgK * 128, 1024));
+    sm90::wg_commit();
+    // step s multiplies while step s + 3 loads into step s - 1's stage,
+    // once both warpgroups are done with it
+    sm90::wg_wait<1>();
+    __syncthreads();
+    if (s + kWgAhead < steps) load_step(s + kWgAhead);
+    sm90::cp_async_commit();
+  }
+  sm90::wg_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // the epilogue tile overlays the ring
+
+  // accumulator (warp w of the warpgroup, lane l): rows 16w + l/4 (+ 8),
+  // columns 8j + 2(l % 4) + {0, 1}
+  const int lane = tid & 31;
+  const int wr = 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int cl = 8 * j + 2 * (lane & 3);
+    const float b0 = bias_s[cl], b1 = bias_s[cl + 1];
+    const float v[4] = {acc[4 * j] + b0, acc[4 * j + 1] + b1,
+                        acc[4 * j + 2] + b0, acc[4 * j + 3] + b1};
+    *reinterpret_cast<uint32_t*>(smem + sm90::swz(wr, j, Lay::out_row) +
+                                 4 * (lane & 3)) = sm90::pack_bf16(v[0], v[1]);
+    *reinterpret_cast<uint32_t*>(smem + sm90::swz(wr + 8, j, Lay::out_row) +
+                                 4 * (lane & 3)) = sm90::pack_bf16(v[2], v[3]);
+  }
+  __syncthreads();
+  // 16-byte (8-byte) coalesced stores; a masked pixel's pad half-cells
+  // are zeroed on the way (zero before or after the rounding is the same)
+  const int ow = b16 ? 8 : 4;  // channels per store
+  for (int i = tid; i < kWgRows * (BN / ow); i += kWgThreads) {
+    const int r = i / (BN / ow), nn = (i % (BN / ow)) * ow;
+    const long long p = m0 + r;
+    if (p >= g.M || n0 + nn >= g.Cout) continue;
+    unsigned char* s =
+        smem + sm90::swz(r, nn >> 3, Lay::out_row) + (nn & 7) * 2;
+    const int edges = row_edges[r];
+    if (edges) {
+      bf16* sv = reinterpret_cast<bf16*>(s);
+      for (int c = 0; c < ow; ++c)
+        if (pc_masked(edges, e.mask_c, n0 + nn + c))
+          sv[c] = __float2bfloat16(0.f);
+    }
+    bf16* d = out + p * g.Cout + n0 + nn;
+    if (b16)
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    else
+      *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(s);
+  }
+}
+
+template <int BN>
+int launch_packed_conv_bf16(const void* x, const void* w, void* out,
+                            const PcGeom& g, const PcEpi& e,
+                            cudaStream_t stream) {
+  const long long mt = (g.M + kWgRows - 1) / kWgRows;
+  if (mt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_conv_wgmma_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, WgLayout<BN>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)mt, (g.Cout + BN - 1) / BN);
+  packed_conv_wgmma_kernel<BN>
+      <<<grid, kWgThreads, WgLayout<BN>::bytes, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+          static_cast<bf16*>(out), g, e);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA implicit GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kPcCols = 64;  // output channels per block
+constexpr int kPcK = 32;     // input channels of one K slice
+constexpr int kPcLda = kPcK + 4;     // input patch row stride
+constexpr int kPcLdb = kPcCols + 4;  // weight slice row stride
+
+// x: (B, Hi, Wi, Cin); w: (kh, kw, Cin, Cout); out: (B, Ho, Wo, Cout).
+// Grid (ceil(M / 64), ceil(Cout / 64)), 128 threads; thread t owns rows
+// 4 (t / 8) .. + 3 against columns t % 8 + 8 j.
 __global__ void __launch_bounds__(kThreads)
-    packed_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       T* __restrict__ out, PcGeom g) {
-  using L = PcLayout<T>;
-  using V = typename Vec4<T>::type;
-  __shared__ __align__(128) unsigned char smem[L::bytes];
+    packed_conv_f32_kernel(const float* __restrict__ x,
+                           const float* __restrict__ w,
+                           float* __restrict__ out, PcGeom g, PcEpi e) {
+  __shared__ __align__(16) float As[kRows * kPcLda];
+  __shared__ __align__(16) float Bs[kPcK * kPcLdb];
   __shared__ long long row_img[kRows];  // b * Hi * Wi, or -1 past the end
   __shared__ int row_i[kRows], row_j[kRows];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + L::a_bytes);
 
   const int tid = threadIdx.x;
   const long long m0 = (long long)blockIdx.x * kRows;
@@ -210,64 +367,95 @@ __global__ void __launch_bounds__(kThreads)
     row_j[tid] = (int)(rem % g.Wo) - g.pl;
   }
 
-  const V zero = Vec4<T>::zero();
-  PcAcc<T> acc;
-  acc.zero();
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int tr = tid / 8, tc = tid % 8;
+  float acc[4][8];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
   for (int ty = 0; ty < g.kh; ++ty) {
     for (int tx = 0; tx < g.kw; ++tx) {
-      const T* wt = w + (size_t)(ty * g.kw + tx) * g.Cin * g.Cout;
+      const float* wt = w + (size_t)(ty * g.kw + tx) * g.Cin * g.Cout;
       for (int c0 = 0; c0 < g.Cin; c0 += kPcK) {
         __syncthreads();  // row geometry written; the previous slice read
         // input patch: 64 pixels x 32 channels, as 4-channel vectors
         for (int i = tid; i < kRows * (kPcK / 4); i += kThreads) {
           const int r = i / (kPcK / 4), c = c0 + 4 * (i % (kPcK / 4));
           const int ii = row_i[r] + ty, jj = row_j[r] + tx;
-          V v = zero;
+          float4 v = zero;
           if (row_img[r] >= 0 && ii >= 0 && ii < g.Hi && jj >= 0 &&
               jj < g.Wi && c < g.Cin)
-            v = *reinterpret_cast<const V*>(
+            v = *reinterpret_cast<const float4*>(
                 x + (row_img[r] + (long long)ii * g.Wi + jj) * g.Cin + c);
-          *reinterpret_cast<V*>(As + r * L::lda + (c - c0)) = v;
+          *reinterpret_cast<float4*>(As + r * kPcLda + (c - c0)) = v;
         }
         // weight slice: 32 input channels x 64 output channels
         for (int i = tid; i < kPcK * (kPcCols / 4); i += kThreads) {
           const int k = i / (kPcCols / 4), c = 4 * (i % (kPcCols / 4));
-          V v = zero;
+          float4 v = zero;
           if (c0 + k < g.Cin && n0 + c < g.Cout)
-            v = *reinterpret_cast<const V*>(wt + (size_t)(c0 + k) * g.Cout +
-                                            n0 + c);
-          *reinterpret_cast<V*>(Bs + k * L::ldb + c) = v;
+            v = *reinterpret_cast<const float4*>(wt + (size_t)(c0 + k) *
+                                                 g.Cout + n0 + c);
+          *reinterpret_cast<float4*>(Bs + k * kPcLdb + c) = v;
         }
         __syncthreads();
-        acc.mma(As, Bs);
+        const float* At = As + 4 * tr * kPcLda;
+#pragma unroll 8
+        for (int k = 0; k < kPcK; ++k) {
+          float a[4], b[8];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = At[r * kPcLda + k];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) b[j] = Bs[k * kPcLdb + tc + 8 * j];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(a[r], b[j], acc[r][j]);
+        }
       }
     }
   }
-  __syncthreads();  // the epilogue tile overlays the staging buffers
-  acc.store(smem, out, m0, n0, g);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const long long p = m0 + 4 * tr + r;
+    if (p >= g.M) continue;
+    const int edges = pc_edges(g, e, p);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + tc + 8 * j;
+      if (n >= g.Cout) continue;
+      float v = acc[r][j] + pc_bias(e, n);
+      if (edges && pc_masked(edges, e.mask_c, n)) v = 0.f;
+      out[p * g.Cout + n] = v;
+    }
+  }
 }
 
-template <typename T>
-int launch_packed_conv(const void* x, const void* w, void* out,
-                       const PcGeom& g, cudaStream_t stream) {
+int launch_packed_conv_f32(const void* x, const void* w, void* out,
+                           const PcGeom& g, const PcEpi& e,
+                           cudaStream_t stream) {
   const long long mt = (g.M + kRows - 1) / kRows;
   if (mt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)mt, (g.Cout + kPcCols - 1) / kPcCols);
-  packed_conv_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(out), g);
+  packed_conv_f32_kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), g, e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace keep
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out). kh, kw in {1, 2}; pads
-// in {0, 1}; Cin and Cout multiples of 4; x and w 16-byte aligned. Returns a
-// cudaError_t value (0 = ok).
-extern "C" int keep_packed_conv(const void* x, const void* w, void* out,
-                                int B, int Hi, int Wi, int Cin, int Cout,
-                                int kh, int kw, int pt, int pb, int pl, int pr,
-                                int dtype, void* stream) {
+// in {0, 1}; Cin and Cout multiples of 4; x and w 16-byte aligned. bias:
+// Cout values or null, bfloat16 if bias_bf16 else float32; mask_c: 0, or
+// the phase-block width with Cout = 4 mask_c. Returns a cudaError_t value
+// (0 = ok).
+extern "C" int keep_packed_conv(const void* x, const void* w,
+                                const void* bias, void* out, int B, int Hi,
+                                int Wi, int Cin, int Cout, int kh, int kw,
+                                int pt, int pb, int pl, int pr, int bias_bf16,
+                                int mask_c, int dtype, void* stream) {
   using namespace keep;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   PcGeom g;
@@ -276,13 +464,17 @@ extern "C" int keep_packed_conv(const void* x, const void* w, void* out,
   g.Ho = Hi + pt + pb - kh + 1;
   g.Wo = Wi + pl + pr - kw + 1;
   g.M = (long long)B * g.Ho * g.Wo;
+  PcEpi e;
+  e.bias = bias; e.bias_bf16 = bias_bf16; e.mask_c = mask_c;
   const bool pads_ok = pt >= 0 && pt <= 1 && pb >= 0 && pb <= 1 && pl >= 0 &&
                        pl <= 1 && pr >= 0 && pr <= 1;
   if (B < 1 || Hi < 1 || Wi < 1 || kh < 1 || kh > 2 || kw < 1 || kw > 2 ||
       !pads_ok || Cin < 4 || Cin % 4 != 0 || Cout < 4 || Cout % 4 != 0 ||
-      g.Ho < 1 || g.Wo < 1)
+      g.Ho < 1 || g.Wo < 1 || mask_c < 0 || (mask_c > 0 && 4 * mask_c != Cout))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1) return launch_packed_conv<bf16>(x, w, out, g, st);
-  if (dtype == 0) return launch_packed_conv<float>(x, w, out, g, st);
+  if (dtype == 1)
+    return Cout > 64 ? launch_packed_conv_bf16<256>(x, w, out, g, e, st)
+                     : launch_packed_conv_bf16<64>(x, w, out, g, e, st);
+  if (dtype == 0) return launch_packed_conv_f32(x, w, out, g, e, st);
   return (int)cudaErrorInvalidValue;
 }

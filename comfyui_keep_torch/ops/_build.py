@@ -43,7 +43,7 @@ _SIGNATURES = {
         "keep_fused_bias_lrelu": (_P, _P, _P, _L, _L, _I, _F, _F, _I, _P),
     },
     "packed_conv": {
-        "keep_packed_conv": (_P, _P, _P) + (_I,) * 12 + (_P,),
+        "keep_packed_conv": (_P, _P, _P, _P) + (_I,) * 14 + (_P,),
     },
 }
 

@@ -293,10 +293,26 @@ def fused_bias_lrelu(x, bias, negative_slope: float = 0.2,
 # K6: phase-packed convolution
 # ---------------------------------------------------------------------------
 
-def packed_conv2x2_plain(x, w, pads):
+def mask_parity1_(x, c: int):
+    """In place: zero the half-cells of a parity-1 phase-packed NHWC tensor
+    (B, Hc, Wc, 4c) that stand for the SAME-padding rows / columns -1 and H
+    (phase block qy * 2 + qx is channels [(qy * 2 + qx) * c, +c): the first
+    cell row holds row -1 in blocks 0, 1, the last holds row H in blocks 2,
+    3; columns likewise in blocks 0, 2 and 1, 3). K6's fused mask."""
+    x[:, 0, :, :2 * c] = 0
+    x[:, -1, :, 2 * c:] = 0
+    for q in (0, 2):
+        x[:, :, 0, q * c:(q + 1) * c] = 0
+        x[:, :, -1, (q + 1) * c:(q + 2) * c] = 0
+    return x
+
+
+def packed_conv2x2_plain(x, w, pads, bias=None, mask_c: Optional[int] = None):
     """The kernel's function: the shifted matmuls of each tap summed in
-    promote_types(dtype, f32) and rounded once to x's dtype (an f64 input,
-    which the kernel does not take, stays f64). Reads outside x are zeros."""
+    promote_types(dtype, f32), plus the bias in that type, the parity-1 pad
+    half-cells zeroed when mask_c is given, rounded once to x's dtype (an
+    f64 input, which the kernel does not take, stays f64). Reads outside x
+    are zeros."""
     (pt, pb), (pl, pr) = pads
     kh, kw = w.shape[:2]
     ct = torch.promote_types(x.dtype, torch.float32)
@@ -308,17 +324,26 @@ def packed_conv2x2_plain(x, w, pads):
             term = torch.matmul(xp[:, ty:ty + ho, tx:tx + wo].to(ct),
                                 w[ty, tx].to(ct))
             acc = term if acc is None else acc + term
+    if bias is not None:
+        acc = acc + bias.to(ct)
+    if mask_c is not None:
+        mask_parity1_(acc, mask_c)
     return acc.to(x.dtype)
 
 
-def packed_conv2x2(x, w, pads):
+def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
+                   mask_c: Optional[int] = None):
     """x: (B, Hi, Wi, Cin) NHWC; w: (kh, kw, Cin, Cout) HWIO; pads:
     ((top, bottom), (left, right)) zero pads. Returns the stride-1
-    convolution (B, Hi + top + bottom - kh + 1, ..., Cout) in x's dtype. On
-    CUDA: kh, kw in {1, 2}, pads in {0, 1}, Cin and Cout multiples of 4, x
-    and w contiguous, 16-byte aligned and of one dtype (f32 or bf16)."""
+    convolution (B, Hi + top + bottom - kh + 1, ..., Cout) in x's dtype,
+    plus bias (Cout,) if given, with the parity-1 pad half-cells of phase
+    blocks mask_c wide zeroed if mask_c is given (Cout = 4 mask_c); the sum
+    is taken in f32 and rounded once. On CUDA: kh, kw in {1, 2}, pads in
+    {0, 1}, Cin and Cout multiples of 4, x and w contiguous, 16-byte aligned
+    and of one dtype (f32 or bf16), the bias contiguous in f32 or x's
+    dtype."""
     if not x.is_cuda:
-        return packed_conv2x2_plain(x, w, pads)
+        return packed_conv2x2_plain(x, w, pads, bias, mask_c)
     (pt, pb), (pl, pr) = pads
     if x.dim() != 4 or w.dim() != 4 or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"packed_conv2x2 takes NHWC x and HWIO w in "
@@ -337,12 +362,22 @@ def packed_conv2x2(x, w, pads):
     _check("packed_conv2x2 w", w, (kh, kw, cin, cout), x.dtype, x.device)
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("packed_conv2x2: x and w must be 16-byte aligned")
+    if bias is not None:
+        if bias.dtype not in (torch.float32, x.dtype):
+            raise ValueError(f"packed_conv2x2 bias: dtype {bias.dtype}")
+        _check("packed_conv2x2 bias", bias, (cout,), bias.dtype, x.device)
+    if mask_c is not None and (mask_c < 1 or 4 * mask_c != cout):
+        raise ValueError(f"packed_conv2x2: mask_c={mask_c} needs Cout = "
+                         f"4 mask_c, got Cout={cout}")
     out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
     lib = library("packed_conv")
     with torch.cuda.device(x.device):
-        err = lib.keep_packed_conv(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                   b, hi, wi, cin, cout, kh, kw, pt, pb, pl,
-                                   pr, _DTYPE_CODE[x.dtype], _stream(x))
+        err = lib.keep_packed_conv(
+            x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), b, hi,
+            wi, cin, cout, kh, kw, pt, pb, pl, pr,
+            int(bias is not None and bias.dtype == torch.bfloat16),
+            mask_c or 0, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(err, "packed_conv2x2 kernel launch")
     LAUNCHES["packed_conv2x2"] += 1
     return out

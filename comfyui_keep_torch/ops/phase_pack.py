@@ -24,7 +24,8 @@ changes. The weights are packed once on the host (numpy), from the module's
 weights in f32 (f64 for an f64 module); only `pack_upconv3x3` sums weights,
 so a bf16 module's packed weights are rounded once from the f32 sum of its
 bf16 weights. Every 2x2 convolution goes through the hand-written kernel
-`ops/kernels.py:packed_conv2x2`.
+`ops/kernels.py:packed_conv2x2`, its bias and a parity-1 output's pad mask
+fused into the kernel's epilogue (one launch, one rounding of the f32 sum).
 
 Only the top (512) level is packed, as the JAX package packs it by default:
 its multi-level packing (the parity-0 Downsample and packed-to-packed
@@ -68,24 +69,10 @@ def depth_to_space(x, parity: int = 0):
     return x
 
 
-def _mask_parity1_(x, c: int):
-    """In place: zero the half-cells of a parity-1 packed tensor that stand
-    for the SAME-padding rows / columns -1 and H (phase block qy * 2 + qx
-    is channels [(qy * 2 + qx) * c, +c): the first cell row holds row -1 in
-    blocks 0, 1, the last holds row H in blocks 2, 3; columns likewise in
-    blocks 0, 2 and 1, 3)."""
-    x[:, 0, :, :2 * c] = 0
-    x[:, -1, :, 2 * c:] = 0
-    for q in (0, 2):
-        x[:, :, 0, q * c:(q + 1) * c] = 0
-        x[:, :, -1, (q + 1) * c:(q + 2) * c] = 0
-    return x
-
-
 def mask_parity1(x, c: int):
     """A copy of the parity-1 packed tensor x with its pad half-cells
     zeroed. The packed ops zero their own fresh outputs in place."""
-    return _mask_parity1_(x.clone(), c)
+    return K.mask_parity1_(x.clone(), c)
 
 
 # ---------------------------------------------------------------------------
@@ -147,24 +134,25 @@ def pack_downsample3x3(w: np.ndarray, b: Optional[np.ndarray]):
 # Packed ops (NHWC packed tensors; every 2x2 convolution is K6)
 # ---------------------------------------------------------------------------
 
-def _conv(x, pw, pb, pads):
-    out = K.packed_conv2x2(x.contiguous(), pw, pads)
-    return out if pb is None else out.add_(pb)
+def _conv(x, pw, pb, pads, masked: bool = False):
+    """One K6 launch: the bias, and for a parity-1 output the pad mask,
+    fused into its epilogue."""
+    return K.packed_conv2x2(x.contiguous(), pw, pads, bias=pb,
+                            mask_c=pw.shape[-1] // 4 if masked else None)
 
 
 def packed_conv(x, pw, pb, parity: int):
     """Packed 3x3-equivalent conv; parity is x's, the output's flips. A
     parity-1 output is masked after its bias."""
-    out = _conv(x, pw, pb, _SAME if parity == 0 else _VALID)
     if parity == 0:
-        _mask_parity1_(out, pw.shape[-1] // 4)
-    return out
+        return _conv(x, pw, pb, _SAME, masked=True)
+    return _conv(x, pw, pb, _VALID)
 
 
 def packed_upconv(x, pw, pb):
     """Unpacked NHWC (B, H, W, C) -> parity-1 packed (B, H+1, W+1, 4Cout):
     nearest-2x upsample + 3x3 conv without the 2H x 2W map."""
-    return _mask_parity1_(_conv(x, pw, pb, _SAME), pw.shape[-1] // 4)
+    return _conv(x, pw, pb, _SAME, masked=True)
 
 
 def packed_downsample(x, pw, pb):
@@ -183,7 +171,7 @@ def packed_conv1x1(x, w, b, parity: int):
     if b is not None:
         out.add_(b.repeat(4))
     if parity == 1:
-        _mask_parity1_(out, cout)
+        K.mask_parity1_(out, cout)
     return out
 
 
@@ -223,5 +211,5 @@ def packed_group_norm(x, weight, bias, true_hw: Tuple[int, int],
         out = out * torch.sigmoid(out)
     out = out.to(x.dtype)
     if parity == 1:   # normalising maps the pad zeros to -mean/std
-        _mask_parity1_(out, c)
+        K.mask_parity1_(out, c)
     return out

@@ -5,8 +5,9 @@ A stream of aligned 512x512 faces is cut into `max_clip_length` chunks; the
 recurrent state resets at each chunk and a 1-frame chunk is duplicated and
 its first output kept (keep_processor.py:256-275). Each chunk runs GMFlow
 over its frame pairs, then KEEP. With carry_chunks=True (the JAX package's
-extension) the state streams across chunks instead. As in the JAX package,
-KEEP's 512-level convolutions run phase-packed unless phase512=False.
+extension) the state streams across chunks instead. KEEP's 512-level
+convolutions run phase-packed (the JAX package's default) only when asked,
+phase512=True: on the H100 the packed chunk is the slower one (PERF.md).
 Face detection, tracking and paste-back are not ported yet, so the
 unaligned paths raise.
 """
@@ -44,13 +45,14 @@ class KEEPFaceProcessor:
     GMFlow the flows are zero (the single-image path).
 
     The models must already sit on `device` ("cuda" unless the caller asks
-    for the CPU); `KEEPModelPack.processor` moves them there. After the
-    dtype cast, KEEP is prepared for phase-packed 512-level convolutions
-    (phase512, the JAX processor's default) on a copy that shares the
+    for the CPU); `KEEPModelPack.processor` moves them there. With
+    phase512=True (the JAX processor's default, not this one's: on the H100
+    the packed chunk is slower, PERF.md), KEEP is prepared after the dtype
+    cast for phase-packed 512-level convolutions on a copy that shares the
     caller's parameters, so the caller's KEEP stays unpacked."""
 
     def __init__(self, keep: KEEP, gmflow: Optional[GMFlow] = None, dtype=None,
-                 device="cuda", phase512: bool = True):
+                 device="cuda", phase512: bool = False):
         device = torch.device(device)
         if not (_on(keep, device) and _on(gmflow, device)):
             raise ValueError(f"the models are not on {device}: move them "

@@ -18,6 +18,7 @@ import torch
 from comfyui_keep_tpu.models import gmflow as jg
 from comfyui_keep_tpu.ops import native as JN
 from comfyui_keep_tpu.ops import pallas_kernels as P
+from comfyui_keep_tpu.ops import phase_pack as JPP
 from comfyui_keep_tpu.ops.norm import layer_norm as jlayer_norm
 from comfyui_keep_torch.ops import kernels as K
 from comfyui_keep_torch.ops import native as TN
@@ -378,6 +379,55 @@ def test_packed_conv_plain_vs_xla_conv(dtype, taps):
                                        err_msg=str(pads))
 
 
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+@pytest.mark.parametrize("op", ["conv_p0", "conv_p1", "upconv", "down"])
+def test_packed_conv_plain_fused_epilogue_vs_jax_packed_ops(dtype, op):
+    """K6's plain version with the fused epilogue, packed_conv2x2_plain(x,
+    w, pads, bias, mask_c), against the JAX package's packed ops
+    (comfyui_keep_tpu/ops/phase_pack.py: packed_conv at both parities,
+    packed_upconv, packed_downsample), pad half-cells included. f32: the
+    order of summation (1e-5). bf16: the JAX ops round the convolution and
+    then its sum with the bias, the plain version the f32 sum once, so they
+    differ by at most one bf16 rounding of each: 2 ** -7 of the output's
+    largest magnitude."""
+    rng = np.random.default_rng(32)
+    c = 8
+    x = _np(rng, 2, 9, 9, 4 * c)
+    w3, b = _np(rng, 3, 3, c, c, scale=0.1), _np(rng, c)
+    pads = ((1, 1), (1, 1))
+    if op == "upconv":
+        x = x[..., :c]
+        pw, pb = JPP.pack_upconv3x3(w3, b)
+        ref = JPP.packed_upconv(_jx(x, dtype), _jx(pw, dtype), _jx(pb, dtype))
+        mask_c = c
+    elif op == "down":
+        pw, pb = JPP.pack_downsample3x3(w3, b)
+        xm = np.array(JPP.mask_parity1(x, c))   # a parity-1 input
+        x, pads, mask_c = xm, ((0, 0), (0, 0)), None
+        ref = JPP.packed_downsample(_jx(x, dtype), _jx(pw, dtype),
+                                    _jx(pb, dtype))
+    else:
+        parity = int(op[-1])
+        pw, pb = JPP.pack_conv3x3(w3, b)
+        if parity:
+            x, pads, mask_c = np.array(JPP.mask_parity1(x, c)), \
+                ((0, 0), (0, 0)), None
+        else:
+            mask_c = c
+        ref = JPP.packed_conv(_jx(x, dtype), _jx(pw, dtype), _jx(pb, dtype),
+                              parity)
+    ours = K.packed_conv2x2_plain(_to(x, dtype), _to(pw, dtype), pads,
+                                  bias=_to(pb, dtype), mask_c=mask_c)
+    ref = _f32(ref)
+    assert tuple(ours.shape) == ref.shape
+    assert ours.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
+    if mask_c is not None:   # the pad half-cells are exact zeros in both
+        pad = K.mask_parity1_(torch.ones(ours.shape), mask_c).numpy() == 0
+        assert pad.any() and not _f32(ours)[pad].any() and not ref[pad].any()
+    atol = 1e-5 if dtype == np.float32 else 2 ** -7 * np.abs(ref).max()
+    np.testing.assert_allclose(_f32(ours), ref, atol=atol, rtol=0)
+
+
 def test_packed_conv_plain_keeps_float64():
     x = torch.randn(1, 5, 5, 8, dtype=torch.float64)
     w = torch.randn(2, 2, 8, 4, dtype=torch.float64)
@@ -414,5 +464,10 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     torch.testing.assert_close(K.packed_conv2x2(x, w, ((1, 1), (1, 1))),
                                K.packed_conv2x2_plain(x, w, ((1, 1), (1, 1))),
                                rtol=0, atol=0)
+    bias = q[1, 0, :16]
+    torch.testing.assert_close(
+        K.packed_conv2x2(x, w, ((1, 1), (1, 1)), bias, 4),
+        K.packed_conv2x2_plain(x, w, ((1, 1), (1, 1)), bias, 4),
+        rtol=0, atol=0)
     assert set(K.LAUNCHES.values()) == {0}
     assert "packed_conv2x2" in K.LAUNCHES and "packed_conv2x2" in K.PLAIN

@@ -10,9 +10,9 @@ that has only PyTorch:
 Tolerance: max|kernel - plain| <= rtol * max(1, max|plain|), with rtol 1e-4
 in f32 (summation order, exp2 against exp) and 1.6e-2 in bf16 (4 ulps of
 an 8-bit mantissa: the online softmax rounds P at other points; the
-packed convolution rounds its f32 sum once in both). The fused bias + leaky
-ReLU does the plain version's operations in its order, so it is held
-bitwise.
+packed convolution rounds its f32 sum, bias included, once in both). The
+fused bias + leaky ReLU does the plain version's operations in its order,
+so it is held bitwise.
 """
 import copy
 
@@ -54,11 +54,17 @@ def _mlp_inputs(dev, dtype, rows=(3, 1000), c=128, h=1024, seed=9):
             rnd(c, h, scale=0.05), rnd(h, c, scale=0.05), rnd(c), rnd(c))
 
 
+# D_v = 128 at the bf16 kernel's tile edges (128 query rows, 64 keys a
+# tile), with the (4, L, L) mask and with a per-batch bias (Bm = B); the
+# 2-wide V of the global flow attention
+ATTN_CASES = ([(l, 128, bias) for l in (16, 63, 64, 65, 127, 128, 129, 200,
+                                        1000, 1024) for bias in (False, True)]
+              + [(200, 128, "per_batch"), (1000, 2, False), (4096, 2, False)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("l,dv,bias", [(1024, 128, False), (1024, 128, True),
-                                       (200, 128, True), (16, 128, False),
-                                       (1000, 2, False), (4096, 2, False)])
+@pytest.mark.parametrize("l,dv,bias", ATTN_CASES)
 def test_attention_matches_plain(cuda, dtype, l, dv, bias):
     g = torch.Generator(device=cuda).manual_seed(0)
     b = 8
@@ -66,10 +72,12 @@ def test_attention_matches_plain(cuda, dtype, l, dv, bias):
             for _ in range(2))
     v = torch.randn(b, l, dv, generator=g, device=cuda).to(dtype)
     m = None
-    if bias:
+    if bias == "per_batch":
+        m = torch.randn(b, l, l, generator=g, device=cuda) * 3.0
+    elif bias:
         m = torch.where(torch.rand(4, l, l, generator=g, device=cuda) > 0.5,
                         0.0, -100.0)
-    counter = f"attention[dv{dv}{'+bias' if bias else ''}]"
+    counter = f"attention[dv{dv}{'' if m is None else '+bias'}]"
     before = dict(K.LAUNCHES)
     got = K.attention(q, k, v, 0.088, m)
     torch.cuda.synchronize()
@@ -284,47 +292,74 @@ PACKED_PADS = [((pt, pb), (pl, pr)) for pt in (0, 1) for pb in (0, 1)
                for pl in (0, 1) for pr in (0, 1)]
 
 
+def _epilogues(g, cout, dtype, dev):
+    """(bias, mask_c) forms of the fused epilogue: none, an f32 bias with
+    the parity-1 mask, a bias in x's dtype alone."""
+    bias = torch.randn(cout, generator=g, device=dev)
+    return ((None, None), (bias, cout // 4), (bias.to(dtype), None))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("taps", [(1, 1), (1, 2), (2, 1), (2, 2)])
 def test_packed_conv_matches_plain(cuda, dtype, taps):
-    """Every taps and pads combination the kernel takes, at channel counts
-    that are multiples of 4 but not of 32 (ragged K slices, masked output
-    columns) and at odd grids that no 64-pixel tile divides; one launch
-    counted per call."""
+    """Every taps and pads combination the kernel takes, each with and
+    without the fused bias and parity-1 mask, at channel counts that are
+    multiples of 4 but not of 8 (8-byte copies), of 64 (ragged K steps) or
+    of the 64 / 256 output tile (masked columns), and at odd grids that no
+    128-pixel tile divides; one launch counted per call."""
     g = torch.Generator(device=cuda).manual_seed(6)
     for (b, h, w_, cin, cout) in ((2, 9, 13, 12, 20), (1, 17, 5, 36, 12),
-                                  (3, 11, 11, 256, 68)):
+                                  (3, 11, 11, 256, 68), (1, 19, 23, 64, 256)):
         x = torch.randn(b, h, w_, cin, generator=g, device=cuda).to(dtype)
         w = (torch.randn(*taps, cin, cout, generator=g, device=cuda)
              * 0.1).to(dtype)
         for pads in PACKED_PADS:
-            before = K.LAUNCHES["packed_conv2x2"]
-            got = K.packed_conv2x2(x, w, pads)
-            torch.cuda.synchronize()
-            assert K.LAUNCHES["packed_conv2x2"] == before + 1
-            ref = K.packed_conv2x2_plain(x, w, pads)
-            assert got.dtype == dtype and got.shape == ref.shape, pads
-            assert _rel_err(got, ref) <= RTOL[dtype], (pads, b, h, cin)
+            for bias, mask_c in _epilogues(g, cout, dtype, cuda):
+                before = K.LAUNCHES["packed_conv2x2"]
+                got = K.packed_conv2x2(x, w, pads, bias, mask_c)
+                torch.cuda.synchronize()
+                assert K.LAUNCHES["packed_conv2x2"] == before + 1
+                ref = K.packed_conv2x2_plain(x, w, pads, bias, mask_c)
+                assert got.dtype == dtype and got.shape == ref.shape, pads
+                assert _rel_err(got, ref) <= RTOL[dtype], (pads, b, h, cin,
+                                                           mask_c)
+
+
+# the packed path's K6 shapes (chip_smoke.py K6_CASES): (B, Hi, Cin, Cout,
+# pads); the output grids (256^2, 257^2) are not multiples of 128 pixels
+PATH_SAME, PATH_VALID = ((1, 1), (1, 1)), ((0, 0), (0, 0))
+K6_PATH_SHAPES = ((1, 256, 12, 256, PATH_SAME), (1, 256, 256, 256, PATH_SAME),
+                  (1, 257, 256, 256, PATH_VALID),
+                  (1, 257, 512, 256, PATH_VALID),
+                  (1, 257, 256, 12, PATH_VALID), (1, 257, 256, 64, PATH_VALID),
+                  (1, 256, 128, 512, PATH_SAME),
+                  (20, 257, 256, 256, PATH_VALID))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_conv_at_the_path_shapes(cuda, dtype):
-    """K6's own shape, (257, 257, 256) VALID, its mirror with pad 1, and the
-    first (Cin 12) and last (Cout 12) convolutions of the packed path."""
+    """Every K6 shape of the packed path (its own, (257, 257, 256) VALID,
+    its mirror with pad 1, the first (Cin 12) and last (Cout 12)
+    convolutions, the LQ encoder's batch of 20), each with and without the
+    fused bias and mask."""
     g = torch.Generator(device=cuda).manual_seed(7)
-    for hi, cin, cout, pads in ((257, 256, 256, ((0, 0), (0, 0))),
-                                (256, 256, 256, ((1, 1), (1, 1))),
-                                (256, 12, 256, ((1, 1), (1, 1))),
-                                (257, 256, 12, ((0, 0), (0, 0)))):
-        x = torch.randn(1, hi, hi, cin, generator=g, device=cuda).to(dtype)
+    for b, hi, cin, cout, pads in K6_PATH_SHAPES:
+        if dtype == torch.float32 and b > 1:
+            continue   # the f32 kernel serves no path; one frame suffices
+        x = torch.randn(b, hi, hi, cin, generator=g, device=cuda).to(dtype)
         w = (torch.randn(2, 2, cin, cout, generator=g, device=cuda)
              * 0.05).to(dtype)
-        got = K.packed_conv2x2(x, w, pads)
-        torch.cuda.synchronize()
-        assert _rel_err(got, K.packed_conv2x2_plain(x, w, pads)) \
-            <= RTOL[dtype]
+        for bias, mask_c in _epilogues(g, cout, dtype, cuda):
+            got = K.packed_conv2x2(x, w, pads, bias, mask_c)
+            torch.cuda.synchronize()
+            ref = K.packed_conv2x2_plain(x, w, pads, bias, mask_c)
+            assert _rel_err(got, ref) <= RTOL[dtype], (b, hi, cin, cout,
+                                                       mask_c)
+            del got, ref
+        del x, w
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
@@ -346,6 +381,12 @@ def test_packed_conv_raises_on_what_the_kernel_does_not_take(cuda):
             (x[:, :1, :1], w, ((0, 0), (0, 0)))):              # empty output
         with pytest.raises(ValueError):
             K.packed_conv2x2(bad_x, bad_w, pads)
+    for bias, mask_c in ((torch.zeros(4, device=cuda), None),  # bias shape
+                         (torch.zeros(8), None),                # CPU bias
+                         (torch.zeros(8, device=cuda).half(), None),
+                         (None, 3), (None, 0)):                 # 4 mask_c
+        with pytest.raises(ValueError):
+            K.packed_conv2x2(x, w, same, bias, mask_c)
     assert K.LAUNCHES["packed_conv2x2"] == before
 
 

@@ -296,14 +296,17 @@ def test_prepare_phase512_is_a_noop_off_512_and_keeps_the_state_dict():
 
 
 def test_processor_packs_a_copy_and_leaves_the_pack_unpacked():
+    """phase512=True packs a copy; the default (phase512=False, the faster
+    chunk on the H100) runs the pack's own unpacked KEEP."""
     pack = api.load_models(seed=1, cfg_overrides=NARROW_512)
-    proc = pack.processor(device="cpu")
+    proc = pack.processor(device="cpu", phase512=True)
     assert proc.keep is not pack.keep
     assert proc.keep.encoder.packed_prefix_end() is not None
     assert pack.keep.encoder.packed_prefix_end() is None
     assert proc.gmflow is pack.gmflow
-    plain = pack.processor(device="cpu", phase512=False)
-    assert plain.keep is pack.keep
+    for plain in (pack.processor(device="cpu", phase512=False),
+                  pack.processor(device="cpu")):
+        assert plain.keep is pack.keep
 
 
 def _perturbed(tree, seed):

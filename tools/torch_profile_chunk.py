@@ -7,8 +7,8 @@ NVIDIA GPU.
 Runs api.load_models(seed=0) -> load_device(bf16) -> processor(bf16)
 .restore_face_stream on 20 random aligned 512x512 faces (one chunk) once to
 warm up, then once under torch.profiler. The processor runs KEEP's 512
-level phase-packed, as served by default; --unpacked profiles it with
-phase512=False. Prints one JSON line: the wall time,
+level phase-packed (phase512=True); --unpacked profiles the processor's
+default, phase512=False. Prints one JSON line: the wall time,
 the device's busy time (the summed durations of the device-side events,
 which never overlap on one stream) and idle share, and the kernels with the
 most device time, beside the card's name and power limit. The profiler's own
