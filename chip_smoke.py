@@ -10,7 +10,9 @@ the verdict):
   3. kernel   every GMFlow kernel against its plain PyTorch version on the
               card at the main path's shapes, in bf16 and f32: max|d| and
               its tolerance, kernel ms, plain ms, one PyTorch library call's
-              ms as a yardstick (the port never calls it), and the bound
+              ms as a yardstick (the port never calls it), and the bound;
+              for the MLP tail, which no one call computes, the ms of its
+              unfused PyTorch calls instead (unfused_ms, reported)
   4. kernel   (packed_conv2x2, K6) the phase-packed convolution at every
               shape of the packed 512-level path and at its own shape over
               the LQ encoder's 20-frame batch, bf16 and f32: max|d| and
@@ -40,10 +42,17 @@ the verdict):
   8. stream   restore_face_stream(21 faces, carry_chunks=True): the state
               carried into a 1-frame second chunk; finite outputs and the
               launches the path implies (K6 240 + 18)
+     api      the node entry points without OpenCV: api.restore_image on
+              an aligned 512^2 face at factor 1 and a 400^2 face at 1.5,
+              api.restore_sequence on 3 aligned 512^2 frames at factor 2:
+              shapes, uint8, the image within 1 level of restore_face_stream
+              on the same resized face, the frames equal to the resized
+              inputs, each call's launches, cv2 never imported
   9. kernel   (vq) the nearest-codebook kernel against its plain version at
               the training step's shape, T = 4096 tokens against N = 1024
               codes of C = 256, in f32 and bf16, on tokens drawn near codes
-              of varied norms: picks, kernel/plain/addmm+argmin ms, bound
+              of varied norms: picks, kernel/plain/addmm+argmin ms, the
+              kernel's and addmm+argmin's device ms (profiler), bound
  10. train_parity  one KEEP stage-II step of a tiny config (GMFlow 128
               channels, 2 layers, a 64x64 clip of 3 frames), card (kernels)
               against CPU (plain versions): in f32 the loss terms and
@@ -218,6 +227,24 @@ def time_ms(torch, fn, iters):
     return a.elapsed_time(b) / iters
 
 
+def device_ms(torch, fn, iters):
+    """Device time per call of fn from torch.profiler: the device time of
+    every kernel over iters calls, divided by iters (host gaps between
+    launches excluded, unlike time_ms). Only the kernels' own entries count:
+    an ATen op's entry repeats its kernels' time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
 def matched_keys(torch, q, strength, g):
     """Keys for queries q (B, L, C): key perm[i] is strength * q[i] plus unit
     noise, so each query's softmax puts roughly half its mass on one match
@@ -232,7 +259,8 @@ def matched_keys(torch, q, strength, g):
 
 def kernel_cases(torch, dtype):
     """(counter, wrapper, args, library call, [(flops, peak rate)], bytes,
-    rtol) at the shapes one 20-frame 512x512 chunk gives each kernel."""
+    rtol, unfused PyTorch calls or None) at the shapes one 20-frame 512x512
+    chunk gives each kernel."""
     import torch.nn.functional as F
     from comfyui_keep_torch.models.gmflow import shifted_window_mask
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -261,9 +289,19 @@ def kernel_cases(torch, dtype):
     grid = torch.stack([xs, ys], -1).reshape(lg, 2).contiguous()
     grid_b = grid.to(dtype).expand(bg, lg, 2)
     src, msg = rnd(bw, lw, CH), rnd(bw, lw, CH)
-    w1a, w1b = rnd(CH, HID, scale=0.05), rnd(CH, HID, scale=0.05)
-    w2 = rnd(HID, CH, scale=0.05)
+    w1 = rnd(HID, 2 * CH, scale=0.05)    # nn.Linear's (H, 2C) and (C, H)
+    w2 = rnd(CH, HID, scale=0.05)
     gamma, beta = rnd(CH), rnd(CH)
+    tanh = dtype == torch.bfloat16
+
+    def mlp_unfused():
+        """The MLP tail as unfused PyTorch calls in the working dtype (a
+        yardstick the port never calls)."""
+        h = F.gelu(torch.matmul(src, w1[:, :CH].t())
+                   + torch.matmul(msg, w1[:, CH:].t()),
+                   approximate="tanh" if tanh else "none")
+        return src + F.layer_norm(torch.matmul(h, w2.t()), (CH,), gamma,
+                                  beta, eps=1e-5)
 
     def sdpa(a, b_, c, m=None):
         return lambda: F.scaled_dot_product_attention(
@@ -275,24 +313,25 @@ def kernel_cases(torch, dtype):
     rtol = KERNEL_RTOL[dname]
     return [
         ("attention[dv128]", "attention", (q, k, v, scale),
-         sdpa(q, k, v), [(2 * att_fl, peak)], 4 * q.numel() * isz, rtol),
+         sdpa(q, k, v), [(2 * att_fl, peak)], 4 * q.numel() * isz, rtol,
+         None),
         ("attention[dv128+bias]", "attention", (q, k, v, scale, mask),
          sdpa(q, k, v, mask_full), [(2 * att_fl, peak)],
-         4 * q.numel() * isz + mask.numel() * 4, rtol),
+         4 * q.numel() * isz + mask.numel() * 4, rtol, None),
         ("attention[dv2]", "attention", (qg, kg, vg, scale),
          sdpa(qg, kg, vg), [(glb_fl + 2 * bg * lg * lg * 2, peak)],
-         (2 * qg.numel() + 2 * vg.numel()) * isz, rtol),
+         (2 * qg.numel() + 2 * vg.numel()) * isz, rtol, None),
         # softmax and expectation stay f32 in both dtypes: f32 tolerance
         ("global_correlation_expectation", "global_correlation_expectation",
          (qg, kg, grid),
          lambda: F.scaled_dot_product_attention(qg, kg, grid_b, scale=scale),
          [(glb_fl, peak), (2 * bg * lg * lg * 2, PEAK_F32)],
          2 * qg.numel() * isz + grid.numel() * 4 + bg * lg * 2 * 4,
-         KERNEL_RTOL["float32"]),
+         KERNEL_RTOL["float32"], None),
         ("mlp_fused", "mlp_fused",
-         (src, msg, w1a, w1b, w2, gamma, beta, dtype == torch.bfloat16),
+         (src, msg, w1, w2, gamma, beta, tanh),
          None, [(6 * rows * CH * HID, peak)],
-         3 * src.numel() * isz + 3 * CH * HID * isz, rtol),
+         3 * src.numel() * isz + 3 * CH * HID * isz, rtol, mlp_unfused),
     ]
 
 
@@ -301,8 +340,8 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for name, fn_name, args, lib, flops, nbytes, rtol in kernel_cases(
-                torch, dtype):
+        for name, fn_name, args, lib, flops, nbytes, rtol, unfused in \
+                kernel_cases(torch, dtype):
             fn, plain = getattr(K, fn_name), K.PLAIN[fn_name]
             got = fn(*args)
             torch.cuda.synchronize()
@@ -321,6 +360,8 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
                    "bound_ms": 1e3 * max(op_s, byte_s),
                    "bound_by": "operations" if op_s >= byte_s else "bytes",
                    "ok": bool(err <= tol)}
+            if unfused is not None:   # reported, not gated
+                row["unfused_ms"] = time_ms(torch, unfused, iters)
             say("kernel", **row)
             rows[(name, dname)] = row
             del got, ref
@@ -517,7 +558,7 @@ def phase_main(torch, k6_own):
     default (K6 at its own shape within 1.5x of cuDNN's 2x2 in this run, the
     packed median no slower than the unpacked one) beside the processor's
     default; then the 21-face run of each with its launch counts. Returns
-    (the packed run's counts, the packed processor, the faces)."""
+    (the packed run's counts, the packed processor, the faces, the pack)."""
     import inspect
     from comfyui_keep_torch import api
     from comfyui_keep_torch.ops import kernels as K
@@ -597,7 +638,7 @@ def phase_main(torch, k6_own):
     if not ok:
         fail(f"main_unpacked: launches {counts['unpacked']} (want {want_u})")
     del procs["unpacked"]
-    return counts["packed"], proc, faces
+    return counts["packed"], proc, faces, pack
 
 
 def phase_stream(torch, proc, faces):
@@ -631,6 +672,83 @@ def phase_stream(torch, proc, faces):
     if not ok:
         fail(f"stream: launches {counts} (want {want}), shapes {shapes_ok}, "
              f"finite {finite}")
+
+
+def phase_api(torch, pack):
+    """The node entry points on the card, with no OpenCV: api.restore_image
+    on an aligned 512^2 face at factor 1 (no resize) and on a 400^2 face at
+    factor 1.5 (utils/resize.py: LINEAR to 512^2, LANCZOS4 to 768^2), then
+    api.restore_sequence on 3 aligned 512^2 frames at factor 2. Each output:
+    its shape and uint8 dtype; the image against restore_face_stream on the
+    same resized face (resized by the factor as the node does) within 1
+    level; the frames equal to the inputs resized by the factor (aligned
+    frames are returned, the restored faces pasted nowhere); each call's
+    launches (one GMFlow call of a 2-frame chunk, or of the 3-frame one);
+    and cv2 never imported."""
+    from comfyui_keep_torch import api
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.utils.resize import resize
+    rng = np.random.default_rng(5)
+    face512 = rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    face400 = rng.integers(0, 256, (400, 400, 3), dtype=np.uint8)
+    frames = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+              for _ in range(3)]
+    # one GMFlow call (6 window layers, 6 shifted, the global attention), no
+    # code search, no packing: the pack serves unpacked
+    want = {"attention[dv128]": 6, "attention[dv128+bias]": 6,
+            "attention[dv2]": 1, "mlp_fused": 6,
+            "global_correlation_expectation": 1, "vq_nearest_indices": 0,
+            "fused_bias_lrelu": 0, "packed_conv2x2": 0}
+    proc = pack.processor(dtype=torch.bfloat16)
+    rows, ok_all = [], True
+    for label, img, factor in (("image 512, x1", face512, 1.0),
+                               ("image 400, x1.5", face400, 1.5)):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = api.restore_image(pack, img, factor, has_aligned=True,
+                                dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(K.LAUNCHES)
+        face = img if img.shape[0] == 512 else resize(img, (512, 512),
+                                                      "linear")
+        ref = proc.restore_face_stream([face], max_clip_length=2)[0]
+        side = int(512 * factor)
+        if side != 512:
+            ref = resize(ref, (side, side), "lanczos4")
+        shape_ok = out.dtype == np.uint8 and out.shape == (side, side, 3)
+        diff = (int(np.abs(out.astype(int) - ref.astype(int)).max())
+                if shape_ok else None)
+        ok = bool(shape_ok and diff <= 1 and counts == want
+                  and "cv2" not in sys.modules)
+        rows.append(dict(call=f"restore_image, {label}", ms=ms,
+                         shape=list(out.shape), dtype=str(out.dtype),
+                         max_level_diff_vs_stream=diff, launches=counts,
+                         ok=ok))
+        ok_all &= ok
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = api.restore_sequence(pack, frames, 2.0, has_aligned_frames=True,
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = dict(K.LAUNCHES)
+    shapes_ok = len(outs) == 3 and all(
+        o.dtype == np.uint8 and o.shape == (1024, 1024, 3) for o in outs)
+    same = shapes_ok and all(np.array_equal(o, resize(f, (1024, 1024),
+                                                      "lanczos4"))
+                             for o, f in zip(outs, frames))
+    ok = bool(shapes_ok and same and counts == want
+              and "cv2" not in sys.modules)
+    rows.append(dict(call="restore_sequence, 3 x 512, x2", ms=ms,
+                     shape=[len(outs)] + list(outs[0].shape),
+                     frames_equal_resized_inputs=same, launches=counts,
+                     ok=ok))
+    ok_all &= ok
+    say("api", calls=rows, expected_launches=want,
+        cv2_imported="cv2" in sys.modules, ok=bool(ok_all))
+    if not ok_all:
+        fail(f"api: {rows}")
 
 
 def phase_vq(torch, iters=KERNEL_ITERS):
@@ -671,8 +789,15 @@ def phase_vq(torch, iters=KERNEL_ITERS):
         plain_ms = time_ms(torch, lambda: K.vq_nearest_indices_plain(zc, ec),
                            max(1, iters // 4))
         e2 = K.codebook_sq_norms(ec).to(dtype)
-        lib_ms = time_ms(torch, lambda: torch.addmm(
-            e2, zc, ec.t(), alpha=-2).argmin(-1), iters)
+
+        def lib():
+            return torch.addmm(e2, zc, ec.t(), alpha=-2).argmin(-1)
+        lib_ms = time_ms(torch, lib, iters)
+        # at ~0.02-0.06 ms a call the loop above can be bound by the host's
+        # launches: the device's own time of each, from the profiler
+        dev_ms = device_ms(torch, lambda: K.vq_nearest_indices(zc, ec),
+                           iters)
+        lib_dev_ms = device_ms(torch, lib, iters)
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         op_s = 2 * VQ_T * VQ_N * VQ_C / peak
         byte_s = ((VQ_T + VQ_N) * VQ_C * zc.element_size()
@@ -683,6 +808,7 @@ def phase_vq(torch, iters=KERNEL_ITERS):
                "picks_differing_past_tol": mismatched,
                "tokens_past_tol": int(clear.sum()), "repeat_codes_picked":
                repeats, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
                "bound_ms": 1e3 * max(op_s, byte_s),
                "bound_by": "operations" if op_s >= byte_s else "bytes",
                "ok": bool(mismatched == 0 and err <= tol and repeats == 0)}
@@ -1299,9 +1425,12 @@ def main():
     vq_rows = phase_vq(torch)
     x, flows = phase_gmflow(torch)
     phase_keep(torch, x, flows)
-    counts, proc, faces = phase_main(torch, k6_rows[(K6_OWN, "bfloat16")])
+    counts, proc, faces, pack = phase_main(torch,
+                                           k6_rows[(K6_OWN, "bfloat16")])
     phase_stream(torch, proc, faces)
     del proc
+    phase_api(torch, pack)
+    del pack
     torch.cuda.empty_cache()
     phase_train_parity(torch)
     train_counts = phase_train(torch)
@@ -1336,7 +1465,9 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": dname, "status": "ported"})
+            "dtype": dname, "status": "ported",
+            **({"unfused_ms": r["unfused_ms"]} if "unfused_ms" in r
+               else {})})
     # the nearest-codebook kernel runs on the training path: f32 as
     # configured, bf16 under mixed precision; launches from those runs
     for (name, dname), r in vq_rows.items():
@@ -1347,6 +1478,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
             "dtype": dname, "status": "ported"})
     # K5 on StyleGAN2's paths: times at the largest activation; launches of
     # one 1024x1024 sampling forward in that dtype (the training run's f32

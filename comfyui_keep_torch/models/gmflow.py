@@ -176,12 +176,9 @@ class TransformerLayer(nn.Module):
                          self.norm1.bias)
         if self.mlp is None:
             return sw + msg
-        # concat([src, msg]) @ W1 = src @ W1[:c] + msg @ W1[c:], fused with
-        # gelu, W2, LayerNorm and the residual in one kernel
-        w1 = self.mlp[0].weight  # (H, 2C)
-        return K.mlp_fused(sw, msg, w1[:, :c].t().contiguous(),
-                           w1[:, c:].t().contiguous(),
-                           self.mlp[2].weight.t().contiguous(),
+        # concat([src, msg]) @ W1^T, gelu, W2, LayerNorm and the residual
+        # in one kernel, on the weights as nn.Linear holds them
+        return K.mlp_fused(sw, msg, self.mlp[0].weight, self.mlp[2].weight,
                            self.norm2.weight, self.norm2.bias,
                            approximate=tanh_gelu(sw.dtype))
 

@@ -14,7 +14,6 @@ packed prefix and `packed_generator_tail` the generator's packed tail.
 """
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -264,17 +263,15 @@ class PackedWeights(nn.Module):
 
 
 def packed_weights(conv: nn.Conv2d, packer) -> PackedWeights:
-    """Pack conv's (OIHW) weight and bias with a phase_pack packer, on the
-    host in promote_types(dtype, f32), and round once to the module's dtype
-    on its device."""
-    ct = torch.promote_types(conv.weight.dtype, torch.float32)
-    w = conv.weight.detach().to("cpu", ct).permute(2, 3, 1, 0).numpy()
-    b = None if conv.bias is None else conv.bias.detach().to("cpu", ct).numpy()
+    """Pack conv's (OIHW) weight and bias with a phase_pack packer on the
+    host, in the module's own dtype (as the JAX package packs its params),
+    onto the module's device."""
+    w = conv.weight.detach().to("cpu").permute(2, 3, 1, 0)
+    b = None if conv.bias is None else conv.bias.detach().to("cpu")
     pw, pb = packer(w, b)
 
-    def dev(a):
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(conv.weight.device, conv.weight.dtype)
+    def dev(t):
+        return None if t is None else t.contiguous().to(conv.weight.device)
 
     return PackedWeights(w=dev(pw), b=dev(pb))
 

@@ -33,7 +33,7 @@ _SIGNATURES = {
         "keep_corr_expectation": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     },
     "mlp": {
-        "keep_mlp_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        "keep_mlp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P),
     },
     "vq": {

@@ -18,6 +18,7 @@ keeps one entry per kernel it launches: `attention[dv128]` (V as wide as
 q/k), `attention[dv128+bias]` (the same with a bias) and `attention[dv2]`
 (the 2-wide V instantiation).
 """
+import contextlib
 import math
 from typing import Dict, Optional
 
@@ -34,6 +35,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTH = 128  # q/k width of attention, C of the MLP
 VQ_CODE_TILE = 64   # the codebook size must be a multiple of this
 VQ_MAX_WIDTH = 512
+VQ_MAX_SPLITS = 16  # csrc/vq.cu kMaxSplits
 
 
 def reset_launch_counts():
@@ -59,6 +61,13 @@ def _raise_on(err: int, what: str):
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _device(t: torch.Tensor):
+    """t's card made current for a launch; a no-op when it already is."""
+    if t.device.index in (None, torch.cuda.current_device()):
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +112,7 @@ def attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
             raise ValueError(f"attention: Bm={bm} does not divide B={b}")
     out = torch.empty_like(v)
     lib = library("attention")
-    with torch.cuda.device(q.device):
+    with _device(q):
         err = lib.keep_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  None if bias is None else bias.data_ptr(),
                                  out.data_ptr(), b, l, d, dv, bm, float(scale),
@@ -139,7 +148,7 @@ def global_correlation_expectation(f0, f1, grid):
     _check("correlation grid", grid, (l, 2), torch.float32, f0.device)
     out = torch.empty((b, l, 2), dtype=torch.float32, device=f0.device)
     lib = library("attention")
-    with torch.cuda.device(f0.device):
+    with _device(f0):
         err = lib.keep_corr_expectation(
             f0.data_ptr(), f1.data_ptr(), grid.data_ptr(), out.data_ptr(), b,
             l, c, 1.0 / math.sqrt(c), _DTYPE_CODE[f0.dtype], _stream(f0))
@@ -152,44 +161,45 @@ def global_correlation_expectation(f0, f1, grid):
 # K2: fused transformer MLP tail
 # ---------------------------------------------------------------------------
 
-def mlp_fused_plain(src, msg, w1a, w1b, w2, gamma, beta,
-                    approximate: bool):
-    """src + LN(gelu(src@W1a + msg@W1b) @ W2) * gamma + beta with the
+def mlp_fused_plain(src, msg, w1, w2, gamma, beta, approximate: bool):
+    """src + LN(gelu([src | msg] @ W1^T) @ W2^T) * gamma + beta with the
     kernel's rounding: f32 hidden, rounded to src's dtype before W2, f32
     LayerNorm (eps 1e-5) and residual, cast to src's dtype."""
-    h = (torch.matmul(src.float(), w1a.float())
-         + torch.matmul(msg.float(), w1b.float()))
-    h = F.gelu(h, approximate="tanh" if approximate else "none")
-    o = torch.matmul(h.to(src.dtype).float(), w2.float())
+    x = torch.cat([src, msg], dim=-1).float()
+    h = F.gelu(torch.matmul(x, w1.float().t()),
+               approximate="tanh" if approximate else "none")
+    o = torch.matmul(h.to(src.dtype).float(), w2.float().t())
     o = F.layer_norm(o, (o.shape[-1],), gamma.float(), beta.float(), eps=1e-5)
     return (src.float() + o).to(src.dtype)
 
 
-def mlp_fused(src, msg, w1a, w1b, w2, gamma, beta, approximate: bool):
-    """src, msg: (B, L, C); w1a, w1b: (C, H); w2: (H, C); gamma, beta: (C,).
-    approximate=True is the tanh gelu, False the erf gelu. On CUDA: C = 128,
-    H a multiple of 64, every tensor in src's dtype (f32 or bf16)."""
+def mlp_fused(src, msg, w1, w2, gamma, beta, approximate: bool):
+    """src, msg: (B, L, C); w1: (H, 2C) and w2: (C, H), as nn.Linear holds
+    them (w1's first C columns act on src, the rest on msg); gamma, beta:
+    (C,). approximate=True is the tanh gelu, False the erf gelu. On CUDA:
+    C = 128, H a multiple of 64, every tensor in src's dtype (f32 or bf16),
+    contiguous and 16-byte aligned."""
     if not src.is_cuda:
-        return mlp_fused_plain(src, msg, w1a, w1b, w2, gamma, beta,
-                               approximate)
+        return mlp_fused_plain(src, msg, w1, w2, gamma, beta, approximate)
     b, l, c = src.shape
-    h = w1a.shape[-1]
+    h = w1.shape[0]
     if c != KERNEL_WIDTH or h % 64 or src.dtype not in _DTYPE_CODE:
         raise ValueError(f"mlp kernel takes C=128, H%64==0 in f32/bf16, got "
                          f"C={c} H={h} {src.dtype}")
     dt = src.dtype
-    for n, t, shp in (("src", src, (b, l, c)), ("msg", msg, (b, l, c)),
-                      ("w1a", w1a, (c, h)), ("w1b", w1b, (c, h)),
-                      ("w2", w2, (h, c)), ("gamma", gamma, (c,)),
-                      ("beta", beta, (c,))):
+    args = (("src", src, (b, l, c)), ("msg", msg, (b, l, c)),
+            ("w1", w1, (h, 2 * c)), ("w2", w2, (c, h)), ("gamma", gamma, (c,)),
+            ("beta", beta, (c,)))
+    for n, t, shp in args:
         _check(f"mlp {n}", t, shp, dt, src.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"mlp {n}: must be 16-byte aligned")
     out = torch.empty_like(src)
     lib = library("mlp")
-    with torch.cuda.device(src.device):
-        err = lib.keep_mlp_fused(src.data_ptr(), msg.data_ptr(),
-                                 w1a.data_ptr(), w1b.data_ptr(), w2.data_ptr(),
-                                 gamma.data_ptr(), beta.data_ptr(),
-                                 out.data_ptr(), b * l, c, h,
+    with _device(src):
+        err = lib.keep_mlp_fused(src.data_ptr(), msg.data_ptr(), w1.data_ptr(),
+                                 w2.data_ptr(), gamma.data_ptr(),
+                                 beta.data_ptr(), out.data_ptr(), b * l, c, h,
                                  int(bool(approximate)), _DTYPE_CODE[dt],
                                  _stream(src))
     _raise_on(err, "mlp kernel launch")
@@ -219,7 +229,9 @@ def vq_nearest_indices_plain(z, codebook):
 def vq_nearest_indices(z, codebook):
     """z: (T, C), codebook: (N, C) in one dtype -> (T,) int32 index of the
     nearest code. On CUDA: f32 or bf16, N a multiple of 64, C a multiple of
-    16 up to 512."""
+    16 up to 512, both 16-byte aligned. A call counts one launch and runs
+    two device kernels: the search over codebook splits, which computes
+    ||e||^2 itself, and the merge of the splits."""
     if not z.is_cuda:
         return vq_nearest_indices_plain(z, codebook)
     t, c = z.shape
@@ -231,13 +243,17 @@ def vq_nearest_indices(z, codebook):
                          f"{VQ_MAX_WIDTH}, got T={t} N={n} C={c} {z.dtype}")
     _check("vq z", z, (t, c), z.dtype, z.device)
     _check("vq codebook", codebook, (n, c), z.dtype, z.device)
-    # ||e||^2 in f32 outside the kernel, as the Pallas wrapper computes it
-    e2 = codebook_sq_norms(codebook)
-    out = torch.empty(t, dtype=torch.int32, device=z.device)
+    if z.data_ptr() % 16 or codebook.data_ptr() % 16:
+        raise ValueError("vq: z and the codebook must be 16-byte aligned")
+    # one allocation: the (T,) result, then the per-split (distance, index)
+    # pairs, (2, VQ_MAX_SPLITS, T)
+    buf = torch.empty((1 + 2 * VQ_MAX_SPLITS) * t, dtype=torch.int32,
+                      device=z.device)
+    out = buf[:t]
     lib = library("vq")
-    with torch.cuda.device(z.device):
+    with _device(z):
         err = lib.keep_vq_nearest(z.data_ptr(), codebook.data_ptr(),
-                                  e2.data_ptr(), out.data_ptr(), t, n, c,
+                                  buf[t:].data_ptr(), out.data_ptr(), t, n, c,
                                   _DTYPE_CODE[z.dtype], _stream(z))
     _raise_on(err, "vq kernel launch")
     LAUNCHES["vq_nearest_indices"] += 1
@@ -279,7 +295,7 @@ def fused_bias_lrelu(x, bias, negative_slope: float = 0.2,
     if x.numel() == 0:
         return out
     lib = library("fused_act")
-    with torch.cuda.device(x.device):
+    with _device(x):
         err = lib.keep_fused_bias_lrelu(
             x.data_ptr(), b.data_ptr(), out.data_ptr(), x.numel(),
             x[0, 0].numel(), c, float(negative_slope), float(scale),
@@ -371,7 +387,7 @@ def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
                          f"4 mask_c, got Cout={cout}")
     out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
     lib = library("packed_conv")
-    with torch.cuda.device(x.device):
+    with _device(x):
         err = lib.keep_packed_conv(
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), b, hi,

@@ -20,10 +20,11 @@ nearest-2x + 3x3 convolution consumes an ordinary map and emits a parity-1
 packed one, never materialising the upsampled map.
 
 Every product equals the unpacked op's; only the order of summation
-changes. The weights are packed once on the host (numpy), from the module's
-weights in f32 (f64 for an f64 module); only `pack_upconv3x3` sums weights,
-so a bf16 module's packed weights are rounded once from the f32 sum of its
-bf16 weights. Every 2x2 convolution goes through the hand-written kernel
+changes. The weights are packed once on the host, in the module's own dtype
+and in the JAX package's order (its packers run in numpy in the params'
+dtype): only `pack_upconv3x3` sums weights, tap by tap, so a bf16 module's
+packed Upsample weight is rounded after each addition, as JAX's is. Every
+2x2 convolution goes through the hand-written kernel
 `ops/kernels.py:packed_conv2x2`, its bias and a parity-1 output's pad mask
 fused into the kernel's epilogue (one launch, one rounding of the f32 sum).
 
@@ -35,9 +36,8 @@ space_to_depth / depth_to_space take and give the port's NCHW maps; the
 unpacked maps that packed_upconv takes and packed_downsample gives are NHWC,
 as in the JAX package.
 """
-from typing import Optional, Tuple
+from typing import Tuple
 
-import numpy as np
 import torch
 
 from comfyui_keep_torch.ops import kernels as K
@@ -76,16 +76,20 @@ def mask_parity1(x, c: int):
 
 
 # ---------------------------------------------------------------------------
-# Host-side weight packing (numpy, once per prepare; HWIO weights)
+# Host-side weight packing (once per prepare; HWIO weight tensors, summed in
+# their own dtype)
 # ---------------------------------------------------------------------------
 
-def pack_conv3x3(w: np.ndarray, b: Optional[np.ndarray]):
+def _tile4(b):
+    return None if b is None else b.repeat(4)
+
+
+def pack_conv3x3(w, b):
     """(3, 3, Cin, Cout) SAME conv -> (2, 2, 4Cin, 4Cout) packed kernel (and
     the bias tiled per output phase). The same kernel serves both parity
     directions; only the coarse padding differs (see `packed_conv`)."""
-    w = np.asarray(w)
     cin, cout = w.shape[2], w.shape[3]
-    pw = np.zeros((2, 2, 4 * cin, 4 * cout), w.dtype)
+    pw = w.new_zeros((2, 2, 4 * cin, 4 * cout))
     for py in range(2):
         for px in range(2):
             for dy in range(3):
@@ -95,16 +99,16 @@ def pack_conv3x3(w: np.ndarray, b: Optional[np.ndarray]):
                     qy, qx = u % 2, v % 2
                     pw[ty, tx, (qy * 2 + qx) * cin:(qy * 2 + qx + 1) * cin,
                        (py * 2 + px) * cout:(py * 2 + px + 1) * cout] += w[dy, dx]
-    pb = None if b is None else np.tile(np.asarray(b), 4)
-    return pw, pb
+    return pw, _tile4(b)
 
 
-def pack_upconv3x3(w: np.ndarray, b: Optional[np.ndarray]):
+def pack_upconv3x3(w, b):
     """nearest-2x-up + 3x3 SAME conv -> (2, 2, Cin, 4Cout) packed kernel
-    over the un-upsampled input (emits a parity-1 packed tensor)."""
-    w = np.asarray(w)
+    over the un-upsampled input (emits a parity-1 packed tensor). Up to four
+    taps are summed into each packed tap, in w's dtype, in the JAX package's
+    order."""
     cin, cout = w.shape[2], w.shape[3]
-    pw = np.zeros((2, 2, cin, 4 * cout), w.dtype)
+    pw = w.new_zeros((2, 2, cin, 4 * cout))
     for py in range(2):
         for px in range(2):
             for dy in range(3):
@@ -112,22 +116,20 @@ def pack_upconv3x3(w: np.ndarray, b: Optional[np.ndarray]):
                     ty, tx = (py + dy) // 2, (px + dx) // 2
                     pw[ty, tx, :, (py * 2 + px) * cout:(py * 2 + px + 1) * cout] \
                         += w[dy, dx]
-    pb = None if b is None else np.tile(np.asarray(b), 4)
-    return pw, pb
+    return pw, _tile4(b)
 
 
-def pack_downsample3x3(w: np.ndarray, b: Optional[np.ndarray]):
+def pack_downsample3x3(w, b):
     """(0, 1, 0, 1)-pad stride-2 3x3 conv consuming a parity-1 packed input
     -> (2, 2, 4Cin, Cout) kernel emitting an ordinary half-res map."""
-    w = np.asarray(w)
     cin = w.shape[2]
-    pw = np.zeros((2, 2, 4 * cin) + w.shape[3:], w.dtype)
+    pw = w.new_zeros((2, 2, 4 * cin) + tuple(w.shape[3:]))
     for dy in range(3):
         for dx in range(3):
             ty, tx = (dy + 1) // 2, (dx + 1) // 2
             qy, qx = (dy + 1) % 2, (dx + 1) % 2
             pw[ty, tx, (qy * 2 + qx) * cin:(qy * 2 + qx + 1) * cin] += w[dy, dx]
-    return pw, (None if b is None else np.asarray(b))
+    return pw, b
 
 
 # ---------------------------------------------------------------------------

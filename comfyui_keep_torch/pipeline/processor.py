@@ -9,7 +9,9 @@ extension) the state streams across chunks instead. KEEP's 512-level
 convolutions run phase-packed (the JAX package's default) only when asked,
 phase512=True: on the H100 the packed chunk is the slower one (PERF.md).
 Face detection, tracking and paste-back are not ported yet, so the
-unaligned paths raise.
+unaligned paths raise. The resizes of the aligned paths are cv2.resize's,
+computed without OpenCV (utils/resize.py), and skipped where the size
+already matches.
 """
 import copy
 from typing import List, Optional
@@ -21,6 +23,7 @@ from comfyui_keep_torch.models.gmflow import GMFlow, flow_from_clip
 from comfyui_keep_torch.models.keep import KEEP
 from comfyui_keep_torch.utils.image import (bgr2gray, bgr_u8_to_rgb_pm1,
                                             is_gray, rgb_pm1_to_bgr_u8)
+from comfyui_keep_torch.utils.resize import resize
 
 
 def _cast(module: Optional[torch.nn.Module], dtype):
@@ -47,9 +50,10 @@ class KEEPFaceProcessor:
     The models must already sit on `device` ("cuda" unless the caller asks
     for the CPU); `KEEPModelPack.processor` moves them there. With
     phase512=True (the JAX processor's default, not this one's: on the H100
-    the packed chunk is slower, PERF.md), KEEP is prepared after the dtype
-    cast for phase-packed 512-level convolutions on a copy that shares the
-    caller's parameters, so the caller's KEEP stays unpacked."""
+    the packed chunk is slower, PERF.md), KEEP is prepared for phase-packed
+    512-level convolutions on a copy, so the caller's KEEP stays unpacked.
+    As in the JAX processor, the weights are packed in their own dtype and
+    then cast to `dtype`, so both round a packed bf16 weight alike."""
 
     def __init__(self, keep: KEEP, gmflow: Optional[GMFlow] = None, dtype=None,
                  device="cuda", phase512: bool = False):
@@ -57,9 +61,8 @@ class KEEPFaceProcessor:
         if not (_on(keep, device) and _on(gmflow, device)):
             raise ValueError(f"the models are not on {device}: move them "
                              f"there first (KEEPModelPack.load_device)")
-        self.keep = _cast(keep, dtype)
-        if phase512:
-            self.keep = self.keep.prepare_phase512()
+        self.keep = _cast(keep.prepare_phase512() if phase512 else keep,
+                          dtype)
         self.gmflow = _cast(gmflow, dtype)
         p = next(self.keep.parameters())
         self.device, self.dtype = p.device, p.dtype
@@ -117,12 +120,18 @@ class KEEPFaceProcessor:
 
     @staticmethod
     def _resize_bg(img_bgr: np.ndarray, factor: float) -> np.ndarray:
-        import cv2
         h, w = img_bgr.shape[:2]
         th, tw = int(h * factor), int(w * factor)
         if (h, w) == (th, tw):
             return img_bgr
-        return cv2.resize(img_bgr, (tw, th), interpolation=cv2.INTER_LANCZOS4)
+        return resize(img_bgr, (tw, th), "lanczos4")
+
+    def _face(self, img_bgr: np.ndarray) -> np.ndarray:
+        """The aligned face at the face size (cv2's INTER_LINEAR)."""
+        n = self.face_size
+        if img_bgr.shape[:2] == (n, n):
+            return img_bgr
+        return resize(img_bgr, (n, n), "linear")
 
     def process_image(self, img_bgr: np.ndarray,
                       final_upscale_factor: float = 1.0,
@@ -131,16 +140,13 @@ class KEEPFaceProcessor:
         if not has_aligned:
             raise NotImplementedError("unaligned images need face detection, "
                                       "which the port does not have yet")
-        import cv2
-        face = cv2.resize(img_bgr, (self.face_size, self.face_size),
-                          interpolation=cv2.INTER_LINEAR)
+        face = self._face(img_bgr)
         restored = self.restore_face_stream([face], max_clip_length=2)[0]
         if is_gray(face, threshold=10):
             restored = bgr2gray(restored)
         th = int(self.face_size * final_upscale_factor)
         if restored.shape[0] != th:
-            restored = cv2.resize(restored, (th, th),
-                                  interpolation=cv2.INTER_LANCZOS4)
+            restored = resize(restored, (th, th), "lanczos4")
         return restored
 
     def process_image_sequence(self, frames_bgr: List[np.ndarray],
@@ -154,10 +160,7 @@ class KEEPFaceProcessor:
         if not has_aligned_frames:
             raise NotImplementedError("unaligned frames need face detection, "
                                       "which the port does not have yet")
-        import cv2
-        faces = [cv2.resize(f, (self.face_size, self.face_size),
-                            interpolation=cv2.INTER_LINEAR)
-                 for f in frames_bgr]
+        faces = [self._face(f) for f in frames_bgr]
         self.restore_face_stream(faces, max_clip_length,
                                  carry_chunks=carry_chunks)
         return [self._resize_bg(f, final_upscale_factor) for f in frames_bgr]

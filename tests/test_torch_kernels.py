@@ -128,16 +128,26 @@ def test_correlation_plain_vs_jax_einsum_branch():
 
 
 def _mlp_inputs(seed, b=2, l=300, c=128, h=512):
+    """(src, msg, w1a, w1b, w2, gamma, beta) in the Pallas kernel's layout:
+    w1a, w1b (C, H), w2 (H, C)."""
     rng = np.random.default_rng(seed)
     return (_np(rng, b, l, c), _np(rng, b, l, c), _np(rng, c, h, scale=0.05),
             _np(rng, c, h, scale=0.05), _np(rng, h, c, scale=0.05),
             _np(rng, c), _np(rng, c))
 
 
+def _linear_layout(src, msg, w1a, w1b, w2, gamma, beta):
+    """The same in nn.Linear's layout, which mlp_fused takes: W1 (H, 2C)
+    and W2 (C, H)."""
+    w1 = np.ascontiguousarray(np.concatenate([w1a, w1b], 0).T)
+    return src, msg, w1, np.ascontiguousarray(w2.T), gamma, beta
+
+
 @pytest.mark.parametrize("dtype", [np.float32, "bf16"])
 def test_mlp_tanh_plain_vs_pallas_interpret(dtype):
     args = _mlp_inputs(5)
-    ours = K.mlp_fused_plain(*(_to(a, dtype) for a in args), approximate=True)
+    ours = K.mlp_fused_plain(*(_to(a, dtype) for a in _linear_layout(*args)),
+                             approximate=True)
     ref = P.mlp_fused_pallas(*(_jx(a, dtype) for a in args), block=128,
                              interpret=True)
     tol = (dict(atol=2e-4, rtol=1e-3) if dtype == np.float32
@@ -149,8 +159,8 @@ def test_mlp_erf_plain_vs_jax_unfused_branch():
     """approximate=False is what the JAX package computes in f32
     (gmflow.py:336-337): erf gelu, unfused."""
     src, msg, w1a, w1b, w2, g, b = _mlp_inputs(6)
-    ours = K.mlp_fused_plain(*map(torch.as_tensor, (src, msg, w1a, w1b, w2,
-                                                    g, b)), approximate=False)
+    ours = K.mlp_fused_plain(*map(torch.as_tensor, _linear_layout(
+        src, msg, w1a, w1b, w2, g, b)), approximate=False)
     hmid = jax.nn.gelu(jnp.asarray(src) @ w1a + jnp.asarray(msg) @ w1b,
                        approximate=False)
     ref = src + jlayer_norm(hmid @ w2, {"scale": jnp.asarray(g),
@@ -443,7 +453,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     rng = np.random.default_rng(7)
     q, k, v = (torch.as_tensor(_np(rng, 2, 64, 128)) for _ in range(3))
     grid = torch.as_tensor(rng.random((64, 2)).astype(np.float32))
-    args = tuple(map(torch.as_tensor, _mlp_inputs(8, l=64)))
+    args = tuple(map(torch.as_tensor, _linear_layout(*_mlp_inputs(8, l=64))))
     K.reset_launch_counts()
     torch.testing.assert_close(K.attention(q, k, v, 0.1),
                                K.attention_plain(q, k, v, 0.1), rtol=0, atol=0)

@@ -45,13 +45,14 @@ def _rel_err(got, ref):
 
 
 def _mlp_inputs(dev, dtype, rows=(3, 1000), c=128, h=1024, seed=9):
+    """(src, msg, w1 (H, 2C), w2 (C, H), gamma, beta): nn.Linear's layouts."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*s, scale=1.0):
         return (torch.randn(*s, generator=g, device=dev) * scale).to(dtype)
 
-    return (rnd(*rows, c), rnd(*rows, c), rnd(c, h, scale=0.05),
-            rnd(c, h, scale=0.05), rnd(h, c, scale=0.05), rnd(c), rnd(c))
+    return (rnd(*rows, c), rnd(*rows, c), rnd(h, 2 * c, scale=0.05),
+            rnd(c, h, scale=0.05), rnd(c), rnd(c))
 
 
 # D_v = 128 at the bf16 kernel's tile edges (128 query rows, 64 keys a
@@ -113,6 +114,25 @@ def test_mlp_matches_plain(cuda, dtype, approximate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("n_rows", [1, 15, 333])
+@pytest.mark.parametrize("h", [64, 1024])
+def test_mlp_ragged_rows_and_hidden_widths(cuda, dtype, approximate, n_rows,
+                                           h):
+    """Row counts that no 128- or 64-row block divides (the ragged rows
+    are zero-filled and never written), one hidden chunk (H = 64) and the
+    path's 16 (H = 1024); one launch counted per call."""
+    args = _mlp_inputs(cuda, dtype, rows=(1, n_rows), h=h, seed=n_rows + h)
+    before = K.LAUNCHES["mlp_fused"]
+    got = K.mlp_fused(*args, approximate=approximate)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["mlp_fused"] == before + 1
+    assert got.dtype == dtype and got.shape == (1, n_rows, 128)
+    assert _rel_err(got, K.mlp_fused_plain(*args, approximate)) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,n,c", [(4096, 1024, 256), (333, 64, 32),
                                    (1, 128, 512), (70, 192, 16)])
 def test_vq_nearest_indices_matches_plain(cuda, dtype, t, n, c):
@@ -144,6 +164,42 @@ def test_vq_nearest_indices_matches_plain(cuda, dtype, t, n, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [64, 1024, 8192])
+def test_vq_ties_across_codebook_splits_go_to_the_lowest_index(cuda, dtype,
+                                                                n):
+    """The kernel splits the codebook across blocks (64 or 128 codes a
+    tile, whole tiles a split) and merges the splits. Codes 0..7 repeat at
+    n/2, n - 8 and 1/4 of the way: every token drawn at a repeated code ties
+    exactly across tiles and splits, and must get the first copy. Tokens
+    away from any repeat must match the plain version's picks."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    c, t = 256, 4096
+    e = torch.randn(n, c, generator=g, device=cuda).to(dtype)
+    copies = sorted({n // 4, n // 2, n - 8} - {0})
+    for at in copies:
+        e[at:at + 8] = e[:8]
+    pick = torch.randint(0, 8, (t,), generator=g, device=cuda)
+    z = e[pick].clone()
+    single = torch.tensor([i for i in range(8, n)
+                           if not any(a <= i < a + 8 for a in copies)],
+                          device=cuda)
+    near = single[torch.randint(0, len(single), (t - t // 2,), generator=g,
+                                device=cuda)]
+    z[t // 2:] = (e[near].float() + 0.1 * torch.randn(
+        t - t // 2, c, generator=g, device=cuda)).to(dtype)
+    got = K.vq_nearest_indices(z, e)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:t // 2], pick[:t // 2].to(torch.int32))
+    ref = K.vq_nearest_indices_plain(z, e)
+    d = K.codebook_sq_norms(e) - 2.0 * z.float() @ e.float().t()
+    top2 = (-d[t // 2:]).topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-5 * d.abs().max()
+    assert clear.float().mean() > 0.9
+    assert torch.equal(got[t // 2:][clear], ref[t // 2:][clear])
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 64, 64, device=cuda)
     with pytest.raises(ValueError):
@@ -161,6 +217,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     args = list(_mlp_inputs(cuda, torch.float32, h=96))
     with pytest.raises(ValueError):
         K.mlp_fused(*args, approximate=True)           # H % 64 != 0
+    args = list(_mlp_inputs(cuda, torch.bfloat16))
+    with pytest.raises(ValueError):
+        K.mlp_fused(*args[:2], args[2].t(), *args[3:], approximate=True)
+    off = torch.empty(3 * 1000 * 128 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                    # off the 16-byte grid
+        K.mlp_fused(args[0], off[1:].view(3, 1000, 128), *args[2:],
+                    approximate=True)
     z = torch.randn(10, 32, device=cuda)
     with pytest.raises(ValueError):
         K.vq_nearest_indices(z, torch.randn(100, 32, device=cuda))  # N % 64

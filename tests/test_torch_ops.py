@@ -3,8 +3,8 @@ f32 (bf16 only where the dtype is the point). The port is NCHW with torch
 weight layouts; inputs are transposed at the boundary. Tolerance 1e-5
 absolute unless stated: the two frameworks differ only in summation order.
 
-Also: no module of the port, nor chip_smoke.py, imports JAX or the JAX
-package.
+Also: no module of the port, nor chip_smoke.py, imports JAX, the JAX
+package or OpenCV.
 """
 import ast
 import os
@@ -219,10 +219,9 @@ def _port_files():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
-@pytest.mark.parametrize("banned", ["jax", "comfyui_keep_tpu", "jaxlib"])
-def test_port_imports_no_jax(banned):
-    """No module of the port (nor chip_smoke.py) imports JAX or the JAX
-    package, at any level of any function."""
+def _importers(banned):
+    """Port files (and chip_smoke.py) that import `banned`, at any level of
+    any function."""
     offenders = []
     for path in _port_files():
         with open(path) as f:
@@ -239,7 +238,23 @@ def test_port_imports_no_jax(banned):
                 names = [str(node.args[0].value)]
             if any(n == banned or n.startswith(banned + ".") for n in names):
                 offenders.append(os.path.relpath(path, REPO))
-    assert not offenders, f"{banned} imported by {sorted(set(offenders))}"
+    return sorted(set(offenders))
+
+
+@pytest.mark.parametrize("banned", ["jax", "comfyui_keep_tpu", "jaxlib"])
+def test_port_imports_no_jax(banned):
+    """No module of the port (nor chip_smoke.py) imports JAX or the JAX
+    package, at any level of any function."""
+    offenders = _importers(banned)
+    assert not offenders, f"{banned} imported by {offenders}"
+
+
+def test_port_imports_no_opencv():
+    """The card machine has no OpenCV: no module of the port (nor
+    chip_smoke.py) imports cv2, at any level of any function; the resizes
+    are utils/resize.py's."""
+    offenders = _importers("cv2")
+    assert not offenders, f"cv2 imported by {offenders}"
 
 
 def test_port_package_imports_without_jax_in_a_fresh_process():

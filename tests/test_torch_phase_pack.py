@@ -29,6 +29,7 @@ from comfyui_keep_torch.models.vqgan import (BlockStack, encoder_plan,
                                              phase_encoder_end,
                                              phase_generator_start)
 from comfyui_keep_torch.ops import phase_pack as pp
+from comfyui_keep_torch.pipeline.processor import KEEPFaceProcessor
 from comfyui_keep_torch.utils.convert import params_from_jax
 
 torch.set_num_threads(2)
@@ -75,10 +76,10 @@ def x64():
 def test_packers_equal_jax(name):
     rng = np.random.default_rng(0)
     w, b = _conv_weights(rng, 8, 12)
-    ours, ref = getattr(pp, name)(w, b), getattr(jpp, name)(w, b)
-    for o, r in zip(ours, ref):
-        assert o.dtype == r.dtype
-        np.testing.assert_array_equal(o, r)
+    ours = getattr(pp, name)(torch.as_tensor(w), torch.as_tensor(b))
+    for o, r in zip(ours, getattr(jpp, name)(w, b)):
+        assert o.dtype == torch.float32 and r.dtype == np.float32
+        np.testing.assert_array_equal(o.numpy(), r)
 
 
 @pytest.mark.parametrize("parity", [0, 1])
@@ -344,3 +345,57 @@ def test_packed_keep_at_512_matches_jax_teacher_forced():
     np.testing.assert_allclose(ours["logits"].numpy(),
                                np.asarray(aux["logits"]), atol=5e-3,
                                rtol=1e-2)
+
+
+def _packed_buffers(stack):
+    """{(block, name): tensor} of a prepared port stack, named as the JAX
+    package's p512 leaves."""
+    out = {}
+    for i, blk in enumerate(stack.blocks):
+        p = getattr(blk, "p512", None)
+        if p is None:
+            continue
+        for n, t in p.named_buffers():
+            out[i, n.replace("_", "/")] = t
+    return out
+
+
+def _jax_packed(stack_params):
+    out = {}
+    for i, blk in enumerate(stack_params["blocks"]):
+        for n, a in jax.tree_util.tree_flatten_with_path(
+                blk.get("p512", {}))[0]:
+            out[i, "/".join(k.key for k in n)] = a
+    return out
+
+
+@pytest.mark.parametrize("keep_dtype", ["float32", "bfloat16"])
+def test_processor_packed_weights_equal_jax_bitwise(keep_dtype):
+    """The bf16 processor's packed buffers (phase512=True) against the JAX
+    processor's: KEEP.prepare_phase512 on the params in their own dtype,
+    then the cast to bf16. An f32 KEEP served in bf16, and a KEEP already in
+    bf16 (load_device(bf16), the main path's case), whose packed Upsample
+    weight JAX sums in bf16, rounding after each tap."""
+    tree = _perturbed(jkeep.KEEP.init(jax.random.PRNGKey(0), **NARROW_512),
+                      0)
+    net = KEEP(device="cpu", **NARROW_512)
+    net.load_state_dict(params_from_jax(tree, net))
+    if keep_dtype == "bfloat16":
+        net = net.to(torch.bfloat16)
+        tree = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree)
+    proc = KEEPFaceProcessor(net, dtype=torch.bfloat16, device="cpu",
+                             phase512=True)
+    jprep = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                         jkeep.KEEP.prepare_phase512(tree, **NARROW_512))
+    n_summed = 0
+    for name in ("encoder", "hq_encoder", "generator"):
+        ours = _packed_buffers(getattr(proc.keep, name))
+        ref = _jax_packed(jprep[name])
+        assert ours.keys() == ref.keys() and ours, name
+        for k, t in ours.items():
+            assert t.dtype == torch.bfloat16, (name, k)
+            r = torch.as_tensor(np.asarray(ref[k], np.float32))
+            assert torch.equal(t.float(), r), (name, k)
+        n_summed += sum(proc.keep.generator.plan[i][0] == "up"
+                        for i, _ in ours) if name == "generator" else 0
+    assert n_summed  # the packed tail holds an Upsample, whose taps are summed

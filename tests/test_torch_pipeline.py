@@ -7,8 +7,12 @@ The JAX side runs with KEEP_TPU_NO_PHASE512=1, though at this 64-px size
 neither package packs (tests/test_torch_phase_pack.py holds the packed
 512-level path).
 Restored faces are uint8: the two sides agree to 1 level (f32 noise of
-~1e-4 can flip a rounding).
+~1e-4 can flip a rounding). process_image and process_image_sequence also
+run with cv2 unimportable, as on the card machine, against the JAX
+processor's cv2 resizes.
 """
+import sys
+
 import numpy as np
 import pytest
 import jax
@@ -145,6 +149,41 @@ def test_process_image_sequence_aligned_matches_jax(procs):
         proc.process_image_sequence(frames, has_aligned_frames=False)
     with pytest.raises(NotImplementedError):
         proc.process_image(frames[0], has_aligned=False)
+
+
+@pytest.mark.parametrize("shape,factor", [((50, 64), 1.5), ((64, 64), 1.0),
+                                          ((64, 64), 2.0), ((40, 40), 1.0)])
+def test_process_image_without_opencv_matches_jax(procs, monkeypatch, shape,
+                                                   factor):
+    """cv2 cannot be imported (as on the card machine): the port's resizes
+    (LINEAR to the face size, skipped at 64x64; LANCZOS4 by the factor,
+    skipped at 1) against the JAX processor's cv2.resize, at the JAX
+    comparison's tolerance."""
+    ref_proc, proc = procs
+    img = _faces(1, seed=6)[0][:shape[0], :shape[1]]
+    ref = ref_proc.process_image(img, factor, has_aligned=True)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    ours = proc.process_image(img, factor, has_aligned=True)
+    assert ours.dtype == np.uint8 and ours.shape == ref.shape
+    assert _max_level_diff(ours, ref) <= 2
+
+
+@pytest.mark.parametrize("factor", [2.0, 1.0, 1.5])
+def test_process_image_sequence_without_opencv_matches_jax(procs, monkeypatch,
+                                                           factor):
+    """cv2 cannot be imported: the aligned frames (one not at the face
+    size) come back resized by the factor, equal to the JAX processor's."""
+    ref_proc, proc = procs
+    frames = _faces(3, seed=7)
+    frames[1] = frames[1][:48, :40]
+    ref = ref_proc.process_image_sequence(frames, factor,
+                                          has_aligned_frames=True)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    ours = proc.process_image_sequence(frames, factor,
+                                       has_aligned_frames=True)
+    assert len(ours) == len(ref) == 3
+    for o, r in zip(ours, ref):
+        np.testing.assert_array_equal(o, r)
 
 
 def test_chunks_reset_state_and_single_frames_duplicate(procs):
