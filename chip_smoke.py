@@ -245,6 +245,20 @@ def device_ms(torch, fn, iters):
     return us / 1e3 / iters
 
 
+def kernel_names(torch, fn):
+    """The device kernels one call of fn launches, by the profiler's name
+    (cut to 160 characters): which kernel a library call picks, e.g.
+    whether SDPA's f32 form runs on the tensor cores."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key[:160] for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def matched_keys(torch, q, strength, g):
     """Keys for queries q (B, L, C): key perm[i] is strength * q[i] plus unit
     noise, so each query's softmax puts roughly half its mass on one match
@@ -362,6 +376,8 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
                    "ok": bool(err <= tol)}
             if unfused is not None:   # reported, not gated
                 row["unfused_ms"] = time_ms(torch, unfused, iters)
+            if lib is not None and dtype == torch.float32:
+                row["library_kernels"] = kernel_names(torch, lib)
             say("kernel", **row)
             rows[(name, dname)] = row
             del got, ref

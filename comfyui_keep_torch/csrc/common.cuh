@@ -1,15 +1,14 @@
-// Shared pieces of the port's kernels: 64-row block GEMMs out of shared
-// memory into an f32 shared-memory tile, for bf16 (tensor cores through
-// WMMA, bf16 in, f32 accumulate) and for f32 (plain FMA on the CUDA cores).
+// Shared pieces of the port's kernels: bf16 / f32 conversions, log2(e),
+// and a 64-row f32 block GEMM out of shared memory into an f32
+// shared-memory tile (plain FMA on the CUDA cores), with the tile loader
+// it reads from.
 //
-// Every kernel that includes this file runs 128 threads (4 warps) per block
-// and works on 64-row tiles: warp w owns rows 16w..16w+15 in the WMMA form;
-// in the FMA form thread t owns rows 4*(t/8)..+3 and columns t%8 + 8*j.
+// The block GEMM and load_tile run 128 threads (4 warps) per block on
+// 64-row tiles: thread t owns rows 4*(t/8)..+3 and columns t%8 + 8*j.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 #include <type_traits>
 
@@ -30,57 +29,18 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Row padding (elements) of a shared-memory tile: keeps WMMA pointers
-// 32-byte aligned and staggers rows across banks.
-template <typename T> struct Pad { static constexpr int v = 8; };
+// Row padding (elements) of an f32 shared-memory tile: keeps rows 16-byte
+// aligned and staggers them across banks.
+template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int v = 4; };
 
 __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) & ~size_t(127);
 }
 
-// C[64 x N] (+)= A[64 x K] @ B, all in shared memory. B is [K][N] row-major,
-// or [N][K] (each output column's K values contiguous) when BT is true.
-template <int N, int K, bool BT, bool ACC>
-__device__ __forceinline__ void block_gemm(const bf16* A, int lda,
-                                           const bf16* B, int ldb, float* C,
-                                           int ldc) {
-  using namespace nvcuda;
-  static_assert(N % 16 == 0 && K % 16 == 0, "WMMA tiles are 16 wide");
-  constexpr int NF = N / 16;
-  const int warp = threadIdx.x / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-  float* Cw = C + warp * 16 * ldc;
-#pragma unroll
-  for (int n = 0; n < NF; ++n) {
-    if (ACC)
-      wmma::load_matrix_sync(acc[n], Cw + n * 16, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc[n], 0.0f);
-  }
-  const bf16* Aw = A + warp * 16 * lda;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, Aw + k, lda);
-#pragma unroll
-    for (int n = 0; n < NF; ++n) {
-      if constexpr (BT) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, B + n * 16 * ldb + k, ldb);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + k * ldb + n * 16, ldb);
-        wmma::mma_sync(acc[n], a, b, acc[n]);
-      }
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NF; ++n)
-    wmma::store_matrix_sync(Cw + n * 16, acc[n], ldc, wmma::mem_row_major);
-}
-
+// C[64 x N] (+)= A[64 x K] @ B, all f32 in shared memory. B is [K][N]
+// row-major, or [N][K] (each output column's K values contiguous) when BT
+// is true.
 template <int N, int K, bool BT, bool ACC>
 __device__ __forceinline__ void block_gemm(const float* A, int lda,
                                            const float* B, int ldb, float* C,

@@ -3,8 +3,8 @@ GMFlow's three, the nearest-codebook search of KEEP training, StyleGAN2's
 fused bias + leaky ReLU and the phase-packed convolution.
 
 | wrapper | CUDA source | replaces (comfyui_keep_tpu/ops/pallas_kernels.py) |
-| `attention` | csrc/attention.cu | `attention_pallas` |
-| `global_correlation_expectation` | csrc/attention.cu | `global_correlation_expectation_pallas` |
+| `attention` | csrc/attention.cu (bf16 D_v=128: `flash_attention_bf16_kernel`; bf16 D_v=2: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`) | `attention_pallas` |
+| `global_correlation_expectation` | csrc/attention.cu (bf16: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`) | `global_correlation_expectation_pallas` |
 | `mlp_fused` | csrc/mlp.cu | `mlp_fused_pallas` |
 | `vq_nearest_indices` | csrc/vq.cu | `vq_nearest_indices_pallas` |
 | `fused_bias_lrelu` | csrc/fused_act.cu | `fused_bias_lrelu_pallas` |
@@ -14,9 +14,9 @@ A wrapper given CPU tensors computes its plain version (the CPU tests run
 there). Given CUDA tensors it launches its kernel, or raises on anything the
 kernel does not take: there is no switch and no fallback. Each launch adds
 one to its entry of `LAUNCHES`; the plain versions count nothing. `attention`
-keeps one entry per kernel it launches: `attention[dv128]` (V as wide as
-q/k), `attention[dv128+bias]` (the same with a bias) and `attention[dv2]`
-(the 2-wide V instantiation).
+keeps one entry per form, whichever dtype's kernel it launches:
+`attention[dv128]` (V as wide as q/k), `attention[dv128+bias]` (the same
+with a bias) and `attention[dv2]` (the 2-wide V).
 """
 import contextlib
 import math

@@ -55,12 +55,28 @@ def _mlp_inputs(dev, dtype, rows=(3, 1000), c=128, h=1024, seed=9):
             rnd(c, h, scale=0.05), rnd(c), rnd(c))
 
 
-# D_v = 128 at the bf16 kernel's tile edges (128 query rows, 64 keys a
-# tile), with the (4, L, L) mask and with a per-batch bias (Bm = B); the
-# 2-wide V of the global flow attention
-ATTN_CASES = ([(l, 128, bias) for l in (16, 63, 64, 65, 127, 128, 129, 200,
-                                        1000, 1024) for bias in (False, True)]
-              + [(200, 128, "per_batch"), (1000, 2, False), (4096, 2, False)])
+# Every kernel tiles 128 query rows and 64 keys. D_v = 128 at those edges,
+# with the (4, L, L) mask (an L that is not a multiple of 4 takes the f32
+# kernel's unaligned mask path) and with a per-batch bias (Bm = B); the
+# 2-wide V of the global flow attention at the same edges and at its path's
+# L = 4096
+TILE_EDGES = (63, 64, 65, 127, 128, 129, 200, 1000)
+ATTN_CASES = ([(l, 128, bias) for l in (16,) + TILE_EDGES + (1024,)
+               for bias in (False, True)]
+              + [(200, 128, "per_batch")]
+              + [(l, 2, False) for l in TILE_EDGES + (4096,)])
+
+
+def _matched_keys(q, strength, g):
+    """Keys for queries q (B, L, C) as chip_smoke.py's matched_keys makes
+    them: key perm[i] is strength * q[i] plus unit noise, so each softmax
+    row is peaked on one key and the running max moves between key tiles
+    (the online rescale matters)."""
+    perm = torch.randperm(q.shape[1], generator=g, device=q.device)
+    k = torch.empty_like(q)
+    k[:, perm] = (strength * q.float() + torch.randn(
+        q.shape, generator=g, device=q.device)).to(q.dtype)
+    return k
 
 
 @pytest.mark.cuda
@@ -89,15 +105,76 @@ def test_attention_matches_plain(cuda, dtype, l, dv, bias):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("l", [4096, 333])
+def test_attention_refuses_a_bias_with_a_2_wide_v(cuda, dtype):
+    """No model biases the 2-wide global attention and no kernel takes
+    that form: the launch is refused before it runs and counts nothing."""
+    q = torch.randn(2, 64, 128, device=cuda).to(dtype)
+    v = torch.randn(2, 64, 2, device=cuda).to(dtype)
+    m = torch.zeros(1, 64, 64, device=cuda)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(RuntimeError, match="attention kernel launch"):
+        K.attention(q, q, v, 0.088, m)
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,dv,bias", [(l, 128, b) for l in (129, 1024)
+                                       for b in (False, True)]
+                         + [(l, 2, False) for l in (65, 1000, 4096)])
+def test_attention_peaked_matches_plain(cuda, dtype, l, dv, bias):
+    """Keys near the queries (GMFlow's correlations are peaked): the row
+    max jumps between key tiles, so a wrong rescale of O, l or the 2-wide
+    partial sums shows."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b = 4
+    q = torch.randn(b, l, 128, generator=g, device=cuda).to(dtype)
+    k = _matched_keys(q, 0.8, g)
+    v = (torch.randn(b, l, dv, generator=g, device=cuda) * 8.0).to(dtype)
+    m = None
+    if bias:
+        m = torch.where(torch.rand(2, l, l, generator=g, device=cuda) > 0.5,
+                        0.0, -100.0)
+    counter = f"attention[dv{dv}{'' if m is None else '+bias'}]"
+    before = dict(K.LAUNCHES)
+    got = K.attention(q, k, v, 1.0 / 128 ** 0.5, m)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {**before, counter: before[counter] + 1}
+    assert got.dtype == dtype and got.shape == (b, l, dv)
+    ref = K.attention_plain(q, k, v, 1.0 / 128 ** 0.5, m)
+    assert _rel_err(got, ref) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", TILE_EDGES + (333, 4096))
 def test_correlation_matches_plain(cuda, dtype, l):
     g = torch.Generator(device=cuda).manual_seed(1)
     f0, f1 = (torch.randn(3, l, 128, generator=g, device=cuda).to(dtype)
               for _ in range(2))
     grid = torch.rand(l, 2, generator=g, device=cuda) * 63
+    before = dict(K.LAUNCHES)
     got = K.global_correlation_expectation(f0, f1, grid)
     torch.cuda.synchronize()
+    assert K.LAUNCHES == {**before, "global_correlation_expectation":
+                          before["global_correlation_expectation"] + 1}
     assert got.dtype == torch.float32
+    assert _rel_err(got, K.global_correlation_expectation_plain(
+        f0, f1, grid)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", (65, 1000, 4096))
+def test_correlation_peaked_matches_plain(cuda, dtype, l):
+    """f1 near f0 (GMFlow's global matching is peaked): P stays f32 in
+    both dtypes, so the f32 tolerance holds."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    f0 = torch.randn(3, l, 128, generator=g, device=cuda).to(dtype)
+    f1 = _matched_keys(f0, 0.8, g)
+    grid = torch.rand(l, 2, generator=g, device=cuda) * 63
+    got = K.global_correlation_expectation(f0, f1, grid)
+    torch.cuda.synchronize()
     assert _rel_err(got, K.global_correlation_expectation_plain(
         f0, f1, grid)) <= 1e-4
 
