@@ -12,7 +12,9 @@ the verdict):
               its tolerance, kernel ms, plain ms, one PyTorch library call's
               ms as a yardstick (the port never calls it), and the bound;
               for the MLP tail, which no one call computes, the ms of its
-              unfused PyTorch calls instead (unfused_ms, reported)
+              unfused PyTorch calls instead (unfused_ms, reported); the f32
+              MLP tail also at the f32 training step's 114,688 rows
+              (mlp_fused[step])
   4. kernel   (packed_conv2x2, K6) the phase-packed convolution at every
               shape of the packed 512-level path and at its own shape over
               the LQ encoder's 20-frame batch, bf16 and f32: max|d| and
@@ -27,7 +29,8 @@ the verdict):
   6. keep     KEEP.apply on the same clip and flows, f32: card against CPU
               (unpacked), code picks teacher-forced from the CPU run, first
               unpacked, then phase-packed (prepare_phase512, 24 K6
-              launches); outputs and logits
+              launches: the f32 kernel's launches in the kernel table);
+              outputs and logits
   7. main     api.load_models(seed=0) -> load_device(bf16) ->
               processor(bf16, phase512=True).restore_face_stream(21 faces,
               20 per chunk), the 512 level phase-packed: faces/s, ms per
@@ -112,6 +115,7 @@ KERNEL_RTOL = {"bfloat16": 1.6e-2, "float32": 1e-4}
 FLOW_TOL_PX = 5e-2           # GMFlow card against CPU, pixels
 KEEP_ATOL, KEEP_RTOL = 5e-3, 1e-2   # KEEP forward tolerance of the golden tests
 FRAMES, WINDOWS, FEAT, CH, HID = 20, 4, 64, 128, 1024
+STEP_PAIRS = 14      # the f32 training step's GMFlow: B=2 clips x 7 pairs
 KERNEL_ITERS = 20    # timed launches per kernel (a quarter for plain versions)
 MAIN_PAIRS = 10      # packed / unpacked chunk pairs timed in turns
 VQ_T, VQ_N, VQ_C = 4096, 1024, 256   # B=2 x 8 frames x 16x16 latents
@@ -308,23 +312,33 @@ def kernel_cases(torch, dtype):
     gamma, beta = rnd(CH), rnd(CH)
     tanh = dtype == torch.bfloat16
 
-    def mlp_unfused():
-        """The MLP tail as unfused PyTorch calls in the working dtype (a
-        yardstick the port never calls)."""
-        h = F.gelu(torch.matmul(src, w1[:, :CH].t())
-                   + torch.matmul(msg, w1[:, CH:].t()),
-                   approximate="tanh" if tanh else "none")
-        return src + F.layer_norm(torch.matmul(h, w2.t()), (CH,), gamma,
-                                  beta, eps=1e-5)
-
     def sdpa(a, b_, c, m=None):
         return lambda: F.scaled_dot_product_attention(
             a[:, None], b_[:, None], c[:, None], attn_mask=m, scale=scale)
+
+    # f32 only: the f32 step's row count (2 x 14 pairs x 4096 tokens)
+    ssrc, smsg = ((None, None) if tanh else
+                  (rnd(2 * STEP_PAIRS, lg, CH), rnd(2 * STEP_PAIRS, lg, CH)))
+
+    def mlp_unfused_at(s, m):
+        """The MLP tail as unfused PyTorch calls in the working dtype (a
+        yardstick the port never calls)."""
+        h = F.gelu(torch.matmul(s, w1[:, :CH].t())
+                   + torch.matmul(m, w1[:, CH:].t()),
+                   approximate="tanh" if tanh else "none")
+        return s + F.layer_norm(torch.matmul(h, w2.t()), (CH,), gamma,
+                                beta, eps=1e-5)
 
     att_fl = 2 * bw * lw * lw * CH
     glb_fl = 2 * bg * lg * lg * CH
     rows = bw * lw
     rtol = KERNEL_RTOL[dname]
+    step = [] if tanh else [
+        ("mlp_fused[step]", "mlp_fused",
+         (ssrc, smsg, w1, w2, gamma, beta, tanh),
+         None, [(6 * ssrc.numel() * HID, peak)],
+         3 * ssrc.numel() * isz + 3 * CH * HID * isz, rtol,
+         lambda: mlp_unfused_at(ssrc, smsg))]
     return [
         ("attention[dv128]", "attention", (q, k, v, scale),
          sdpa(q, k, v), [(2 * att_fl, peak)], 4 * q.numel() * isz, rtol,
@@ -345,8 +359,9 @@ def kernel_cases(torch, dtype):
         ("mlp_fused", "mlp_fused",
          (src, msg, w1, w2, gamma, beta, tanh),
          None, [(6 * rows * CH * HID, peak)],
-         3 * src.numel() * isz + 3 * CH * HID * isz, rtol, mlp_unfused),
-    ]
+         3 * src.numel() * isz + 3 * CH * HID * isz, rtol,
+         lambda: mlp_unfused_at(src, msg)),
+    ] + step
 
 
 def phase_kernels(torch, iters=KERNEL_ITERS):
@@ -512,8 +527,9 @@ def phase_gmflow(torch):
 def phase_keep(torch, x, flows):
     """KEEP on the 2-frame clip, f32, card against CPU (unpacked), picks
     forced from the CPU: the card's unpacked forward, then its packed one,
-    which must launch K6 12 times per frame. A check of its own: the
-    serving runs count the launches of the kernel table."""
+    which must launch K6 12 times per frame. Returns that count: the f32
+    kernel's launches in the kernel table (the serving runs count the bf16
+    kernel's)."""
     from comfyui_keep_torch.models.keep import KEEP
     from comfyui_keep_torch.ops import kernels as K
     gen = torch.Generator().manual_seed(2)
@@ -551,6 +567,7 @@ def phase_keep(torch, x, flows):
     if not ok:
         fail(f"KEEP card (unpacked and packed) vs CPU outside atol/rtol, or "
              f"K6 launches {k6} != {want_k6}")
+    return k6
 
 
 def serving_launches(k6_per_frame_chunks):
@@ -1440,7 +1457,7 @@ def main():
     k6_rows = phase_k6(torch)
     vq_rows = phase_vq(torch)
     x, flows = phase_gmflow(torch)
-    phase_keep(torch, x, flows)
+    keep_k6 = phase_keep(torch, x, flows)
     counts, proc, faces, pack = phase_main(torch,
                                            k6_rows[(K6_OWN, "bfloat16")])
     phase_stream(torch, proc, faces)
@@ -1515,15 +1532,35 @@ def main():
             "launches_train_16_alternations": (
                 sg2_train_counts["fused_bias_lrelu"]
                 if dname == "float32" else None)})
-    # K6 at its own shape, (257, 257, 256) VALID, in bf16 as served: its
-    # launches from the 21-face serving run (no main path runs it in f32)
+    # K2's f32 form (erf gelu) runs on the f32 training step: its launches
+    # from that run, its time at the chunk's rows and at the step's
+    src, replaces = srcs["mlp_fused"]
+    r, rs = krows[("mlp_fused", "float32")], krows[("mlp_fused[step]",
+                                                   "float32")]
+    table.append({
+        "name": "mlp_fused", "route": "cuda", "source": src,
+        "replaces": replaces,
+        "launches": train_counts["float32"]["mlp_fused"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "unfused_ms": r["unfused_ms"], "dtype": "float32",
+        "status": "ported", "step_rows_ms": rs["ms"],
+        "step_rows_bound_ms": rs["bound_ms"],
+        "step_rows_unfused_ms": rs["unfused_ms"],
+        "launches_per": f"{TRAIN_STEPS} f32 training steps"})
+    # K6 at its own shape, (257, 257, 256) VALID: bf16 with its launches
+    # from the 21-face serving run, f32 with those of phase keep's packed
+    # f32 forward (2 frames)
     for (label, dname), r in k6_rows.items():
-        if label != K6_OWN or dname != "bfloat16":
+        if label != K6_OWN:
             continue
         src, replaces = srcs["packed_conv2x2"]
         table.append({
             "name": "packed_conv2x2", "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts["packed_conv2x2"],
+            "replaces": replaces,
+            "launches": (counts["packed_conv2x2"] if dname == "bfloat16"
+                         else keep_k6),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

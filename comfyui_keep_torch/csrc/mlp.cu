@@ -36,9 +36,24 @@
 // (~0.9 GB per call at the path's shape); sharing them across a cluster by
 // TMA multicast is left for later work.
 //
-// f32 (the f32 training step, erf gelu): the first form, 64-row blocks of
-// 4 warps with FMA products through shared memory (common.cuh block_gemm),
-// reading the weights in nn.Linear's layout.
+// f32 (the f32 training step's GMFlow, erf gelu): mlp_fused_f32_kernel
+// keeps the arithmetic f32 (no TF32), so the FMA pipe's 67 TFLOP/s bounds
+// it: 1.83 ms at the chunk's shape. A register-tiled FMA design, after the
+// f32 flash attention kernel: one block of 8 warps owns 128 rows, staged
+// once by cp.async into padded rows ([src | msg], 260 floats). Both
+// products read K-contiguous operands, since nn.Linear's W1 row is a hidden
+// unit over the inputs and W2's row an output over the hidden units. The
+// weights stream through a 3-slot ring of 64 x 64 slices (16-byte cp.async,
+// rows padded to 68 floats, two slices in flight while one multiplies):
+// per 64-wide hidden chunk, W1 in four 64-deep input slices, then W2 in two
+// 64-output halves. Lane 8 rg + cg of warp w forms a 4 x 8 hidden tile in
+// registers (rows 16 w + rg + 4 r, units cg + 8 c: 12 float4 loads per 128
+// FMAs, a warp's reads in distinct banks), applies the gelu there and
+// stores it once into its warp's rows of a padded hidden tile, from which
+// the same lane accumulates its 4 x 16 outputs in registers across all of
+// H. The LayerNorm runs on those registers (a row's 8 lanes reduce with 3
+// shuffles), and the residual comes from the staged src. 220 KB of shared
+// memory: one block per SM.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -289,33 +304,80 @@ int launch_mlp_bf16(const void* src, const void* msg, const void* w1,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the first form (FMA through shared memory)
+// f32: register-tiled FMA (no TF32)
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Hc = 32;  // hidden units per chunk
+constexpr int kFRows = 128;           // rows per block: 8 warps x 16
+constexpr int kFThreads = 256;
+constexpr int kFHc = 64;              // hidden units per chunk
+constexpr int kFSlice = 64;           // rows and depth of a weight slice
+constexpr int kFParts = 6;            // slices per chunk: W1 in 4, W2 in 2
+constexpr int kFStages = 3;           // ring slots; two slices load ahead
+constexpr int kFLdx = 2 * kC + 4;     // floats per staged [src | msg] row
+constexpr int kFLds = kFSlice + 4;    // floats per slice or hidden row
+constexpr int kFXBytes = 4 * kFRows * kFLdx;         // 133,120
+constexpr int kFHBytes = 4 * kFRows * kFLds;         // 34,816
+constexpr int kFSlotBytes = 4 * kFSlice * kFLds;     // 17,408
+constexpr int kFSmem = kFXBytes + kFHBytes + kFStages * kFSlotBytes;  // 220,160
+static_assert(kFParts % kFStages == 0, "a part keeps its ring slot");
 
-struct MlpF32Smem {
-  static constexpr int HC = kF32Hc;
-  static constexpr int ldx = kC + Pad<float>::v;   // src / msg tiles, W2 chunk
-  static constexpr int ldw = HC + Pad<float>::v;   // W1 chunks, hidden
-  static constexpr int ldh = HC + 4;               // f32 hidden
-  static constexpr int lda = kC + 4;               // f32 accumulator
-  static constexpr size_t s = 0;
-  static constexpr size_t m = s + align128(sizeof(float) * kRows * ldx);
-  static constexpr size_t w1a = m + align128(sizeof(float) * kRows * ldx);
-  static constexpr size_t w1b = w1a + align128(sizeof(float) * kC * ldw);
-  static constexpr size_t w2 = w1b + align128(sizeof(float) * kC * ldw);
-  static constexpr size_t hf = w2 + align128(sizeof(float) * HC * ldx);
-  static constexpr size_t hs = hf + align128(sizeof(float) * kRows * ldh);
-  static constexpr size_t acc = hs + align128(sizeof(float) * kRows * ldw);
-  static constexpr size_t stats = acc + align128(sizeof(float) * kRows * lda);
-  static constexpr size_t bytes = stats + align128(sizeof(float) * kRows * 2);
-};
+// slice t of the weight stream into ring slot (t % 6) % 3: chunk j = t / 6
+// (hidden units h0 = 64 j ..), part p = t % 6. Parts 0-3 are W1's rows h0..
+// over inputs 64 p .. 64 p + 63; parts 4-5 are W2's rows 64 (p - 4) .. over
+// hidden units h0 .. h0 + 63. Each row of 64 floats is K-contiguous.
+__device__ __forceinline__ void mlp_f32_load_slice(uint32_t ring,
+                                                   const float* w1,
+                                                   const float* w2, int t,
+                                                   int H) {
+  const int h0 = (t / kFParts) * kFHc, part = t % kFParts;
+  const float* base = part < 4
+      ? w1 + (size_t)h0 * (2 * kC) + kFSlice * part
+      : w2 + (size_t)(kFSlice * (part - 4)) * H + h0;
+  const size_t ld = part < 4 ? 2 * kC : (size_t)H;
+  const uint32_t dst = ring + (part % kFStages) * kFSlotBytes;
+#pragma unroll
+  for (int k = 0; k < kFSlice * (kFSlice / 4) / kFThreads; ++k) {  // 4 each
+    const int i = threadIdx.x + k * kFThreads;
+    const int r = i >> 4, c = i & 15;
+    sm90::cp_async16(dst + 4 * (r * kFLds + 4 * c), base + r * ld + 4 * c, 16);
+  }
+}
+
+// acc[r][c] += sum_{k < 64} a[4 r LDA + k] b[8 c kFLds + k]: the lane's
+// 4 x 8 tile, both operands K-contiguous, read 16 bytes at a time (12 loads
+// per 128 FMAs)
+template <int LDA>
+__device__ __forceinline__ void mlp_f32_tile(float (&acc)[4][8],
+                                             const float* a, const float* b) {
+#pragma unroll 4
+  for (int k = 0; k < kFSlice; k += 4) {
+    float4 av[4], bv[8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      av[r] = *reinterpret_cast<const float4*>(a + 4 * r * LDA + k);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      bv[c] = *reinterpret_cast<const float4*>(b + 8 * c * kFLds + k);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        acc[r][c] = fmaf(av[r].x, bv[c].x, acc[r][c]);
+        acc[r][c] = fmaf(av[r].y, bv[c].y, acc[r][c]);
+        acc[r][c] = fmaf(av[r].z, bv[c].z, acc[r][c]);
+        acc[r][c] = fmaf(av[r].w, bv[c].w, acc[r][c]);
+      }
+  }
+}
 
 // src, msg, out: (rows, 128); w1: (H, 256); w2: (128, H); gamma, beta:
-// (128,), all f32. H must be a multiple of 32. Grid ceil(rows / 64).
+// (128,), all f32. H % 64 == 0. Grid ceil(rows / 128), 256 threads. Lane
+// 8 rg + cg of warp w owns rows 16 w + rg + 4 r (r < 4) of the block: hidden
+// units cg + 8 c (c < 8) of a chunk, and outputs 64 hh + cg + 8 c (hh < 2);
+// a row's 8 lanes differ in lane bits 0-2. Every slice step commits one
+// cp.async group, and the first carries the staged rows.
 template <bool TANH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFThreads, 1)
     mlp_fused_f32_kernel(const float* __restrict__ src,
                          const float* __restrict__ msg,
                          const float* __restrict__ w1,
@@ -323,101 +385,146 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ gamma,
                          const float* __restrict__ beta,
                          float* __restrict__ out, int rows, int H) {
-  using S = MlpF32Smem;
-  constexpr int HC = S::HC;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Ss = reinterpret_cast<float*>(smem + S::s);
-  float* Ms = reinterpret_cast<float*>(smem + S::m);
-  float* W1as = reinterpret_cast<float*>(smem + S::w1a);
-  float* W1bs = reinterpret_cast<float*>(smem + S::w1b);
-  float* W2s = reinterpret_cast<float*>(smem + S::w2);
-  float* Hf = reinterpret_cast<float*>(smem + S::hf);
-  float* Hs = reinterpret_cast<float*>(smem + S::hs);
-  float* Acc = reinterpret_cast<float*>(smem + S::acc);
-  float* Stats = reinterpret_cast<float*>(smem + S::stats);
+  const uint32_t sx = sm90::smem_u32(smem);
+  const uint32_t ring = sx + kFXBytes + kFHBytes;
+  const float* Xs = reinterpret_cast<const float*>(smem);
+  float* Hs = reinterpret_cast<float*>(smem + kFXBytes);
+  const float* Ring = reinterpret_cast<const float*>(smem + kFXBytes + kFHBytes);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int wr = 16 * warp + rg;  // the lane's rows: wr + 4 r of the block
+  const int r0 = blockIdx.x * kFRows;
+  const int steps = (H / kFHc) * kFParts;
 
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kRows;
-  load_tile(Ss, S::ldx, src, kC, r0, kRows, kC, rows);
-  load_tile(Ms, S::ldx, msg, kC, r0, kRows, kC, rows);
-  for (int i = tid; i < kRows * kC; i += kThreads)
-    Acc[(i / kC) * S::lda + i % kC] = 0.0f;
-
-  for (int h0 = 0; h0 < H; h0 += HC) {
-    __syncthreads();  // previous chunk's weight and hidden reads are done
-    // W1a[k][j] = w1[h0 + j][k], W1b[k][j] = w1[h0 + j][128 + k]
-    for (int i = tid; i < kC * HC; i += kThreads) {
-      const int j = i / kC, k = i % kC;
-      const float* wr = w1 + (size_t)(h0 + j) * (2 * kC);
-      W1as[k * S::ldw + j] = wr[k];
-      W1bs[k * S::ldw + j] = wr[kC + k];
-    }
-    // W2s[j][c] = w2[c][h0 + j]
-    for (int i = tid; i < kC * HC; i += kThreads) {
-      const int c = i / HC, j = i % HC;
-      W2s[j * S::ldx + c] = w2[(size_t)c * H + h0 + j];
-    }
-    __syncthreads();
-
-    block_gemm<HC, kC, false, false>(Ss, S::ldx, W1as, S::ldw, Hf, S::ldh);
-    __syncthreads();
-    block_gemm<HC, kC, false, true>(Ms, S::ldx, W1bs, S::ldw, Hf, S::ldh);
-    __syncthreads();
-
-    for (int i = tid; i < kRows * HC; i += kThreads) {
-      const int r = i / HC, c = i % HC;
-      const float x = Hf[r * S::ldh + c];
-      Hs[r * S::ldw + c] = TANH ? gelu_tanh(x) : gelu_erf(x);
-    }
-    __syncthreads();
-
-    block_gemm<kC, HC, false, true>(Hs, S::ldw, W2s, S::ldx, Acc, S::lda);
-  }
-  __syncthreads();
-
-  // LayerNorm statistics: two threads per row, 64 columns each
-  {
-    const int row = tid >> 1, half = tid & 1;
-    const float* arow = Acc + row * S::lda + half * (kC / 2);
-    float sum = 0.0f;
+  // [src | msg] rows: 16-byte chunks 0..31 of a row are src, 32..63 msg;
+  // rows at or past `rows` are zero-filled
 #pragma unroll 8
-    for (int c = 0; c < kC / 2; ++c) sum += arow[c];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float mean = sum / kC;
-    float sq = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < kC / 2; ++c) {
-      const float d = arow[c] - mean;
-      sq = fmaf(d, d, sq);
-    }
-    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
-    if (half == 0) {
-      Stats[2 * row] = mean;
-      Stats[2 * row + 1] = rsqrtf(sq / kC + 1e-5f);
-    }
+  for (int k = 0; k < kFRows * 64 / kFThreads; ++k) {  // 32 per thread
+    const int i = tid + k * kFThreads;
+    const int r = i >> 6, c = i & 63;
+    const bool ok = r0 + r < rows;
+    const float* base = c < 32 ? src : msg;
+    sm90::cp_async16(sx + 4 * (r * kFLdx + 4 * c),
+                     base + (size_t)(ok ? r0 + r : 0) * kC + 4 * (c & 31),
+                     ok ? 16 : 0);
   }
-  __syncthreads();
+  mlp_f32_load_slice(ring, w1, w2, 0, H);
+  sm90::cp_async_commit();
+  mlp_f32_load_slice(ring, w1, w2, 1, H);
+  sm90::cp_async_commit();
 
-  for (int i = tid; i < kRows * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC;
-    if (r0 + r >= rows) continue;
-    const float y = (Acc[r * S::lda + c] - Stats[2 * r]) * Stats[2 * r + 1] *
-                        gamma[c] + beta[c];
-    out[(size_t)(r0 + r) * kC + c] = Ss[r * S::ldx + c] + y;
+  float o[2][4][8];  // the lane's 4 x 16 outputs, f32, across all of H
+  float h[4][8];     // its 4 x 8 hidden units of the chunk
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) o[hh][r][c] = 0.f;
+
+  for (int t0 = 0; t0 < steps; t0 += kFParts) {
+#pragma unroll
+    for (int part = 0; part < kFParts; ++part) {
+      const int t = t0 + part;
+      sm90::cp_async_wait<1>();
+      __syncthreads();  // slice t landed; every warp is done with slice t - 1
+      if (t + 2 < steps) mlp_f32_load_slice(ring, w1, w2, t + 2, H);
+      sm90::cp_async_commit();
+      const float* slot = Ring + (part % kFStages) * (kFSlotBytes / 4) +
+                          cg * kFLds;
+      if (part < 4) {
+        // hidden += [src | msg][:, 64 part ..] W1[h0 .., 64 part ..]^T
+        if (part == 0) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) h[r][c] = 0.f;
+        }
+        mlp_f32_tile<kFLdx>(h, Xs + wr * kFLdx + kFSlice * part, slot);
+        if (part == 3) {
+          // gelu on the registers, stored once into the warp's rows of the
+          // hidden tile; the next step's barrier orders it before the reads
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              Hs[(wr + 4 * r) * kFLds + cg + 8 * c] =
+                  TANH ? gelu_tanh(h[r][c]) : gelu_erf(h[r][c]);
+        }
+      } else {
+        // out[:, 64 (part - 4) ..] += gelu(hidden) W2[64 (part - 4) .., h0 ..]^T
+        mlp_f32_tile<kFLds>(o[part & 1], Hs + wr * kFLds, slot);
+      }
+    }
   }
+
+  // LayerNorm over each row's 128 outputs, held by its 8 lanes
+  float mean[4], rs[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float s = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s += o[hh][r][c];
+    mean[r] = s;
+  }
+#pragma unroll
+  for (int w = 1; w < 8; w <<= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      mean[r] += __shfl_xor_sync(0xffffffffu, mean[r], w);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    mean[r] *= 1.f / kC;
+    float q = 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float d = o[hh][r][c] - mean[r];
+        q = fmaf(d, d, q);
+      }
+    rs[r] = q;
+  }
+#pragma unroll
+  for (int w = 1; w < 8; w <<= 1)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], w);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) rs[r] = rsqrtf(rs[r] * (1.f / kC) + 1e-5f);
+
+  // + src from the staged rows; each store writes 8 consecutive floats of
+  // 4 rows
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = 64 * hh + cg + 8 * c;
+      const float gm = __ldg(gamma + col), bt = __ldg(beta + col);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = wr + 4 * r;
+        if (r0 + row < rows)
+          out[(size_t)(r0 + row) * kC + col] =
+              Xs[row * kFLdx + col] +
+              ((o[hh][r][c] - mean[r]) * rs[r] * gm + bt);
+      }
+    }
 }
 
 template <bool TANH>
 int launch_mlp_f32(const void* src, const void* msg, const void* w1,
                    const void* w2, const void* gamma, const void* beta,
                    void* out, int rows, int H, cudaStream_t stream) {
-  using S = MlpF32Smem;
   cudaError_t err = cudaFuncSetAttribute(
       mlp_fused_f32_kernel<TANH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)S::bytes);
+      kFSmem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (rows + kRows - 1) / kRows;
-  mlp_fused_f32_kernel<TANH><<<blocks, kThreads, S::bytes, stream>>>(
+  const int blocks = (rows + kFRows - 1) / kFRows;
+  mlp_fused_f32_kernel<TANH><<<blocks, kFThreads, kFSmem, stream>>>(
       static_cast<const float*>(src), static_cast<const float*>(msg),
       static_cast<const float*>(w1), static_cast<const float*>(w2),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),

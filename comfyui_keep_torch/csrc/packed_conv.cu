@@ -55,9 +55,24 @@
 // the weight slice across a 2-block cluster with TMA would halve the
 // larger part.
 //
-// f32 (no main path; the card's f32 checks): packed_conv_f32_kernel, the
-// first design: 64 pixels x 64 channels a block of 128 threads, K slices of
-// 32 channels staged by 16-byte loads, FMA into registers, no TF32.
+// f32 (the f32 packed KEEP forward, processor(float32, phase512=True)):
+// packed_conv_f32_kernel<128|64>, the same implicit GEMM on the FMA pipe,
+// all f32 (no TF32), bound by its 67 TFLOP/s. A block of 8 warps owns 128
+// pixels x BN channels (BN 128, or 64 when Cout <= 64), so at Cout = 256
+// each input patch comes from L2 twice per tap. K steps of one tap x 32
+// input channels go through a 4-stage ring filled by 16-byte cp.async with
+// zero-fill (pad cells, pixels past the end, channels past Cin), three
+// steps ahead, one barrier a step. Operand layouts: the input patch lies
+// [pixel][channel] (K-contiguous, rows padded to 36 floats) and the HWIO
+// weight slice [channel][output] (N-contiguous, unpadded), as they arrive.
+// A lane owns 8 pixels x 8 outputs (two groups of 4 consecutive outputs,
+// 64 apart; 8 x 4 at BN 64): per 4 channels it reads 8 float4 of the patch
+// along K (a warp's 4 pixel rows fall in distinct banks, its 8 lanes of a
+// row share the address) and, per channel, 2 float4 of the weight row (8
+// lanes read 128 consecutive bytes): 16 shared loads per 256 FMAs, one
+// wavefront each. The epilogue adds the bias in f32, zeroes a masked
+// pixel's pad half-cells and stores 16 bytes a lane straight from the
+// registers.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -335,112 +350,201 @@ int launch_packed_conv_bf16(const void* x, const void* w, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA implicit GEMM
+// f32: register-tiled FMA implicit GEMM (no TF32)
 // ---------------------------------------------------------------------------
 
-constexpr int kPcCols = 64;  // output channels per block
-constexpr int kPcK = 32;     // input channels of one K slice
-constexpr int kPcLda = kPcK + 4;     // input patch row stride
-constexpr int kPcLdb = kPcCols + 4;  // weight slice row stride
+constexpr int kPfRows = 128;          // output pixels per block
+constexpr int kPfK = 32;              // input channels per K step
+constexpr int kPfStages = 4;
+constexpr int kPfAhead = kPfStages - 1;  // K steps loading ahead
+constexpr int kPfThreads = 256;
+constexpr int kPfLda = kPfK + 4;      // floats per staged pixel row
+
+template <int BN>
+struct PfLayout {
+  static constexpr int a_bytes = 4 * kPfRows * kPfLda;  // 18,432
+  static constexpr int b_bytes = 4 * kPfK * BN;         // 16,384 at BN 128
+  static constexpr int stage = a_bytes + b_bytes;
+  static constexpr int bytes = kPfStages * stage;       // 139,264 at BN 128
+};
 
 // x: (B, Hi, Wi, Cin); w: (kh, kw, Cin, Cout); out: (B, Ho, Wo, Cout).
-// Grid (ceil(M / 64), ceil(Cout / 64)), 128 threads; thread t owns rows
-// 4 (t / 8) .. + 3 against columns t % 8 + 8 j.
-__global__ void __launch_bounds__(kThreads)
+// Grid (ceil(M / 128), ceil(Cout / BN)), 256 threads. Warp w = 4 wn + wm,
+// lane 8 rg + cg: pixels 32 wm + rg + 4 r (r < 8) of the block against
+// channels 32 wn + 4 cg + 64 q + e (q < BN / 64, e < 4).
+template <int BN>
+__global__ void __launch_bounds__(kPfThreads, 1)
     packed_conv_f32_kernel(const float* __restrict__ x,
                            const float* __restrict__ w,
                            float* __restrict__ out, PcGeom g, PcEpi e) {
-  __shared__ __align__(16) float As[kRows * kPcLda];
-  __shared__ __align__(16) float Bs[kPcK * kPcLdb];
-  __shared__ long long row_img[kRows];  // b * Hi * Wi, or -1 past the end
-  __shared__ int row_i[kRows], row_j[kRows];
+  using Lay = PfLayout<BN>;
+  constexpr int NQ = BN / 64;  // float4 channel groups per lane
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ long long row_pix[kPfRows];  // pixel index of (i - pt, j - pl)
+  __shared__ int row_i[kPfRows], row_j[kPfRows];  // i - pt (kNoRow), j - pl
+  __shared__ int row_edges[kPfRows];  // pc_edges of each output pixel
+  __shared__ float bias_s[BN];
 
-  const int tid = threadIdx.x;
-  const long long m0 = (long long)blockIdx.x * kRows;
-  const int n0 = blockIdx.y * kPcCols;
-  if (tid < kRows) {
+  const uint32_t base = sm90::smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2, rg = lane >> 3, cg = lane & 7;
+  const long long m0 = (long long)blockIdx.x * kPfRows;
+  const int n0 = blockIdx.y * BN;
+  if (tid < kPfRows) {
     const long long p = m0 + tid;
     const long long hw = (long long)g.Ho * g.Wo;
-    const long long b = p / hw, rem = p % hw;
-    row_img[tid] = p < g.M ? b * g.Hi * g.Wi : -1;
-    row_i[tid] = (int)(rem / g.Wo) - g.pt;
-    row_j[tid] = (int)(rem % g.Wo) - g.pl;
+    const long long rem = p % hw;
+    const int i = (int)(rem / g.Wo) - g.pt, j = (int)(rem % g.Wo) - g.pl;
+    row_pix[tid] = ((p / hw) * g.Hi + i) * g.Wi + j;
+    row_i[tid] = p < g.M ? i : kNoRow;
+    row_j[tid] = j;
+    row_edges[tid] = pc_edges(g, e, p);
   }
+  for (int i = tid; i < BN; i += kPfThreads)
+    bias_s[i] = n0 + i < g.Cout ? pc_bias(e, n0 + i) : 0.f;
+  __syncthreads();
 
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int tr = tid / 8, tc = tid % 8;
-  float acc[4][8];
+  const int taps = g.kh * g.kw;
+  const int steps = taps * ((g.Cin + kPfK - 1) / kPfK);
+
+  // 16-byte copies (4 channels; Cin and Cout are multiples of 4): each
+  // thread's 4 pixel rows and its weight chunk are fixed across K steps, so
+  // their geometry stays in registers
+  constexpr int kAPer = kPfRows * (kPfK / 4) / kPfThreads;  // 4
+  const int a_c = (tid & 7) * 4;                           // channel in step
+  long long a_pix[kAPer];
+  int a_i[kAPer], a_j[kAPer];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int k = 0; k < kAPer; ++k) {
+    const int r = (tid >> 3) + 32 * k;
+    a_pix[k] = row_pix[r];
+    a_i[k] = row_i[r];
+    a_j[k] = row_j[r];
+  }
+  constexpr int kBCpr = BN / 4;              // 16-byte chunks per K row
+  constexpr int kBRpi = kPfThreads / kBCpr;  // K rows per pass
+  const int b_nn = (tid % kBCpr) * 4, b_kr = tid / kBCpr;
+  const bool b_col_ok = n0 + b_nn < g.Cout;
+
+  // K step s: input channels c0 .. c0 + 31 of tap s % taps -> stage s % 4
+  // (consecutive taps read the same channels of neighbouring pixels, which
+  // the L1 still holds). Pad cells, pixels past the end and channels past
+  // Cin are zero-filled.
+  auto load_step = [&](int s) {
+    const int tap = s % taps, c0 = (s / taps) * kPfK;
+    const int ty = tap / g.kw, tx = tap % g.kw;
+    const uint32_t sa = base + (s % kPfStages) * Lay::stage;
+    const uint32_t sb = sa + Lay::a_bytes;
+    // input patch: 128 pixels x 32 channels, [pixel][channel]
+    const long long shift = (long long)ty * g.Wi + tx;
+    const bool c_ok = c0 + a_c < g.Cin;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-  for (int ty = 0; ty < g.kh; ++ty) {
-    for (int tx = 0; tx < g.kw; ++tx) {
-      const float* wt = w + (size_t)(ty * g.kw + tx) * g.Cin * g.Cout;
-      for (int c0 = 0; c0 < g.Cin; c0 += kPcK) {
-        __syncthreads();  // row geometry written; the previous slice read
-        // input patch: 64 pixels x 32 channels, as 4-channel vectors
-        for (int i = tid; i < kRows * (kPcK / 4); i += kThreads) {
-          const int r = i / (kPcK / 4), c = c0 + 4 * (i % (kPcK / 4));
-          const int ii = row_i[r] + ty, jj = row_j[r] + tx;
-          float4 v = zero;
-          if (row_img[r] >= 0 && ii >= 0 && ii < g.Hi && jj >= 0 &&
-              jj < g.Wi && c < g.Cin)
-            v = *reinterpret_cast<const float4*>(
-                x + (row_img[r] + (long long)ii * g.Wi + jj) * g.Cin + c);
-          *reinterpret_cast<float4*>(As + r * kPcLda + (c - c0)) = v;
-        }
-        // weight slice: 32 input channels x 64 output channels
-        for (int i = tid; i < kPcK * (kPcCols / 4); i += kThreads) {
-          const int k = i / (kPcCols / 4), c = 4 * (i % (kPcCols / 4));
-          float4 v = zero;
-          if (c0 + k < g.Cin && n0 + c < g.Cout)
-            v = *reinterpret_cast<const float4*>(wt + (size_t)(c0 + k) *
-                                                 g.Cout + n0 + c);
-          *reinterpret_cast<float4*>(Bs + k * kPcLdb + c) = v;
-        }
-        __syncthreads();
-        const float* At = As + 4 * tr * kPcLda;
-#pragma unroll 8
-        for (int k = 0; k < kPcK; ++k) {
-          float a[4], b[8];
+    for (int k = 0; k < kAPer; ++k) {
+      const int ii = a_i[k] + ty, jj = a_j[k] + tx;
+      const bool ok = c_ok && ii >= 0 && ii < g.Hi && jj >= 0 && jj < g.Wi;
+      const float* src = ok ? x + (a_pix[k] + shift) * g.Cin + c0 + a_c : x;
+      sm90::cp_async16_l1(
+          sa + 4 * (((tid >> 3) + 32 * k) * kPfLda + a_c), src, ok ? 16 : 0);
+    }
+    // weight slice: 32 input channels x BN outputs, [channel][output]
+    const float* wt = w + ((size_t)tap * g.Cin + c0) * g.Cout + n0;
 #pragma unroll
-          for (int r = 0; r < 4; ++r) a[r] = At[r * kPcLda + k];
+    for (int k = 0; k < kPfK / kBRpi; ++k) {
+      const int kr = b_kr + kBRpi * k;
+      const bool ok = b_col_ok && c0 + kr < g.Cin;
+      const float* src = ok ? wt + (size_t)kr * g.Cout + b_nn : w;
+      sm90::cp_async16(sb + 4 * (kr * BN + b_nn), src, ok ? 16 : 0);
+    }
+  };
+
+  float acc[8][4 * NQ];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) b[j] = Bs[k * kPcLdb + tc + 8 * j];
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+    for (int n = 0; n < 4 * NQ; ++n) acc[r][n] = 0.f;
+
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(a[r], b[j], acc[r][j]);
+  for (int s = 0; s < kPfAhead; ++s) {
+    if (s < steps) load_step(s);
+    sm90::cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    sm90::cp_async_wait<kPfAhead - 1>();  // this thread's copies of step s
+    __syncthreads();  // every copy of step s landed; step s - 1 is done
+    if (s + kPfAhead < steps) load_step(s + kPfAhead);  // into s - 1's stage
+    sm90::cp_async_commit();
+    const float* as = reinterpret_cast<const float*>(
+        smem + (s % kPfStages) * Lay::stage) + (32 * wm + rg) * kPfLda;
+    const float* bs = reinterpret_cast<const float*>(
+        smem + (s % kPfStages) * Lay::stage + Lay::a_bytes) + 32 * wn + 4 * cg;
+#pragma unroll
+    for (int k = 0; k < kPfK; k += 4) {
+      float4 a[8];  // 4 channels of each of the lane's 8 pixels
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        a[r] = *reinterpret_cast<const float4*>(as + 4 * r * kPfLda + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 b[NQ];  // 4 outputs of each group at channel k + kk
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          b[q] = *reinterpret_cast<const float4*>(bs + (k + kk) * BN + 64 * q);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float av = kk == 0 ? a[r].x : kk == 1 ? a[r].y
+                         : kk == 2 ? a[r].z : a[r].w;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            acc[r][4 * q + 0] = fmaf(av, b[q].x, acc[r][4 * q + 0]);
+            acc[r][4 * q + 1] = fmaf(av, b[q].y, acc[r][4 * q + 1]);
+            acc[r][4 * q + 2] = fmaf(av, b[q].z, acc[r][4 * q + 2]);
+            acc[r][4 * q + 3] = fmaf(av, b[q].w, acc[r][4 * q + 3]);
+          }
         }
       }
     }
   }
+  sm90::cp_async_wait<0>();
+
+  // bias in f32, a masked pixel's pad half-cells zeroed, 16-byte stores of
+  // 4 consecutive outputs (a store instruction writes 128 bytes of 4 rows)
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const long long p = m0 + 4 * tr + r;
+  for (int r = 0; r < 8; ++r) {
+    const int pl = 32 * wm + rg + 4 * r;
+    const long long p = m0 + pl;
     if (p >= g.M) continue;
-    const int edges = pc_edges(g, e, p);
+    const int edges = row_edges[pl];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tc + 8 * j;
-      if (n >= g.Cout) continue;
-      float v = acc[r][j] + pc_bias(e, n);
-      if (edges && pc_masked(edges, e.mask_c, n)) v = 0.f;
-      out[p * g.Cout + n] = v;
+    for (int q = 0; q < NQ; ++q) {
+      const int nl = 32 * wn + 4 * cg + 64 * q;
+      if (n0 + nl >= g.Cout) continue;
+      float v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        v[c] = acc[r][4 * q + c] + bias_s[nl + c];
+        if (edges && pc_masked(edges, e.mask_c, n0 + nl + c)) v[c] = 0.f;
+      }
+      *reinterpret_cast<float4*>(out + p * g.Cout + n0 + nl) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
+template <int BN>
 int launch_packed_conv_f32(const void* x, const void* w, void* out,
                            const PcGeom& g, const PcEpi& e,
                            cudaStream_t stream) {
-  const long long mt = (g.M + kRows - 1) / kRows;
+  const long long mt = (g.M + kPfRows - 1) / kPfRows;
   if (mt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)mt, (g.Cout + kPcCols - 1) / kPcCols);
-  packed_conv_f32_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), g, e);
+  cudaError_t err = cudaFuncSetAttribute(
+      packed_conv_f32_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, PfLayout<BN>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)mt, (g.Cout + BN - 1) / BN);
+  packed_conv_f32_kernel<BN>
+      <<<grid, kPfThreads, PfLayout<BN>::bytes, stream>>>(
+          static_cast<const float*>(x), static_cast<const float*>(w),
+          static_cast<float*>(out), g, e);
   return (int)cudaGetLastError();
 }
 
@@ -475,6 +579,8 @@ extern "C" int keep_packed_conv(const void* x, const void* w,
   if (dtype == 1)
     return Cout > 64 ? launch_packed_conv_bf16<256>(x, w, out, g, e, st)
                      : launch_packed_conv_bf16<64>(x, w, out, g, e, st);
-  if (dtype == 0) return launch_packed_conv_f32(x, w, out, g, e, st);
+  if (dtype == 0)
+    return Cout > 64 ? launch_packed_conv_f32<128>(x, w, out, g, e, st)
+                     : launch_packed_conv_f32<64>(x, w, out, g, e, st);
   return (int)cudaErrorInvalidValue;
 }

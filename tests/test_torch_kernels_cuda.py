@@ -192,13 +192,15 @@ def test_mlp_matches_plain(cuda, dtype, approximate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("approximate", [True, False])
-@pytest.mark.parametrize("n_rows", [1, 15, 333])
-@pytest.mark.parametrize("h", [64, 1024])
+@pytest.mark.parametrize("n_rows", [1, 15, 63, 64, 65, 127, 129, 333, 1000])
+@pytest.mark.parametrize("h", [64, 128, 1024])
 def test_mlp_ragged_rows_and_hidden_widths(cuda, dtype, approximate, n_rows,
                                            h):
-    """Row counts that no 128- or 64-row block divides (the ragged rows
-    are zero-filled and never written), one hidden chunk (H = 64) and the
-    path's 16 (H = 1024); one launch counted per call."""
+    """Row counts at and around the 128-row block and its 16-row warp
+    slices, and ones that no block divides (the ragged rows are zero-filled
+    and never written); one hidden chunk (H = 64), two (H = 128: the weight
+    stream runs into a second chunk) and the path's 16 (H = 1024); one
+    launch counted per call."""
     args = _mlp_inputs(cuda, dtype, rows=(1, n_rows), h=h, seed=n_rows + h)
     before = K.LAUNCHES["mlp_fused"]
     got = K.mlp_fused(*args, approximate=approximate)
@@ -446,11 +448,16 @@ def test_packed_conv_matches_plain(cuda, dtype, taps):
     """Every taps and pads combination the kernel takes, each with and
     without the fused bias and parity-1 mask, at channel counts that are
     multiples of 4 but not of 8 (8-byte copies), of 64 (ragged K steps) or
-    of the 64 / 256 output tile (masked columns), and at odd grids that no
-    128-pixel tile divides; one launch counted per call."""
+    of the 64 / 128 / 256 output tile (masked columns), and at odd grids
+    that no 128-pixel tile divides; Cin below one K step (12) and over
+    several (512), Cout below the 64-wide tile (12), at it (64) and over the
+    128-wide one (256), in batches of 2; one launch counted per call."""
     g = torch.Generator(device=cuda).manual_seed(6)
     for (b, h, w_, cin, cout) in ((2, 9, 13, 12, 20), (1, 17, 5, 36, 12),
-                                  (3, 11, 11, 256, 68), (1, 19, 23, 64, 256)):
+                                  (3, 11, 11, 256, 68), (1, 19, 23, 64, 256),
+                                  (2, 13, 17, 12, 256), (2, 9, 11, 512, 64),
+                                  (2, 23, 7, 256, 12), (2, 12, 12, 512, 256),
+                                  (2, 11, 14, 256, 128)):
         x = torch.randn(b, h, w_, cin, generator=g, device=cuda).to(dtype)
         w = (torch.randn(*taps, cin, cout, generator=g, device=cuda)
              * 0.1).to(dtype)
@@ -486,8 +493,6 @@ def test_packed_conv_at_the_path_shapes(cuda, dtype):
     fused bias and mask."""
     g = torch.Generator(device=cuda).manual_seed(7)
     for b, hi, cin, cout, pads in K6_PATH_SHAPES:
-        if dtype == torch.float32 and b > 1:
-            continue   # the f32 kernel serves no path; one frame suffices
         x = torch.randn(b, hi, hi, cin, generator=g, device=cuda).to(dtype)
         w = (torch.randn(2, 2, cin, cout, generator=g, device=cuda)
              * 0.05).to(dtype)
