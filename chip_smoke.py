@@ -51,6 +51,28 @@ the verdict):
               shapes, uint8, the image within 1 level of restore_face_stream
               on the same resized face, the frames equal to the resized
               inputs, each call's launches, cv2 never imported
+     detect   RetinaFace-ResNet50 (random weights, seed 0, f32) on 20
+              synthetic 1280x720 frames through read_image and
+              resize_for_detection (INTER_AREA to 1137x640, card against
+              CPU bitwise): frame 0's raw heads card against CPU, the rows
+              after the 0.97 threshold equal, ms per frame of the detector
+              and of one detect_batch over the 20
+     parse    ParseNet at 512^2, card against CPU: logits and the argmax
+              agreement, ms per face
+     unaligned  the whole-frame path through the api entry points, bf16,
+              with a planted-face detector (the real RetinaFace on every
+              frame plus planted FFHQ-template rows with landmark jitter)
+              and ParseNet: restore_image on a 1280x720 frame with one face
+              at factor 2 and on one with none (= its background resize),
+              restore_sequence on 20 frames with two drifting faces (40
+              faces, two 20-face chunks): shapes, the crops and paste-back
+              card against CPU from the same rows, K1-K3 launches, ms per
+              call and per face of detection, alignment, restore and paste
+     nodes    the three ComfyUI nodes: the loader, both execution nodes with
+              their default widgets ((None,): the loader builds no
+              detector, as in the JAX package), an aligned face (=
+              api.restore_image's pixels), an invalid pack, the pack
+              offloaded after each call
   9. kernel   (vq) the nearest-codebook kernel against its plain version at
               the training step's shape, T = 4096 tokens against N = 1024
               codes of C = 256, in f32 and bf16, on tokens drawn near codes
@@ -176,6 +198,14 @@ K6_CASES = (
      ("conv", 64, 64)),
 )
 K6_OWN = K6_CASES[2][0]
+# the whole-frame path: 1280x720 frames (capped at a 640 short side for
+# detection); RetinaFace's and ParseNet's f32 heads card against CPU relative
+# to their largest magnitude (cuDNN and the CPU sum in other orders, TF32
+# off); the paste-back card against CPU in uint8 levels (blur and parser
+# summation orders)
+WHOLE_HW = (720, 1280)
+DETECT_RTOL = 1e-3
+UNALIGNED_LEVELS = 2
 
 # options/train_keep_stage2.yml as a dict: the card machine is not specified
 # to have pyyaml. tests/test_torch_training.py checks that the two agree.
@@ -782,6 +812,396 @@ def phase_api(torch, pack):
         cv2_imported="cv2" in sys.modules, ok=bool(ok_all))
     if not ok_all:
         fail(f"api: {rows}")
+
+
+# -- whole frames: detection, parsing, the unaligned restore, the nodes ------
+
+def whole_frames(n, seed):
+    """n synthetic 1280x720 uint8 BGR frames: smooth colour ramps plus
+    noise (random weights find no face in them; faces are planted)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:WHOLE_HW[0], 0:WHOLE_HW[1]].astype(np.float32)
+    out = []
+    for _ in range(n):
+        base = np.stack([(xx * rng.uniform(0.05, 0.2) + yy * rng.uniform(
+            0.05, 0.2) + rng.uniform(0, 255)) % 256 for _ in range(3)], -1)
+        noise = rng.normal(0, 12, base.shape)
+        out.append(np.clip(base + noise, 0, 255).astype(np.uint8))
+    return out
+
+
+def planted_landmarks(scale, angle_deg, cx, cy):
+    """The FFHQ 5-point template under a similarity placed at (cx, cy), as
+    tests/test_e2e_configs.py places its synthetic faces."""
+    from comfyui_keep_torch.facelib.helper import FFHQ_TEMPLATE_512
+    t = FFHQ_TEMPLATE_512 - FFHQ_TEMPLATE_512.mean(0)
+    th = np.deg2rad(angle_deg)
+    rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    return (t @ rot.T) * scale + np.array([cx, cy])
+
+
+def planted_row(landmarks, score=0.999):
+    lm = np.asarray(landmarks, np.float32)
+    x1, y1 = lm.min(0) - 10
+    x2, y2 = lm.max(0) + 10
+    return np.concatenate([[x1, y1, x2, y2, score],
+                           lm.reshape(-1)]).astype(np.float32)
+
+
+class StageTimer:
+    """ms spent in wrapped calls, each bracketed by cuda.synchronize()."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms = {}
+
+    def wrap(self, name, fn):
+        def timed(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) + 1e3 * (
+                time.perf_counter() - t0)
+            return out
+        return timed
+
+
+class PlantedDetector:
+    """A detector for chip_smoke.py only: the real RetinaFace on the card on
+    every frame (and its detect_batch on every clip; timed as "detect"), its
+    rows kept (none, with random weights), and `planted[i]` appended to
+    frame i's: rows in the frame's own coordinates, scaled to the detection
+    image the helper hands in. `.model` is the real module, which the pack
+    moves."""
+
+    def __init__(self, detector, timer):
+        self.single = timer.wrap("detect", detector)
+        self.batch = timer.wrap("detect", detector.detect_batch)
+        self.model = detector.model
+        self.planted = []
+        self.real_rows = 0
+
+    def _rows(self, real, i, det_h):
+        self.real_rows += len(real)
+        extra = np.asarray(self.planted[i], np.float32).reshape(-1, 15)
+        return np.concatenate([real, extra * (det_h / WHOLE_HW[0])])
+
+    def __call__(self, img, conf_threshold=0.8):
+        return self._rows(self.single(img, conf_threshold), 0, img.shape[0])
+
+    def detect_batch(self, frames, conf_threshold=0.8):
+        reals = self.batch(frames, conf_threshold)
+        return [self._rows(r, i, frames.shape[1]) for i, r in enumerate(reals)]
+
+
+def rel_err(got, ref):
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+def phase_detect(torch):
+    """RetinaFace-ResNet50 from the factory (random weights, seed 0), f32,
+    TF32 off, on 20 synthetic 1280x720 frames through read_image and
+    resize_for_detection (INTER_AREA to 1137x640, card against CPU,
+    bitwise): the raw box, score and landmark heads of frame 0 card against
+    CPU within DETECT_RTOL of their largest magnitude; the rows after the
+    0.97 threshold equal (priors within 1e-4 of it reported, not gated);
+    ms per frame of the detector, and of one detect_batch over the 20.
+    Returns the card detector."""
+    from comfyui_keep_torch.facelib import factory
+    from comfyui_keep_torch.facelib.helper import FaceRestoreHelper
+    from comfyui_keep_torch.models.retinaface import filter_sort_nms
+    det = factory.init_detection_model("retinaface_resnet50",
+                                       require_weights=False, seed=0)
+    cpu = factory.init_detection_model("retinaface_resnet50",
+                                       require_weights=False, seed=0,
+                                       device="cpu")
+    frames = whole_frames(FRAMES, seed=10)
+    helper = FaceRestoreHelper()
+    smalls = []
+    for f in frames:
+        helper.read_image(f)
+        small, back = helper.resize_for_detection()
+        smalls.append(small)
+    helper_cpu = FaceRestoreHelper(device="cpu")
+    helper_cpu.read_image(frames[0])
+    small_cpu = helper_cpu.resize_for_detection()[0]
+    area_equal = bool(torch.equal(smalls[0].cpu(), small_cpu))
+    with torch.no_grad():
+        x = smalls[0][None]
+        raw = det.model(det.model.prepare(x))
+        raw_cpu = cpu.model(cpu.model.prepare(small_cpu[None]))
+        heads = det.model.decoded(x)
+        heads_cpu = cpu.model.decoded(small_cpu[None])
+    errs = {n: rel_err(g, c) for n, g, c in zip(("loc", "conf", "landms"),
+                                                raw, raw_cpu)}
+    h, w = small_cpu.shape[:2]
+    scale = np.array([w, h, w, h], np.float32)
+    scale1 = np.array([w, h] * 5, np.float32)
+    rows = [filter_sort_nms(b[0].cpu().numpy() * scale, s[0].cpu().numpy(),
+                            l[0].cpu().numpy() * scale1, 0.97, 0.4)
+            for b, s, l in (heads, heads_cpu)]
+    scores = heads_cpu[1][0]
+    near = int(((scores - 0.97).abs() < 1e-4).sum())
+    rows_equal = (rows[0].shape == rows[1].shape
+                  and bool(np.allclose(rows[0], rows[1], atol=1e-2)))
+    stack = torch.stack(smalls)
+    det(smalls[0], 0.97)
+    det.detect_batch(stack, 0.97)
+    single = []
+    for s in smalls[:5]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det(s, 0.97)
+        single.append(1e3 * (time.perf_counter() - t0))
+    batch = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_frame = det.detect_batch(stack, 0.97)
+        batch.append(1e3 * (time.perf_counter() - t0))
+    ok = bool(area_equal and max(errs.values()) <= DETECT_RTOL
+              and (rows_equal or near) and len(per_frame) == FRAMES)
+    say("detect", frames=FRAMES, frame_hw=list(WHOLE_HW),
+        detection_hw=[h, w], priors=int(scores.numel()),
+        area_resize_card_equals_cpu=area_equal, heads_rel_err=errs,
+        tol_rel=DETECT_RTOL, rows_card=len(rows[0]), rows_cpu=len(rows[1]),
+        rows_equal=rows_equal, max_face_score=float(scores.max()),
+        priors_near_threshold=near,
+        detector_ms_per_frame=float(np.median(single)),
+        detect_batch_ms=float(np.median(batch)),
+        detect_batch_ms_per_frame=float(np.median(batch)) / FRAMES, ok=ok)
+    if not ok:
+        fail(f"detect: area {area_equal}, heads {errs}, rows {rows_equal} "
+             f"(near threshold {near})")
+    return det
+
+
+def phase_parse(torch):
+    """ParseNet at 512^2 from the factory (random weights, seed 0), f32:
+    the logits card against CPU within DETECT_RTOL of their largest
+    magnitude, the argmax agreement (reported), ms per face. Returns the
+    card parser."""
+    from comfyui_keep_torch.facelib import factory
+    from comfyui_keep_torch.utils.image import bgr_u8_to_rgb_pm1
+    parser = factory.init_parsing_model("parsenet", require_weights=False,
+                                        seed=0)
+    cpu = factory.init_parsing_model("parsenet", require_weights=False,
+                                     seed=0, device="cpu")
+    face = np.random.default_rng(11).integers(0, 256, (512, 512, 3),
+                                              dtype=np.uint8)
+    x = bgr_u8_to_rgb_pm1(face)[None]
+    got, ref = parser(x), cpu(x)
+    err = rel_err(got, ref)
+    agree = float((got.argmax(-1).cpu() == ref.argmax(-1)).float().mean())
+    ms = time_ms(torch, lambda: parser(x), 10)
+    ok = bool(err <= DETECT_RTOL and got.shape == (1, 512, 512, 19))
+    say("parse", logits_rel_err=err, tol_rel=DETECT_RTOL,
+        argmax_agreement=agree, ms_per_face=ms, ok=ok)
+    if not ok:
+        fail(f"parse: logits rel err {err} > {DETECT_RTOL}")
+    return parser
+
+
+def phase_unaligned(torch, detector, parser):
+    """The whole-frame restore through the api entry points, bf16, on a
+    pack from api.load_models(detector=planted RetinaFace, parser=ParseNet):
+    restore_image on a 1280x720 frame with one planted face at factor 2
+    (parse mask on), on a frame with none (which must equal the background's
+    LANCZOS4 resize, bitwise), and restore_sequence on 20 frames with two
+    planted faces drifting a few px a frame (landmark jitter of 1 px x
+    scale, so LMedS matters), only_center_face=False: 40 faces in two
+    20-face chunks. Gates: shapes and uint8; the face-free frame; every
+    frame with faces differs from its background; the image call's crops
+    equal the port's on the CPU from the same landmarks, bitwise, and its
+    paste-back (the same restored faces and matrices, the parser on the
+    CPU) within UNALIGNED_LEVELS; K1-K3 launches of one GMFlow call for the
+    image, two for the sequence, nothing of K4-K6; cv2 never imported.
+    Reported: ms per call, and ms per face of detection, alignment, restore
+    and paste. Returns the sequence's launch counts."""
+    from comfyui_keep_torch import api
+    from comfyui_keep_torch.facelib.helper import FaceRestoreHelper
+    from comfyui_keep_torch.models.parsenet import make_parser_fn
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.pipeline.processor import KEEPFaceProcessor
+    from comfyui_keep_torch.utils.resize import resize
+    timer = StageTimer(torch)
+    planted = PlantedDetector(detector, timer)
+    pack = api.load_models(seed=0, detector=planted, parser=parser)
+    pack.load_device(torch.bfloat16)
+    helper = pack.face_helper
+    helper.align_warp_face = timer.wrap("align", helper.align_warp_face)
+    helper.paste_faces_to_input_image = timer.wrap(
+        "paste", helper.paste_faces_to_input_image)
+    stream = KEEPFaceProcessor.restore_face_stream
+    KEEPFaceProcessor.restore_face_stream = timer.wrap("restore", stream)
+    rng = np.random.default_rng(12)
+    one = whole_frames(2, seed=13)
+    frames = whole_frames(FRAMES, seed=14)
+    up = (WHOLE_HW[0] * 2, WHOLE_HW[1] * 2, 3)
+    try:
+        # one planted face, factor 2, parse mask on
+        lm = planted_landmarks(0.8, 6.0, 640, 380)
+        planted.planted = [[planted_row(lm + rng.normal(0, 0.8, (5, 2)))]]
+        K.reset_launch_counts()
+        timer.ms.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image = api.restore_image(pack, one[0], 2.0, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        image_ms = 1e3 * (time.perf_counter() - t0)
+        image_counts = dict(K.LAUNCHES)
+        image_stages = dict(timer.ms)
+        crops = [c.copy() for c in helper.cropped_faces]
+        restored = list(helper.restored_faces)
+        matrices = list(helper.affine_matrices)
+        landmarks = list(helper.all_landmarks_5)
+        # the same rows on the CPU: crops bitwise, paste-back within tolerance
+        cpu = FaceRestoreHelper(
+            face_size=helper.face_size[0], parser=make_parser_fn(copy.deepcopy(
+                parser.model).cpu()), device="cpu")
+        cpu.read_image(one[0])
+        cpu.all_landmarks_5 = landmarks
+        cpu.align_warp_face()
+        crops_equal = (len(crops) == 1 and all(
+            np.array_equal(a, b) for a, b in zip(crops, cpu.cropped_faces)))
+        cpu.restored_faces = restored
+        cpu.affine_matrices = matrices
+        cpu.upscale_factor = 2.0
+        cpu.get_inverse_affine()
+        bg = resize(one[0], up[1::-1], "lanczos4")
+        paste_cpu = cpu.paste_faces_to_input_image(upsample_img=bg)
+        d = np.abs(image.astype(int) - paste_cpu.astype(int))
+        paste_max, paste_mean = int(d.max()), float(d.mean())
+        # no face: the background resize, bitwise
+        planted.planted = [[]]
+        empty = api.restore_image(pack, one[1], 2.0, dtype=torch.bfloat16)
+        empty_equal = bool(np.array_equal(
+            empty, resize(one[1], up[1::-1], "lanczos4")))
+        # the clip: two planted faces a frame, drifting
+        planted.planted = [
+            [planted_row(planted_landmarks(0.55, 6.0, 420 + 3 * i, 330 + 2 * i)
+                         + rng.normal(0, 0.55, (5, 2))),
+             planted_row(planted_landmarks(0.45, -12.0, 900 - 2 * i, 400 + i)
+                         + rng.normal(0, 0.45, (5, 2)))]
+            for i in range(FRAMES)]
+        K.reset_launch_counts()
+        timer.ms.clear()
+        faces_seen = []
+        KEEPFaceProcessor.restore_face_stream = timer.wrap(
+            "restore", lambda self, faces, *a, **k: faces_seen.append(
+                len(faces)) or stream(self, faces, *a, **k))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = api.restore_sequence(pack, frames, 2.0, only_center_face=False,
+                                    dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        seq_ms = 1e3 * (time.perf_counter() - t0)
+        seq_counts = dict(K.LAUNCHES)
+        seq_stages = dict(timer.ms)
+    finally:
+        KEEPFaceProcessor.restore_face_stream = stream
+    n_faces = sum(faces_seen)
+    gmflow_call = {"attention[dv128]": 6, "attention[dv128+bias]": 6,
+                   "attention[dv2]": 1, "mlp_fused": 6,
+                   "global_correlation_expectation": 1,
+                   "vq_nearest_indices": 0, "fused_bias_lrelu": 0,
+                   "packed_conv2x2": 0}
+    want_seq = {k: 2 * v for k, v in gmflow_call.items()}
+    shapes_ok = (image.shape == up and image.dtype == np.uint8
+                 and len(outs) == FRAMES and all(
+                     o.shape == up and o.dtype == np.uint8 for o in outs))
+    pasted = bool(not np.array_equal(image, bg) and all(
+        not np.array_equal(o, resize(f, up[1::-1], "lanczos4"))
+        for o, f in zip(outs[:2], frames[:2])))
+    ok = bool(shapes_ok and pasted and empty_equal and crops_equal
+              and paste_max <= UNALIGNED_LEVELS and n_faces == 2 * FRAMES
+              and image_counts == gmflow_call and seq_counts == want_seq
+              and "cv2" not in sys.modules)
+
+    def per_face(stages, n):
+        return {k: v / max(n, 1) for k, v in stages.items()}
+
+    say("unaligned", image_ms=image_ms, image_faces=len(crops),
+        image_stage_ms_per_face=per_face(image_stages, len(crops)),
+        image_launches=image_counts, expected_image_launches=gmflow_call,
+        crops_card_equal_cpu=crops_equal, paste_vs_cpu_max_levels=paste_max,
+        paste_vs_cpu_mean_levels=paste_mean, tol_levels=UNALIGNED_LEVELS,
+        no_face_equals_background=empty_equal, sequence_frames=FRAMES,
+        sequence_faces=n_faces, sequence_ms=seq_ms,
+        sequence_ms_per_face=seq_ms / max(n_faces, 1),
+        sequence_stage_ms_per_face=per_face(seq_stages, n_faces),
+        sequence_launches=seq_counts, expected_sequence_launches=want_seq,
+        real_detector_rows=planted.real_rows, output_hw=list(up[:2]),
+        outputs_uint8=shapes_ok, faces_pasted=pasted,
+        cv2_imported="cv2" in sys.modules, ok=ok)
+    if not ok:
+        fail(f"unaligned: shapes {shapes_ok}, pasted {pasted}, empty "
+             f"{empty_equal}, crops {crops_equal}, paste {paste_max}, faces "
+             f"{n_faces}, launches {image_counts} / {seq_counts}")
+    return seq_counts
+
+
+def phase_nodes(torch):
+    """The three nodes: the loader builds a pack (random KEEP, f32); both
+    execution nodes on ComfyUI IMAGE arrays with their default widgets
+    (whole frames) return (None,), as the JAX nodes do, since the loader
+    builds no detector; an aligned 512^2 face through the image node gives
+    api.restore_image's pixels; aligned frames through the sequence node
+    come back as they went in; an invalid pack gives (None,); the pack ends
+    offloaded after each call."""
+    from comfyui_keep_torch import api, nodes
+    from comfyui_keep_torch.utils.image import comfy_to_cv2, cv2_to_comfy
+    loader = nodes.KEEP_ModelLoaderNode()
+    req = loader.INPUT_TYPES()["required"]
+    pack, = loader.load_model_pack(req["model"][1]["default"],
+                                   req["detection_model"][1]["default"])
+
+    def defaults(node):
+        return {k: v[1]["default"] for k, v in
+                node.INPUT_TYPES()["required"].items()
+                if len(v) > 1 and "default" in v[1]}
+
+    def on_host():
+        return all(p.device.type == "cpu" for m in pack.models()
+                   for p in m.parameters())
+
+    img_node = nodes.KEEP_FaceUpscaleImageNode()
+    seq_node = nodes.KEEP_ProcessImageSequenceNode()
+    frames = np.stack(whole_frames(2, seed=15))[..., ::-1] / np.float32(255)
+    frames = frames.astype(np.float32)
+    rng = np.random.default_rng(16)
+    faces = rng.random((2, 512, 512, 3)).astype(np.float32)
+    rows = {}
+    rows["image_default_widgets"] = img_node.upscale_face_image(
+        frames[:1], pack, **defaults(img_node)) == (None,) and on_host()
+    rows["sequence_default_widgets"] = seq_node.process_sequence(
+        frames, pack, **defaults(seq_node)) == (None,) and on_host()
+    t0 = time.perf_counter()
+    out, = img_node.upscale_face_image(faces[:1], pack, 1.0, True, True,
+                                       False)
+    node_ms = 1e3 * (time.perf_counter() - t0)
+    rows["image_aligned_offloaded"] = on_host()
+    want = cv2_to_comfy(api.restore_image(pack, comfy_to_cv2(faces[:1]), 1.0,
+                                          has_aligned=True))
+    pack.offload()
+    diff = (None if out is None or out.shape != want.shape
+            else float(np.abs(out - want).max() * 255))
+    rows["image_aligned_equals_api"] = diff == 0.0
+    seq, = seq_node.process_sequence(faces, pack, 1.0, True, True, False, 20)
+    rows["sequence_aligned_returns_frames"] = bool(
+        seq is not None and np.array_equal(
+            seq, np.concatenate([cv2_to_comfy(comfy_to_cv2(f)) for f in faces])))
+    rows["sequence_aligned_offloaded"] = on_host()
+    rows["invalid_pack"] = img_node.upscale_face_image(
+        faces[:1], object(), 1.0, True, True, False) == (None,)
+    ok = bool(all(rows.values()))
+    say("nodes", checks=rows, aligned_image_max_diff_levels=diff,
+        aligned_image_node_ms=node_ms, cv2_imported="cv2" in sys.modules,
+        ok=ok and "cv2" not in sys.modules)
+    if not ok or "cv2" in sys.modules:
+        fail(f"nodes: {rows}")
 
 
 def phase_vq(torch, iters=KERNEL_ITERS):
@@ -1465,6 +1885,12 @@ def main():
     phase_api(torch, pack)
     del pack
     torch.cuda.empty_cache()
+    detector = phase_detect(torch)
+    parser = phase_parse(torch)
+    whole_counts = phase_unaligned(torch, detector, parser)
+    del detector, parser
+    phase_nodes(torch)
+    torch.cuda.empty_cache()
     phase_train_parity(torch)
     train_counts = phase_train(torch)
     k5_rows = phase_k5(torch)
@@ -1499,6 +1925,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": dname, "status": "ported",
+            "launches_whole_frame_sequence": whole_counts[name],
             **({"unfused_ms": r["unfused_ms"]} if "unfused_ms" in r
                else {})})
     # the nearest-codebook kernel runs on the training path: f32 as

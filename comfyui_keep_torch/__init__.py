@@ -16,4 +16,16 @@ generator sampling and the StyleGAN2Model GAN alternation
 every activation hand-written in CUDA (csrc/fused_act.cu). Entry points:
 `StyleGAN2Generator(...)(styles)`, `build_model({"model_type":
 "StyleGAN2Model", ...})`, `make_state`, `train_step` / `gan_train_step`.
+
+Slice 4: the phase-packed 512-level restore path (`processor(phase512=
+True)`), with the packed convolution hand-written in CUDA
+(csrc/packed_conv.cu), and carried-state streaming.
+
+Slice 5: whole frames without OpenCV: RetinaFace detection, tracking,
+LMedS alignment, ParseNet-masked paste-back (`facelib/`, `models/
+retinaface.py`, `models/parsenet.py`, `utils/cvops.py`) and the three
+ComfyUI nodes (`nodes.py`); the kernels are GMFlow's. Entry points:
+`api.load_models(detector=..., parser=...)`, `api.restore_image`,
+`api.restore_sequence`, `facelib.factory.init_detection_model` /
+`init_parsing_model`.
 """

@@ -1,6 +1,7 @@
 """Normalisations matching the torch modules of the reference archs:
 GroupNorm(32, eps=1e-6) in the VQGAN stacks, LayerNorm (eps 1e-5) in the
-transformers, InstanceNorm2d (eps 1e-5, no affine) in GMFlow's backbone.
+transformers, InstanceNorm2d (eps 1e-5, no affine) in GMFlow's backbone,
+BatchNorm2d with running statistics (eps 1e-5) in RetinaFace and ParseNet.
 
 Feature maps are NCHW. GroupNorm and InstanceNorm take their statistics in
 promote_types(dtype, f32) (f32 for bf16, f64 stays f64), as the JAX package
@@ -33,3 +34,10 @@ def instance_norm(x, eps: float = 1e-5):
     """x: (N, C, H, W); per-(N, C) spatial statistics, no affine."""
     ct = torch.promote_types(x.dtype, torch.float32)
     return F.instance_norm(x.to(ct), eps=eps).to(x.dtype)
+
+
+def batch_norm(x, bn, eps: float = 1e-5):
+    """Inference batch norm of (N, C, H, W) with an nn.BatchNorm2d's running
+    statistics and affine parameters."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                        bn.bias, False, 0.0, eps)

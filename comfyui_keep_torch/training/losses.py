@@ -2,7 +2,7 @@
 gan_loss.py), ported from comfyui_keep_tpu/training/losses.py: the pixel
 losses, GANLoss (five types), the R1 penalty and StyleGAN2's path-length
 regularisation. Layout-free: they reduce elementwise differences. The
-perceptual loss waits for VGG (ROADMAP Queue 1 item 10)."""
+perceptual loss waits for VGG (ROADMAP Queue 1: the remaining archs)."""
 import math
 from typing import Callable, Dict, Optional
 
@@ -142,5 +142,6 @@ def build_loss(opt: Dict):
     loss_type = opt.pop("type")
     if loss_type not in LOSSES:
         raise NotImplementedError(
-            f"loss {loss_type} is not ported yet (ROADMAP Queue 1 item 10)")
+            f"loss {loss_type} is not ported yet (ROADMAP Queue 1: the "
+            "remaining archs)")
     return LOSSES[loss_type](**opt)

@@ -1,7 +1,7 @@
 """Training state: f32 master weights, optimizer, EMA and the iteration
 count (reference base_model.py), ported from
 comfyui_keep_tpu/training/state.py without its disk IO (save and resume
-are ROADMAP Queue 1 item 12).
+are ROADMAP Queue 1: the rest of training).
 
 `fix_modules` freezes top-level submodules: a frozen parameter gets no
 gradient and no update (optax's `set_to_zero` branch in the JAX package),
@@ -69,7 +69,8 @@ def build_optimizer(opt: Dict, params: Iterable[nn.Parameter]
     if t == "AdamW":
         return torch.optim.AdamW(params, lr=lr, betas=betas, weight_decay=wd)
     raise NotImplementedError(
-        f"optimizer {t} is not ported yet (ROADMAP Queue 1 item 12)")
+        f"optimizer {t} is not ported yet (ROADMAP Queue 1: the rest of "
+        "training)")
 
 
 @contextlib.contextmanager

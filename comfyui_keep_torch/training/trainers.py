@@ -6,7 +6,7 @@ kernels, the codebook-feature, cross-entropy, temporal and pixel losses,
 Adam with fix_modules, the LR schedule, EMA, gradient accumulation and bf16
 mixed precision. Slice 3 brings StyleGAN2's GAN alternation
 (StyleGAN2Model, reference models/stylegan2_model.py). The other trainers
-are ROADMAP Queue 1 item 12.
+are ROADMAP Queue 1: the rest of training.
 
 A step is eager: forward, losses, backward and, at the end of each
 accumulation window, the optimizer update; the EMA moves on every
@@ -157,7 +157,7 @@ class KEEPTrainer(BaseTrainer):
             else None
         if t.get("perceptual_opt"):
             raise NotImplementedError("the perceptual loss waits for VGG "
-                                      "(ROADMAP Queue 1 item 10)")
+                                      "(ROADMAP Queue 1: the remaining archs)")
         self.cri_temporal = build_loss(t["temporal_opt"]) \
             if t.get("temporal_opt") else None
         self.temporal_type = t.get("temporal_warp_type", "GT")
@@ -455,4 +455,5 @@ def build_model(opt: Dict, **kw):
     if opt["model_type"] == "StyleGAN2Model":
         return StyleGAN2Trainer(opt, **kw)
     raise NotImplementedError(f"model_type {opt['model_type']} is not "
-                              f"ported yet (ROADMAP Queue 1 item 12)")
+                              "ported yet (ROADMAP Queue 1: the rest of "
+                              "training)")

@@ -8,9 +8,11 @@ net's `flownet.model.*` subtree split off for GMFlow).
 `params_from_jax` is the inverse of the JAX package's checkpoint converters
 (`convert_checkpoint`, `convert_gmflow_checkpoint`,
 `convert_stylegan2_generator` / `_discriminator`, and the layout rules of
-its utils/checkpoint.py): it turns a JAX param tree of numpy arrays into a
+its utils/checkpoint.py's `convert_state_dict`, which RetinaFace's and
+ParseNet's trees follow): it turns a JAX param tree of numpy arrays into a
 state dict of the port's module, so both packages can run on one set of
-weights. The port keeps its own copy of these rules and imports nothing
+weights. A BatchNorm's `num_batches_tracked`, which the JAX trees drop, is
+filled with 0. The port keeps its own copy of these rules and imports nothing
 from the JAX package.
 """
 from typing import Any, Dict, Sequence, Tuple
@@ -68,6 +70,8 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Dict[str, np.ndarray]:
         return {f"{pre}.bias": arr}
     if name == "scale":
         return {f"{pre}.weight": arr}
+    if name in ("mean", "var"):  # BatchNorm running statistics
+        return {f"{pre}.running_{name}": arr}
     if name == "embedding":    # nn.Embedding keeps its (num, dim) layout
         return {f"{pre}.embedding.weight": arr}
     return {".".join(path): arr}
@@ -175,9 +179,9 @@ _TREE_RULES = {"StyleGAN2Generator": _stylegan2_generator,
 
 def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     """JAX param tree (numpy leaves) -> state dict for `model` (a KEEP, a
-    GMFlow, a VQHQEncoder, a StyleGAN2 generator or discriminator of the
-    port; also a gradient tree of the same layout). Raises unless keys and
-    shapes match `model` exactly."""
+    GMFlow, a VQHQEncoder, a StyleGAN2 generator or discriminator, a
+    RetinaFace or a ParseNet of the port; also a gradient tree of the same
+    layout). Raises unless keys and shapes match `model` exactly."""
     rules = [_TREE_RULES[c.__name__] for c in type(model).__mro__
              if c.__name__ in _TREE_RULES]
     flat: Dict[str, np.ndarray] = {}
@@ -186,12 +190,13 @@ def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     else:
         _flatten(tree, (), flat)
     want = model.state_dict()
-    missing = sorted(set(want) - set(flat))
+    sd = {k: torch.zeros_like(want[k], device="cpu") for k in want
+          if k.endswith(".num_batches_tracked") and k not in flat}
+    missing = sorted(set(want) - set(flat) - set(sd))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
         raise ValueError(f"param tree does not match {type(model).__name__}:"
                          f" missing {missing[:8]}, unexpected {extra[:8]}")
-    sd = {}
     for k, v in flat.items():
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: shape {v.shape} != {tuple(want[k].shape)}")

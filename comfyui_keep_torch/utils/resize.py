@@ -1,5 +1,8 @@
-"""OpenCV's `cv2.resize` for uint8 images in numpy, so the port's pipeline
-needs no OpenCV: INTER_LINEAR and INTER_LANCZOS4, bit for bit.
+"""OpenCV's `cv2.resize` for uint8 images, so the port's pipeline needs no
+OpenCV: INTER_LINEAR and INTER_LANCZOS4, bit for bit. A numpy image is
+resized on the CPU and comes back as numpy; a tensor is resized on its own
+device (the card, for the pipeline's full-frame resizes) in the same
+integer arithmetic.
 
 It follows OpenCV's fixed-point path for 8-bit data (imgproc resize.cpp,
 `resizeGeneric_` with its uchar specialisations):
@@ -20,6 +23,7 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 COEF_SCALE = 2048       # INTER_RESIZE_COEF_SCALE = 1 << INTER_RESIZE_COEF_BITS
 _S45 = 0.70710678118654752440084436210485
@@ -27,9 +31,11 @@ _LANCZOS_CS = ((1, 0), (-_S45, -_S45), (0, 1), (_S45, -_S45), (-1, 0),
                (_S45, _S45), (0, -1), (-_S45, _S45))
 
 
-def _source_coords(dst_n: int, src_n: int):
-    """Integer source index and float32 fraction of each output position."""
-    scale = 1.0 / (dst_n / src_n)
+def _source_coords(dst_n: int, src_n: int, inv_scale=None):
+    """Integer source index and float32 fraction of each output position;
+    inv_scale is OpenCV's dst / src ratio (cv2.resize's fx or fy when
+    given, else dst_n / src_n)."""
+    scale = 1.0 / (inv_scale if inv_scale else dst_n / src_n)
     f = ((np.arange(dst_n, dtype=np.float64) + 0.5) * scale
          - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
@@ -58,9 +64,10 @@ def _lanczos4(x: np.ndarray) -> np.ndarray:
     return out
 
 
-def _taps(dst_n: int, src_n: int, lanczos: bool, clamp_fraction: bool):
+def _taps(dst_n: int, src_n: int, lanczos: bool, clamp_fraction: bool,
+          inv_scale=None):
     """(dst_n, k) source indices (edges replicated) and int coefficients."""
-    s, f = _source_coords(dst_n, src_n)
+    s, f = _source_coords(dst_n, src_n, inv_scale)
     if lanczos:
         c = _lanczos4(f)
         idx = s[:, None] + np.arange(8) - 3
@@ -74,27 +81,41 @@ def _taps(dst_n: int, src_n: int, lanczos: bool, clamp_fraction: bool):
     return np.clip(idx, 0, src_n - 1), coef
 
 
-def resize(img: np.ndarray, dsize: Tuple[int, int],
-           interpolation: str = "linear") -> np.ndarray:
-    """cv2.resize(img, dsize, interpolation=INTER_LINEAR or INTER_LANCZOS4)
-    for a uint8 (H, W) or (H, W, C) image; dsize is (width, height), as in
-    OpenCV; interpolation is "linear" or "lanczos4"."""
-    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+def resize(img, dsize: Tuple[int, int], interpolation: str = "linear",
+           fx=None, fy=None):
+    """cv2.resize(img, dsize, fx, fy, interpolation=INTER_LINEAR or
+    INTER_LANCZOS4) for a uint8 (H, W) or (H, W, C) image, numpy or a
+    tensor (the result is of the same kind); dsize is (width,
+    height), as in OpenCV; interpolation is "linear" or "lanczos4". Given fx
+    and fy (and dsize (0, 0)), the size is (round(w fx), round(h fy)),
+    rounded half to even, and source coordinates map by 1 / fx and 1 / fy,
+    not by the sizes' ratio, as OpenCV maps them."""
+    is_tensor = torch.is_tensor(img)
+    if (img.dtype != (torch.uint8 if is_tensor else np.uint8)
+            or img.ndim not in (2, 3)):
         raise ValueError(f"resize takes an (H, W[, C]) uint8 image, got "
-                         f"{img.dtype} {img.shape}")
+                         f"{img.dtype} {tuple(img.shape)}")
     if interpolation not in ("linear", "lanczos4"):
         raise ValueError(f"interpolation {interpolation!r}: 'linear' or "
                          f"'lanczos4'")
+    sh, sw = img.shape[:2]
+    if fx or fy:
+        if tuple(dsize) != (0, 0) or not (fx and fy):
+            raise ValueError("give dsize (0, 0) with both fx and fy")
+        dsize = (round(sw * fx), round(sh * fy))
     w, h = int(dsize[0]), int(dsize[1])
     if w < 1 or h < 1:
         raise ValueError(f"dsize {dsize}: width and height must be >= 1")
-    sh, sw = img.shape[:2]
-    if (sh, sw) == (h, w):
-        return img.copy()
+    if (sh, sw) == (h, w) and not (fx or fy):
+        return img.clone() if is_tensor else img.copy()
     lanczos = interpolation == "lanczos4"
-    x = img.reshape(sh, sw, -1).astype(np.int64)
-    ix, ax = _taps(w, sw, lanczos, clamp_fraction=True)
-    iy, ay = _taps(h, sh, lanczos, clamp_fraction=False)
+    t = img if is_tensor else torch.from_numpy(np.ascontiguousarray(img))
+    dev = t.device
+    x = t.reshape(sh, sw, -1).to(torch.int64)
+    ix, ax = (torch.as_tensor(a, device=dev) for a in _taps(
+        w, sw, lanczos, clamp_fraction=True, inv_scale=fx))
+    iy, ay = (torch.as_tensor(a, device=dev) for a in _taps(
+        h, sh, lanczos, clamp_fraction=False, inv_scale=fy))
     rows = sum(x[:, ix[:, k]] * ax[None, :, k, None]
                for k in range(ix.shape[1]))              # (sh, w, C) int
     if lanczos:
@@ -105,5 +126,6 @@ def resize(img: np.ndarray, dsize: Tuple[int, int],
         acc = sum((ay[:, k, None, None] * (rows[iy[:, k]] >> 4)) >> 16
                   for k in range(2))
         out = (acc + 2) >> 2
-    return np.clip(out, 0, 255).astype(np.uint8).reshape(
-        (h, w) + img.shape[2:])
+    out = out.clamp(0, 255).to(torch.uint8).reshape((h, w) + tuple(
+        img.shape[2:]))
+    return out if is_tensor else out.numpy()

@@ -210,6 +210,53 @@ def test_multi_head_attention_packed_in_proj(rng):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
 
 
+def test_batch_norm_inference(rng):
+    """Running statistics drawn at random (mean 0 / var 1 would hide a
+    swapped pair), eps 1e-5."""
+    x = rng.standard_normal((2, 5, 6, 7), dtype=np.float32)
+    p = {"scale": rng.uniform(0.5, 1.5, 7).astype(np.float32),
+         "bias": rng.standard_normal(7).astype(np.float32),
+         "mean": rng.standard_normal(7).astype(np.float32),
+         "var": rng.uniform(0.2, 3.0, 7).astype(np.float32)}
+    bn = torch.nn.BatchNorm2d(7).eval().requires_grad_(False)
+    with torch.no_grad():
+        bn.weight.copy_(torch.as_tensor(p["scale"]))
+        bn.bias.copy_(torch.as_tensor(p["bias"]))
+        bn.running_mean.copy_(torch.as_tensor(p["mean"]))
+        bn.running_var.copy_(torch.as_tensor(p["var"]))
+    ref = J.batch_norm(jnp.asarray(x), {k: jnp.asarray(v)
+                                        for k, v in p.items()})
+    np.testing.assert_allclose(_nhwc(T.batch_norm(_nchw(x), bn)),
+                               np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("window,stride,padding", [(3, 2, 1), (2, 2, 0),
+                                                    (3, 1, 1)])
+def test_max_pool(rng, window, stride, padding):
+    x = rng.standard_normal((2, 9, 11, 3), dtype=np.float32) - 5.0
+    ref = J.max_pool(jnp.asarray(x), window, stride, padding)
+    np.testing.assert_array_equal(
+        _nhwc(T.max_pool(_nchw(x), window, stride, padding)), np.asarray(ref))
+
+
+@pytest.mark.parametrize("out_hw", [(10, 14), (5, 7), (9, 13), (4, 4)])
+def test_resize_nearest(rng, out_hw):
+    """floor(dst * in / out), as RetinaFace's FPN upsamples a coarser map to
+    a finer one of any size (odd input sides give ratios near 2)."""
+    x = rng.standard_normal((1, 5, 7, 3), dtype=np.float32)
+    from comfyui_keep_tpu.ops.resample import resize_nearest
+    np.testing.assert_array_equal(
+        _nhwc(T.resize_nearest(_nchw(x), out_hw)),
+        np.asarray(resize_nearest(jnp.asarray(x), out_hw)))
+
+
+def test_reflect_pad(rng):
+    x = rng.standard_normal((1, 4, 5, 2), dtype=np.float32)
+    np.testing.assert_array_equal(
+        _nhwc(T.reflect_pad(_nchw(x), 1)),
+        np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)), mode="reflect"))
+
+
 def _port_files():
     root = os.path.join(REPO, "comfyui_keep_torch")
     for d, _, files in os.walk(root):
@@ -252,7 +299,8 @@ def test_port_imports_no_jax(banned):
 def test_port_imports_no_opencv():
     """The card machine has no OpenCV: no module of the port (nor
     chip_smoke.py) imports cv2, at any level of any function; the resizes
-    are utils/resize.py's."""
+    are utils/resize.py's, the face toolkit's pixel operations
+    utils/cvops.py's."""
     offenders = _importers("cv2")
     assert not offenders, f"cv2 imported by {offenders}"
 
@@ -262,8 +310,13 @@ def test_port_package_imports_without_jax_in_a_fresh_process():
     import sys
     code = ("import sys\n"
             "import comfyui_keep_torch.api, comfyui_keep_torch.ops.kernels\n"
+            "import comfyui_keep_torch.nodes\n"
+            "import comfyui_keep_torch.facelib.factory\n"
+            "import comfyui_keep_torch.utils.cvops\n"
+            "import comfyui_keep_torch.models.retinaface, "
+            "comfyui_keep_torch.models.parsenet\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'comfyui_keep_tpu')]\n"
+            "('jax', 'jaxlib', 'comfyui_keep_tpu', 'cv2')]\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

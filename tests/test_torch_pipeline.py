@@ -1,7 +1,8 @@
-"""The port's aligned-face pipeline against the JAX package's, on the CPU
-in f32: restore_face_stream with the per-chunk state reset and the 1-frame
-duplication, the aligned process_image / process_image_sequence paths, the
-API's device lifecycle and .pth loading, and the image conversions.
+"""The port's pipeline against the JAX package's, on the CPU in f32:
+restore_face_stream with the per-chunk state reset and the 1-frame
+duplication, the aligned process_image / process_image_sequence paths and
+the whole-frame ones (detect, align, restore, paste back), the API's
+device lifecycle and .pth loading, and the image conversions.
 
 The JAX side runs with KEEP_TPU_NO_PHASE512=1, though at this 64-px size
 neither package packs (tests/test_torch_phase_pack.py holds the packed
@@ -18,17 +19,21 @@ import pytest
 import jax
 import torch
 
+from comfyui_keep_tpu.facelib.helper import FaceRestoreHelper as JHelper
 from comfyui_keep_tpu.models.gmflow import GMFlow as JGMFlow
 from comfyui_keep_tpu.models.keep import KEEP as JKEEP
 from comfyui_keep_tpu.pipeline.processor import \
     KEEPFaceProcessor as JProcessor
 from comfyui_keep_tpu.utils import image as jimage
 from comfyui_keep_torch import api
+from comfyui_keep_torch.facelib.helper import FaceRestoreHelper
 from comfyui_keep_torch.models.gmflow import GMFlow
 from comfyui_keep_torch.models.keep import KEEP
 from comfyui_keep_torch.pipeline.processor import KEEPFaceProcessor
 from comfyui_keep_torch.utils import image as timage
 from comfyui_keep_torch.utils.convert import params_from_jax
+from tests.test_torch_facelib import (detection_row, face_landmarks_at,
+                                      stub_parser)
 
 torch.set_num_threads(2)
 
@@ -145,9 +150,10 @@ def test_process_image_sequence_aligned_matches_jax(procs):
     finally:
         del proc.restore_face_stream
     assert seen == [{"carry_chunks": True}]
-    with pytest.raises(NotImplementedError):
+    # whole frames need a face helper, which this processor was not given
+    with pytest.raises(RuntimeError, match="face_helper"):
         proc.process_image_sequence(frames, has_aligned_frames=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="face_helper"):
         proc.process_image(frames[0], has_aligned=False)
 
 
@@ -266,3 +272,140 @@ def test_load_models_from_reference_pth(tmp_path):
         want = theirs.state_dict()
         for k, a in mine.state_dict().items():
             assert torch.equal(a, want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# whole frames: detect -> align -> restore -> paste back, with the stub
+# detector and parser of tests/test_e2e_configs.py (tests/test_torch_
+# facelib.py's copies), cv2 unimportable for the
+# port. Tolerance: max 3 levels, mean <= 0.05 level (measured: max 1,
+# mean <= 3.6e-4 over the frames of these tests). Crops differ from the
+# JAX helper's (OpenCV's) at ~0.2 % of their pixels by 1 level (the refined
+# LMedS matrix, tests/test_torch_cvops.py), restored faces by 1 level
+# (f32 noise), and the paste blends both and rounds once more. KEEP's code
+# picks are forced: the pick layer's LayerNorm scale is 0, so every token
+# picks the same code on both sides (with data-dependent picks, a 1-level
+# crop difference flips argmax picks down a clip and moves whole faces).
+# ---------------------------------------------------------------------------
+
+FACE = TINY["img_size"]
+
+
+def stub_detector(rows_per_frame, batch):
+    """Rows for the frames in order: called once per frame, or (batch=True)
+    with detect_batch over the clip."""
+    calls = list(rows_per_frame)
+
+    def detector(img, conf):
+        return np.asarray(calls.pop(0), np.float32).reshape(-1, 15)
+
+    if batch:
+        detector.detect_batch = lambda frames, conf_threshold: [
+            np.asarray(calls.pop(0), np.float32).reshape(-1, 15)
+            for _ in range(len(frames))]
+    return detector
+
+
+@pytest.fixture(scope="module")
+def forced_procs(models):
+    kt, gt, _, _ = models
+    kt = jax.tree.map(lambda a: a, kt)
+    kt["idx_pred_layer"][0] = dict(kt["idx_pred_layer"][0],
+                                   scale=np.zeros_like(
+                                       kt["idx_pred_layer"][0]["scale"]))
+    keep = KEEP(device="cpu", **TINY)
+    keep.load_state_dict(params_from_jax(kt, keep))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KEEP_TPU_NO_PHASE512", "1")
+        ref = JProcessor(kt, TINY, gmflow_params=gt)
+    return ref, KEEPFaceProcessor(keep, models[3], device="cpu")
+
+
+def _with_helpers(procs, rows_per_frame, parse=True, batch=False):
+    ref_proc, proc = procs
+    kw = dict(face_size=FACE, parser=stub_parser if parse else None,
+              use_parse=parse)
+    ref_proc.face_helper = JHelper(
+        detector=stub_detector(rows_per_frame, batch), **kw)
+    proc.face_helper = FaceRestoreHelper(
+        detector=stub_detector(rows_per_frame, batch), device="cpu", **kw)
+    return ref_proc, proc
+
+
+def _close(ours, ref):
+    assert ours.dtype == np.uint8 and ours.shape == ref.shape
+    d = _max_level_diff(ours, ref)
+    mean = np.abs(ours.astype(int) - ref.astype(int)).mean()
+    assert d <= 3 and mean <= 0.05, (d, mean)
+
+
+@pytest.mark.parametrize("only_center_face,parse,factor,shape", [
+    (False, True, 2.0, (600, 640)), (True, True, 1.0, (600, 640)),
+    (False, False, 1.5, (300, 420))])
+def test_process_image_unaligned_matches_jax(forced_procs, monkeypatch,
+                                             only_center_face, parse, factor,
+                                             shape):
+    """Two faces in a frame (a 300x420 frame is first upscaled to a 512
+    short side by read_image): restored and pasted with the parse mask or
+    the eroded-and-blurred one; only_center_face keeps the face nearest the
+    centre."""
+    rng = np.random.default_rng(21)
+    img = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+    s = shape[0] / 600
+    rows = [np.stack([
+        detection_row(face_landmarks_at(0.5 * s, 8.0, 300 * s, 280 * s)),
+        detection_row(face_landmarks_at(0.3 * s, -15.0, 520 * s, 140 * s))])]
+    ref_proc, proc = _with_helpers(forced_procs, rows, parse)
+    try:
+        ref = ref_proc.process_image(img, factor,
+                                     only_center_face=only_center_face)
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        ours = proc.process_image(img, factor,
+                                  only_center_face=only_center_face)
+        bg = proc._resize_bg(img, factor)
+    finally:
+        ref_proc.face_helper = proc.face_helper = None
+    _close(ours, ref)
+    assert not np.array_equal(ours, bg)    # a face was pasted
+
+
+@pytest.mark.parametrize("only_center_face,batch", [(False, False),
+                                                    (True, False),
+                                                    (False, True)])
+def test_process_image_sequence_unaligned_matches_jax(forced_procs,
+                                                      monkeypatch,
+                                                      only_center_face,
+                                                      batch):
+    """Five frames, two faces drifting a few px a frame, the second missed
+    in frame 2 (tracked and interpolated), frame 4 without any detection:
+    per-frame detection or detect_batch, tracking and smoothing, chunks of
+    3 (a 1-frame chunk is duplicated), paste-back at factor 2."""
+    rng = np.random.default_rng(22)
+    frames = [rng.integers(0, 256, (520, 560, 3), dtype=np.uint8)
+              for _ in range(5)]
+    rows = []
+    for i in range(5):
+        r = []
+        if i != 4:
+            r.append(detection_row(face_landmarks_at(0.45, 5.0, 260 + 3 * i,
+                                                     250 + 2 * i)))
+            if i != 2:
+                r.append(detection_row(face_landmarks_at(0.3, -10.0,
+                                                         440 - 2 * i, 130)))
+        rows.append(np.array(r, np.float32).reshape(-1, 15))
+    ref_proc, proc = _with_helpers(forced_procs, rows, batch=batch)
+    progress = []
+    try:
+        ref = ref_proc.process_image_sequence(
+            frames, 2.0, only_center_face=only_center_face, max_clip_length=3)
+        monkeypatch.setitem(sys.modules, "cv2", None)
+        ours = proc.process_image_sequence(
+            frames, 2.0, only_center_face=only_center_face, max_clip_length=3,
+            progress=progress.append)
+    finally:
+        ref_proc.face_helper = proc.face_helper = None
+    assert len(ours) == len(ref) == 5
+    for o, r in zip(ours, ref):
+        _close(o, r)
+    assert sum(progress) == 4 * 5
+    assert not np.array_equal(ours[0], proc._resize_bg(frames[0], 2.0))
