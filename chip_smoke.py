@@ -73,6 +73,24 @@ the verdict):
               detector, as in the JAX package), an aligned face (=
               api.restore_image's pixels), an invalid pack, the pack
               offloaded after each call
+     detect_yolo  YOLOv5n and YOLOv5l (random weights, seed 0, f32) on the
+              20 frames of detect at their detection size: the 640^2
+              letterbox card against CPU bitwise, the decoded predictions
+              (25,200 x 16) card against CPU, the rows above 0.7, ms a
+              frame, the best score
+     parse_bisenet  BiSeNet at 512^2, card against CPU: logits and argmax
+              agreement, ms a face
+     upscale  RealESRGAN_x4plus, RealESRGAN_x2plus, realesr-general-x4v3
+              and SwinIR-M x2 at their public widths, f32: card against CPU
+              on a 64^2 tile, then tiled (512, overlap 64) on a 1280x720
+              frame (ms, peak GiB); RealESRGANer.enhance (x2plus) on RGBA
+              and gray frames, card against CPU small, timed at 720p
+     full_workflow  BASELINE config 5: restore_sequence on the 20 frames
+              of unaligned (40 planted faces), factor 2, KEEP bf16, YOLOv5l
+              and BiSeNet, RealESRGAN_x2plus as background upscaler and
+              realesr-general-x4v3 as face upscaler: shapes, finite chunks,
+              K1-K3 launches (two GMFlow calls), one upscale per face and
+              per frame, no cv2; ms a face by stage
   9. kernel   (vq) the nearest-codebook kernel against its plain version at
               the training step's shape, T = 4096 tokens against N = 1024
               codes of C = 256, in f32 and bf16, on tokens drawn near codes
@@ -206,6 +224,27 @@ K6_OWN = K6_CASES[2][0]
 WHOLE_HW = (720, 1280)
 DETECT_RTOL = 1e-3
 UNALIGNED_LEVELS = 2
+# BASELINE config 5's pieces: YOLOv5-face at the reference's 640 letterbox
+# and the helper's 0.7 default threshold; the upscalers at their public
+# configurations (Real-ESRGAN's RealESRGAN_x4plus / x2plus and
+# realesr-general-x4v3, SwinIR's classical x2 SwinIR-M), in f32 as the JAX
+# package runs them, each card against CPU on one 64^2 tile within
+# SR_RTOL of the largest magnitude, then tiled as ComfyUI tiles (512, 64)
+YOLO_SIZE, YOLO_THRESHOLD = 640, 0.7
+SR_RTOL = 1e-3
+SR_TILE, SR_OVERLAP = 512, 64
+SR_MODELS = {
+    "RealESRGAN_x4plus": ("RRDBNet", 4, dict(scale=4, num_feat=64,
+                                             num_block=23, num_grow_ch=32)),
+    "RealESRGAN_x2plus": ("RRDBNet", 2, dict(scale=2, num_feat=64,
+                                             num_block=23, num_grow_ch=32)),
+    "realesr-general-x4v3": ("SRVGGNetCompact", 4, dict(
+        num_feat=64, num_conv=32, upscale=4, act_type="prelu")),
+    "SwinIR-M_x2": ("SwinIR", 2, dict(
+        upscale=2, in_chans=3, window_size=8, img_range=1.0,
+        depths=(6,) * 6, embed_dim=180, num_heads=(6,) * 6, mlp_ratio=2.0,
+        upsampler="pixelshuffle", resi_connection="1conv")),
+}
 
 # options/train_keep_stage2.yml as a dict: the card machine is not specified
 # to have pyyaml. tests/test_torch_training.py checks that the two agree.
@@ -868,19 +907,31 @@ class StageTimer:
 
 
 class PlantedDetector:
-    """A detector for chip_smoke.py only: the real RetinaFace on the card on
-    every frame (and its detect_batch on every clip; timed as "detect"), its
-    rows kept (none, with random weights), and `planted[i]` appended to
-    frame i's: rows in the frame's own coordinates, scaled to the detection
-    image the helper hands in. `.model` is the real module, which the pack
-    moves."""
+    """A detector for chip_smoke.py only: the real detector on the card on
+    every frame (RetinaFace's detect_batch on every clip; YOLO, which has
+    none, frame by frame; timed as "detect"), its rows kept (none, with
+    random weights), and `planted[i]` appended to frame i's (i counts the
+    single-frame calls since `planted` was set): rows in the frame's own
+    coordinates, scaled to the detection image the helper hands in.
+    `.model` is the real module, which the pack moves."""
 
     def __init__(self, detector, timer):
         self.single = timer.wrap("detect", detector)
-        self.batch = timer.wrap("detect", detector.detect_batch)
+        if hasattr(detector, "detect_batch"):
+            self.batch = timer.wrap("detect", detector.detect_batch)
+        else:
+            self.detect_batch = None      # the helper detects frame by frame
         self.model = detector.model
-        self.planted = []
+        self._planted, self.calls = [], 0
         self.real_rows = 0
+
+    @property
+    def planted(self):
+        return self._planted
+
+    @planted.setter
+    def planted(self, rows):
+        self._planted, self.calls = rows, 0
 
     def _rows(self, real, i, det_h):
         self.real_rows += len(real)
@@ -888,7 +939,9 @@ class PlantedDetector:
         return np.concatenate([real, extra * (det_h / WHOLE_HW[0])])
 
     def __call__(self, img, conf_threshold=0.8):
-        return self._rows(self.single(img, conf_threshold), 0, img.shape[0])
+        i = self.calls % len(self.planted)
+        self.calls += 1
+        return self._rows(self.single(img, conf_threshold), i, img.shape[0])
 
     def detect_batch(self, frames, conf_threshold=0.8):
         reals = self.batch(frames, conf_threshold)
@@ -1202,6 +1255,296 @@ def phase_nodes(torch):
         ok=ok and "cv2" not in sys.modules)
     if not ok or "cv2" in sys.modules:
         fail(f"nodes: {rows}")
+
+
+def phase_detect_yolo(torch):
+    """YOLOv5n and YOLOv5l from the factory (random weights, seed 0), f32,
+    on the 20 synthetic 1280x720 frames of phase detect, through read_image
+    and resize_for_detection (1137x640) as the helper feeds a detector:
+    frame 0's letterbox (to 640^2, 140 rows of 114 above and below the
+    640x360 frame) card against CPU, bitwise; its decoded predictions
+    (25,200 x 16) card against CPU within DETECT_RTOL of their largest
+    magnitude; the rows above the 0.7 threshold equal (scores within 1e-4
+    of it reported); ms a frame of the detector (letterbox, network, decode,
+    NMS, undo) over the 20 frames; the best score. Returns the YOLOv5l
+    detector on the card."""
+    from comfyui_keep_torch.facelib import factory
+    from comfyui_keep_torch.facelib.helper import FaceRestoreHelper
+    from comfyui_keep_torch.facelib.yolov5face import letterbox
+    frames = whole_frames(FRAMES, seed=10)
+    helper = FaceRestoreHelper()
+    smalls = []
+    for f in frames:
+        helper.read_image(f)
+        smalls.append(helper.resize_for_detection()[0])
+    helper_cpu = FaceRestoreHelper(device="cpu")
+    helper_cpu.read_image(frames[0])
+    small_cpu = helper_cpu.resize_for_detection()[0]
+    box_card = letterbox(smalls[0].flip(-1), YOLO_SIZE)
+    box_cpu = letterbox(small_cpu.flip(-1), YOLO_SIZE)
+    box_equal = bool(torch.equal(box_card[0].cpu(), box_cpu[0])
+                     and box_card[1:] == box_cpu[1:])
+    rows, ok_all, dets = {}, box_equal, {}
+    for name in ("YOLOv5n", "YOLOv5l"):
+        det = factory.init_detection_model(name, require_weights=False,
+                                           seed=0)
+        cpu = factory.init_detection_model(name, require_weights=False,
+                                           seed=0, device="cpu")
+        pred = det.predictions(smalls[0])[0]
+        pred_cpu = cpu.predictions(small_cpu)[0]
+        err = rel_err(pred, pred_cpu)
+        conf = (pred_cpu[:, 4] * pred_cpu[:, 15])
+        near = int(((conf - YOLO_THRESHOLD).abs() < 1e-4).sum())
+        got = det(smalls[0], YOLO_THRESHOLD)
+        want = cpu(small_cpu, YOLO_THRESHOLD)
+        rows_equal = (got.shape == want.shape
+                      and bool(np.allclose(got, want, atol=1e-2)))
+        det(smalls[0], YOLO_THRESHOLD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best = 0.0
+        for sm in smalls:
+            det(sm, YOLO_THRESHOLD)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(smalls)
+        for sm in smalls:
+            p = det.predictions(sm)[0]
+            best = max(best, float((p[:, 4] * p[:, 15]).max()))
+        ok = bool(err <= DETECT_RTOL and tuple(pred.shape) == (25200, 16)
+                  and (rows_equal or near))
+        ok_all &= ok
+        rows[name] = dict(predictions=list(pred.shape), pred_rel_err=err,
+                          rows_card=len(got), rows_cpu=len(want),
+                          rows_equal=rows_equal, scores_near_threshold=near,
+                          best_score=best, ms_per_frame=ms, ok=ok)
+        dets[name] = det
+        del cpu
+    say("detect_yolo", frames=FRAMES, detection_hw=list(small_cpu.shape[:2]),
+        letterbox_hw=list(box_cpu[0].shape[:2]), letterbox_pad=box_cpu[2],
+        letterbox_card_equals_cpu=box_equal, tol_rel=DETECT_RTOL,
+        threshold=YOLO_THRESHOLD, models=rows, ok=bool(ok_all))
+    if not ok_all:
+        fail(f"detect_yolo: letterbox {box_equal}, {rows}")
+    return dets["YOLOv5l"]
+
+
+def phase_parse_bisenet(torch):
+    """BiSeNet from the factory (random weights, seed 0), f32, on a 512^2
+    face: the main head's logits card against CPU within DETECT_RTOL of
+    their largest magnitude, the argmax agreement (reported), ms a face.
+    Returns the card parser."""
+    from comfyui_keep_torch.facelib import factory
+    from comfyui_keep_torch.utils.image import bgr_u8_to_rgb_pm1
+    parser = factory.init_parsing_model("bisenet", require_weights=False,
+                                        seed=0)
+    cpu = factory.init_parsing_model("bisenet", require_weights=False,
+                                     seed=0, device="cpu")
+    face = np.random.default_rng(17).integers(0, 256, (512, 512, 3),
+                                              dtype=np.uint8)
+    x = bgr_u8_to_rgb_pm1(face)[None]
+    got, ref = parser(x), cpu(x)
+    err = rel_err(got, ref)
+    agree = float((got.argmax(-1).cpu() == ref.argmax(-1)).float().mean())
+    ms = time_ms(torch, lambda: parser(x), 10)
+    ok = bool(err <= DETECT_RTOL and got.shape == (1, 512, 512, 19))
+    say("parse_bisenet", logits_rel_err=err, tol_rel=DETECT_RTOL,
+        argmax_agreement=agree, ms_per_face=ms, ok=ok)
+    if not ok:
+        fail(f"parse_bisenet: logits rel err {err} > {DETECT_RTOL}")
+    return parser
+
+
+def sr_model(torch, name, device):
+    """One of SR_MODELS at full width, random weights from seed 0."""
+    from comfyui_keep_torch.models import sr_basic, swinir
+    arch, _, kw = SR_MODELS[name]
+    cls = swinir.SwinIR if arch == "SwinIR" else getattr(sr_basic, arch)
+    return cls(device=device, generator=torch.Generator().manual_seed(0),
+               **kw)
+
+
+def phase_upscale(torch):
+    """The four upscalers of SR_MODELS, f32: each card against CPU on one
+    64^2 tile within SR_RTOL of its largest magnitude; then make_upscaler_fn
+    (tile 512, overlap 64: ragged 384- and 272-px edge tiles) on one
+    1280x720 frame on the card, ms a frame (after one warm-up frame) and
+    peak GiB; then RealESRGANer.enhance with RealESRGAN_x2plus (tile 0,
+    pre_pad 10) on an RGBA and a gray frame: 64x48 card against CPU within
+    1 level, and 1280x720 timed on the card. Returns the card models of
+    the full workflow."""
+    from comfyui_keep_torch.pipeline.realesrganer import RealESRGANer
+    from comfyui_keep_torch.pipeline.tiled import make_upscaler_fn
+    rng = np.random.default_rng(18)
+    tile = torch.from_numpy(rng.random((1, 3, 64, 64), dtype=np.float32))
+    frame = whole_frames(1, seed=19)[0]
+    rows, ok_all, keep = {}, True, {}
+    for name, (arch, scale, _) in SR_MODELS.items():
+        cpu = sr_model(torch, name, "cpu")
+        card = copy.deepcopy(cpu).cuda()
+        with torch.no_grad():
+            ref = cpu(tile)
+            got = card(tile.cuda())
+        err = rel_err(got, ref)
+        del cpu
+        up = make_upscaler_fn(card, scale, SR_TILE, SR_OVERLAP)
+        up(frame)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = up(frame)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        shape_ok = out.shape == (WHOLE_HW[0] * scale, WHOLE_HW[1] * scale, 3)
+        ok = bool(err <= SR_RTOL and shape_ok and out.dtype == np.uint8)
+        ok_all &= ok
+        rows[name] = dict(arch=arch, scale=scale, tile_rel_err=err,
+                          frame_ms=ms, peak_gib=peak, output_hw=list(
+                              out.shape[:2]), ok=ok)
+        if name in ("RealESRGAN_x2plus", "realesr-general-x4v3"):
+            keep[name] = card
+        else:
+            del card, up
+        torch.cuda.empty_cache()
+    # RealESRGANer on alpha and gray frames
+    x2 = keep["RealESRGAN_x2plus"]
+    enh = RealESRGANer(2, x2)
+    enh_cpu = RealESRGANer(2, copy.deepcopy(x2).cpu())
+    small = {"RGBA": rng.integers(0, 256, (48, 64, 4), dtype=np.uint8),
+             "L": rng.integers(0, 256, (48, 64), dtype=np.uint8)}
+    big = {"RGBA": np.dstack([frame, rng.integers(0, 256, WHOLE_HW,
+                                                  dtype=np.uint8)]),
+           "L": frame[..., 1].copy()}
+    enhance = {}
+    for mode in ("RGBA", "L"):
+        a, m = enh.enhance(small[mode])
+        b, _ = enh_cpu.enhance(small[mode])
+        levels = int(np.abs(a.astype(int) - b.astype(int)).max())
+        enh.enhance(big[mode])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = enh.enhance(big[mode])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = (WHOLE_HW[0] * 2, WHOLE_HW[1] * 2) + (
+            (4,) if mode == "RGBA" else ())
+        ok = bool(m == mode and levels <= 1 and a.shape == b.shape
+                  and out.shape == want and out.dtype == np.uint8)
+        ok_all &= ok
+        enhance[mode] = dict(small_card_vs_cpu_max_levels=levels,
+                             frame_ms=ms, output_shape=list(out.shape), ok=ok)
+    del enh_cpu
+    say("upscale", tile_hw=[64, 64], tol_rel=SR_RTOL, frame_hw=list(WHOLE_HW),
+        tile=SR_TILE, overlap=SR_OVERLAP, models=rows,
+        realesrganer_x2plus=enhance, ok=bool(ok_all))
+    if not ok_all:
+        fail(f"upscale: {rows} {enhance}")
+    return keep
+
+
+def phase_full_workflow(torch, detector, parser, sr):
+    """BASELINE config 5 through the api entry points:
+    api.load_models(detector=planted YOLOv5l, parser=BiSeNet,
+    bg_upscaler=RealESRGAN_x2plus tiled (512, 64), face_upscaler=
+    realesr-general-x4v3) -> restore_sequence on the 20 frames of phase
+    unaligned (two planted faces drifting, 40 faces), factor 2, KEEP in
+    bf16. Gates: 20 uint8 frames of 2560x1440, each differing from its
+    upscaled background; finite restored chunks; K1-K3 launches twice one
+    GMFlow call's, nothing of K4-K6; the background upscaled once a frame
+    and each face once (their counters); cv2 never imported. Reported: ms
+    a face, split into detection, alignment, restore, background upscale,
+    face upscale and paste-back (without the face upscale inside it); the
+    best real YOLO score on the frames. Returns the launch counts."""
+    from comfyui_keep_torch import api
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.pipeline.processor import KEEPFaceProcessor
+    from comfyui_keep_torch.pipeline.tiled import make_upscaler_fn
+    timer = StageTimer(torch)
+    planted = PlantedDetector(detector, timer)
+    bg = make_upscaler_fn(sr["RealESRGAN_x2plus"], 2, SR_TILE, SR_OVERLAP)
+    face = make_upscaler_fn(sr["realesr-general-x4v3"], 4, SR_TILE,
+                            SR_OVERLAP)
+    bg_t, face_t = timer.wrap("bg_upscale", bg), timer.wrap("face_upscale",
+                                                            face)
+    bg_t.model, face_t.model = bg.model, face.model
+    pack = api.load_models(seed=0, detector=planted, parser=parser,
+                           bg_upscaler=bg_t, face_upscaler=face_t)
+    pack.load_device(torch.bfloat16)
+    helper = pack.face_helper
+    helper.align_warp_face = timer.wrap("align", helper.align_warp_face)
+    helper.paste_faces_to_input_image = timer.wrap(
+        "paste", helper.paste_faces_to_input_image)
+    stream, clip = (KEEPFaceProcessor.restore_face_stream,
+                    KEEPFaceProcessor.restore_clip)
+    finite = []
+
+    def checked_clip(self, *a, **k):
+        out = clip(self, *a, **k)
+        finite.append(bool(np.isfinite(out[0] if isinstance(out, tuple)
+                                       else out).all()))
+        return out
+
+    KEEPFaceProcessor.restore_face_stream = timer.wrap("restore", stream)
+    KEEPFaceProcessor.restore_clip = checked_clip
+    rng = np.random.default_rng(20)
+    frames = whole_frames(FRAMES, seed=14)
+    planted.planted = [
+        [planted_row(planted_landmarks(0.55, 6.0, 420 + 3 * i, 330 + 2 * i)
+                     + rng.normal(0, 0.55, (5, 2))),
+         planted_row(planted_landmarks(0.45, -12.0, 900 - 2 * i, 400 + i)
+                     + rng.normal(0, 0.45, (5, 2)))]
+        for i in range(FRAMES)]
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = api.restore_sequence(pack, frames, 2.0, only_center_face=False,
+                                    dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        seq_ms = 1e3 * (time.perf_counter() - t0)
+        counts = dict(K.LAUNCHES)
+    finally:
+        KEEPFaceProcessor.restore_face_stream = stream
+        KEEPFaceProcessor.restore_clip = clip
+    stages = dict(timer.ms)
+    n_faces, n_backgrounds = face.calls, bg.calls
+    stages["paste_without_face_upscale"] = (stages.get("paste", 0.0)
+                                            - stages.get("face_upscale", 0.0))
+    best = 0.0
+    for f in frames:
+        helper.read_image(f)
+        p = detector.predictions(helper.resize_for_detection()[0])[0]
+        best = max(best, float((p[:, 4] * p[:, 15]).max()))
+    gmflow_call = {"attention[dv128]": 6, "attention[dv128+bias]": 6,
+                   "attention[dv2]": 1, "mlp_fused": 6,
+                   "global_correlation_expectation": 1,
+                   "vq_nearest_indices": 0, "fused_bias_lrelu": 0,
+                   "packed_conv2x2": 0}
+    want = {k: 2 * v for k, v in gmflow_call.items()}
+    up = (WHOLE_HW[0] * 2, WHOLE_HW[1] * 2, 3)
+    shapes_ok = len(outs) == FRAMES and all(
+        o.shape == up and o.dtype == np.uint8 for o in outs)
+    pasted = shapes_ok and all(not np.array_equal(o, bg(f))
+                               for o, f in zip(outs[:2], frames[:2]))
+    ok = bool(shapes_ok and pasted and finite and all(finite)
+              and counts == want and n_faces == 2 * FRAMES
+              and n_backgrounds == FRAMES and "cv2" not in sys.modules)
+    say("full_workflow", frames=FRAMES, faces=n_faces, factor=2.0,
+        detector="YOLOv5l (planted rows)", parser="bisenet",
+        bg_upscaler="RealESRGAN_x2plus tiled 512/64",
+        face_upscaler="realesr-general-x4v3 tiled 512/64",
+        sequence_ms=seq_ms, ms_per_face=seq_ms / max(n_faces, 1),
+        stage_ms_per_face={k: v / max(n_faces, 1) for k, v in stages.items()},
+        launches=counts, expected_launches=want, faces_upscaled=n_faces,
+        backgrounds_upscaled=n_backgrounds, chunks_finite=finite,
+        real_detector_rows=planted.real_rows, best_real_score=best,
+        output_hw=list(up[:2]), outputs_uint8=shapes_ok, faces_pasted=pasted,
+        cv2_imported="cv2" in sys.modules, ok=ok)
+    if not ok:
+        fail(f"full_workflow: shapes {shapes_ok}, pasted {pasted}, finite "
+             f"{finite}, launches {counts}, faces {n_faces}, backgrounds "
+             f"{n_backgrounds}")
+    return counts
 
 
 def phase_vq(torch, iters=KERNEL_ITERS):
@@ -1891,6 +2234,12 @@ def main():
     del detector, parser
     phase_nodes(torch)
     torch.cuda.empty_cache()
+    yolo = phase_detect_yolo(torch)
+    bisenet = phase_parse_bisenet(torch)
+    sr = phase_upscale(torch)
+    config5_counts = phase_full_workflow(torch, yolo, bisenet, sr)
+    del yolo, bisenet, sr
+    torch.cuda.empty_cache()
     phase_train_parity(torch)
     train_counts = phase_train(torch)
     k5_rows = phase_k5(torch)
@@ -1926,6 +2275,7 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": dname, "status": "ported",
             "launches_whole_frame_sequence": whole_counts[name],
+            "launches_full_workflow": config5_counts[name],
             **({"unfused_ms": r["unfused_ms"]} if "unfused_ms" in r
                else {})})
     # the nearest-codebook kernel runs on the training path: f32 as

@@ -28,4 +28,13 @@ ComfyUI nodes (`nodes.py`); the kernels are GMFlow's. Entry points:
 `api.load_models(detector=..., parser=...)`, `api.restore_image`,
 `api.restore_sequence`, `facelib.factory.init_detection_model` /
 `init_parsing_model`.
+
+Slice 6: every detector, parser and upscaler the nodes name: YOLOv5-face
+(`facelib/yolov5face.py`), BiSeNet, the alignment helpers
+(`facelib/align_trans.py`, `face_utils.py`, `FaceAligner`,
+`retinaface.align_multi`), RRDBNet / SRVGGNetCompact / MSRResNet / EDSR /
+SwinIR, ComfyUI's tiled upscale (`pipeline/tiled.py`) and `RealESRGANer`;
+no new kernel. Entry points: `init_detection_model("YOLOv5l" | "YOLOv5n")`,
+`init_parsing_model("bisenet")`, `pipeline.tiled.make_upscaler_fn`,
+`api.load_models(bg_upscaler=..., face_upscaler=...)`.
 """

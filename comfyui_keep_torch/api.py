@@ -9,9 +9,13 @@ from comfyui_keep_tpu/api.py.
 
 `load_models` builds KEEP and GMFlow on the host (random weights from a
 seed, or a reference .pth) and, given a detector or a parser (facelib/
-factory.py), a FaceRestoreHelper for whole frames. `load_device` moves the
-models to the card (the CPU only when asked), the detector and parser in
-their own dtype, and `offload` back to the host. `processor` runs on the
+factory.py), a FaceRestoreHelper for whole frames; the optional
+bg_upscaler and face_upscaler (bgr_u8 -> bgr_u8, e.g. pipeline/tiled.py's
+make_upscaler_fn over models/sr_basic.py or models/swinir.py) ride in the
+pack to the processor and the paste-back. `load_device` moves the models
+to the card (the CPU only when asked), the detector's, parser's and
+upscalers' in their own dtype, and `offload` back to the host. The JAX
+package's keyed model cache is not kept: each call builds its pack. `processor` runs on the
 card unless the caller asks for the CPU, and moves the pack there if
 needed; its KEEP runs the 512 level phase-packed only when asked
 `phase512=True`.
@@ -24,34 +28,44 @@ from comfyui_keep_torch.facelib.helper import FaceRestoreHelper
 from comfyui_keep_torch.models.gmflow import GMFlow
 from comfyui_keep_torch.models.keep import KEEP
 from comfyui_keep_torch.pipeline.processor import (KEEPFaceProcessor,
-                                                   helper_models)
+                                                   helper_models,
+                                                   plugin_models)
 from comfyui_keep_torch.utils.convert import read_pth, split_keep_checkpoint
 
 
 class KEEPModelPack:
     def __init__(self, keep: KEEP, gmflow: Optional[GMFlow] = None,
                  face_helper: Optional[FaceRestoreHelper] = None,
+                 bg_upscaler: Optional[Callable] = None,
+                 face_upscaler: Optional[Callable] = None,
                  model_type: str = "KEEP"):
         self.keep = keep
         self.gmflow = gmflow
         self.face_helper = face_helper
+        self.bg_upscaler = bg_upscaler
+        self.face_upscaler = face_upscaler
         self.model_type = model_type
 
     def _models(self):
         return [m for m in (self.keep, self.gmflow) if m is not None]
 
+    def _plugin_models(self):
+        return helper_models(self.face_helper) + plugin_models(
+            self.bg_upscaler, self.face_upscaler)
+
     def models(self):
         """Every module of the pack: KEEP, GMFlow, the detector's, the
-        parser's."""
-        return self._models() + helper_models(self.face_helper)
+        parser's, the upscalers'."""
+        return self._models() + self._plugin_models()
 
     def load_device(self, dtype: Optional[torch.dtype] = None,
                     device="cuda") -> "KEEPModelPack":
         """Move the models (in place) to `device`; KEEP and GMFlow cast to
-        `dtype` if given, the detector and parser in their own dtype."""
+        `dtype` if given, the detector, parser and upscalers in their own
+        dtype."""
         for m in self._models():
             m.to(device=device, dtype=dtype)
-        for m in helper_models(self.face_helper):
+        for m in self._plugin_models():
             m.to(device=device)
         if self.face_helper is not None:
             self.face_helper.device = torch.device(device)
@@ -72,18 +86,24 @@ class KEEPModelPack:
             self.load_device(device=device)
         return KEEPFaceProcessor(self.keep, self.gmflow, dtype=dtype,
                                  device=device, phase512=phase512,
-                                 face_helper=self.face_helper)
+                                 face_helper=self.face_helper,
+                                 bg_upscaler=self.bg_upscaler,
+                                 face_upscaler=self.face_upscaler)
 
 
 def load_models(model_type: str = "KEEP", keep_ckpt: Optional[str] = None,
                 detector: Optional[Callable] = None,
-                parser: Optional[Callable] = None, seed: int = 0,
+                parser: Optional[Callable] = None,
+                bg_upscaler: Optional[Callable] = None,
+                face_upscaler: Optional[Callable] = None, seed: int = 0,
                 cfg_overrides: Optional[dict] = None) -> KEEPModelPack:
     """Build a model pack on the host. With keep_ckpt: load the reference
     .pth (the flow net's weights ride in the same file). Without: random
     weights from `seed` (GMFlow from seed + 1). A detector or parser (left
     on its device until the pack moves) gives the pack a FaceRestoreHelper
-    at KEEP's face size, with the parse mask on when there is a parser."""
+    at KEEP's face size, with the parse mask on when there is a parser.
+    bg_upscaler upscales each frame's background, face_upscaler each
+    restored face before its paste-back (JAX api.py:28-35, 66-82)."""
     overrides = cfg_overrides or {}
     if keep_ckpt is not None:
         keep_sd, flow_sd = split_keep_checkpoint(read_pth(keep_ckpt))
@@ -104,7 +124,8 @@ def load_models(model_type: str = "KEEP", keep_ckpt: Optional[str] = None,
             upscale_factor=1, face_size=keep.cfg["img_size"],
             detector=detector, parser=parser, use_parse=parser is not None,
             device="cpu")
-    return KEEPModelPack(keep, gmflow, face_helper, model_type)
+    return KEEPModelPack(keep, gmflow, face_helper, bg_upscaler,
+                         face_upscaler, model_type)
 
 
 def restore_image(pack: KEEPModelPack, img_bgr, final_upscale_factor=1.0,

@@ -5,13 +5,16 @@ parsing __init__.py), ported from comfyui_keep_tpu/facelib/factory.py.
                                     model_rootpath="/models/facedetection")
     parser = init_parsing_model("parsenet", require_weights=False, seed=0)
 
-Both return the FaceRestoreHelper plug-ins (models/retinaface.py's
-make_detector_fn, models/parsenet.py's make_parser_fn), whose module is
-`.model`, built on `device` ("cuda" unless the caller asks for the CPU).
-With `model_rootpath` the reference's .pth is read from there (the port
-never downloads); without one, `require_weights=False` gives random
-weights from `seed`. `half=True` casts to bfloat16, as the JAX package
-does. YOLOv5 and BiSeNet are not ported yet (ROADMAP Queue 1).
+The detectors are RetinaFace (ResNet50, MobileNet-0.25) and YOLOv5-face
+(YOLOv5l, YOLOv5n), the parsers ParseNet and BiSeNet (which the JAX package
+wires too). Each returns the FaceRestoreHelper plug-in
+(models/retinaface.py's make_detector_fn, facelib/yolov5face.py's
+make_yolo_detector_fn, models/parsenet.py's and models/bisenet.py's
+make_parser_fn), whose module is `.model`, built on `device` ("cuda" unless
+the caller asks for the CPU). With `model_rootpath` the reference's .pth
+is read from there (the port never downloads); without one,
+`require_weights=False` gives random weights from `seed`. `half=True`
+casts to bfloat16, as the JAX package does.
 """
 import os
 from typing import Callable, Optional
@@ -29,17 +32,15 @@ MODEL_NAMES = {
     "parsenet": "parsing_parsenet.pth",
     "bisenet": "parsing_bisenet.pth",
 }
-NOT_PORTED = ("YOLOv5l", "YOLOv5n", "bisenet")
+# reference buffers the port computes instead of storing: YOLO's anchors,
+# SwinIR's window tables
+DROPPED = ("anchors", "anchor_grid", "relative_position_index", "attn_mask")
 
 
 def _checkpoint(model_name: str, model_rootpath: Optional[str],
                 require_weights: bool) -> Optional[str]:
     if model_name not in MODEL_NAMES:
         raise NotImplementedError(f"{model_name} is not implemented.")
-    if model_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{model_name} is not ported to comfyui_keep_torch yet "
-            "(ROADMAP.md Queue 1)")
     if model_rootpath is not None:
         path = os.path.join(model_rootpath, MODEL_NAMES[model_name])
         if not os.path.exists(path):
@@ -53,9 +54,12 @@ def _checkpoint(model_name: str, model_rootpath: Optional[str],
 
 
 def load_reference(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load a reference .pth (a `state_dict` wrapper unwrapped, `module.`
-    stripped); a BatchNorm's num_batches_tracked may be absent."""
-    sd = read_pth(path, prefer=("state_dict",))
+    """Load a reference .pth into a port module: a detector's, a parser's or
+    an upscaler's (a `state_dict`, `params_ema` or `params` wrapper
+    unwrapped, `module.` stripped, the buffers named in DROPPED left out);
+    a BatchNorm's num_batches_tracked may be absent."""
+    sd = read_pth(path, prefer=("state_dict", "params_ema", "params"))
+    sd = {k: v for k, v in sd.items() if k.rsplit(".", 1)[-1] not in DROPPED}
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
@@ -75,27 +79,35 @@ def init_detection_model(model_name: str, half: bool = False,
                          require_weights: bool = True, seed: int = 0,
                          device="cuda") -> Callable:
     """A face detector by name (detection/__init__.py:32-89)."""
+    from comfyui_keep_torch.facelib.yolov5face import (YoloFace,
+                                                       make_yolo_detector_fn)
     from comfyui_keep_torch.models.retinaface import (RetinaFace,
                                                       make_detector_fn)
     ckpt = _checkpoint(model_name, model_rootpath, require_weights)
-    if not model_name.startswith("retinaface_"):
-        raise NotImplementedError(f"{model_name} is not a detector.")
-    network = model_name.split("_", 1)[1]
-    gen = torch.Generator().manual_seed(seed)
-    model = RetinaFace(network, device=device,
-                       generator=None if ckpt else gen)
-    return make_detector_fn(_build(model, ckpt, half))
+    gen = None if ckpt else torch.Generator().manual_seed(seed)
+    if model_name.startswith("retinaface_"):
+        model = RetinaFace(model_name.split("_", 1)[1], device=device,
+                           generator=gen)
+        return make_detector_fn(_build(model, ckpt, half))
+    if model_name in ("YOLOv5l", "YOLOv5n"):
+        model = YoloFace(model_name.lower(), device=device, generator=gen)
+        return make_yolo_detector_fn(_build(model, ckpt, half))
+    raise NotImplementedError(f"{model_name} is not a detector.")
 
 
 def init_parsing_model(model_name: str = "parsenet", half: bool = False,
                        model_rootpath: Optional[str] = None,
                        require_weights: bool = True, seed: int = 0,
                        device="cuda") -> Callable:
-    """A face parser by name (parsing/__init__.py:22-51)."""
-    from comfyui_keep_torch.models.parsenet import ParseNet, make_parser_fn
+    """A face parser by name (parsing/__init__.py:22-51, and BiSeNet, which
+    the JAX package wires too)."""
+    from comfyui_keep_torch.models import bisenet, parsenet
     ckpt = _checkpoint(model_name, model_rootpath, require_weights)
-    if model_name != "parsenet":
-        raise NotImplementedError(f"{model_name} is not a parser.")
-    gen = torch.Generator().manual_seed(seed)
-    model = ParseNet(device=device, generator=None if ckpt else gen)
-    return make_parser_fn(_build(model, ckpt, half))
+    gen = None if ckpt else torch.Generator().manual_seed(seed)
+    if model_name == "parsenet":
+        model = parsenet.ParseNet(device=device, generator=gen)
+        return parsenet.make_parser_fn(_build(model, ckpt, half))
+    if model_name == "bisenet":
+        model = bisenet.BiSeNet(device=device, generator=gen)
+        return bisenet.make_parser_fn(_build(model, ckpt, half))
+    raise NotImplementedError(f"{model_name} is not a parser.")

@@ -12,9 +12,10 @@ on the host. The neural pieces are plug-ins:
   detector(img_bgr_u8, conf_threshold) -> (N, 15) [x1,y1,x2,y2,score,lm x10]
   parser(face_rgb_pm1 (1,512,512,3)) -> (1,512,512,19) class logits
 
-(models/retinaface.py's make_detector_fn and models/parsenet.py's
-make_parser_fn; a plug-in may also return numpy). Images in and out are
-numpy HWC uint8 BGR.
+(models/retinaface.py's and facelib/yolov5face.py's detectors,
+models/parsenet.py's and models/bisenet.py's parsers; a plug-in may also
+return numpy). Images in and out are numpy HWC uint8 BGR. FaceAligner is
+the training-time aligner (landmarks given, no detection).
 """
 from typing import Callable, List, Optional
 
@@ -52,6 +53,16 @@ def invert_affine(m: np.ndarray) -> np.ndarray:
     rot, t = m[:, :2], m[:, 2]
     inv_rot = np.linalg.inv(rot)
     return np.concatenate([inv_rot, (-inv_rot @ t)[:, None]], axis=1)
+
+
+def warp_image(img: np.ndarray, m: np.ndarray, dsize, border="constant",
+               border_value=None, device="cuda") -> np.ndarray:
+    """cv2.warpAffine(img, m, dsize, borderMode=border,
+    borderValue=border_value) of a numpy uint8 or float32 image, computed
+    on `device` (utils/cvops.py); numpy out."""
+    t = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+    return cvops.warp_affine(t, m, dsize, "linear", border,
+                             border_value).cpu().numpy()
 
 
 class FaceRestoreHelper:
@@ -314,13 +325,18 @@ class FaceRestoreHelper:
         return mask / 255.0
 
     def paste_faces_to_input_image(self, upsample_img=None,
-                                   draw_box: bool = False) -> np.ndarray:
+                                   draw_box: bool = False,
+                                   face_upsampler: Optional[Callable] = None
+                                   ) -> np.ndarray:
         """Blend each restored face back into the upscaled frame
         (face_restoration_helper.py:346-475) on the helper's device: the
         face and its mask warped by the inverse affine; with a parser the
         mask is the parse soft mask, else the mask eroded by 2 x factor,
         then by 2 w_edge, and blurred (w_edge = sqrt(face area) // 20).
-        Returns the frame as numpy HWC uint8 BGR."""
+        face_upsampler (bgr_u8 -> bgr_u8, e.g. pipeline/tiled.py's
+        make_upscaler_fn) upscales each face first, which LANCZOS4 then
+        brings back to the face size, as in the JAX helper. Returns the
+        frame as numpy HWC uint8 BGR."""
         h, w, _ = self.input_img.shape
         h_up, w_up = int(h * self.upscale_factor), int(w * self.upscale_factor)
         dev = self.device
@@ -339,8 +355,12 @@ class FaceRestoreHelper:
                                self.inverse_affine_matrices):
             if inv_m is None:
                 continue
-            fh, fw = face.shape[:2]
+            if face_upsampler is not None:
+                up = torch.from_numpy(np.ascontiguousarray(
+                    face_upsampler(face))).to(dev)
+                face = resize(up, self.face_size, "lanczos4").cpu().numpy()
             face_t = torch.from_numpy(np.ascontiguousarray(face)).to(dev)
+            fh, fw = face.shape[:2]
             inv_restored = cvops.warp_affine(face_t, inv_m, dsize).to(
                 torch.float32)
             if use_parse and not draw_box:
@@ -378,3 +398,84 @@ class FaceRestoreHelper:
             for b in borders:
                 out[(b > 0.5).any(dim=2)] = green
         return out.cpu().numpy()
+
+
+# -- the training-time aligner (face_restoration_helper.py:486-611) -------------
+
+DLIB_TEMPLATE_1024 = np.array([
+    [686.77227723, 488.62376238], [586.77227723, 493.59405941],
+    [337.91089109, 488.38613861], [437.95049505, 493.51485149],
+    [513.58415842, 678.5049505]], dtype=np.float64)
+TEMPLATE_3POINTS = np.array([[192, 240], [319, 240], [257, 371]],
+                            dtype=np.float64)
+
+
+class FaceAligner:
+    """Pair or single face alignment from given landmarks, for training
+    (face_restoration_helper.py:486-611): no detection, the LMedS
+    similarity to the template, then the warp on `device` (gray border, or
+    reflect101 / reflect). RGB float images in [0, 1] go through BGR uint8
+    before the warp, as in the reference, which quantises them.
+
+    Kept from the reference: the warp's dsize is ``img.shape[0:2]``, (h,
+    w) where OpenCV reads (w, h); the same for the square crops of KEEP's
+    training."""
+
+    def __init__(self, upscale_factor, face_size: int = 512,
+                 crop_ratio=(1, 1), det_model: str = "retinaface_resnet50",
+                 template_3points: bool = False, pad_blur: bool = False,
+                 device="cuda"):
+        self.template_3points = template_3points
+        self.upscale_factor = int(upscale_factor)
+        self.crop_ratio = crop_ratio
+        if crop_ratio[0] < 1 or crop_ratio[1] < 1:
+            raise ValueError("crop ratio only supports >=1")
+        self.face_size = (int(face_size * crop_ratio[1]),
+                          int(face_size * crop_ratio[0]))
+        if det_model == "dlib":
+            self.face_template = DLIB_TEMPLATE_1024 / (1024 // face_size)
+        elif template_3points:
+            self.face_template = TEMPLATE_3POINTS.copy()
+        else:
+            self.face_template = FFHQ_TEMPLATE_512.copy()
+        self.face_template = self.face_template * (face_size / 512.0)
+        if crop_ratio[0] > 1:
+            self.face_template[:, 1] += face_size * (crop_ratio[0] - 1) / 2
+        if crop_ratio[1] > 1:
+            self.face_template[:, 0] += face_size * (crop_ratio[1] - 1) / 2
+        self.pad_blur = pad_blur
+        if pad_blur:
+            self.template_3points = False
+        self.device = torch.device(device)
+
+    def _warp(self, img_u8, m, border_mode):
+        if border_mode not in ("constant", "reflect101", "reflect"):
+            raise ValueError(f"border_mode {border_mode!r}")
+        return warp_image(img_u8, m, img_u8.shape[0:2], border_mode,
+                          BORDER_GRAY, self.device)
+
+    def align_single_face(self, img, landmarks, border_mode="constant"):
+        """img: RGB float [0, 1] -> the aligned RGB float [0, 1]."""
+        u8 = (img[:, :, ::-1] * 255).round().astype(np.uint8)
+        m = estimate_affine(np.asarray(landmarks, np.float64),
+                            self.face_template)
+        return self._warp(u8, m, border_mode)[:, :, ::-1] / 255.0
+
+    def align_warp_face(self, img_lq, img_gt, landmarks,
+                        border_mode="constant"):
+        """A BGR uint8 pair -> the warped pair. The landmarks are at the
+        GT's scale; the LQ warp solves again at landmarks / scale
+        (:585-601)."""
+        scale = img_gt.shape[0] / img_lq.shape[0]
+        lm = np.asarray(landmarks, np.float64)
+        m_gt = estimate_affine(lm, self.face_template)
+        img_gt = self._warp(img_gt, m_gt, border_mode)
+        m_lq = estimate_affine(lm / scale, self.face_template / scale)
+        return self._warp(img_lq, m_lq, border_mode), img_gt
+
+    def align_pair_face(self, img_lq, img_gt, landmarks):
+        """An RGB float [0, 1] pair -> the aligned pair (:549-558)."""
+        lq = (img_lq[:, :, ::-1] * 255).round().astype(np.uint8)
+        gt = (img_gt[:, :, ::-1] * 255).round().astype(np.uint8)
+        lq, gt = self.align_warp_face(lq, gt, landmarks)
+        return lq[:, :, ::-1] / 255.0, gt[:, :, ::-1] / 255.0

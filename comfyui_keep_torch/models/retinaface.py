@@ -310,3 +310,24 @@ def make_detector_fn(model: RetinaFace, nms_threshold: float = 0.4):
     detector.detect_batch = detect_batch
     detector.model = model
     return detector
+
+
+def align_multi(detector, img_bgr_u8: np.ndarray, conf_threshold: float = 0.8,
+                limit: Optional[int] = None, device="cuda"):
+    """Detect, then warp each face to the 112 x 112 ArcFace template
+    (retinaface.py:254-279: detect_faces, then warp_and_crop_face on each
+    with the default_square reference points) on `device`. Returns ((n, 15)
+    rows, the faces as numpy)."""
+    from comfyui_keep_torch.facelib.align_trans import (
+        get_reference_facial_points, warp_and_crop_face)
+    rows = detector(img_bgr_u8, conf_threshold)
+    if rows is None or len(rows) == 0:
+        return np.zeros((0, 15), np.float32), []
+    rows = np.asarray(rows)
+    if limit:
+        rows = rows[:limit]
+    reference = get_reference_facial_points(default_square=True)
+    faces = [warp_and_crop_face(np.array(img_bgr_u8), row[5:].reshape(5, 2),
+                                reference, crop_size=(112, 112),
+                                device=device) for row in rows]
+    return rows, faces

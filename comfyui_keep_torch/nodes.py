@@ -8,10 +8,11 @@ the card; their `device` keyword (not a widget) asks for another.
 
 As in the JAX package and the reference, the execution nodes trap every
 error, print the traceback, return (None,) and always offload the pack;
-and the loader records the detection model's name without building a
-detector, so a whole-frame call through these nodes fails inside the trap
-(in both packages; whole frames go through api.load_models(detector=...,
-parser=...)).
+the loader passes the two optional upscale models through to the pack
+(bgr_u8 -> bgr_u8 upscalers) and records the detection model's name
+without building a detector, so a whole-frame call through these nodes
+fails inside the trap (in both packages; whole frames go through
+api.load_models(detector=..., parser=...)).
 """
 import traceback
 from typing import Optional
@@ -52,11 +53,9 @@ class KEEP_ModelLoaderNode:
     def load_model_pack(self, model, detection_model,
                         bg_upscale_model=None, face_upscale_model=None,
                         keep_ckpt: Optional[str] = None):
-        if bg_upscale_model is not None or face_upscale_model is not None:
-            raise NotImplementedError(
-                "upscale models are not ported to comfyui_keep_torch yet "
-                "(ROADMAP.md Queue 1)")
-        pack = api.load_models(model_type=model, keep_ckpt=keep_ckpt)
+        pack = api.load_models(
+            model_type=model, keep_ckpt=keep_ckpt,
+            bg_upscaler=bg_upscale_model, face_upscaler=face_upscale_model)
         pack.detection_model = detection_model
         return (pack,)
 

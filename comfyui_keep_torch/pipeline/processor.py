@@ -13,8 +13,11 @@ Whole frames (has_aligned=False) go through a FaceRestoreHelper with a
 detector and a parser attached: detect (the clip as one batch when its
 frames share a shape), track and smooth the landmarks across frames, crop
 and align each face, restore the face stream, paste each face back into
-the upscaled frame. No step needs OpenCV: the resizes are utils/resize.py's
-and the helper's pixel work utils/cvops.py's.
+the upscaled frame. Optional upscalers (bgr_u8 -> bgr_u8 plug-ins,
+pipeline/tiled.py's make_upscaler_fn) upscale the background before its
+LANCZOS4 resize to the final size, and each restored face before it is
+resized back and pasted (BASELINE config 5). No step needs OpenCV: the
+resizes are utils/resize.py's and the helper's pixel work utils/cvops.py's.
 """
 import copy
 from typing import Callable, Dict, List, Optional
@@ -44,14 +47,19 @@ def _cast(module: Optional[torch.nn.Module], dtype):
     return copy.deepcopy(module).to(dtype)
 
 
+def plugin_models(*plugins) -> List[torch.nn.Module]:
+    """The modules of plug-ins (a detector, a parser, an upscaler): each
+    one's `.model`, where it has one."""
+    return [m for m in (getattr(p, "model", None) for p in plugins)
+            if isinstance(m, torch.nn.Module)]
+
+
 def helper_models(helper: Optional[FaceRestoreHelper]
                   ) -> List[torch.nn.Module]:
     """The modules of a helper's detector and parser plug-ins (`.model`)."""
     if helper is None:
         return []
-    return [m for m in (getattr(helper.detector, "model", None),
-                        getattr(helper.parser, "model", None))
-            if m is not None]
+    return plugin_models(helper.detector, helper.parser)
 
 
 def _on(module: Optional[torch.nn.Module], device: torch.device) -> bool:
@@ -65,7 +73,8 @@ class KEEPFaceProcessor:
     """KEEP (and optionally GMFlow) on one device, in one dtype. Without
     GMFlow the flows are zero (the single-image path). face_helper, a
     FaceRestoreHelper with a detector and a parser, serves whole frames; it
-    works on the processor's device, and its models keep their dtype.
+    works on the processor's device, and its models keep their dtype, as
+    do the upscalers' (bg_upscaler, face_upscaler: bgr_u8 -> bgr_u8).
 
     The models must already sit on `device` ("cuda" unless the caller asks
     for the CPU); `KEEPModelPack.processor` moves them there. With
@@ -77,13 +86,17 @@ class KEEPFaceProcessor:
 
     def __init__(self, keep: KEEP, gmflow: Optional[GMFlow] = None, dtype=None,
                  device="cuda", phase512: bool = False,
-                 face_helper: Optional[FaceRestoreHelper] = None):
+                 face_helper: Optional[FaceRestoreHelper] = None,
+                 bg_upscaler: Optional[Callable] = None,
+                 face_upscaler: Optional[Callable] = None):
         device = torch.device(device)
         if not all(_on(m, device) for m in [keep, gmflow]
-                   + helper_models(face_helper)):
+                   + helper_models(face_helper)
+                   + plugin_models(bg_upscaler, face_upscaler)):
             raise ValueError(f"the models are not on {device}: move them "
                              f"there first (KEEPModelPack.load_device)")
         self.face_helper = face_helper
+        self.bg_upscaler, self.face_upscaler = bg_upscaler, face_upscaler
         if face_helper is not None:
             face_helper.device = device
         self.keep = _cast(keep.prepare_phase512() if phase512 else keep,
@@ -143,14 +156,17 @@ class KEEPFaceProcessor:
 
     # -- host orchestration ---------------------------------------------------
 
-    def _resize_bg(self, img_bgr: np.ndarray, factor: float) -> np.ndarray:
-        """The background at the final size (LANCZOS4, on the processor's
-        device; no upscaler)."""
+    def _run_bg(self, img_bgr: np.ndarray, factor: float) -> np.ndarray:
+        """The background at the final size: the bg upscaler's output (or
+        the frame), resized by LANCZOS4 on the processor's device where its
+        size differs (processor.py:274-279)."""
+        up = (self.bg_upscaler(img_bgr) if self.bg_upscaler is not None
+              else img_bgr)
         h, w = img_bgr.shape[:2]
         th, tw = int(h * factor), int(w * factor)
-        if (h, w) == (th, tw):
-            return img_bgr
-        t = torch.from_numpy(np.ascontiguousarray(img_bgr)).to(self.device)
+        if up.shape[:2] == (th, tw):
+            return up
+        t = torch.from_numpy(np.ascontiguousarray(up)).to(self.device)
         return resize(t, (tw, th), "lanczos4").cpu().numpy()
 
     def _face(self, img_bgr: np.ndarray) -> np.ndarray:
@@ -171,20 +187,23 @@ class KEEPFaceProcessor:
                       has_aligned: bool = False,
                       only_center_face: bool = False,
                       draw_box: bool = False) -> np.ndarray:
-        """Single-image restore (keep_processor.py:134-194): an aligned face,
-        or a whole frame (detect, align, restore, paste back)."""
+        """Single-image restore (keep_processor.py:134-194): an aligned face
+        (the face upscaler on the restored face, then LANCZOS4 to the final
+        size), or a whole frame (detect, align, restore, paste back)."""
         if has_aligned:
             face = self._face(img_bgr)
             restored = self.restore_face_stream([face], max_clip_length=2)[0]
             if is_gray(face, threshold=10):
                 restored = bgr2gray(restored)
+            if self.face_upscaler is not None:
+                restored = self.face_upscaler(restored)
             th = int(self.face_size * final_upscale_factor)
             if restored.shape[0] != th:
                 restored = resize(restored, (th, th), "lanczos4")
             return restored
 
         helper = self._helper()
-        bg_final = self._resize_bg(img_bgr, final_upscale_factor)
+        bg_final = self._run_bg(img_bgr, final_upscale_factor)
         helper.upscale_factor = final_upscale_factor
         helper.clean_all()
         helper.read_image(img_bgr)
@@ -197,8 +216,9 @@ class KEEPFaceProcessor:
                                             max_clip_length=2)
         helper.restored_faces = restored
         helper.get_inverse_affine()
-        return helper.paste_faces_to_input_image(upsample_img=bg_final,
-                                                 draw_box=draw_box)
+        return helper.paste_faces_to_input_image(
+            upsample_img=bg_final, draw_box=draw_box,
+            face_upsampler=self.face_upscaler)
 
     def _detect_all(self, frames_bgr: List[np.ndarray], only_center_face: bool,
                     progress: Optional[Callable]) -> List[List[np.ndarray]]:
@@ -272,7 +292,7 @@ class KEEPFaceProcessor:
                                      carry_chunks=carry_chunks)
             out = []
             for f in frames_bgr:
-                out.append(self._resize_bg(f, final_upscale_factor))
+                out.append(self._run_bg(f, final_upscale_factor))
                 if progress:
                     progress(2)
             return out
@@ -318,7 +338,7 @@ class KEEPFaceProcessor:
         out_frames: List[np.ndarray] = []
         fidx = 0
         for i in range(n_frames):
-            bg_final = self._resize_bg(frames_bgr[i], final_upscale_factor)
+            bg_final = self._run_bg(frames_bgr[i], final_upscale_factor)
             c = counts[i]
             if c:
                 helper.clean_all()
@@ -328,7 +348,8 @@ class KEEPFaceProcessor:
                 helper.upscale_factor = final_upscale_factor
                 helper.get_inverse_affine()
                 bg_final = helper.paste_faces_to_input_image(
-                    upsample_img=bg_final, draw_box=draw_box)
+                    upsample_img=bg_final, draw_box=draw_box,
+                    face_upsampler=self.face_upscaler)
             out_frames.append(bg_final)
             fidx += c
             if progress:

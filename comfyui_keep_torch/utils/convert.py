@@ -8,10 +8,11 @@ net's `flownet.model.*` subtree split off for GMFlow).
 `params_from_jax` is the inverse of the JAX package's checkpoint converters
 (`convert_checkpoint`, `convert_gmflow_checkpoint`,
 `convert_stylegan2_generator` / `_discriminator`, and the layout rules of
-its utils/checkpoint.py's `convert_state_dict`, which RetinaFace's and
-ParseNet's trees follow): it turns a JAX param tree of numpy arrays into a
-state dict of the port's module, so both packages can run on one set of
-weights. A BatchNorm's `num_batches_tracked`, which the JAX trees drop, is
+its utils/checkpoint.py's `convert_state_dict`, which the trees of
+RetinaFace, ParseNet, YOLOv5-face, BiSeNet, RRDBNet, SRVGGNetCompact,
+MSRResNet, EDSR and SwinIR follow; SRVGG's PReLU slopes sit under
+`prelu_w`): it turns a JAX param tree of numpy arrays into a state dict of
+the port's module, so both packages can run on one set of weights. A BatchNorm's `num_batches_tracked`, which the JAX trees drop, is
 filled with 0. The port keeps its own copy of these rules and imports nothing
 from the JAX package.
 """
@@ -68,7 +69,7 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Dict[str, np.ndarray]:
         return {f"{pre}.weight": arr}
     if name == "b":
         return {f"{pre}.bias": arr}
-    if name == "scale":
+    if name in ("scale", "prelu_w"):   # a norm's or a PReLU's weight
         return {f"{pre}.weight": arr}
     if name in ("mean", "var"):  # BatchNorm running statistics
         return {f"{pre}.running_{name}": arr}
@@ -180,8 +181,8 @@ _TREE_RULES = {"StyleGAN2Generator": _stylegan2_generator,
 def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     """JAX param tree (numpy leaves) -> state dict for `model` (a KEEP, a
     GMFlow, a VQHQEncoder, a StyleGAN2 generator or discriminator, a
-    RetinaFace or a ParseNet of the port; also a gradient tree of the same
-    layout). Raises unless keys and shapes match `model` exactly."""
+    detector, a parser or an upscaler of the port; also a gradient tree of
+    the same layout). Raises unless keys and shapes match `model` exactly."""
     rules = [_TREE_RULES[c.__name__] for c in type(model).__mro__
              if c.__name__ in _TREE_RULES]
     flat: Dict[str, np.ndarray] = {}

@@ -8,8 +8,9 @@ calib3d ptsetreg.cpp). The image operations take torch tensors, (H, W) or
 CPU in the tests, with the same integer or float32 arithmetic on both.
 tests/test_torch_cvops.py holds each one against cv2:
 - `warp_affine` (INTER_LINEAR / INTER_NEAREST; borders constant,
-  replicate, reflect101, reflect), `erode`, `box_filter`, `resize_area` and
-  `gray_to_bgr` bitwise. OpenCV 5's warp kernels map each destination pixel
+  replicate, reflect101, reflect), `erode`, `box_filter`, `resize_area`,
+  `copy_make_border` (BORDER_CONSTANT), `gray_to_bgr` and `bgr_to_gray`
+  (8-bit and 16-bit) bitwise. OpenCV 5's warp kernels map each destination pixel
   to the source in float32 with fused multiply-adds, in one form for the
   vector body and another for the last columns of a row, and interpolate
   in float32 with fused multiply-adds too (`warp_affine` says which).
@@ -424,6 +425,41 @@ def resize_linear_f32(img: torch.Tensor, dsize: Tuple[int, int]
 def gray_to_bgr(img: np.ndarray) -> np.ndarray:
     """cv2.cvtColor(img, cv2.COLOR_GRAY2BGR) of an (H, W) image."""
     return np.repeat(np.asarray(img)[:, :, None], 3, axis=2)
+
+
+GRAY_COEFS = (3735, 19235, 9798)   # B, G, R of OpenCV 5's RGB2Gray, 15 bits
+GRAY_SHIFT = 15
+
+
+def bgr_to_gray(img):
+    """cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) of a uint8 or uint16 (H, W, 3)
+    image (numpy, or an integer tensor on any device): OpenCV's fixed-point
+    luma, (B 3735 + G 19235 + R 9798 + 2^14) >> 15, for both depths. The
+    result is (H, W), of the input's kind and dtype."""
+    is_tensor = torch.is_tensor(img)
+    x = (img if is_tensor else torch.from_numpy(
+        np.ascontiguousarray(img).astype(np.int64))).to(torch.int64)
+    b, g, r = GRAY_COEFS
+    y = (x[..., 0] * b + x[..., 1] * g + x[..., 2] * r
+         + (1 << (GRAY_SHIFT - 1))) >> GRAY_SHIFT
+    return y.to(img.dtype) if is_tensor else y.numpy().astype(img.dtype)
+
+
+def copy_make_border(img: torch.Tensor, top: int, bottom: int, left: int,
+                     right: int, value=0) -> torch.Tensor:
+    """cv2.copyMakeBorder(img, top, bottom, left, right,
+    cv2.BORDER_CONSTANT, value=value) of an (H, W[, C]) tensor: the image
+    inside a frame of the constant, on the image's device, in its dtype.
+    `value` is OpenCV's Scalar: one value per channel, the missing ones 0
+    (a single number fills the first channel only)."""
+    squeeze = img.dim() == 2
+    x = _as_hwc(img)
+    h, w, c = x.shape
+    out = torch.empty((h + top + bottom, w + left + right, c),
+                      dtype=x.dtype, device=x.device)
+    out[:] = _cval(value, c, x.dtype, x.device).to(x.dtype)
+    out[top:top + h, left:left + w] = x
+    return out[..., 0] if squeeze else out
 
 
 # -- estimateAffinePartial2D(method=LMEDS) ------------------------------------

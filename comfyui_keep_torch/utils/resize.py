@@ -1,5 +1,6 @@
 """OpenCV's `cv2.resize` for uint8 images, so the port's pipeline needs no
-OpenCV: INTER_LINEAR and INTER_LANCZOS4, bit for bit. A numpy image is
+OpenCV: INTER_LINEAR and INTER_LANCZOS4, bit for bit; and INTER_LANCZOS4
+for uint16 images (RealESRGANer's 16-bit output). A numpy image is
 resized on the CPU and comes back as numpy; a tensor is resized on its own
 device (the card, for the pipeline's full-frame resizes) in the same
 integer arithmetic.
@@ -17,7 +18,12 @@ It follows OpenCV's fixed-point path for 8-bit data (imgproc resize.cpp,
   `((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2) >> 2`.
 LINEAR clamps the horizontal fraction to 0 past either edge, not the
 vertical one (its edge rows are replicated); LANCZOS4 clamps neither.
-tests/test_torch_resize.py holds both modes to cv2.resize bitwise.
+For 16-bit data OpenCV's LANCZOS4 stays in float (`HResizeLanczos4<ushort,
+float, float>`, `VResizeLanczos4` with a float-to-ushort cast): the same
+eight float32 weights, each pass a float32 sum of products in tap order
+(no fused multiply-add), rounded half to even and saturated at the end.
+tests/test_torch_resize.py holds the uint8 modes to cv2.resize bitwise,
+tests/test_torch_cvops.py the uint16 one.
 """
 import math
 from typing import Tuple
@@ -85,16 +91,19 @@ def resize(img, dsize: Tuple[int, int], interpolation: str = "linear",
            fx=None, fy=None):
     """cv2.resize(img, dsize, fx, fy, interpolation=INTER_LINEAR or
     INTER_LANCZOS4) for a uint8 (H, W) or (H, W, C) image, numpy or a
-    tensor (the result is of the same kind); dsize is (width,
+    tensor (the result is of the same kind), or INTER_LANCZOS4 for a numpy
+    uint16 image; dsize is (width,
     height), as in OpenCV; interpolation is "linear" or "lanczos4". Given fx
     and fy (and dsize (0, 0)), the size is (round(w fx), round(h fy)),
     rounded half to even, and source coordinates map by 1 / fx and 1 / fy,
     not by the sizes' ratio, as OpenCV maps them."""
     is_tensor = torch.is_tensor(img)
-    if (img.dtype != (torch.uint8 if is_tensor else np.uint8)
+    u16 = not is_tensor and img.dtype == np.uint16
+    if ((img.dtype != (torch.uint8 if is_tensor else np.uint8) and not u16)
             or img.ndim not in (2, 3)):
-        raise ValueError(f"resize takes an (H, W[, C]) uint8 image, got "
-                         f"{img.dtype} {tuple(img.shape)}")
+        raise ValueError(f"resize takes an (H, W[, C]) uint8 image (or a "
+                         f"numpy uint16 one), got {img.dtype} "
+                         f"{tuple(img.shape)}")
     if interpolation not in ("linear", "lanczos4"):
         raise ValueError(f"interpolation {interpolation!r}: 'linear' or "
                          f"'lanczos4'")
@@ -109,6 +118,10 @@ def resize(img, dsize: Tuple[int, int], interpolation: str = "linear",
     if (sh, sw) == (h, w) and not (fx or fy):
         return img.clone() if is_tensor else img.copy()
     lanczos = interpolation == "lanczos4"
+    if u16:
+        if not lanczos:
+            raise ValueError("a uint16 image resizes by 'lanczos4' only")
+        return _lanczos4_u16(img, w, h)
     t = img if is_tensor else torch.from_numpy(np.ascontiguousarray(img))
     dev = t.device
     x = t.reshape(sh, sw, -1).to(torch.int64)
@@ -129,3 +142,23 @@ def resize(img, dsize: Tuple[int, int], interpolation: str = "linear",
     out = out.clamp(0, 255).to(torch.uint8).reshape((h, w) + tuple(
         img.shape[2:]))
     return out if is_tensor else out.numpy()
+
+
+def _lanczos4_u16(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """OpenCV's LANCZOS4 for a uint16 (H, W[, C]) numpy image, in float32:
+    rows, then columns, each a sum over the eight taps in order."""
+    sh, sw = img.shape[:2]
+    x = torch.from_numpy(img.reshape(sh, sw, -1).astype(np.float32))
+    sx, fx = _source_coords(w, sw)
+    sy, fy = _source_coords(h, sh)
+    ax, ay = torch.from_numpy(_lanczos4(fx)), torch.from_numpy(_lanczos4(fy))
+    ix = torch.from_numpy(np.clip(sx[:, None] + np.arange(8) - 3, 0, sw - 1))
+    iy = torch.from_numpy(np.clip(sy[:, None] + np.arange(8) - 3, 0, sh - 1))
+    rows = x[:, ix[:, 0]] * ax[None, :, 0, None]
+    for k in range(1, 8):
+        rows = rows + x[:, ix[:, k]] * ax[None, :, k, None]
+    acc = rows[iy[:, 0]] * ay[:, 0, None, None]
+    for k in range(1, 8):
+        acc = acc + rows[iy[:, k]] * ay[:, k, None, None]
+    out = torch.round(acc).clamp(0, 65535).to(torch.int32).numpy()
+    return out.astype(np.uint16).reshape((h, w) + img.shape[2:])

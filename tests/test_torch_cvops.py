@@ -4,7 +4,9 @@ never imports it.
 
 Bitwise: the warps (uint8 and float32, linear and nearest, every border),
 erosion at k = 1...6, the box filter, INTER_AREA at integer and
-non-integer factors, the fx/fy LINEAR resize and GRAY->BGR. Within 1e-6
+non-integer factors, the fx/fy LINEAR resize, GRAY->BGR, BGR->GRAY at 8
+and 16 bits, copyMakeBorder (BORDER_CONSTANT) and the 16-bit LANCZOS4
+resize. Within 1e-6
 on [0, 1] masks: the Gaussian blurs (OpenCV sums with FMAs in its vector
 code). The float32 LINEAR resize (the parse mask to a face size other than
 512) within 1 ulp at an integer factor and 2e-5 otherwise: OpenCV 5's
@@ -214,6 +216,50 @@ def test_gray_to_bgr():
     img = np.random.default_rng(0).integers(0, 256, (9, 7), dtype=np.uint8)
     np.testing.assert_array_equal(cvops.gray_to_bgr(img),
                                   cv2.cvtColor(img, cv2.COLOR_GRAY2BGR))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_bgr_to_gray_bitwise(dtype):
+    """OpenCV 5's fixed-point luma (15-bit coefficients) at both depths,
+    the extremes included; numpy and tensors."""
+    hi = np.iinfo(dtype).max
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, hi + 1, (61, 83, 3)).astype(dtype)
+    img[0, :4] = [[hi, hi, hi], [0, 0, 0], [hi, 0, 0], [0, hi, hi]]
+    ref = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    got = cvops.bgr_to_gray(img)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+    t = cvops.bgr_to_gray(torch.from_numpy(img.astype(np.int32)))
+    np.testing.assert_array_equal(t.numpy(), ref)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("pads,value", [((3, 4, 5, 6), (114, 114, 114)),
+                                        ((0, 0, 7, 0), (1, 2, 3)),
+                                        ((140, 140, 0, 0), 114)])
+def test_copy_make_border_bitwise(channels, pads, value):
+    shape = (30, 40) if channels == 1 else (30, 40, 3)
+    img = np.random.default_rng(3).integers(0, 256, shape, dtype=np.uint8)
+    ref = cv2.copyMakeBorder(img, *pads, cv2.BORDER_CONSTANT, value=value)
+    got = cvops.copy_make_border(torch.from_numpy(img), *pads, value)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("src,dst,channels", [
+    ((100, 130), (173, 251), 3), ((100, 130), (60, 70), None),
+    ((64, 48), (256, 192), 4), ((31, 17), (5, 9), 3),
+    ((37, 53), (148, 212), 3), ((720, 1280), (360, 640), None)])
+def test_resize_lanczos4_uint16_bitwise(src, dst, channels):
+    """OpenCV's LANCZOS4 for 16-bit images (float weights and sums, RealESRGANer's
+    16-bit outscale), up and down, 1 / 3 / 4 channels."""
+    shape = src if channels is None else src + (channels,)
+    img = np.random.default_rng(4).integers(0, 65536, shape, dtype=np.uint16)
+    img[:3, :3] = 65535
+    ref = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LANCZOS4)
+    got = resize(img, dst[::-1], "lanczos4")
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, ref)
 
 
 def _landmark_sets(n=600, seed=0):

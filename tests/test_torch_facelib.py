@@ -243,11 +243,15 @@ def test_factory_random_reference_pth_and_unported_names(tmp_path):
     with pytest.raises(FileNotFoundError):
         factory.init_parsing_model("parsenet", model_rootpath=str(tmp_path),
                                    device="cpu")
+    # the names once refused (YOLOv5l, YOLOv5n, bisenet) build now
     for name in ("YOLOv5l", "YOLOv5n"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            factory.init_detection_model(name, require_weights=False)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        factory.init_parsing_model("bisenet", require_weights=False)
+        assert factory.init_detection_model(
+            name, require_weights=False, device="cpu").model.config == \
+            name.lower()
+    assert factory.init_parsing_model("bisenet", require_weights=False,
+                                      device="cpu").model is not None
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        factory.init_detection_model("dlib", require_weights=False)
 
 
 # ---------------------------------------------------------------------------

@@ -68,12 +68,17 @@ def test_loader_node_builds_a_pack_and_records_the_detector_name(monkeypatch):
                         load(cfg_overrides=TINY, **kw))
     pack, = nodes.KEEP_ModelLoaderNode().load_model_pack(
         "Asian", "retinaface_mobile0.25")
-    assert made == [{"model_type": "Asian", "keep_ckpt": None}]
+    assert made == [{"model_type": "Asian", "keep_ckpt": None,
+                     "bg_upscaler": None, "face_upscaler": None}]
     assert pack.detection_model == "retinaface_mobile0.25"
     assert pack.face_helper is None and pack.model_type == "Asian"
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        nodes.KEEP_ModelLoaderNode().load_model_pack(
-            "KEEP", "retinaface_resnet50", bg_upscale_model=object())
+    # the upscale models pass through to the pack, as in the JAX node
+    bg, face = (lambda img: img), (lambda img: img)
+    pack, = nodes.KEEP_ModelLoaderNode().load_model_pack(
+        "KEEP", "retinaface_resnet50", bg_upscale_model=bg,
+        face_upscale_model=face)
+    assert made[-1]["bg_upscaler"] is bg
+    assert pack.bg_upscaler is bg and pack.face_upscaler is face
 
 
 def test_single_image_node_aligned_equals_api(pack):

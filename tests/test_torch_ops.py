@@ -315,6 +315,14 @@ def test_port_package_imports_without_jax_in_a_fresh_process():
             "import comfyui_keep_torch.utils.cvops\n"
             "import comfyui_keep_torch.models.retinaface, "
             "comfyui_keep_torch.models.parsenet\n"
+            "import comfyui_keep_torch.facelib.yolov5face, "
+            "comfyui_keep_torch.facelib.align_trans, "
+            "comfyui_keep_torch.facelib.face_utils\n"
+            "import comfyui_keep_torch.models.bisenet, "
+            "comfyui_keep_torch.models.sr_basic, "
+            "comfyui_keep_torch.models.swinir\n"
+            "import comfyui_keep_torch.pipeline.tiled, "
+            "comfyui_keep_torch.pipeline.realesrganer\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'comfyui_keep_tpu', 'cv2')]\n"
             "assert not bad, bad\n")

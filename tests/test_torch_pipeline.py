@@ -362,7 +362,7 @@ def test_process_image_unaligned_matches_jax(forced_procs, monkeypatch,
         monkeypatch.setitem(sys.modules, "cv2", None)
         ours = proc.process_image(img, factor,
                                   only_center_face=only_center_face)
-        bg = proc._resize_bg(img, factor)
+        bg = proc._run_bg(img, factor)
     finally:
         ref_proc.face_helper = proc.face_helper = None
     _close(ours, ref)
@@ -408,4 +408,4 @@ def test_process_image_sequence_unaligned_matches_jax(forced_procs,
     for o, r in zip(ours, ref):
         _close(o, r)
     assert sum(progress) == 4 * 5
-    assert not np.array_equal(ours[0], proc._resize_bg(frames[0], 2.0))
+    assert not np.array_equal(ours[0], proc._run_bg(frames[0], 2.0))

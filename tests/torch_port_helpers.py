@@ -1,0 +1,49 @@
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py): seeded
+BatchNorm statistics, param-tree comparison, relative error."""
+import numpy as np
+import torch
+
+
+def randomize_bn(model, seed):
+    """Every BatchNorm's weight, bias, mean and var drawn at random (var in
+    [0.5, 2]): the init's mean 0 / var 1 would hide a swapped pair."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(torch.rand(c, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=g) * 0.1)
+                m.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(c, generator=g) * 1.5 + 0.5)
+    return model
+
+
+def flat(tree, path=()):
+    """{path: array} of a param tree's leaves (None entries skipped)."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flat(v, path + (str(k),)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flat(v, path + (str(i),)))
+    elif tree is not None:
+        out[path] = np.asarray(tree)
+    return out
+
+
+def assert_trees_equal(a, b):
+    fa, fb = flat(a), flat(b)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=str(k))
+
+
+def rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)
+
+
+def state_numpy(model):
+    return {k: v.numpy() for k, v in model.state_dict().items()}
