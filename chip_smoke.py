@@ -91,6 +91,21 @@ the verdict):
               realesr-general-x4v3 as face upscaler: shapes, finite chunks,
               K1-K3 launches (two GMFlow calls), one upscale per face and
               per frame, no cv2; ms a face by stage
+     chunks   grouped chunk serving: 41 aligned 512^2 faces through
+              restore_face_stream (bf16, 20-frame chunks,
+              chunks_per_dispatch=2: a group of two chunks, then a
+              duplicated 1-frame tail) in each chunk_batching form ("map",
+              "batch", "stage"): ms a face, K1-K4 launches checked (GMFlow
+              once per chunk in "map", once per group in the others, by
+              form and at the group's shapes), the uint8 difference from
+              "map" (reported) and "map" equal to the per-chunk loop bit
+              for bit; each form's group program (restore_group) at G = 2
+              and 4 chunks: ms a face (median of 3) and peak GiB; GMFlow on
+              the group against GMFlow on each chunk (f32 gated in px), the
+              forms' KEEP with forced picks against the group's; one group
+              of each form with phase512=True, K6 launches checked
+     need_upscale  KEEP.apply(need_upscale=True) on a 2-frame 128^2 clip,
+              f32, card against CPU, picks forced from the CPU run
   9. kernel   (vq) the nearest-codebook kernel against its plain version at
               the training step's shape, T = 4096 tokens against N = 1024
               codes of C = 256, in f32 and bf16, on tokens drawn near codes
@@ -128,6 +143,31 @@ the verdict):
               warm-up (R1 once, the path penalty four times): ms of a plain,
               a path and the R1 + path alternation, peak GiB, losses, K5
               launches per alternation; the EMA rule, D and G leaves moved
+ 16. gmflow_refine  GMFlow(num_scales=2) at full width (random weights, seed
+              0) on two 512^2 pairs: apply_refine forward and bidirectional,
+              f32 card against CPU (pixels), bf16 finite; GMFlow.apply with
+              corr_radius=4 and prop_radius=1 card against CPU; the
+              occlusion check on the bidirectional flows (scaled so both
+              masks hold both values; the share that flips gated); ms a
+              pair; K1-K3 launches a call checked, by form and by shape
+              (L = 256 windows under the (64, 256, 256) mask at 1/4)
+ 17. vqgan    at 512^2, f32, card against CPU: VQAutoEncoder at full width
+              with the nearest quantizer (codes equal to the CPU's but at
+              near-ties, its generator on the CPU's codes; K4 once a
+              forward, held against its plain version at T = 256) and with
+              the Gumbel quantizer on one seeded draw; VQGANDiscriminator;
+              Discriminator3D on (1, 8, 512, 512, 3)
+ 18. native   dcn_v2_pack at EDVR's shape (64 channels, 8 deformable groups,
+              a 180x320 map) and correlation(max_displacement=4), card
+              against CPU, ms
+The kernel phase also holds K1 at the refinement's fine scale (L = 256,
+the (64, 256, 256) mask, 256 windows) in both dtypes, and K1-K3 in bf16 at
+the shapes of a group of 2 chunks (the "G2" rows). The kernel table's
+K1-K4 rows carry their launches on slice 7's paths (launches_chunk_*,
+launches_refine, launches_vqgan; null where a path did not run in the
+row's dtype), taken from the kernels' own counters: the L256 and G2 rows
+count their own shape alone (ops/kernels.py LAUNCHES_BY_SHAPE). A row
+with no launch on its path fails the run.
 Every phase that counts launches counts K6 too: the training and StyleGAN2
 phases expect none. The script exits non-zero, printing no verdict, if
 there is no CUDA device, if a kernel does not build or disagrees, or if any
@@ -155,6 +195,8 @@ KERNEL_RTOL = {"bfloat16": 1.6e-2, "float32": 1e-4}
 FLOW_TOL_PX = 5e-2           # GMFlow card against CPU, pixels
 KEEP_ATOL, KEEP_RTOL = 5e-3, 1e-2   # KEEP forward tolerance of the golden tests
 FRAMES, WINDOWS, FEAT, CH, HID = 20, 4, 64, 128, 1024
+REFINE_FEAT, REFINE_WINDOWS = 128, 64   # refinement's 1/4 scale of 512^2
+CHUNK_RUNS = 3       # timed 41-face runs per chunk form, after a warm-up
 STEP_PAIRS = 14      # the f32 training step's GMFlow: B=2 clips x 7 pairs
 KERNEL_ITERS = 20    # timed launches per kernel (a quarter for plain versions)
 MAIN_PAIRS = 10      # packed / unpacked chunk pairs timed in turns
@@ -274,6 +316,14 @@ TINY = dict(img_size=64, nf=32, ch_mult=(1, 2, 2), res_blocks=2,
             n_head=8, n_layers=2, latent_size=256, cft_list=("32", "64"),
             cfa_list=("16",), cfa_nhead=2, cfa_dim=16, kalman_attn_head_dim=8,
             num_uncertainty_layers=1, temp_reg_list=("32",))
+# the VQGAN family's and the native ops' f32 outputs, card against CPU,
+# relative to their largest magnitude (cuDNN and the CPU sum in other orders)
+VQ_FAMILY_RTOL = 1e-3
+# occlusion masks of the refinement's bidirectional flows, card against
+# CPU: the share of pixels that may flip at the threshold
+OCC_FLIP_SHARE = 1e-3
+K1_K4 = ("attention[dv128]", "attention[dv128+bias]", "attention[dv2]",
+         "global_correlation_expectation", "mlp_fused", "vq_nearest_indices")
 HQ_KEYS = ("img_size", "nf", "ch_mult", "res_blocks", "attn_resolutions",
            "codebook_size", "emb_dim")
 
@@ -346,8 +396,12 @@ def matched_keys(torch, q, strength, g):
 
 def kernel_cases(torch, dtype):
     """(counter, wrapper, args, library call, [(flops, peak rate)], bytes,
-    rtol, unfused PyTorch calls or None) at the shapes one 20-frame 512x512
-    chunk gives each kernel."""
+    rtol, unfused PyTorch calls or None, launch key) at the shapes one
+    20-frame 512x512 chunk gives each kernel; in bf16 also at the shapes of
+    a group of G = 2 chunks ("G2", the "batch" and "stage" chunk forms); in
+    both dtypes K1 at the refinement's fine scale ("L256"). The launch key
+    is the LAUNCHES_BY_SHAPE key of a G2 or L256 case's shape, None for a
+    case whose launches are its counter's over every shape."""
     import torch.nn.functional as F
     from comfyui_keep_torch.models.gmflow import shifted_window_mask
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -398,8 +452,19 @@ def kernel_cases(torch, dtype):
         return s + F.layer_norm(torch.matmul(h, w2.t()), (CH,), gamma,
                                 beta, eps=1e-5)
 
+    # GMFlow refinement's fine scale (two 512^2 pairs): 256-token windows of
+    # the 128x128 maps split 8 x 8, both images of both pairs, under the
+    # (64, 256, 256) shifted-window mask on odd layers
+    br, lr = 2 * 2 * REFINE_WINDOWS, (REFINE_FEAT // 8) ** 2
+    qr, vr = rnd(br, lr, CH), rnd(br, lr, CH)
+    kr = matched_keys(torch, qr, 0.7, g)
+    mask_r = torch.as_tensor(shifted_window_mask(REFINE_FEAT, REFINE_FEAT, 8),
+                             device=dev)
+    mask_r_full = mask_r.repeat(br // REFINE_WINDOWS, 1, 1)[:, None].to(dtype)
+    att_r = 2 * br * lr * lr * CH
     att_fl = 2 * bw * lw * lw * CH
     glb_fl = 2 * bg * lg * lg * CH
+    exp_fl = 2 * bg * lg * lg * 2      # the 2-wide product
     rows = bw * lw
     rtol = KERNEL_RTOL[dname]
     step = [] if tanh else [
@@ -407,30 +472,78 @@ def kernel_cases(torch, dtype):
          (ssrc, smsg, w1, w2, gamma, beta, tanh),
          None, [(6 * ssrc.numel() * HID, peak)],
          3 * ssrc.numel() * isz + 3 * CH * HID * isz, rtol,
-         lambda: mlp_unfused_at(ssrc, smsg))]
+         lambda: mlp_unfused_at(ssrc, smsg), None)]
+    group = []
+    if tanh:
+        # bf16, the grouped chunk forms' GMFlow at B = 2 clips: twice the
+        # windows, maps and rows of one chunk, on fresh inputs (a batch
+        # index that wraps at one chunk's count reads other data)
+        bw2, bg2 = 2 * bw, 2 * bg
+        q2, v2 = rnd(bw2, lw, CH), rnd(bw2, lw, CH)
+        k2 = matched_keys(torch, q2, 0.7, g)
+        mask2_full = mask.repeat(bw2 // WINDOWS, 1, 1)[:, None].to(dtype)
+        qg2 = rnd(bg2, lg, CH)
+        kg2 = matched_keys(torch, qg2, 0.8, g)
+        vg2 = rnd(bg2, lg, 2, scale=8.0)
+        grid_b2 = grid.to(dtype).expand(bg2, lg, 2)
+        src2, msg2 = rnd(bw2, lw, CH), rnd(bw2, lw, CH)
+        group = [
+            ("attention[dv128] G2", "attention", (q2, k2, v2, scale),
+             sdpa(q2, k2, v2), [(4 * att_fl, peak)], 4 * q2.numel() * isz,
+             rtol, None, f"attention[dv128] B{bw2} L{lw}"),
+            ("attention[dv128+bias] G2", "attention",
+             (q2, k2, v2, scale, mask), sdpa(q2, k2, v2, mask2_full),
+             [(4 * att_fl, peak)], 4 * q2.numel() * isz + mask.numel() * 4,
+             rtol, None, f"attention[dv128+bias] B{bw2} L{lw}"),
+            ("attention[dv2] G2", "attention", (qg2, kg2, vg2, scale),
+             sdpa(qg2, kg2, vg2), [(2 * (glb_fl + exp_fl), peak)],
+             (2 * qg2.numel() + 2 * vg2.numel()) * isz, rtol, None,
+             f"attention[dv2] B{bg2} L{lg}"),
+            ("global_correlation_expectation G2",
+             "global_correlation_expectation", (qg2, kg2, grid),
+             lambda: F.scaled_dot_product_attention(qg2, kg2, grid_b2,
+                                                    scale=scale),
+             [(2 * glb_fl, peak), (2 * exp_fl, PEAK_F32)],
+             2 * qg2.numel() * isz + grid.numel() * 4 + bg2 * lg * 2 * 4,
+             KERNEL_RTOL["float32"], None,
+             f"global_correlation_expectation B{bg2} L{lg}"),
+            ("mlp_fused G2", "mlp_fused",
+             (src2, msg2, w1, w2, gamma, beta, tanh), None,
+             [(12 * rows * CH * HID, peak)],
+             3 * src2.numel() * isz + 3 * CH * HID * isz, rtol,
+             lambda: mlp_unfused_at(src2, msg2), f"mlp_fused rows{2 * rows}"),
+        ]
     return [
         ("attention[dv128]", "attention", (q, k, v, scale),
          sdpa(q, k, v), [(2 * att_fl, peak)], 4 * q.numel() * isz, rtol,
-         None),
+         None, None),
         ("attention[dv128+bias]", "attention", (q, k, v, scale, mask),
          sdpa(q, k, v, mask_full), [(2 * att_fl, peak)],
-         4 * q.numel() * isz + mask.numel() * 4, rtol, None),
+         4 * q.numel() * isz + mask.numel() * 4, rtol, None, None),
+        ("attention[dv128] L256", "attention", (qr, kr, vr, scale),
+         sdpa(qr, kr, vr), [(2 * att_r, peak)], 4 * qr.numel() * isz, rtol,
+         None, f"attention[dv128] B{br} L{lr}"),
+        ("attention[dv128+bias] L256", "attention", (qr, kr, vr, scale,
+                                                     mask_r),
+         sdpa(qr, kr, vr, mask_r_full), [(2 * att_r, peak)],
+         4 * qr.numel() * isz + mask_r.numel() * 4, rtol, None,
+         f"attention[dv128+bias] B{br} L{lr}"),
         ("attention[dv2]", "attention", (qg, kg, vg, scale),
-         sdpa(qg, kg, vg), [(glb_fl + 2 * bg * lg * lg * 2, peak)],
-         (2 * qg.numel() + 2 * vg.numel()) * isz, rtol, None),
+         sdpa(qg, kg, vg), [(glb_fl + exp_fl, peak)],
+         (2 * qg.numel() + 2 * vg.numel()) * isz, rtol, None, None),
         # softmax and expectation stay f32 in both dtypes: f32 tolerance
         ("global_correlation_expectation", "global_correlation_expectation",
          (qg, kg, grid),
          lambda: F.scaled_dot_product_attention(qg, kg, grid_b, scale=scale),
-         [(glb_fl, peak), (2 * bg * lg * lg * 2, PEAK_F32)],
+         [(glb_fl, peak), (exp_fl, PEAK_F32)],
          2 * qg.numel() * isz + grid.numel() * 4 + bg * lg * 2 * 4,
-         KERNEL_RTOL["float32"], None),
+         KERNEL_RTOL["float32"], None, None),
         ("mlp_fused", "mlp_fused",
          (src, msg, w1, w2, gamma, beta, tanh),
          None, [(6 * rows * CH * HID, peak)],
          3 * src.numel() * isz + 3 * CH * HID * isz, rtol,
-         lambda: mlp_unfused_at(src, msg)),
-    ] + step
+         lambda: mlp_unfused_at(src, msg), None),
+    ] + group + step
 
 
 def phase_kernels(torch, iters=KERNEL_ITERS):
@@ -438,7 +551,7 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for name, fn_name, args, lib, flops, nbytes, rtol, unfused in \
+        for name, fn_name, args, lib, flops, nbytes, rtol, unfused, key in \
                 kernel_cases(torch, dtype):
             fn, plain = getattr(K, fn_name), K.PLAIN[fn_name]
             got = fn(*args)
@@ -457,7 +570,7 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": 1e3 * max(op_s, byte_s),
                    "bound_by": "operations" if op_s >= byte_s else "bytes",
-                   "ok": bool(err <= tol)}
+                   "launch_key": key, "ok": bool(err <= tol)}
             if unfused is not None:   # reported, not gated
                 row["unfused_ms"] = time_ms(torch, unfused, iters)
             if lib is not None and dtype == torch.float32:
@@ -1547,6 +1660,28 @@ def phase_full_workflow(torch, detector, parser, sr):
     return counts
 
 
+def vq_picks_vs_plain(torch, K, z, e):
+    """The nearest-codebook kernel's picks on the card against the plain
+    version's on the same z (T, C) and codebook e (N, C): (the kernel's
+    picks, {max_excess: the most a kernel pick's distance exceeds the
+    minimum, tol: VQ_RTOL of the largest |distance|, differing: picks that
+    differ, past_tol: picks that differ where the plain version's best and
+    second distances lie more than tol apart, tokens_past_tol}). Agreement
+    is past_tol == 0 and max_excess <= tol."""
+    got = K.vq_nearest_indices(z, e).long()
+    torch.cuda.synchronize()
+    ref = K.vq_nearest_indices_plain(z, e).long()
+    d = K.codebook_sq_norms(e) - 2.0 * z.float() @ e.float().t()
+    excess = d.gather(1, got[:, None]) - d.gather(1, ref[:, None])
+    top2 = (-d).topk(2, dim=-1).values
+    tol = VQ_RTOL * d.abs().max().item()
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    return got, {"max_excess": excess.abs().max().item(), "tol": tol,
+                 "differing": int((got != ref).sum()),
+                 "past_tol": int((got != ref)[clear].sum()),
+                 "tokens_past_tol": int(clear.sum())}
+
+
 def phase_vq(torch, iters=KERNEL_ITERS):
     """The nearest-codebook kernel at the training step's shape. Code n is
     s_n u_n (u_n of unit expected norm, s_n in [0.5, 2]); token t is a code
@@ -1570,16 +1705,8 @@ def phase_vq(torch, iters=KERNEL_ITERS):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         zc, ec = z.to(dtype).contiguous(), e.to(dtype).contiguous()
-        got = K.vq_nearest_indices(zc, ec).long()
-        torch.cuda.synchronize()
-        ref = K.vq_nearest_indices_plain(zc, ec).long()
-        d = K.codebook_sq_norms(ec) - 2.0 * zc.float() @ ec.float().t()
-        excess = (d.gather(1, got[:, None]) - d.gather(1, ref[:, None]))
-        top2 = (-d).topk(2, dim=-1).values
-        tol = VQ_RTOL * d.abs().max().item()
-        clear = (top2[:, 0] - top2[:, 1]) > tol
-        mismatched = int((got != ref)[clear].sum())
-        err = excess.abs().max().item()
+        got, pc = vq_picks_vs_plain(torch, K, zc, ec)
+        err, tol, mismatched = pc["max_excess"], pc["tol"], pc["past_tol"]
         repeats = int((got >= VQ_N - dup).sum())
         ms = time_ms(torch, lambda: K.vq_nearest_indices(zc, ec), iters)
         plain_ms = time_ms(torch, lambda: K.vq_nearest_indices_plain(zc, ec),
@@ -1600,10 +1727,10 @@ def phase_vq(torch, iters=KERNEL_ITERS):
                   + 4 * (VQ_N + VQ_T)) / HBM
         row = {"name": "vq_nearest_indices", "dtype": dname,
                "max_abs_err": err, "tol": tol,
-               "picks_differing": int((got != ref).sum()),
+               "picks_differing": pc["differing"],
                "picks_differing_past_tol": mismatched,
-               "tokens_past_tol": int(clear.sum()), "repeat_codes_picked":
-               repeats, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "tokens_past_tol": pc["tokens_past_tol"],
+               "repeat_codes_picked": repeats, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
                "bound_ms": 1e3 * max(op_s, byte_s),
                "bound_by": "operations" if op_s >= byte_s else "bytes",
@@ -2190,6 +2317,551 @@ def phase_stylegan2_train(torch):
     return counts
 
 
+def k1_launches(counts):
+    """K1 to K4's entries of a LAUNCHES snapshot."""
+    return {k: counts[k] for k in K1_K4}
+
+
+def launch_counts(K):
+    """A snapshot of LAUNCHES and LAUNCHES_BY_SHAPE in one dict: the
+    counters by form, and K1-K4's launches by the shape they ran at."""
+    return {**K.LAUNCHES, **K.LAUNCHES_BY_SHAPE}
+
+
+def gmflow_launches(calls, layers=6, global_matching=1):
+    """K1-K4 launches of `calls` GMFlow passes of `layers` transformer
+    layers at one window split: each layer's self and cross attention,
+    half of the layers shifted (the mask), one FFN each; global matching
+    and propagation once per pass when taken."""
+    return {"attention[dv128]": calls * layers,
+            "attention[dv128+bias]": calls * layers,
+            "attention[dv2]": calls * global_matching,
+            "global_correlation_expectation": calls * global_matching,
+            "mlp_fused": calls * layers, "vq_nearest_indices": 0}
+
+
+def group_launches(g):
+    """K1-K3 launches by shape of one GMFlow pass over a group of g 20-frame
+    512^2 chunks (B = g clips): g * 152 windows of 1024 tokens in each of the
+    6 layers (self and cross attention in one launch, half of them under
+    the mask), g * 19 maps of 4096 tokens in global matching and
+    propagation, g * 155,648 rows in each layer's FFN."""
+    pairs = g * (FRAMES - 1)
+    windows, lw, lg = 2 * pairs * WINDOWS, (FEAT // 2) ** 2, FEAT * FEAT
+    return {f"attention[dv128] B{windows} L{lw}": 6,
+            f"attention[dv128+bias] B{windows} L{lw}": 6,
+            f"attention[dv2] B{pairs} L{lg}": 1,
+            f"global_correlation_expectation B{pairs} L{lg}": 1,
+            f"mlp_fused rows{windows * lw}": 6}
+
+
+def phase_chunks(torch, pack):
+    """Grouped chunk serving at the main path's width (bf16, 512^2, 20-frame
+    chunks): 41 faces through restore_face_stream with
+    chunks_per_dispatch=2 (one group of two chunks, then a duplicated
+    1-frame tail) in each chunk_batching form. Per form: ms a face (the
+    median of CHUNK_RUNS timed runs after a warm-up; the last one's
+    launches and output kept), K1-K4 launches ("map" runs GMFlow once per
+    chunk, "batch" and "stage" once per group), the uint8 difference from
+    "map" (reported), and "map" against the per-chunk loop, bit for bit.
+    Then each form's group program alone (restore_group) at G = 2 and G = 4
+    chunks: ms a face and peak device memory. Then chunks_parity, and one
+    group of each form with phase512=True, its K6 launches checked.
+    Returns {form: counts}."""
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.utils.image import (bgr_u8_to_rgb_pm1,
+                                                rgb_pm1_to_bgr_u8)
+    rng = np.random.default_rng(6)
+    n = 2 * FRAMES + 1
+    faces = [rng.integers(0, 256, (512, 512, 3), dtype=np.uint8)
+             for _ in range(n)]
+    x = np.stack([bgr_u8_to_rgb_pm1(f) for f in faces])
+    want = {"map": gmflow_launches(3), "batch": gmflow_launches(2),
+            "stage": gmflow_launches(2)}
+    # the grouped forms run GMFlow once at the group's shapes, "map" never
+    g2 = group_launches(2)
+    want_g2 = {"map": dict.fromkeys(g2, 0), "batch": g2, "stage": g2}
+    outs, counts, face_ms = {}, {}, {}
+    for form in ("map", "batch", "stage"):
+        proc = pack.processor(dtype=torch.bfloat16, chunk_batching=form,
+                              chunks_per_dispatch=2)
+        proc.restore_face_stream(faces, max_clip_length=FRAMES)  # warm-up
+        runs = []
+        for _ in range(CHUNK_RUNS):
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs[form] = proc.restore_face_stream(faces,
+                                                  max_clip_length=FRAMES)
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0) / n)
+        face_ms[form] = float(np.median(runs))
+        counts[form] = launch_counts(K)
+        if form == "map":
+            loop = [rgb_pm1_to_bgr_u8(o) for s in (0, FRAMES)
+                    for o in proc.restore_clip(x[s:s + FRAMES])]
+            loop.append(rgb_pm1_to_bgr_u8(proc.restore_clip(
+                np.concatenate([x[-1:], x[-1:]]))[0]))
+            map_is_loop = all(np.array_equal(a, b)
+                              for a, b in zip(outs["map"], loop))
+        diff = np.stack([np.abs(a.astype(int) - b.astype(int))
+                         for a, b in zip(outs[form], outs["map"])])
+        at_g2 = {k: counts[form].get(k, 0) for k in g2}
+        ok = (k1_launches(counts[form]) == want[form]
+              and at_g2 == want_g2[form]
+              and len(outs[form]) == n and all(
+                  o.dtype == np.uint8 and o.shape == (512, 512, 3)
+                  for o in outs[form])
+              and (form != "map" or map_is_loop))
+        say("chunks", form=form, faces=n, chunks_per_dispatch=2,
+            ms_per_face=face_ms[form], ms_per_face_runs=runs,
+            launches=k1_launches(counts[form]),
+            expected_launches=want[form], launches_at_group_shapes=at_g2,
+            expected_launches_at_group_shapes=want_g2[form],
+            vs_map_uint8_max=int(diff.max()),
+            vs_map_share_past_1_level=float((diff > 1).mean()),
+            **({"map_equals_chunk_loop": map_is_loop} if form == "map"
+               else {}), ok=bool(ok))
+        if not ok:
+            fail(f"chunks ({form}): launches {k1_launches(counts[form])} "
+                 f"(want {want[form]}), at the group's shapes {at_g2} (want "
+                 f"{want_g2[form]}), or map differs from the chunk loop")
+        # the group program alone at G = 2 and 4: ms a face (the median of
+        # CHUNK_RUNS timed calls after a warm-up) and peak device memory
+        for g in (2, 4):
+            clips = np.stack([x[:FRAMES]] * g)
+            proc.restore_group(clips)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for _ in range(CHUNK_RUNS):
+                t0 = time.perf_counter()
+                out = proc.restore_group(clips)
+                torch.cuda.synchronize()
+                runs.append(1e3 * (time.perf_counter() - t0) / (g * FRAMES))
+            say("chunks_group", form=form, G=g, frames=g * FRAMES,
+                ms_per_face=float(np.median(runs)), ms_per_face_runs=runs,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                finite=bool(np.isfinite(out).all()))
+            if not np.isfinite(out).all():
+                fail(f"chunks_group ({form}, G={g}): non-finite output")
+        del proc
+        torch.cuda.empty_cache()
+    chunks_parity(torch, pack, x)
+    # phase-packed KEEP in each form, one group of 2 chunks: the LQ encoder
+    # (6 K6 launches) once a call, the HQ encoder 6 per propagated frame,
+    # the generator tail 6 per decode (frame 0 batched over the group in
+    # "batch" and "stage", per chunk in "map")
+    want_k6 = {"map": 2 * 12 * FRAMES, "batch": 12 * FRAMES,
+               "stage": 6 + 6 + 2 * 12 * (FRAMES - 1)}
+    clips = np.stack([x[:FRAMES], x[FRAMES:2 * FRAMES]])
+    for form in ("map", "batch", "stage"):
+        proc = pack.processor(dtype=torch.bfloat16, chunk_batching=form,
+                              phase512=True)
+        K.reset_launch_counts()
+        out = proc.restore_group(clips)
+        torch.cuda.synchronize()
+        k6 = K.LAUNCHES["packed_conv2x2"]
+        ok = bool(k6 == want_k6[form] and np.isfinite(out).all())
+        say("chunks_packed", form=form, G=2, k6_launches=k6,
+            expected_k6_launches=want_k6[form],
+            finite=bool(np.isfinite(out).all()), ok=ok)
+        if not ok:
+            fail(f"chunks_packed ({form}): K6 {k6} != {want_k6[form]} or "
+                 f"non-finite output")
+        del proc
+    torch.cuda.empty_cache()
+    return counts
+
+
+def chunks_parity(torch, pack, x):
+    """Where the batched forms part from "map". On one group (two 20-frame
+    chunks), in bf16 and in f32: GMFlow on the group (B = 2 clips, the
+    kernels at the group's shapes) against GMFlow on each chunk, in pixels;
+    then, on the group's flows, KEEP.apply on the group (B = 2, the "batch"
+    form) against KEEP.apply on each chunk: the share of picks that differ
+    and frame 0's logits (the batched encoder's rounding only); then each
+    chunk's apply and the group's apply_chunks ("stage") with the picks
+    forced to the group's, against the group's output. f32 is held to
+    FLOW_TOL_PX and to KEEP's tolerance with the picks forced; bf16 is
+    reported (the kernels' bf16 forms at the group's shapes are held to
+    their plain versions in phase kernel)."""
+    from comfyui_keep_torch.models.gmflow import flow_from_clip
+    ok = True
+    for dtype in (torch.bfloat16, torch.float32):
+        proc = pack.processor(dtype=dtype)
+        keep = proc.keep
+        xg = torch.as_tensor(np.stack([x[:FRAMES], x[FRAMES:2 * FRAMES]])
+                             ).to("cuda", dtype)
+        with torch.no_grad():
+            flows = flow_from_clip(proc.gmflow, xg)
+            flow_err = max(
+                (f[c:c + 1].float() - fc.float()).abs().max().item()
+                for c in range(2)
+                for f, fc in zip(flows, flow_from_clip(proc.gmflow,
+                                                       xg[c:c + 1])))
+            out_b, aux_b = keep.apply(xg, flows, return_aux=True)
+            out_b = out_b.float()
+            logits_b = aux_b["logits"].reshape((2, FRAMES)
+                                               + aux_b["logits"].shape[1:])
+            picks_b = logits_b.argmax(-1)
+            share, logit0, forced = [], [], []
+            for c in range(2):
+                fc = tuple(f[c:c + 1] for f in flows)
+                _, aux = keep.apply(xg[c:c + 1], fc, return_aux=True)
+                lc = aux["logits"].reshape(logits_b[c].shape)
+                share.append((lc.argmax(-1) != picks_b[c]).float().mean()
+                             .item())
+                logit0.append((lc[0].float() - logits_b[c, 0].float()).abs()
+                              .max().item())
+                forced.append(keep.apply(xg[c:c + 1], fc, force_indices=(
+                    picks_b[c:c + 1]))[0].float())
+            forced = torch.stack(forced)
+            stage = keep.apply_chunks(xg, flows,
+                                      force_indices=picks_b).float()
+        lim = KEEP_ATOL + KEEP_RTOL * out_b.abs()
+        d, ds = (forced - out_b).abs(), (stage - out_b).abs()
+        held = bool((d <= lim).all() and (ds <= lim).all()
+                    and flow_err <= FLOW_TOL_PX)
+        good = held or dtype == torch.bfloat16
+        ok = ok and good
+        say("chunks_parity", dtype=str(dtype).split(".")[-1], G=2,
+            frames=FRAMES, group_vs_chunk_flow_max_abs_diff_px=flow_err,
+            flow_tol_px=FLOW_TOL_PX, picks_share_differing_per_chunk=share,
+            frame0_logits_max_abs_diff=logit0,
+            logits_abs_max=logits_b.float().abs().max().item(),
+            per_chunk_forced_max_abs_diff=d.max().item(),
+            per_chunk_forced_mean_abs_diff=d.mean().item(),
+            stage_forced_max_abs_diff=ds.max().item(),
+            stage_forced_mean_abs_diff=ds.mean().item(),
+            within_keep_tolerance=held, atol=KEEP_ATOL, rtol=KEEP_RTOL,
+            gated=dtype == torch.float32, ok=good)
+        del proc, keep, xg, flows, out_b, aux_b, forced, stage
+        torch.cuda.empty_cache()
+    if not ok:
+        fail("chunks_parity: f32 GMFlow on the group outside FLOW_TOL_PX of "
+             "GMFlow on each chunk, or the batched forms with forced picks "
+             "outside KEEP's tolerance of the group's output")
+
+
+def phase_need_upscale(torch):
+    """KEEP.apply(need_upscale=True) on a 2-frame 128^2 clip (x4 bilinear
+    to 512^2 first), f32, zero flows at the upscaled size: card against
+    CPU, picks forced from the CPU run."""
+    from comfyui_keep_torch.models.keep import KEEP
+    net = KEEP(device="cpu", generator=torch.Generator().manual_seed(2))
+    net_cuda = copy.deepcopy(net).cuda()
+    x = torch.as_tensor(np.random.default_rng(7).random(
+        (1, 2, 128, 128, 3), dtype=np.float32) * 2 - 1)
+    out_c, aux_c = net.apply(x, return_aux=True, need_upscale=True)
+    picks = aux_c["logits"].argmax(-1).reshape(1, 2, -1)
+    out_g, aux_g = net_cuda.apply(x.cuda(), return_aux=True, need_upscale=True,
+                                  force_indices=picks.cuda())
+    d = (out_g.cpu() - out_c).abs()
+    dl = (aux_g["logits"].cpu() - aux_c["logits"]).abs()
+    ok = bool(out_g.shape == (1, 2, 512, 512, 3)
+              and (d <= KEEP_ATOL + KEEP_RTOL * out_c.abs()).all()
+              and (dl <= KEEP_ATOL + KEEP_RTOL * aux_c["logits"].abs()).all())
+    say("need_upscale", input=[1, 2, 128, 128, 3],
+        output=list(out_g.shape), max_abs_err=d.max().item(),
+        logits_max_abs_err=dl.max().item(), atol=KEEP_ATOL, rtol=KEEP_RTOL,
+        ok=ok)
+    if not ok:
+        fail("need_upscale: KEEP card vs CPU outside atol/rtol")
+
+
+def refine_launches(pairs):
+    """K1-K3 launches by shape of one apply_refine call with the defaults
+    on `pairs` 512^2 image pairs (a bidirectional call: twice the pairs).
+    Scale 0 (1/8, split 2): 4 windows of 1024 tokens per image, global
+    matching and propagation at 4096; scale 1 (1/4, split 8): 64 windows
+    of 256 tokens per image, the odd layers under the (64, 256, 256) mask;
+    6 layers at each scale, the FFN over every token of both images."""
+    l0, l1 = (FEAT // 2) ** 2, (REFINE_FEAT // 8) ** 2
+    b0, b1 = 2 * pairs * WINDOWS, 2 * pairs * REFINE_WINDOWS
+    return {f"attention[dv128] B{b0} L{l0}": 6,
+            f"attention[dv128+bias] B{b0} L{l0}": 6,
+            f"attention[dv128] B{b1} L{l1}": 6,
+            f"attention[dv128+bias] B{b1} L{l1}": 6,
+            f"attention[dv2] B{pairs} L{FEAT * FEAT}": 1,
+            f"global_correlation_expectation B{pairs} L{FEAT * FEAT}": 1,
+            f"mlp_fused rows{2 * pairs * FEAT * FEAT}": 6,
+            f"mlp_fused rows{2 * pairs * REFINE_FEAT ** 2}": 6}
+
+
+def phase_gmflow_refine(torch, iters=3):
+    """GMFlow(num_scales=2), the refinement model at full width (128
+    channels, 6 layers; random weights, seed 0), on two 512x512 pairs:
+    apply_refine with the defaults (splits 2 then 8: 1024-token windows at
+    1/8 resolution, then 256-token windows under the (64, 256, 256) shifted
+    mask at 1/4; global then radius-4 matching and global then radius-1
+    propagation), forward and bidirectional, f32 card against CPU in
+    pixels; bf16 finite; GMFlow.apply with corr_radius=4, prop_radius=1
+    card against CPU; the occlusion masks of the bidirectional flows, card
+    against CPU; ms a pair; K1-K3 launches a call, by form and by shape,
+    checked. Returns the launch counts (launch_counts) of the forward call,
+    by dtype."""
+    from comfyui_keep_torch.models.gmflow import (
+        GMFlow, forward_backward_consistency_check)
+    from comfyui_keep_torch.ops import kernels as K
+    gm = GMFlow(device="cpu", num_scales=2,
+                generator=torch.Generator().manual_seed(0))
+    gm_cuda = copy.deepcopy(gm).cuda()
+    rng = np.random.default_rng(8)
+    img0, img1 = (torch.as_tensor(rng.random((2, 512, 512, 3),
+                                             dtype=np.float32) * 255)
+                  for _ in range(2))
+    g0, g1 = img0.cuda(), img1.cuda()
+    errs, ok = {}, True
+    want = {k: a + b for (k, a), b in zip(
+        gmflow_launches(1).items(),
+        gmflow_launches(1, global_matching=0).values())}
+    for name, kw in (("forward", {}), ("bidirectional",
+                                       {"pred_bidir_flow": True})):
+        cpu = gm.apply_refine(img0, img1, **kw)
+        K.reset_launch_counts()
+        got = gm_cuda.apply_refine(g0, g1, **kw)
+        torch.cuda.synchronize()
+        snap = launch_counts(K)
+        shapes = dict(K.LAUNCHES_BY_SHAPE)
+        if name == "forward":
+            fwd_snap = snap
+        else:
+            cpu_bidir, gpu_bidir = cpu, got
+        want_shapes = refine_launches(2 * (2 if kw else 1))
+        counts = k1_launches(snap)
+        err = (got.cpu() - cpu).abs().max().item()
+        errs[name] = err
+        ms = time_ms(torch, lambda: gm_cuda.apply_refine(g0, g1, **kw), iters)
+        good = bool(np.isfinite(err) and err <= FLOW_TOL_PX
+                    and counts == want and shapes == want_shapes
+                    and got.shape == (2 * (2 if kw else 1), 1024, 1024, 2))
+        ok = ok and good
+        say("gmflow_refine", call=f"apply_refine {name}", dtype="float32",
+            pairs=2, output=list(got.shape), max_abs_err_px=err,
+            tol_px=FLOW_TOL_PX, flow_abs_max_px=cpu.abs().max().item(),
+            ms_per_pair=ms / 2, launches=counts, expected_launches=want,
+            launches_by_shape=shapes, expected_launches_by_shape=want_shapes,
+            ok=good)
+    gm_bf16 = copy.deepcopy(gm_cuda).to(torch.bfloat16)
+    b0, b1 = g0.to(torch.bfloat16), g1.to(torch.bfloat16)
+    K.reset_launch_counts()
+    out = gm_bf16.apply_refine(b0, b1)
+    torch.cuda.synchronize()
+    bf16_snap = launch_counts(K)
+    bf16_shapes = dict(K.LAUNCHES_BY_SHAPE)
+    finite = bool(torch.isfinite(out.float()).all())
+    ms = time_ms(torch, lambda: gm_bf16.apply_refine(b0, b1), iters)
+    good = bool(finite and k1_launches(bf16_snap) == want
+                and bf16_shapes == refine_launches(2))
+    say("gmflow_refine", call="apply_refine forward", dtype="bfloat16",
+        pairs=2, ms_per_pair=ms / 2, finite=finite,
+        launches=k1_launches(bf16_snap), launches_by_shape=bf16_shapes,
+        max_abs_diff_from_f32_cpu_px=(out.float().cpu() - cpu_bidir[:2])
+        .abs().max().item(), ok=good)
+    ok = ok and good
+    del gm_bf16
+    # GMFlow.apply on the single-scale backbone, local matching and
+    # propagation: no global correlation, no 2-wide attention
+    cpu = gm.apply(img0, img1, corr_radius=4, prop_radius=1)
+    K.reset_launch_counts()
+    got = gm_cuda.apply(g0, g1, corr_radius=4, prop_radius=1)
+    torch.cuda.synchronize()
+    counts = k1_launches(K.LAUNCHES)
+    want_apply = gmflow_launches(1, global_matching=0)
+    err = (got.cpu() - cpu).abs().max().item()
+    ms = time_ms(torch, lambda: gm_cuda.apply(g0, g1, corr_radius=4,
+                                              prop_radius=1), iters)
+    good = bool(np.isfinite(err) and err <= FLOW_TOL_PX
+                and counts == want_apply)
+    ok = ok and good
+    say("gmflow_refine", call="apply corr_radius=4 prop_radius=1",
+        dtype="float32", pairs=2, max_abs_err_px=err, tol_px=FLOW_TOL_PX,
+        ms_per_pair=ms / 2, launches=counts, expected_launches=want_apply,
+        ok=good)
+    # occlusion masks of the bidirectional flows. Random weights give flows
+    # of up to ~80 px that no pair agrees on, so every pixel is occluded:
+    # both sides' flows are scaled by the power of two that brings the
+    # CPU's occluded share nearest one half, and both masks must hold both
+    # values. A pixel whose residual lies within the flows' card-vs-CPU
+    # error of the threshold can flip: at most OCC_FLIP_SHARE of them.
+    fc, bc = cpu_bidir[:2], cpu_bidir[2:]
+    fg, bg = gpu_bidir[:2], gpu_bidir[2:]
+    s = min((2.0 ** -k for k in range(12)), key=lambda s: abs(
+        forward_backward_consistency_check(fc * s, bc * s)[0].mean().item()
+        - 0.5))
+    occ_c = forward_backward_consistency_check(fc * s, bc * s)
+    occ_g = forward_backward_consistency_check(fg * s, bg * s)
+    share = max((a.cpu() != b).float().mean().item()
+                for a, b in zip(occ_g, occ_c))
+    occluded = [o.mean().item() for o in occ_c]
+    good = bool(all(0 < o < 1 for o in occluded) and share <= OCC_FLIP_SHARE)
+    ok = ok and good
+    say("gmflow_refine", call="forward_backward_consistency_check",
+        flow_scale=s, occluded_share=occluded,
+        card_vs_cpu_share_differing=share, tol_share=OCC_FLIP_SHARE, ok=good)
+    if not ok:
+        fail(f"gmflow_refine: card vs CPU {errs} px (tol {FLOW_TOL_PX}), "
+             f"launches off, bf16 not finite, or the occlusion masks differ")
+    del gm_cuda
+    torch.cuda.empty_cache()
+    return {"float32": fwd_snap, "bfloat16": bf16_snap}
+
+
+def phase_vqgan(torch):
+    """The rest of the VQGAN family at 512^2, f32, card against CPU (random
+    weights, seeded): VQAutoEncoder at full width (nf 64, ch_mult
+    (1,2,2,4,4,8)) with the nearest quantizer, then with the Gumbel
+    quantizer on one seeded uniform draw. For each: the card's codes
+    against the CPU's, held to be equal except at near-ties (a card pick's
+    CPU score within VQ_FAMILY_RTOL of the largest |score| of the CPU's
+    best: the encoders' f32 outputs differ by summation order); the
+    generator's output on the CPU's codes; for the nearest one, K4 launched
+    once a forward and held against its plain version on the card's
+    encoder output (T = 256 tokens). Then VQGANDiscriminator (ndf 64, 4
+    layers) and Discriminator3D on (1, 8, 512, 512, 3), the stage-III yml's
+    num_frame. Outputs within VQ_FAMILY_RTOL of their largest magnitude.
+    Returns the launch counts (launch_counts) of the nearest forward."""
+    from comfyui_keep_torch.models import vqgan as V
+    from comfyui_keep_torch.ops import kernels as K
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(rng.random((1, 512, 512, 3), dtype=np.float32) * 2
+                        - 1)
+    ok, counts = True, None
+    for quantizer in ("nearest", "gumbel"):
+        net = V.VQAutoEncoder(quantizer=quantizer, device="cpu",
+                              generator=torch.Generator().manual_seed(10))
+        net_cuda = copy.deepcopy(net).cuda()
+        uniform = (torch.rand((1, 16, 16, 1024),
+                              generator=torch.Generator().manual_seed(11))
+                   if quantizer == "gumbel" else None)
+        with torch.no_grad():
+            out_c, loss_c, st_c = net(x, uniform=uniform)
+            K.reset_launch_counts()
+            out_g, loss_g, st_g = net_cuda(
+                x.cuda(), uniform=None if uniform is None else uniform.cuda())
+            torch.cuda.synchronize()
+            if quantizer == "nearest":
+                counts = launch_counts(K)
+            ms = time_ms(torch, lambda: net_cuda(
+                x.cuda(), uniform=None if uniform is None
+                else uniform.cuda()), 3)
+            idx = st_c["min_encoding_indices"].reshape(1, 16, 16)
+            table = (net.quantize.embedding.weight if quantizer == "nearest"
+                     else net.quantize.embed.weight)
+            z_q = table[idx].permute(0, 3, 1, 2).contiguous()
+            dec_c = net.generator(z_q)
+            dec_g = net_cuda.generator(z_q.cuda())
+            # the CPU's scores of every code: -distance for the nearest
+            # quantizer (|z|^2 dropped), logits + Gumbel noise for the other
+            z_c = net.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            z_c = z_c.reshape(-1, z_c.shape[-1])
+            if quantizer == "nearest":
+                score = 2.0 * z_c @ table.t() - K.codebook_sq_norms(table)
+            else:
+                w = net.quantize.proj.weight
+                score = (z_c @ w.reshape(w.shape[0], -1).t()
+                         + net.quantize.proj.bias)
+                u = uniform.reshape(-1, uniform.shape[-1])
+                score = score - torch.log(-torch.log(u + 1e-20) + 1e-20)
+            idx_c = st_c["min_encoding_indices"].reshape(-1, 1)
+            idx_g = st_g["min_encoding_indices"].cpu().reshape(-1, 1).long()
+            excess = (score.gather(1, idx_c) - score.gather(1, idx_g)).max()
+            tie_tol = VQ_FAMILY_RTOL * score.abs().max().item()
+            if quantizer == "nearest":
+                # K4 on the card's own encoder output, at this T
+                z_g = net_cuda.encoder(x.cuda().permute(0, 3, 1, 2))
+                z_g = z_g.permute(0, 2, 3, 1).reshape(-1, z_g.shape[1])
+                _, k4 = vq_picks_vs_plain(torch, K, z_g.contiguous(),
+                                          net_cuda.quantize.embedding.weight)
+        flips = (idx_g != idx_c).float().mean().item()
+        err = (dec_g.cpu() - dec_c).abs().max().item()
+        tol = VQ_FAMILY_RTOL * dec_c.abs().max().item()
+        good = bool(err <= tol and torch.isfinite(out_g).all()
+                    and excess.item() <= tie_tol)
+        extra = {}
+        if quantizer == "nearest":
+            k4_ok = k4["past_tol"] == 0 and k4["max_excess"] <= k4["tol"]
+            good = bool(good and k4_ok
+                        and counts["vq_nearest_indices"] == 1
+                        and counts.get("vq_nearest_indices T256") == 1)
+            extra = {"launches": k1_launches(counts),
+                     "launches_at_t256": counts.get(
+                         "vq_nearest_indices T256", 0),
+                     "expected_k4_launches": 1,
+                     "k4_vs_plain_at_t256": k4}
+        ok = ok and good
+        say("vqgan", model=f"VQAutoEncoder ({quantizer})", input=[1, 512, 512,
+                                                               3],
+            codes_share_differing=flips,
+            codes_cpu_score_excess=excess.item(), codes_tie_tol=tie_tol,
+            output_max_abs_diff_unforced=(out_g.cpu() - out_c).abs().max()
+            .item(), loss_card=loss_g.item(), loss_cpu=loss_c.item(),
+            decoded_on_cpu_codes_max_abs_err=err, tol=tol, ms=ms, **extra,
+            ok=good)
+        del net_cuda
+    for name, net, xin in (
+            ("VQGANDiscriminator", V.VQGANDiscriminator(
+                device="cpu", generator=torch.Generator().manual_seed(12)),
+             x),
+            ("Discriminator3D", V.Discriminator3D(
+                device="cpu", generator=torch.Generator().manual_seed(13)),
+             torch.as_tensor(rng.random((1, 8, 512, 512, 3),
+                                        dtype=np.float32) * 2 - 1))):
+        net_cuda = copy.deepcopy(net).cuda()
+        with torch.no_grad():
+            ref = net(xin)
+            got = net_cuda(xin.cuda())
+            ms = time_ms(torch, lambda: net_cuda(xin.cuda()), 3)
+        err = (got.cpu() - ref).abs().max().item()
+        tol = VQ_FAMILY_RTOL * ref.abs().max().item()
+        good = bool(err <= tol and got.shape == ref.shape)
+        ok = ok and good
+        say("vqgan", model=name, input=list(xin.shape),
+            output=list(got.shape), max_abs_err=err, tol=tol, ms=ms, ok=good)
+        del net_cuda
+    if not ok:
+        fail("vqgan: a model's card output or codes are outside their "
+             "tolerance of the CPU's, K4 disagrees with its plain version, "
+             "or K4 did not launch once a nearest forward")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_native(torch, iters=5):
+    """dcn_v2_pack at EDVR's shape (64 channels, 8 deformable groups, one
+    180x320 frame: PCD alignment's finest level of a 720x1280 clip /4) and
+    correlation(max_displacement=4) on those maps, f32, card against CPU
+    within VQ_FAMILY_RTOL of the largest magnitude; ms."""
+    from comfyui_keep_torch.ops import native
+    g = torch.Generator().manual_seed(15)
+    c, dg, h, w = 64, 8, 180, 320
+    x, feat = (torch.randn(1, c, h, w, generator=g) for _ in range(2))
+    weight = torch.randn(c, c, 3, 3, generator=g) / math.sqrt(9 * c)
+    bias = torch.randn(c, generator=g) * 0.1
+    ow = torch.randn(dg * 27, c, 3, 3, generator=g) / math.sqrt(9 * c)
+    ob = torch.randn(dg * 27, generator=g) * 0.1
+    args = (x, feat, weight, bias, ow, ob)
+    ok = True
+    for name, fn, a in (
+            ("dcn_v2_pack", lambda *t: native.dcn_v2_pack(
+                *t, deformable_groups=dg), args),
+            ("correlation", lambda *t: native.correlation(t[0], t[1], 4),
+             (x, feat))):
+        ref = fn(*a)
+        ca = tuple(t.cuda() for t in a)
+        got = fn(*ca)
+        err = (got.cpu() - ref).abs().max().item()
+        tol = VQ_FAMILY_RTOL * ref.abs().max().item()
+        ms = time_ms(torch, lambda: fn(*ca), iters)
+        good = bool(err <= tol and got.shape == ref.shape)
+        ok = ok and good
+        say("native", op=name, input=[1, c, h, w], output=list(got.shape),
+            max_abs_err=err, tol=tol, ms=ms, ok=good)
+    if not ok:
+        fail("native: an op's card output is outside its tolerance")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2226,8 +2898,10 @@ def main():
     phase_stream(torch, proc, faces)
     del proc
     phase_api(torch, pack)
+    chunk_counts = phase_chunks(torch, pack)
     del pack
     torch.cuda.empty_cache()
+    phase_need_upscale(torch)
     detector = phase_detect(torch)
     parser = phase_parse(torch)
     whole_counts = phase_unaligned(torch, detector, parser)
@@ -2246,6 +2920,9 @@ def main():
     phase_stylegan2_parity(torch)
     sample_counts = phase_stylegan2_sample(torch)
     sg2_train_counts = phase_stylegan2_train(torch)
+    refine_counts = phase_gmflow_refine(torch)
+    vqgan_counts = phase_vqgan(torch)
+    phase_native(torch)
 
     srcs = {"attention": ("comfyui_keep_torch/csrc/attention.cu",
                           "comfyui_keep_tpu/ops/pallas_kernels.py:210"),
@@ -2262,22 +2939,54 @@ def main():
                 "comfyui_keep_tpu/ops/pallas_kernels.py:98"),
             "packed_conv2x2": ("comfyui_keep_torch/csrc/packed_conv.cu",
                                "tools/_prof_packedconv.py:42")}
+
+    def slice7(key, dname):
+        """Launches counted at `key` (a LAUNCHES counter: every shape; a
+        LAUNCHES_BY_SHAPE key: that shape alone) on slice 7's paths, null
+        where a path did not run in this dtype: the chunk forms' 41-face
+        runs (bf16 only), one apply_refine forward (each dtype), one
+        nearest VQAutoEncoder forward (f32 only)."""
+        bf16 = dname == "bfloat16"
+        return {f"launches_chunk_{form}":
+                chunk_counts[form].get(key, 0) if bf16 else None
+                for form in ("batch", "stage", "map")} | {
+                "launches_refine": refine_counts[dname].get(key, 0),
+                "launches_vqgan": None if bf16 else vqgan_counts.get(key, 0)}
+
     table = []
     for (name, dname), r in krows.items():
-        if dname != "bfloat16":
+        counter, _, at = name.partition(" ")
+        if dname != "bfloat16" and not at:
             continue
-        src, replaces = srcs[name.split("[")[0]]
+        src, replaces = srcs[counter.split("[")[0]]
+        key = r["launch_key"]
+        if at == "G2":
+            # the grouped chunk forms' shapes: launches at this shape in
+            # the "batch" form's 41-face run
+            launches = chunk_counts["batch"].get(key, 0)
+            extra = {"launches_at": key, **slice7(key, dname),
+                     "launches_of": 'the "batch" chunk form\'s 41-face run'}
+        elif at == "L256":
+            # the refinement's fine scale: launches at this shape in one
+            # apply_refine forward call (2 pairs) in this dtype
+            launches = refine_counts[dname].get(key, 0)
+            extra = {"launches_at": key, **slice7(key, dname),
+                     "launches_of": "one apply_refine forward call (2 "
+                                    "pairs)"}
+        else:
+            extra = {"launches_whole_frame_sequence": whole_counts[name],
+                     "launches_full_workflow": config5_counts[name],
+                     **slice7(counter, dname)}
+            launches = counts[name]
+        if "unfused_ms" in r:
+            extra["unfused_ms"] = r["unfused_ms"]
         table.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": dname, "status": "ported",
-            "launches_whole_frame_sequence": whole_counts[name],
-            "launches_full_workflow": config5_counts[name],
-            **({"unfused_ms": r["unfused_ms"]} if "unfused_ms" in r
-               else {})})
+            "dtype": dname, "status": "ported", **extra})
     # the nearest-codebook kernel runs on the training path: f32 as
     # configured, bf16 under mixed precision; launches from those runs
     for (name, dname), r in vq_rows.items():
@@ -2290,7 +2999,7 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
-            "dtype": dname, "status": "ported"})
+            "dtype": dname, "status": "ported", **slice7(name, dname)})
     # K5 on StyleGAN2's paths: times at the largest activation; launches of
     # one 1024x1024 sampling forward in that dtype (the training run's f32
     # count over its 16 alternations beside it)
@@ -2322,7 +3031,8 @@ def main():
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "unfused_ms": r["unfused_ms"], "dtype": "float32",
-        "status": "ported", "step_rows_ms": rs["ms"],
+        "status": "ported", **slice7("mlp_fused", "float32"),
+        "step_rows_ms": rs["ms"],
         "step_rows_bound_ms": rs["bound_ms"],
         "step_rows_unfused_ms": rs["unfused_ms"],
         "launches_per": f"{TRAIN_STEPS} f32 training steps"})
@@ -2343,6 +3053,9 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "unpacked_3x3_ms": r["unpacked_3x3_ms"], "dtype": dname,
             "status": "ported"})
+    idle = [(t["name"], t["dtype"]) for t in table if not t["launches"]]
+    if idle:
+        fail(f"kernels with no launch on their path's run: {idle}")
     print(f"card: {card}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,8 @@ upscalers' in their own dtype, and `offload` back to the host. The JAX
 package's keyed model cache is not kept: each call builds its pack. `processor` runs on the
 card unless the caller asks for the CPU, and moves the pack there if
 needed; its KEEP runs the 512 level phase-packed only when asked
-`phase512=True`.
+`phase512=True`, and sends a long stream's full chunks in the form
+`chunk_batching` asks for ("map", "batch" or "stage").
 """
 from typing import Callable, Optional
 
@@ -75,11 +76,13 @@ class KEEPModelPack:
         return self.load_device(device="cpu")
 
     def processor(self, dtype: Optional[torch.dtype] = None,
-                  device="cuda", phase512: bool = False) -> KEEPFaceProcessor:
+                  device="cuda", phase512: bool = False,
+                  chunk_batching: str = "map",
+                  chunks_per_dispatch: int = 8) -> KEEPFaceProcessor:
         """A processor on `device` in `dtype`; moves the pack to `device`
         first (in place, as load_device) when a model sits elsewhere.
-        phase512 as for KEEPFaceProcessor: the pack's own KEEP stays
-        unpacked."""
+        phase512, chunk_batching and chunks_per_dispatch as for
+        KEEPFaceProcessor: the pack's own KEEP stays unpacked."""
         device = torch.device(device)
         if any(next(m.parameters()).device.type != device.type
                for m in self.models()):
@@ -88,7 +91,9 @@ class KEEPModelPack:
                                  device=device, phase512=phase512,
                                  face_helper=self.face_helper,
                                  bg_upscaler=self.bg_upscaler,
-                                 face_upscaler=self.face_upscaler)
+                                 face_upscaler=self.face_upscaler,
+                                 chunk_batching=chunk_batching,
+                                 chunks_per_dispatch=chunks_per_dispatch)
 
 
 def load_models(model_type: str = "KEEP", keep_ckpt: Optional[str] = None,

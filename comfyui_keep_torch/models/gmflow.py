@@ -4,7 +4,12 @@ comfyui_keep_tpu/models/gmflow.py.
 CNN backbone (stride 8, InstanceNorm) -> sine position embedding -> 6
 single-head transformer blocks with split-window attention (shifted on odd
 layers), both images as one 2B batch -> global correlation softmax -> global
-flow-propagation attention -> convex x8 upsampling.
+flow-propagation attention -> convex x8 upsampling. The refinement model
+(`GMFlow(num_scales=2)`, `apply_refine`, the reference's gmflow_with_refine)
+adds a shared-weight trident conv that gives the backbone a 1/4-resolution
+scale, local correlation within a radius, local propagation, and a residual
+flow per scale; `forward_backward_consistency_check` gives occlusion masks
+from a bidirectional pair.
 
 The module tree and parameter names are the reference's, so its state dict
 (the `flownet.model.*` subtree of a KEEP checkpoint) loads as it is. The
@@ -23,8 +28,9 @@ from torch import nn
 
 from comfyui_keep_torch.models.init import default_init_, finish
 from comfyui_keep_torch.ops import kernels as K
-from comfyui_keep_torch.ops import (conv2d, instance_norm, layer_norm, linear,
-                                    relu)
+from comfyui_keep_torch.ops import (conv2d, flow_warp, grid_sample,
+                                    instance_norm, layer_norm, linear, relu,
+                                    resize_bilinear)
 from comfyui_keep_torch.ops.act import tanh_gelu
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -46,35 +52,68 @@ class ResidualBlock(nn.Module):
         else:
             self.downsample = None
 
-    def forward(self, x):
-        y = relu(instance_norm(conv2d(x, self.conv1.weight,
-                                      stride=self.stride, padding=1)))
+    def forward(self, x, stride: Optional[int] = None):
+        """stride overrides the one the block was built with (the JAX
+        package runs a refinement backbone's layer3 at either)."""
+        stride = self.stride if stride is None else stride
+        y = relu(instance_norm(conv2d(x, self.conv1.weight, stride=stride,
+                                      padding=1)))
         y = relu(instance_norm(conv2d(y, self.conv2.weight, padding=1)))
         if self.downsample is not None:
             d = self.downsample[0]
-            x = instance_norm(conv2d(x, d.weight, d.bias, stride=self.stride))
+            x = instance_norm(conv2d(x, d.weight, d.bias, stride=stride))
         return relu(x + y)
 
 
+class MultiScaleTridentConv(nn.Conv2d):
+    """The trident conv (trident_conv.py): one 3x3 weight, padding 1, no
+    bias, applied at each stride of `strides`."""
+
+    def __init__(self, c: int, strides):
+        super().__init__(c, c, 3, padding=1, bias=False)
+        self.strides = tuple(strides)
+
+    def forward(self, x):
+        return [conv2d(x, self.weight, stride=s, padding=1)
+                for s in self.strides]
+
+
+TRIDENT_STRIDES = {2: (1, 2), 3: (1, 2, 4), 4: (1, 2, 4, 8)}
+
+
 class CNNEncoder(nn.Module):
-    def __init__(self, output_dim: int = 128):
+    def __init__(self, output_dim: int = 128, num_output_scales: int = 1):
         super().__init__()
         dims = (64, 96, 128)
+        # with more than one scale layer3 keeps stride 1 (1/4 resolution)
+        s3 = 2 if num_output_scales == 1 else 1
         self.conv1 = nn.Conv2d(3, dims[0], 7, 2, 3, bias=False)
         self.layer1 = nn.Sequential(ResidualBlock(dims[0], dims[0], 1),
                                     ResidualBlock(dims[0], dims[0], 1))
         self.layer2 = nn.Sequential(ResidualBlock(dims[0], dims[1], 2),
                                     ResidualBlock(dims[1], dims[1], 1))
-        self.layer3 = nn.Sequential(ResidualBlock(dims[1], dims[2], 2),
+        self.layer3 = nn.Sequential(ResidualBlock(dims[1], dims[2], s3),
                                     ResidualBlock(dims[2], dims[2], 1))
         self.conv2 = nn.Conv2d(dims[2], output_dim, 1)
+        if num_output_scales > 1:
+            self.trident_conv = MultiScaleTridentConv(
+                output_dim, TRIDENT_STRIDES[num_output_scales])
 
-    def forward(self, x):
-        """(N, 3, H, W) normalised -> (N, C, H/8, W/8)."""
+    def forward(self, x, num_output_scales: int = 1):
+        """(N, 3, H, W) normalised -> (N, C, H/8, W/8); with more scales
+        (the model's own number, a trident conv) the list of maps from high
+        resolution (1/4) to low. As in the JAX package's backbone_apply, one
+        scale runs layer3 at stride 2 and skips the trident conv whatever
+        the model was built with."""
         x = relu(instance_norm(conv2d(x, self.conv1.weight, stride=2,
                                       padding=3)))
-        x = self.layer3(self.layer2(self.layer1(x)))
-        return conv2d(x, self.conv2.weight, self.conv2.bias)
+        x = self.layer2(self.layer1(x))
+        x = self.layer3[1](self.layer3[0](
+            x, 2 if num_output_scales == 1 else 1))
+        x = conv2d(x, self.conv2.weight, self.conv2.bias)
+        if num_output_scales == 1:
+            return x
+        return self.trident_conv(x)
 
 
 # ---------------------------------------------------------------------------
@@ -235,18 +274,69 @@ def global_correlation_softmax(f0, f1):
     return (corresp - grid).to(f0.dtype).reshape(b, h, w, 2)
 
 
+def local_correlation_softmax(f0, f1, radius: int):
+    """(B, H, W, C) x2 -> flow (B, H, W, 2) in the feature dtype: the
+    softmax-weighted expectation of the (2r+1)^2 window of positions around
+    each pixel, f1 sampled there bilinearly with zero padding and the
+    positions outside the image at -1e9 (matching.py local_correlation).
+    Correlation and softmax run in f32."""
+    b, h, w, c = f0.shape
+    k = 2 * radius + 1
+    dev = f0.device
+    coords = coords_grid(h, w, dev)                      # (h, w, 2)
+    r = torch.arange(-radius, radius + 1, dtype=torch.float32, device=dev)
+    oy, ox = torch.meshgrid(r, r, indexing="ij")
+    window = torch.stack([ox, oy], dim=-1).reshape(k * k, 2)
+    sample = coords[:, :, None] + window                 # (h, w, k*k, 2)
+    valid = ((sample[..., 0] >= 0) & (sample[..., 0] < w)
+             & (sample[..., 1] >= 0) & (sample[..., 1] < h))
+    norm = torch.stack([2 * sample[..., 0] / max(w - 1, 1) - 1,
+                        2 * sample[..., 1] / max(h - 1, 1) - 1], dim=-1)
+    grid = norm.reshape(1, h * w, k * k, 2).expand(b, -1, -1, -1)
+    feat = grid_sample(f1.permute(0, 3, 1, 2), grid)     # (b, c, hw, k*k)
+    corr = torch.einsum("bcl,bclk->blk", f0.reshape(b, h * w, c).permute(
+        0, 2, 1).float(), feat.float()) / math.sqrt(c)
+    corr = corr.masked_fill(~valid.reshape(1, h * w, k * k), -1e9)
+    prob = torch.softmax(corr, dim=-1)
+    corresp = torch.einsum("blk,lkc->blc", prob,
+                           sample.reshape(h * w, k * k, 2))
+    return (corresp.reshape(b, h, w, 2) - coords).to(f0.dtype)
+
+
+def _unfold_nhwc(x, ksize: int, pad: int):
+    """(B, H, W, C) -> (B, H, W, ksize^2, C): each pixel's zero-padded
+    ksize x ksize neighbourhood, row-major (F.unfold's order)."""
+    h, w = x.shape[1], x.shape[2]
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    return torch.stack([xp[:, i:i + h, j:j + w] for i in range(ksize)
+                        for j in range(ksize)], dim=3)
+
+
 class FeatureFlowAttention(nn.Module):
     def __init__(self, c: int = 128):
         super().__init__()
         self.q_proj = nn.Linear(c, c)
         self.k_proj = nn.Linear(c, c)
 
-    def forward(self, feature0, flow):
-        """Global propagation: softmax(q k^T / sqrt(c)) @ flow. The
-        reference's quirk is kept: key = k_proj(q_proj(x))."""
+    def forward(self, feature0, flow, local_window_radius: int = -1):
+        """Propagation of flow (B, H, W, 2) guided by feature0 (B, H, W, C).
+        Global (radius -1): softmax(q k^T / sqrt(c)) @ flow, the reference's
+        quirk kept, key = k_proj(q_proj(x)). Local (radius r > 0): each
+        pixel attends to its zero-padded (2r+1)^2 neighbourhood, the key
+        projected from feature0 itself, as the reference's local branch
+        does."""
         b, h, w, c = feature0.shape
-        q = linear(feature0.reshape(b, h * w, c), self.q_proj.weight,
-                   self.q_proj.bias)
+        x = feature0.reshape(b, h * w, c)
+        q = linear(x, self.q_proj.weight, self.q_proj.bias)
+        if local_window_radius > 0:
+            r = local_window_radius
+            k = linear(x, self.k_proj.weight, self.k_proj.bias)
+            kp = _unfold_nhwc(k.reshape(b, h, w, c), 2 * r + 1, r)
+            vp = _unfold_nhwc(flow, 2 * r + 1, r)
+            scores = torch.einsum("bhwc,bhwkc->bhwk", q.reshape(b, h, w, c),
+                                  kp) / math.sqrt(c)
+            return torch.einsum("bhwk,bhwkc->bhwc",
+                                torch.softmax(scores, dim=-1), vp)
         k = linear(q, self.k_proj.weight, self.k_proj.bias)
         v = flow.reshape(b, h * w, 2).contiguous()
         return K.attention(q, k, v, 1.0 / math.sqrt(c)).reshape(b, h, w, 2)
@@ -279,10 +369,11 @@ class GMFlow(nn.Module):
 
     def __init__(self, feature_channels: int = 128, num_layers: int = 6,
                  device="cuda", dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 num_scales: int = 1):
         super().__init__()
         c = feature_channels
-        self.backbone = CNNEncoder(c)
+        self.backbone = CNNEncoder(c, num_scales)
         self.transformer = FeatureTransformer(num_layers, c)
         self.feature_flow_attn = FeatureFlowAttention(c)
         f = self.UPSAMPLE_FACTOR
@@ -295,7 +386,8 @@ class GMFlow(nn.Module):
         finish(self, device, dtype)
 
     def extract_features(self, imgs):
-        """(N, H, W, 3) in [0, 255] -> backbone features (N, H/8, W/8, C)."""
+        """(N, H, W, 3) in [0, 255] -> single-scale backbone features
+        (N, H/8, W/8, C)."""
         mean = torch.tensor(IMAGENET_MEAN, dtype=imgs.dtype, device=imgs.device)
         std = torch.tensor(IMAGENET_STD, dtype=imgs.dtype, device=imgs.device)
         x = ((imgs / 255.0 - mean) / std).permute(0, 3, 1, 2)
@@ -326,14 +418,77 @@ class GMFlow(nn.Module):
             c0 = _unprep_tokens(sw, 2 * b, h, w, c, k, shift)
         return (c0[:b].reshape(b, h, w, c), c0[b:].reshape(b, h, w, c))
 
-    def flow_from_features(self, f0, f1, attn_splits: int = 2):
-        """Pair stages on backbone features (B, H, W, C) -> (fx, fy)."""
+    def match(self, f0, f1, attn_splits: int, corr_radius: int,
+              prop_radius: int, flow=None):
+        """One scale on features (B, H, W, C): position embedding, the
+        transformer, correlation softmax (global, or local within
+        corr_radius), added to `flow` if given, then propagation (global,
+        or local within prop_radius). Returns (flow (B, H, W, 2), f0 after
+        the transformer)."""
         f0, f1 = add_position(f0, f1, attn_splits, self.FEATURE_CHANNELS)
         f0, f1 = self.transformer_apply(f0, f1, attn_splits)
-        flow = global_correlation_softmax(f0, f1)
-        flow = self.feature_flow_attn(f0, flow)
+        if corr_radius == -1:
+            pred = global_correlation_softmax(f0, f1)
+        else:
+            pred = local_correlation_softmax(f0, f1, corr_radius)
+        flow = pred if flow is None else flow + pred
+        return self.feature_flow_attn(f0, flow.detach(), prop_radius), f0
+
+    def flow_from_features(self, f0, f1, attn_splits: int = 2,
+                           corr_radius: int = -1, prop_radius: int = -1):
+        """Pair stages on backbone features (B, H, W, C) -> (fx, fy)."""
+        flow, f0 = self.match(f0, f1, attn_splits, corr_radius, prop_radius)
         return upsample_flow_convex(self.upsampler, flow, f0,
                                     self.UPSAMPLE_FACTOR)
+
+    @torch.no_grad()
+    def apply(self, img0, img1, attn_splits: int = 2, corr_radius: int = -1,
+              prop_radius: int = -1):
+        """img0, img1: (B, H, W, 3) in [0, 255] -> flow (B, H, W, 2), img0
+        -> img1 displacement, through the single-scale backbone."""
+        b = img0.shape[0]
+        feats = self.extract_features(torch.cat([img0, img1], dim=0))
+        fx, fy = self.flow_from_features(feats[:b], feats[b:], attn_splits,
+                                         corr_radius, prop_radius)
+        return torch.stack([fx, fy], dim=-1)
+
+    @torch.no_grad()
+    def apply_refine(self, img0, img1, attn_splits_list=(2, 8),
+                     corr_radius_list=(-1, 4), prop_radius_list=(-1, 1),
+                     num_scales: int = 2, pred_bidir_flow: bool = False):
+        """The multi-scale refinement forward (the reference's
+        gmflow_with_refine), on a model built with num_scales scales:
+        img0, img1 (B, H, W, 3) in [0, 255] -> flow (B, H', W', 2). Each
+        scale, coarse to fine, warps f1 by the flow so far (resized x2 with
+        align_corners=True and doubled) and adds its residual flow. With
+        pred_bidir_flow the forward and backward pairs run as one doubled
+        batch: the output's first B entries are img0 -> img1, the rest img1
+        -> img0. As in the JAX package the convex upsampler is x8 at every
+        scale count, so two scales (1/4-resolution features) return twice
+        the input size."""
+        b = img0.shape[0]
+        mean = torch.tensor(IMAGENET_MEAN, dtype=img0.dtype, device=img0.device)
+        std = torch.tensor(IMAGENET_STD, dtype=img0.dtype, device=img0.device)
+        imgs = ((torch.cat([img0, img1], dim=0) / 255.0 - mean) / std)
+        feats = self.backbone(imgs.permute(0, 3, 1, 2), num_scales)[::-1]
+        flow = f0 = None
+        for si in range(num_scales):
+            f = feats[si].permute(0, 2, 3, 1)
+            f0, f1 = f[:b], f[b:]
+            if pred_bidir_flow:
+                f0, f1 = torch.cat([f0, f1], dim=0), torch.cat([f1, f0], dim=0)
+            if flow is not None:
+                flow = resize_bilinear(
+                    flow.permute(0, 3, 1, 2),
+                    (2 * flow.shape[1], 2 * flow.shape[2]),
+                    align_corners=True).permute(0, 2, 3, 1) * 2
+                f1 = flow_warp(f1.permute(0, 3, 1, 2), flow).permute(0, 2, 3, 1)
+            flow, f0 = self.match(f0, f1, attn_splits_list[si],
+                                  corr_radius_list[si], prop_radius_list[si],
+                                  flow)
+        fx, fy = upsample_flow_convex(self.upsampler, flow, f0,
+                                      self.UPSAMPLE_FACTOR)
+        return torch.stack([fx, fy], dim=-1)
 
 
 @torch.no_grad()
@@ -349,3 +504,20 @@ def flow_from_clip(gm: GMFlow, x) -> Tuple[torch.Tensor, torch.Tensor]:
     f1 = feats[:, :-1].reshape((b * (t - 1),) + feats.shape[2:])
     fx, fy = gm.flow_from_features(f0, f1)
     return fx.reshape(b, t - 1, h, w), fy.reshape(b, t - 1, h, w)
+
+
+def forward_backward_consistency_check(fwd_flow, bwd_flow,
+                                       alpha: float = 0.01,
+                                       beta: float = 0.5):
+    """Occlusion masks of a bidirectional pair (geometry.py, UnFlow's
+    thresholds): fwd_flow, bwd_flow (B, H, W, 2) -> (fwd_occ, bwd_occ),
+    each (B, H, W) in {0, 1}, 1 where a flow and the other one warped back
+    along it differ by more than alpha * (|fwd| + |bwd|) + beta."""
+    mag = fwd_flow.norm(dim=-1) + bwd_flow.norm(dim=-1)
+    warped_bwd = flow_warp(bwd_flow.permute(0, 3, 1, 2), fwd_flow)
+    warped_fwd = flow_warp(fwd_flow.permute(0, 3, 1, 2), bwd_flow)
+    diff_fwd = (fwd_flow + warped_bwd.permute(0, 2, 3, 1)).norm(dim=-1)
+    diff_bwd = (bwd_flow + warped_fwd.permute(0, 2, 3, 1)).norm(dim=-1)
+    thr = alpha * mag + beta
+    return ((diff_fwd > thr).to(fwd_flow.dtype),
+            (diff_bwd > thr).to(bwd_flow.dtype))

@@ -14,11 +14,11 @@ from torch import nn
 
 
 def default_init_(module: nn.Module, generator: torch.Generator):
-    """Re-draw every Conv2d/Linear weight and bias of `module` in place, in
-    module order, from `generator`."""
+    """Re-draw every Conv2d/Conv3d/Linear weight and bias of `module` in
+    place, in module order, from `generator`."""
     with torch.no_grad():
         for m in module.modules():
-            if not isinstance(m, (nn.Conv2d, nn.Linear)):
+            if not isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
                 continue
             w = m.weight
             fan_in = w[0].numel()

@@ -27,7 +27,8 @@ from comfyui_keep_torch.models.vqgan import (BlockStack, ResBlock,
                                              phase512_prepare,
                                              phase_encoder_end,
                                              phase_generator_start)
-from comfyui_keep_torch.ops import conv2d, flow_warp_xy, layer_norm, linear
+from comfyui_keep_torch.ops import (conv2d, flow_warp_xy, layer_norm, linear,
+                                    resize_bilinear)
 
 
 def arch_tables(cfg):
@@ -261,8 +262,43 @@ class KEEP(nn.Module):
                 gen_feats[temp_idx[j]] = x
         return x, new_cfa, gen_feats
 
+    def code_and_decode(self, z_hat, enc_t, prev_cfa, force_t=None,
+                        first: bool = False):
+        """Pick the codes of a latent (B, C, h, w) and decode them: returns
+        decode_frame's (frame, new cfa features, taps) and the logits. The
+        picked codes carry no gradient."""
+        quant, logit = self.tokens_to_code(z_hat, force_t)
+        return self.decode_frame(quant.detach(), enc_t, prev_cfa,
+                                 first) + (logit,)
+
+    def step(self, prev_out, prev_cfa, z_t, gain_t, fx_t, fy_t, enc_t,
+             force_t=None):
+        """One frame of the recurrence, shared by forward() and
+        apply_chunks(): warp the previous output (B, 3, H, W) by the flow
+        planes (B, H, W), re-encode it with the HQ encoder, blend it into the
+        LQ latent z_t by the Kalman gain, then code_and_decode."""
+        warped = flow_warp_xy(prev_out.detach(), fx_t, fy_t)
+        z_prime = self.hq_encoder(warped)
+        return self.code_and_decode((1.0 - gain_t) * z_t + gain_t * z_prime,
+                                    enc_t, prev_cfa, force_t)
+
+    def encode_clip(self, x):
+        """The batched, non-recurrent stages of a clip stack x (B, T, H, W,
+        3): the LQ encoder over all B*T frames with its CFT taps, and the
+        Kalman gains. Returns z (B*T, C, h, w), the taps {f: (B, T, c, s,
+        s)} (detached), z_codes (B, T, C, h, w) and the gains (B, T, 1, h,
+        w)."""
+        b, t, h, w = x.shape[:4]
+        tap = {self.enc_tap[f]: f for f in self.cfg["cft_list"]}
+        xf = x.reshape(b * t, h, w, 3).permute(0, 3, 1, 2)
+        z, taps = self.encoder(xf, tap_indices=list(tap))
+        enc_feats = {tap[i]: v.detach().reshape((b, t) + v.shape[1:])
+                     for i, v in taps.items()}
+        z_codes = z.reshape((b, t) + z.shape[1:])
+        return z, enc_feats, z_codes, self.kalman_filter.calc_gain(z_codes)
+
     def forward(self, x, flows=None, *, force_indices=None, carry=None,
-                return_carry: bool = False):
+                return_carry: bool = False, need_upscale: bool = False):
         """The grad-enabled forward of training (the JAX package's
         KEEP.apply with detach_16=True and return_aux=True).
 
@@ -271,6 +307,9 @@ class KEEP(nn.Module):
         force_indices: optional (B, T, L) code indices that replace the
         argmax picks. Returns (outs (B, T, H, W, 3), {"logits": (B*T, L, N),
         "lq_feat": (B*T, h, w, C), "gen_feat_dict": {f: (B, T, s, s, c)}}).
+        need_upscale=True first resizes x by 4 (bilinear, align_corners
+        False; keep_arch.py's need_upscale), and the flows are then those of
+        the upscaled frames.
 
         carry / return_carry (the JAX package's streaming extension):
         carry = (prev_out (B, H, W, 3), {f: (B, s, s, c)} CFA features), as
@@ -286,6 +325,11 @@ class KEEP(nn.Module):
         backward pass with torch.utils.checkpoint: each res/attn block of the
         encoders and each frame step after the first."""
         cfg = self.cfg
+        if need_upscale:
+            b, t, h, w = x.shape[:4]
+            x = resize_bilinear(x.reshape(b * t, h, w, 3).permute(0, 3, 1, 2),
+                                (4 * h, 4 * w))
+            x = x.permute(0, 2, 3, 1).reshape(b, t, 4 * h, 4 * w, 3)
         b, t, h, w = x.shape[:4]
         # frame i's flow is plane i - off: T planes with a carry, T-1 without
         off = 0 if carry is not None else 1
@@ -295,35 +339,20 @@ class KEEP(nn.Module):
         else:
             fxs, fys = flows
         fxs, fys = fxs.detach(), fys.detach()
+        z, enc_feats, z_codes, gains = self.encode_clip(x)
 
-        tap = {self.enc_tap[f]: f for f in cfg["cft_list"]}
-        xf = x.reshape(b * t, h, w, 3).permute(0, 3, 1, 2)
-        z, taps = self.encoder(xf, tap_indices=list(tap))
-        enc_feats = {tap[i]: v.detach().reshape((b, t) + v.shape[1:])
-                     for i, v in taps.items()}
-        z_codes = z.reshape((b, t) + z.shape[1:])
-        gains = self.kalman_filter.calc_gain(z_codes)
-
-        def forced(i):
-            return None if force_indices is None else force_indices[:, i]
-
-        def code_and_decode(z_hat, i, prev_cfa):
-            quant, logit = self.tokens_to_code(z_hat, forced(i))
-            quant = quant.detach()
-            enc_t = {f: enc_feats[f][:, i] for f in cfg["cft_list"]}
-            return self.decode_frame(quant, enc_t, prev_cfa,
-                                     first=i == 0 and carry is None) + (logit,)
-
-        def step(prev_out, prev_cfa, i):
-            warped = flow_warp_xy(prev_out.detach(), fxs[:, i - off],
-                                  fys[:, i - off])
-            z_prime = self.hq_encoder(warped)
-            g = gains[:, i]
-            return code_and_decode((1.0 - g) * z_codes[:, i] + g * z_prime, i,
-                                   prev_cfa)
+        def frame(i):
+            """Frame i's inputs after the previous output and features."""
+            return (z_codes[:, i], gains[:, i], fxs[:, i - off],
+                    fys[:, i - off],
+                    {f: enc_feats[f][:, i] for f in cfg["cft_list"]},
+                    None if force_indices is None else force_indices[:, i])
 
         if carry is None:
-            out, cfa, gen_feats, logit = code_and_decode(z_codes[:, 0], 0, {})
+            out, cfa, gen_feats, logit = self.code_and_decode(
+                z_codes[:, 0], {f: enc_feats[f][:, 0] for f in cfg["cft_list"]},
+                {}, None if force_indices is None else force_indices[:, 0],
+                first=True)
             outs, logits, feats = [out], [logit], [gen_feats]
         else:
             out = carry[0].permute(0, 3, 1, 2)
@@ -332,9 +361,9 @@ class KEEP(nn.Module):
         for i in range(off, t):
             if torch.is_grad_enabled():
                 out, cfa, gen_feats, logit = checkpoint(
-                    step, out, cfa, i, use_reentrant=False)
+                    self.step, out, cfa, *frame(i), use_reentrant=False)
             else:
-                out, cfa, gen_feats, logit = step(out, cfa, i)
+                out, cfa, gen_feats, logit = self.step(out, cfa, *frame(i))
             outs.append(out)
             logits.append(logit)
             feats.append(gen_feats)
@@ -352,16 +381,57 @@ class KEEP(nn.Module):
 
     @torch.no_grad()
     def apply(self, x, flows=None, *, return_aux: bool = False,
-              force_indices=None, carry=None, return_carry: bool = False):
+              force_indices=None, carry=None, return_carry: bool = False,
+              need_upscale: bool = False):
         """Inference forward: x (B, T, H, W, 3) in [-1, 1] ->
-        (B, T, H, W, 3), and with return_aux also forward()'s aux dict;
-        with return_carry (res, carry). flows, force_indices and the carry
-        as for forward()."""
+        (B, T, H, W, 3) (4H x 4W with need_upscale), and with return_aux
+        also forward()'s aux dict; with return_carry (res, carry). flows,
+        force_indices, the carry and need_upscale as for forward()."""
         (res, aux), new_carry = self.forward(
             x, flows, force_indices=force_indices, carry=carry,
-            return_carry=True)
+            return_carry=True, need_upscale=need_upscale)
         res = (res, aux) if return_aux else res
         return (res, new_carry) if return_carry else res
+
+    @torch.no_grad()
+    def apply_chunks(self, x, flows=None, *, force_indices=None):
+        """Serving form for G independent chunks, x (G, T, H, W, 3) in
+        [-1, 1] -> (G, T, H, W, 3): equal to G calls of apply(x[i:i+1]) (each
+        chunk starts from a reset state) up to the summation order of the
+        batched stages. The LQ encoder with its CFT taps, the Kalman gains
+        and frame 0's pick and decode run batched over the G*T frames; the
+        recurrence over frames 1..T-1 runs one chunk at a time (B = 1).
+        flows: (fx, fy) planes, each (G, T-1, H, W) (flow_from_clip on the
+        stack), or None for zero flow; force_indices: optional (G, T, L)
+        picks, as for apply()."""
+        cfg = self.cfg
+        g, t, h, w = x.shape[:4]
+        if flows is None:
+            fxs = fys = torch.zeros((g, t - 1, h, w), dtype=x.dtype,
+                                    device=x.device)
+        else:
+            fxs, fys = flows
+        _, enc_feats, z_codes, gains = self.encode_clip(x)
+
+        out0, cfa0, _, _ = self.code_and_decode(
+            z_codes[:, 0], {f: enc_feats[f][:, 0] for f in cfg["cft_list"]},
+            {}, None if force_indices is None else force_indices[:, 0],
+            first=True)
+        chunks = []
+        for c in range(g):
+            out = out0[c:c + 1]
+            cfa = {f: v[c:c + 1] for f, v in cfa0.items()}
+            outs = [out]
+            for i in range(1, t):
+                out, cfa, _, _ = self.step(
+                    out, cfa, z_codes[c:c + 1, i], gains[c:c + 1, i],
+                    fxs[c:c + 1, i - 1], fys[c:c + 1, i - 1],
+                    {f: enc_feats[f][c:c + 1, i] for f in cfg["cft_list"]},
+                    None if force_indices is None
+                    else force_indices[c:c + 1, i])
+                outs.append(out)
+            chunks.append(torch.cat(outs, dim=0))
+        return torch.stack(chunks).permute(0, 1, 3, 4, 2)
 
 
 def mask_by_ratio(z_codes, mask_ratio: float = 0.0,

@@ -6,6 +6,10 @@ by flat block index), on NCHW feature maps.
 What KEEP and its stage-II training reach is here: the plans, the blocks,
 tapped (and recomputed) execution, the nearest-code quantizer with its
 lookup, and the VQHQEncoder that gives training its ground-truth codes.
+The rest of the family follows: the Gumbel quantizer, the stage-I
+VQAutoEncoder (nearest or Gumbel), the PatchGAN VQGANDiscriminator and the
+spectral-norm video Discriminator3D of stage-III GAN training. Their
+parameter names are the reference's, so a reference .pth loads.
 
 Serving runs the 512 level phase-packed (ops/phase_pack.py):
 `phase512_prepare` packs a stack's weights into non-persistent buffers
@@ -19,8 +23,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from comfyui_keep_torch.models.init import default_init_, finish
-from comfyui_keep_torch.ops import (conv2d, group_norm, softmax_attention,
-                                    swish, upsample_nearest_2x)
+from comfyui_keep_torch.ops import (batch_norm, conv2d, conv3d, group_norm,
+                                    leaky_relu, linear, softmax_attention,
+                                    spectral_norm_weight, swish,
+                                    upsample_nearest_2x)
 from comfyui_keep_torch.ops import kernels as K
 from comfyui_keep_torch.ops import phase_pack as pp
 from comfyui_keep_torch.ops.norm import GN_EPS
@@ -458,3 +464,220 @@ class VQHQEncoder(nn.Module):
         one kernel launch for all N*h*w tokens."""
         z = self.encode(x)
         return self.quantize.nearest(z).reshape(z.shape[0], -1)
+
+
+# ---------------------------------------------------------------------------
+# The rest of the family: Gumbel quantizer, VQAutoEncoder, discriminators
+# ---------------------------------------------------------------------------
+
+class GumbelQuantizer(nn.Module):
+    """The reference's GumbelQuantizer: a 1x1 projection to code logits
+    (`proj`) and the code table (`embed`)."""
+
+    def __init__(self, codebook_size: int, emb_dim: int, num_hiddens: int):
+        super().__init__()
+        self.proj = nn.Conv2d(num_hiddens, codebook_size, 1)
+        self.embed = nn.Embedding(codebook_size, emb_dim)
+
+
+def gumbel_quantize(quantizer: GumbelQuantizer, z,
+                    generator: Optional[torch.Generator] = None,
+                    uniform: Optional[torch.Tensor] = None, tau: float = 1.0,
+                    kl_weight: float = 5e-4, hard: bool = True):
+    """z (N, H, W, C) -> (z_q (N, H, W, D), KL term, {"min_encoding_indices":
+    (N, H, W)}), the JAX package's gumbel_quantize. The Gumbel noise is
+    -log(-log(u)) of a uniform draw u of the logits' shape: `uniform` given,
+    or drawn from `generator`; with neither, no noise. hard=True takes the
+    one-hot pick forward with the soft gradient (straight-through)."""
+    w = quantizer.proj.weight
+    logits = linear(z, w.reshape(w.shape[0], -1), quantizer.proj.bias)
+    if uniform is None and generator is not None:
+        uniform = torch.rand(logits.shape, generator=generator,
+                             device=logits.device, dtype=logits.dtype)
+    if uniform is not None:
+        g = -torch.log(-torch.log(uniform.to(logits.dtype) + 1e-20) + 1e-20)
+        y = torch.softmax((logits + g) / tau, dim=-1)
+    else:
+        y = torch.softmax(logits / tau, dim=-1)
+    idx = y.argmax(dim=-1)
+    if hard:
+        y_hard = torch.nn.functional.one_hot(idx, logits.shape[-1]).to(y.dtype)
+        y = y + (y_hard - y).detach()
+    z_q = torch.einsum("bhwn,nd->bhwd", y, quantizer.embed.weight)
+    qy = torch.softmax(logits, dim=-1)
+    diff = kl_weight * torch.mean(torch.sum(
+        qy * torch.log(qy * logits.shape[-1] + 1e-10), dim=-1))
+    return z_q, diff, {"min_encoding_indices": idx}
+
+
+class VQAutoEncoder(nn.Module):
+    """Stage-I VQGAN (reference vqgan_arch.py VQAutoEncoder): encoder,
+    quantizer ("nearest", through the nearest-codebook kernel, or
+    "gumbel"), generator. Parameter names `encoder.blocks.*`, `quantize.*`,
+    `generator.blocks.*`."""
+
+    def __init__(self, img_size: int = 512, nf: int = 64,
+                 ch_mult: Sequence[int] = (1, 2, 2, 4, 4, 8),
+                 quantizer: str = "nearest", res_blocks: int = 2,
+                 attn_resolutions: Sequence[int] = (16,),
+                 codebook_size: int = 1024, emb_dim: int = 256,
+                 beta: float = 0.25, device="cuda",
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if quantizer not in ("nearest", "gumbel"):
+            raise ValueError(f"quantizer must be nearest or gumbel, got "
+                             f"{quantizer!r}")
+        self.quantizer, self.beta = quantizer, beta
+        self.encoder = BlockStack(encoder_plan(3, nf, emb_dim, ch_mult,
+                                               res_blocks, img_size,
+                                               attn_resolutions))
+        if quantizer == "nearest":
+            self.quantize = VectorQuantizer(codebook_size, emb_dim)
+        else:
+            self.quantize = GumbelQuantizer(codebook_size, emb_dim, emb_dim)
+        self.generator = BlockStack(generator_plan(nf, emb_dim, ch_mult,
+                                                   res_blocks, img_size,
+                                                   attn_resolutions))
+        if generator is not None:
+            default_init_(self, generator)
+            with torch.no_grad():
+                if quantizer == "nearest":
+                    w = self.quantize.embedding.weight
+                    w.copy_(torch.empty(w.shape).uniform_(
+                        -1.0 / codebook_size, 1.0 / codebook_size,
+                        generator=generator))
+                else:
+                    w = self.quantize.embed.weight
+                    w.copy_(torch.randn(w.shape, generator=generator) * 0.02)
+        finish(self, device, dtype)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                uniform: Optional[torch.Tensor] = None):
+        """x (N, H, W, 3) in [-1, 1] -> (reconstruction (N, H, W, 3), the
+        quantizer's loss, its stats). generator / uniform: the Gumbel
+        quantizer's noise (gumbel_quantize)."""
+        z = self.encoder(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self.quantizer == "nearest":
+            z_q, loss, stats = vq_quantize(self.quantize, z, self.beta)
+        else:
+            z_q, loss, stats = gumbel_quantize(self.quantize, z, generator,
+                                               uniform)
+        out = self.generator(z_q.permute(0, 3, 1, 2).contiguous())
+        return out.permute(0, 2, 3, 1), loss, stats
+
+
+class VQGANDiscriminator(nn.Module):
+    """PatchGAN discriminator (reference vqgan_arch.py VQGANDiscriminator):
+    `main` holds 4x4 convs (stride 2, then 1), BatchNorm after each inner
+    one and leaky ReLU 0.2 between. BatchNorm runs in inference form, on
+    its running statistics, as in the JAX package."""
+
+    def __init__(self, nc: int = 3, ndf: int = 64, n_layers: int = 4,
+                 device="cuda", dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        layers = [nn.Conv2d(nc, ndf, 4, 2, 1), nn.LeakyReLU(0.2)]
+        mult = 1
+        for n in range(1, n_layers + 1):
+            prev, mult = mult, min(2 ** n, 8)
+            layers += [nn.Conv2d(ndf * prev, ndf * mult, 4,
+                                 2 if n < n_layers else 1, 1, bias=False),
+                       nn.BatchNorm2d(ndf * mult), nn.LeakyReLU(0.2)]
+        layers.append(nn.Conv2d(ndf * mult, 1, 4, 1, 1))
+        self.main = nn.Sequential(*layers)
+        if generator is not None:
+            default_init_(self, generator)
+        finish(self, device, dtype)
+
+    def forward(self, x):
+        """x (N, H, W, nc) -> patch logits (N, H', W', 1)."""
+        x = x.permute(0, 3, 1, 2)
+        for m in self.main:
+            if isinstance(m, nn.Conv2d):
+                x = conv2d(x, m.weight, m.bias, stride=m.stride[0], padding=1)
+            elif isinstance(m, nn.BatchNorm2d):
+                x = batch_norm(x, m)
+            else:
+                x = leaky_relu(x, 0.2)
+        return x.permute(0, 2, 3, 1)
+
+
+class SpectralNormConv3d(nn.Module):
+    """A Conv3d under torch's spectral_norm, by its state-dict names:
+    `weight_orig`, `bias` (if any) and the power-iteration buffers
+    `weight_u` (O,) and `weight_v`. The forward normalises weight_orig by
+    one power iteration from weight_u (ops/spectral.py) and leaves the
+    buffers as they are, as the JAX package's apply does; weight_v is kept
+    for loading and unused."""
+
+    def __init__(self, cin: int, cout: int, kernel, stride, padding,
+                 bias: bool):
+        super().__init__()
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.weight_orig = nn.Parameter(torch.empty(cout, cin, *kernel))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.register_buffer("weight_u", torch.ones(cout) / cout ** 0.5)
+        n = cin * kernel[0] * kernel[1] * kernel[2]
+        self.register_buffer("weight_v", torch.ones(n) / n ** 0.5)
+
+    def forward(self, x):
+        w, _ = spectral_norm_weight(self.weight_orig, self.weight_u)
+        return conv3d(x, w, self.bias, self.stride, self.padding)
+
+
+class Discriminator3D(nn.Module):
+    """Spectral-norm Conv3d video discriminator of stage-III GAN training
+    (reference vqgan_arch.py Discriminator3D): five (3, 5, 5) convs of
+    stride (1, 2, 2) under spectral norm with leaky ReLU 0.2, then one
+    without, nf * (1, 2, 4, 4, 4, 4) channels, in `conv` at the
+    reference's Sequential indices 0, 2, ..., 10."""
+
+    CHANNELS = (("in", 1, (1, 1, 1)), (1, 2, (1, 2, 2)), (2, 4, (1, 2, 2)),
+                (4, 4, (1, 2, 2)), (4, 4, (1, 2, 2)))
+
+    def __init__(self, in_channels: int = 3, nf: int = 32,
+                 use_sigmoid: bool = False, use_spectral_norm: bool = True,
+                 device="cuda", dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.use_sigmoid = use_sigmoid
+        layers = []
+        for cin_m, cout_m, pad in self.CHANNELS:
+            cin = in_channels if cin_m == "in" else nf * cin_m
+            if use_spectral_norm:
+                layers.append(SpectralNormConv3d(cin, nf * cout_m, (3, 5, 5),
+                                                 (1, 2, 2), pad, bias=False))
+            else:
+                layers.append(nn.Conv3d(cin, nf * cout_m, (3, 5, 5),
+                                        (1, 2, 2), pad))
+            layers.append(nn.LeakyReLU(0.2))
+        layers.append(nn.Conv3d(nf * 4, nf * 4, (3, 5, 5), (1, 2, 2),
+                                (1, 2, 2)))
+        self.conv = nn.Sequential(*layers)
+        if generator is not None:
+            default_init_(self, generator)
+            with torch.no_grad():
+                for m in self.conv:
+                    if isinstance(m, SpectralNormConv3d):
+                        w = m.weight_orig
+                        bound = 1.0 / w[0].numel() ** 0.5  # kaiming(a=sqrt 5)
+                        w.copy_(torch.empty(w.shape).uniform_(
+                            -bound, bound, generator=generator))
+                        u = torch.randn(m.weight_u.shape, generator=generator)
+                        m.weight_u.copy_(u / u.norm())
+        finish(self, device, dtype)
+
+    def forward(self, x):
+        """x (B, T, H, W, C) -> (B, T', H', W', nf * 4)."""
+        x = x.permute(0, 4, 1, 2, 3)
+        for m in self.conv:
+            if isinstance(m, nn.Conv3d):
+                x = conv3d(x, m.weight, m.bias, m.stride, m.padding)
+            elif isinstance(m, SpectralNormConv3d):
+                x = m(x)
+            else:
+                x = leaky_relu(x, 0.2)
+        if self.use_sigmoid:
+            x = torch.sigmoid(x)
+        return x.permute(0, 2, 3, 4, 1)

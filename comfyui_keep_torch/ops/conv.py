@@ -26,6 +26,20 @@ def conv2d(x, w, b=None, stride: int = 1, padding: Padding = 0):
     return F.conv2d(x, w, b, stride=stride, padding=padding)
 
 
+def conv3d(x, w, b=None, stride=1, padding=0, dilation=1):
+    """x: (N, Cin, D, H, W); w: (Cout, Cin, kd, kh, kw). stride, padding
+    and dilation are ints or triples; padding may also be [(lo, hi)] * 3."""
+    if not isinstance(padding, int) and not isinstance(padding[0], int):
+        if all(lo == hi for lo, hi in padding):
+            padding = tuple(lo for lo, _ in padding)
+        else:
+            x = F.pad(x, tuple(p for lo_hi in reversed(padding)
+                               for p in lo_hi))
+            padding = 0
+    return F.conv3d(x, w, b, stride=stride, padding=padding,
+                    dilation=dilation)
+
+
 def linear(x, w, b=None):
     """x: (..., in); w: (out, in)."""
     return F.linear(x, w, b)

@@ -16,7 +16,10 @@ kernel does not take: there is no switch and no fallback. Each launch adds
 one to its entry of `LAUNCHES`; the plain versions count nothing. `attention`
 keeps one entry per form, whichever dtype's kernel it launches:
 `attention[dv128]` (V as wide as q/k), `attention[dv128+bias]` (the same
-with a bias) and `attention[dv2]` (the 2-wide V).
+with a bias) and `attention[dv2]` (the 2-wide V). `LAUNCHES_BY_SHAPE` counts
+the same launches of K1 to K4 by the shape they ran at, "<LAUNCHES key>
+B<batch> L<length>" for attention and the correlation, "mlp_fused rows<n>"
+and "vq_nearest_indices T<tokens>", each key from its first launch on.
 """
 import contextlib
 import math
@@ -36,11 +39,21 @@ KERNEL_WIDTH = 128  # q/k width of attention, C of the MLP
 VQ_CODE_TILE = 64   # the codebook size must be a multiple of this
 VQ_MAX_WIDTH = 512
 VQ_MAX_SPLITS = 16  # csrc/vq.cu kMaxSplits
+MAX_GRID_Y = 65535  # the attention launchers put the batch in gridDim.y
+LAUNCHES_BY_SHAPE: Dict[str, int] = {}
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_SHAPE.clear()
+
+
+def _count(counter: str, shape: Optional[str] = None):
+    LAUNCHES[counter] += 1
+    if shape is not None:
+        key = f"{counter} {shape}"
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device):
@@ -52,6 +65,12 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device):
         raise ValueError(f"{name}: dtype {t.dtype} != {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_batch(what: str, b: int):
+    if not 1 <= b <= MAX_GRID_Y:
+        raise ValueError(f"{what}: batch {b} outside [1, {MAX_GRID_Y}] (the "
+                         f"kernel's grid holds the batch in its y dimension)")
 
 
 def _raise_on(err: int, what: str):
@@ -91,10 +110,11 @@ def attention_plain(q, k, v, scale: float, bias=None):
 def attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
     """q, k: (B, L, D); v: (B, L, Dv); bias: (Bm, L, L) f32 with Bm dividing
     B, or None. Returns (B, L, Dv) in v's dtype. On CUDA: D = 128 and Dv in
-    {128, 2}, f32 or bf16."""
+    {128, 2}, f32 or bf16, B at most 65,535."""
     if not q.is_cuda:
         return attention_plain(q, k, v, scale, bias)
     b, l, d = q.shape
+    _check_batch("attention", b)
     dv = v.shape[-1]
     if d != KERNEL_WIDTH or dv not in (KERNEL_WIDTH, 2):
         raise ValueError(f"attention kernel takes D=128 and Dv in (128, 2), "
@@ -118,7 +138,8 @@ def attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
                                  out.data_ptr(), b, l, d, dv, bm, float(scale),
                                  _DTYPE_CODE[q.dtype], _stream(q))
     _raise_on(err, "attention kernel launch")
-    LAUNCHES[f"attention[dv{dv}{'' if bias is None else '+bias'}]"] += 1
+    _count(f"attention[dv{dv}{'' if bias is None else '+bias'}]",
+           f"B{b} L{l}")
     return out
 
 
@@ -136,10 +157,11 @@ def global_correlation_expectation_plain(f0, f1, grid):
 def global_correlation_expectation(f0, f1, grid):
     """f0, f1: (B, L, C); grid: (L, 2) f32 pixel coordinates. Returns the
     (B, L, 2) f32 softmax-weighted correspondence without the (B, L, L)
-    correlation. On CUDA: C = 128, f32 or bf16."""
+    correlation. On CUDA: C = 128, f32 or bf16, B at most 65,535."""
     if not f0.is_cuda:
         return global_correlation_expectation_plain(f0, f1, grid)
     b, l, c = f0.shape
+    _check_batch("correlation", b)
     if c != KERNEL_WIDTH or f0.dtype not in _DTYPE_CODE:
         raise ValueError(f"correlation kernel takes C=128 in f32/bf16, got "
                          f"C={c} {f0.dtype}")
@@ -153,7 +175,7 @@ def global_correlation_expectation(f0, f1, grid):
             f0.data_ptr(), f1.data_ptr(), grid.data_ptr(), out.data_ptr(), b,
             l, c, 1.0 / math.sqrt(c), _DTYPE_CODE[f0.dtype], _stream(f0))
     _raise_on(err, "correlation kernel launch")
-    LAUNCHES["global_correlation_expectation"] += 1
+    _count("global_correlation_expectation", f"B{b} L{l}")
     return out
 
 
@@ -203,7 +225,7 @@ def mlp_fused(src, msg, w1, w2, gamma, beta, approximate: bool):
                                  int(bool(approximate)), _DTYPE_CODE[dt],
                                  _stream(src))
     _raise_on(err, "mlp kernel launch")
-    LAUNCHES["mlp_fused"] += 1
+    _count("mlp_fused", f"rows{b * l}")
     return out
 
 
@@ -256,7 +278,7 @@ def vq_nearest_indices(z, codebook):
                                   buf[t:].data_ptr(), out.data_ptr(), t, n, c,
                                   _DTYPE_CODE[z.dtype], _stream(z))
     _raise_on(err, "vq kernel launch")
-    LAUNCHES["vq_nearest_indices"] += 1
+    _count("vq_nearest_indices", f"T{t}")
     return out
 
 
@@ -301,7 +323,7 @@ def fused_bias_lrelu(x, bias, negative_slope: float = 0.2,
             x[0, 0].numel(), c, float(negative_slope), float(scale),
             _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(err, "fused_bias_lrelu kernel launch")
-    LAUNCHES["fused_bias_lrelu"] += 1
+    _count("fused_bias_lrelu")
     return out
 
 
@@ -395,7 +417,7 @@ def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
             int(bias is not None and bias.dtype == torch.bfloat16),
             mask_c or 0, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(err, "packed_conv2x2 kernel launch")
-    LAUNCHES["packed_conv2x2"] += 1
+    _count("packed_conv2x2")
     return out
 
 

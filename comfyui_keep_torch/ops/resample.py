@@ -25,6 +25,12 @@ def resize_nearest(x, out_hw: Tuple[int, int]):
     return F.interpolate(x, size=tuple(out_hw), mode="nearest")
 
 
+def avg_pool_2x(x):
+    """2x2 stride-2 average pool of (N, C, H, W) (an odd last row or column
+    dropped)."""
+    return F.avg_pool2d(x, 2)
+
+
 def max_pool(x, window: int, stride: int, padding: int = 0):
     """MaxPool2d of (N, C, H, W); the padding never wins (-inf)."""
     return F.max_pool2d(x, window, stride, padding)

@@ -5,7 +5,12 @@ A stream of aligned 512x512 faces is cut into `max_clip_length` chunks; the
 recurrent state resets at each chunk and a 1-frame chunk is duplicated and
 its first output kept (keep_processor.py:256-275). Each chunk runs GMFlow
 over its frame pairs, then KEEP. With carry_chunks=True (the JAX package's
-extension) the state streams across chunks instead. KEEP's 512-level
+extension) the state streams across chunks instead. A stream of at least
+two chunks sends its full chunks in groups of up to `chunks_per_dispatch`
+(JAX's grouped dispatch), each group in one of three forms
+(`chunk_batching`): "map", chunk after chunk (the default, the same output
+as one call per chunk), "batch", one GMFlow and one KEEP call on the group's
+stack, or "stage", one GMFlow call and KEEP.apply_chunks. KEEP's 512-level
 convolutions run phase-packed (the JAX package's default) only when asked,
 phase512=True: on the H100 the packed chunk is the slower one (PERF.md).
 
@@ -62,6 +67,9 @@ def helper_models(helper: Optional[FaceRestoreHelper]
     return plugin_models(helper.detector, helper.parser)
 
 
+CHUNK_BATCHING = ("map", "batch", "stage")
+
+
 def _on(module: Optional[torch.nn.Module], device: torch.device) -> bool:
     if module is None:
         return True
@@ -82,13 +90,26 @@ class KEEPFaceProcessor:
     the packed chunk is slower, PERF.md), KEEP is prepared for phase-packed
     512-level convolutions on a copy, so the caller's KEEP stays unpacked.
     As in the JAX processor, the weights are packed in their own dtype and
-    then cast to `dtype`, so both round a packed bf16 weight alike."""
+    then cast to `dtype`, so both round a packed bf16 weight alike.
+
+    chunk_batching and chunks_per_dispatch choose how restore_face_stream
+    runs a group of full chunks (the JAX processor's KEEP_TPU_BATCH_CHUNKS,
+    KEEP_TPU_STAGE_BATCH and KEEP_TPU_CHUNKS_PER_DISPATCH): "map" restores
+    them one by one; "batch" runs GMFlow and KEEP.apply once on the group
+    (B = group), "stage" GMFlow once and KEEP.apply_chunks. The batched
+    forms equal "map" up to summation order, so a code pick can flip."""
 
     def __init__(self, keep: KEEP, gmflow: Optional[GMFlow] = None, dtype=None,
                  device="cuda", phase512: bool = False,
                  face_helper: Optional[FaceRestoreHelper] = None,
                  bg_upscaler: Optional[Callable] = None,
-                 face_upscaler: Optional[Callable] = None):
+                 face_upscaler: Optional[Callable] = None,
+                 chunk_batching: str = "map", chunks_per_dispatch: int = 8):
+        if chunk_batching not in CHUNK_BATCHING:
+            raise ValueError(f"chunk_batching must be one of {CHUNK_BATCHING},"
+                             f" got {chunk_batching!r}")
+        self.chunk_batching = chunk_batching
+        self.chunks_per_dispatch = int(chunks_per_dispatch)
         device = torch.device(device)
         if not all(_on(m, device) for m in [keep, gmflow]
                    + helper_models(face_helper)
@@ -106,6 +127,27 @@ class KEEPFaceProcessor:
         self.device, self.dtype = p.device, p.dtype
         self.face_size = int(self.keep.cfg.get("img_size", 512))
 
+    def _restore(self, clips: np.ndarray, carry=None,
+                 return_carry: bool = False, stage: bool = False):
+        """clips (G, T, H, W, 3) RGB in [-1, 1] -> (G, T', H, W, 3) float32:
+        GMFlow on the stack's frame pairs, then KEEP.apply (apply_chunks
+        with stage=True). With a carry, frame 0 is the previous chunk's last
+        input frame and only the flow uses it."""
+        x = torch.as_tensor(clips).to(self.device, self.dtype)
+        flows = (flow_from_clip(self.gmflow, x)
+                 if self.gmflow is not None and x.shape[1] > 1 else None)
+        if carry is not None:
+            x = x[:, 1:]
+        if stage:
+            out = self.keep.apply_chunks(x, flows=flows)
+        else:
+            out = self.keep.apply(x, flows=flows, carry=carry,
+                                  return_carry=return_carry)
+        if return_carry:
+            out, carry = out
+        out = out.float().cpu().numpy()
+        return (out, carry) if return_carry else out
+
     def restore_clip(self, clip: np.ndarray, carry=None,
                      prev_frame: Optional[np.ndarray] = None,
                      return_carry: bool = False):
@@ -116,17 +158,17 @@ class KEEPFaceProcessor:
         returns (out, carry)."""
         frames = clip if carry is None else np.concatenate(
             [prev_frame[None], clip])
-        x = torch.as_tensor(frames[None]).to(self.device, self.dtype)
-        flows = (flow_from_clip(self.gmflow, x)
-                 if self.gmflow is not None and x.shape[1] > 1 else None)
-        if carry is not None:
-            x = x[:, 1:]
-        out = self.keep.apply(x, flows=flows, carry=carry,
-                              return_carry=return_carry)
         if return_carry:
-            out, carry = out
-        out = out[0].float().cpu().numpy()
-        return (out, carry) if return_carry else out
+            out, carry = self._restore(frames[None], carry, True)
+            return out[0], carry
+        return self._restore(frames[None])[0]
+
+    def restore_group(self, clips: np.ndarray) -> np.ndarray:
+        """G full chunks (G, T, H, W, 3), each from a reset state, in the
+        processor's chunk_batching form -> (G, T, H, W, 3) float32."""
+        if self.chunk_batching == "map":
+            return np.stack([self.restore_clip(c) for c in clips])
+        return self._restore(clips, stage=self.chunk_batching == "stage")
 
     def restore_face_stream(self, faces_bgr_u8: List[np.ndarray],
                             max_clip_length: int = 20,
@@ -134,11 +176,29 @@ class KEEPFaceProcessor:
         """Restore a flat stream of aligned faces (uint8 BGR), chunked.
         carry_chunks=False resets the state per chunk (the reference);
         carry_chunks=True streams the Kalman state and the CFA features
-        across chunk boundaries, with no 1-frame duplication."""
+        across chunk boundaries, with no 1-frame duplication.
+
+        Without a carry, a stream of n >= 2 * max_clip_length faces sends
+        its full chunks in n_full // group groups of group = min(max(2,
+        chunks_per_dispatch), n_full) chunks (the JAX processor's grouped
+        dispatch), each group in the chunk_batching form; the full chunks
+        left over and the ragged tail go chunk by chunk."""
         if not faces_bgr_u8:
             return []
         x_all = np.stack([bgr_u8_to_rgb_pm1(f) for f in faces_bgr_u8])
         outs: List[np.ndarray] = []
+        n = len(x_all)
+        if not carry_chunks and n >= 2 * max_clip_length:
+            n_full = n // max_clip_length
+            group = min(max(2, self.chunks_per_dispatch), n_full)
+            head = (n_full // group) * group * max_clip_length
+            for start in range(0, head, group * max_clip_length):
+                out = self.restore_group(
+                    x_all[start:start + group * max_clip_length].reshape(
+                        (group, max_clip_length) + x_all.shape[1:]))
+                outs.extend(rgb_pm1_to_bgr_u8(o)
+                            for o in out.reshape((-1,) + out.shape[2:]))
+            x_all = x_all[head:]
         carry = None
         for start in range(0, len(x_all), max_clip_length):
             clip = x_all[start:start + max_clip_length]

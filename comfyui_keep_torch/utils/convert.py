@@ -11,7 +11,10 @@ net's `flownet.model.*` subtree split off for GMFlow).
 its utils/checkpoint.py's `convert_state_dict`, which the trees of
 RetinaFace, ParseNet, YOLOv5-face, BiSeNet, RRDBNet, SRVGGNetCompact,
 MSRResNet, EDSR and SwinIR follow; SRVGG's PReLU slopes sit under
-`prelu_w`): it turns a JAX param tree of numpy arrays into a state dict of
+`prelu_w`; the VQAutoEncoder's, whose Gumbel code table `embed` keeps its
+(num, dim) layout; the discriminators' grouped `layers`, VQGANDiscriminator's
+conv + BatchNorm pairs and Discriminator3D's DHWIO convs with their
+spectral-norm vector `u`): it turns a JAX param tree of numpy arrays into a state dict of
 the port's module, so both packages can run on one set of weights. A BatchNorm's `num_batches_tracked`, which the JAX trees drop, is
 filled with 0. The port keeps its own copy of these rules and imports nothing
 from the JAX package.
@@ -62,7 +65,9 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Dict[str, np.ndarray]:
     *parent, name = path
     pre = ".".join(parent)
     if name == "w":
-        if arr.ndim == 4:      # HWIO -> OIHW
+        if arr.ndim == 5:      # DHWIO -> OIDHW
+            arr = arr.transpose(4, 3, 0, 1, 2)
+        elif arr.ndim == 4:    # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 2:    # (in, out) -> (out, in)
             arr = arr.T
@@ -73,8 +78,8 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Dict[str, np.ndarray]:
         return {f"{pre}.weight": arr}
     if name in ("mean", "var"):  # BatchNorm running statistics
         return {f"{pre}.running_{name}": arr}
-    if name == "embedding":    # nn.Embedding keeps its (num, dim) layout
-        return {f"{pre}.embedding.weight": arr}
+    if name in ("embedding", "embed"):  # nn.Embedding: (num, dim) as it is
+        return {".".join(path) + ".weight": arr}
     return {".".join(path): arr}
 
 
@@ -172,17 +177,57 @@ def _stylegan2_discriminator(tree) -> Dict[str, np.ndarray]:
     return out
 
 
+def _vqgan_discriminator(tree) -> Dict[str, np.ndarray]:
+    """The JAX tree's (conv[, bn]) layers -> the reference's `main`
+    Sequential: conv i at its index, its BatchNorm right after, one leaky
+    ReLU after each pair."""
+    out: Dict[str, np.ndarray] = {}
+    i = 0
+    for layer in tree["layers"]:
+        _flatten(layer["conv"], (f"main.{i}",), out)
+        if "bn" in layer:
+            i += 1
+            _flatten(layer["bn"], (f"main.{i}",), out)
+        i += 2
+    return out
+
+
+def _discriminator3d(tree) -> Dict[str, np.ndarray]:
+    """The JAX tree's six conv3d layers -> `conv.{0,2,...,10}`: a
+    spectral-norm layer's weight as weight_orig, its `u` as weight_u, and
+    weight_v, which the JAX tree does not keep, as the first power-iteration
+    step from u, W^T u normalised."""
+    out: Dict[str, np.ndarray] = {}
+    for i, p in enumerate(tree["layers"]):
+        w = np.asarray(p["w"]).transpose(4, 3, 0, 1, 2)
+        pre = f"conv.{2 * i}"
+        if "b" in p:
+            out[f"{pre}.bias"] = np.asarray(p["b"])
+        if "u" in p:
+            u = np.asarray(p["u"])
+            v = w.reshape(w.shape[0], -1).T @ u
+            out[f"{pre}.weight_orig"] = w
+            out[f"{pre}.weight_u"] = u
+            out[f"{pre}.weight_v"] = v / (np.linalg.norm(v) + 1e-12)
+        else:
+            out[f"{pre}.weight"] = w
+    return out
+
+
 # port classes whose JAX trees need their own layout rules, by class name
 # (any class in the model's MRO)
 _TREE_RULES = {"StyleGAN2Generator": _stylegan2_generator,
-               "StyleGAN2Discriminator": _stylegan2_discriminator}
+               "StyleGAN2Discriminator": _stylegan2_discriminator,
+               "VQGANDiscriminator": _vqgan_discriminator,
+               "Discriminator3D": _discriminator3d}
 
 
 def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     """JAX param tree (numpy leaves) -> state dict for `model` (a KEEP, a
-    GMFlow, a VQHQEncoder, a StyleGAN2 generator or discriminator, a
-    detector, a parser or an upscaler of the port; also a gradient tree of
-    the same layout). Raises unless keys and shapes match `model` exactly."""
+    GMFlow with or without its trident conv, a VQHQEncoder, a
+    VQAutoEncoder, a VQGANDiscriminator, a Discriminator3D, a StyleGAN2
+    generator or discriminator, a detector, a parser or an upscaler of the
+    port; also a gradient tree of the same layout). Raises unless keys and shapes match `model` exactly."""
     rules = [_TREE_RULES[c.__name__] for c in type(model).__mro__
              if c.__name__ in _TREE_RULES]
     flat: Dict[str, np.ndarray] = {}

@@ -105,6 +105,48 @@ def test_attention_matches_plain(cuda, dtype, l, dv, bias):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_refine_windows_with_64_window_mask(cuda, dtype):
+    """GMFlow refinement's fine scale: 16 x 16 windows (L = 256) of a
+    128 x 128 map split 8 x 8, shifted on odd layers by the (64, 256, 256)
+    Swin mask, over B = 2 images x 2 directions x 64 windows; the bias is
+    indexed b % 64."""
+    from comfyui_keep_torch.models.gmflow import shifted_window_mask
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, l = 256, 256
+    q = torch.randn(b, l, 128, generator=g, device=cuda).to(dtype)
+    k = _matched_keys(q, 0.7, g)
+    v = torch.randn(b, l, 128, generator=g, device=cuda).to(dtype)
+    m = torch.as_tensor(shifted_window_mask(128, 128, 8), device=cuda)
+    assert m.shape == (64, l, l)
+    for bias, counter in ((None, "attention[dv128]"),
+                          (m, "attention[dv128+bias]")):
+        before = dict(K.LAUNCHES)
+        key = f"{counter} B{b} L{l}"
+        before_shape = K.LAUNCHES_BY_SHAPE.get(key, 0)
+        got = K.attention(q, k, v, 1.0 / 128 ** 0.5, bias)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {**before, counter: before[counter] + 1}
+        assert K.LAUNCHES_BY_SHAPE[key] == before_shape + 1
+        assert got.dtype == dtype and got.shape == (b, l, 128)
+        ref = K.attention_plain(q, k, v, 1.0 / 128 ** 0.5, bias)
+        assert _rel_err(got, ref) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_attention_refuses_a_batch_past_the_grid(cuda):
+    """The batch rides in gridDim.y: past 65,535 the wrappers raise before
+    any launch."""
+    q = torch.zeros(K.MAX_GRID_Y + 1, 1, 128, device=cuda)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="batch"):
+        K.attention(q, q, q, 0.1)
+    with pytest.raises(ValueError, match="batch"):
+        K.global_correlation_expectation(q, q, torch.zeros(1, 2, device=cuda))
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_refuses_a_bias_with_a_2_wide_v(cuda, dtype):
     """No model biases the 2-wide global attention and no kernel takes
     that form: the launch is refused before it runs and counts nothing."""

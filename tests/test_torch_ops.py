@@ -323,9 +323,38 @@ def test_port_package_imports_without_jax_in_a_fresh_process():
             "comfyui_keep_torch.models.swinir\n"
             "import comfyui_keep_torch.pipeline.tiled, "
             "comfyui_keep_torch.pipeline.realesrganer\n"
+            "import comfyui_keep_torch.models.keep, "
+            "comfyui_keep_torch.models.gmflow, "
+            "comfyui_keep_torch.models.vqgan, "
+            "comfyui_keep_torch.pipeline.processor\n"
+            "import comfyui_keep_torch.ops.spectral, "
+            "comfyui_keep_torch.ops.native, comfyui_keep_torch.ops.conv, "
+            "comfyui_keep_torch.ops.resample, "
+            "comfyui_keep_torch.utils.convert\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'comfyui_keep_tpu', 'cv2')]\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_launch_counts_by_shape_count_kernel_launches_only():
+    """A launch counts once by form and once by its shape; CPU tensors run
+    the plain versions and count nothing; reset_launch_counts clears
+    both."""
+    from comfyui_keep_torch.ops import kernels as K
+    K.reset_launch_counts()
+    q = torch.zeros(2, 4, 128)
+    K.attention(q, q, q, 1.0)
+    K.mlp_fused(q, q, torch.zeros(64, 256), torch.zeros(128, 64),
+                torch.ones(128), torch.zeros(128), True)
+    assert K.LAUNCHES_BY_SHAPE == {} and set(K.LAUNCHES.values()) == {0}
+    K._count("attention[dv128+bias]", "B256 L256")
+    K._count("attention[dv128+bias]", "B256 L256")
+    K._count("packed_conv2x2")
+    assert K.LAUNCHES["attention[dv128+bias]"] == 2
+    assert K.LAUNCHES["packed_conv2x2"] == 1
+    assert K.LAUNCHES_BY_SHAPE == {"attention[dv128+bias] B256 L256": 2}
+    K.reset_launch_counts()
+    assert K.LAUNCHES_BY_SHAPE == {} and set(K.LAUNCHES.values()) == {0}
