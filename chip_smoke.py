@@ -160,6 +160,22 @@ the verdict):
  18. native   dcn_v2_pack at EDVR's shape (64 channels, 8 deformable groups,
               a 180x320 map) and correlation(max_displacement=4), card
               against CPU, ms
+ 19. archs    every arch slice 8 added behind build_network, at its
+              published width (random weights, seeded): card against CPU
+              on a small input within the JAX package's golden tolerance
+              (DFDNet with the CPU's dictionary picks forced, ECBSR's
+              re-parameterised form against the training form), then ms a
+              call and peak GiB at its users' size: SpyNet, BasicVSR,
+              IconVSR and BasicVSR++ on 15 REDS 180x320 frames, EDVR on 5,
+              DUF on 7, TOFlow on 7 Vimeo-90K 256x448 frames, RCAN, RIDNet
+              and ECBSR on one 180x320 frame, HiFaceGAN, DFDNet and VGG19
+              at 512^2, the discriminators at 128^2 and 256^2 (B=16),
+              ArcFace on 16 gray 128^2 faces, Inception on 50 faces
+ 20. metrics  PSNR and SSIM of 20 512^2 faces: the numpy forms on the host
+              against the tensor twins on the card (float64 within 1e-8,
+              1e-6 on Y; float32 1e-4), ms; NIQE of one face; FID between
+              two sets of 50 faces (Inception on the card); cv2 never
+              imported
 The kernel phase also holds K1 at the refinement's fine scale (L = 256,
 the (64, 256, 256) mask, 256 windows) in both dtypes, and K1-K3 in bf16 at
 the shapes of a group of 2 chunks (the "G2" rows). The kernel table's
@@ -2862,6 +2878,336 @@ def phase_native(torch, iters=5):
         fail("native: an op's card output is outside its tolerance")
 
 
+# slice 8: the archs behind build_network, each at its JAX init defaults (the
+# published widths), f32. Card against CPU on a small input, outputs scaled
+# by their largest magnitude, within the (atol, rtol) of the JAX package's
+# golden tests against the reference (1e-4 / 1e-3 where it has none); then
+# timed on the card at a size its users run. DFDNet's dictionary: random
+# atoms of (3, C, 8, 8), as tests/test_face_restore_archs.py draws them.
+ARCH_TOL = {"SpyNet": (1e-3, 1e-2), "TOFlow": (1e-3, 1e-2),
+            "BasicVSR": (2e-3, 1e-2), "EDVR": (2e-3, 1e-2),
+            "BasicVSRPlusPlus": (3e-3, 1e-2), "IconVSR": (3e-3, 1e-2),
+            "DUF": (1e-4, 1e-3), "RCAN": (1e-4, 1e-3), "ECBSR": (1e-4, 1e-3),
+            "RIDNet": (1e-3, 1e-3), "VGGStyleDiscriminator": (1e-3, 1e-3),
+            "UNetDiscriminatorSN": (5e-3, 1e-2),
+            "ResNetArcFace": (1e-3, 1e-2)}
+ARCH_TIME_ITERS = 3   # timed calls per arch at its users' size, after one
+REDS_HW = (180, 320)  # REDS x4 low-resolution frames
+DFD_LOCS = ((96, 96, 160, 160), (352, 96, 416, 160), (224, 192, 288, 288),
+            (192, 352, 320, 416))   # the JAX package's 512^2 part boxes
+DFD_SMALL_LOCS = ((16, 16, 48, 48), (64, 16, 96, 48), (32, 48, 80, 80),
+                  (32, 80, 96, 112))   # inside a 128^2 face's features
+DFD_SCORE_RTOL = 1e-4   # as tests/test_torch_face_archs.py holds them to JAX
+METRIC_FACES, FID_FACES = 20, 50
+METRIC_RTOL_F64, METRIC_RTOL_Y, METRIC_RTOL_F32 = 1e-8, 1e-6, 1e-4
+
+
+def arch_cases(torch):
+    """(label, arch, constructor keywords, small input, users' input,
+    what the users' input is), the inputs as functions of a seed giving
+    CPU tensors (a clip (B, T, 3, H, W), an image batch, or the forward's
+    argument tuple)."""
+    from comfyui_keep_torch.models.dfdnet import CHANNEL_SIZES, FEATURE_SIZES
+    from comfyui_keep_torch.models.dfdnet import PARTS
+
+    def rnd(*shape):
+        return lambda seed: torch.rand(
+            shape, generator=torch.Generator().manual_seed(seed))
+
+    def pair(*shape):
+        return lambda seed: (rnd(*shape)(seed), rnd(*shape)(seed + 1))
+
+    def dfd(size, locs):
+        return lambda seed: (rnd(1, 3, size, size)(seed) * 2 - 1,
+                             [torch.tensor([b]) for b in locs])
+
+    h, w = REDS_HW
+    g = torch.Generator().manual_seed(30)
+    atoms = {str(fs): {p: torch.randn(3, c, 8, 8, generator=g) * 0.1
+                       for p in PARTS}
+             for fs, c in zip(FEATURE_SIZES, CHANNEL_SIZES)}
+    return [
+        ("SpyNet", "SpyNet", {}, pair(2, 3, 64, 64), pair(14, 3, h, w),
+         "14 REDS frame pairs (a 15-frame clip)"),
+        ("BasicVSR", "BasicVSR", {}, rnd(1, 3, 3, 64, 64),
+         rnd(1, 15, 3, h, w), "15 REDS frames, x4"),
+        ("IconVSR", "IconVSR", {}, rnd(1, 5, 3, 64, 64), rnd(1, 15, 3, h, w),
+         "15 REDS frames, x4"),
+        ("BasicVSRPlusPlus", "BasicVSRPlusPlus", {}, rnd(1, 3, 3, 64, 64),
+         rnd(1, 15, 3, h, w), "15 REDS frames, x4"),
+        ("EDVR", "EDVR", {}, rnd(1, 5, 3, 64, 64), rnd(1, 5, 3, h, w),
+         "5 REDS frames, x4 of the centre one"),
+        ("DUF", "DUF", {}, rnd(1, 7, 3, 32, 32), rnd(1, 7, 3, h, w),
+         "7 REDS frames, x4 of the centre one"),
+        ("TOFlow", "TOFlow", {}, rnd(1, 7, 3, 64, 64),
+         rnd(1, 7, 3, 256, 448), "7 Vimeo-90K frames"),
+        ("RCAN", "RCAN", {}, rnd(1, 3, 32, 32), rnd(1, 3, h, w),
+         "one 180x320 frame, x4"),
+        ("RIDNet", "RIDNet", {}, lambda s: rnd(1, 3, 48, 48)(s) * 255,
+         lambda s: rnd(1, 3, h, w)(s) * 255, "one 180x320 frame"),
+        ("ECBSR", "ECBSR", {}, rnd(1, 1, 48, 48), rnd(1, 1, h, w),
+         "one 180x320 Y frame, x4"),
+        ("ECBSR (re-parameterised)", "ECBSR", {}, rnd(1, 1, 48, 48),
+         rnd(1, 1, h, w), "one 180x320 Y frame, x4"),
+        ("HiFaceGAN", "HiFaceGAN", {}, rnd(1, 3, 64, 64),
+         rnd(1, 3, 512, 512), "one 512^2 face"),
+        ("HiFaceGANDiscriminator 256", "HiFaceGANDiscriminator", {},
+         rnd(1, 6, 64, 64), rnd(1, 6, 256, 256), "one 256^2 pair"),
+        ("DFDNet", "DFDNet", {"dictionary": atoms},
+         dfd(128, DFD_SMALL_LOCS), dfd(512, DFD_LOCS), "one 512^2 face"),
+        ("VGG19", "VGGFeatureExtractor",
+         {"layer_name_list": ("relu1_1", "relu2_1", "relu3_1", "relu4_1",
+                              "relu5_1", "conv5_4")},
+         rnd(1, 3, 64, 64), rnd(1, 3, 512, 512), "one 512^2 face"),
+        ("VGGStyleDiscriminator 128", "VGGStyleDiscriminator", {},
+         rnd(2, 3, 128, 128), rnd(16, 3, 128, 128), "B=16 128^2 patches"),
+        ("VGGStyleDiscriminator 256", "VGGStyleDiscriminator",
+         {"input_size": 256}, rnd(2, 3, 256, 256), rnd(16, 3, 256, 256),
+         "B=16 256^2 patches"),
+        ("UNetDiscriminatorSN 128", "UNetDiscriminatorSN", {},
+         rnd(2, 3, 64, 64), rnd(16, 3, 128, 128), "B=16 128^2 patches"),
+        ("UNetDiscriminatorSN 256", "UNetDiscriminatorSN", {},
+         rnd(2, 3, 64, 64), rnd(16, 3, 256, 256), "B=16 256^2 patches"),
+        ("ResNetArcFace", "ResNetArcFace", {}, rnd(2, 1, 128, 128),
+         rnd(16, 1, 128, 128), "B=16 128^2 gray faces"),
+        ("InceptionV3", "InceptionV3", {}, rnd(1, 3, 64, 64),
+         rnd(FID_FACES, 3, 512, 512), "50 512^2 faces resized to 299^2"),
+    ]
+
+
+def flat_outputs(out):
+    """An arch's output as a list of tensors (a dict's values in key
+    order, nested lists flattened)."""
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in flat_outputs(o)]
+    return [out]
+
+
+# deep plain conv stacks whose default-init output is their last bias
+# whatever the input (~sqrt(3) lost a layer): He-scaled for the card against
+# CPU check and the timing (tests/torch_port_helpers.py he_scaled)
+HE_SCALED = ("VGGFeatureExtractor", "VGGStyleDiscriminator", "ResNetArcFace",
+             "InceptionV3")
+
+
+def he_scale(torch, net):
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
+                              torch.nn.Linear)):
+                m.weight.mul_(math.sqrt(6))
+
+
+def live_offsets(torch, net, seed):
+    """The deformable layers' zero-initialised offset predictors drawn
+    N(0, 0.05^2), so the deformable sampling moves off the grid."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in net.named_modules():
+            if name.endswith("conv_offset"):
+                last = m[-1] if isinstance(m, torch.nn.Sequential) else m
+                last.weight.copy_(torch.randn(last.weight.shape, generator=g)
+                                  * 0.05)
+                last.bias.copy_(torch.randn(last.bias.shape, generator=g)
+                                * 0.05)
+
+
+def phase_archs(torch, card_name):
+    """Each arch of arch_cases at full width (random weights, seeded; the
+    deformable offsets live; HE_SCALED's weights He-scaled): card against
+    CPU on the small input (DFDNet: the dictionary scores within
+    DFD_SCORE_RTOL of their largest, the same picks wherever the CPU's top
+    two differ by more, then the CPU's picks forced, as the CPU tests do
+    against JAX; the re-parameterised ECBSR against the CPU's training
+    form within 2e-5 of its scale), then on the card at its users' size:
+    ms a call (after one warm-up) and peak GiB."""
+    from comfyui_keep_torch.models import build_network
+    rows, ok_all = {}, True
+    for i, (label, arch, kw, small, big, what) in enumerate(arch_cases(torch)):
+        t0 = time.perf_counter()
+        cpu = build_network(arch)(device="cpu", generator=torch.Generator()
+                                  .manual_seed(40 + i), **kw)
+        live_offsets(torch, cpu, 60 + i)
+        if arch in HE_SCALED:
+            he_scale(torch, cpu)
+        net = copy.deepcopy(cpu).cuda()
+        xs = small(70 + i)
+        xs = xs if isinstance(xs, tuple) else (xs,)
+        xc = tuple(t.cuda() if torch.is_tensor(t) else t for t in xs)
+        extra = {}
+        rep = label.endswith("(re-parameterised)")
+        with torch.no_grad():
+            if arch == "DFDNet":
+                _, _, scores = cpu.swap_features(*xs)
+                picks = {k: int(v.argmax()) for k, v in scores.items()}
+                _, _, scores_c = net.swap_features(*xc)
+                ref, got = cpu(*xs, picks=picks), net(*xc, picks=picks)
+                extra["score_rel_err"] = max(
+                    rel_err(scores_c[k], v) for k, v in scores.items())
+                extra["picks_differing_unforced"] = sum(
+                    int(scores_c[k].argmax()) != p for k, p in picks.items())
+                extra["picks_differing_past_margin"] = sum(
+                    int(scores_c[k].argmax()) != picks[k]
+                    and float(v.topk(2).values.diff().abs())
+                    > DFD_SCORE_RTOL * float(v.abs().max())
+                    for k, v in scores.items())
+            elif rep:
+                ref = cpu(*xs)
+                got = net.apply_rep(net.rep_params(), *xc)
+            else:
+                ref, got = cpu(*xs), net(*xc)
+        refs, gots = flat_outputs(ref), flat_outputs(got)
+        atol, rtol = (2e-5, 0.0) if rep else ARCH_TOL.get(arch, (1e-4, 1e-3))
+        scale = max(r.abs().max().item() for r in refs)
+        err = max((g.cpu() - r).abs().max().item() for g, r in zip(gots, refs))
+        close = all(torch.allclose(g.cpu() / scale, r / scale, atol=atol,
+                                   rtol=rtol) for g, r in zip(gots, refs))
+        finite = all(torch.isfinite(g).all().item() for g in gots)
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        xb = big(90 + i)
+        xb = tuple(t.cuda() if torch.is_tensor(t) else t
+                   for t in (xb if isinstance(xb, tuple) else (xb,)))
+        reps = net.rep_params() if rep else None
+
+        def call():
+            with torch.no_grad():
+                return net.apply_rep(reps, *xb) if rep else net(*xb)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, call, ARCH_TIME_ITERS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out = flat_outputs(call())
+        big_ok = all(torch.isfinite(o).all().item() for o in out)
+        ok = bool(close and finite and big_ok and len(gots) == len(refs)
+                  and extra.get("score_rel_err", 0) <= DFD_SCORE_RTOL
+                  and not extra.get("picks_differing_past_margin"))
+        ok_all &= ok
+        rows[label] = dict(arch=arch, small_input=list(xs[0].shape),
+                           max_abs_err=err, scale=scale, atol=atol,
+                           rtol=rtol, input=list(xb[0].shape), users=what,
+                           output=list(out[0].shape), ms=ms, peak_gib=peak,
+                           cpu_check_s=cpu_s, **extra, ok=ok)
+        say("archs", name=label, card=card_name, **rows[label])
+        del net, xb
+        torch.cuda.empty_cache()
+    if not ok_all:
+        fail(f"archs: {[k for k, r in rows.items() if not r['ok']]} outside "
+             f"tolerance, not finite, or mis-shaped")
+    return rows
+
+
+def smooth_faces(n, seed, size=512):
+    """n synthetic BGR faces in [0, 255] (float64): smooth shading and an
+    oval, with grain, each shifted."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    out = []
+    for _ in range(n):
+        cx, cy = rng.uniform(0.4, 0.6, 2)
+        oval = ((xx - cx) / 0.3) ** 2 + ((yy - cy) / 0.4) ** 2 < 1
+        base = 90 + 60 * np.sin(6 * xx + rng.uniform(0, 3)) * np.cos(
+            5 * yy) + 70 * oval
+        img = base[..., None] * rng.uniform(0.7, 1.1, 3)
+        out.append(np.clip(img + rng.normal(0, 6, img.shape), 0, 255))
+    return out
+
+
+def phase_metrics(torch, card_name):
+    """PSNR and SSIM of 20 512^2 faces against degraded copies (grain and a
+    shift of levels): the numpy forms on the host (cv2 never imported)
+    against the tensor twins on the card, batched, in float64 (within 1e-8
+    relative; 1e-6 on the Y channel, which the numpy forms convert in
+    float32) and float32 (1e-4), with and without the Y channel and a
+    4-pixel crop; ms of each. NIQE of one face (Y channel), on the host.
+    FID between two sets of 50 faces: InceptionV3 (random weights, seeded)
+    on the card through make_fid_feature_fn, then the distance on the
+    host (Inception He-scaled, as in phase archs); its seconds and a
+    finite value."""
+    from comfyui_keep_torch import metrics as M
+    from comfyui_keep_torch.metrics import fid as F
+    from comfyui_keep_torch.models.inception import (InceptionV3,
+                                                     make_fid_feature_fn)
+    faces = smooth_faces(FID_FACES, 31)
+    rng = np.random.default_rng(32)
+    worse = [np.clip(f + rng.normal(0, 10, f.shape) + 4, 0, 255)
+             for f in faces]
+
+    def batch(imgs, dtype):   # BGR [0, 255] HWC -> RGB [0, 1] NCHW on card
+        a = np.stack(imgs[:METRIC_FACES])[..., ::-1] / 255.0
+        return torch.from_numpy(a.copy()).permute(0, 3, 1, 2).to(
+            "cuda", dtype)
+
+    rows, ok_all = [], True
+    for crop, y in ((0, False), (4, True)):
+        t0 = time.perf_counter()
+        psnr = [M.calculate_psnr(a, b, crop, test_y_channel=y)
+                for a, b in zip(faces[:METRIC_FACES], worse)]
+        ssim = [M.calculate_ssim(a, b, crop, test_y_channel=y)
+                for a, b in zip(faces[:METRIC_FACES], worse)]
+        np_ms = 1e3 * (time.perf_counter() - t0) / METRIC_FACES
+        res = {}
+        for dtype in (torch.float64, torch.float32):
+            x, x2 = batch(faces, dtype), batch(worse, dtype)
+
+            def twins():
+                return (M.calculate_psnr_pt(x, x2, crop, y),
+                        M.calculate_ssim_pt(x, x2, crop, y))
+
+            p, s = (t.cpu().double().numpy() for t in twins())
+            ms = time_ms(torch, twins, 3)
+            # the numpy PSNR with the twin's 1e-8 added to its [0, 1] mse
+            want_p = 10 * np.log10(1 / (10 ** (-np.array(psnr) / 10) + 1e-8))
+            perr = float(np.max(np.abs(p - want_p) / np.abs(want_p)))
+            serr = float(np.max(np.abs(s - np.array(ssim)) / np.abs(ssim)))
+            tol = (METRIC_RTOL_F32 if dtype == torch.float32 else
+                   METRIC_RTOL_Y if y else METRIC_RTOL_F64)
+            good = bool(perr <= tol and serr <= tol)
+            ok_all &= good
+            res[str(dtype).split(".")[1]] = dict(
+                psnr_rel_err=perr, ssim_rel_err=serr, tol=tol,
+                twins_ms_for_20=ms, ok=good)
+        rows.append(dict(crop_border=crop, y_channel=y,
+                         numpy_ms_a_face=np_ms,
+                         mean_psnr=float(np.mean(psnr)),
+                         mean_ssim=float(np.mean(ssim)), twins=res))
+    t0 = time.perf_counter()
+    niqe = M.calculate_niqe(faces[0], 0)
+    niqe_s = time.perf_counter() - t0
+    net = InceptionV3(generator=torch.Generator().manual_seed(33))
+    he_scale(torch, net)
+    fn = make_fid_feature_fn(net)
+
+    t0 = time.perf_counter()
+    sets = []
+    for imgs in (faces, worse):
+        a = np.stack(imgs)[..., ::-1] / 255.0
+        x = torch.from_numpy(a.astype(np.float32)).permute(0, 3, 1, 2)
+        sets.append(F.extract_inception_features([x.cuda()], fn))
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid = M.calculate_fid(*F.feature_stats(sets[0]),
+                          *F.feature_stats(sets[1]))
+    fid_s = time.perf_counter() - t0
+    fid_ok = bool(np.isfinite(fid) and sets[0].shape == (FID_FACES, 2048))
+    ok_all &= fid_ok and bool(np.isfinite(niqe))
+    no_cv2 = "cv2" not in sys.modules
+    ok_all &= no_cv2
+    say("metrics", card=card_name, faces=METRIC_FACES, size=[512, 512],
+        psnr_ssim=rows, niqe_y=niqe, niqe_s=niqe_s, fid_faces=FID_FACES,
+        fid=fid, fid_features_s=feat_s, fid_distance_s=fid_s,
+        cv2_imported=not no_cv2, ok=bool(ok_all))
+    if not ok_all:
+        fail("metrics: a twin outside its tolerance of the numpy form, a "
+             "non-finite NIQE or FID, or cv2 imported")
+    del net
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2923,6 +3269,8 @@ def main():
     refine_counts = phase_gmflow_refine(torch)
     vqgan_counts = phase_vqgan(torch)
     phase_native(torch)
+    phase_archs(torch, card)
+    phase_metrics(torch, card)
 
     srcs = {"attention": ("comfyui_keep_torch/csrc/attention.cu",
                           "comfyui_keep_tpu/ops/pallas_kernels.py:210"),

@@ -26,6 +26,7 @@ from comfyui_keep_torch.ops import (batch_norm, conv2d, max_pool, swish,
                                     upsample_nearest_2x)
 from comfyui_keep_torch.utils import cvops
 from comfyui_keep_torch.utils.resize import resize
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 ANCHORS = [[4, 5, 8, 10, 13, 16], [23, 29, 43, 55, 73, 105],
            [146, 217, 231, 300, 335, 433]]
@@ -251,6 +252,7 @@ class Detect(nn.Module):
         return torch.cat(outs, 1)
 
 
+@ARCH_REGISTRY.register()
 class YoloFace(nn.Module):
     def __init__(self, config: str = "yolov5n", device="cuda",
                  dtype: Optional[torch.dtype] = None,

@@ -18,6 +18,7 @@ from torch import nn
 from comfyui_keep_torch.models.init import default_init_, finish
 from comfyui_keep_torch.ops import (batch_norm, conv2d, max_pool, relu,
                                     resize_bilinear, resize_nearest)
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 
 class ConvBNReLU(nn.Module):
@@ -147,6 +148,7 @@ class BiSeNetOutput(nn.Module):
         return conv2d(feat, self.conv_out.weight), feat
 
 
+@ARCH_REGISTRY.register()
 class BiSeNet(nn.Module):
     def __init__(self, num_class: int = 19, device="cuda",
                  dtype: Optional[torch.dtype] = None,

@@ -32,6 +32,7 @@ from comfyui_keep_torch.ops import (conv2d, flow_warp, grid_sample,
                                     instance_norm, layer_norm, linear, relu,
                                     resize_bilinear)
 from comfyui_keep_torch.ops.act import tanh_gelu
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -363,6 +364,7 @@ def upsample_flow_convex(upsampler: nn.Sequential, flow, feature,
 # Full model
 # ---------------------------------------------------------------------------
 
+@ARCH_REGISTRY.register()
 class GMFlow(nn.Module):
     FEATURE_CHANNELS = 128
     UPSAMPLE_FACTOR = 8

@@ -12,6 +12,8 @@ import math
 import torch
 from torch import nn
 
+from comfyui_keep_torch.ops.spectral import power_iteration_v
+
 
 def default_init_(module: nn.Module, generator: torch.Generator):
     """Re-draw every Conv2d/Conv3d/Linear weight and bias of `module` in
@@ -29,6 +31,28 @@ def default_init_(module: nn.Module, generator: torch.Generator):
                 bb = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
                 m.bias.copy_(torch.empty(m.bias.shape).uniform_(
                     -bb, bb, generator=generator))
+
+
+def spectral_init_(module: nn.Module, generator: torch.Generator):
+    """Re-draw every spectral-norm layer of `module` (a module holding
+    `weight_orig` and the power-iteration vectors `weight_u`, `weight_v`)
+    in place, in module order: the weight and bias with torch's default
+    bounds, u a unit Gaussian draw, v the power iteration's first step
+    from u."""
+    with torch.no_grad():
+        for m in module.modules():
+            if not hasattr(m, "weight_orig"):
+                continue
+            w = m.weight_orig
+            bound = 1.0 / math.sqrt(w[0].numel())  # kaiming_uniform(a=sqrt 5)
+            w.copy_(torch.empty(w.shape).uniform_(-bound, bound,
+                                                  generator=generator))
+            if m.bias is not None:
+                m.bias.copy_(torch.empty(m.bias.shape).uniform_(
+                    -bound, bound, generator=generator))
+            u = torch.randn(m.weight_u.shape, generator=generator)
+            m.weight_u.copy_(u / u.norm())
+            m.weight_v.copy_(power_iteration_v(w, m.weight_u))
 
 
 def zero_(module: nn.Module):

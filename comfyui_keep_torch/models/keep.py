@@ -29,6 +29,7 @@ from comfyui_keep_torch.models.vqgan import (BlockStack, ResBlock,
                                              phase_generator_start)
 from comfyui_keep_torch.ops import (conv2d, flow_warp_xy, layer_norm, linear,
                                     resize_bilinear)
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 
 def arch_tables(cfg):
@@ -117,6 +118,7 @@ def kalman_calc_gain(kf: KalmanFilter, z_codes):
     return g.permute(0, 1, 3, 4, 2)
 
 
+@ARCH_REGISTRY.register()
 class KEEP(nn.Module):
     """The KEEP network. Parameter names are the reference's (with the
     current `cfa` / `cft` module names), without the flow net."""

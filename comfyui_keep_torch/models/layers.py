@@ -1,6 +1,6 @@
 """Transformer and fusion blocks of the KEEP arch (reference keep_arch.py),
-ported from comfyui_keep_tpu/models/layers.py: only what KEEP's forward
-reaches. Token tensors are (B, L, C); feature maps NCHW. Parameter names
+ported from comfyui_keep_tpu/models/layers.py: what KEEP's forward
+reaches, and the AdaIN DFDNet uses. Token tensors are (B, L, C); feature maps NCHW. Parameter names
 are the reference's.
 """
 
@@ -216,3 +216,18 @@ class BasicTransformerBlock(nn.Module):
         xt = self.attn_temp(_ln(self.norm_temp, xt)) + xt
         return xt.reshape(b, d, video_length, c).transpose(1, 2).reshape(
             bf, d, c)
+
+
+def adaptive_instance_normalization(content, style, eps: float = 1e-5):
+    """AdaIN colour transfer (keep_arch.py), NCHW: content normalised by its
+    per-(N, C) mean and standard deviation over H and W, then given
+    style's. The variance is the biased one (the JAX package's jnp.var),
+    not torch.var's unbiased default."""
+    def stats(f):
+        var, mean = torch.var_mean(f, dim=(-2, -1), keepdim=True,
+                                   correction=0)
+        return mean, torch.sqrt(var + eps)
+
+    cm, cs = stats(content)
+    sm, ss = stats(style)
+    return (content - cm) / cs * ss + sm

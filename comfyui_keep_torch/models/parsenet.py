@@ -16,6 +16,7 @@ from torch import nn
 from comfyui_keep_torch.models.init import default_init_, finish
 from comfyui_keep_torch.ops import (batch_norm, conv2d, leaky_relu,
                                     reflect_pad, upsample_nearest_2x)
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 
 def _channels(in_size=512, out_size=512, min_feat_size=32, base_ch=64,
@@ -84,6 +85,7 @@ class ResidualBlock(nn.Module):
         return identity + self.conv2(self.conv1(x))
 
 
+@ARCH_REGISTRY.register()
 class ParseNet(nn.Module):
     def __init__(self, in_size: int = 512, out_size: int = 512,
                  min_feat_size: int = 32, base_ch: int = 64,

@@ -24,6 +24,7 @@ from comfyui_keep_torch.models.init import default_init_, finish
 from comfyui_keep_torch.models.resnet import ResNet50Body
 from comfyui_keep_torch.ops import (batch_norm, conv2d, leaky_relu, relu,
                                     resize_nearest)
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 CFG = {
     "resnet50": dict(min_sizes=[[16, 32], [64, 128], [256, 512]],
@@ -148,6 +149,7 @@ class Head(nn.Module):
         return out.permute(0, 2, 3, 1).reshape(out.shape[0], -1, self.n_out)
 
 
+@ARCH_REGISTRY.register()
 class RetinaFace(nn.Module):
     def __init__(self, network: str = "resnet50", device="cuda",
                  dtype: Optional[torch.dtype] = None,

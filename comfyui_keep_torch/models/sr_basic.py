@@ -19,6 +19,7 @@ from torch import nn
 from comfyui_keep_torch.models.init import default_init_, finish
 from comfyui_keep_torch.ops import (conv2d, leaky_relu, relu, resize_bilinear,
                                     resize_nearest, upsample_nearest_2x)
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 
@@ -91,6 +92,7 @@ class RRDB(nn.Module):
         return self.rdb3(self.rdb2(self.rdb1(x))) * 0.2 + x
 
 
+@ARCH_REGISTRY.register()
 class RRDBNet(nn.Module):
     """x4 by two nearest x2 upsamplings; scale 2 and 1 pixel_unshuffle the
     input by 2 and 4 first (rrdbnet_arch.py:107-122)."""
@@ -130,6 +132,7 @@ class RRDBNet(nn.Module):
 
 # -- SRVGGNetCompact -------------------------------------------------------------
 
+@ARCH_REGISTRY.register()
 class SRVGGNetCompact(nn.Module):
     """num_conv + 2 convolutions at the input's size, an activation after
     each but the last, pixel_shuffle by `upscale`, plus the nearest
@@ -172,6 +175,7 @@ class SRVGGNetCompact(nn.Module):
 
 # -- MSRResNet -------------------------------------------------------------------
 
+@ARCH_REGISTRY.register()
 class MSRResNet(nn.Module):
     def __init__(self, num_in_ch: int = 3, num_out_ch: int = 3,
                  num_feat: int = 64, num_block: int = 16, upscale: int = 4,
@@ -229,6 +233,7 @@ def run_upsample(layers: nn.Sequential, x):
     return x
 
 
+@ARCH_REGISTRY.register()
 class EDSR(nn.Module):
     def __init__(self, num_in_ch: int = 3, num_out_ch: int = 3,
                  num_feat: int = 64, num_block: int = 16, upscale: int = 4,

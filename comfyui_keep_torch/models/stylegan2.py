@@ -24,6 +24,7 @@ from comfyui_keep_torch.models.init import finish
 from comfyui_keep_torch.ops.native import (fused_leaky_relu,
                                            make_resample_kernel, upfirdn2d)
 from comfyui_keep_torch.ops.resample import resize_bilinear
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 SQRT2 = math.sqrt(2.0)
 RESAMPLE_KERNEL = (1, 3, 3, 1)
@@ -290,6 +291,7 @@ def _stored_noises(num_layers):
     return noises
 
 
+@ARCH_REGISTRY.register()
 class StyleGAN2Generator(nn.Module):
     """StyleGAN2 generator: the mapping MLP (style_mlp), a 4x4 constant
     input, two style convs per resolution up to out_size and a ToRGB skip
@@ -415,6 +417,7 @@ class ResBlock(nn.Module):
         return (self.conv2(self.conv1(x)) + self.skip(x)) / SQRT2
 
 
+@ARCH_REGISTRY.register()
 class StyleGAN2Discriminator(nn.Module):
     """StyleGAN2 discriminator: ResBlocks down to 4x4, the minibatch-stddev
     channel over groups of min(B, stddev_group), a 3x3 conv and two linear

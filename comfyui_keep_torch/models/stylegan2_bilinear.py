@@ -5,7 +5,9 @@ state_dict names of StyleGAN2Generator, with bilinear up-sampling
 (ops/resample.py resize_bilinear) before a plain modulated conv and for the
 ToRGB skip, instead of the FIR."""
 from comfyui_keep_torch.models.stylegan2 import StyleGAN2Generator
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 
+@ARCH_REGISTRY.register()
 class StyleGAN2GeneratorBilinear(StyleGAN2Generator):
     bilinear = True

@@ -27,6 +27,7 @@ from comfyui_keep_torch.models.sr_basic import (RGB_MEAN, conv3x3,
                                                 upsample_layers)
 from comfyui_keep_torch.ops import gelu, layer_norm, leaky_relu, linear
 from comfyui_keep_torch.ops.resample import resize_nearest
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 NUM_FEAT = 64
 
@@ -181,6 +182,7 @@ class RSTB(nn.Module):
         return img.flatten(2).transpose(1, 2) + tokens
 
 
+@ARCH_REGISTRY.register()
 class SwinIR(nn.Module):
     """x (B, C, H, W) in [0, 1] -> (B, C, H s, W s); H and W multiples of
     window_size. The input is centred on RGB_MEAN (3 channels) and scaled

@@ -22,7 +22,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from comfyui_keep_torch.models.init import default_init_, finish
+from comfyui_keep_torch.models.init import (default_init_, finish,
+                                            spectral_init_)
 from comfyui_keep_torch.ops import (batch_norm, conv2d, conv3d, group_norm,
                                     leaky_relu, linear, softmax_attention,
                                     spectral_norm_weight, swish,
@@ -30,6 +31,7 @@ from comfyui_keep_torch.ops import (batch_norm, conv2d, conv3d, group_norm,
 from comfyui_keep_torch.ops import kernels as K
 from comfyui_keep_torch.ops import phase_pack as pp
 from comfyui_keep_torch.ops.norm import GN_EPS
+from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 
 def encoder_plan(in_channels: int, nf: int, emb_dim: int,
@@ -420,6 +422,7 @@ def vq_quantize(quantizer: VectorQuantizer, z, beta: float = 0.25):
     return z_q, loss, stats
 
 
+@ARCH_REGISTRY.register()
 class VQHQEncoder(nn.Module):
     """Encoder + nearest-code quantizer (reference vqgan_arch.py
     VQHQEncoder): the frozen net whose codes of the ground-truth frames
@@ -510,6 +513,7 @@ def gumbel_quantize(quantizer: GumbelQuantizer, z,
     return z_q, diff, {"min_encoding_indices": idx}
 
 
+@ARCH_REGISTRY.register()
 class VQAutoEncoder(nn.Module):
     """Stage-I VQGAN (reference vqgan_arch.py VQAutoEncoder): encoder,
     quantizer ("nearest", through the nearest-codebook kernel, or
@@ -567,6 +571,7 @@ class VQAutoEncoder(nn.Module):
         return out.permute(0, 2, 3, 1), loss, stats
 
 
+@ARCH_REGISTRY.register()
 class VQGANDiscriminator(nn.Module):
     """PatchGAN discriminator (reference vqgan_arch.py VQGANDiscriminator):
     `main` holds 4x4 convs (stride 2, then 1), BatchNorm after each inner
@@ -626,6 +631,7 @@ class SpectralNormConv3d(nn.Module):
         return conv3d(x, w, self.bias, self.stride, self.padding)
 
 
+@ARCH_REGISTRY.register()
 class Discriminator3D(nn.Module):
     """Spectral-norm Conv3d video discriminator of stage-III GAN training
     (reference vqgan_arch.py Discriminator3D): five (3, 5, 5) convs of
@@ -657,15 +663,7 @@ class Discriminator3D(nn.Module):
         self.conv = nn.Sequential(*layers)
         if generator is not None:
             default_init_(self, generator)
-            with torch.no_grad():
-                for m in self.conv:
-                    if isinstance(m, SpectralNormConv3d):
-                        w = m.weight_orig
-                        bound = 1.0 / w[0].numel() ** 0.5  # kaiming(a=sqrt 5)
-                        w.copy_(torch.empty(w.shape).uniform_(
-                            -bound, bound, generator=generator))
-                        u = torch.randn(m.weight_u.shape, generator=generator)
-                        m.weight_u.copy_(u / u.norm())
+            spectral_init_(self, generator)
         finish(self, device, dtype)
 
     def forward(self, x):

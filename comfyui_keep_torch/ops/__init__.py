@@ -10,6 +10,7 @@ from comfyui_keep_torch.ops.resample import (avg_pool_2x, max_pool,
                                              reflect_pad, resize_bilinear,
                                              resize_nearest,
                                              upsample_nearest_2x)
-from comfyui_keep_torch.ops.spectral import spectral_norm_weight
+from comfyui_keep_torch.ops.spectral import (power_iteration_v,
+                                             spectral_norm_weight)
 from comfyui_keep_torch.ops.warp import (flow_warp, flow_warp_xy, grid_sample,
                                          resize_flow)

@@ -13,9 +13,10 @@ import torch.nn.functional as F
 Padding = Union[int, Sequence[Tuple[int, int]]]
 
 
-def conv2d(x, w, b=None, stride: int = 1, padding: Padding = 0):
-    """x: (N, Cin, H, W); w: (Cout, Cin, kh, kw). padding is an int or
-    [(top, bottom), (left, right)]."""
+def conv2d(x, w, b=None, stride: int = 1, padding: Padding = 0,
+           dilation: int = 1, groups: int = 1):
+    """x: (N, Cin, H, W); w: (Cout, Cin / groups, kh, kw). padding is an
+    int or [(top, bottom), (left, right)]."""
     if not isinstance(padding, int):
         (top, bottom), (left, right) = padding
         if top == bottom and left == right:
@@ -23,7 +24,8 @@ def conv2d(x, w, b=None, stride: int = 1, padding: Padding = 0):
         else:
             x = F.pad(x, (left, right, top, bottom))
             padding = 0
-    return F.conv2d(x, w, b, stride=stride, padding=padding)
+    return F.conv2d(x, w, b, stride=stride, padding=padding,
+                    dilation=dilation, groups=groups)
 
 
 def conv3d(x, w, b=None, stride=1, padding=0, dilation=1):

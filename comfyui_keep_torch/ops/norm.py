@@ -31,7 +31,11 @@ def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
 
 
 def instance_norm(x, eps: float = 1e-5):
-    """x: (N, C, H, W); per-(N, C) spatial statistics, no affine."""
+    """x: (N, C, H, W); per-(N, C) spatial statistics, no affine. A 1 x 1
+    map normalises to 0 (its variance is 0), as in the JAX package, where
+    F.instance_norm refuses it."""
+    if x.shape[-1] * x.shape[-2] == 1:
+        return torch.zeros_like(x)
     ct = torch.promote_types(x.dtype, torch.float32)
     return F.instance_norm(x.to(ct), eps=eps).to(x.dtype)
 

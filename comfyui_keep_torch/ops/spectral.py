@@ -27,3 +27,9 @@ def spectral_norm_weight(w, u, n_power_iterations: int = 1,
         u = _l2normalize(wd @ v, eps)
     sigma = u @ (wm @ v)
     return w / sigma, u
+
+
+def power_iteration_v(w, u, eps: float = 1e-12):
+    """v = W^T u normalised, the first step of the power iteration from u:
+    what torch's spectral_norm keeps as weight_v (w: (O, ...), u: (O,))."""
+    return _l2normalize(w.reshape(w.shape[0], -1).t() @ u, eps)

@@ -2,7 +2,8 @@
 gan_loss.py), ported from comfyui_keep_tpu/training/losses.py: the pixel
 losses, GANLoss (five types), the R1 penalty and StyleGAN2's path-length
 regularisation. Layout-free: they reduce elementwise differences. The
-perceptual loss waits for VGG (ROADMAP Queue 1: the remaining archs)."""
+other losses, PerceptualLoss among them (on models/vgg.py), are ROADMAP
+Queue 1, item 6.2: the rest of training."""
 import math
 from typing import Callable, Dict, Optional
 
@@ -142,6 +143,6 @@ def build_loss(opt: Dict):
     loss_type = opt.pop("type")
     if loss_type not in LOSSES:
         raise NotImplementedError(
-            f"loss {loss_type} is not ported yet (ROADMAP Queue 1: the "
-            "remaining archs)")
+            f"loss {loss_type} is not ported yet (ROADMAP Queue 1, item "
+            "6: the rest of training; the losses are 6.2)")
     return LOSSES[loss_type](**opt)

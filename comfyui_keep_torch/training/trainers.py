@@ -156,8 +156,9 @@ class KEEPTrainer(BaseTrainer):
         self.cri_pix = build_loss(t["pixel_opt"]) if t.get("pixel_opt") \
             else None
         if t.get("perceptual_opt"):
-            raise NotImplementedError("the perceptual loss waits for VGG "
-                                      "(ROADMAP Queue 1: the remaining archs)")
+            raise NotImplementedError(
+                "the perceptual loss is not ported yet (ROADMAP Queue 1, "
+                "item 6: the rest of training, PerceptualLoss is 6.2)")
         self.cri_temporal = build_loss(t["temporal_opt"]) \
             if t.get("temporal_opt") else None
         self.temporal_type = t.get("temporal_warp_type", "GT")

@@ -434,8 +434,18 @@ GRAY_SHIFT = 15
 def bgr_to_gray(img):
     """cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) of a uint8 or uint16 (H, W, 3)
     image (numpy, or an integer tensor on any device): OpenCV's fixed-point
-    luma, (B 3735 + G 19235 + R 9798 + 2^14) >> 15, for both depths. The
-    result is (H, W), of the input's kind and dtype."""
+    luma, (B 3735 + G 19235 + R 9798 + 2^14) >> 15, for both depths; of a
+    float32 numpy image, OpenCV 5's fused form fma(R, 0.299f, fma(B,
+    0.114f, G * 0.587f)) in float32 (each fma emulated in float64: the
+    products are exact there). The result is (H, W), of the input's kind
+    and dtype."""
+    if isinstance(img, np.ndarray) and img.dtype == np.float32:
+        x = img.astype(np.float64)
+        cb, cg, cr = (np.float64(np.float32(c)) for c in (0.114, 0.587,
+                                                          0.299))
+        t = (x[..., 0] * cb + (x[..., 1] * cg).astype(np.float32)).astype(
+            np.float32)
+        return (x[..., 2] * cr + t).astype(np.float32)
     is_tensor = torch.is_tensor(img)
     x = (img if is_tensor else torch.from_numpy(
         np.ascontiguousarray(img).astype(np.int64))).to(torch.int64)

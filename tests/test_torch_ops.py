@@ -331,6 +331,21 @@ def test_port_package_imports_without_jax_in_a_fresh_process():
             "comfyui_keep_torch.ops.native, comfyui_keep_torch.ops.conv, "
             "comfyui_keep_torch.ops.resample, "
             "comfyui_keep_torch.utils.convert\n"
+            "import comfyui_keep_torch.models.vgg, "
+            "comfyui_keep_torch.models.spynet, "
+            "comfyui_keep_torch.models.video_sr, "
+            "comfyui_keep_torch.models.misc_archs, "
+            "comfyui_keep_torch.models.sr_extra, "
+            "comfyui_keep_torch.models.discriminators, "
+            "comfyui_keep_torch.models.hifacegan, "
+            "comfyui_keep_torch.models.dfdnet, "
+            "comfyui_keep_torch.models.inception\n"
+            "import comfyui_keep_torch.metrics, "
+            "comfyui_keep_torch.utils.registry, "
+            "comfyui_keep_torch.utils.color, "
+            "comfyui_keep_torch.utils.matlab\n"
+            "from comfyui_keep_torch.models import build_network\n"
+            "build_network('DFDNet')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'comfyui_keep_tpu', 'cv2')]\n"
             "assert not bad, bad\n")

@@ -1,5 +1,8 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): seeded
-BatchNorm statistics, param-tree comparison, relative error."""
+BatchNorm statistics, signal-keeping weights, param-tree comparison,
+relative error."""
+import math
+
 import numpy as np
 import torch
 
@@ -17,6 +20,27 @@ def randomize_bn(model, seed):
                 m.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
                 m.running_var.copy_(torch.rand(c, generator=g) * 1.5 + 0.5)
     return model
+
+
+def he_scaled(model):
+    """Every conv and linear weight times sqrt(6): torch's default init
+    (variance 1 / (3 fan_in)) shrinks a plain conv stack's signal by ~sqrt(3)
+    a layer, so a deep one (VGG-style, Inception, ArcFace) outputs its last
+    bias whatever the input; He's variance 2 / fan_in keeps it."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
+                              torch.nn.Linear)):
+                m.weight.mul_(math.sqrt(6))
+    return model
+
+
+def torchvision_vgg(vgg):
+    """A port VGGFeatureExtractor's convolutions as torchvision's
+    `features.N.*` numpy state dict (N the layer's index in `names`)."""
+    return {f"features.{vgg.names.index(k.split('.')[1])}.{k.split('.')[2]}":
+            v.numpy() for k, v in vgg.state_dict().items()
+            if k.startswith("vgg_net.")}
 
 
 def flat(tree, path=()):
