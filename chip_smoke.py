@@ -121,6 +121,24 @@ the verdict):
               and clips), f32 as configured, then mixed precision: ms/step,
               frames/s, peak GiB, losses, launches per step; frozen leaves
               unchanged, trainable ones moved, the EMA rule held
+     train_gan  options/train_keep_stage3_gan.yml (STAGE3_OPT; the one
+              departure, the dataset's scale 1) through train_pipeline at
+              full width (KEEP 512x512, Discriminator3D, B=1 x 8 frames,
+              f32, random weights) on a synthetic 12-frame PNG clip in
+              VFHQ layout: 2 iterations with a save at 2, an
+              auto_resume alone (no step), then auto_resume to 3. Losses
+              finite with l_g_gan, l_d, l_d_real, l_d_fake; frozen leaves
+              unchanged, watched G and D leaves moved from the init, D's
+              weight_u kept, the EMA rule; K1-K4 launches per alternation
+              as derived from the code (two flow_from_clip calls and one
+              codebook search), counted over the 2 iterations and over
+              the resumed one; net_g_2.pth and 2.state written; the
+              resume starting at 2 with every restored tensor equal to
+              the saved one; the resumed step against the uninterrupted
+              one on its batch, cuDNN deterministic (GAN_RESUME_RTOL),
+              and a lost EMA or lost Adam moments reading above it. ms
+              per alternation (train_pipeline's step times), data ms
+              (AvgTimer), peak GiB, save and resume seconds
  12. kernel   (fused_bias_lrelu) the fused bias + leaky ReLU kernel against
               its plain version at StyleGAN2's largest activation, (4, 32,
               1024, 1024), and at the mapping MLP's (4, 512), in bf16 and
@@ -195,6 +213,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -325,6 +344,40 @@ TRAIN_OPT = {
         "scheduler": {"type": "MultiStepLR", "milestones": [400000],
                       "gamma": 0.5},
         "total_iter": 500000, "warmup_iter": -1, "ema_decay": 0.995},
+}
+# options/train_keep_stage3_gan.yml as a dict (no pyyaml on the card
+# machine; tests/test_torch_gan_training.py holds the two to each other).
+# One departure: the dataset's `scale: 1`. The yml sets none, and the
+# dataset's default of 4 gives KEEP's 512 net a 128^2 LQ clip, on which both
+# packages raise (ROADMAP Queue 3). Phase train_gan then points the dataset
+# at its synthetic clip and the paths at a temporary directory, and runs 2
+# iterations with a save at 2, then resumes to 3.
+STAGE3_OPT = {
+    "name": "keep_stage3_gan",
+    "model_type": "KEEPGANModel",
+    "manual_seed": 0,
+    "network_g": {"type": "KEEP", "img_size": 512,
+                  "fix_modules": ["quantize", "generator"],
+                  "temp_reg_list": ["32"]},
+    "network_d": {"type": "Discriminator3D", "args": {}},
+    "datasets": {"train": {
+        "type": "VFHQDataset", "dataroot_gt": "datasets/VFHQ/GT",
+        "meta_info_file": "datasets/VFHQ/meta_info.txt", "num_frame": 8,
+        "batch_size_per_gpu": 1, "scale": 1}},
+    "train": {
+        "use_hq_feat_loss": True, "feat_loss_weight": 1.0,
+        "cross_entropy_loss": True, "entropy_loss_weight": 0.5,
+        "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
+        "temporal_opt": {"type": "L1Loss", "loss_weight": 0.1},
+        "temporal_warp_type": "GT",
+        "gan_opt": {"type": "GANLoss", "gan_type": "hinge",
+                    "loss_weight": 1e-2},
+        "net_d_iters": 1, "net_d_start_iter": 0,
+        "optim_g": {"type": "Adam", "lr": 5e-5},
+        "optim_d": {"type": "Adam", "lr": 5e-5},
+        "total_iter": 100000, "ema_decay": 0.995},
+    "logger": {"print_freq": 100, "save_checkpoint_freq": 1e4},
+    "path": {"experiments_root": "experiments/keep_stage3"},
 }
 # the tiny configuration of train_parity (the tests' TINY KEEP)
 TINY = dict(img_size=64, nf=32, ch_mult=(1, 2, 2), res_blocks=2,
@@ -3208,6 +3261,247 @@ def phase_metrics(torch, card_name):
     torch.cuda.empty_cache()
 
 
+# train_gan: the resumed step against the uninterrupted one on one batch,
+# with cuDNN deterministic, as each group's distance between the two
+# continuations over that group's own change in the step. The step is not
+# bitwise repeatable on the card (grid_sample's backward, in the temporal
+# loss's flow warp, adds with atomics). The card read G 9.4e-10, EMA
+# 3.8e-10, G's Adam moments 9.4e-9 and D 0 in two runs: the limits sit ~10x
+# and more above them. The phase also reads what a resume that lost the
+# EMA, or G's Adam moments, would give (GAN_RESUME_CONTROLS): each must
+# read above its group's limit.
+GAN_RESUME_RTOL = {"G": 1e-6, "EMA": 1e-6, "G Adam": 1e-7, "D": 1e-7,
+                   "D Adam": 1e-7}
+GAN_RESUME_CONTROLS = {"lost EMA": "EMA", "lost G Adam moments": "G"}
+GAN_CLIP_FRAMES = 12
+
+
+def write_vfhq_clip(root, frames, size):
+    """A synthetic VFHQ-layout clip: `frames` smooth moving 512^2 patterns
+    as PNG (utils/png.py) under root/GT/clip_000, and its meta file (one
+    line a frame, clip/length/index). Returns (dataroot_gt, meta file)."""
+    from comfyui_keep_torch.utils import png
+    clip = os.path.join(root, "GT", "clip_000")
+    os.makedirs(clip)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    rng = np.random.default_rng(0)
+    waves = rng.uniform(0.5, 4.0, (3, 2))
+    for i in range(frames):
+        img = np.stack([np.sin(2 * np.pi * (a * xx + b * yy) + 0.3 * i + c)
+                        for c, (a, b) in enumerate(waves)], axis=-1)
+        png.imwrite_bgr(os.path.join(clip, f"{i:08d}.png"),
+                        ((img + 1) * 127.5).astype(np.uint8))
+    meta = os.path.join(root, "meta_info.txt")
+    with open(meta, "w") as f:
+        f.writelines(f"clip_000/{frames}/{i}\n" for i in range(frames))
+    return os.path.join(root, "GT"), meta
+
+
+def phase_train_gan(torch, card):
+    """KEEP stage III through the train loop at full width: train_pipeline
+    on STAGE3_OPT (KEEP 512^2, Discriminator3D, B = 1 x 8 frames, f32) over
+    a synthetic 12-frame clip, 2 iterations with a save at 2; an
+    auto-resume alone (to total_iter 2: no step) against the saved state;
+    an auto-resume to 3, its step against the uninterrupted one on the same
+    batch. Returns the K1-K6 launches of the resumed run's one alternation,
+    its counters reset just before it."""
+    from comfyui_keep_torch.models.gmflow import GMFlow
+    from comfyui_keep_torch.models.keep import config
+    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.training import train as train_mod
+    cfg = config("KEEP", **{k: v for k, v in STAGE3_OPT["network_g"].items()
+                            if k not in ("type", "fix_modules")})
+    hq = VQHQEncoder(**{k: cfg[k] for k in HQ_KEYS}, device="cpu",
+                     generator=torch.Generator().manual_seed(1))
+    gm = GMFlow(device="cpu", generator=torch.Generator().manual_seed(2))
+    kw = {"hq_vqgan": hq, "gmflow": gm}
+    # one alternation: KEEPTrainer._loss_outs runs flow_from_clip on the LQ
+    # clip and (temporal_warp_type GT) on the GT clip, and one
+    # nearest-codebook launch for the GT codes (_gt_indices);
+    # Discriminator3D launches none of K1-K6
+    per_iter = {**gmflow_launches(2), "vq_nearest_indices": 1,
+                "fused_bias_lrelu": 0, "packed_conv2x2": 0}
+    watch = ("feat_emb.weight", "position_emb", "encoder.blocks.0.weight",
+             "ft_layers.0.linear1.weight", "idx_pred_layer.1.weight",
+             "cft.32.scale.2.bias")
+    ema_leaf = "feat_emb.weight"
+
+    def flat(tr, st):
+        """Every tensor a resume restores, by group."""
+        osd, dsd = st.optimizer.state_dict(), tr.d_optimizer.state_dict()
+        return {"G": st.model.state_dict(), "EMA": st.ema,
+                "G Adam": {f"{i}.{k}": v for i, s in osd["state"].items()
+                           for k, v in s.items()},
+                "D": tr.disc.state_dict(),
+                "D Adam": {f"{i}.{k}": v for i, s in dsd["state"].items()
+                           for k, v in s.items()}}
+
+    def cloned(groups):
+        return {g: {k: v.clone() for k, v in d.items()}
+                for g, d in groups.items()}
+
+    def over_step(got, straight, saved):
+        """|got - straight| / |straight - saved| over a group's tensors."""
+        dist = sum((got[k].float() - straight[k].float()).norm() ** 2
+                   for k in saved) ** 0.5
+        moved = sum((straight[k].float() - saved[k].float()).norm() ** 2
+                    for k in saved) ** 0.5
+        if moved > 0:
+            return (dist / moved).item()
+        return 0.0 if dist == 0 else math.inf
+
+    def runs(opt, max_iters):
+        state, logs = train_mod.train_pipeline(opt, max_iters=max_iters,
+                                               trainer_kwargs=kw)
+        torch.cuda.synchronize()
+        return state, logs.pop("run"), logs
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    work = tempfile.mkdtemp(prefix="train_gan_")
+    try:
+        gt_root, meta = write_vfhq_clip(work, GAN_CLIP_FRAMES,
+                                        cfg["img_size"])
+        opt = copy.deepcopy(STAGE3_OPT)
+        opt["datasets"]["train"].update(dataroot_gt=gt_root,
+                                        meta_info_file=meta)
+        opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 2}
+        exp = os.path.join(work, "exp")
+        opt["path"] = {"experiments_root": exp,
+                       "models": os.path.join(exp, "models"),
+                       "training_states": os.path.join(exp,
+                                                       "training_states"),
+                       "log": exp}
+        opt["is_train"] = True
+        resume_opt = {**opt, "auto_resume": True}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        st1, run1, logs1 = runs(opt, 2)
+        counts = {k: launch_counts(K).get(k, 0) for k in per_iter}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tr1 = run1["trainer"]
+        # the inits the run started from, made again as make_state makes
+        # them (on the CPU, from manual_seed)
+        init = tr1.init_model().state_dict()
+        d_init = tr1.init_disc().state_dict()
+        params = {n: p.detach().cpu() for n, p
+                  in st1.model.named_parameters()}
+        frozen = [n for n, p in st1.model.named_parameters()
+                  if not p.requires_grad]
+        frozen_same = bool(frozen) and all(
+            n.split(".")[0] in ("quantize", "generator")
+            and torch.equal(params[n], init[n]) for n in frozen)
+        watch_moved = all(not torch.equal(params[n], init[n]) for n in watch)
+        d_sd = {k: v.cpu() for k, v in tr1.disc.state_dict().items()}
+        d_moved = all(not torch.equal(d_sd[k], v) for k, v in d_init.items()
+                      if k.endswith("orig"))
+        u_same = all(torch.equal(d_sd[k], v) for k, v in d_init.items()
+                     if k.endswith("weight_u"))
+        del init, d_init, params, d_sd
+        files = sorted(os.listdir(os.path.join(exp, "models"))
+                       + os.listdir(os.path.join(exp, "training_states")))
+        # run 1's state, untouched since its save at iteration 2
+        saved = cloned(flat(tr1, st1))
+
+        # an auto-resume alone: total_iter 2 leaves no step to take
+        st2, run2, _ = runs(resume_opt, 2)
+        got = flat(run2["trainer"], st2)
+        restored_equal = bool(
+            st2.iter == 2 and run2["start_iter"] == 2 and not run2["step_s"]
+            and run2["restored"].get("kept", 0) == 0 and all(
+                got[g].keys() == saved[g].keys()
+                and all(torch.equal(got[g][k], v) for k, v in saved[g].items())
+                for g in saved))
+        resume_alone_s = run2["resume_s"]
+        del st2, run2, got
+        torch.cuda.empty_cache()
+
+        # an auto-resume to iteration 3: one alternation, counted alone
+        torch.backends.cudnn.deterministic = True
+        K.reset_launch_counts()
+        st3, run3, logs3 = runs(resume_opt, 3)
+        counts3 = {k: launch_counts(K).get(k, 0) for k in per_iter}
+        resumed = flat(run3["trainer"], st3)
+        decay = tr1.ema_decay
+        leaf3 = dict(st3.model.named_parameters())[ema_leaf].detach()
+        want_ema = saved["EMA"][ema_leaf] * decay + leaf3 * (1 - decay)
+        ema_err = (st3.ema[ema_leaf] - want_ema).abs().max().item()
+        ema_ok = ema_err <= 1e-7 * want_ema.abs().max().item()
+        # the uninterrupted third step on the batch the resumed one took
+        t0 = time.perf_counter()
+        tr1.train_step(st1, run3["batch"])
+        torch.cuda.synchronize()
+        straight_ms = 1e3 * (time.perf_counter() - t0)
+        straight = cloned(flat(tr1, st1))
+        resume_err = {g: over_step(resumed[g], straight[g], saved[g])
+                      for g in saved}
+        resume_ok = all(resume_err[g] <= GAN_RESUME_RTOL[g] for g in saved)
+
+        # controls: a resume that set the EMA to the restored weights (as a
+        # fresh state's EMA starts) ends the step at d W_2 + (1 - d) W_3; a
+        # resume that lost G's Adam moments takes the step from fresh ones
+        g3 = resumed["G"]
+        lost_ema = {k: saved["G"][k] * decay + g3[k] * (1 - decay)
+                    for k in saved["EMA"]}
+        control = {"lost EMA": over_step(lost_ema, straight["EMA"],
+                                         saved["EMA"])}
+        st1.model.load_state_dict(saved["G"])
+        tr1.disc.load_state_dict(saved["D"])
+        st1.optimizer.state.clear()
+        st1.iter = 2
+        tr1.train_step(st1, run3["batch"])
+        torch.cuda.synchronize()
+        control["lost G Adam moments"] = over_step(
+            st1.model.state_dict(), straight["G"], saved["G"])
+        controls_ok = all(control[c] > GAN_RESUME_RTOL[g]
+                          for c, g in GAN_RESUME_CONTROLS.items())
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+
+    gan_keys = {"l_g_gan", "l_d", "l_d_real", "l_d_fake"}
+    finite = all(math.isfinite(v) for lg in (logs1, logs3)
+                 for v in lg.values())
+    want = {k: 2 * v for k, v in per_iter.items()}
+    ok = bool(finite and gan_keys <= logs1.keys() and gan_keys <= logs3.keys()
+              and frozen_same and watch_moved and d_moved and u_same
+              and ema_ok and counts == want and counts3 == per_iter
+              and files == ["2.state", "net_g_2.pth"] and restored_equal
+              and run3["start_iter"] == 2 and st3.iter == 3 and resume_ok
+              and controls_ok)
+    say("train_gan", card=card, batch=1, frames=8, size=cfg["img_size"],
+        precision="f32", first_alternation_ms=1e3 * run1["step_s"][0],
+        ms_per_alternation=1e3 * run1["step_s"][1],
+        resumed_alternation_ms=1e3 * run3["step_s"][0],
+        uninterrupted_third_ms=straight_ms,
+        data_ms_per_iteration=1e3 * logs1["data_time"],
+        iteration_ms_avg_timer=1e3 * logs1["time"],
+        data_ms_resumed_run=1e3 * logs3["data_time"], peak_mem_gib=peak,
+        save_s=run1["save_s"], resume_s=[resume_alone_s, run3["resume_s"]],
+        losses=logs1, losses_resumed=logs3,
+        launches_run1=counts, launches_resumed=counts3,
+        expected_per_alternation=per_iter,
+        frozen_leaves=len(frozen), frozen_unchanged=frozen_same,
+        watched_moved=watch_moved, d_moved=d_moved, weight_u_unchanged=u_same,
+        ema_max_abs_err=ema_err, files=files,
+        resumed_at=run3["start_iter"], restored_equal_saved=restored_equal,
+        resume_err_over_step=resume_err, resume_rtol=GAN_RESUME_RTOL,
+        resume_controls=control, cudnn_deterministic_in_resume_check=True,
+        ok=ok)
+    if not ok:
+        fail(f"train_gan: finite {finite}, frozen unchanged {frozen_same}, "
+             f"watched moved {watch_moved}, D moved {d_moved}, u kept "
+             f"{u_same}, EMA {ema_ok}, launches {counts} (want {want}) / "
+             f"{counts3}, files {files}, restored {restored_equal}, resume "
+             f"{resume_err}, controls {control}")
+    del tr1, st1, st3, run1, run3, saved, straight, resumed, lost_ema
+    torch.cuda.empty_cache()
+    return counts3
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3262,6 +3556,7 @@ def main():
     torch.cuda.empty_cache()
     phase_train_parity(torch)
     train_counts = phase_train(torch)
+    gan_counts = phase_train_gan(torch, card)
     k5_rows = phase_k5(torch)
     phase_stylegan2_parity(torch)
     sample_counts = phase_stylegan2_sample(torch)
@@ -3301,6 +3596,12 @@ def main():
                 "launches_refine": refine_counts[dname].get(key, 0),
                 "launches_vqgan": None if bf16 else vqgan_counts.get(key, 0)}
 
+    def stage3(key, dname):
+        """Launches at counter `key` in one stage-III alternation (phase
+        train_gan's resumed run, f32), on the f32 rows."""
+        return {"launches_train_gan_per_alternation":
+                gan_counts.get(key, 0) if dname == "float32" else None}
+
     table = []
     for (name, dname), r in krows.items():
         counter, _, at = name.partition(" ")
@@ -3334,7 +3635,8 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": dname, "status": "ported", **extra})
+            "dtype": dname, "status": "ported", **extra,
+            **stage3(counter, dname)})
     # the nearest-codebook kernel runs on the training path: f32 as
     # configured, bf16 under mixed precision; launches from those runs
     for (name, dname), r in vq_rows.items():
@@ -3347,7 +3649,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
-            "dtype": dname, "status": "ported", **slice7(name, dname)})
+            "dtype": dname, "status": "ported", **slice7(name, dname),
+            **stage3(name, dname)})
     # K5 on StyleGAN2's paths: times at the largest activation; launches of
     # one 1024x1024 sampling forward in that dtype (the training run's f32
     # count over its 16 alternations beside it)
@@ -3380,6 +3683,7 @@ def main():
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "unfused_ms": r["unfused_ms"], "dtype": "float32",
         "status": "ported", **slice7("mlp_fused", "float32"),
+        **stage3("mlp_fused", "float32"),
         "step_rows_ms": rs["ms"],
         "step_rows_bound_ms": rs["bound_ms"],
         "step_rows_unfused_ms": rs["unfused_ms"],

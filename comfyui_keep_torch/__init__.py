@@ -37,4 +37,10 @@ SwinIR, ComfyUI's tiled upscale (`pipeline/tiled.py`) and `RealESRGANer`;
 no new kernel. Entry points: `init_detection_model("YOLOv5l" | "YOLOv5n")`,
 `init_parsing_model("bisenet")`, `pipeline.tiled.make_upscaler_fn`,
 `api.load_models(bg_upscaler=..., face_upscaler=...)`.
+
+Slice 9: KEEP stage-III training through the train loop: the VFHQ data
+path without OpenCV (`data/`, `utils/png.py`), save / resume
+(`training/state.py`), the rest of the losses and optimizers,
+`KEEPGANTrainer` with Discriminator3D; no new kernel. Entry point:
+`training.train.train_pipeline(opt)`.
 """

@@ -72,10 +72,12 @@ class VGGFeatureExtractor(nn.Module):
             default_init_(self, generator)
         finish(self, device, dtype)
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
+    def forward(self, x, layer_name_list: Optional[Sequence[str]] = None
+                ) -> Dict[str, torch.Tensor]:
         """x: (B, 3, H, W) in [0, 1] ([-1, 1] with range_norm) -> {name:
-        activation} for the layers of layer_name_list."""
-        wanted = set(self.layer_name_list)
+        activation} for the layers of layer_name_list (the module's own
+        unless given: PerceptualLoss and LPIPSLoss name theirs)."""
+        wanted = set(layer_name_list or self.layer_name_list)
         deepest = max(self.names.index(n) for n in wanted)
         if self.range_norm:
             x = (x + 1) / 2

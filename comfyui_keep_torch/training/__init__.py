@@ -1,2 +1,3 @@
 """Training of the PyTorch port: losses, LR multipliers, optimizer / EMA
-state and the trainers (slice 2: KEEP's stage-II step)."""
+state with save and resume, the trainers (KEEP stage II and III,
+StyleGAN2) and the train loop (`train.train_pipeline`)."""

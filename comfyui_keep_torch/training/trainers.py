@@ -2,18 +2,20 @@
 comfyui_keep_tpu/training/trainers.py. Slice 2 brings the KEEP stage-II
 step (reference models/keep_model.py): frozen VQHQEncoder ground-truth
 codes through the nearest-codebook kernel, GMFlow flows through GMFlow's
-kernels, the codebook-feature, cross-entropy, temporal and pixel losses,
-Adam with fix_modules, the LR schedule, EMA, gradient accumulation and bf16
-mixed precision. Slice 3 brings StyleGAN2's GAN alternation
-(StyleGAN2Model, reference models/stylegan2_model.py). The other trainers
-are ROADMAP Queue 1: the rest of training.
+kernels, the codebook-feature, cross-entropy, temporal, pixel and
+perceptual losses, fix_modules, the LR schedule, EMA, gradient
+accumulation and bf16 mixed precision. Slice 3 brings StyleGAN2's GAN
+alternation (StyleGAN2Model, reference models/stylegan2_model.py); slice 9
+KEEP stage III (KEEPGANModel, reference models/keep_gan_model.py) with
+Discriminator3D. Each trainer is in MODEL_REGISTRY under the JAX package's
+model_type; the SR, video and GMFlow trainers are ROADMAP Queue 1 item 6.5.
 
 A step is eager: forward, losses, backward and, at the end of each
 accumulation window, the optimizer update; the EMA moves on every
 micro-step, as the JAX package's does.
 """
 import contextlib
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +24,7 @@ from comfyui_keep_torch.models.gmflow import GMFlow, flow_from_clip
 from comfyui_keep_torch.models.keep import KEEP, config
 from comfyui_keep_torch.models.stylegan2 import (StyleGAN2Discriminator,
                                                  StyleGAN2Generator)
-from comfyui_keep_torch.models.vqgan import VQHQEncoder
+from comfyui_keep_torch.models.vqgan import Discriminator3D, VQHQEncoder
 from comfyui_keep_torch.ops import flow_warp, resize_flow
 from comfyui_keep_torch.training.losses import (build_loss, g_path_regularize,
                                                 r1_penalty)
@@ -31,6 +33,8 @@ from comfyui_keep_torch.training.schedulers import (build_scheduler,
 from comfyui_keep_torch.training.state import (TrainState, build_optimizer,
                                                cast_parameters, ema_init,
                                                ema_update, freeze)
+from comfyui_keep_torch.utils.logger import get_root_logger
+from comfyui_keep_torch.utils.registry import MODEL_REGISTRY
 
 
 class BaseTrainer:
@@ -93,15 +97,22 @@ class BaseTrainer:
         return {k: v.to(self.device, dt if dt and v.is_floating_point()
                         else v.dtype) for k, v in batch.items()}
 
+    def _compute(self, *models):
+        """The networks' parameters in the compute dtype for the block (no
+        cast without mixed precision)."""
+        stack = contextlib.ExitStack()
+        if self.compute_dtype:
+            for m in models:
+                stack.enter_context(cast_parameters(m, self.compute_dtype))
+        return stack
+
     def backward(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         """Forward, losses and backward of one micro-batch: adds 1/k of its
         gradient to the trainable parameters' .grad. Returns the f32 loss
         terms (detached), with "l_total"."""
-        model = state.model
-        ctx = (cast_parameters(model, self.compute_dtype)
-               if self.compute_dtype else contextlib.nullcontext(model))
-        with ctx:
-            total, loss_dict = self.loss_fn(model, self._cast_batch(batch))
+        with self._compute(state.model):
+            total, loss_dict = self.loss_fn(state.model,
+                                            self._cast_batch(batch))
             total = total.float()
             (total / self.accumulate_steps).backward()
         logs = {k: v.detach().float() for k, v in loss_dict.items()}
@@ -111,6 +122,12 @@ class BaseTrainer:
     def train_step(self, state: TrainState, batch):
         """One micro-step -> (state, {name: float loss})."""
         logs = self.backward(state, batch)
+        self.update(state)
+        return state, {k: float(v) for k, v in logs.items()}
+
+    def update(self, state: TrainState):
+        """After a micro-step's backward: the optimizer step at the end of
+        an accumulation window (LR = current_lr), the EMA, the count."""
         if (state.iter + 1) % self.accumulate_steps == 0:
             lr = self.current_lr(state.iter)
             for group in state.optimizer.param_groups:
@@ -124,25 +141,28 @@ class BaseTrainer:
         if state.ema is not None:
             ema_update(state.ema, state.model, self.ema_decay)
         state.iter += 1
-        return state, {k: float(v) for k, v in logs.items()}
 
 
+@MODEL_REGISTRY.register(name="KEEPModel")
 class KEEPTrainer(BaseTrainer):
     """KEEP stage II/III trainer (reference models/keep_model.py): the
     codebook-feature L2 of the encoder's latents against the ground-truth
     codes, cross-entropy of the code logits against those codes, the
-    flow-warped temporal consistency of the generator features, and the
-    pixel loss.
+    flow-warped temporal consistency of the generator features, the pixel
+    loss and the perceptual loss.
 
     hq_vqgan: the frozen VQHQEncoder that gives the ground-truth codes;
     gmflow: the frozen flow net (zero flows without it). Both are moved to
-    the trainer's device and compute dtype. The trainer runs on "cuda"
-    unless given device="cpu".
+    the trainer's device and compute dtype. feature_fn: the perceptual
+    loss's features, feature_fn(x NCHW, layers) -> {layer: NCHW} (e.g. a
+    VGGFeatureExtractor on the trainer's device), needed with
+    perceptual_opt. The trainer runs on "cuda" unless given device="cpu".
     """
     default_fix_modules = ("quantize", "generator")
 
     def __init__(self, opt: Dict, hq_vqgan: Optional[VQHQEncoder] = None,
-                 gmflow: Optional[GMFlow] = None, device="cuda"):
+                 gmflow: Optional[GMFlow] = None, device="cuda",
+                 feature_fn: Optional[Callable] = None):
         super().__init__(opt, device)
         cfg = dict(opt["network_g"])
         cfg.pop("type", None)
@@ -155,10 +175,13 @@ class KEEPTrainer(BaseTrainer):
         self.entropy_loss_weight = t.get("entropy_loss_weight", 0.5)
         self.cri_pix = build_loss(t["pixel_opt"]) if t.get("pixel_opt") \
             else None
+        self.cri_perceptual = None
         if t.get("perceptual_opt"):
-            raise NotImplementedError(
-                "the perceptual loss is not ported yet (ROADMAP Queue 1, "
-                "item 6: the rest of training, PerceptualLoss is 6.2)")
+            if feature_fn is None:
+                raise ValueError("perceptual_opt needs a feature_fn (e.g. a "
+                                 "VGGFeatureExtractor)")
+            self.cri_perceptual = build_loss(t["perceptual_opt"],
+                                             feature_fn=feature_fn)
         self.cri_temporal = build_loss(t["temporal_opt"]) \
             if t.get("temporal_opt") else None
         self.temporal_type = t.get("temporal_warp_type", "GT")
@@ -258,9 +281,138 @@ class KEEPTrainer(BaseTrainer):
             l_pix = self.cri_pix(outs, gt)
             total = total + l_pix
             loss_dict["l_pix"] = l_pix
+
+        if self.cri_perceptual is not None:
+            l_p, l_s = self.cri_perceptual(
+                outs.reshape((-1,) + outs.shape[2:]).permute(0, 3, 1, 2),
+                gt.reshape((-1,) + gt.shape[2:]).permute(0, 3, 1, 2))
+            if l_p is not None:
+                total = total + l_p
+                loss_dict["l_percep"] = l_p
+            if l_s is not None:
+                total = total + l_s
+                loss_dict["l_style"] = l_s
         return total, loss_dict, outs
 
 
+@MODEL_REGISTRY.register(name="KEEPGANModel")
+class KEEPGANTrainer(KEEPTrainer):
+    """KEEP stage III (reference models/keep_gan_model.py; the JAX
+    package's KEEPGANTrainer): stage II's generator step plus a
+    Discriminator3D on the clips, alternating. From iteration
+    net_d_start_iter on, the generator's objective adds the GAN loss of
+    D(restored) as real, and D then takes one step on (gt as real, the
+    restored clip detached as fake): l_d = l_d_real + l_d_fake. Before it,
+    neither term nor D's step runs.
+
+    D is built from network_d.args under its own generator (manual_seed +
+    777), trains in f32 masters with its own optimizer (optim_d, the LR
+    times the schedule at D's own update count, no accumulation), and sees
+    the compute dtype under mixed precision, as the generator does. Its
+    spectral-norm power-iteration vectors (weight_u) are buffers that no
+    forward advances and no optimizer holds, as the JAX package keeps u
+    fixed (ROADMAP Queue 3). D and its optimizer are the trainer's
+    extra_state, saved and resumed with the generator's state."""
+
+    def __init__(self, opt: Dict, hq_vqgan: Optional[VQHQEncoder] = None,
+                 gmflow: Optional[GMFlow] = None, device="cuda",
+                 feature_fn: Optional[Callable] = None):
+        super().__init__(opt, hq_vqgan, gmflow, device, feature_fn)
+        t = opt.get("train", {})
+        self.cri_gan = build_loss(t["gan_opt"]) if t.get("gan_opt") else None
+        self.net_d_start_iter = t.get("net_d_start_iter", 0)
+        self.d_args = dict(opt.get("network_d", {}).get("args", {}))
+
+    def make_state(self, model: Optional[KEEP] = None,
+                   disc: Optional[Discriminator3D] = None) -> TrainState:
+        """The generator's state (KEEPTrainer.make_state), and on the
+        trainer the discriminator (`disc`, or one from network_d.args
+        seeded from manual_seed + 777) with its optimizer."""
+        state = super().make_state(model)
+        disc = self.init_disc() if disc is None else disc
+        self.disc = disc.to(self.device).train().requires_grad_(True)
+        self.d_optimizer = build_optimizer(
+            self.opt.get("train", {}).get("optim_d",
+                                          {"type": "Adam", "lr": 1e-4}),
+            self.disc.parameters())
+        return state
+
+    def init_disc(self) -> Discriminator3D:
+        return Discriminator3D(
+            **self.d_args, device="cpu",
+            generator=torch.Generator().manual_seed(self.seed + 777))
+
+    def extra_state(self) -> Dict:
+        """The discriminator (its weight_u buffers included) and its
+        optimizer, for TrainState.save."""
+        return {"d_params": self.disc.state_dict(),
+                "d_opt_state": self.d_optimizer.state_dict()}
+
+    def load_extra_state(self, data: Optional[Dict]):
+        if not data:
+            get_root_logger().warning(
+                "resume state has no discriminator snapshot; the "
+                "discriminator continues from its fresh init")
+            return
+        self.disc.load_state_dict(data["d_params"])
+        self.d_optimizer.load_state_dict(data["d_opt_state"])
+
+    def d_lr(self, current_iter: int) -> float:
+        """LR of D's update at iteration current_iter: optim_d's lr times
+        the schedule at the number of updates D has taken before it (one an
+        iteration from net_d_start_iter on; optax counts D's own steps)."""
+        base = float(self.opt.get("train", {}).get("optim_d", {}).get(
+            "lr", 1e-4))
+        if self.schedule is None:
+            return base
+        taken = max(0, current_iter - max(1, self.net_d_start_iter))
+        return base * float(self.schedule(taken))
+
+    def gan_train_step(self, state: TrainState, batch, current_iter: int):
+        """One g/d alternation (keep_gan_model.py:262-296): the generator
+        micro-step with the GAN term once current_iter >= net_d_start_iter
+        (D frozen for it), its update, then D's step on (gt, restored).
+        Returns (state, {name: float loss})."""
+        use_gan = (self.cri_gan is not None
+                   and current_iter >= self.net_d_start_iter)
+        batch = self._cast_batch(batch)
+        self.disc.requires_grad_(False)
+        with self._compute(state.model, self.disc):
+            total, loss_dict, outs = self._loss_outs(state.model, batch)
+            if use_gan:
+                l_g_gan = self.cri_gan(self.disc(outs), True, is_disc=False)
+                total = total + l_g_gan
+                loss_dict["l_g_gan"] = l_g_gan
+            total = total.float()
+            (total / self.accumulate_steps).backward()
+        logs = {k: v.detach().float() for k, v in loss_dict.items()}
+        logs["l_total"] = total.detach()
+        self.update(state)
+
+        if use_gan:
+            self.disc.requires_grad_(True)
+            with self._compute(self.disc):
+                l_real = self.cri_gan(self.disc(batch["gt"]), True,
+                                      is_disc=True).float()
+                l_fake = self.cri_gan(self.disc(outs.detach()), False,
+                                      is_disc=True).float()
+                l_d = l_real + l_fake
+                l_d.backward()
+            for group in self.d_optimizer.param_groups:
+                group["lr"] = self.d_lr(current_iter)
+            self.d_optimizer.step()
+            self.d_optimizer.zero_grad(set_to_none=True)
+            logs.update(l_d=l_d.detach(), l_d_real=l_real.detach(),
+                        l_d_fake=l_fake.detach())
+        return state, {k: float(v) for k, v in logs.items()}
+
+    def train_step(self, state: TrainState, batch):
+        """The train loop's entry point: the alternation of iteration
+        state.iter + 1."""
+        return self.gan_train_step(state, batch, current_iter=state.iter + 1)
+
+
+@MODEL_REGISTRY.register(name="StyleGAN2Model")
 class StyleGAN2Trainer(BaseTrainer):
     """StyleGAN2 trainer (reference models/stylegan2_model.py, the JAX
     package's StyleGAN2Model): the non-saturating logistic GAN
@@ -450,11 +602,11 @@ class StyleGAN2Trainer(BaseTrainer):
 
 
 def build_model(opt: Dict, **kw):
-    """opt["model_type"] -> its trainer: KEEPModel or StyleGAN2Model."""
-    if opt["model_type"] == "KEEPModel":
-        return KEEPTrainer(opt, **kw)
-    if opt["model_type"] == "StyleGAN2Model":
-        return StyleGAN2Trainer(opt, **kw)
-    raise NotImplementedError(f"model_type {opt['model_type']} is not "
-                              "ported yet (ROADMAP Queue 1: the rest of "
-                              "training)")
+    """The trainer MODEL_REGISTRY holds for opt["model_type"] (reference
+    models/__init__.py:18-29): KEEPModel, KEEPGANModel or StyleGAN2Model;
+    the JAX package's other model types are ROADMAP Queue 1 item 6.5."""
+    if opt["model_type"] not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"model_type {opt['model_type']} is not ported yet (ROADMAP "
+            "Queue 1 item 6.5: the SR, video and GMFlow trainers)")
+    return MODEL_REGISTRY.get(opt["model_type"])(opt, **kw)

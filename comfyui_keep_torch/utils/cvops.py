@@ -17,6 +17,9 @@ tests/test_torch_cvops.py holds each one against cv2:
 - `gaussian_blur` within 1e-6 on [0, 1] masks (OpenCV sums with FMAs in its
   vector code; this sums by a convolution in float32, TF32 off).
 - `resize_linear_f32` within 2e-5 (1 ulp at an integer factor).
+- the training data's float32 forms (tests/test_torch_data.py):
+  `filter2d_f32` (cv2.filter2D, reflect-101) and `resize_area_f32` within
+  1e-6, `resize_cubic_f32` (INTER_CUBIC) within 1e-5.
 - `estimate_affine_partial_lmeds` (`cv2.estimateAffinePartial2D` with
   `method=cv2.LMEDS`): the same random 2-point subsets (OpenCV's RNG,
   seeded in each call), models, medians, scale and inliers; the refinement
@@ -365,10 +368,20 @@ def resize_area(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
                               * np.float32(1.0 / (ix * iy)))
         out = out.clamp(0, 255).to(torch.uint8)
         return out[..., 0] if squeeze else out
+    out = _area_weighted(x.to(torch.float32), w, h, scale_x, scale_y)
+    out = torch.round(out).clamp(0, 255).to(torch.uint8)
+    return out[..., 0] if squeeze else out
+
+
+def _area_weighted(xf: torch.Tensor, w: int, h: int, scale_x: float,
+                   scale_y: float) -> torch.Tensor:
+    """INTER_AREA at a non-integer factor: each source row's float32
+    weighted sums over _area_tab's taps, then the rows' in OpenCV's order;
+    (h, w, C) unrounded from a float32 (H, W, C) image."""
+    sh, sw = xf.shape[:2]
     xi, xw = _area_tab(sw, w, scale_x)
     yi, yw = _area_tab(sh, h, scale_y)
-    dev = x.device
-    xf = x.to(torch.float32)
+    dev = xf.device
     buf = None                          # (sh, w, c): each source row's sums
     for j in range(xi.shape[1]):
         term = (xf[:, torch.as_tensor(xi[:, j], device=dev)]
@@ -379,8 +392,7 @@ def resize_area(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
         term = (torch.as_tensor(yw[:, j], device=dev)[:, None, None]
                 * buf[torch.as_tensor(yi[:, j], device=dev)])
         out = term if out is None else out + term
-    out = torch.round(out).clamp(0, 255).to(torch.uint8)
-    return out[..., 0] if squeeze else out
+    return out
 
 
 def resize_linear_f32(img: torch.Tensor, dsize: Tuple[int, int]
@@ -419,6 +431,116 @@ def resize_linear_f32(img: torch.Tensor, dsize: Tuple[int, int]
     y0, y1, by0, by1 = taps(h, sh, False)
     rows = x[:, x0] * ax0[None, :, None] + x[:, x1] * ax1[None, :, None]
     out = rows[y0] * by0[:, None, None] + rows[y1] * by1[:, None, None]
+    return out[..., 0] if squeeze else out
+
+
+def resize_area_f32(img: torch.Tensor, dsize: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """cv2.resize(img, dsize, interpolation=cv2.INTER_AREA) of a float32
+    (H, W[, C]) tensor, shrinking (or keeping) both sides. An integer factor
+    sums each block row by row in float32, four taps at a time ((a + b) + c)
+    + d as OpenCV's resizeAreaFast does, then multiplies by float32(1 /
+    area); other factors take _area_weighted's sums, unrounded."""
+    if img.dtype != torch.float32:
+        raise ValueError(f"resize_area_f32 takes float32, got {img.dtype}")
+    squeeze = img.dim() == 2
+    x = _as_hwc(img)
+    sh, sw, c = x.shape
+    w, h = int(dsize[0]), int(dsize[1])
+    if (h, w) == (sh, sw):
+        return img.clone()
+    scale_x, scale_y = 1.0 / (w / sw), 1.0 / (h / sh)
+    if scale_x < 1 or scale_y < 1:
+        raise ValueError("resize_area_f32 shrinks only")
+    ix, iy = int(round(scale_x)), int(round(scale_y))
+    eps = np.finfo(np.float64).eps
+    if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
+        blocks = x[:h * iy, :w * ix].reshape(h, iy, w, ix, c)
+        taps = [blocks[:, a, :, b] for a in range(iy) for b in range(ix)]
+        total = None
+        for k in range(0, len(taps), 4):
+            group = taps[k]
+            for t in taps[k + 1:k + 4]:
+                group = group + t
+            total = group if total is None else total + group
+        out = total * np.float32(1.0 / (ix * iy))
+        return out[..., 0] if squeeze else out
+    out = _area_weighted(x, w, h, scale_x, scale_y)
+    return out[..., 0] if squeeze else out
+
+
+def _cubic_coeffs(f: np.ndarray) -> np.ndarray:
+    """OpenCV's interpolateCubic (A = -0.75) in float32: (n,) fractions ->
+    (n, 4) tap weights for the pixels at -1, 0, +1, +2."""
+    f = f.astype(np.float32)
+    a = np.float32(-0.75)
+    one = np.float32(1)
+    x1 = f + one
+    c0 = ((a * x1 - np.float32(5) * a) * x1 + np.float32(8) * a) * x1 \
+        - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * f - (a + np.float32(3))) * f * f + one
+    g = one - f
+    c2 = ((a + np.float32(2)) * g - (a + np.float32(3))) * g * g + one
+    c3 = one - c0 - c1 - c2
+    return np.stack([c0, c1, c2, c3], axis=1).astype(np.float32)
+
+
+def resize_cubic_f32(img: torch.Tensor, dsize: Tuple[int, int]
+                     ) -> torch.Tensor:
+    """cv2.resize(img, dsize, interpolation=cv2.INTER_CUBIC) of a float32
+    (H, W[, C]) tensor: half-pixel source coordinates, OpenCV's cubic
+    weights (A = -0.75) in float32, the four taps' indices clamped to the
+    image (edge pixels replicated); rows, then columns, in float32."""
+    if img.dtype != torch.float32:
+        raise ValueError(f"resize_cubic_f32 takes float32, got {img.dtype}")
+    squeeze = img.dim() == 2
+    x = _as_hwc(img)
+    sh, sw, _ = x.shape
+    w, h = int(dsize[0]), int(dsize[1])
+    if (h, w) == (sh, sw):
+        return img.clone()
+    dev = x.device
+
+    def taps(dst_n, src_n):
+        scale = 1.0 / (dst_n / src_n)
+        f = ((np.arange(dst_n, dtype=np.float64) + 0.5) * scale
+             - 0.5).astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        coef = _cubic_coeffs(f - s.astype(np.float32))
+        idx = np.clip(s[:, None] + np.arange(-1, 3)[None, :], 0, src_n - 1)
+        return (torch.as_tensor(idx, device=dev),
+                torch.as_tensor(coef, device=dev))
+
+    xi, xc = taps(w, sw)
+    yi, yc = taps(h, sh)
+    rows = None
+    for k in range(4):
+        term = x[:, xi[:, k]] * xc[None, :, k, None]
+        rows = term if rows is None else rows + term
+    out = None
+    for k in range(4):
+        term = rows[yi[:, k]] * yc[:, k, None, None]
+        out = term if out is None else out + term
+    return out[..., 0] if squeeze else out
+
+
+def filter2d_f32(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """cv2.filter2D(img, -1, kernel) of a float32 (H, W[, C]) tensor: the
+    correlation with the kernel (cast to float32, as OpenCV casts it),
+    anchored at its centre, over BORDER_REFLECT_101, summed in float32 by a
+    convolution. OpenCV takes a DFT for large kernels (21 x 21), so the two
+    differ by float32 rounding (2.4e-7 on [0, 1] frames), not bitwise."""
+    if img.dtype != torch.float32:
+        raise ValueError(f"filter2d_f32 takes float32, got {img.dtype}")
+    squeeze = img.dim() == 2
+    x = _as_hwc(img)
+    c = x.shape[2]
+    k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device)
+    kh, kw = k.shape
+    top, left = kh // 2, kw // 2
+    xp = F.pad(x.permute(2, 0, 1)[None],
+               (left, kw - 1 - left, top, kh - 1 - top), mode="reflect")
+    out = F.conv2d(xp, k.expand(c, 1, kh, kw), groups=c)[0].permute(1, 2, 0)
     return out[..., 0] if squeeze else out
 
 

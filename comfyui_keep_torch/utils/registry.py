@@ -1,7 +1,11 @@
 """Name -> object registries (reference wm_basicsr/utils/registry.py), the
 port's copy of comfyui_keep_tpu/utils/registry.py. ARCH_REGISTRY holds the
 port's nn.Module classes under the JAX package's arch names; METRIC_REGISTRY
-the metric functions that `metrics.calculate_metric` dispatches to.
+the metric functions that `metrics.calculate_metric` dispatches to;
+DATASET_REGISTRY, MODEL_REGISTRY and LOSS_REGISTRY the datasets, trainers
+and losses that `data.build_dataset`, `training.trainers.build_model` and
+`training.losses.build_loss` look up by the options' `type` /
+`model_type`.
 """
 from typing import Any, Dict, Optional
 
@@ -45,4 +49,7 @@ class Registry:
 
 
 ARCH_REGISTRY = Registry("arch")
+MODEL_REGISTRY = Registry("model")
+DATASET_REGISTRY = Registry("dataset")
+LOSS_REGISTRY = Registry("loss")
 METRIC_REGISTRY = Registry("metric")

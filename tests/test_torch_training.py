@@ -34,6 +34,7 @@ from comfyui_keep_tpu.training.trainers import KEEPTrainer as JKEEPTrainer
 from comfyui_keep_tpu.utils.checkpoint import convert_state_dict, embedding_rule
 from comfyui_keep_torch.models.gmflow import GMFlow
 from comfyui_keep_torch.models.keep import KEEP, count_parameters, mask_by_ratio
+from comfyui_keep_torch.models.vgg import VGGFeatureExtractor
 from comfyui_keep_torch.models.vqgan import (VQHQEncoder, VectorQuantizer,
                                              vq_indices, vq_quantize)
 from comfyui_keep_torch.ops import flow_warp, resize_flow
@@ -221,8 +222,8 @@ def test_pixel_losses_vs_jax(name, reduction):
             float(ref(jnp.asarray(a), jnp.asarray(b),
                       None if weight is None else jnp.asarray(weight))),
             rtol=1e-5)
-    with pytest.raises(NotImplementedError):
-        TL.build_loss({"type": "PerceptualLoss"})
+    with pytest.raises(KeyError):   # as the JAX package's LOSS_REGISTRY
+        TL.build_loss({"type": "NoSuchLoss"})
 
 
 def test_schedulers_vs_jax():
@@ -276,7 +277,7 @@ def test_optimizers_and_ema_vs_optax(optim):
         np.testing.assert_allclose(ema["w"].numpy(), np.asarray(ej),
                                    atol=1e-6, rtol=1e-6)
     with pytest.raises(NotImplementedError):
-        build_optimizer({"type": "SGD"}, [model.w])
+        build_optimizer({"type": "Lion"}, [model.w])
 
 
 class _Toy(BaseTrainer):
@@ -596,9 +597,15 @@ def test_keep_mixed_precision_step_vs_jax(keep_setup):
 def test_build_model_and_unported_options():
     with pytest.raises(NotImplementedError):
         build_model({"model_type": "SRModel"})
-    with pytest.raises(NotImplementedError):
-        KEEPTrainer(opt_dict(perceptual_opt={"type": "PerceptualLoss"}),
-                    device="cpu")
+    percep = {"type": "PerceptualLoss", "layer_weights": {"relu1_1": 1.0}}
+    feature_fn = VGGFeatureExtractor(("relu1_1",), device="cpu")
+    tr = KEEPTrainer(opt_dict(perceptual_opt=percep), device="cpu",
+                     hq_vqgan=VQHQEncoder(device="cpu", **HQ),
+                     feature_fn=feature_fn)
+    assert isinstance(tr.cri_perceptual, TL.PerceptualLoss)
+    assert tr.cri_perceptual.feature_fn is feature_fn
+    with pytest.raises(ValueError):   # the perceptual loss needs features
+        KEEPTrainer(opt_dict(perceptual_opt=percep), device="cpu")
     tr = build_model({**opt_dict(), "train": {"pixel_opt": {
         "type": "L1Loss"}}})
     assert isinstance(tr, KEEPTrainer) and tr.device.type == "cuda"
