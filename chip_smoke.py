@@ -14,7 +14,8 @@ the verdict):
               for the MLP tail, which no one call computes, the ms of its
               unfused PyTorch calls instead (unfused_ms, reported); the f32
               MLP tail also at the f32 training step's 114,688 rows
-              (mlp_fused[step])
+              (mlp_fused[step]); K1-K3 in f32 at the GMFlow training
+              step's shapes (the "flow step" rows, phase 21)
   4. kernel   (packed_conv2x2, K6) the phase-packed convolution at every
               shape of the packed 512-level path and at its own shape over
               the LQ encoder's 20-frame batch, bf16 and f32: max|d| and
@@ -194,19 +195,51 @@ the verdict):
               1e-6 on Y; float32 1e-4), ms; NIQE of one face; FID between
               two sets of 50 faces (Inception on the card); cv2 never
               imported
+ 21. flow_kernel  K1-K3's "flow step" rows of phase kernel (f32 at the
+              GMFlow training step's shapes, 384 x 512, B = 8: 64 windows
+              of 768 tokens with and without the shifted mask, 8 maps of
+              3072 for the global attention and the correlation, 49,152
+              FFN rows; their forwards held there): the autograd wrapper's
+              input gradients against the plain version's autograd
+              (KGRAD_RTOL), the ms of its forward + backward
+     train_flow  GMFlowTrainer (tools/train_flow.py's defaults, FLOW_OPT)
+              on a synthetic FlyingChairs directory (FLOW_PAIRS pairs)
+              through build_train_dataset("chairs") and the loader, B = 8,
+              f32: the loader's steady s a batch alone, then 1 + 3 steps
+              inside one epoch: losses and metrics finite, every gradient
+              non-zero (the three leaves whose true gradient is zero at
+              noise), the LR on optax's one-cycle schedule, K1-K3 launches
+              a step as one GMFlow forward implies (by counter and by
+              shape), ms a step (forward, backward, update apart), the
+              wait for data a step, the plain backward's ms a step, peak
+              GiB; one pair's step (train_flow_parity), leaf by leaf: the
+              card against the CPU both in float64, the card's f32 step
+              against the CPU's float64 within 3x its module group's f32
+              noise (three f32 witnesses), a TF32 control that must fail
+              that; one more epoch trained
+              through, s a step with its data (train_flow_epoch);
+              validate_chairs on the validation split, ms a pair
+ 22. sr_test  options/test_keep.yml (TEST_OPT) through test_pipeline on
+              synthetic PNG pairs, card against CPU, save_img; an SRModel
+              through train_pipeline with validation every iteration; one
+              step each of SRGAN (ESRGAN x4), Real-ESRGAN x4plus (its feed
+              on hand-built kernels) and BasicVSR (REDS clips, fix_flow);
+              none of K1-K6 launched
 The kernel phase also holds K1 at the refinement's fine scale (L = 256,
 the (64, 256, 256) mask, 256 windows) in both dtypes, and K1-K3 in bf16 at
 the shapes of a group of 2 chunks (the "G2" rows). The kernel table's
 K1-K4 rows carry their launches on slice 7's paths (launches_chunk_*,
 launches_refine, launches_vqgan; null where a path did not run in the
 row's dtype), taken from the kernels' own counters: the L256 and G2 rows
-count their own shape alone (ops/kernels.py LAUNCHES_BY_SHAPE). A row
-with no launch on its path fails the run.
+count their own shape alone (ops/kernels.py LAUNCHES_BY_SHAPE), and so do
+the "flow step" rows, with their launches over train_flow's 3 steps. A
+row with no launch on its path fails the run.
 Every phase that counts launches counts K6 too: the training and StyleGAN2
 phases expect none. The script exits non-zero, printing no verdict, if
 there is no CUDA device, if a kernel does not build or disagrees, or if any
 phase fails. TF32 is off for matmuls and convolutions, so f32 means f32.
 """
+import contextlib
 import copy
 import json
 import math
@@ -378,6 +411,25 @@ STAGE3_OPT = {
         "total_iter": 100000, "ema_decay": 0.995},
     "logger": {"print_freq": 100, "save_checkpoint_freq": 1e4},
     "path": {"experiments_root": "experiments/keep_stage3"},
+}
+# options/test_keep.yml, as test_pipeline takes it (the card machine has no
+# pyyaml); phase sr_test points its dataroots and pretrain_network_g at
+# synthetic data and the saved weights, and adds save_img
+TEST_OPT = {
+    "name": "keep_test",
+    "model_type": "SRModel",
+    "manual_seed": 0,
+    "network_g": {"type": "MSRResNet", "num_feat": 64, "num_block": 16,
+                  "upscale": 4},
+    "datasets": {"test_1": {
+        "type": "PairedImageDataset", "name": "demo",
+        "dataroot_lq": "datasets/demo/lq", "dataroot_gt": "datasets/demo/gt",
+        "scale": 4}},
+    "train": {"pixel_opt": {"type": "L1Loss"}},
+    "val": {"metrics": {
+        "psnr": {"type": "calculate_psnr", "crop_border": 4},
+        "ssim": {"type": "calculate_ssim", "crop_border": 4}}},
+    "path": {"pretrain_network_g": None},
 }
 # the tiny configuration of train_parity (the tests' TINY KEEP)
 TINY = dict(img_size=64, nf=32, ch_mult=(1, 2, 2), res_blocks=2,
@@ -612,7 +664,7 @@ def kernel_cases(torch, dtype):
          None, [(6 * rows * CH * HID, peak)],
          3 * src.numel() * isz + 3 * CH * HID * isz, rtol,
          lambda: mlp_unfused_at(src, msg), None),
-    ] + group + step
+    ] + group + step + ([] if tanh else flow_step_cases(torch))
 
 
 def phase_kernels(torch, iters=KERNEL_ITERS):
@@ -3502,6 +3554,740 @@ def phase_train_gan(torch, card):
     return counts3
 
 
+# GMFlow training (phase train_flow): tools/train_flow.py's defaults, the
+# chairs stage at 384 x 512, B = 8, f32
+FLOW_OPT = {"model_type": "GMFlowModel", "manual_seed": 0,
+            "network_g": {"attn_splits": 2, "corr_radius": -1,
+                          "prop_radius": -1},
+            "train": {"lr": 4e-4, "weight_decay": 1e-4, "grad_clip": 1.0,
+                      "gamma": 0.9, "num_steps": 100000}}
+FLOW_HW, FLOW_B, FLOW_STEPS, FLOW_WORKERS = (384, 512), 8, 3, 4
+# pairs written: every 10th is validation; the rest hold the warm-up, the
+# timed, the by-parts and the one-pair steps' batches plus the loader's
+# 2 * workers in flight, so no epoch ends (and no queue refills from empty)
+# while the steps are timed
+FLOW_PAIRS = -(-10 * FLOW_B * (FLOW_STEPS + 3 + 2 * FLOW_WORKERS) // 9)
+# GMFlow's leaves whose true gradient is zero (a bias an InstanceNorm
+# follows, the key bias under a softmax): their gradients are rounding noise
+FLOW_ZERO_GRAD = ("backbone.layer2.0.downsample.0.bias",
+                  "backbone.layer3.0.downsample.0.bias",
+                  "feature_flow_attn.k_proj.bias")
+# the kernels' input gradients through the autograd wrapper against the
+# plain version's autograd: the same recompute on the same inputs and
+# upstream gradient, so equal up to summation order (0 expected)
+KGRAD_RTOL = 1e-6
+# the whole GMFlow step on one pair (flow_step_gates; FLOW_ZERO_GRAD leaves
+# held as noise, below FLOW_NOISE of the tree's largest gradient; losses
+# within LOSS_RTOL), each leaf against its own limit:
+# - the card against the CPU with rounding out of the way: both in float64
+#   (the plain versions too), max|d| within FLOW_F64_RTOL of the leaf's
+#   largest (4.0e-14 to 6.2e-14 measured at 384 x 512, PR 14's card runs);
+# - the card's f32 step (kernels) against the CPU's float64 one by
+#   relative L2, within FLOW_F32_RATIO times its module group's f32 noise
+#   plus FLOW_F32_FLOOR. The f32 step is ill-conditioned (the backbone's
+#   InstanceNorms cancel): f32 steps are 1e-4 to 5e-3 off float64 in the
+#   backbone, ~1e-5 elsewhere, and which leaf is worst moves with the
+#   algorithms (one leaf 4.9e-5 on the CPU, 1.4e-3 without cuDNN), so a
+#   leaf's noise is the largest distance three f32 witnesses (the CPU, the
+#   card with the plain versions, the card without cuDNN) show on any leaf
+#   of its group (backbone, transformer, feature_flow_attn, upsampler).
+#   Besides, on 5 of 9 pairs (PR 14's card runs) some f32 runs' upsampler
+#   gradients sat 1.4e-4 to 1.7e-3 off float64 while others of the same
+#   pair sat near 1e-6: a jump no witness need share, which the floor
+#   covers. The card with TF32 allowed is a control: it must break that
+#   limit on some leaf (5.0x to 51x over it on those 9 pairs). The card
+#   with the kernels against the card with the plain versions, both f32,
+#   is held to the same limit.
+FLOW_GRAD_ATOL, FLOW_NOISE = 1e-6, 1e-5
+FLOW_F64_RTOL = 1e-10
+FLOW_F32_RATIO, FLOW_F32_FLOOR = 3.0, 3e-3
+
+
+def write_chairs(root, n, hw, seed=0):
+    """A FlyingChairs-layout directory: n pairs of smooth random .ppm
+    frames, the second the first shifted by a whole-pixel flow, with its
+    .flo (the flow constant over the frame)."""
+    import torch
+    from comfyui_keep_torch.data.flow_datasets import write_flo
+    from comfyui_keep_torch.utils import ppm
+    os.makedirs(root, exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    h, w = hw
+    for i in range(1, n + 1):
+        coarse = torch.rand((3, h // 16 + 3, w // 16 + 3), generator=g)
+        img = torch.nn.functional.interpolate(
+            coarse[None], scale_factor=16, mode="bicubic",
+            align_corners=False)[0, :, :h + 16, :w + 16]
+        img = (img.clamp(0, 1) * 255).round().to(torch.uint8).permute(1, 2, 0)
+        dx, dy = (int(v) for v in torch.randint(-6, 7, (2,), generator=g))
+        a = img[8:8 + h, 8:8 + w].numpy()
+        b = img[8 - dy:8 - dy + h, 8 - dx:8 - dx + w].numpy()
+        ppm.write(os.path.join(root, f"{i:05d}_img1.ppm"), a)
+        ppm.write(os.path.join(root, f"{i:05d}_img2.ppm"), b)
+        flow = np.zeros((h, w, 2), np.float32)
+        flow[..., 0], flow[..., 1] = -dx, -dy
+        write_flo(os.path.join(root, f"{i:05d}_flow.flo"), flow)
+    return root
+
+
+def flow_step_cases(torch):
+    """kernel_cases' rows (f32) of K1-K3 at the GMFlow step's shapes, named
+    "<counter> flow step": 384 x 512 gives 48 x 64 features; attn_splits 2
+    gives 24 x 32 windows, B = 2 images x 8 pairs x 4 = 64 windows of 768
+    tokens; the global flow attention and the correlation run over B = 8
+    maps of 3072 tokens; the FFN tail over 2 x 8 x 3072 = 49,152 rows."""
+    import torch.nn.functional as F
+    from comfyui_keep_torch.models.gmflow import shifted_window_mask
+    g = torch.Generator(device="cuda").manual_seed(3)
+    fh, fw = FLOW_HW[0] // 8, FLOW_HW[1] // 8
+    bw, lw = 2 * FLOW_B * 4, (fh // 2) * (fw // 2)
+    bg, lg = FLOW_B, fh * fw
+    scale = 1.0 / math.sqrt(CH)
+    rtol = KERNEL_RTOL["float32"]
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    q, v = rnd(bw, lw, CH), rnd(bw, lw, CH)
+    k = matched_keys(torch, q, 0.7, g)
+    mask = torch.as_tensor(shifted_window_mask(fh, fw, 2), device="cuda")
+    mask_full = mask.repeat(bw // 4, 1, 1)[:, None]
+    qg = rnd(bg, lg, CH)
+    kg = matched_keys(torch, qg, 0.8, g)
+    vg = rnd(bg, lg, 2, s=8.0)
+    ys, xs = torch.meshgrid(torch.arange(fh, device="cuda",
+                                         dtype=torch.float32),
+                            torch.arange(fw, device="cuda",
+                                         dtype=torch.float32), indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(lg, 2).contiguous()
+    src, msg = rnd(bw, lw, CH), rnd(bw, lw, CH)
+    w1, w2 = rnd(HID, 2 * CH, s=0.05), rnd(CH, HID, s=0.05)
+    gamma, beta = rnd(CH), rnd(CH)
+
+    def sdpa(a, b_, c, m=None):
+        return lambda: F.scaled_dot_product_attention(
+            a[:, None], b_[:, None], c[:, None], attn_mask=m, scale=scale)
+
+    att_fl = 2 * bw * lw * lw * CH
+    glb_fl, exp_fl = 2 * bg * lg * lg * CH, 2 * bg * lg * lg * 2
+    rows = bw * lw
+    return [
+        ("attention[dv128] flow step", "attention", (q, k, v, scale),
+         sdpa(q, k, v), [(2 * att_fl, PEAK_F32)], 4 * q.numel() * 4, rtol,
+         None, f"attention[dv128] B{bw} L{lw}"),
+        ("attention[dv128+bias] flow step", "attention",
+         (q, k, v, scale, mask), sdpa(q, k, v, mask_full),
+         [(2 * att_fl, PEAK_F32)], 4 * q.numel() * 4 + mask.numel() * 4,
+         rtol, None, f"attention[dv128+bias] B{bw} L{lw}"),
+        ("attention[dv2] flow step", "attention", (qg, kg, vg, scale),
+         sdpa(qg, kg, vg), [(glb_fl + exp_fl, PEAK_F32)],
+         (2 * qg.numel() + 2 * vg.numel()) * 4, rtol, None,
+         f"attention[dv2] B{bg} L{lg}"),
+        ("global_correlation_expectation flow step",
+         "global_correlation_expectation", (qg, kg, grid),
+         lambda: F.scaled_dot_product_attention(
+             qg, kg, grid.expand(bg, lg, 2), scale=scale),
+         [(glb_fl, PEAK_F32), (exp_fl, PEAK_F32)],
+         2 * qg.numel() * 4 + grid.numel() * 4 + bg * lg * 2 * 4, rtol,
+         None, f"global_correlation_expectation B{bg} L{lg}"),
+        ("mlp_fused flow step", "mlp_fused",
+         (src, msg, w1, w2, gamma, beta, False), None,
+         [(6 * rows * CH * HID, PEAK_F32)],
+         3 * src.numel() * 4 + 3 * CH * HID * 4, rtol, None,
+         f"mlp_fused rows{rows}"),
+    ]
+
+
+# the inputs of each wrapper that carry a gradient (ops/kernels.py)
+GRAD_ARGS = {"attention": (0, 1, 2), "global_correlation_expectation": (0, 1),
+             "mlp_fused": (0, 1, 2, 3, 4, 5)}
+
+
+def phase_flow_grads(torch, krows, iters=KERNEL_ITERS):
+    """A pass over phase kernel's "flow step" rows (their forwards are
+    held there): on the same inputs, the autograd wrapper's input gradients
+    against the plain version's autograd on one upstream gradient
+    (KGRAD_RTOL), and the ms of the wrapper's forward + backward (its plain
+    recompute) beside the plain version's. Adds these to the rows and
+    returns {row name: row}."""
+    from comfyui_keep_torch.ops import kernels as K
+    rows = {}
+    for name, fn_name, args, *_ in kernel_cases(torch, torch.float32):
+        if not name.endswith(" flow step"):
+            continue
+        fn, plain = getattr(K, fn_name), K.PLAIN[fn_name]
+        diff = GRAD_ARGS[fn_name]
+        leaves = [a.detach().clone().requires_grad_(True) if i in diff else a
+                  for i, a in enumerate(args)]
+        inputs = [leaves[i] for i in diff]
+        out = fn(*leaves)
+        up = torch.randn(out.shape, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             5))
+        wrapped = torch.autograd.grad(out, inputs, up)
+        want = torch.autograd.grad(plain(*leaves), inputs, up)
+        gerr = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(wrapped, want))
+        del out, wrapped, want
+
+        def fwd_bwd():
+            torch.autograd.grad(fn(*leaves), inputs, up)
+
+        def plain_fwd_bwd():
+            torch.autograd.grad(plain(*leaves), inputs, up)
+        fb_ms = time_ms(torch, fwd_bwd, max(1, iters // 4))
+        row = krows[(name, "float32")]
+        row.update(grad_max_rel_err=gerr, grad_rtol=KGRAD_RTOL,
+                   fwd_bwd_ms=fb_ms, backward_ms=fb_ms - row["ms"],
+                   plain_fwd_bwd_ms=time_ms(torch, plain_fwd_bwd,
+                                            max(1, iters // 4)))
+        say("flow_kernel", **row)
+        rows[name] = row
+        del leaves, inputs
+        torch.cuda.empty_cache()
+    bad = [k for k, r in rows.items()
+           if not r["grad_max_rel_err"] <= KGRAD_RTOL]
+    if bad:
+        fail(f"flow_kernel: gradient off its plain version's: {bad}")
+    return rows
+
+
+def flow_step_grads(torch, pair, dev, dtype, use_plain=False, cudnn=True,
+                    tf32=False):
+    """One GMFlowTrainer.backward on `pair` (one batch) from FLOW_OPT's
+    seeded weights on `dev` in `dtype`; with use_plain the kernels' plain
+    versions in their place; cudnn False runs ATen's own convolutions;
+    tf32 True lets matmuls and cuDNN round to TF32 for this call.
+    Returns (loss, {leaf: gradient, float64 on the CPU}, seconds)."""
+    from unittest import mock
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.training.trainers import build_model
+    tr = build_model(FLOW_OPT, device=dev)
+    st = tr.make_state()
+    st.model.to(dtype)
+    plain = {n: K.PLAIN[n] for n in GRAD_ARGS}
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    a = time.perf_counter()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        with (mock.patch.multiple(K, **plain) if use_plain
+              else contextlib.nullcontext()), \
+                torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=tf32):
+            logs = tr.backward(st, {k: v.to(dev, dtype)
+                                    for k, v in pair.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    grads = {n: p.grad.detach().cpu().double()
+             for n, p in st.model.named_parameters()}
+    return float(logs["l_flow"]), grads, time.perf_counter() - a
+
+
+def flow_step_runs(torch, pair):
+    """One pair's GMFlow step from the same weights (flow_step_grads) in
+    every run the gates read: the card (kernels); the CPU in f32 and
+    float64; the card with the plain versions in the kernels' place in f32
+    and in float64; the card with the plain versions and ATen's
+    convolutions (no cuDNN); the card with TF32 allowed (a control)."""
+    cpu, cuda, f32, f64 = "cpu", "cuda", torch.float32, torch.float64
+    return {"card": flow_step_grads(torch, pair, cuda, f32),
+            "cpu": flow_step_grads(torch, pair, cpu, f32),
+            "cpu64": flow_step_grads(torch, pair, cpu, f64),
+            "card_plain": flow_step_grads(torch, pair, cuda, f32,
+                                          use_plain=True),
+            "card_plain64": flow_step_grads(torch, pair, cuda, f64,
+                                            use_plain=True),
+            "card_no_cudnn": flow_step_grads(torch, pair, cuda, f32,
+                                             use_plain=True, cudnn=False),
+            "card_tf32": flow_step_grads(torch, pair, cuda, f32, tf32=True)}
+
+
+def flow_step_gates(res):
+    """The gates on flow_step_runs' results (FLOW_F64_RTOL, FLOW_F32_RATIO,
+    FLOW_F32_FLOOR, FLOW_NOISE, LOSS_RTOL). Returns (ok, report)."""
+    g64 = res["cpu64"][1]
+    gm = max(g.abs().max().item() for g in g64.values())
+    loss = {k: v[0] for k, v in res.items()}
+
+    def max_rel(got, ref):
+        """max|got - ref| over ref's largest, by leaf (FLOW_ZERO_GRAD
+        leaves left out)."""
+        return {n: ((got[n] - r).abs().max() / r.abs().max()).item()
+                for n, r in ref.items() if n not in FLOW_ZERO_GRAD}
+
+    def rel_l2(run):
+        """|run - float64| over |float64| (L2), by leaf."""
+        got = res[run][1]
+        return {n: ((got[n] - r).norm() / r.norm()).item()
+                for n, r in g64.items() if n not in FLOW_ZERO_GRAD}
+
+    def worst(d, k=4):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:k])
+
+    def group(n):
+        return n.split(".")[0]
+    # the card against the CPU with rounding out of the way (float64)
+    exact = max_rel(res["card_plain64"][1], g64)
+    # the f32 steps: each f32 witness's distance to float64, the largest
+    # on any leaf of a module group being that group's f32 noise
+    witnesses = ("cpu", "card_plain", "card_no_cudnn")
+    off = {r: rel_l2(r) for r in ("card", "card_tf32") + witnesses}
+    env = {}
+    for r in witnesses:
+        for n, v in off[r].items():
+            env[group(n)] = max(env.get(group(n), 0.0), v)
+    lim = {n: FLOW_F32_RATIO * env[group(n)] + FLOW_F32_FLOOR
+           for n in off["card"]}
+    f32_step = {n: v / lim[n] for n, v in off["card"].items()}
+    tf32_ctl = {n: v / lim[n] for n, v in off["card_tf32"].items()}
+    # the kernels against the plain versions, both f32 on the card
+    gk, gp = res["card"][1], res["card_plain"][1]
+    kern = {n: ((gk[n] - r).norm() / r.norm()).item() / lim[n]
+            for n, r in gp.items() if n not in FLOW_ZERO_GRAD}
+    loss_err = {r: abs(loss[r] - loss[ref]) / abs(loss[ref]) for r, ref in (
+        ("card", "cpu"), ("card_plain", "card"), ("card_plain64", "cpu64"))}
+    zero_noise = max(res[r][1][n].abs().max().item() / (FLOW_NOISE * gm)
+                     for r in ("card", "card_plain", "card_plain64", "cpu64")
+                     for n in FLOW_ZERO_GRAD)
+    ok = bool(loss_err["card"] <= LOSS_RTOL
+              and loss_err["card_plain"] <= LOSS_RTOL
+              and loss_err["card_plain64"] <= FLOW_F64_RTOL
+              and zero_noise <= 1.0 and max(exact.values()) <= FLOW_F64_RTOL
+              and max(f32_step.values()) <= 1.0
+              and max(kern.values()) <= 1.0
+              and max(tf32_ctl.values()) > 1.0)
+    return ok, {
+        "losses": loss, "loss_rel_err": loss_err, "loss_rtol": LOSS_RTOL,
+        "card64_vs_cpu64_max_rel": max(exact.values()),
+        "worst_card64_vs_cpu64": worst(exact), "f64_rtol": FLOW_F64_RTOL,
+        "f32_noise_by_group": env,
+        "card_f32_over_tol": max(f32_step.values()),
+        "worst_card_f32": worst(f32_step),
+        "tf32_control_over_tol": max(tf32_ctl.values()),
+        "worst_tf32_control": worst(tf32_ctl),
+        "rel_l2_off_f64_max": {r: max(v.values()) for r, v in off.items()},
+        "kernels_vs_plain_over_tol": max(kern.values()),
+        "worst_kernels_vs_plain": worst(kern),
+        "kernels_vs_plain_max_rel": worst(max_rel(gk, gp)),
+        "cpu_f32_max_rel_off_f64": max(max_rel(res["cpu"][1], g64).values()),
+        "card_f32_max_rel_off_f64": max(max_rel(res["card"][1],
+                                                g64).values()),
+        "zero_grad_noise_over_tol": zero_noise,
+        "f32_ratio": FLOW_F32_RATIO, "f32_floor": FLOW_F32_FLOOR,
+        "noise_of_largest": FLOW_NOISE, "leaves": len(g64)}
+
+
+def phase_train_flow(torch, card, kernel_rows):
+    """GMFlow training at full width (phase train_flow): a synthetic
+    FlyingChairs directory (FLOW_PAIRS pairs of 384 x 512 .ppm frames and
+    .flo flows), build_train_dataset("chairs"), the loader at B = 8 on
+    FLOW_WORKERS threads, its steady s a batch alone, and GMFlowTrainer on
+    FLOW_OPT (tools/train_flow.py's defaults), f32; one warm-up step, then
+    FLOW_STEPS steps inside one epoch: loss and metrics finite, every
+    leaf's gradient non-zero (but FLOW_ZERO_GRAD's, at noise), the LR on
+    the one-cycle schedule, K1-K3's launches as one GMFlow forward implies
+    (the backward launches none), the wait for data a step; a step's
+    forward, backward and update ms apart; then one pair's step card
+    against CPU; one more epoch trained through (s a step, data
+    included); validate_chairs on the validation split. `kernel_rows`
+    are phase_flow_grads' rows. Returns the launches of the FLOW_STEPS
+    steps by shape key and counter."""
+    from comfyui_keep_torch.data.flow_datasets import build_train_dataset
+    from comfyui_keep_torch.data.prefetch import CUDAPrefetcher, DataLoader
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.training import flow_eval
+    from comfyui_keep_torch.training.schedulers import cosine_onecycle
+    from comfyui_keep_torch.training.trainers import build_model
+    root = tempfile.mkdtemp(prefix="chairs_")
+    t0 = time.perf_counter()
+    write_chairs(root, FLOW_PAIRS, FLOW_HW)
+    write_s = time.perf_counter() - t0
+    ds = build_train_dataset("chairs", FLOW_HW, roots={"chairs": root})
+    loader = DataLoader(ds, batch_size=FLOW_B, shuffle=True, drop_last=True,
+                        num_workers=FLOW_WORKERS, seed=0)
+    # the loader alone over one epoch, nothing else running: its steady s a
+    # batch from the second batch on (the first is a cold start)
+    marks = [time.perf_counter()]
+    for _ in loader:
+        marks.append(time.perf_counter())
+    loader_s = (marks[-1] - marks[1]) / (len(marks) - 2)
+    pre = CUDAPrefetcher(loader)
+    tr = build_model(FLOW_OPT)
+    state = tr.make_state()
+    grads = {}
+    names = {id(p): n for n, p in state.model.named_parameters()}
+
+    def hook(opt, args, kwargs):
+        for grp in opt.param_groups:
+            for p in grp["params"]:
+                grads[names[id(p)]] = p.grad.abs().max().item()
+    state.optimizer.register_step_pre_hook(hook)
+
+    def batch():
+        b = pre.next()
+        if b is None:
+            fail("train_flow: the epoch ended inside the timed steps")
+        return {k: v for k, v in b.items() if torch.is_tensor(v)}
+
+    data_s, step_ms, logs_all, lrs = [], [], [], []
+    sched = cosine_onecycle(FLOW_OPT["train"]["num_steps"] + 10,
+                            FLOW_OPT["train"]["lr"], pct_start=0.05)
+    torch.cuda.reset_peak_memory_stats()
+    counts = {}
+    for i in range(FLOW_STEPS + 1):
+        t0 = time.perf_counter()
+        b = batch()
+        torch.cuda.synchronize()
+        data_s.append(time.perf_counter() - t0)
+        if i == 1:
+            K.reset_launch_counts()
+        a = time.perf_counter()
+        state, logs = tr.train_step(state, b)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - a))
+        logs_all.append(logs)
+        lrs.append((state.optimizer.param_groups[0]["lr"], sched(i)))
+    counts = {**K.LAUNCHES, **K.LAUNCHES_BY_SHAPE}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one more step timed by parts: forward + loss, backward, update
+    b = batch()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss, metrics = tr.loss_fn(state.model, b)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    tr.update(state)
+    ev[3].record()
+    torch.cuda.synchronize()
+    parts = {"forward_ms": ev[0].elapsed_time(ev[1]),
+             "backward_ms": ev[1].elapsed_time(ev[2]),
+             "update_ms": ev[2].elapsed_time(ev[3])}
+    want = {k: v * FLOW_STEPS for k, v in gmflow_launches(1).items()}
+    want.update(fused_bias_lrelu=0, packed_conv2x2=0)
+    fh, fw = FLOW_HW[0] // 8, FLOW_HW[1] // 8
+    by_shape = {r["launch_key"]: counts.get(r["launch_key"], 0)
+                for r in kernel_rows.values()}
+    want_shape = {f"attention[dv128] B{8 * FLOW_B} L{fh * fw // 4}":
+                  6 * FLOW_STEPS,
+                  f"attention[dv128+bias] B{8 * FLOW_B} L{fh * fw // 4}":
+                  6 * FLOW_STEPS,
+                  f"attention[dv2] B{FLOW_B} L{fh * fw}": FLOW_STEPS,
+                  f"global_correlation_expectation B{FLOW_B} L{fh * fw}":
+                  FLOW_STEPS,
+                  f"mlp_fused rows{2 * FLOW_B * fh * fw}": 6 * FLOW_STEPS}
+    finite = all(math.isfinite(v) for lg in logs_all for v in lg.values())
+    keys_ok = all({"l_flow", "epe", "1px", "3px", "5px", "l_total"}
+                  <= lg.keys() for lg in logs_all)
+    gmax = max(grads.values())
+    zero_grad = {n: g for n, g in grads.items() if n in FLOW_ZERO_GRAD}
+    dead = [n for n, g in grads.items()
+            if n not in FLOW_ZERO_GRAD and not g > 0]
+    noisy = [n for n, g in zero_grad.items() if g > FLOW_GRAD_ATOL * gmax]
+    watch = {n: grads[n] for n in (
+        "backbone.conv1.weight", "transformer.layers.0.self_attn.q_proj.weight",
+        "transformer.layers.0.self_attn.k_proj.weight",
+        "transformer.layers.0.self_attn.v_proj.weight",
+        "transformer.layers.5.cross_attn_ffn.merge.weight",
+        "transformer.layers.5.cross_attn_ffn.mlp.0.weight",
+        "transformer.layers.5.cross_attn_ffn.mlp.2.weight",
+        "feature_flow_attn.q_proj.weight", "upsampler.2.weight")}
+    lr_ok = all(abs(got - want_lr) <= 1e-9 * want_lr for got, want_lr in lrs)
+    launch_ok = ({k: counts[k] for k in want} == want
+                 and by_shape == want_shape)
+    steady = step_ms[1:]
+    # the plain backward a step runs: each call's backward ms at its shape,
+    # as many as the forward launches; K3 takes none (its flow reaches the
+    # loss only through the propagation, which takes it detached)
+    bwd_plain = sum(kernel_rows[r]["backward_ms"] * n for r, n in (
+        ("attention[dv128] flow step", 6), ("attention[dv128+bias] flow step",
+                                             6),
+        ("attention[dv2] flow step", 1), ("mlp_fused flow step", 6)))
+    ok = bool(finite and keys_ok and not dead and not noisy and lr_ok
+              and launch_ok)
+    say("train_flow", card=card, batch=FLOW_B, hw=list(FLOW_HW),
+        ms_per_step=float(np.mean(steady)), ms_steps=step_ms,
+        pairs_per_s=1e3 * FLOW_B / float(np.mean(steady)), **parts,
+        plain_backward_ms_per_step=bwd_plain, peak_gib=peak,
+        data_wait_s=data_s, loader_s_per_batch=loader_s,
+        loader_workers=FLOW_WORKERS, pairs_written=FLOW_PAIRS,
+        write_dataset_s=write_s,
+        losses=[lg["l_flow"] for lg in logs_all],
+        epe=[lg["epe"] for lg in logs_all], lr=lrs, watched_grads=watch,
+        zero_grad_leaves=zero_grad, dead_leaves=dead, launches=counts,
+        expected=want, launches_by_shape=by_shape,
+        expected_by_shape=want_shape, ok=ok)
+    if not ok:
+        fail("train_flow: the GMFlow steps broke a check (losses, "
+             "gradients, LR or launches)")
+
+    one = {k: v[:1] for k, v in batch().items()}
+    res = flow_step_runs(torch, one)
+    ok, report = flow_step_gates(res)
+    say("train_flow_parity", **report, cpu_s=res["cpu"][2],
+        card_s=res["card"][2], ok=ok)
+    if not ok:
+        fail("train_flow_parity: the card's GMFlow step disagrees with the "
+             "CPU's, or the TF32 control passed")
+    del res
+
+    # one more epoch trained through: the loader's queue starts empty, so
+    # its wall clock a step (data included) shows whether the loader or
+    # the step bounds the training rate
+    pre.reset()
+    marks, waits = [time.perf_counter()], []
+    while True:
+        t0 = time.perf_counter()
+        b = pre.next()
+        if b is None:
+            break
+        waits.append(time.perf_counter() - t0)
+        state, _ = tr.train_step(state, {k: v for k, v in b.items()
+                                         if torch.is_tensor(v)})
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    say("train_flow_epoch", steps=len(waits), card=card,
+        s_per_step=(marks[-1] - marks[1]) / (len(marks) - 2),
+        data_wait_s_per_step=float(np.mean(waits[1:])),
+        first_batch_s=waits[0], loader_s_per_batch=loader_s,
+        timed_step_ms=float(np.mean(steady)))
+
+    # validation on the chairs split's validation pair(s)
+    fn = flow_eval.make_flow_fn(state.model)
+    fn(*[np.zeros((1,) + FLOW_HW + (3,), np.float32)] * 2)   # warm-up
+    a = time.perf_counter()
+    val = flow_eval.validate_chairs(fn, root=root, with_speed_metric=True)
+    torch.cuda.synchronize()
+    n_val = len(flow_eval.fdata.FlyingChairs(split="validation", root=root))
+    val_ms = 1e3 * (time.perf_counter() - a) / n_val
+    ok = bool(math.isfinite(val["chairs_epe"]))
+    say("validate_chairs", pairs=n_val, ms_per_pair=val_ms, card=card,
+        **val, ok=ok)
+    if not ok:
+        fail("validate_chairs: EPE not finite")
+    del tr, state, pre, loader
+    torch.cuda.empty_cache()
+    return counts
+
+
+# phase sr_test: the reference configurations' patch, clip and batch sizes
+# (options/train_ESRGAN_x4.yml, train_RealESRGANx4plus.yml of BasicSR /
+# Real-ESRGAN, train_BasicVSR_REDS.yml; recalled from those repositories,
+# which are not in this one)
+SRGAN_SIZE = dict(batch=16, gt=128)        # ESRGAN x4: RRDBNet 64 / 23
+REALESRGAN_SIZE = dict(batch=12, gt=256)   # Real-ESRGAN x4plus
+BASICVSR_SIZE = dict(batch=4, frames=15, lq=64)   # REDS, x4
+TEST_PAIRS = 4
+SR_METRIC_RTOL = 1e-3   # test_pipeline's PSNR / SSIM, card against CPU
+
+
+def write_sr_pairs(root, n, lq, scale=4, seed=0):
+    """n smooth random PNG pairs in <root>/gt and <root>/lq (the LQ the GT
+    box-averaged by `scale`)."""
+    import torch
+    from comfyui_keep_torch.utils import png
+    g = torch.Generator().manual_seed(seed)
+    for sub in ("gt", "lq"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        coarse = torch.rand((1, 3, lq // 4 + 1, lq // 4 + 1), generator=g)
+        gt = torch.nn.functional.interpolate(
+            coarse, size=(lq * scale, lq * scale), mode="bilinear",
+            align_corners=False)
+        small = torch.nn.functional.avg_pool2d(gt, scale)
+        for sub, img in (("gt", gt), ("lq", small)):
+            u8 = (img[0].permute(1, 2, 0) * 255).round().to(torch.uint8)
+            png.imwrite_bgr(os.path.join(root, sub, f"{i:04d}.png"),
+                            u8.numpy()[:, :, ::-1])
+    return os.path.join(root, "lq"), os.path.join(root, "gt")
+
+
+def phase_sr_test(torch, card):
+    """options/test_keep.yml (TEST_OPT) through test_pipeline on the card
+    (MSRResNet 64 / 16 x4, TEST_PAIRS synthetic 64^2 -> 256^2 PNG pairs,
+    PSNR / SSIM, save_img) against the CPU's run; an SRModel through
+    train_pipeline for 2 iterations with a val phase at val_freq 1; then
+    one step each of SRGANModel (RRDBNet + VGGStyleDiscriminator + VGG19
+    perceptual), RealESRGANModel (the feed on hand-built kernels, RRDBNet +
+    UNetDiscriminatorSN) and VideoRecurrentModel (BasicVSR, REDS clips,
+    fix_flow): losses finite, the weights moved (SpyNet's by nothing but
+    its zero-gradient step during fix_flow). None of K1-K6 launches."""
+    from comfyui_keep_torch.models.vgg import VGGFeatureExtractor
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.training import train as train_mod
+    from comfyui_keep_torch.training.trainers import build_model
+    K.reset_launch_counts()
+    root = tempfile.mkdtemp(prefix="sr_")
+    lq_dir, gt_dir = write_sr_pairs(os.path.join(root, "pairs"), TEST_PAIRS,
+                                    64)
+    g_opt = TEST_OPT["network_g"]
+    net = build_model(TEST_OPT, device="cpu").init_model()
+    pth = os.path.join(root, "net_g.pth")
+    torch.save({"params": net.state_dict()}, pth)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        opt = copy.deepcopy(TEST_OPT)
+        opt["datasets"]["test_1"].update(dataroot_lq=lq_dir,
+                                         dataroot_gt=gt_dir)
+        opt["path"].update(pretrain_network_g=pth,
+                           visualization=os.path.join(root, f"vis_{dev}"))
+        opt["val"]["save_img"] = True
+        if dev == "cuda":     # a warm-up run: cuDNN picks its algorithms
+            train_mod.test_pipeline(opt)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        results[dev] = train_mod.test_pipeline(
+            opt, trainer_kwargs={"device": dev})
+        torch.cuda.synchronize()
+        results[dev + "_ms_per_pair"] = 1e3 * (time.perf_counter() - a) \
+            / TEST_PAIRS
+    card_m, cpu_m = results["cuda"]["demo"], results["cpu"]["demo"]
+    saved = sorted(os.listdir(os.path.join(root, "vis_cuda", "demo")))
+    ok = bool(all(math.isfinite(v) for v in card_m.values())
+              and all(abs(card_m[k] - v) <= SR_METRIC_RTOL * abs(v)
+                      for k, v in cpu_m.items())
+              and saved == [f"{i:04d}_keep_test.png"
+                            for i in range(TEST_PAIRS)])
+    say("sr_test", card=card, network=g_opt, pairs=TEST_PAIRS,
+        metrics_card=card_m, metrics_cpu=cpu_m, rtol=SR_METRIC_RTOL,
+        eval_ms_per_pair=results["cuda_ms_per_pair"],
+        cpu_eval_ms_per_pair=results["cpu_ms_per_pair"], saved=saved, ok=ok)
+    if not ok:
+        fail("sr_test: test_pipeline's metrics or saved images are off")
+
+    # SRModel through train_pipeline with validation every iteration
+    opt = copy.deepcopy(TEST_OPT)
+    exp = os.path.join(root, "exp")
+    opt.update(is_train=True, name="sr_train_val")
+    opt["datasets"] = {
+        "train": {"type": "PairedImageDataset", "dataroot_lq": lq_dir,
+                  "dataroot_gt": gt_dir, "scale": 4, "phase": "train",
+                  "gt_size": 128, "batch_size_per_gpu": 4},
+        "val": {"type": "PairedImageDataset", "name": "pairs",
+                "dataroot_lq": lq_dir, "dataroot_gt": gt_dir, "scale": 4}}
+    opt["train"].update(total_iter=2, optim_g={"type": "Adam", "lr": 2e-4})
+    opt["val"].update(val_freq=1, save_img=True)
+    opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 100}
+    opt["path"] = {"experiments_root": exp,
+                   "models": os.path.join(exp, "models"),
+                   "training_states": os.path.join(exp, "states"),
+                   "log": exp, "visualization": os.path.join(exp, "vis")}
+    state, logs = train_mod.train_pipeline(opt)
+    run = logs["run"]
+    ok = bool(sorted(run["val"]) == [1, 2] and math.isfinite(
+        logs["val/pairs/psnr"]) and state.iter == 2)
+    say("sr_train_val", iters=state.iter, val=run["val"],
+        step_s=run["step_s"], val_s=run["val_s"], ok=ok)
+    if not ok:
+        fail("sr_train_val: train_pipeline's validation did not run")
+    del state, run, logs
+
+    vgg = VGGFeatureExtractor(("conv5_4",), vgg_type="vgg19",
+                              use_input_norm=True, range_norm=False,
+                              device="cuda",
+                              generator=torch.Generator().manual_seed(9))
+    rrdb = {"type": "RRDBNet", "num_in_ch": 3, "num_out_ch": 3,
+            "num_feat": 64, "num_block": 23, "num_grow_ch": 32}
+    gen = torch.Generator().manual_seed(4)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    steps = {}
+
+    def one_step(name, opt, batch, feature_fn=None, check=None):
+        kw = {} if feature_fn is None else {"feature_fn": feature_fn}
+        tr = build_model(opt, **kw)
+        st = tr.make_state()
+        before = {n: p.detach().clone() for n, p in
+                  st.model.named_parameters()}
+        if hasattr(tr, "feed_data"):
+            batch = tr.feed_data(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = time.perf_counter()
+        st, lg = tr.train_step(st, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - a)
+        moved = {n: (p.detach() - before[n]).abs().max().item()
+                 for n, p in st.model.named_parameters()}
+        ok = bool(all(math.isfinite(v) for v in lg.values()) and lg
+                  and max(moved.values()) > 0
+                  and (check is None or check(moved)))
+        steps[name] = {"ms_first_step": ms, "losses": lg,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "ok": ok}
+        say("sr_step", model=name, batch={k: list(v.shape)
+                                          for k, v in batch.items()},
+            **steps[name])
+        if not ok:
+            fail(f"sr_step ({name}): a loss is not finite or nothing moved")
+
+    n, s = SRGAN_SIZE["batch"], SRGAN_SIZE["gt"]
+    one_step("SRGANModel (ESRGAN x4)", {
+        "model_type": "SRGANModel", "manual_seed": 0, "network_g": rrdb,
+        "network_d": {"type": "VGGStyleDiscriminator", "num_in_ch": 3,
+                      "num_feat": 64, "input_size": s},
+        "train": {"pixel_opt": {"type": "L1Loss", "loss_weight": 1e-2},
+                  "perceptual_opt": {"type": "PerceptualLoss",
+                                     "layer_weights": {"conv5_4": 1.0},
+                                     "perceptual_weight": 1.0,
+                                     "style_weight": 0},
+                  "gan_opt": {"type": "GANLoss", "gan_type": "vanilla",
+                              "loss_weight": 5e-3},
+                  "optim_g": {"type": "Adam", "lr": 1e-4},
+                  "optim_d": {"type": "Adam", "lr": 1e-4}}},
+        {"lq": rand(n, s // 4, s // 4, 3), "gt": rand(n, s, s, 3)}, vgg)
+    n, s = REALESRGAN_SIZE["batch"], REALESRGAN_SIZE["gt"]
+
+    def kernels():
+        k = rand(n, 21, 21) ** 4
+        return k / k.sum(dim=(1, 2), keepdim=True)
+    one_step("RealESRGANModel (x4plus)", {
+        "model_type": "RealESRGANModel", "manual_seed": 0, "scale": 4,
+        "gt_size": s, "queue_size": 180,
+        "resize_prob": [0.2, 0.7, 0.1], "resize_range": [0.15, 1.5],
+        "gaussian_noise_prob": 0.5, "noise_range": [1, 30],
+        "poisson_scale_range": [0.05, 3], "gray_noise_prob": 0.4,
+        "jpeg_range": [30, 95], "second_blur_prob": 0.8,
+        "resize_prob2": [0.3, 0.4, 0.3], "resize_range2": [0.3, 1.2],
+        "gaussian_noise_prob2": 0.5, "noise_range2": [1, 25],
+        "poisson_scale_range2": [0.05, 2.5], "gray_noise_prob2": 0.4,
+        "jpeg_range2": [30, 95],
+        "network_g": rrdb,
+        "network_d": {"type": "UNetDiscriminatorSN", "num_in_ch": 3,
+                      "num_feat": 64, "skip_connection": True},
+        "train": {"pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
+                  "perceptual_opt": {"type": "PerceptualLoss",
+                                     "layer_weights": {"conv5_4": 1.0},
+                                     "perceptual_weight": 1.0,
+                                     "style_weight": 0},
+                  "gan_opt": {"type": "GANLoss", "gan_type": "vanilla",
+                              "loss_weight": 1e-1},
+                  "optim_g": {"type": "Adam", "lr": 1e-4},
+                  "optim_d": {"type": "Adam", "lr": 1e-4}}},
+        {"gt": rand(n, s + 64, s + 64, 3), "kernel1": kernels(),
+         "kernel2": kernels(), "sinc_kernel": kernels()}, vgg)
+    n, t, lq = (BASICVSR_SIZE[k] for k in ("batch", "frames", "lq"))
+    one_step("VideoRecurrentModel (BasicVSR, REDS)", {
+        "model_type": "VideoRecurrentModel", "manual_seed": 0,
+        "network_g": {"type": "BasicVSR", "num_feat": 64, "num_block": 30},
+        "train": {"pixel_opt": {"type": "CharbonnierLoss",
+                                "loss_weight": 1.0},
+                  "optim_g": {"type": "Adam", "lr": 2e-4},
+                  "flow_lr_mul": 0.125, "fix_flow": 5000}},
+        {"lq": rand(n, t, lq, lq, 3), "gt": rand(n, t, 4 * lq, 4 * lq, 3)},
+        check=lambda moved: all(v == 0 for k, v in moved.items()
+                                if k.startswith("spynet.")))
+    counts = dict(K.LAUNCHES)
+    ok = not any(counts.values())
+    say("sr_launches", launches=counts, ok=ok)
+    if not ok:
+        fail(f"sr_test: the SR / video trainers launched a kernel {counts}")
+    del vgg
+    torch.cuda.empty_cache()
+    return steps
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3557,6 +4343,9 @@ def main():
     phase_train_parity(torch)
     train_counts = phase_train(torch)
     gan_counts = phase_train_gan(torch, card)
+    flow_rows = phase_flow_grads(torch, krows)
+    flow_counts = phase_train_flow(torch, card, flow_rows)
+    phase_sr_test(torch, card)
     k5_rows = phase_k5(torch)
     phase_stylegan2_parity(torch)
     sample_counts = phase_stylegan2_sample(torch)
@@ -3615,6 +4404,18 @@ def main():
             launches = chunk_counts["batch"].get(key, 0)
             extra = {"launches_at": key, **slice7(key, dname),
                      "launches_of": 'the "batch" chunk form\'s 41-face run'}
+        elif at == "flow step":
+            # K1-K3 (f32) at the GMFlow training step's shapes: launches at
+            # each shape over the FLOW_STEPS timed steps of phase train_flow
+            launches = flow_counts.get(key, 0)
+            extra = {"launches_per_step": launches / FLOW_STEPS,
+                     "launches_at": key,
+                     "launches_of": f"{FLOW_STEPS} GMFlow training steps "
+                                    f"(B = {FLOW_B}, "
+                                    f"{FLOW_HW[0]}x{FLOW_HW[1]})",
+                     "backward_ms": r["backward_ms"],
+                     "grad_max_rel_err": r["grad_max_rel_err"],
+                     "plain_fwd_bwd_ms": r["plain_fwd_bwd_ms"]}
         elif at == "L256":
             # the refinement's fine scale: launches at this shape in one
             # apply_refine forward call (2 pairs) in this dtype
@@ -3636,7 +4437,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": dname, "status": "ported", **extra,
-            **stage3(counter, dname)})
+            **({} if at == "flow step" else stage3(counter, dname))})
     # the nearest-codebook kernel runs on the training path: f32 as
     # configured, bf16 under mixed precision; launches from those runs
     for (name, dname), r in vq_rows.items():

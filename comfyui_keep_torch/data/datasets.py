@@ -1,7 +1,9 @@
 """Training datasets (reference wm_basicsr/data/*_dataset.py), ported from
-comfyui_keep_tpu/data/datasets.py. This slice brings the KEEP training
-data, VFHQRealDegradationDataset (reference vfhq_real_degradation2_
-dataset.py:22-410); the other datasets are ROADMAP Queue 1 item 6.7.
+comfyui_keep_tpu/data/datasets.py: the KEEP training data,
+VFHQRealDegradationDataset (reference vfhq_real_degradation2_
+dataset.py:22-410), and the image pairs of SR training and validation,
+PairedImageDataset and SingleImageDataset; the other datasets are ROADMAP
+Queue 1 item 6.7.
 
 Items are numpy NHWC float32 dicts, batched by data/prefetch.py. Frames are
 PNG, read by utils/png.py (the card machine has no OpenCV), and the
@@ -17,8 +19,8 @@ import torch
 from comfyui_keep_torch.data.degradations import (add_video_compression,
                                                   random_add_gaussian_noise,
                                                   random_mixed_kernels)
-from comfyui_keep_torch.data.transforms import augment
-from comfyui_keep_torch.utils import cvops
+from comfyui_keep_torch.data.transforms import augment, paired_random_crop
+from comfyui_keep_torch.utils import cvops, png
 from comfyui_keep_torch.utils.file_client import FileClient, imfrombytes
 from comfyui_keep_torch.utils.registry import DATASET_REGISTRY
 
@@ -43,6 +45,78 @@ def scandir(path, suffix=None, recursive=False):
 
 def _normalize_pm1(x):
     return (x - 0.5) / 0.5
+
+
+def _read_img(path):
+    """cv2.imread(path) / 255 of a PNG: (H, W, 3) float32 BGR in [0, 1]."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    return png.imread_bgr(path).astype(np.float32) / 255.0
+
+
+class _Streams:
+    """A dataset's own random.Random and np.random.RandomState, which the
+    loader seeds (seed_streams) as np.random.seed / random.seed seed the
+    global streams the JAX package draws from."""
+
+    def seed_streams(self, seed: int):
+        self.py_rng = random.Random(seed)
+        self.np_rng = np.random.RandomState(seed)
+
+
+@DATASET_REGISTRY.register(name="PairedImageDataset")
+class PairedImageDataset(_Streams):
+    """GT / LQ PNG pairs of one name in dataroot_gt and dataroot_lq
+    (reference paired_image_dataset.py). phase "train": a random gt_size
+    crop (the LQ's at gt_size / scale), then flips and rotation
+    (use_hflip, use_rot), drawn from the dataset's Python stream. Items:
+    {"lq", "gt" (H, W, 3) RGB float32 in [0, 1], "lq_path", "gt_path"}."""
+
+    def __init__(self, opt: Dict):
+        self.opt = opt
+        self.gt_folder = opt["dataroot_gt"]
+        self.lq_folder = opt["dataroot_lq"]
+        self.paths = [{"gt_path": os.path.join(self.gt_folder, p),
+                       "lq_path": os.path.join(self.lq_folder, p)}
+                      for p in scandir(self.gt_folder)]
+        self.scale = opt.get("scale", 1)
+        self.seed_streams(0)
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, index):
+        d = self.paths[index]
+        img_gt, img_lq = _read_img(d["gt_path"]), _read_img(d["lq_path"])
+        if self.opt.get("phase") == "train":
+            img_gt, img_lq = paired_random_crop(
+                img_gt, img_lq, self.opt["gt_size"], self.scale,
+                rng=self.py_rng)
+            img_gt, img_lq = augment([img_gt, img_lq],
+                                     self.opt.get("use_hflip", True),
+                                     self.opt.get("use_rot", True),
+                                     rng=self.py_rng)
+        return {"lq": img_lq[..., ::-1].copy(), "gt": img_gt[..., ::-1].copy(),
+                "lq_path": d["lq_path"], "gt_path": d["gt_path"]}
+
+
+@DATASET_REGISTRY.register(name="SingleImageDataset")
+class SingleImageDataset:
+    """The PNGs of dataroot_lq: {"lq" (H, W, 3) RGB float32 in [0, 1],
+    "lq_path"}."""
+
+    def __init__(self, opt: Dict):
+        self.opt = opt
+        self.lq_folder = opt["dataroot_lq"]
+        self.paths = [os.path.join(self.lq_folder, p)
+                      for p in scandir(self.lq_folder)]
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, index):
+        return {"lq": _read_img(self.paths[index])[..., ::-1].copy(),
+                "lq_path": self.paths[index]}
 
 
 def _frames(fn, imgs):

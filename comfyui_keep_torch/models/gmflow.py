@@ -443,16 +443,23 @@ class GMFlow(nn.Module):
         return upsample_flow_convex(self.upsampler, flow, f0,
                                     self.UPSAMPLE_FACTOR)
 
-    @torch.no_grad()
-    def apply(self, img0, img1, attn_splits: int = 2, corr_radius: int = -1,
-              prop_radius: int = -1):
+    def forward(self, img0, img1, attn_splits: int = 2, corr_radius: int = -1,
+                prop_radius: int = -1):
         """img0, img1: (B, H, W, 3) in [0, 255] -> flow (B, H, W, 2), img0
-        -> img1 displacement, through the single-scale backbone."""
+        -> img1 displacement, through the single-scale backbone: the JAX
+        package's GMFlow.apply, differentiable (the trainer's forward; the
+        kernels' gradients are their plain versions')."""
         b = img0.shape[0]
         feats = self.extract_features(torch.cat([img0, img1], dim=0))
         fx, fy = self.flow_from_features(feats[:b], feats[b:], attn_splits,
                                          corr_radius, prop_radius)
         return torch.stack([fx, fy], dim=-1)
+
+    @torch.no_grad()
+    def apply(self, img0, img1, attn_splits: int = 2, corr_radius: int = -1,
+              prop_radius: int = -1):
+        """forward without gradients (serving)."""
+        return self.forward(img0, img1, attn_splits, corr_radius, prop_radius)
 
     @torch.no_grad()
     def apply_refine(self, img0, img1, attn_splits_list=(2, 8),

@@ -12,7 +12,14 @@ fused bias + leaky ReLU and the phase-packed convolution.
 
 A wrapper given CPU tensors computes its plain version (the CPU tests run
 there). Given CUDA tensors it launches its kernel, or raises on anything the
-kernel does not take: there is no switch and no fallback. Each launch adds
+kernel does not take: there is no switch and no fallback. Under grad mode,
+with an input that requires grad, `attention`, `global_correlation_expectation`
+and `mlp_fused` go through `PlainBackward`: the kernel's forward, and in the
+backward the plain version's gradient, recomputed from the saved inputs
+(the JAX package differentiates its plain branch too: no Pallas kernel
+there has a backward). `packed_conv2x2` serves only and refuses such an
+input; `vq_nearest_indices` returns indices; `fused_bias_lrelu` has its own
+autograd Function (ops/native.py). Each launch adds
 one to its entry of `LAUNCHES`; the plain versions count nothing. `attention`
 keeps one entry per form, whichever dtype's kernel it launches:
 `attention[dv128]` (V as wide as q/k), `attention[dv128+bias]` (the same
@@ -89,6 +96,52 @@ def _device(t: torch.Tensor):
     return torch.cuda.device(t.device)
 
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' working type: f32, or float64 for an f64 input
+    (which the kernels do not take)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+class PlainBackward(torch.autograd.Function):
+    """apply(launch, plain, diff, *args): the forward is launch(*args) (the
+    kernel, counted as any launch); the backward differentiates
+    plain(*args) at the saved inputs, recomputed under enable_grad, and
+    returns its gradient for the inputs at positions `diff` (None for the
+    rest). One call's recompute lives only inside its own backward."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, diff, *args):
+        ctx.plain, ctx.diff = plain, diff
+        ctx.is_tensor = [torch.is_tensor(a) for a in args]
+        ctx.args = [None if t else a for a, t in zip(args, ctx.is_tensor)]
+        ctx.save_for_backward(*[a for a in args if torch.is_tensor(a)])
+        return launch(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = iter(ctx.saved_tensors)
+        args = [next(saved) if t else a
+                for a, t in zip(ctx.args, ctx.is_tensor)]
+        want = [i for i in ctx.diff if ctx.needs_input_grad[3 + i]]
+        for i in want:
+            args[i] = args[i].detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+        got = dict(zip(want, torch.autograd.grad(
+            out, [args[i] for i in want], grad, allow_unused=True)))
+        return (None, None, None) + tuple(got.get(i) for i in
+                                          range(len(args)))
+
+
+def _with_grad(launch, plain, diff, *args):
+    """launch(*args), through PlainBackward when grad mode is on and an
+    input at a position in `diff` requires grad."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(args[i]) and args[i].requires_grad for i in diff):
+        return PlainBackward.apply(launch, plain, diff, *args)
+    return launch(*args)
+
+
 # ---------------------------------------------------------------------------
 # K1: single-head attention
 # ---------------------------------------------------------------------------
@@ -96,14 +149,15 @@ def _device(t: torch.Tensor):
 def attention_plain(q, k, v, scale: float, bias=None):
     """softmax(q k^T * scale [+ bias[b % Bm]]) v with the kernel's rounding:
     f32 scores, probabilities cast to v's dtype for the PV product, f32
-    accumulation, normalised after PV."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    accumulation, normalised after PV (float64 throughout on f64 inputs)."""
+    acc_t = _acc_dtype(q)
+    s = torch.matmul(q.to(acc_t), k.to(acc_t).transpose(-1, -2)) * scale
     if bias is not None:
-        s = s + bias.float().repeat(q.shape[0] // bias.shape[0], 1, 1)
+        s = s + bias.to(acc_t).repeat(q.shape[0] // bias.shape[0], 1, 1)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    acc = torch.matmul(p.to(v.dtype).to(acc_t), v.to(acc_t))
     return (acc / denom).to(v.dtype)
 
 
@@ -113,6 +167,11 @@ def attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
     {128, 2}, f32 or bf16, B at most 65,535."""
     if not q.is_cuda:
         return attention_plain(q, k, v, scale, bias)
+    return _with_grad(_attention_launch, attention_plain, (0, 1, 2), q, k, v,
+                      scale, bias)
+
+
+def _attention_launch(q, k, v, scale: float, bias=None):
     b, l, d = q.shape
     _check_batch("attention", b)
     dv = v.shape[-1]
@@ -148,10 +207,13 @@ def attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
 # ---------------------------------------------------------------------------
 
 def global_correlation_expectation_plain(f0, f1, grid):
-    """softmax(f0 f1^T / sqrt(C)) @ grid, all in f32."""
+    """softmax(f0 f1^T / sqrt(C)) @ grid, all in f32 (float64 on f64
+    inputs)."""
     c = f0.shape[-1]
-    s = torch.matmul(f0.float(), f1.float().transpose(-1, -2)) / math.sqrt(c)
-    return torch.matmul(torch.softmax(s, dim=-1), grid.float())
+    acc_t = _acc_dtype(f0)
+    s = torch.matmul(f0.to(acc_t),
+                     f1.to(acc_t).transpose(-1, -2)) / math.sqrt(c)
+    return torch.matmul(torch.softmax(s, dim=-1), grid.to(acc_t))
 
 
 def global_correlation_expectation(f0, f1, grid):
@@ -160,6 +222,12 @@ def global_correlation_expectation(f0, f1, grid):
     correlation. On CUDA: C = 128, f32 or bf16, B at most 65,535."""
     if not f0.is_cuda:
         return global_correlation_expectation_plain(f0, f1, grid)
+    return _with_grad(_correlation_launch,
+                      global_correlation_expectation_plain, (0, 1), f0, f1,
+                      grid)
+
+
+def _correlation_launch(f0, f1, grid):
     b, l, c = f0.shape
     _check_batch("correlation", b)
     if c != KERNEL_WIDTH or f0.dtype not in _DTYPE_CODE:
@@ -186,13 +254,16 @@ def global_correlation_expectation(f0, f1, grid):
 def mlp_fused_plain(src, msg, w1, w2, gamma, beta, approximate: bool):
     """src + LN(gelu([src | msg] @ W1^T) @ W2^T) * gamma + beta with the
     kernel's rounding: f32 hidden, rounded to src's dtype before W2, f32
-    LayerNorm (eps 1e-5) and residual, cast to src's dtype."""
-    x = torch.cat([src, msg], dim=-1).float()
-    h = F.gelu(torch.matmul(x, w1.float().t()),
+    LayerNorm (eps 1e-5) and residual, cast to src's dtype (float64
+    throughout on f64 inputs)."""
+    acc_t = _acc_dtype(src)
+    x = torch.cat([src, msg], dim=-1).to(acc_t)
+    h = F.gelu(torch.matmul(x, w1.to(acc_t).t()),
                approximate="tanh" if approximate else "none")
-    o = torch.matmul(h.to(src.dtype).float(), w2.float().t())
-    o = F.layer_norm(o, (o.shape[-1],), gamma.float(), beta.float(), eps=1e-5)
-    return (src.float() + o).to(src.dtype)
+    o = torch.matmul(h.to(src.dtype).to(acc_t), w2.to(acc_t).t())
+    o = F.layer_norm(o, (o.shape[-1],), gamma.to(acc_t), beta.to(acc_t),
+                     eps=1e-5)
+    return (src.to(acc_t) + o).to(src.dtype)
 
 
 def mlp_fused(src, msg, w1, w2, gamma, beta, approximate: bool):
@@ -203,6 +274,11 @@ def mlp_fused(src, msg, w1, w2, gamma, beta, approximate: bool):
     contiguous and 16-byte aligned."""
     if not src.is_cuda:
         return mlp_fused_plain(src, msg, w1, w2, gamma, beta, approximate)
+    return _with_grad(_mlp_launch, mlp_fused_plain, (0, 1, 2, 3, 4, 5), src,
+                      msg, w1, w2, gamma, beta, approximate)
+
+
+def _mlp_launch(src, msg, w1, w2, gamma, beta, approximate: bool):
     b, l, c = src.shape
     h = w1.shape[0]
     if c != KERNEL_WIDTH or h % 64 or src.dtype not in _DTYPE_CODE:
@@ -379,9 +455,14 @@ def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
     is taken in f32 and rounded once. On CUDA: kh, kw in {1, 2}, pads in
     {0, 1}, Cin and Cout multiples of 4, x and w contiguous, 16-byte aligned
     and of one dtype (f32 or bf16), the bias contiguous in f32 or x's
-    dtype."""
+    dtype. It serves only: a CUDA input that records a gradient (grad mode
+    on, any tensor requiring grad) raises rather than detach."""
     if not x.is_cuda:
         return packed_conv2x2_plain(x, w, pads, bias, mask_c)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        raise RuntimeError("packed_conv2x2: the kernel has no backward; call "
+                           "it under torch.no_grad() (serving only)")
     (pt, pb), (pl, pr) = pads
     if x.dim() != 4 or w.dim() != 4 or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"packed_conv2x2 takes NHWC x and HWIO w in "

@@ -51,6 +51,36 @@ def cosine_annealing_restart_lr(periods: Sequence[int],
     return multiplier
 
 
+def cosine_onecycle(transition_steps: int, peak_value: float,
+                    pct_start: float = 0.3, div_factor: float = 25.0,
+                    final_div_factor: float = 1e4):
+    """optax.cosine_onecycle_schedule as a function of the update count: the
+    LR itself, not a multiplier. From peak / div_factor it rises to
+    peak_value at int(pct_start * transition_steps), then falls to peak /
+    (div_factor^2 final_div_factor) at transition_steps and stays there;
+    each phase is a cosine between its end values, end + (start - end) / 2
+    (cos(pi pct) + 1). Its warm-up phase ends at that int(), one step later
+    than torch's OneCycleLR. A zero-length warm-up (pct_start *
+    transition_steps < 1) raises: optax returns NaN at every step there."""
+    bounds = (0, int(pct_start * transition_steps), int(transition_steps))
+    if not bounds[0] < bounds[1] < bounds[2]:
+        raise ValueError(f"cosine_onecycle: phase bounds {bounds} (optax's "
+                         "schedule is NaN with an empty phase)")
+    init = peak_value / div_factor
+    values = (init, peak_value, peak_value / (div_factor * final_div_factor))
+
+    def lr(step):
+        step = int(step)
+        for i in range(2):
+            if bounds[i] <= step < bounds[i + 1]:
+                pct = (step - bounds[i]) / (bounds[i + 1] - bounds[i])
+                return values[i + 1] + (values[i] - values[i + 1]) / 2.0 * (
+                    math.cos(math.pi * pct) + 1)
+        return values[-1]
+
+    return lr
+
+
 def with_warmup(multiplier, warmup_iter: int = -1):
     """Linear warmup over the first warmup_iter steps."""
     if warmup_iter <= 0:

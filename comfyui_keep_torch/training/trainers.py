@@ -7,19 +7,26 @@ perceptual losses, fix_modules, the LR schedule, EMA, gradient
 accumulation and bf16 mixed precision. Slice 3 brings StyleGAN2's GAN
 alternation (StyleGAN2Model, reference models/stylegan2_model.py); slice 9
 KEEP stage III (KEEPGANModel, reference models/keep_gan_model.py) with
-Discriminator3D. Each trainer is in MODEL_REGISTRY under the JAX package's
-model_type; the SR, video and GMFlow trainers are ROADMAP Queue 1 item 6.5.
+Discriminator3D; slice 10 the SR trainers (SRModel, SRGANModel and their
+aliases, RealESRNetModel / RealESRGANModel with the on-device degradation
+feed), the recurrent video trainer (VideoRecurrentModel and its aliases)
+and GMFlow's (GMFlowModel). Each trainer is in MODEL_REGISTRY under the JAX
+package's model_type. The SR and video trainers take the datasets' NHWC
+batches and run their networks NCHW.
 
 A step is eager: forward, losses, backward and, at the end of each
 accumulation window, the optimizer update; the EMA moves on every
 micro-step, as the JAX package's does.
 """
 import contextlib
+import random
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from comfyui_keep_torch.models import build_network
 from comfyui_keep_torch.models.gmflow import GMFlow, flow_from_clip
 from comfyui_keep_torch.models.keep import KEEP, config
 from comfyui_keep_torch.models.stylegan2 import (StyleGAN2Discriminator,
@@ -28,13 +35,24 @@ from comfyui_keep_torch.models.vqgan import Discriminator3D, VQHQEncoder
 from comfyui_keep_torch.ops import flow_warp, resize_flow
 from comfyui_keep_torch.training.losses import (build_loss, g_path_regularize,
                                                 r1_penalty)
+from comfyui_keep_torch.training.flow_losses import flow_loss_func
 from comfyui_keep_torch.training.schedulers import (build_scheduler,
+                                                    cosine_onecycle,
                                                     with_warmup)
 from comfyui_keep_torch.training.state import (TrainState, build_optimizer,
                                                cast_parameters, ema_init,
                                                ema_update, freeze)
 from comfyui_keep_torch.utils.logger import get_root_logger
 from comfyui_keep_torch.utils.registry import MODEL_REGISTRY
+
+
+def _perceptual(t: Dict, feature_fn: Optional[Callable]):
+    if not t.get("perceptual_opt"):
+        return None
+    if feature_fn is None:
+        raise ValueError("perceptual_opt needs a feature_fn (e.g. a "
+                         "VGGFeatureExtractor)")
+    return build_loss(t["perceptual_opt"], feature_fn=feature_fn)
 
 
 class BaseTrainer:
@@ -48,7 +66,9 @@ class BaseTrainer:
     upcast to f32. train.accumulate_steps k: gradients are averaged over k
     micro-steps and the optimizer and the schedule advance once per k.
     network_g.fix_modules: the top-level submodules that stay frozen
-    (`default_fix_modules` when the options do not say).
+    (`default_fix_modules` when the options do not say). A param group's
+    "lr_mul" scales the LR it gets; `before_step(state)` runs on the
+    gradients just before each optimizer step.
     """
     default_fix_modules = ()
 
@@ -84,13 +104,20 @@ class BaseTrainer:
         optimizer over what trains, and the EMA."""
         model = (self.init_model() if model is None else model).to(
             self.device)
-        trainable = freeze(model, self.fix_modules)
-        optimizer = build_optimizer(
+        optimizer = self.make_optimizer(model, freeze(model,
+                                                      self.fix_modules))
+        ema = ema_init(model) if self.ema_decay > 0 else None
+        return TrainState(model=model, optimizer=optimizer, ema=ema)
+
+    def make_optimizer(self, model, trainable) -> torch.optim.Optimizer:
+        """optim_g over the trainable parameters."""
+        return build_optimizer(
             self.opt.get("train", {}).get("optim_g",
                                           {"type": "Adam", "lr": 1e-4}),
             trainable)
-        ema = ema_init(model) if self.ema_decay > 0 else None
-        return TrainState(model=model, optimizer=optimizer, ema=ema)
+
+    def before_step(self, state: TrainState):
+        """Hook on the window's gradients before the optimizer step."""
 
     def _cast_batch(self, batch):
         dt = self.compute_dtype
@@ -131,11 +158,12 @@ class BaseTrainer:
         if (state.iter + 1) % self.accumulate_steps == 0:
             lr = self.current_lr(state.iter)
             for group in state.optimizer.param_groups:
-                group["lr"] = lr
+                group["lr"] = lr * group.get("lr_mul", 1.0)
                 for p in group["params"]:
                     # optax updates every trainable leaf, reached or not
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
+            self.before_step(state)
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
         if state.ema is not None:
@@ -175,13 +203,7 @@ class KEEPTrainer(BaseTrainer):
         self.entropy_loss_weight = t.get("entropy_loss_weight", 0.5)
         self.cri_pix = build_loss(t["pixel_opt"]) if t.get("pixel_opt") \
             else None
-        self.cri_perceptual = None
-        if t.get("perceptual_opt"):
-            if feature_fn is None:
-                raise ValueError("perceptual_opt needs a feature_fn (e.g. a "
-                                 "VGGFeatureExtractor)")
-            self.cri_perceptual = build_loss(t["perceptual_opt"],
-                                             feature_fn=feature_fn)
+        self.cri_perceptual = _perceptual(t, feature_fn)
         self.cri_temporal = build_loss(t["temporal_opt"]) \
             if t.get("temporal_opt") else None
         self.temporal_type = t.get("temporal_warp_type", "GT")
@@ -601,12 +623,396 @@ class StyleGAN2Trainer(BaseTrainer):
         return self.gan_train_step(state, batch, current_iter=state.iter + 1)
 
 
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _seeded(name: str, cfg: Dict, seed: int):
+    """build_network(name)(**cfg), its weights drawn on the CPU from a
+    torch.Generator seeded with `seed`."""
+    return build_network(name)(**cfg, device="cpu",
+                               generator=torch.Generator().manual_seed(seed))
+
+
+@MODEL_REGISTRY.register(name="SRModel")
+class SRTrainer(BaseTrainer):
+    """Single-image SR (reference models/sr_model.py): the pixel and
+    perceptual losses on network_g's output; `forward` for validation and
+    `test_selfensemble`, the x8 flip / transpose ensemble. Batches: "lq"
+    and "gt", (B, H, W, 3) in [0, 1]. feature_fn as KEEPTrainer's, needed
+    with perceptual_opt. Runs on "cuda" unless given device="cpu"."""
+
+    def __init__(self, opt: Dict, device="cuda",
+                 feature_fn: Optional[Callable] = None):
+        super().__init__(opt, device)
+        t = opt.get("train", {})
+        self.cri_pix = build_loss(t["pixel_opt"]) if t.get("pixel_opt") \
+            else None
+        self.cri_perceptual = _perceptual(t, feature_fn)
+        net = dict(opt["network_g"])
+        self.arch_type = net.pop("type")
+        net.pop("fix_modules", None)
+        self.net_cfg = net
+
+    def init_model(self):
+        return _seeded(self.arch_type, self.net_cfg, self.seed)
+
+    def net(self, model, lq):
+        """The network on an NHWC batch, NHWC out."""
+        return _nhwc(model(_nchw(lq)))
+
+    @torch.no_grad()
+    def forward(self, model, lq):
+        """Eval forward: lq (B, H, W, 3) on the trainer's device."""
+        return self.net(model, lq.to(self.device))
+
+    def test_selfensemble(self, model, lq):
+        """The mean of the 8 flips / transposes of lq, each mapped back
+        (sr_model.py self-ensemble), summed in the JAX package's order."""
+        outs = []
+        for hf in (False, True):
+            for vf in (False, True):
+                for tr in (False, True):
+                    x = lq.flip(2) if hf else lq
+                    x = x.flip(1) if vf else x
+                    y = self.forward(model, x.transpose(1, 2) if tr else x)
+                    y = y.transpose(1, 2) if tr else y
+                    y = y.flip(1) if vf else y
+                    outs.append(y.flip(2) if hf else y)
+        return sum(outs) / len(outs)
+
+    def _g_losses(self, out, gt, prefix: str):
+        total, d = 0.0, {}
+        if self.cri_pix is not None:
+            d[f"l_{prefix}pix"] = self.cri_pix(out, gt)
+        if self.cri_perceptual is not None:
+            l_p, l_s = self.cri_perceptual(_nchw(out), _nchw(gt))
+            if l_p is not None:
+                d[f"l_{prefix}percep"] = l_p
+            if l_s is not None:
+                d[f"l_{prefix}style"] = l_s
+        for v in d.values():
+            total = total + v
+        return total, d
+
+    def loss_fn(self, model, batch):
+        return self._g_losses(self.net(model, batch["lq"]), batch["gt"], "")
+
+
+@MODEL_REGISTRY.register(name="SRGANModel")
+class SRGANTrainer(SRTrainer):
+    """GAN SR (reference models/srgan_model.py, the base of ESRGAN, Real-
+    ESRGAN and HiFaceGAN): generator steps (pixel, perceptual and GAN
+    losses) at iterations where current_iter % net_d_iters == 0 and
+    current_iter >= net_d_init_iters, a plain forward at the others; then,
+    with gan_opt, one step of the discriminator (network_d, default
+    UNetDiscriminatorSN; seeded from manual_seed + 777) on (gt real, the
+    output detached fake). D's LR is optim_d's times the schedule at D's
+    own update count, as optax counts it. D and its optimizer are the
+    trainer's extra_state."""
+
+    def __init__(self, opt: Dict, device="cuda",
+                 feature_fn: Optional[Callable] = None):
+        super().__init__(opt, device, feature_fn)
+        t = opt.get("train", {})
+        self.cri_gan = build_loss(t["gan_opt"]) if t.get("gan_opt") else None
+        self.net_d_iters = t.get("net_d_iters", 1)
+        self.net_d_init_iters = t.get("net_d_init_iters", 0)
+        d = dict(opt.get("network_d", {"type": "UNetDiscriminatorSN"}))
+        self.d_type = d.pop("type")
+        self.d_cfg = d
+        self.d_updates = 0
+
+    def init_disc(self):
+        return _seeded(self.d_type, self.d_cfg, self.seed + 777)
+
+    def make_state(self, model=None, disc=None) -> TrainState:
+        """The generator's state, and on the trainer the discriminator
+        (`disc`, or init_disc()) with optim_d (default Adam 1e-4)."""
+        state = super().make_state(model)
+        disc = self.init_disc() if disc is None else disc
+        self.disc = disc.to(self.device).train().requires_grad_(True)
+        self.d_optimizer = build_optimizer(
+            self.opt.get("train", {}).get("optim_d",
+                                          {"type": "Adam", "lr": 1e-4}),
+            self.disc.parameters())
+        self.d_updates = 0
+        return state
+
+    def extra_state(self) -> Dict:
+        return {"d_params": self.disc.state_dict(),
+                "d_opt_state": self.d_optimizer.state_dict(),
+                "d_updates": self.d_updates}
+
+    def load_extra_state(self, data: Optional[Dict]):
+        if not data:
+            get_root_logger().warning(
+                "resume state has no discriminator snapshot; the "
+                "discriminator continues from its fresh init")
+            return
+        self.disc.load_state_dict(data["d_params"])
+        self.d_optimizer.load_state_dict(data["d_opt_state"])
+        self.d_updates = int(data.get("d_updates", 0))
+
+    def gan_train_step(self, state: TrainState, batch, current_iter: int):
+        """One iteration (srgan_model.py optimize_parameters, the JAX
+        package's order). Returns (state, {name: float loss})."""
+        train_g = (current_iter % self.net_d_iters == 0
+                   and current_iter >= self.net_d_init_iters)
+        batch = self._cast_batch(batch)
+        logs = {}
+        if train_g:
+            self.disc.requires_grad_(False)
+            with self._compute(state.model, self.disc):
+                out = self.net(state.model, batch["lq"])
+                total, d = self._g_losses(out, batch["gt"], "g_")
+                if self.cri_gan is not None:
+                    d["l_g_gan"] = self.cri_gan(self.disc(_nchw(out)), True,
+                                                is_disc=False)
+                    total = total + d["l_g_gan"]
+                (total.float() / self.accumulate_steps).backward()
+            logs = {k: v.detach().float() for k, v in d.items()}
+            self.update(state)
+        else:
+            with torch.no_grad(), self._compute(state.model):
+                out = self.net(state.model, batch["lq"])
+            state.iter += 1
+        if self.cri_gan is not None:
+            self.disc.requires_grad_(True)
+            with self._compute(self.disc):
+                l_real = self.cri_gan(self.disc(_nchw(batch["gt"])), True,
+                                      is_disc=True).float()
+                l_fake = self.cri_gan(self.disc(_nchw(out.detach())), False,
+                                      is_disc=True).float()
+                l_d = l_real + l_fake
+                l_d.backward()
+            base = float(self.opt.get("train", {}).get("optim_d", {}).get(
+                "lr", 1e-4))
+            lr = base * (float(self.schedule(self.d_updates))
+                         if self.schedule is not None else 1.0)
+            for group in self.d_optimizer.param_groups:
+                group["lr"] = lr
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            self.d_optimizer.step()
+            self.d_optimizer.zero_grad(set_to_none=True)
+            self.d_updates += 1
+            logs.update(l_d=l_d.detach(), l_d_real=l_real.detach(),
+                        l_d_fake=l_fake.detach())
+        return state, {k: float(v) for k, v in logs.items()}
+
+    def train_step(self, state: TrainState, batch):
+        return self.gan_train_step(state, batch, current_iter=state.iter + 1)
+
+
+class _RealESRGANFeed:
+    """The on-device two-order degradation feed (realesrgan_feed.py) of the
+    Real-ESRNet / Real-ESRGAN trainers: a batch with blur kernels
+    ("kernel1", as RealESRGANDataset gives) is synthesised into (lq, gt),
+    gt the unsharp-masked one unless l1_gt_usm is false; other batches
+    (paired, validation) pass through. Its streams: a random.Random and a
+    np.random.RandomState seeded with manual_seed, and a torch.Generator on
+    the trainer's device seeded with manual_seed * 1,000,003 + the feed's
+    call count for the noise (the JAX package keys PRNGKey(count))."""
+
+    def _init_feed(self, opt: Dict):
+        from comfyui_keep_torch.training.realesrgan_feed import \
+            TrainingPairPool
+        self._degrade_opt = opt
+        self.py_rng = random.Random(self.seed)
+        self.np_rng = np.random.RandomState(self.seed)
+        self._pool = TrainingPairPool(opt.get("queue_size", 180),
+                                      np_rng=self.np_rng)
+        self._feed_counter = 0
+        self._l1_gt_usm = opt.get("l1_gt_usm", True)
+
+    def feed_data(self, batch: Dict) -> Dict:
+        if "kernel1" not in batch:
+            return batch
+        from comfyui_keep_torch.training.realesrgan_feed import \
+            realesrgan_synthesize
+        self._feed_counter += 1
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.seed * 1_000_003 + self._feed_counter)
+        out = realesrgan_synthesize(
+            {k: v.to(self.device) for k, v in batch.items()
+             if torch.is_tensor(v)}, self._degrade_opt, gen,
+            pool=self._pool, py_rng=self.py_rng, np_rng=self.np_rng)
+        gt = out["gt_usm"] if self._l1_gt_usm else out["gt"]
+        return {"lq": out["lq"], "gt": gt, "gt_raw": out["gt"],
+                "gt_usm": out["gt_usm"]}
+
+
+@MODEL_REGISTRY.register(name="RealESRNetModel")
+class RealESRNetTrainer(_RealESRGANFeed, SRTrainer):
+    """Real-ESRNet (reference models/realesrnet_model.py): SRTrainer's
+    losses on synthesised pairs."""
+
+    def __init__(self, opt: Dict, device="cuda",
+                 feature_fn: Optional[Callable] = None):
+        SRTrainer.__init__(self, opt, device, feature_fn)
+        self._init_feed(opt)
+
+
+@MODEL_REGISTRY.register(name="RealESRGANModel")
+class RealESRGANTrainer(_RealESRGANFeed, SRGANTrainer):
+    """Real-ESRGAN (reference models/realesrgan_model.py): SRGANTrainer on
+    synthesised pairs."""
+
+    def __init__(self, opt: Dict, device="cuda",
+                 feature_fn: Optional[Callable] = None):
+        SRGANTrainer.__init__(self, opt, device, feature_fn)
+        self._init_feed(opt)
+
+
+# the reference's per-family wrapper classes, sharing the trainers above
+MODEL_REGISTRY.register(SRGANTrainer, name="ESRGANModel")
+MODEL_REGISTRY.register(SRTrainer, name="SwinIRModel")
+MODEL_REGISTRY.register(SRGANTrainer, name="HiFaceGANModel")
+
+
+@MODEL_REGISTRY.register(name="VideoRecurrentModel")
+class VideoRecurrentTrainer(BaseTrainer):
+    """Recurrent video SR (reference models/video_recurrent_model.py):
+    the pixel loss on network_g's clip. The flow net (top-level `spynet`)
+    trains in a second param group at flow_lr_mul times the LR; while
+    the iteration is below train.fix_flow, the flow net's (and an `edvr`
+    module's) gradients are zeroed after the backward. They still take the
+    optimizer step, as optax's multi_transform updates every leaf: with a
+    zero gradient Adam's moments decay and weight decay still moves the
+    weights, as in the JAX package, whose warm-up stops only the gradient.
+    Batches: "lq" (B, T, H, W, 3) and "gt" (B, T, sH, sW, 3), or (B, sH, sW,
+    3) for a centre-frame net (EDVR)."""
+
+    def __init__(self, opt: Dict, device="cuda", flow_prefix="spynet"):
+        super().__init__(opt, device)
+        t = opt.get("train", {})
+        self.cri_pix = build_loss(t["pixel_opt"]) if t.get("pixel_opt") \
+            else None
+        self.flow_lr_mul = t.get("flow_lr_mul", 0.125)
+        self.fix_flow_iter = t.get("fix_flow", 0)
+        self.flow_prefix = flow_prefix
+        net = dict(opt["network_g"])
+        self.arch_type = net.pop("type")
+        self.net_cfg = net
+
+    def init_model(self):
+        return _seeded(self.arch_type, self.net_cfg, self.seed)
+
+    def make_optimizer(self, model, trainable):
+        """optim_g over two param groups: the flow net's at flow_lr_mul
+        times the LR, the rest."""
+        flow = {id(p) for n, p in model.named_parameters()
+                if n.split(".")[0] == self.flow_prefix}
+        groups = [{"params": [p for p in trainable if id(p) not in flow]}]
+        if flow:
+            groups.append({"params": [p for p in trainable if id(p) in flow],
+                           "lr_mul": self.flow_lr_mul})
+        return super().make_optimizer(model, groups)
+
+    def net(self, model, lq):
+        out = model(lq.permute(0, 1, 4, 2, 3))
+        return (out.permute(0, 1, 3, 4, 2) if out.dim() == 5
+                else _nhwc(out))
+
+    @torch.no_grad()
+    def forward(self, model, lq):
+        return self.net(model, lq.to(self.device))
+
+    def loss_fn(self, model, batch):
+        l_pix = self.cri_pix(self.net(model, batch["lq"]), batch["gt"])
+        return l_pix, {"l_pix": l_pix}
+
+    def backward(self, state: TrainState, batch):
+        """BaseTrainer.backward, then the fix_flow warm-up: at iteration
+        state.iter + 1 below fix_flow the flow net's and edvr's gradients
+        are zeroed (the window's earlier micro-steps were below it too)."""
+        logs = super().backward(state, batch)
+        if self.fix_flow_iter and state.iter + 1 < self.fix_flow_iter:
+            for n, p in state.model.named_parameters():
+                if n.split(".")[0] in (self.flow_prefix, "edvr") \
+                        and p.grad is not None:
+                    p.grad.zero_()
+        return logs
+
+
+MODEL_REGISTRY.register(VideoRecurrentTrainer, name="VideoBaseModel")
+MODEL_REGISTRY.register(VideoRecurrentTrainer, name="VideoGANModel")
+MODEL_REGISTRY.register(VideoRecurrentTrainer, name="VideoRecurrentGANModel")
+MODEL_REGISTRY.register(VideoRecurrentTrainer, name="EDVRModel")
+
+
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the parameters' .grad, in place: with
+    n = sqrt(sum of every gradient's squares), each g becomes g / n *
+    max_norm where n >= max_norm (torch's clip_grad_norm_ scales by max /
+    (n + 1e-6) instead). Returns n."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+    return norm
+
+
+@MODEL_REGISTRY.register(name="GMFlowModel")
+class GMFlowTrainer(BaseTrainer):
+    """GMFlow (reference archs/gmflow/main.py:180-420): AdamW (train.lr 4e-4,
+    weight_decay 1e-4) after optax's global-norm clip (grad_clip 1.0) on
+    optax's one-cycle cosine schedule over num_steps + 10 updates
+    (pct_start 0.05), and flow_loss_func (gamma 0.9) on GMFlow.forward's
+    final flow alone, as the JAX package passes [pred]. network_g:
+    attn_splits, corr_radius, prop_radius; the net is GMFlow's default
+    (128 channels, 6 layers), as the JAX package's init. Batches: "img1",
+    "img2" (B, H, W, 3) in [0, 255], "flow" (B, H, W, 2), "valid" (B, H,
+    W). The transformer's kernels run forward on the card and take their
+    plain versions' gradients (ops/kernels.py PlainBackward)."""
+
+    def __init__(self, opt: Dict, device="cuda"):
+        super().__init__(opt, device)
+        t = opt.get("train", {})
+        self.lr = t.get("lr", 4e-4)
+        self.weight_decay = t.get("weight_decay", 1e-4)
+        self.grad_clip = t.get("grad_clip", 1.0)
+        self.gamma = t.get("gamma", 0.9)
+        self.num_steps = t.get("num_steps", 100000)
+        g = opt.get("network_g", {})
+        self.attn_splits = g.get("attn_splits", 2)
+        self.corr_radius = g.get("corr_radius", -1)
+        self.prop_radius = g.get("prop_radius", -1)
+        self.lr_schedule = cosine_onecycle(self.num_steps + 10, self.lr,
+                                           pct_start=0.05)
+
+    def current_lr(self, it: int) -> float:
+        return self.lr_schedule(it // self.accumulate_steps)
+
+    def init_model(self) -> GMFlow:
+        return GMFlow(device="cpu",
+                      generator=torch.Generator().manual_seed(self.seed))
+
+    def make_optimizer(self, model, trainable):
+        return torch.optim.AdamW(trainable, lr=self.lr,
+                                 weight_decay=self.weight_decay)
+
+    def before_step(self, state: TrainState):
+        clip_by_global_norm_(list(state.model.parameters()), self.grad_clip)
+
+    def loss_fn(self, model: GMFlow, batch):
+        pred = model(batch["img1"], batch["img2"], self.attn_splits,
+                     self.corr_radius, self.prop_radius)
+        loss, metrics = flow_loss_func([pred], batch["flow"],
+                                       valid=batch.get("valid"),
+                                       gamma=self.gamma)
+        return loss, {**metrics, "l_flow": loss}
+
+
 def build_model(opt: Dict, **kw):
     """The trainer MODEL_REGISTRY holds for opt["model_type"] (reference
-    models/__init__.py:18-29): KEEPModel, KEEPGANModel or StyleGAN2Model;
-    the JAX package's other model types are ROADMAP Queue 1 item 6.5."""
-    if opt["model_type"] not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model_type {opt['model_type']} is not ported yet (ROADMAP "
-            "Queue 1 item 6.5: the SR, video and GMFlow trainers)")
+    models/__init__.py:18-29), every model type of the JAX package's
+    registry; an unknown name raises its KeyError."""
     return MODEL_REGISTRY.get(opt["model_type"])(opt, **kw)

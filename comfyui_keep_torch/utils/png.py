@@ -2,13 +2,15 @@
 
 The card machine has neither, and the training data (VFHQ clips) are PNG
 frames, so the port reads them here:
-- `decode`: 8-bit gray, RGB and RGBA, non-interlaced, every row filter
-  (None, Sub, Up, Average, Paeth), chunk CRCs checked. Any other form
-  (palette, gray + alpha, 1/2/4/16-bit depths, Adam7) raises ValueError.
+- `decode`: 8- and 16-bit gray, RGB and RGBA (16-bit samples as uint16,
+  KITTI's flow maps), non-interlaced, every row filter (None, Sub, Up,
+  Average, Paeth), chunk CRCs checked. Any other form (palette, gray +
+  alpha, 1/2/4-bit depths, Adam7) raises ValueError.
 - `imread_bgr` / `decode_bgr`: what cv2.imread(path, cv2.IMREAD_COLOR) returns
-  for those forms: (H, W, 3) uint8 BGR, gray replicated, alpha dropped.
+  for the 8-bit forms: (H, W, 3) uint8 BGR, gray replicated, alpha dropped.
 - `encode` / `imwrite_bgr`: a minimal writer (the tests' fixtures,
-  chip_smoke.py's clip), one filter for every row or one per row.
+  chip_smoke.py's clip, KITTI flow maps, validation images), uint8 or
+  uint16, one filter for every row or one per row.
 
 Sub and Up rows unfilter as numpy array operations; Average and Paeth
 depend on the pixel to their left, so they run byte by byte in Python, far
@@ -97,8 +99,8 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
 
 
 def decode(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8 in the file's channel order (C = 1
-    gray, 3 RGB, 4 RGBA)."""
+    """PNG bytes -> (H, W, C) in the file's channel order (C = 1 gray, 3
+    RGB, 4 RGBA), uint8 for 8-bit files and uint16 for 16-bit ones."""
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -108,19 +110,22 @@ def decode(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, comp, filt, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0 \
+    if depth not in (8, 16) or ctype not in _CHANNELS or interlace != 0 \
             or comp != 0 or filt != 0:
         raise ValueError(
             f"PNG form not supported: bit depth {depth}, colour type "
-            f"{ctype}, interlace {interlace} (8-bit gray, RGB or RGBA, "
-            "non-interlaced only)")
-    bpp = _CHANNELS[ctype]
+            f"{ctype}, interlace {interlace} (8- or 16-bit gray, RGB or "
+            "RGBA, non-interlaced only)")
+    c = _CHANNELS[ctype]
+    bpp = c * depth // 8          # bytes a pixel, the filters' unit
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (w * bpp + 1):
         raise ValueError(f"PNG data holds {raw.size} bytes, the header "
                          f"implies {h * (w * bpp + 1)}")
-    return _unfilter(raw.reshape(h, w * bpp + 1), h, w, bpp).reshape(
-        h, w, bpp)
+    out = _unfilter(raw.reshape(h, w * bpp + 1), h, w, bpp)
+    if depth == 16:               # big-endian samples
+        out = out.view(">u2").astype(np.uint16)
+    return out.reshape(h, w, c)
 
 
 def decode_bgr(data: bytes) -> np.ndarray:
@@ -167,34 +172,45 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def encode(img: np.ndarray, filters: Union[int, Sequence[int]] = 1,
            level: int = 6) -> bytes:
-    """(H, W) or (H, W, C) uint8 (C = 1 gray, 3 RGB, 4 RGBA) -> PNG bytes;
-    filters: one type (0-4) for every row, or one per row."""
+    """(H, W) or (H, W, C) uint8 or uint16 (C = 1 gray, 3 RGB, 4 RGBA) ->
+    an 8- or 16-bit PNG's bytes; filters: one type (0-4) for every row, or
+    one per row."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise ValueError(f"PNG encode takes uint8, got {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"PNG encode takes uint8 or uint16, got {img.dtype}")
     if img.ndim == 2:
         img = img[:, :, None]
     h, w, c = img.shape
     ctype = {1: 0, 3: 2, 4: 6}[c]
+    depth = 8 * img.dtype.itemsize
     if isinstance(filters, int):
         filters = [filters] * h
     if len(filters) != h or any(f not in range(5) for f in filters):
         raise ValueError("one filter type in 0-4 for each row")
-    raw = _filtered(img.reshape(h, w * c), c, filters)
+    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img)
+    raw = _filtered(rows.view(np.uint8).reshape(h, -1), c * depth // 8,
+                    filters)
     return (SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
-                                          0))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0,
+                                          0, 0))
             + _chunk(b"IDAT", zlib.compress(raw, level))
             + _chunk(b"IEND", b""))
 
 
+def imread(path: str) -> np.ndarray:
+    """A supported PNG file as `decode` gives it: (H, W, C) in the file's
+    order and depth."""
+    with open(path, "rb") as f:
+        return decode(f.read())
+
+
 def imwrite_bgr(path: str, img: np.ndarray, filters=1):
-    """Write an (H, W, 3) uint8 BGR image (or (H, W) gray) as PNG, as
-    cv2.imwrite would store it (RGB samples)."""
+    """Write an (H, W, 3) uint8 or uint16 BGR image (or (H, W) gray) as
+    PNG, as cv2.imwrite would store it (RGB samples)."""
     img = np.asarray(img)
     if img.ndim == 3:
         if img.shape[2] != 3:
             raise ValueError("imwrite_bgr writes (H, W, 3) BGR or (H, W)")
-        img = img[:, :, ::-1]
+        img = np.ascontiguousarray(img[:, :, ::-1])
     with open(path, "wb") as f:
         f.write(encode(img, filters))

@@ -100,13 +100,14 @@ def test_png_unsupported_forms_raise(tmp_path):
     img = smooth_u8(np.random.default_rng(0), (8, 8, 3))
     data = png.encode(img)
     for bad in (_with_header(data, interlace=1), _with_header(data, ctype=3),
-                _with_header(data, depth=16), data[:20] + b"x" + data[21:],
-                b"GIF89a" + data[6:]):
+                _with_header(data, depth=16), _with_header(data, depth=4),
+                data[:20] + b"x" + data[21:], b"GIF89a" + data[6:]):
         with pytest.raises(ValueError):
             png.decode(bad)
+    # 16-bit files decode (KITTI's flow maps), in the file's RGB order
     ok, buf = cv2.imencode(".png", img.astype(np.uint16) * 257)
-    with pytest.raises(ValueError):
-        png.decode(buf.tobytes())
+    np.testing.assert_array_equal(png.decode(buf.tobytes()),
+                                  img[:, :, ::-1].astype(np.uint16) * 257)
 
 
 # ---------------------------------------------------------------------------
@@ -457,9 +458,12 @@ def test_train_pipeline_gan_saves_and_resumes(tmp_path, monkeypatch):
     assert not (tmp_path / "exp").with_name("exp_archived").exists()
     assert sorted(os.listdir(tmp_path)) == ["exp", "gt", "meta.txt"]
 
-    with pytest.raises(NotImplementedError, match="6.5"):
+    # a val phase now builds its loader; an unknown model_type then raises
+    # the registry's KeyError
+    with pytest.raises(KeyError, match="NoSuchModel"):
         bad = copy.deepcopy(opt)
-        bad["datasets"]["val"] = {"type": "VFHQDataset"}
+        bad["datasets"]["val"] = dict(bad["datasets"]["train"])
+        bad["model_type"] = "NoSuchModel"
         train_mod.train_pipeline(bad, trainer_kwargs=kw)
 
 

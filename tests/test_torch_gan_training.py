@@ -242,8 +242,8 @@ def test_build_model_names_keep_gan():
     opt["train"] = {"gan_opt": opt["train"]["gan_opt"]}
     tr = build_model(opt)
     assert isinstance(tr, KEEPGANTrainer) and tr.device.type == "cuda"
-    with pytest.raises(NotImplementedError):
-        build_model({"model_type": "VideoRecurrentModel"})
+    with pytest.raises(KeyError):    # every JAX model type is built now
+        build_model({"model_type": "NoSuchModel"})
 
 
 def test_chip_smoke_stage3_opt_matches_the_yml():

@@ -605,3 +605,60 @@ def test_packed_keep_on_card_matches_unpacked_cpu(cuda):
     torch.cuda.synchronize()
     assert K.LAUNCHES["packed_conv2x2"] - before == 16
     torch.testing.assert_close(out_g.cpu(), out, atol=5e-3, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_packed_conv_refuses_a_cuda_input_that_requires_grad(cuda):
+    """K6 serves only: a CUDA input that records a gradient raises rather
+    than detach; under no_grad it launches."""
+    x = torch.randn(1, 4, 4, 8, device="cuda", requires_grad=True)
+    w = torch.randn(2, 2, 8, 8, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        K.packed_conv2x2(x, w, ((0, 1), (0, 1)))
+    with torch.no_grad():
+        assert K.packed_conv2x2(x, w, ((0, 1), (0, 1))).shape == (1, 4, 4, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["window", "window+bias", "global", "corr",
+                                  "mlp"])
+def test_kernel_gradients_on_the_card_equal_the_plain_versions(cuda, form):
+    """On a CUDA tensor that requires grad, each of K1-K3 launches its
+    kernel forward and returns the plain version's gradient: the input
+    gradients equal the plain autograd's on the same upstream gradient
+    (the same recompute) within 1e-6 of their largest."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device="cuda").requires_grad_(True)
+
+    if form == "corr":
+        grid = torch.rand(256, 2, generator=g, device="cuda") * 16
+        args, diff = (r(4, 256, 128), r(4, 256, 128), grid), (0, 1)
+        fn, plain = (K.global_correlation_expectation,
+                     K.global_correlation_expectation_plain)
+    elif form == "mlp":
+        args = (r(2, 64, 128), r(2, 64, 128), r(512, 256) * 0.05,
+                r(128, 512) * 0.05, r(128), r(128), False)
+        args = tuple(a.detach().requires_grad_(True) if torch.is_tensor(a)
+                     else a for a in args)
+        diff, fn, plain = (0, 1, 2, 3, 4, 5), K.mlp_fused, K.mlp_fused_plain
+    else:
+        dv = 2 if form == "global" else 128
+        bias = (torch.where(torch.rand(2, 256, 256, generator=g,
+                                       device="cuda") < 0.3, -100.0, 0.0)
+                if form == "window+bias" else None)
+        args = (r(4, 256, 128), r(4, 256, 128), r(4, 256, dv), 0.088, bias)
+        diff, fn, plain = (0, 1, 2), K.attention, K.attention_plain
+    before = dict(K.LAUNCHES)
+    out = fn(*args)
+    assert sum(K.LAUNCHES.values()) == sum(before.values()) + 1
+    assert out.grad_fn is not None
+    up = torch.randn(out.shape, generator=g, device="cuda")
+    inputs = [args[i] for i in diff]
+    got = torch.autograd.grad(out, inputs, up)
+    want = torch.autograd.grad(plain(*args), inputs, up)
+    for a, b_ in zip(got, want):
+        assert (a - b_).abs().max() <= 1e-6 * b_.abs().max()
+    with torch.no_grad():       # serving: the direct launch, no graph
+        assert fn(*args).grad_fn is None

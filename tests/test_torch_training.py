@@ -595,8 +595,8 @@ def test_keep_mixed_precision_step_vs_jax(keep_setup):
 
 
 def test_build_model_and_unported_options():
-    with pytest.raises(NotImplementedError):
-        build_model({"model_type": "SRModel"})
+    with pytest.raises(KeyError):    # every JAX model type is built now
+        build_model({"model_type": "NoSuchModel"})
     percep = {"type": "PerceptualLoss", "layer_weights": {"relu1_1": 1.0}}
     feature_fn = VGGFeatureExtractor(("relu1_1",), device="cpu")
     tr = KEEPTrainer(opt_dict(perceptual_opt=percep), device="cpu",
