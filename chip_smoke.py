@@ -105,6 +105,20 @@ the verdict):
               the group against GMFlow on each chunk (f32 gated in px), the
               forms' KEEP with forced picks against the group's; one group
               of each form with phase512=True, K6 launches checked
+     parallel  comfyui_keep_torch/parallel/ at the same width (KEEP +
+              GMFlow 512^2 bf16, 41 faces, 20-frame chunks) in a world-1
+              NCCL group: restore_chunks_parallel, ms a face and K1-K4
+              launches, bit for bit against the processor's chunk body on
+              the whole chunks and the padded tail; the ring at one rank
+              against carried streaming, bit for bit; parallel_train: two
+              SRTrainer steps and one stage-II KEEPTrainer step (full
+              width, f32, K1-K4 counted) on the mesh against the meshless
+              ones (cuDNN deterministic); parallel_two_ranks: this script
+              started twice with --parallel-rank (gloo, both ranks on the
+              card; collectives staged through the host): chunk-parallel
+              restore against world 1 and the ring over two chunks a clip
+              against carried streaming, bit for bit, the data-parallel
+              SR step's weights equal on both ranks, ms a face and a step
      need_upscale  KEEP.apply(need_upscale=True) on a 2-frame 128^2 clip,
               f32, card against CPU, picks forced from the CPU run
   9. kernel   (vq) the nearest-codebook kernel against its plain version at
@@ -222,9 +236,10 @@ the verdict):
  22. sr_test  options/test_keep.yml (TEST_OPT) through test_pipeline on
               synthetic PNG pairs, card against CPU, save_img; an SRModel
               through train_pipeline with validation every iteration; one
-              step each of SRGAN (ESRGAN x4), Real-ESRGAN x4plus (its feed
-              on hand-built kernels) and BasicVSR (REDS clips, fix_flow);
-              none of K1-K6 launched
+              step each of SRGAN (ESRGAN x4), Real-ESRGAN x4plus (its batch
+              from RealESRGANDataset on synthetic PNGs through the loader
+              and CUDAPrefetcher, then its feed) and BasicVSR (REDS clips
+              from REDSRecurrentDataset, fix_flow); none of K1-K6 launched
 The kernel phase also holds K1 at the refinement's fine scale (L = 256,
 the (64, 256, 256) mask, 256 windows) in both dtypes, and K1-K3 in bf16 at
 the shapes of a group of 2 chunks (the "G2" rows). The kernel table's
@@ -4101,16 +4116,50 @@ def write_sr_pairs(root, n, lq, scale=4, seed=0):
     return os.path.join(root, "lq"), os.path.join(root, "gt")
 
 
+def write_smooth_pngs(folder, names, size, seed):
+    """Smooth random PNG frames (a bilinear upsample of coarse noise) of
+    (size, size), one per name."""
+    import torch
+    from comfyui_keep_torch.utils import png
+    os.makedirs(folder, exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    for name in names:
+        coarse = torch.rand((1, 3, size // 8 + 1, size // 8 + 1), generator=g)
+        img = torch.nn.functional.interpolate(
+            coarse, size=(size, size), mode="bilinear", align_corners=False)
+        u8 = (img[0].permute(1, 2, 0) * 255).round().to(torch.uint8)
+        png.imwrite_bgr(os.path.join(folder, name), u8.numpy())
+
+
+def dataset_batch(torch, opt):
+    """The first batch of build_dataset(opt) through build_dataloader (its
+    train phase) and CUDAPrefetcher: its tensors, on the card."""
+    from comfyui_keep_torch.data import build_dataloader, build_dataset
+    from comfyui_keep_torch.data.prefetch import CUDAPrefetcher
+    loader = build_dataloader(build_dataset(opt), {**opt, "phase": "train"},
+                              seed=0)
+    prefetcher = CUDAPrefetcher(loader, device="cuda")
+    prefetcher.reset()
+    batch = prefetcher.next()
+    if batch is None:
+        fail(f"sr_test: {opt['type']} gave no batch")
+    return {k: v for k, v in batch.items() if torch.is_tensor(v)}
+
+
 def phase_sr_test(torch, card):
     """options/test_keep.yml (TEST_OPT) through test_pipeline on the card
     (MSRResNet 64 / 16 x4, TEST_PAIRS synthetic 64^2 -> 256^2 PNG pairs,
     PSNR / SSIM, save_img) against the CPU's run; an SRModel through
     train_pipeline for 2 iterations with a val phase at val_freq 1; then
     one step each of SRGANModel (RRDBNet + VGGStyleDiscriminator + VGG19
-    perceptual), RealESRGANModel (the feed on hand-built kernels, RRDBNet +
-    UNetDiscriminatorSN) and VideoRecurrentModel (BasicVSR, REDS clips,
-    fix_flow): losses finite, the weights moved (SpyNet's by nothing but
-    its zero-gradient step during fix_flow). None of K1-K6 launches."""
+    perceptual), RealESRGANModel (RRDBNet + UNetDiscriminatorSN; its batch
+    from RealESRGANDataset: 12 synthetic 320^2 PNGs, their blur and sinc
+    kernels, through build_dataloader and CUDAPrefetcher, then the feed)
+    and VideoRecurrentModel (BasicVSR, fix_flow; its batch from
+    REDSRecurrentDataset: a synthetic 15-frame REDS-layout clip, 64^2 LQ
+    and 256^2 GT PNGs, through the same loader): losses finite, the
+    weights moved (SpyNet's by nothing but its zero-gradient step during
+    fix_flow). None of K1-K6 launches."""
     from comfyui_keep_torch.models.vgg import VGGFeatureExtractor
     from comfyui_keep_torch.ops import kernels as K
     from comfyui_keep_torch.training import train as train_mod
@@ -4238,10 +4287,11 @@ def phase_sr_test(torch, card):
                   "optim_d": {"type": "Adam", "lr": 1e-4}}},
         {"lq": rand(n, s // 4, s // 4, 3), "gt": rand(n, s, s, 3)}, vgg)
     n, s = REALESRGAN_SIZE["batch"], REALESRGAN_SIZE["gt"]
-
-    def kernels():
-        k = rand(n, 21, 21) ** 4
-        return k / k.sum(dim=(1, 2), keepdim=True)
+    hq = os.path.join(root, "realesrgan_hq")
+    write_smooth_pngs(hq, [f"{i:04d}.png" for i in range(n)], s + 64, 5)
+    esrgan_batch = dataset_batch(torch, {
+        "type": "RealESRGANDataset", "dataroot_gt": hq, "use_hflip": True,
+        "use_rot": False, "batch_size_per_gpu": n, "num_worker_per_gpu": 4})
     one_step("RealESRGANModel (x4plus)", {
         "model_type": "RealESRGANModel", "manual_seed": 0, "scale": 4,
         "gt_size": s, "queue_size": 180,
@@ -4265,9 +4315,22 @@ def phase_sr_test(torch, card):
                               "loss_weight": 1e-1},
                   "optim_g": {"type": "Adam", "lr": 1e-4},
                   "optim_d": {"type": "Adam", "lr": 1e-4}}},
-        {"gt": rand(n, s + 64, s + 64, 3), "kernel1": kernels(),
-         "kernel2": kernels(), "sinc_kernel": kernels()}, vgg)
+        esrgan_batch, vgg)
     n, t, lq = (BASICVSR_SIZE[k] for k in ("batch", "frames", "lq"))
+    reds = os.path.join(root, "reds")
+    names = [f"{i:08d}.png" for i in range(t)]
+    write_smooth_pngs(os.path.join(reds, "gt", "001"), names, 4 * lq, 6)
+    write_smooth_pngs(os.path.join(reds, "lq", "001"), names, lq, 7)
+    with open(os.path.join(reds, "meta.txt"), "w") as f:
+        f.write(f"001 {t} ({4 * lq},{4 * lq},3)\n")
+    reds_batch = dataset_batch(torch, {
+        "type": "REDSRecurrentDataset",
+        "dataroot_gt": os.path.join(reds, "gt"),
+        "dataroot_lq": os.path.join(reds, "lq"),
+        "meta_info_file": os.path.join(reds, "meta.txt"), "num_frame": t,
+        "gt_size": 4 * lq, "scale": 4, "interval_list": [1],
+        "random_reverse": False, "use_hflip": True, "use_rot": True,
+        "batch_size_per_gpu": n, "num_worker_per_gpu": 4})
     one_step("VideoRecurrentModel (BasicVSR, REDS)", {
         "model_type": "VideoRecurrentModel", "manual_seed": 0,
         "network_g": {"type": "BasicVSR", "num_feat": 64, "num_block": 30},
@@ -4275,7 +4338,7 @@ def phase_sr_test(torch, card):
                                 "loss_weight": 1.0},
                   "optim_g": {"type": "Adam", "lr": 2e-4},
                   "flow_lr_mul": 0.125, "fix_flow": 5000}},
-        {"lq": rand(n, t, lq, lq, 3), "gt": rand(n, t, 4 * lq, 4 * lq, 3)},
+        reds_batch,
         check=lambda moved: all(v == 0 for k, v in moved.items()
                                 if k.startswith("spynet.")))
     counts = dict(K.LAUNCHES)
@@ -4286,6 +4349,338 @@ def phase_sr_test(torch, card):
     del vgg
     torch.cuda.empty_cache()
     return steps
+
+
+PARALLEL_RUNS = 2        # timed 41-face chunk-parallel runs, after a warm-up
+PARALLEL_TIMEOUT = 300   # seconds each rank of the two-rank run may take
+PAR_SR_BATCH = 8         # the data-parallel SR step's global batch
+PAR_STAGING = ("gloo takes CPU tensors: all_gather, send / recv and "
+               "all_reduce stage a card tensor through the host")
+
+
+def free_port():
+    """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_inputs():
+    """41 aligned 512^2 faces in [-1, 1] (as phase chunks) and two 40-frame
+    clips for the ring (N=2, B=1)."""
+    from comfyui_keep_torch.utils.image import bgr_u8_to_rgb_pm1
+    rng = np.random.default_rng(6)
+    faces = np.stack([bgr_u8_to_rgb_pm1(rng.integers(
+        0, 256, (512, 512, 3), dtype=np.uint8)) for _ in range(2 * FRAMES + 1)])
+    clips = np.stack([faces[:2 * FRAMES][None], faces[1:][None]])
+    return faces, clips
+
+
+def par_sr_opt():
+    opt = copy.deepcopy(TEST_OPT)
+    opt["train"] = {"pixel_opt": {"type": "L1Loss"},
+                    "optim_g": {"type": "Adam", "lr": 2e-4}}
+    return opt
+
+
+def par_sr_batch(torch):
+    g = torch.Generator().manual_seed(12)
+    return {"lq": torch.rand((PAR_SR_BATCH, 64, 64, 3), generator=g),
+            "gt": torch.rand((PAR_SR_BATCH, 256, 256, 3), generator=g)}
+
+
+def par_sr_step(torch, mesh):
+    """Two SR steps (TEST_OPT's MSRResNet, Adam) on par_sr_batch through
+    SRTrainer with `mesh`: (ms of the second, this rank's losses of the
+    first, the first conv's weight after both)."""
+    from comfyui_keep_torch.training.trainers import SRTrainer
+    tr = SRTrainer(par_sr_opt(), mesh=mesh)
+    st = tr.make_state()
+    batch = {k: v.cuda() for k, v in par_sr_batch(torch).items()}
+    st, logs = tr.train_step(st, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = tr.train_step(st, batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    first = next(iter(st.model.parameters())).detach().float().cpu()
+    return ms, logs, first
+
+
+def parallel_rank(rank, world, port, out):
+    """One rank of phase parallel's two-rank run (gloo, both ranks on card
+    0): chunk-parallel restore of the 41 faces, the ring over the two
+    clips, and the data-parallel SR step; the outputs to `out`, one JSON
+    line of timings and launches."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from comfyui_keep_torch import api
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.parallel import (init_distributed, make_mesh,
+                                             reduce_loss_dict,
+                                             restore_chunks_parallel,
+                                             restore_stream_pipeline)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = init_distributed(backend="gloo", world_size=world, rank=rank,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    pack = api.load_models(seed=0).load_device(torch.bfloat16)
+    proc = pack.processor(dtype=torch.bfloat16)
+    faces, clips = parallel_inputs()
+    mesh = make_mesh()
+    res = {"rank_world": list(got), "backend": "gloo"}
+    restore_chunks_parallel(proc, faces, FRAMES, mesh)   # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    chunks = restore_chunks_parallel(proc, faces, FRAMES, mesh)
+    torch.cuda.synchronize()
+    res["chunks_ms_per_face"] = 1e3 * (time.perf_counter() - t0) / len(faces)
+    res["chunks_launches"] = k1_launches(launch_counts(K))
+    t0 = time.perf_counter()
+    ring = restore_stream_pipeline(proc, clips, make_mesh(axes=("seq",)))
+    torch.cuda.synchronize()
+    res["ring_ms_per_face"] = 1e3 * (time.perf_counter() - t0) / (
+        clips.shape[0] * clips.shape[2])
+    if rank == 0:
+        np.save(os.path.join(out, "chunks.npy"), chunks)
+        np.save(os.path.join(out, "ring.npy"), ring)
+    ms, logs, first = par_sr_step(torch, mesh)
+    res.update(sr_ms_per_step=ms, sr_losses=reduce_loss_dict(logs, mesh))
+    np.save(os.path.join(out, f"sr_first{rank}.npy"), first.numpy())
+    print(json.dumps(res), flush=True)
+
+
+def two_ranks(out):
+    """Start parallel_rank on two processes (this script with the
+    --parallel-rank arguments), each with PARALLEL_TIMEOUT; kill both if
+    one fails or runs over. Returns their JSON lines."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), "2", str(port), out], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for r in range(2)]
+    lines, err = [], None
+    try:
+        for r, p in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=PARALLEL_TIMEOUT)
+            if p.returncode != 0:
+                err = f"rank {r} exited {p.returncode}: {stderr[-3000:]}"
+                break
+            lines.append(json.loads(stdout.strip().splitlines()[-1]))
+    except subprocess.TimeoutExpired:
+        err = f"a rank ran over {PARALLEL_TIMEOUT} s"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if err:
+        fail(f"parallel (two ranks): {err}")
+    return lines
+
+
+def phase_parallel(torch, pack, card):
+    """The parallel layer (comfyui_keep_torch/parallel/) at the main path's
+    width: KEEP + GMFlow 512^2 bf16 from api.load_models(seed=0), 41 faces
+    in 20-frame chunks, as phase chunks.
+
+    In a world-1 NCCL group on the card: restore_chunks_parallel (ms a
+    face, K1-K4 launches) against the processor's chunk body on the two
+    whole chunks and, on the padded tail, against the JAX package's
+    semantics (the tail chunk padded with its last face), bit for bit; the
+    ring (restore_stream_pipeline) at one rank against carried streaming,
+    bit for bit; data-parallel SRTrainer steps (TEST_OPT's MSRResNet, B =
+    PAR_SR_BATCH) and a stage-II KEEPTrainer step (train_keep_stage2.yml
+    at full width, f32 as configured, K1-K4 launched) on the mesh against
+    the meshless ones on the same batch, cuDNN deterministic: the SR
+    weights equal, the losses within 1e-6 and every applied KEEP gradient
+    within 1e-4 of its leaf's largest (grid_sample's backward adds with
+    atomics; the weights after Adam reported). Then one two-rank run on the one
+    card (gloo, which NCCL's one-rank-a-card rule leaves; PAR_STAGING):
+    its chunk-parallel restore against the world-1 result and its ring
+    against carried streaming over two chunks a clip, within one uint8
+    level (bit-for-bit equality reported), the SR step's weights equal on
+    both ranks and its loss against the one-process step within 1e-5; ms
+    a face and ms a step beside the world-1 ones. Returns {"chunks":
+    counts, "train": counts}."""
+    import torch.distributed as dist
+    from comfyui_keep_torch.ops import kernels as K
+    from comfyui_keep_torch.parallel import (init_distributed, make_mesh,
+                                             restore_chunks_parallel,
+                                             restore_stream_pipeline)
+    from comfyui_keep_torch.models.gmflow import GMFlow
+    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.training.trainers import KEEPTrainer
+    port = free_port()
+    got = init_distributed(backend="nccl", world_size=1, rank=0,
+                           init_method=f"tcp://127.0.0.1:{port}")
+    mesh = make_mesh()
+    proc = pack.processor(dtype=torch.bfloat16)
+    faces, clips = parallel_inputs()
+    n = len(faces)
+    restore_chunks_parallel(proc, faces, FRAMES, mesh)   # warm-up
+    runs = []
+    for _ in range(PARALLEL_RUNS):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = restore_chunks_parallel(proc, faces, FRAMES, mesh)
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0) / n)
+    chunk_counts = launch_counts(K)
+    body = np.concatenate([proc.restore_clip(faces[s:s + FRAMES])
+                           for s in (0, FRAMES)])
+    tail = proc.restore_clip(faces[[n - 1] * FRAMES])[:1]
+    chunks_ok = bool(np.array_equal(out[:2 * FRAMES], body)
+                     and np.array_equal(out[2 * FRAMES:], tail))
+    want = gmflow_launches(3)
+    t0 = time.perf_counter()
+    ring = restore_stream_pipeline(proc, clips, make_mesh(axes=("seq",)))
+    torch.cuda.synchronize()
+    ring_ms = 1e3 * (time.perf_counter() - t0) / (clips.shape[0]
+                                                   * clips.shape[2])
+
+    def carried(k):
+        """Each clip through the processor's carried loop, k chunks."""
+        res = []
+        for clip in clips[:, 0]:
+            tc = clip.shape[0] // k
+            o, carry = proc.restore_clip(clip[:tc], return_carry=True)
+            parts = [o]
+            for d in range(1, k):
+                o, carry = proc.restore_clip(clip[d * tc:(d + 1) * tc], carry,
+                                             clip[d * tc - 1],
+                                             return_carry=True)
+                parts.append(o)
+            res.append(np.concatenate(parts)[None])
+        return np.stack(res)
+    ring_ok = bool(np.array_equal(ring, carried(1)))
+    ok = chunks_ok and ring_ok and k1_launches(chunk_counts) == want
+    say("parallel", world=got[1], backend="nccl", faces=n,
+        ms_per_face=float(np.median(runs)), ms_per_face_runs=runs,
+        launches=k1_launches(chunk_counts), expected_launches=want,
+        whole_chunks_equal_chunk_body=chunks_ok, ring_ms_per_face=ring_ms,
+        ring_equals_carried_streaming=ring_ok, card=card, ok=ok)
+    if not ok:
+        fail("parallel: chunk-parallel restore or the ring differs from the "
+             "processor, or the launches are off")
+
+    # the trainers on the world-1 mesh against the meshless step
+    torch.backends.cudnn.deterministic = True
+    try:
+        sr_ms, sr_logs, sr_first = par_sr_step(torch, mesh)
+        sr0_ms, sr0_logs, sr0_first = par_sr_step(torch, None)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    data = TRAIN_OPT["datasets"]["train"]
+    b, t = data["batch_size_per_gpu"], data["num_frame"]
+    hq = VQHQEncoder(**{k: v for k, v in TRAIN_OPT["network_g"].items()
+                        if k in HQ_KEYS}, device="cpu",
+                     generator=torch.Generator().manual_seed(1))
+    gm = GMFlow(device="cpu", generator=torch.Generator().manual_seed(2))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    size = TRAIN_OPT["network_g"]["img_size"]
+    batch = {k: torch.rand((b, t, size, size, 3), generator=g,
+                           device="cuda") * 2 - 1 for k in ("lq", "gt")}
+    steps = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, m in (("mesh", mesh), ("meshless", None)):
+            tr = KEEPTrainer(copy.deepcopy(TRAIN_OPT),
+                             hq_vqgan=copy.deepcopy(hq),
+                             gmflow=copy.deepcopy(gm), mesh=m)
+            grads = {}
+            tr.before_step = lambda st: grads.update(
+                (k, p.grad.detach().clone())
+                for k, p in st.model.named_parameters() if p.grad is not None)
+            st = tr.make_state()
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, logs = tr.train_step(st, batch)
+            torch.cuda.synchronize()
+            steps[name] = {"ms": 1e3 * (time.perf_counter() - t0),
+                           "logs": logs, "grads": grads,
+                           "counts": launch_counts(K),
+                           "params": {k: p.detach() for k, p in
+                                      st.model.named_parameters()}}
+            del tr, st
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, z = steps["mesh"], steps["meshless"]
+    loss_err = max(abs(a["logs"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in z["logs"].items())
+    grad_err = max(((a["grads"][k] - v).abs().max()
+                    / v.abs().max().clamp_min(1e-30)).item()
+                   for k, v in z["grads"].items())
+    param_err = max((a["params"][k] - v).abs().max().item()
+                    for k, v in z["params"].items())
+    train_counts = a["counts"]
+    want_train = {"attention[dv128]": 12, "attention[dv128+bias]": 12,
+                  "attention[dv2]": 2, "global_correlation_expectation": 2,
+                  "mlp_fused": 12, "vq_nearest_indices": 1}
+    sr_err = max(abs(sr_logs[k] - v) / max(abs(v), 1e-12)
+                 for k, v in sr0_logs.items())
+    ok = bool(loss_err <= 1e-6 and grad_err <= 1e-4 and sr_err <= 1e-6
+              and torch.equal(sr_first, sr0_first)
+              and k1_launches(train_counts) == want_train
+              and a["grads"].keys() == z["grads"].keys())
+    say("parallel_train", world=1, sr_ms_per_step=sr_ms,
+        sr_meshless_ms_per_step=sr0_ms, sr_loss_rel_err=sr_err,
+        sr_first_weight_equal=bool(torch.equal(sr_first, sr0_first)),
+        keep_stage2_ms_per_step=a["ms"],
+        keep_stage2_meshless_ms_per_step=z["ms"],
+        keep_losses=a["logs"], keep_loss_rel_err=loss_err,
+        keep_grad_rel_err=grad_err, keep_param_max_abs_diff=param_err,
+        launches=k1_launches(train_counts), expected_launches=want_train,
+        precision="f32", batch=b, frames=t, ok=ok)
+    if not ok:
+        fail("parallel_train: a step on the world-1 mesh differs from the "
+             "meshless one, or its launches are off")
+    del steps, a, z, batch
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # two gloo ranks on this card
+    tmp = tempfile.mkdtemp(prefix="par_")
+    lines = two_ranks(tmp)
+    chunks2 = np.load(os.path.join(tmp, "chunks.npy"))
+    ring2 = np.load(os.path.join(tmp, "ring.npy"))
+    ring_ref = carried(2)
+    firsts = [np.load(os.path.join(tmp, f"sr_first{r}.npy")) for r in (0, 1)]
+    sr2_err = max(abs(lines[0]["sr_losses"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in sr0_logs.items())
+    chunks_d = float(np.abs(chunks2 - out).max())
+    ring_d = float(np.abs(ring2 - ring_ref).max())
+    ok = bool(np.array_equal(chunks2, out)
+              and np.array_equal(ring2, ring_ref)
+              and np.array_equal(firsts[0], firsts[1]) and sr2_err <= 1e-5
+              and sorted(ln["rank_world"][0] for ln in lines) == [0, 1]
+              and all(k1_launches({**dict.fromkeys(K1_K4, 0),
+                                   **ln["chunks_launches"]})
+                      == gmflow_launches(2) for ln in lines))
+    say("parallel_two_ranks", world=2, backend="gloo", staging=PAR_STAGING,
+        card=card, chunks_ms_per_face=[ln["chunks_ms_per_face"]
+                                       for ln in lines],
+        ring_ms_per_face=[ln["ring_ms_per_face"] for ln in lines],
+        sr_ms_per_step=[ln["sr_ms_per_step"] for ln in lines],
+        chunks_launches=[ln["chunks_launches"] for ln in lines],
+        chunks_vs_world1_max_abs=chunks_d,
+        chunks_bitwise=bool(np.array_equal(chunks2, out)),
+        ring_vs_carried_max_abs=ring_d,
+        ring_bitwise=bool(np.array_equal(ring2, ring_ref)),
+        sr_weights_equal_across_ranks=bool(np.array_equal(*firsts)),
+        sr_loss_rel_err_vs_one_process=sr2_err, ok=ok)
+    if not ok:
+        fail("parallel_two_ranks: the two-rank results are off")
+    del proc
+    torch.cuda.empty_cache()
+    return {"chunks": chunk_counts, "train": train_counts}
 
 
 def main():
@@ -4325,6 +4720,7 @@ def main():
     del proc
     phase_api(torch, pack)
     chunk_counts = phase_chunks(torch, pack)
+    par_counts = phase_parallel(torch, pack, card)
     del pack
     torch.cuda.empty_cache()
     phase_need_upscale(torch)
@@ -4385,6 +4781,17 @@ def main():
                 "launches_refine": refine_counts[dname].get(key, 0),
                 "launches_vqgan": None if bf16 else vqgan_counts.get(key, 0)}
 
+    def parallel(key, dname):
+        """Launches at counter `key` in phase parallel: the world-1
+        chunk-parallel 41-face run (bf16 rows) and the stage-II step on the
+        world-1 mesh (f32 rows)."""
+        return {"launches_parallel_chunks":
+                par_counts["chunks"].get(key, 0) if dname == "bfloat16"
+                else None,
+                "launches_parallel_train_step":
+                par_counts["train"].get(key, 0) if dname == "float32"
+                else None}
+
     def stage3(key, dname):
         """Launches at counter `key` in one stage-III alternation (phase
         train_gan's resumed run, f32), on the f32 rows."""
@@ -4426,7 +4833,7 @@ def main():
         else:
             extra = {"launches_whole_frame_sequence": whole_counts[name],
                      "launches_full_workflow": config5_counts[name],
-                     **slice7(counter, dname)}
+                     **slice7(counter, dname), **parallel(counter, dname)}
             launches = counts[name]
         if "unfused_ms" in r:
             extra["unfused_ms"] = r["unfused_ms"]
@@ -4451,7 +4858,7 @@ def main():
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
             "dtype": dname, "status": "ported", **slice7(name, dname),
-            **stage3(name, dname)})
+            **stage3(name, dname), **parallel(name, dname)})
     # K5 on StyleGAN2's paths: times at the largest activation; launches of
     # one 1024x1024 sampling forward in that dtype (the training run's f32
     # count over its 16 alternations beside it)
@@ -4484,7 +4891,7 @@ def main():
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "unfused_ms": r["unfused_ms"], "dtype": "float32",
         "status": "ported", **slice7("mlp_fused", "float32"),
-        **stage3("mlp_fused", "float32"),
+        **stage3("mlp_fused", "float32"), **parallel("mlp_fused", "float32"),
         "step_rows_ms": rs["ms"],
         "step_rows_bound_ms": rs["bound_ms"],
         "step_rows_unfused_ms": rs["unfused_ms"],
@@ -4517,4 +4924,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                      sys.argv[5])
+    else:
+        main()

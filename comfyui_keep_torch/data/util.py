@@ -1,7 +1,7 @@
 """Dataset paths and frame helpers (reference wm_basicsr/data/data_util.py),
 ported from comfyui_keep_tpu/data/util.py: NHWC layouts as the JAX package
-keeps them, frames read through utils/png.py. The lmdb forms are ROADMAP
-Queue 1 item 6.7 and raise."""
+keeps them, frames read through utils/png.py. The lmdb forms read the
+meta_info.txt that utils/lmdb_util.py writes beside the database."""
 import os.path as osp
 from typing import List, Sequence
 
@@ -103,17 +103,29 @@ def paired_paths_from_meta_info_file(folders, keys, meta_info_file,
     return paths
 
 
-def _lmdb(what: str):
-    raise NotImplementedError(f"{what}: the lmdb backend is not ported yet "
-                              "(ROADMAP Queue 1 item 6.7)")
-
-
 def _lmdb_keys(folder):
-    _lmdb("_lmdb_keys")
+    """The keys of an lmdb folder: each meta_info.txt line's name without
+    its extension."""
+    with open(osp.join(folder, "meta_info.txt")) as fin:
+        return [line.split(".")[0] for line in fin if line.strip()]
 
 
 def paired_paths_from_lmdb(folders, keys):
-    _lmdb("paired_paths_from_lmdb")
+    """[{"<in>_path": key, "<gt>_path": key}] of two .lmdb folders holding
+    the same keys (data_util.py:95-153)."""
+    if len(folders) != 2 or len(keys) != 2:
+        raise ValueError("two folders and two keys")
+    input_folder, gt_folder = folders
+    input_key, gt_key = keys
+    if not (input_folder.endswith(".lmdb") and gt_folder.endswith(".lmdb")):
+        raise ValueError(f"{input_key} folder and {gt_key} folder should both "
+                         "be in lmdb format.")
+    input_keys = set(_lmdb_keys(input_folder))
+    gt_keys = _lmdb_keys(gt_folder)
+    if input_keys != set(gt_keys):
+        raise ValueError(f"Keys in {input_key}_folder and {gt_key}_folder "
+                         "are different.")
+    return [{f"{input_key}_path": k, f"{gt_key}_path": k} for k in gt_keys]
 
 
 def paths_from_folder(folder):
@@ -121,7 +133,10 @@ def paths_from_folder(folder):
 
 
 def paths_from_lmdb(folder):
-    _lmdb("paths_from_lmdb")
+    """The keys of a .lmdb folder (data_util.py:251-264)."""
+    if not folder.endswith(".lmdb"):
+        raise ValueError(f"Folder {folder} should be in lmdb format.")
+    return _lmdb_keys(folder)
 
 
 def generate_gaussian_kernel(kernel_size: int = 13, sigma: float = 1.6):

@@ -27,8 +27,30 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(b, l, h * d)
 
 
+# Tensor parallelism (parallel/tensor.py:shard_params): a split layer's
+# `_tp` holds its model group; None (the class default) leaves it whole.
+
+def _tp_in(x, tp):
+    """x entering a column-parallel layer: tp.copy(x) (the identity
+    forward, the gradient summed over the model group), x itself when the
+    layer is whole."""
+    return x if tp is None else tp.copy(x)
+
+
+def _tp_out(x, lin: nn.Linear, tp):
+    """A row-parallel nn.Linear on x: the partial products summed over the
+    model group (tp.reduce) before the bias is added once; the plain
+    linear when the layer is whole."""
+    if tp is None:
+        return linear(x, lin.weight, lin.bias)
+    return tp.reduce(linear(x, lin.weight)) + lin.bias
+
+
 class CrossAttention(nn.Module):
-    """diffusers-0.11 CrossAttention: separate q/k/v, scale dim_head^-0.5."""
+    """diffusers-0.11 CrossAttention: separate q/k/v, scale dim_head^-0.5.
+    Split by heads (`_tp`): to_q / to_k / to_v column-, to_out.0
+    row-parallel."""
+    _tp = None
 
     def __init__(self, query_dim: int, heads: int, dim_head: int):
         super().__init__()
@@ -41,11 +63,11 @@ class CrossAttention(nn.Module):
                                      nn.Dropout(0.0)])
 
     def project_out(self, out):
-        return linear(_merge_heads(out), self.to_out[0].weight,
-                      self.to_out[0].bias)
+        return _tp_out(_merge_heads(out), self.to_out[0], self._tp)
 
     def forward(self, x, context=None):
-        ctx = x if context is None else context
+        x = _tp_in(x, self._tp)
+        ctx = x if context is None else _tp_in(context, self._tp)
         q = linear(x, self.to_q.weight)
         k = linear(ctx, self.to_k.weight)
         v = linear(ctx, self.to_v.weight)
@@ -60,6 +82,7 @@ class CrossAttention(nn.Module):
         (i-1)'s tokens (SparseCausalAttention)."""
         bf, d, _ = x.shape
         b = bf // video_length
+        x = _tp_in(x, self._tp)
         q = linear(x, self.to_q.weight)
         k = linear(x, self.to_k.weight)
         v = linear(x, self.to_v.weight)
@@ -88,7 +111,10 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """diffusers FeedForward(activation_fn="geglu"): GEGLU -> Linear."""
+    """diffusers FeedForward(activation_fn="geglu"): GEGLU -> Linear. Split
+    by hidden units (`_tp`): GEGLU's proj column-parallel (each rank its
+    values and their gates), net.2 row-parallel."""
+    _tp = None
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -98,13 +124,17 @@ class FeedForward(nn.Module):
 
     def forward(self, x):
         proj = self.net[0].proj
-        h, gate = linear(x, proj.weight, proj.bias).chunk(2, dim=-1)
-        return linear(h * gelu(gate), self.net[2].weight, self.net[2].bias)
+        h, gate = linear(_tp_in(x, self._tp), proj.weight,
+                         proj.bias).chunk(2, dim=-1)
+        return _tp_out(h * gelu(gate), self.net[2], self._tp)
 
 
 class MultiheadAttention(nn.Module):
     """nn.MultiheadAttention's parameters (packed in_proj_weight), computed
-    with the port's plain attention."""
+    with the port's plain attention. Split by heads (`_tp`): this rank's
+    heads' rows of each third of in_proj (column-parallel) and out_proj's
+    matching columns (row-parallel)."""
+    _tp = None
 
     def __init__(self, embed_dim: int):
         super().__init__()
@@ -114,13 +144,24 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
     def forward(self, query, key, value, num_heads: int):
-        return multi_head_attention(query, key, value, self.in_proj_weight,
-                                    self.in_proj_bias, self.out_proj.weight,
-                                    self.out_proj.bias, num_heads)
+        tp = self._tp
+        if tp is None:
+            return multi_head_attention(
+                query, key, value, self.in_proj_weight, self.in_proj_bias,
+                self.out_proj.weight, self.out_proj.bias, num_heads)
+        q = tp.copy(query)
+        k = q if key is query else tp.copy(key)
+        out = multi_head_attention(q, k, tp.copy(value), self.in_proj_weight,
+                                   self.in_proj_bias, self.out_proj.weight,
+                                   None, num_heads // tp.size)
+        return tp.reduce(out) + self.out_proj.bias
 
 
 class TransformerSALayer(nn.Module):
-    """Pre-LN multi-head self-attention + GELU MLP."""
+    """Pre-LN multi-head self-attention + GELU MLP. The MLP splits by
+    hidden units (`_tp`: linear1 column-, linear2 row-parallel), the
+    attention by heads (self_attn's own `_tp`)."""
+    _tp = None
 
     def __init__(self, embed_dim: int, dim_mlp: int):
         super().__init__()
@@ -135,9 +176,9 @@ class TransformerSALayer(nn.Module):
         qk = h if query_pos is None else h + query_pos
         x = x + self.self_attn(qk, qk, h, num_heads)
         h = _ln(self.norm2, x)
-        h = linear(gelu(linear(h, self.linear1.weight, self.linear1.bias)),
-                   self.linear2.weight, self.linear2.bias)
-        return x + h
+        h = gelu(linear(_tp_in(h, self._tp), self.linear1.weight,
+                        self.linear1.bias))
+        return x + _tp_out(h, self.linear2, self._tp)
 
 
 class _ConvSeq(nn.Sequential):

@@ -2,9 +2,10 @@
 test.py:12-41), ported from comfyui_keep_tpu/training/train.py: seed ->
 the experiment's directories -> the train and val loaders (EnlargedSampler)
 -> the trainer -> auto-resume -> the CUDA prefetcher -> the loop {feed,
-step, log, save, validate}; test_pipeline: the trainer's network from
-path.pretrain_network_g (a .pth state dict, where the JAX package reads its
-.npz) through every test* / val* dataset.
+step, log, save, validate}, data-parallel over torch.distributed's ranks
+when the process group holds more than one; test_pipeline: the trainer's
+network from path.pretrain_network_g (a .pth state dict, where the JAX
+package reads its .npz) through every test* / val* dataset.
 """
 import copy
 import os
@@ -17,6 +18,8 @@ import torch
 from comfyui_keep_torch.data import build_dataloader, build_dataset
 from comfyui_keep_torch.data.prefetch import CUDAPrefetcher, DataLoader
 from comfyui_keep_torch.data.samplers import EnlargedSampler
+from comfyui_keep_torch.parallel.mesh import (get_dist_info, make_mesh,
+                                              reduce_loss_dict)
 from comfyui_keep_torch.training.state import TrainState, load_network
 from comfyui_keep_torch.training.trainers import build_model
 from comfyui_keep_torch.utils.logger import (AvgTimer, MessageLogger,
@@ -24,12 +27,17 @@ from comfyui_keep_torch.utils.logger import (AvgTimer, MessageLogger,
 from comfyui_keep_torch.utils.misc import make_exp_dirs, set_random_seed
 
 
-def create_train_val_loaders(opt: Dict, logger, num_devices: int = 1):
+def create_train_val_loaders(opt: Dict, logger, num_devices: int = 1,
+                             dist: bool = False):
     """(train loader, [(name, dataset type, loader)] of the val* phases)
     from opt["datasets"]: the train phase through an EnlargedSampler
     (dataset_enlarge_ratio), its dataset's streams seeded with
-    manual_seed; a val phase in order, batch 1."""
+    manual_seed; a val phase in order, batch 1. With dist, each rank's
+    train loader takes its own share of the sampler's indices and
+    batch_size_per_gpu of them a batch, its streams seeded with
+    manual_seed + rank."""
     train_loader, val_loaders = None, []
+    rank = get_dist_info()[0] if dist else 0
     for phase, dataset_opt in opt["datasets"].items():
         if phase == "train":
             ds = build_dataset(dataset_opt)
@@ -37,7 +45,8 @@ def create_train_val_loaders(opt: Dict, logger, num_devices: int = 1):
                 len(ds), ratio=dataset_opt.get("dataset_enlarge_ratio", 1))
             train_loader = build_dataloader(
                 ds, {**dataset_opt, "phase": "train"}, sampler=sampler,
-                num_devices=num_devices, seed=opt.get("manual_seed"))
+                num_devices=num_devices, dist=dist,
+                seed=opt.get("manual_seed", 0) + rank)
             logger.info(f"train dataset {dataset_opt['type']}: {len(ds)} "
                         "items")
         elif phase.startswith("val"):
@@ -170,17 +179,33 @@ def train_pipeline(opt: Dict, max_iters: Optional[int] = None,
     net_g_<iter>.pth resume the run (the directories kept, as the
     reference keeps them); a new epoch starts. logger.save_checkpoint_freq
     and print_freq pace saves and log lines; the iteration and data times
-    are the means of AvgTimer."""
+    are the means of AvgTimer.
+
+    Data parallelism (the JAX package's mesh over its devices): when a
+    torch.distributed group of more than one rank is set up
+    (parallel/mesh.py:init_distributed, e.g. under torchrun), the trainer
+    gets a ("data",) mesh over every rank, each rank's loader gives it
+    batch_size_per_gpu items of its own share of the sampler, the logged
+    losses are their mean over the ranks (reduce_loss_dict), and rank 0
+    alone makes the directories and saves; every rank resumes from
+    rank 0's files. Validation runs on every rank."""
+    import torch.distributed as tdist
     logger = get_root_logger()
     logger.info(get_env_info())
     set_random_seed(opt.get("manual_seed", 0))
+    rank, world = get_dist_info()
+    mesh = make_mesh() if world > 1 else None
     latest = (TrainState.latest_state(opt["path"]["training_states"])
               if opt.get("auto_resume") else None)
-    if latest is None and opt["path"].get("experiments_root"):
+    if latest is None and opt["path"].get("experiments_root") and rank == 0:
         make_exp_dirs(opt)
+    if mesh is not None:
+        tdist.barrier()
 
-    train_loader, val_loaders = create_train_val_loaders(opt, logger)
-    trainer = build_model(opt, **(trainer_kwargs or {}))
+    train_loader, val_loaders = create_train_val_loaders(
+        opt, logger, dist=mesh is not None)
+    trainer = build_model(opt, mesh=mesh, **(trainer_kwargs or {}))
+    trainer.batch_is_local = True
     state = trainer.make_state()
     run = {"trainer": trainer, "restored": None, "resume_s": None,
            "step_s": [], "save_s": [], "batch": None, "val": {},
@@ -231,6 +256,8 @@ def train_pipeline(opt: Dict, max_iters: Optional[int] = None,
                 run["batch"] = trainer.feed_data(run["batch"])
             t0 = time.perf_counter()
             state, logs = trainer.train_step(state, run["batch"])
+            if mesh is not None:
+                logs = reduce_loss_dict(logs, mesh)
             run["step_s"].append(time.perf_counter() - t0)
             iter_timer.record()
             if state.iter % print_freq == 0:
@@ -238,7 +265,7 @@ def train_pipeline(opt: Dict, max_iters: Optional[int] = None,
                             "lrs": [trainer.current_lr(state.iter)],
                             "time": iter_timer.get_avg_time(),
                             "data_time": data_timer.get_avg_time(), **logs})
-            if state.iter % save_freq == 0:
+            if state.iter % save_freq == 0 and rank == 0:
                 t0 = time.perf_counter()
                 state.save(opt["path"]["models"],
                            opt["path"]["training_states"], state.iter,

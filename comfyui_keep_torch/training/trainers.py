@@ -19,6 +19,7 @@ accumulation window, the optimizer update; the EMA moves on every
 micro-step, as the JAX package's does.
 """
 import contextlib
+import functools
 import random
 from typing import Callable, Dict, List, Optional
 
@@ -33,6 +34,9 @@ from comfyui_keep_torch.models.stylegan2 import (StyleGAN2Discriminator,
                                                  StyleGAN2Generator)
 from comfyui_keep_torch.models.vqgan import Discriminator3D, VQHQEncoder
 from comfyui_keep_torch.ops import flow_warp, resize_flow
+from comfyui_keep_torch.parallel.mesh import (all_reduce_, broadcast_module,
+                                              shard_batch)
+from comfyui_keep_torch.parallel.tensor import shard_params
 from comfyui_keep_torch.training.losses import (build_loss, g_path_regularize,
                                                 r1_penalty)
 from comfyui_keep_torch.training.flow_losses import flow_loss_func
@@ -69,12 +73,27 @@ class BaseTrainer:
     (`default_fix_modules` when the options do not say). A param group's
     "lr_mul" scales the LR it gets; `before_step(state)` runs on the
     gradients just before each optimizer step.
+
+    mesh (parallel/mesh.py:Mesh, the JAX trainers' mesh=): with a "data"
+    axis of D > 1 ranks, make_state broadcasts the weights from rank 0,
+    each rank takes its share of the batch (shard_batch; a loader that
+    already gives each rank its own, as train_pipeline's does, sets
+    batch_is_local), and before every optimizer step (the discriminators'
+    too) the gradients are averaged over the data group: with equal
+    shards, the gradient of the global batch's mean loss, as JAX's step
+    takes it. The EMA and the schedules are unchanged. train_step returns
+    this rank's losses (reduce_loss_dict gives their mean). With a "model"
+    axis of M > 1, make_state splits KEEP's transformer layers over it
+    (parallel/tensor.py:shard_params) before the optimizer and the EMA are
+    made.
     """
     default_fix_modules = ()
 
-    def __init__(self, opt: Dict, device="cuda"):
+    def __init__(self, opt: Dict, device="cuda", mesh=None):
         self.opt = opt
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.batch_is_local = False
         t = opt.get("train", {})
         self.ema_decay = t.get("ema_decay", 0)
         self.schedule = None
@@ -102,8 +121,10 @@ class BaseTrainer:
         """Master weights (`model`, or `init_model()` from the options'
         manual_seed) on the trainer's device, fix_modules frozen, the
         optimizer over what trains, and the EMA."""
-        model = (self.init_model() if model is None else model).to(
-            self.device)
+        model = self._replicate(
+            (self.init_model() if model is None else model).to(self.device))
+        if self.mesh is not None:
+            shard_params(model, self.mesh)
         optimizer = self.make_optimizer(model, freeze(model,
                                                       self.fix_modules))
         ema = ema_init(model) if self.ema_decay > 0 else None
@@ -119,7 +140,40 @@ class BaseTrainer:
     def before_step(self, state: TrainState):
         """Hook on the window's gradients before the optimizer step."""
 
+    def _replicate(self, module):
+        """`module` with rank 0's weights on every rank (with a mesh)."""
+        if self.mesh is not None:
+            broadcast_module(module, self.mesh)
+        return module
+
+    def _local_batch(self, batch):
+        """This rank's share of a global batch along the mesh's data axis
+        (the batch itself without a mesh, or when batch_is_local)."""
+        return batch if self.batch_is_local else shard_batch(batch,
+                                                             self.mesh)
+
+    def sync_grads(self, params):
+        """The .grad of `params` averaged over the mesh's data group, in
+        one all_reduce in f32 (float64 where a gradient is), nothing
+        without a data group of more than one.
+        A parameter without a gradient is left out: it has none on any
+        rank."""
+        group = None if self.mesh is None else self.mesh.group("data")
+        if group is None:
+            return
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            return
+        dtype = functools.reduce(torch.promote_types,
+                                 (g.dtype for g in grads), torch.float32)
+        flat = torch.cat([g.reshape(-1).to(dtype) for g in grads])
+        all_reduce_(flat, group)
+        flat /= self.mesh.size("data")
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
     def _cast_batch(self, batch):
+        batch = self._local_batch(batch)
         dt = self.compute_dtype
         return {k: v.to(self.device, dt if dt and v.is_floating_point()
                         else v.dtype) for k, v in batch.items()}
@@ -163,6 +217,8 @@ class BaseTrainer:
                     # optax updates every trainable leaf, reached or not
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
+            self.sync_grads([p for group in state.optimizer.param_groups
+                             for p in group["params"]])
             self.before_step(state)
             state.optimizer.step()
             state.optimizer.zero_grad(set_to_none=True)
@@ -190,8 +246,8 @@ class KEEPTrainer(BaseTrainer):
 
     def __init__(self, opt: Dict, hq_vqgan: Optional[VQHQEncoder] = None,
                  gmflow: Optional[GMFlow] = None, device="cuda",
-                 feature_fn: Optional[Callable] = None):
-        super().__init__(opt, device)
+                 feature_fn: Optional[Callable] = None, mesh=None):
+        super().__init__(opt, device, mesh)
         cfg = dict(opt["network_g"])
         cfg.pop("type", None)
         cfg.pop("fix_modules", None)
@@ -338,8 +394,8 @@ class KEEPGANTrainer(KEEPTrainer):
 
     def __init__(self, opt: Dict, hq_vqgan: Optional[VQHQEncoder] = None,
                  gmflow: Optional[GMFlow] = None, device="cuda",
-                 feature_fn: Optional[Callable] = None):
-        super().__init__(opt, hq_vqgan, gmflow, device, feature_fn)
+                 feature_fn: Optional[Callable] = None, mesh=None):
+        super().__init__(opt, hq_vqgan, gmflow, device, feature_fn, mesh)
         t = opt.get("train", {})
         self.cri_gan = build_loss(t["gan_opt"]) if t.get("gan_opt") else None
         self.net_d_start_iter = t.get("net_d_start_iter", 0)
@@ -352,7 +408,8 @@ class KEEPGANTrainer(KEEPTrainer):
         seeded from manual_seed + 777) with its optimizer."""
         state = super().make_state(model)
         disc = self.init_disc() if disc is None else disc
-        self.disc = disc.to(self.device).train().requires_grad_(True)
+        self.disc = self._replicate(disc.to(self.device)).train(
+            ).requires_grad_(True)
         self.d_optimizer = build_optimizer(
             self.opt.get("train", {}).get("optim_d",
                                           {"type": "Adam", "lr": 1e-4}),
@@ -422,6 +479,7 @@ class KEEPGANTrainer(KEEPTrainer):
                 l_d.backward()
             for group in self.d_optimizer.param_groups:
                 group["lr"] = self.d_lr(current_iter)
+            self.sync_grads(self.disc.parameters())
             self.d_optimizer.step()
             self.d_optimizer.zero_grad(set_to_none=True)
             logs.update(l_d=l_d.detach(), l_d_real=l_real.detach(),
@@ -454,8 +512,8 @@ class StyleGAN2Trainer(BaseTrainer):
     and the running mean path length live on the trainer (`extra_state`,
     in memory only). Runs on "cuda" unless given device="cpu"."""
 
-    def __init__(self, opt: Dict, device="cuda"):
-        super().__init__(opt, device)
+    def __init__(self, opt: Dict, device="cuda", mesh=None):
+        super().__init__(opt, device, mesh)
         if self.accumulate_steps > 1:
             # the lazy R1 / path updates are extra optimizer steps, which an
             # accumulation window would mis-count
@@ -504,15 +562,17 @@ class StyleGAN2Trainer(BaseTrainer):
         discriminator (`disc`, or one of network_d's out_size and
         channel_multiplier seeded from manual_seed + 99), both trainable on
         the trainer's device, their ratio'd Adams and the EMA."""
-        model = (self.init_model() if model is None else model).to(
-            self.device).train().requires_grad_(True)
+        model = self._replicate(
+            (self.init_model() if model is None else model).to(
+                self.device)).train().requires_grad_(True)
         if disc is None:
             disc = StyleGAN2Discriminator(
                 self.d_cfg.get("out_size", self.out_size),
                 channel_multiplier=self.d_cfg.get("channel_multiplier", 2),
                 device="cpu",
                 generator=torch.Generator().manual_seed(self.seed + 99))
-        self.disc = disc.to(self.device).train().requires_grad_(True)
+        self.disc = self._replicate(disc.to(self.device)).train(
+            ).requires_grad_(True)
         self.d_optimizer = self._adam(list(self.disc.parameters()), "optim_d",
                                       self.net_d_reg_every)
         optimizer = self._adam(list(model.parameters()), "optim_g",
@@ -543,31 +603,47 @@ class StyleGAN2Trainer(BaseTrainer):
 
     def draw(self, current_iter: int, b: int, model: StyleGAN2Generator
              ) -> Dict:
-        """The random inputs of one alternation: D's and G's style codes,
-        the per-layer noise both use, and at a path iteration its latents
-        (B // 2 codes), their per-layer noise and the image-shaped noise."""
+        """The random inputs of one alternation for this rank's b rows: D's
+        and G's style codes, the per-layer noise both use, and at a path
+        iteration its latents (max(1, b // 2) codes a rank), their
+        per-layer noise and the image-shaped noise. With a "data" axis of D
+        ranks, the draws are made for the global batch (b * D rows, the
+        same on every rank) and this rank takes its rows, so
+        D ranks draw what one process draws for b * D rows (for the path
+        inputs, where b is even)."""
+        d_size = 1 if self.mesh is None else self.mesh.size("data")
+        gb = b * d_size
         gen = torch.Generator(device=self.device).manual_seed(
             self.seed * 1_000_003 + current_iter)
-        d = {"d_styles": self._mixing_noise(b, gen),
-             "g_styles": self._mixing_noise(b, gen),
-             "noise": model.make_noise(b, gen)}
+        d = {"d_styles": self._mixing_noise(gb, gen),
+             "g_styles": self._mixing_noise(gb, gen),
+             "noise": model.make_noise(gb, gen)}
         if current_iter % self.net_g_reg_every == 0:
-            pb = max(1, b // 2)
+            pb = max(1, b // 2) * d_size
             d["path_latents"] = torch.randn((pb, self.num_style_feat),
                                             generator=gen, device=self.device)
             d["path_layer_noise"] = model.make_noise(pb, gen)
             d["path_noise"] = torch.randn((pb, 3, self.out_size,
                                            self.out_size), generator=gen,
                                           device=self.device)
-        return d
+        if d_size == 1:
+            return d
+        i = self.mesh.index("data")
 
-    @staticmethod
-    def _step(optimizer: torch.optim.Optimizer, loss):
-        """One optimizer step on d loss / d (every parameter it holds)."""
+        def rows(t):
+            n = t.shape[0] // d_size
+            return t[i * n:(i + 1) * n]
+        return {k: [rows(t) for t in v] if isinstance(v, list) else rows(v)
+                for k, v in d.items()}
+
+    def _step(self, optimizer: torch.optim.Optimizer, loss):
+        """One optimizer step on d loss / d (every parameter it holds),
+        averaged over the mesh's data group."""
         params = [p for grp in optimizer.param_groups for p in grp["params"]]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        self.sync_grads(params)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
 
@@ -577,7 +653,7 @@ class StyleGAN2Trainer(BaseTrainer):
         order): D step, lazy R1, G step, lazy path regularisation, EMA.
         Returns (state, {name: float loss})."""
         g_net, d_net = state.model, self.disc
-        real = batch["gt"].to(self.device)
+        real = self._local_batch(batch)["gt"].to(self.device)
         b = real.shape[0]
         dr = self.draw(current_iter, b, g_net) if draws is None else {
             k: ([t.to(self.device) for t in v] if isinstance(v, list)
@@ -647,8 +723,8 @@ class SRTrainer(BaseTrainer):
     with perceptual_opt. Runs on "cuda" unless given device="cpu"."""
 
     def __init__(self, opt: Dict, device="cuda",
-                 feature_fn: Optional[Callable] = None):
-        super().__init__(opt, device)
+                 feature_fn: Optional[Callable] = None, mesh=None):
+        super().__init__(opt, device, mesh)
         t = opt.get("train", {})
         self.cri_pix = build_loss(t["pixel_opt"]) if t.get("pixel_opt") \
             else None
@@ -716,8 +792,8 @@ class SRGANTrainer(SRTrainer):
     trainer's extra_state."""
 
     def __init__(self, opt: Dict, device="cuda",
-                 feature_fn: Optional[Callable] = None):
-        super().__init__(opt, device, feature_fn)
+                 feature_fn: Optional[Callable] = None, mesh=None):
+        super().__init__(opt, device, feature_fn, mesh)
         t = opt.get("train", {})
         self.cri_gan = build_loss(t["gan_opt"]) if t.get("gan_opt") else None
         self.net_d_iters = t.get("net_d_iters", 1)
@@ -735,7 +811,8 @@ class SRGANTrainer(SRTrainer):
         (`disc`, or init_disc()) with optim_d (default Adam 1e-4)."""
         state = super().make_state(model)
         disc = self.init_disc() if disc is None else disc
-        self.disc = disc.to(self.device).train().requires_grad_(True)
+        self.disc = self._replicate(disc.to(self.device)).train(
+            ).requires_grad_(True)
         self.d_optimizer = build_optimizer(
             self.opt.get("train", {}).get("optim_d",
                                           {"type": "Adam", "lr": 1e-4}),
@@ -799,6 +876,7 @@ class SRGANTrainer(SRTrainer):
                 for p in group["params"]:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
+            self.sync_grads(self.disc.parameters())
             self.d_optimizer.step()
             self.d_optimizer.zero_grad(set_to_none=True)
             self.d_updates += 1
@@ -818,14 +896,21 @@ class _RealESRGANFeed:
     (paired, validation) pass through. Its streams: a random.Random and a
     np.random.RandomState seeded with manual_seed, and a torch.Generator on
     the trainer's device seeded with manual_seed * 1,000,003 + the feed's
-    call count for the noise (the JAX package keys PRNGKey(count))."""
+    call count for the noise (the JAX package keys PRNGKey(count)). It
+    synthesises the batch it is given, which under data parallelism is
+    this rank's own (train_pipeline's loaders): a "data" axis's rank i
+    seeds all three with manual_seed + i in place of manual_seed, as the
+    reference seeds each rank with seed + rank, so the ranks' degradations
+    differ (ranks along "model" alone share them)."""
 
     def _init_feed(self, opt: Dict):
         from comfyui_keep_torch.training.realesrgan_feed import \
             TrainingPairPool
         self._degrade_opt = opt
-        self.py_rng = random.Random(self.seed)
-        self.np_rng = np.random.RandomState(self.seed)
+        self._feed_seed = self.seed + (0 if self.mesh is None
+                                       else self.mesh.index("data"))
+        self.py_rng = random.Random(self._feed_seed)
+        self.np_rng = np.random.RandomState(self._feed_seed)
         self._pool = TrainingPairPool(opt.get("queue_size", 180),
                                       np_rng=self.np_rng)
         self._feed_counter = 0
@@ -838,7 +923,7 @@ class _RealESRGANFeed:
             realesrgan_synthesize
         self._feed_counter += 1
         gen = torch.Generator(device=self.device).manual_seed(
-            self.seed * 1_000_003 + self._feed_counter)
+            self._feed_seed * 1_000_003 + self._feed_counter)
         out = realesrgan_synthesize(
             {k: v.to(self.device) for k, v in batch.items()
              if torch.is_tensor(v)}, self._degrade_opt, gen,
@@ -854,8 +939,8 @@ class RealESRNetTrainer(_RealESRGANFeed, SRTrainer):
     losses on synthesised pairs."""
 
     def __init__(self, opt: Dict, device="cuda",
-                 feature_fn: Optional[Callable] = None):
-        SRTrainer.__init__(self, opt, device, feature_fn)
+                 feature_fn: Optional[Callable] = None, mesh=None):
+        SRTrainer.__init__(self, opt, device, feature_fn, mesh)
         self._init_feed(opt)
 
 
@@ -865,8 +950,8 @@ class RealESRGANTrainer(_RealESRGANFeed, SRGANTrainer):
     synthesised pairs."""
 
     def __init__(self, opt: Dict, device="cuda",
-                 feature_fn: Optional[Callable] = None):
-        SRGANTrainer.__init__(self, opt, device, feature_fn)
+                 feature_fn: Optional[Callable] = None, mesh=None):
+        SRGANTrainer.__init__(self, opt, device, feature_fn, mesh)
         self._init_feed(opt)
 
 
@@ -889,8 +974,9 @@ class VideoRecurrentTrainer(BaseTrainer):
     Batches: "lq" (B, T, H, W, 3) and "gt" (B, T, sH, sW, 3), or (B, sH, sW,
     3) for a centre-frame net (EDVR)."""
 
-    def __init__(self, opt: Dict, device="cuda", flow_prefix="spynet"):
-        super().__init__(opt, device)
+    def __init__(self, opt: Dict, device="cuda", flow_prefix="spynet",
+                 mesh=None):
+        super().__init__(opt, device, mesh)
         t = opt.get("train", {})
         self.cri_pix = build_loss(t["pixel_opt"]) if t.get("pixel_opt") \
             else None
@@ -973,8 +1059,8 @@ class GMFlowTrainer(BaseTrainer):
     W). The transformer's kernels run forward on the card and take their
     plain versions' gradients (ops/kernels.py PlainBackward)."""
 
-    def __init__(self, opt: Dict, device="cuda"):
-        super().__init__(opt, device)
+    def __init__(self, opt: Dict, device="cuda", mesh=None):
+        super().__init__(opt, device, mesh)
         t = opt.get("train", {})
         self.lr = t.get("lr", 4e-4)
         self.weight_decay = t.get("weight_decay", 1e-4)

@@ -579,16 +579,18 @@ _HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1],
 
 def hsv_to_rgb_full(hsv: np.ndarray) -> np.ndarray:
     """cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB_FULL) of an (..., 3) uint8 array
-    in OpenCV's float form (HSV2RGB_native, the hue scaled by 6 / 255, s
-    and v by 1 / 255, the result times 255 rounded half to even). Against
-    the sandbox's OpenCV 5.0.0 it differs by one level on 88 of the 2^24
-    HSV triples (its vector path rounds otherwise at a few ties; ROADMAP
-    Queue 3)."""
+    in OpenCV's float form (HSV2RGB_native: s and v scaled by 1 / 255, the
+    tabs v (1 - s), v (1 - s h), v (1 - s (1 - h)), the result times 255
+    rounded half to even). The hue scale is 6 * (1 / 255) in float32,
+    0.023529414, one ulp above float32(6 / 255): with it the form agrees
+    with OpenCV 5.0.0 on all but 14 of the 2^24 HSV triples, which differ
+    by one level at near-ties (ROADMAP Queue 3)."""
     f32 = np.float32
     x = np.asarray(hsv)
-    h = x[..., 0].astype(f32) * f32(6.0 / 255)
-    s = x[..., 1].astype(f32) * f32(1 / 255.0)
-    v = x[..., 2].astype(f32) * f32(1 / 255.0)
+    inv255 = f32(1 / 255.0)
+    h = x[..., 0].astype(f32) * (f32(6) * inv255)
+    s = x[..., 1].astype(f32) * inv255
+    v = x[..., 2].astype(f32) * inv255
     h = np.fmod(h, f32(6))
     sector = np.floor(h)
     h = h - sector

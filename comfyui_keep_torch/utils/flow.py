@@ -2,6 +2,8 @@
 gmflow utils/flow_viz.py), ported from comfyui_keep_tpu/utils/flow.py
 without OpenCV: Middlebury .flo, flow quantised into an 8-bit gray PNG
 (through utils/png.py), and the Middlebury colour picture of a flow."""
+import os
+
 import numpy as np
 
 from comfyui_keep_torch.utils import png
@@ -73,10 +75,37 @@ def dequantize_flow(dx: np.ndarray, dy: np.ndarray, max_val: float = 0.02,
     return np.stack([dx, dy], axis=-1)
 
 
-def make_lmdb_from_imgs(*args, **kwargs):
-    """Writing an lmdb is ROADMAP Queue 1 item 6.7 (the lmdb backend)."""
-    raise NotImplementedError("make_lmdb_from_imgs: the lmdb backend is not "
-                              "ported yet (ROADMAP Queue 1 item 6.7)")
+def make_lmdb_from_imgs(data_path: str, lmdb_path: str, img_path_list,
+                        keys, batch: int = 5000, compress_level: int = 1):
+    """PNG images -> an lmdb folder with meta_info.txt (the JAX package's
+    flow-data form of utils/lmdb_util.py's builder): each image re-encoded
+    at compress_level under its key, committed every `batch` puts, and the
+    meta lines "<key>.png (<h>,<w>,<c>) <compress_level>" joined by
+    newlines. The lmdb package is imported here."""
+    from comfyui_keep_torch.utils.lmdb_util import (read_img_worker,
+                                                    require_lmdb)
+    lmdb = require_lmdb()
+    if len(img_path_list) != len(keys):
+        raise ValueError("img_path_list and keys differ in length")
+    os.makedirs(lmdb_path, exist_ok=True)
+    first = read_img_worker(os.path.join(data_path, img_path_list[0]),
+                            keys[0], compress_level)[1]
+    env = lmdb.open(lmdb_path, map_size=len(first) * len(img_path_list) * 10
+                    + (1 << 24))
+    txn = env.begin(write=True)
+    meta = []
+    for i, (rel, key) in enumerate(zip(img_path_list, keys)):
+        _, buf, (h, w, c) = read_img_worker(os.path.join(data_path, rel),
+                                            key, compress_level)
+        txn.put(key.encode("ascii"), buf)
+        meta.append(f"{key}.png ({h},{w},{c}) {compress_level}")
+        if (i + 1) % batch == 0:
+            txn.commit()
+            txn = env.begin(write=True)
+    txn.commit()
+    env.close()
+    with open(os.path.join(lmdb_path, "meta_info.txt"), "w") as f:
+        f.write("\n".join(meta))
 
 
 def _make_color_wheel() -> np.ndarray:

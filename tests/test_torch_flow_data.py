@@ -8,12 +8,15 @@ alike, InputPadder, the validators and inference_on_dir.
 Tolerances: files, pictures, RGB -> HSV, the uint8 resize and the float32
 resize of a 2-channel flow bit for bit (OpenCV's float32 path for other
 channel counts rounds otherwise: an occlusion map within 1e-5 of 255);
-OpenCV's HSV -> RGB differs from the port's float form on 88 of the 2^24
-triples, by one level (ROADMAP Queue 3), so jittered images are held
-within one level on at most 1e-3 of their values, and everything after
-the jitter (the flow, valid) bit for bit; metrics within 1e-6 relative.
+OpenCV's HSV -> RGB differs from the port's float form on 14 of the 2^24
+triples, by one level (ROADMAP Queue 3): the dense augmentor's jittered
+images are held bit for bit (none of those triples occurs there), the
+sparse augmentor's and the FlyingChairs items' within one level on at
+most 1e-3 of their values, and everything after the jitter (the flow,
+valid) bit for bit; metrics within 1e-6 relative.
 """
 import os
+import sys
 
 import cv2
 import jax
@@ -115,7 +118,7 @@ def test_kitti_flow_png_both_ways(tmp_path):
     np.testing.assert_allclose(tf, flow, atol=1 / 64.0)
 
 
-def test_quantized_flow_png_and_picture_equal_jax(tmp_path):
+def test_quantized_flow_png_and_picture_equal_jax(tmp_path, monkeypatch):
     flow = np.random.default_rng(5).standard_normal((12, 16, 2)).astype(
         np.float32) * 0.2
     a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
@@ -134,13 +137,17 @@ def test_quantized_flow_png_and_picture_equal_jax(tmp_path):
     for mf in (None, 5.0):
         np.testing.assert_array_equal(tflow.flow_to_image(big, mf),
                                       jflow.flow_to_image(big, mf))
-    with pytest.raises(NotImplementedError, match="6.7"):
-        tflow.make_lmdb_from_imgs(str(tmp_path), str(tmp_path), [], [])
+    # without the lmdb package the builder names it (the builder itself is
+    # held against JAX's in tests/test_torch_datasets_extra.py)
+    monkeypatch.setitem(sys.modules, "lmdb", None)
+    with pytest.raises(ImportError, match="lmdb package"):
+        tflow.make_lmdb_from_imgs(str(tmp_path), str(tmp_path), ["a.png"],
+                                  ["a"])
 
 
 def test_hsv_full_forms_against_cv2_on_every_colour():
     """RGB -> HSV bit for bit on all 2^24 colours; HSV -> RGB on all 2^24
-    triples differs by one level on 88 (the count recorded in ROADMAP
+    triples differs by one level on 14 (the count recorded in ROADMAP
     Queue 3); in blocks of 2^20 to keep the memory small."""
     a = np.arange(256, dtype=np.uint8)
     off, worst = 0, 0
@@ -154,7 +161,7 @@ def test_hsv_full_forms_against_cv2_on_every_colour():
                    - cv2.cvtColor(block, cv2.COLOR_HSV2RGB_FULL))
         off += int((d.max(-1) > 0).sum())
         worst = max(worst, int(d.max()))
-    assert off == 88 and worst == 1
+    assert off == 14 and worst == 1
 
 
 @pytest.mark.parametrize("fx,fy", [(1.37, 0.81), (2.0, 2.0), (0.55, 1.9),
@@ -192,8 +199,8 @@ def test_dense_augmentor_equals_jax(seed):
     ours = tfd.FlowAugmentor(**kw)(img1, img2, flow,
                                    np.random.RandomState(seed), occlusion=occ)
     assert [x.shape for x in ours] == [x.shape for x in ref]
-    _close_images(ours[0], ref[0])
-    _close_images(ours[1], ref[1])
+    np.testing.assert_array_equal(ours[0], ref[0])
+    np.testing.assert_array_equal(ours[1], ref[1])
     np.testing.assert_array_equal(ours[2], ref[2])
     np.testing.assert_allclose(ours[3], ref[3], rtol=0, atol=1e-5 * 255)
     assert ours[2].dtype == ref[2].dtype

@@ -305,6 +305,25 @@ def test_port_imports_no_opencv():
     assert not offenders, f"cv2 imported by {offenders}"
 
 
+def test_port_imports_lmdb_only_inside_functions():
+    """The lmdb package is on neither machine: the port imports it only
+    inside the functions that open a database (utils/lmdb_util.py:
+    require_lmdb), never at a module's top level."""
+    top = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom)
+                     else [])
+            if "lmdb" in names:
+                top.append(os.path.relpath(path, REPO))
+    assert not top, f"lmdb imported at module level by {top}"
+    assert _importers("lmdb") == ["comfyui_keep_torch/utils/lmdb_util.py"]
+
+
 def test_port_package_imports_without_jax_in_a_fresh_process():
     import subprocess
     import sys
@@ -344,10 +363,19 @@ def test_port_package_imports_without_jax_in_a_fresh_process():
             "comfyui_keep_torch.utils.registry, "
             "comfyui_keep_torch.utils.color, "
             "comfyui_keep_torch.utils.matlab\n"
+            "import comfyui_keep_torch.data, "
+            "comfyui_keep_torch.data.gaussian_kernels, "
+            "comfyui_keep_torch.data.util, "
+            "comfyui_keep_torch.utils.lmdb_util, "
+            "comfyui_keep_torch.utils.file_client, "
+            "comfyui_keep_torch.utils.flow\n"
+            "import comfyui_keep_torch.parallel, "
+            "comfyui_keep_torch.parallel.tensor, "
+            "comfyui_keep_torch.training.train\n"
             "from comfyui_keep_torch.models import build_network\n"
             "build_network('DFDNet')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'comfyui_keep_tpu', 'cv2')]\n"
+            "('jax', 'jaxlib', 'comfyui_keep_tpu', 'cv2', 'lmdb')]\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

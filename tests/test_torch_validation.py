@@ -280,7 +280,19 @@ def test_data_util_equals_jax(tmp_path):
             tutil.duf_downsample(torch.as_tensor(x), scale=scale).numpy(),
             np.asarray(jutil.duf_downsample(jnp.asarray(x), scale=scale)),
             atol=1e-6)
-    for fn in (tutil.paths_from_lmdb, tutil.paired_paths_from_lmdb):
-        with pytest.raises(NotImplementedError, match="6.7"):
-            fn(*(["x.lmdb"] if fn is tutil.paths_from_lmdb
-                 else [["a.lmdb", "b.lmdb"], ["lq", "gt"]]))
+    # the lmdb path lists read meta_info.txt alone (no lmdb package)
+    for name, lines in (("a.lmdb", "k1.png (8,8,3) 1\nk2.png (8,8,3) 1\n"),
+                        ("b.lmdb", "k2.png (8,8,3) 1\nk1.png (8,8,3) 1\n"),
+                        ("c.lmdb", "k1.png (8,8,3) 1\n")):
+        os.makedirs(tmp_path / name)
+        (tmp_path / name / "meta_info.txt").write_text(lines)
+    a, b, c = (str(tmp_path / n) for n in ("a.lmdb", "b.lmdb", "c.lmdb"))
+    assert tutil.paths_from_lmdb(a) == jutil.paths_from_lmdb(a) == \
+        ["k1", "k2"]
+    assert tutil.paired_paths_from_lmdb([a, b], ["lq", "gt"]) == \
+        jutil.paired_paths_from_lmdb([a, b], ["lq", "gt"])
+    for args in (([a, c], ["lq", "gt"]), ([a, gt], ["lq", "gt"])):
+        with pytest.raises(ValueError):
+            tutil.paired_paths_from_lmdb(*args)
+    with pytest.raises(ValueError, match="lmdb format"):
+        tutil.paths_from_lmdb(gt)
