@@ -136,12 +136,15 @@ the verdict):
               and clips), f32 as configured, then mixed precision: ms/step,
               frames/s, peak GiB, losses, launches per step; frozen leaves
               unchanged, trainable ones moved, the EMA rule held
-     train_gan  options/train_keep_stage3_gan.yml (STAGE3_OPT; the one
-              departure, the dataset's scale 1) through train_pipeline at
-              full width (KEEP 512x512, Discriminator3D, B=1 x 8 frames,
-              f32, random weights) on a synthetic 12-frame PNG clip in
-              VFHQ layout: 2 iterations with a save at 2, an
-              auto_resume alone (no step), then auto_resume to 3. Losses
+     train_gan  options/train_keep_stage3_gan.yml (STAGE3_FORCE: the one
+              departure, the dataset's scale 1) through
+              tools/torch_train.py's main (train_pipeline) at full width
+              (KEEP 512x512, Discriminator3D, B=1 x 8 frames, f32, random
+              weights; the frozen VQHQEncoder and GMFlow loaded from .pth
+              files through path.pretrain_network_hq / _flow) on a
+              synthetic 12-frame PNG clip in VFHQ layout: 2 iterations
+              with a save at 2, an auto_resume alone (no step), then
+              auto_resume to 3. Losses
               finite with l_g_gan, l_d, l_d_real, l_d_fake; frozen leaves
               unchanged, watched G and D leaves moved from the init, D's
               weight_u kept, the EMA rule; K1-K4 launches per alternation
@@ -216,7 +219,7 @@ the verdict):
               FFN rows; their forwards held there): the autograd wrapper's
               input gradients against the plain version's autograd
               (KGRAD_RTOL), the ms of its forward + backward
-     train_flow  GMFlowTrainer (tools/train_flow.py's defaults, FLOW_OPT)
+     train_flow  GMFlowTrainer (tools/torch_train_flow.py's defaults)
               on a synthetic FlyingChairs directory (FLOW_PAIRS pairs)
               through build_train_dataset("chairs") and the loader, B = 8,
               f32: the loader's steady s a batch alone, then 1 + 3 steps
@@ -232,14 +235,35 @@ the verdict):
               noise (three f32 witnesses), a TF32 control that must fail
               that; one more epoch trained
               through, s a step with its data (train_flow_epoch);
-              validate_chairs on the validation split, ms a pair
- 22. sr_test  options/test_keep.yml (TEST_OPT) through test_pipeline on
-              synthetic PNG pairs, card against CPU, save_img; an SRModel
-              through train_pipeline with validation every iteration; one
+              validate_chairs on the validation split, ms a pair; then
+              tools/torch_train_flow.py's main for FLOW_CLI_STEPS steps
+              with a save at the last, and a --resume of that .pth whose
+              weights equal the file's (train_flow_cli)
+ 22. sr_test  options/test_keep.yml through tools/torch_test.py's main
+              (test_pipeline) on synthetic PNG pairs, card against CPU,
+              save_img; an SRModel through tools/torch_train.py's main
+              (train_pipeline) with validation every iteration; one
               step each of SRGAN (ESRGAN x4), Real-ESRGAN x4plus (its batch
               from RealESRGANDataset on synthetic PNGs through the loader
               and CUDAPrefetcher, then its feed) and BasicVSR (REDS clips
               from REDSRecurrentDataset, fix_flow); none of K1-K6 launched
+ 23. profiler  utils/profiler.py: keep_latency_benchmark (KEEP at full
+              width, 20 frames, bf16: ms a frame, faces/s), trace() around
+              a 2-frame forward (a non-empty Chrome trace with device
+              kernels), time_fn against CUDA events on the same calls
+              (within TIME_FN_RTOL)
+ 24. fidelity  tools/torch_bf16_fidelity.py's report (20 frames, unpacked:
+              f32 with TF32 off, bf16, bf16 with the f32 picks forced):
+              K1-K3 launched by three GMFlow passes, index_agreement and
+              psnr_db_forced finite and above FIDELITY_MIN_*
+ 25. io       PrefetchReader / IOConsumer round-trip 20 720p PNG frames
+              bit for bit; VideoWriter -> VideoReader on 20 smooth 720p
+              frames within VIDEO_PSNR_DB where ffmpeg is on the machine,
+              else `ffmpeg: absent` and both classes raising
+ 26. zoo      tools/torch_synth_zoo.py's five files at full width, loaded
+              by api.load_models (weights equal to the file's), the
+              RetinaFace and ParseNet factories (detections at 0.97) and
+              factory.load_reference into tiled x2 upscalers
 The kernel phase also holds K1 at the refinement's fine scale (L = 256,
 the (64, 256, 256) mask, 256 windows) in both dtypes, and K1-K3 in bf16 at
 the shapes of a group of 2 chunks (the "G2" rows). The kernel table's
@@ -259,6 +283,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -371,81 +396,69 @@ SR_MODELS = {
         upsampler="pixelshuffle", resi_connection="1conv")),
 }
 
-# options/train_keep_stage2.yml as a dict: the card machine is not specified
-# to have pyyaml. tests/test_torch_training.py checks that the two agree.
-TRAIN_OPT = {
-    "model_type": "KEEPModel",
-    "manual_seed": 0,
-    "network_g": {
-        "type": "KEEP", "img_size": 512, "nf": 64, "ch_mult": [1, 2, 2, 4, 4, 8],
-        "dim_embd": 512, "n_head": 8, "n_layers": 9, "codebook_size": 1024,
-        "cft_list": ["16", "32", "64"], "cfa_list": ["16", "32"],
-        "fix_modules": ["quantize", "generator"], "temp_reg_list": ["32"]},
-    "datasets": {"train": {"num_frame": 8, "batch_size_per_gpu": 2}},
-    "train": {
-        "use_hq_feat_loss": True, "feat_loss_weight": 1.0,
-        "cross_entropy_loss": True, "entropy_loss_weight": 0.5,
-        "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
-        "temporal_opt": {"type": "L1Loss", "loss_weight": 0.1},
-        "temporal_warp_type": "GT",
-        "optim_g": {"type": "Adam", "lr": 1e-4},
-        "scheduler": {"type": "MultiStepLR", "milestones": [400000],
-                      "gamma": 0.5},
-        "total_iter": 500000, "warmup_iter": -1, "ema_decay": 0.995},
-}
-# options/train_keep_stage3_gan.yml as a dict (no pyyaml on the card
-# machine; tests/test_torch_gan_training.py holds the two to each other).
-# One departure: the dataset's `scale: 1`. The yml sets none, and the
-# dataset's default of 4 gives KEEP's 512 net a 128^2 LQ clip, on which both
-# packages raise (ROADMAP Queue 3). Phase train_gan then points the dataset
-# at its synthetic clip and the paths at a temporary directory, and runs 2
-# iterations with a save at 2, then resumes to 3.
-STAGE3_OPT = {
-    "name": "keep_stage3_gan",
-    "model_type": "KEEPGANModel",
-    "manual_seed": 0,
-    "network_g": {"type": "KEEP", "img_size": 512,
-                  "fix_modules": ["quantize", "generator"],
-                  "temp_reg_list": ["32"]},
-    "network_d": {"type": "Discriminator3D", "args": {}},
-    "datasets": {"train": {
-        "type": "VFHQDataset", "dataroot_gt": "datasets/VFHQ/GT",
-        "meta_info_file": "datasets/VFHQ/meta_info.txt", "num_frame": 8,
-        "batch_size_per_gpu": 1, "scale": 1}},
-    "train": {
-        "use_hq_feat_loss": True, "feat_loss_weight": 1.0,
-        "cross_entropy_loss": True, "entropy_loss_weight": 0.5,
-        "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
-        "temporal_opt": {"type": "L1Loss", "loss_weight": 0.1},
-        "temporal_warp_type": "GT",
-        "gan_opt": {"type": "GANLoss", "gan_type": "hinge",
-                    "loss_weight": 1e-2},
-        "net_d_iters": 1, "net_d_start_iter": 0,
-        "optim_g": {"type": "Adam", "lr": 5e-5},
-        "optim_d": {"type": "Adam", "lr": 5e-5},
-        "total_iter": 100000, "ema_decay": 0.995},
-    "logger": {"print_freq": 100, "save_checkpoint_freq": 1e4},
-    "path": {"experiments_root": "experiments/keep_stage3"},
-}
-# options/test_keep.yml, as test_pipeline takes it (the card machine has no
-# pyyaml); phase sr_test points its dataroots and pretrain_network_g at
-# synthetic data and the saved weights, and adds save_img
-TEST_OPT = {
-    "name": "keep_test",
-    "model_type": "SRModel",
-    "manual_seed": 0,
-    "network_g": {"type": "MSRResNet", "num_feat": 64, "num_block": 16,
-                  "upscale": 4},
-    "datasets": {"test_1": {
-        "type": "PairedImageDataset", "name": "demo",
-        "dataroot_lq": "datasets/demo/lq", "dataroot_gt": "datasets/demo/gt",
-        "scale": 4}},
-    "train": {"pixel_opt": {"type": "L1Loss"}},
-    "val": {"metrics": {
-        "psnr": {"type": "calculate_psnr", "crop_border": 4},
-        "ssim": {"type": "calculate_ssim", "crop_border": 4}}},
-    "path": {"pretrain_network_g": None},
-}
+# the shipped ymls, read by the port's YAML reader (utils/options.py; the
+# card machine has no pyyaml), each with its departures applied as
+# --force_yml applies them; tests/test_torch_{training,gan_training,
+# validation}.py hold each to pyyaml's load of the same yml with the same
+# departures
+STAGE2_YML, STAGE3_YML, TEST_YML = ("train_keep_stage2.yml",
+                                    "train_keep_stage3_gan.yml",
+                                    "test_keep.yml")
+# stage III's one departure: the dataset's `scale: 1`. The yml sets none,
+# and the dataset's default of 4 gives KEEP's 512 net a 128^2 LQ clip, on
+# which both packages raise (ROADMAP Queue 3). Phase train_gan then points
+# the dataset at its synthetic clip and the run at a temporary directory,
+# and runs 2 iterations with a save at 2, then resumes to 3, all through
+# tools/torch_train.py.
+STAGE3_FORCE = ("datasets:train:scale=1",)
+
+
+def yml_path(name):
+    return os.path.join(ROOT, "options", name)
+
+
+def yml_opt(name, force=()):
+    """options/<name> as the port reads it, `force` applied as --force_yml
+    applies it."""
+    from comfyui_keep_torch.utils.options import apply_force_yml, yaml_load
+    return apply_force_yml(yaml_load(yml_path(name)), force)
+
+
+def train_opt():
+    """options/train_keep_stage2.yml (phases train_parity, train and
+    parallel_train)."""
+    return yml_opt(STAGE2_YML)
+
+
+def stage3_opt():
+    """options/train_keep_stage3_gan.yml with STAGE3_FORCE."""
+    return yml_opt(STAGE3_YML, STAGE3_FORCE)
+
+
+def test_opt():
+    """options/test_keep.yml (phases sr_test and parallel_train)."""
+    return yml_opt(TEST_YML)
+
+
+def tool(name):
+    """tools/<name>.py as a module (imported once)."""
+    import importlib.util
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "tools", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def flow_opt():
+    """GMFlowTrainer's options from tools/torch_train_flow.py's argument
+    defaults (the chairs stage, 384 x 512, B = 8)."""
+    tf = tool("torch_train_flow")
+    return tf.flow_opt(tf.parse_args([]))
+
+
 # the tiny configuration of train_parity (the tests' TINY KEEP)
 TINY = dict(img_size=64, nf=32, ch_mult=(1, 2, 2), res_blocks=2,
             attn_resolutions=(16,), codebook_size=64, emb_dim=32, dim_embd=64,
@@ -460,8 +473,6 @@ VQ_FAMILY_RTOL = 1e-3
 OCC_FLIP_SHARE = 1e-3
 K1_K4 = ("attention[dv128]", "attention[dv128+bias]", "attention[dv2]",
          "global_correlation_expectation", "mlp_fused", "vq_nearest_indices")
-HQ_KEYS = ("img_size", "nf", "ch_mult", "res_blocks", "attn_resolutions",
-           "codebook_size", "emb_dim")
 
 
 def say(phase, **kw):
@@ -1892,9 +1903,9 @@ def tiny_training(torch, device, mixed_precision=False):
     64x64 clip of 3 frames."""
     from comfyui_keep_torch.models.gmflow import GMFlow
     from comfyui_keep_torch.models.keep import KEEP
-    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.models.vqgan import HQ_KEYS, VQHQEncoder
     from comfyui_keep_torch.training.trainers import KEEPTrainer
-    opt = copy.deepcopy(TRAIN_OPT)
+    opt = train_opt()
     opt["network_g"] = {"type": "KEEP", **TINY,
                         "fix_modules": ["quantize", "generator"]}
     opt["train"]["mixed_precision"] = mixed_precision
@@ -1997,12 +2008,13 @@ def phase_train(torch):
     """options/train_keep_stage2.yml's step at full width, f32 as configured
     and then with mixed precision. Returns each run's launch counts."""
     from comfyui_keep_torch.models.gmflow import GMFlow
-    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.models.vqgan import HQ_KEYS, VQHQEncoder
     from comfyui_keep_torch.ops import kernels as K
     from comfyui_keep_torch.training.trainers import KEEPTrainer
-    data = TRAIN_OPT["datasets"]["train"]
+    yml = train_opt()
+    data = yml["datasets"]["train"]
     b, t = data["batch_size_per_gpu"], data["num_frame"]
-    hq = VQHQEncoder(**{k: v for k, v in TRAIN_OPT["network_g"].items()
+    hq = VQHQEncoder(**{k: v for k, v in yml["network_g"].items()
                         if k in HQ_KEYS}, device="cpu",
                      generator=torch.Generator().manual_seed(1))
     gm = GMFlow(device="cpu", generator=torch.Generator().manual_seed(2))
@@ -2021,7 +2033,7 @@ def phase_train(torch):
     ema_leaf = "feat_emb.weight"
     runs = {}
     for mp in (False, True):
-        opt = copy.deepcopy(TRAIN_OPT)
+        opt = copy.deepcopy(yml)
         opt["train"]["mixed_precision"] = mp
         tr = KEEPTrainer(opt, hq_vqgan=copy.deepcopy(hq),
                          gmflow=copy.deepcopy(gm))
@@ -3365,24 +3377,23 @@ def write_vfhq_clip(root, frames, size):
 
 
 def phase_train_gan(torch, card):
-    """KEEP stage III through the train loop at full width: train_pipeline
-    on STAGE3_OPT (KEEP 512^2, Discriminator3D, B = 1 x 8 frames, f32) over
-    a synthetic 12-frame clip, 2 iterations with a save at 2; an
-    auto-resume alone (to total_iter 2: no step) against the saved state;
-    an auto-resume to 3, its step against the uninterrupted one on the same
+    """KEEP stage III through the train loop at full width:
+    tools/torch_train.py's main on options/train_keep_stage3_gan.yml with
+    STAGE3_FORCE (KEEP 512^2, Discriminator3D, B = 1 x 8 frames, f32; the
+    frozen VQHQEncoder and GMFlow from seeds 1 and 2, saved as .pth files
+    and loaded from path.pretrain_network_hq / _flow) over a synthetic
+    12-frame clip, 2 iterations with a save at 2; an auto-resume
+    alone (to total_iter 2: no step) against the saved state; an
+    auto-resume to 3, its step against the uninterrupted one on the same
     batch. Returns the K1-K6 launches of the resumed run's one alternation,
     its counters reset just before it."""
     from comfyui_keep_torch.models.gmflow import GMFlow
     from comfyui_keep_torch.models.keep import config
-    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.models.vqgan import HQ_KEYS, VQHQEncoder
     from comfyui_keep_torch.ops import kernels as K
-    from comfyui_keep_torch.training import train as train_mod
-    cfg = config("KEEP", **{k: v for k, v in STAGE3_OPT["network_g"].items()
+    cfg = config("KEEP", **{k: v for k, v in stage3_opt()["network_g"].items()
                             if k not in ("type", "fix_modules")})
-    hq = VQHQEncoder(**{k: cfg[k] for k in HQ_KEYS}, device="cpu",
-                     generator=torch.Generator().manual_seed(1))
-    gm = GMFlow(device="cpu", generator=torch.Generator().manual_seed(2))
-    kw = {"hq_vqgan": hq, "gmflow": gm}
+    cli = tool("torch_train")
     # one alternation: KEEPTrainer._loss_outs runs flow_from_clip on the LQ
     # clip and (temporal_warp_type GT) on the GT clip, and one
     # nearest-codebook launch for the GT codes (_gt_indices);
@@ -3418,9 +3429,17 @@ def phase_train_gan(torch, card):
             return (dist / moved).item()
         return 0.0 if dist == 0 else math.inf
 
-    def runs(opt, max_iters):
-        state, logs = train_mod.train_pipeline(opt, max_iters=max_iters,
-                                               trainer_kwargs=kw)
+    def runs(total_iter, resume=False):
+        """The CLI to `total_iter`, its run under `work`."""
+        argv = ["-opt", yml_path(STAGE3_YML), "--force_yml", *STAGE3_FORCE,
+                f"path:pretrain_network_hq={hq_pth}",
+                f"path:pretrain_network_flow={flow_pth}",
+                f"datasets:train:dataroot_gt={gt_root}",
+                f"datasets:train:meta_info_file={meta}",
+                "logger:print_freq=1", "logger:save_checkpoint_freq=2",
+                f"train:total_iter={total_iter}"]
+        state, logs = cli.main(argv + (["--auto_resume"] if resume else []),
+                               root_path=work)
         torch.cuda.synchronize()
         return state, logs.pop("run"), logs
 
@@ -3429,23 +3448,20 @@ def phase_train_gan(torch, card):
     try:
         gt_root, meta = write_vfhq_clip(work, GAN_CLIP_FRAMES,
                                         cfg["img_size"])
-        opt = copy.deepcopy(STAGE3_OPT)
-        opt["datasets"]["train"].update(dataroot_gt=gt_root,
-                                        meta_info_file=meta)
-        opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 2}
-        exp = os.path.join(work, "exp")
-        opt["path"] = {"experiments_root": exp,
-                       "models": os.path.join(exp, "models"),
-                       "training_states": os.path.join(exp,
-                                                       "training_states"),
-                       "log": exp}
-        opt["is_train"] = True
-        resume_opt = {**opt, "auto_resume": True}
+        hq_pth, flow_pth = (os.path.join(work, "vqgan.pth"),
+                            os.path.join(work, "gmflow.pth"))
+        torch.save({"params_ema": VQHQEncoder(
+            **{k: cfg[k] for k in HQ_KEYS}, device="cpu",
+            generator=torch.Generator().manual_seed(1)).state_dict()}, hq_pth)
+        torch.save({"params": GMFlow(
+            device="cpu", generator=torch.Generator().manual_seed(2)
+        ).state_dict()}, flow_pth)
+        exp = os.path.join(work, "experiments", stage3_opt()["name"])
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
-        st1, run1, logs1 = runs(opt, 2)
+        st1, run1, logs1 = runs(2)
         counts = {k: launch_counts(K).get(k, 0) for k in per_iter}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         tr1 = run1["trainer"]
@@ -3473,7 +3489,7 @@ def phase_train_gan(torch, card):
         saved = cloned(flat(tr1, st1))
 
         # an auto-resume alone: total_iter 2 leaves no step to take
-        st2, run2, _ = runs(resume_opt, 2)
+        st2, run2, _ = runs(2, resume=True)
         got = flat(run2["trainer"], st2)
         restored_equal = bool(
             st2.iter == 2 and run2["start_iter"] == 2 and not run2["step_s"]
@@ -3488,7 +3504,7 @@ def phase_train_gan(torch, card):
         # an auto-resume to iteration 3: one alternation, counted alone
         torch.backends.cudnn.deterministic = True
         K.reset_launch_counts()
-        st3, run3, logs3 = runs(resume_opt, 3)
+        st3, run3, logs3 = runs(3, resume=True)
         counts3 = {k: launch_counts(K).get(k, 0) for k in per_iter}
         resumed = flat(run3["trainer"], st3)
         decay = tr1.ema_decay
@@ -3569,14 +3585,12 @@ def phase_train_gan(torch, card):
     return counts3
 
 
-# GMFlow training (phase train_flow): tools/train_flow.py's defaults, the
-# chairs stage at 384 x 512, B = 8, f32
-FLOW_OPT = {"model_type": "GMFlowModel", "manual_seed": 0,
-            "network_g": {"attn_splits": 2, "corr_radius": -1,
-                          "prop_radius": -1},
-            "train": {"lr": 4e-4, "weight_decay": 1e-4, "grad_clip": 1.0,
-                      "gamma": 0.9, "num_steps": 100000}}
+# GMFlow training (phase train_flow): tools/torch_train_flow.py's defaults
+# (flow_opt), the chairs stage at 384 x 512, B = 8, f32
 FLOW_HW, FLOW_B, FLOW_STEPS, FLOW_WORKERS = (384, 512), 8, 3, 4
+# the CLI's run: the fewest steps the one-cycle schedule takes (its warm-up
+# is int(0.05 (num_steps + 10)) updates and may not be empty)
+FLOW_CLI_STEPS = 10
 # pairs written: every 10th is validation; the rest hold the warm-up, the
 # timed, the by-parts and the one-pair steps' batches plus the loader's
 # 2 * workers in flight, so no epoch ends (and no queue refills from empty)
@@ -3769,7 +3783,7 @@ def phase_flow_grads(torch, krows, iters=KERNEL_ITERS):
 
 def flow_step_grads(torch, pair, dev, dtype, use_plain=False, cudnn=True,
                     tf32=False):
-    """One GMFlowTrainer.backward on `pair` (one batch) from FLOW_OPT's
+    """One GMFlowTrainer.backward on `pair` (one batch) from flow_opt()'s
     seeded weights on `dev` in `dtype`; with use_plain the kernels' plain
     versions in their place; cudnn False runs ATen's own convolutions;
     tf32 True lets matmuls and cuDNN round to TF32 for this call.
@@ -3777,7 +3791,7 @@ def flow_step_grads(torch, pair, dev, dtype, use_plain=False, cudnn=True,
     from unittest import mock
     from comfyui_keep_torch.ops import kernels as K
     from comfyui_keep_torch.training.trainers import build_model
-    tr = build_model(FLOW_OPT, device=dev)
+    tr = build_model(flow_opt(), device=dev)
     st = tr.make_state()
     st.model.to(dtype)
     plain = {n: K.PLAIN[n] for n in GRAD_ARGS}
@@ -3896,7 +3910,8 @@ def phase_train_flow(torch, card, kernel_rows):
     FlyingChairs directory (FLOW_PAIRS pairs of 384 x 512 .ppm frames and
     .flo flows), build_train_dataset("chairs"), the loader at B = 8 on
     FLOW_WORKERS threads, its steady s a batch alone, and GMFlowTrainer on
-    FLOW_OPT (tools/train_flow.py's defaults), f32; one warm-up step, then
+    flow_opt() (tools/torch_train_flow.py's defaults), f32; one warm-up
+    step, then
     FLOW_STEPS steps inside one epoch: loss and metrics finite, every
     leaf's gradient non-zero (but FLOW_ZERO_GRAD's, at noise), the LR on
     the one-cycle schedule, K1-K3's launches as one GMFlow forward implies
@@ -3926,7 +3941,8 @@ def phase_train_flow(torch, card, kernel_rows):
         marks.append(time.perf_counter())
     loader_s = (marks[-1] - marks[1]) / (len(marks) - 2)
     pre = CUDAPrefetcher(loader)
-    tr = build_model(FLOW_OPT)
+    fopt = flow_opt()
+    tr = build_model(fopt)
     state = tr.make_state()
     grads = {}
     names = {id(p): n for n, p in state.model.named_parameters()}
@@ -3944,8 +3960,8 @@ def phase_train_flow(torch, card, kernel_rows):
         return {k: v for k, v in b.items() if torch.is_tensor(v)}
 
     data_s, step_ms, logs_all, lrs = [], [], [], []
-    sched = cosine_onecycle(FLOW_OPT["train"]["num_steps"] + 10,
-                            FLOW_OPT["train"]["lr"], pct_start=0.05)
+    sched = cosine_onecycle(fopt["train"]["num_steps"] + 10,
+                            fopt["train"]["lr"], pct_start=0.05)
     torch.cuda.reset_peak_memory_stats()
     counts = {}
     for i in range(FLOW_STEPS + 1):
@@ -4081,6 +4097,39 @@ def phase_train_flow(torch, card, kernel_rows):
         fail("validate_chairs: EPE not finite")
     del tr, state, pre, loader
     torch.cuda.empty_cache()
+
+    # the CLI: FLOW_CLI_STEPS steps with a save at the last, then a
+    # --resume of the saved .pth, its weights against the file's
+    cli = tool("torch_train_flow")
+    ckpt = os.path.join(root, "ckpt")
+    argv = ["--chairs_root", root, "--num_steps", str(FLOW_CLI_STEPS),
+            "--save_freq", str(FLOW_CLI_STEPS), "--summary_freq", "1",
+            "--checkpoint_dir", ckpt, "--num_workers", str(FLOW_WORKERS)]
+    a = time.perf_counter()
+    _, st_cli, run = cli.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - a
+    want_file = os.path.join(ckpt, f"gmflow_chairs_{FLOW_CLI_STEPS}.pth")
+    saved = torch.load(want_file, map_location="cpu",
+                       weights_only=True)["params"]
+    live = {k: v.cpu() for k, v in st_cli.model.state_dict().items()}
+    _, st_res = cli.setup(cli.parse_args(argv + ["--resume", want_file]))
+    resumed = st_res.model.state_dict()
+    save_equal = saved.keys() == live.keys() and all(
+        torch.equal(saved[k], v) for k, v in live.items())
+    resume_equal = saved.keys() == resumed.keys() and all(
+        torch.equal(saved[k], v.cpu()) for k, v in resumed.items())
+    finite = all(math.isfinite(v) for lg in run["logs"] for v in lg.values())
+    ok = bool(run["saved"] == [want_file] and save_equal and resume_equal
+              and finite and len(run["logs"]) == FLOW_CLI_STEPS)
+    say("train_flow_cli", cli="tools/torch_train_flow.py", card=card,
+        steps=len(run["logs"]), s_with_setup=cli_s, saved=run["saved"],
+        saved_equal_live=save_equal, resumed_equal_saved=resume_equal,
+        losses=[lg["l_flow"] for lg in run["logs"]], ok=ok)
+    if not ok:
+        fail("train_flow_cli: the CLI's save or --resume broke a check")
+    del st_cli, st_res, saved, live, resumed
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4147,10 +4196,11 @@ def dataset_batch(torch, opt):
 
 
 def phase_sr_test(torch, card):
-    """options/test_keep.yml (TEST_OPT) through test_pipeline on the card
-    (MSRResNet 64 / 16 x4, TEST_PAIRS synthetic 64^2 -> 256^2 PNG pairs,
-    PSNR / SSIM, save_img) against the CPU's run; an SRModel through
-    train_pipeline for 2 iterations with a val phase at val_freq 1; then
+    """options/test_keep.yml through tools/torch_test.py's main
+    (test_pipeline) on the card (MSRResNet 64 / 16 x4, TEST_PAIRS
+    synthetic 64^2 -> 256^2 PNG pairs, PSNR / SSIM, save_img) against the
+    CPU's run; an SRModel through tools/torch_train.py's main
+    (train_pipeline) for 2 iterations with a val phase at val_freq 1; then
     one step each of SRGANModel (RRDBNet + VGGStyleDiscriminator + VGG19
     perceptual), RealESRGANModel (RRDBNet + UNetDiscriminatorSN; its batch
     from RealESRGANDataset: 12 synthetic 320^2 PNGs, their blur and sinc
@@ -4162,35 +4212,35 @@ def phase_sr_test(torch, card):
     fix_flow). None of K1-K6 launches."""
     from comfyui_keep_torch.models.vgg import VGGFeatureExtractor
     from comfyui_keep_torch.ops import kernels as K
-    from comfyui_keep_torch.training import train as train_mod
     from comfyui_keep_torch.training.trainers import build_model
     K.reset_launch_counts()
     root = tempfile.mkdtemp(prefix="sr_")
     lq_dir, gt_dir = write_sr_pairs(os.path.join(root, "pairs"), TEST_PAIRS,
                                     64)
-    g_opt = TEST_OPT["network_g"]
-    net = build_model(TEST_OPT, device="cpu").init_model()
+    topt = test_opt()
+    g_opt = topt["network_g"]
+    net = build_model(topt, device="cpu").init_model()
     pth = os.path.join(root, "net_g.pth")
     torch.save({"params": net.state_dict()}, pth)
+    test_cli, train_cli = tool("torch_test"), tool("torch_train")
+    argv = ["-opt", yml_path(TEST_YML), "--force_yml",
+            f"datasets:test_1:dataroot_lq={lq_dir}",
+            f"datasets:test_1:dataroot_gt={gt_dir}",
+            f"path:pretrain_network_g={pth}", "val:save_img=true"]
     results = {}
     for dev in ("cpu", "cuda"):
-        opt = copy.deepcopy(TEST_OPT)
-        opt["datasets"]["test_1"].update(dataroot_lq=lq_dir,
-                                         dataroot_gt=gt_dir)
-        opt["path"].update(pretrain_network_g=pth,
-                           visualization=os.path.join(root, f"vis_{dev}"))
-        opt["val"]["save_img"] = True
+        out = os.path.join(root, f"run_{dev}")
         if dev == "cuda":     # a warm-up run: cuDNN picks its algorithms
-            train_mod.test_pipeline(opt)
+            test_cli.main(argv, root_path=out)
         torch.cuda.synchronize()
         a = time.perf_counter()
-        results[dev] = train_mod.test_pipeline(
-            opt, trainer_kwargs={"device": dev})
+        results[dev] = test_cli.main(argv + ["--device", dev], root_path=out)
         torch.cuda.synchronize()
         results[dev + "_ms_per_pair"] = 1e3 * (time.perf_counter() - a) \
             / TEST_PAIRS
     card_m, cpu_m = results["cuda"]["demo"], results["cpu"]["demo"]
-    saved = sorted(os.listdir(os.path.join(root, "vis_cuda", "demo")))
+    saved = sorted(os.listdir(os.path.join(
+        root, "run_cuda", "results", topt["name"], "visualization", "demo")))
     ok = bool(all(math.isfinite(v) for v in card_m.values())
               and all(abs(card_m[k] - v) <= SR_METRIC_RTOL * abs(v)
                       for k, v in cpu_m.items())
@@ -4199,33 +4249,32 @@ def phase_sr_test(torch, card):
     say("sr_test", card=card, network=g_opt, pairs=TEST_PAIRS,
         metrics_card=card_m, metrics_cpu=cpu_m, rtol=SR_METRIC_RTOL,
         eval_ms_per_pair=results["cuda_ms_per_pair"],
-        cpu_eval_ms_per_pair=results["cpu_ms_per_pair"], saved=saved, ok=ok)
+        cpu_eval_ms_per_pair=results["cpu_ms_per_pair"], saved=saved,
+        cli="tools/torch_test.py", ok=ok)
     if not ok:
         fail("sr_test: test_pipeline's metrics or saved images are off")
 
-    # SRModel through train_pipeline with validation every iteration
-    opt = copy.deepcopy(TEST_OPT)
-    exp = os.path.join(root, "exp")
-    opt.update(is_train=True, name="sr_train_val")
-    opt["datasets"] = {
+    # SRModel through tools/torch_train.py (train_pipeline) with validation
+    # every iteration
+    datasets = {
         "train": {"type": "PairedImageDataset", "dataroot_lq": lq_dir,
                   "dataroot_gt": gt_dir, "scale": 4, "phase": "train",
                   "gt_size": 128, "batch_size_per_gpu": 4},
         "val": {"type": "PairedImageDataset", "name": "pairs",
                 "dataroot_lq": lq_dir, "dataroot_gt": gt_dir, "scale": 4}}
-    opt["train"].update(total_iter=2, optim_g={"type": "Adam", "lr": 2e-4})
-    opt["val"].update(val_freq=1, save_img=True)
-    opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 100}
-    opt["path"] = {"experiments_root": exp,
-                   "models": os.path.join(exp, "models"),
-                   "training_states": os.path.join(exp, "states"),
-                   "log": exp, "visualization": os.path.join(exp, "vis")}
-    state, logs = train_mod.train_pipeline(opt)
+    state, logs = train_cli.main(
+        ["-opt", yml_path(TEST_YML), "--force_yml", "name=sr_train_val",
+         f"datasets={datasets!r}", "train:total_iter=2",
+         "train:optim_g={'type': 'Adam', 'lr': 2e-4}", "val:val_freq=1",
+         "val:save_img=true",
+         "logger={'print_freq': 1, 'save_checkpoint_freq': 100}"],
+        root_path=root)
     run = logs["run"]
     ok = bool(sorted(run["val"]) == [1, 2] and math.isfinite(
         logs["val/pairs/psnr"]) and state.iter == 2)
     say("sr_train_val", iters=state.iter, val=run["val"],
-        step_s=run["step_s"], val_s=run["val_s"], ok=ok)
+        step_s=run["step_s"], val_s=run["val_s"], cli="tools/torch_train.py",
+        ok=ok)
     if not ok:
         fail("sr_train_val: train_pipeline's validation did not run")
     del state, run, logs
@@ -4378,7 +4427,7 @@ def parallel_inputs():
 
 
 def par_sr_opt():
-    opt = copy.deepcopy(TEST_OPT)
+    opt = test_opt()
     opt["train"] = {"pixel_opt": {"type": "L1Loss"},
                     "optim_g": {"type": "Adam", "lr": 2e-4}}
     return opt
@@ -4391,7 +4440,7 @@ def par_sr_batch(torch):
 
 
 def par_sr_step(torch, mesh):
-    """Two SR steps (TEST_OPT's MSRResNet, Adam) on par_sr_batch through
+    """Two SR steps (test_keep.yml's MSRResNet, Adam) on par_sr_batch through
     SRTrainer with `mesh`: (ms of the second, this rank's losses of the
     first, the first conv's weight after both)."""
     from comfyui_keep_torch.training.trainers import SRTrainer
@@ -4494,7 +4543,7 @@ def phase_parallel(torch, pack, card):
     whole chunks and, on the padded tail, against the JAX package's
     semantics (the tail chunk padded with its last face), bit for bit; the
     ring (restore_stream_pipeline) at one rank against carried streaming,
-    bit for bit; data-parallel SRTrainer steps (TEST_OPT's MSRResNet, B =
+    bit for bit; data-parallel SRTrainer steps (test_keep.yml's MSRResNet, B =
     PAR_SR_BATCH) and a stage-II KEEPTrainer step (train_keep_stage2.yml
     at full width, f32 as configured, K1-K4 launched) on the mesh against
     the meshless ones on the same batch, cuDNN deterministic: the SR
@@ -4514,7 +4563,7 @@ def phase_parallel(torch, pack, card):
                                              restore_chunks_parallel,
                                              restore_stream_pipeline)
     from comfyui_keep_torch.models.gmflow import GMFlow
-    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.models.vqgan import HQ_KEYS, VQHQEncoder
     from comfyui_keep_torch.training.trainers import KEEPTrainer
     port = free_port()
     got = init_distributed(backend="nccl", world_size=1, rank=0,
@@ -4577,21 +4626,22 @@ def phase_parallel(torch, pack, card):
         sr0_ms, sr0_logs, sr0_first = par_sr_step(torch, None)
     finally:
         torch.backends.cudnn.deterministic = False
-    data = TRAIN_OPT["datasets"]["train"]
+    yml = train_opt()
+    data = yml["datasets"]["train"]
     b, t = data["batch_size_per_gpu"], data["num_frame"]
-    hq = VQHQEncoder(**{k: v for k, v in TRAIN_OPT["network_g"].items()
+    hq = VQHQEncoder(**{k: v for k, v in yml["network_g"].items()
                         if k in HQ_KEYS}, device="cpu",
                      generator=torch.Generator().manual_seed(1))
     gm = GMFlow(device="cpu", generator=torch.Generator().manual_seed(2))
     g = torch.Generator(device="cuda").manual_seed(3)
-    size = TRAIN_OPT["network_g"]["img_size"]
+    size = yml["network_g"]["img_size"]
     batch = {k: torch.rand((b, t, size, size, 3), generator=g,
                            device="cuda") * 2 - 1 for k in ("lq", "gt")}
     steps = {}
     torch.backends.cudnn.deterministic = True
     try:
         for name, m in (("mesh", mesh), ("meshless", None)):
-            tr = KEEPTrainer(copy.deepcopy(TRAIN_OPT),
+            tr = KEEPTrainer(copy.deepcopy(yml),
                              hq_vqgan=copy.deepcopy(hq),
                              gmflow=copy.deepcopy(gm), mesh=m)
             grads = {}
@@ -4683,6 +4733,260 @@ def phase_parallel(torch, pack, card):
     return {"chunks": chunk_counts, "train": train_counts}
 
 
+# slice 12's phases: the profiler, the bf16-fidelity twin, the IO threads
+# and video, the synthetic zoo
+PROFILE_FRAMES, PROFILE_ITERS = 20, 5
+TIME_FN_RTOL = 0.1      # time_fn's median against CUDA events, same calls
+TIME_FN_ITERS = 10
+# the fidelity report's gates (random weights, 20 frames, unpacked), set
+# from the first card run (0.9467 and 36.16 dB; PERF.md section 6): the
+# forced bf16 run's own picks against the f32 run's, and its uint8 PSNR
+# against the f32 output
+FIDELITY_MIN_AGREEMENT, FIDELITY_MIN_PSNR_FORCED = 0.9, 32.0
+IO_FRAMES = 20
+VIDEO_PSNR_DB = 30.0    # libx264 -crf 18 on smooth 720p frames, uint8 PSNR
+
+
+def phase_profiler(torch, card):
+    """utils/profiler.py on the card: keep_latency_benchmark (KEEP at full
+    width, 20 frames, bf16: ms a frame); trace() around one 2-frame KEEP
+    forward, its Chrome trace non-empty with device kernels in it; time_fn
+    on a chain of bf16 GEMMs against CUDA events recorded around the GEMMs
+    of the same calls, the card's own clock (medians within
+    TIME_FN_RTOL)."""
+    from comfyui_keep_torch.models.keep import KEEP
+    from comfyui_keep_torch.utils import profiler
+    med = profiler.keep_latency_benchmark(PROFILE_FRAMES, PROFILE_ITERS,
+                                          "bf16")
+    net = KEEP(device="cpu", generator=torch.Generator().manual_seed(0))
+    net = net.to("cuda", torch.bfloat16)
+    x = (torch.randn((1, 2, 512, 512, 3), generator=torch.Generator()
+                     .manual_seed(1)) * 0.3).to("cuda", torch.bfloat16)
+    work = tempfile.mkdtemp(prefix="trace_")
+    try:
+        net.apply(x)
+        torch.cuda.synchronize()
+        with profiler.trace(work):
+            net.apply(x)
+            torch.cuda.synchronize()
+        path = os.path.join(work, profiler.TRACE_FILE)
+        trace_bytes = os.path.getsize(path) if os.path.exists(path) else 0
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del net, x
+    a = torch.randn((4096, 4096), device="cuda", dtype=torch.bfloat16)
+    marks = []
+
+    def gemms(m):
+        """8 bf16 GEMMs of 4096^2 between two CUDA events."""
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(8):
+            m = (m @ a) * 1e-2
+        end.record()
+        marks.append((start, end))
+        return m
+    # the same calls on two clocks: time_fn's host clock and the card's
+    # own (CUDA events around each call's GEMMs)
+    fn_med, _ = profiler.time_fn(gemms, a, iters=TIME_FN_ITERS, warmup=1)
+    torch.cuda.synchronize()
+    on_card = [s.elapsed_time(e) / 1e3 for s, e in marks[-TIME_FN_ITERS:]]
+    own_med = float(np.median(on_card))
+    agree = abs(fn_med - own_med) / own_med
+    del a
+    torch.cuda.empty_cache()
+    ok = bool(math.isfinite(med) and med > 0 and trace_bytes > 0
+              and kernels > 0 and agree <= TIME_FN_RTOL)
+    say("profiler", card=card, frames=PROFILE_FRAMES, dtype="bf16",
+        keep_forward_ms=1e3 * med,
+        ms_per_frame=1e3 * med / PROFILE_FRAMES,
+        faces_per_s=PROFILE_FRAMES / med, trace_bytes=trace_bytes,
+        trace_kernel_events=kernels, time_fn_ms=1e3 * fn_med,
+        cuda_events_ms=1e3 * own_med, time_fn_rel_diff=agree,
+        rtol=TIME_FN_RTOL, ok=ok)
+    if not ok:
+        fail("profiler: the latency benchmark, the trace or time_fn is off")
+
+
+def phase_fidelity(torch, card):
+    """tools/torch_bf16_fidelity.py's report at 20 frames, unpacked: K1-K3
+    launched as three GMFlow passes imply, the forced run's pick agreement
+    and PSNR above their limits, every number finite."""
+    from comfyui_keep_torch.ops import kernels as K
+    fid = tool("torch_bf16_fidelity")
+    K.reset_launch_counts()
+    a = time.perf_counter()
+    report = fid.fidelity(FRAMES, "bf16", phase512=False)
+    seconds = time.perf_counter() - a
+    counts = {k: launch_counts(K).get(k, 0) for k in K1_K4}
+    want = {**gmflow_launches(3), "vq_nearest_indices": 0}
+    nums = [v for k, v in report.items() if isinstance(v, float)]
+    ok = bool(all(math.isfinite(v) for v in nums if v != report["psnr_db"])
+              and report["index_agreement"] >= FIDELITY_MIN_AGREEMENT
+              and report["psnr_db_forced"] >= FIDELITY_MIN_PSNR_FORCED
+              and counts == want)
+    say("fidelity", card=card, **report, seconds=seconds, launches=counts,
+        expected=want, min_agreement=FIDELITY_MIN_AGREEMENT,
+        min_psnr_forced=FIDELITY_MIN_PSNR_FORCED, ok=ok)
+    if not ok:
+        fail(f"fidelity: {report}, launches {counts} (want {want})")
+
+
+def smooth_video(n, hw, seed=0):
+    """n smooth moving uint8 BGR frames of hw (no grain: what a video codec
+    keeps well)."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    waves = np.random.default_rng(seed).uniform(0.5, 3.0, (3, 2))
+    return [((np.stack([np.sin(2 * np.pi * (a * xx + b * yy) + 0.2 * i + c)
+                        for c, (a, b) in enumerate(waves)], -1) + 1)
+             * 127.5).astype(np.uint8) for i in range(n)]
+
+
+def phase_io(torch, card):
+    """The IO threads and video: IO_FRAMES 720p frames written by
+    IOConsumer and read back by PrefetchReader (utils/png.py) bit for bit;
+    VideoWriter -> VideoReader on IO_FRAMES smooth 720p frames within
+    VIDEO_PSNR_DB when ffmpeg and ffprobe are on the machine, else both
+    classes raising for want of them."""
+    import queue
+    from comfyui_keep_torch.metrics.psnr_ssim import calculate_psnr
+    from comfyui_keep_torch.pipeline.realesrganer import (IOConsumer,
+                                                          PrefetchReader)
+    from comfyui_keep_torch.utils.video import VideoReader, VideoWriter
+    frames = whole_frames(IO_FRAMES, seed=5)
+    work = tempfile.mkdtemp(prefix="io_")
+    try:
+        paths = [os.path.join(work, f"{i:04d}.png") for i in range(IO_FRAMES)]
+        que = queue.Queue()
+        writer = IOConsumer({}, que, 0)
+        a = time.perf_counter()
+        writer.start()
+        for f, path in zip(frames, paths):
+            que.put({"output": f, "save_path": path})
+        que.put("quit")
+        writer.join()
+        write_s = time.perf_counter() - a
+        a = time.perf_counter()
+        reader = PrefetchReader(paths, 4)
+        reader.start()
+        got = list(reader)
+        reader.join()
+        read_s = time.perf_counter() - a
+        png_equal = len(got) == IO_FRAMES and all(
+            np.array_equal(g, f) for g, f in zip(got, frames))
+        video = os.path.join(work, "clip.mp4")
+        have = bool(shutil.which("ffmpeg") and shutil.which("ffprobe"))
+        if have:
+            clip = smooth_video(IO_FRAMES, WHOLE_HW)
+            vw = VideoWriter(video, WHOLE_HW[0], WHOLE_HW[1], fps=25)
+            for f in clip:
+                vw.write_frame(f)
+            vw.close()
+            vr = VideoReader(video)
+            back = []
+            while (f := vr.get_frame()) is not None:
+                back.append(f)
+            vr.close()
+            psnrs = [float(calculate_psnr(b, f, crop_border=0))
+                     for b, f in zip(back, clip)]
+            video_ok = len(back) == IO_FRAMES and min(psnrs) >= VIDEO_PSNR_DB
+            video_rep = {"ffmpeg": "present", "frames_back": len(back),
+                         "psnr_db_min": min(psnrs, default=None),
+                         "psnr_db_mean": float(np.mean(psnrs)) if psnrs
+                         else None, "fps": vr.get_fps(),
+                         "psnr_limit_db": VIDEO_PSNR_DB}
+        else:
+            raised = []
+            for make in (lambda: VideoWriter(video, 16, 16),
+                         lambda: VideoReader(video)):
+                try:
+                    make()
+                except RuntimeError as e:
+                    raised.append("ffmpeg" in str(e) or "ffprobe" in str(e))
+            video_ok = raised == [True, True]
+            video_rep = {"ffmpeg": "absent", "both_raise": video_ok}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ok = bool(png_equal and video_ok)
+    say("io", card=card, frames=IO_FRAMES, hw=list(WHOLE_HW),
+        png_round_trip_equal=png_equal, write_s=write_s, read_s=read_s,
+        **video_rep, ok=ok)
+    if not ok:
+        fail(f"io: PNG round trip {png_equal}, video {video_rep}")
+
+
+def phase_zoo(torch, card):
+    """tools/torch_synth_zoo.py writes the five-file zoo at full width; the
+    port loads it: api.load_models(keep_ckpt=...) with KEEP's and GMFlow's
+    weights equal to the file's, the RetinaFace and ParseNet factories from
+    model_rootpath on the card (the detector finds 1-50 faces at conf 0.97
+    and eye distance 5 on the synthetic 640^2 image, the parser's logits
+    finite), and each RRDBNet x2 through factory.load_reference into a
+    tiled upscaler."""
+    from comfyui_keep_torch import api
+    from comfyui_keep_torch.facelib import factory
+    from comfyui_keep_torch.models.sr_basic import RRDBNet
+    from comfyui_keep_torch.pipeline.tiled import make_upscaler_fn
+    from comfyui_keep_torch.utils.convert import (read_pth,
+                                                  split_keep_checkpoint)
+    zoo = tool("torch_synth_zoo")
+    work = tempfile.mkdtemp(prefix="zoo_")
+    try:
+        a = time.perf_counter()
+        made = zoo.synth_all(work, seed=0)
+        write_s = time.perf_counter() - a
+        mb = {f: os.path.getsize(p) / 1e6 for f, p in made.items()}
+        a = time.perf_counter()
+        pack = api.load_models(keep_ckpt=made["KEEP-b76feb75.pth"])
+        load_s = time.perf_counter() - a
+        keep_sd, flow_sd = split_keep_checkpoint(
+            read_pth(made["KEEP-b76feb75.pth"]))
+
+        def same(module, sd):
+            live = module.state_dict()
+            return live.keys() == sd.keys() and all(
+                torch.equal(live[k], v) for k, v in sd.items())
+        keep_equal = same(pack.keep, keep_sd)
+        flow_equal = pack.gmflow is not None and same(pack.gmflow, flow_sd)
+        del pack, keep_sd, flow_sd
+        root = os.path.join(work, "facedetection")
+        det = factory.init_detection_model("retinaface_resnet50",
+                                           model_rootpath=root)
+        img = zoo.synth_image(np.random.default_rng(0), 640, 640)
+        rows = det(img, zoo.DETECT_CONF)
+        eye = np.linalg.norm(rows[:, 5:7] - rows[:, 7:9], axis=1)
+        n_faces = int((eye >= zoo.DETECT_EYE).sum())
+        par = factory.init_parsing_model("parsenet", model_rootpath=root)
+        face = np.random.default_rng(1).uniform(-1, 1, (1, 512, 512, 3)
+                                                ).astype(np.float32)
+        logits = par(face)
+        parse_ok = bool(tuple(logits.shape) == (1, 512, 512, 19)
+                        and torch.isfinite(logits).all())
+        up_shapes = {}
+        for name in ("RealESRGAN_x2_bg.pth", "RealESRGAN_x2_face.pth"):
+            net = factory.load_reference(
+                RRDBNet(scale=2, num_feat=32, num_block=2, device="cuda"),
+                made[name])
+            up_shapes[name] = list(make_upscaler_fn(net, 2)(img).shape)
+        del det, par, logits
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ok = bool(sorted(made) == sorted(zoo.ZOO) and keep_equal and flow_equal
+              and 1 <= n_faces <= 50 and parse_ok
+              and all(v == [1280, 1280, 3] for v in up_shapes.values()))
+    say("zoo", card=card, files_mb=mb, write_s=write_s, keep_load_s=load_s,
+        keep_weights_equal=keep_equal, gmflow_weights_equal=flow_equal,
+        detections=len(rows), faces_past_eye_filter=n_faces,
+        parser_ok=parse_ok, upscaled_shapes=up_shapes, ok=ok)
+    if not ok:
+        fail("zoo: a synthetic checkpoint did not load or run")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4751,6 +5055,10 @@ def main():
     phase_native(torch)
     phase_archs(torch, card)
     phase_metrics(torch, card)
+    phase_profiler(torch, card)
+    phase_fidelity(torch, card)
+    phase_io(torch, card)
+    phase_zoo(torch, card)
 
     srcs = {"attention": ("comfyui_keep_torch/csrc/attention.cu",
                           "comfyui_keep_tpu/ops/pallas_kernels.py:210"),

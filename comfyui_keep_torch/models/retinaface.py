@@ -251,12 +251,20 @@ def decode_landms(pre, priors, variances):
     return torch.cat(parts, dim=-1)
 
 
+def score_order(scores: np.ndarray) -> np.ndarray:
+    """Indices of `scores` from the highest down, equal scores in index
+    order: a stable sort keyed on (-score, index), so equal inputs order
+    alike whatever the sort's algorithm (numpy's argsort is unstable)."""
+    return np.lexsort((np.arange(len(scores)), -scores))
+
+
 def nms_numpy(dets: np.ndarray, thresh: float) -> List[int]:
-    """Greedy IoU NMS (torchvision.ops.nms semantics) on the host."""
+    """Greedy IoU NMS (torchvision.ops.nms semantics) on the host, the
+    boxes taken in score_order."""
     x1, y1, x2, y2, scores = (dets[:, 0], dets[:, 1], dets[:, 2], dets[:, 3],
                               dets[:, 4])
     areas = (x2 - x1) * (y2 - y1)
-    order = scores.argsort()[::-1]
+    order = score_order(scores)
     keep = []
     while order.size > 0:
         i = order[0]
@@ -272,10 +280,10 @@ def nms_numpy(dets: np.ndarray, thresh: float) -> List[int]:
 
 
 def filter_sort_nms(boxes, scores, landms, conf_threshold, nms_threshold):
-    """Score filter -> sort -> NMS -> (n, 15) float32 rows."""
+    """Score filter -> sort (score_order) -> NMS -> (n, 15) float32 rows."""
     inds = scores > conf_threshold
     boxes, landms, scores = boxes[inds], landms[inds], scores[inds]
-    order = scores.argsort()[::-1]
+    order = score_order(scores)
     boxes, landms, scores = boxes[order], landms[order], scores[order]
     dets = np.hstack([boxes, scores[:, None]]).astype(np.float32)
     keep = nms_numpy(dets, nms_threshold)

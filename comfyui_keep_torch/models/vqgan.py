@@ -422,6 +422,11 @@ def vq_quantize(quantizer: VectorQuantizer, z, beta: float = 0.25):
     return z_q, loss, stats
 
 
+# the keys of a KEEP configuration that its VQHQEncoder takes
+HQ_KEYS = ("img_size", "nf", "ch_mult", "res_blocks", "attn_resolutions",
+           "codebook_size", "emb_dim")
+
+
 @ARCH_REGISTRY.register()
 class VQHQEncoder(nn.Module):
     """Encoder + nearest-code quantizer (reference vqgan_arch.py

@@ -10,17 +10,20 @@ conversion. OpenCV's pieces are the port's: GRAY2BGR on float (a copy per
 channel), BGR2GRAY on uint8 / uint16 (`cvops.bgr_to_gray`, OpenCV's fixed
 point), INTER_LINEAR on the float32 alpha (`cvops.resize_linear_f32`) and
 INTER_LANCZOS4 on uint8 and uint16 (`utils/resize.py`). The reference's
-PrefetchReader and IOConsumer (file IO for the command-line tools) are not
-ported here.
+PrefetchReader and IOConsumer (the command-line tools' file threads) read
+and write PNG through `utils/png.py`, where the JAX forms use cv2.imread /
+imwrite.
 """
 import copy
 import math
+import queue
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
-from comfyui_keep_torch.utils import cvops
+from comfyui_keep_torch.utils import cvops, png
 from comfyui_keep_torch.utils.resize import resize
 
 
@@ -151,3 +154,57 @@ class RealESRGANer:
         if size is not None:
             out = resize(out, size, "lanczos4")
         return out, img_mode
+
+
+class PrefetchReader(threading.Thread):
+    """Background image reader feeding a bounded queue
+    (realesrgan_utils.py:258-283): each path's PNG as
+    cv2.imread(path, IMREAD_UNCHANGED) gives it (png.imread_unchanged),
+    then None; iterate it after start(). A file that does not read ends
+    the queue, and the iteration raises its error there (cv2.imread would
+    have queued a None)."""
+
+    def __init__(self, img_list, num_prefetch_queue):
+        super().__init__()
+        self.que = queue.Queue(num_prefetch_queue)
+        self.img_list = img_list
+        self.error: Optional[BaseException] = None
+
+    def run(self):
+        try:
+            for img_path in self.img_list:
+                self.que.put(png.imread_unchanged(img_path))
+        except Exception as e:     # handed to the reading thread
+            self.error = e
+        finally:
+            self.que.put(None)
+
+    def __next__(self):
+        item = self.que.get()
+        if item is None:
+            if self.error is not None:
+                raise self.error
+            raise StopIteration
+        return item
+
+    def __iter__(self):
+        return self
+
+
+class IOConsumer(threading.Thread):
+    """Background image writer draining a queue until "quit"
+    (realesrgan_utils.py:286-304): each {"output", "save_path"} message
+    written as PNG (png.imwrite_bgr)."""
+
+    def __init__(self, opt, que, qid):
+        super().__init__()
+        self._queue = que
+        self.qid = qid
+        self.opt = opt
+
+    def run(self):
+        while True:
+            msg = self._queue.get()
+            if isinstance(msg, str) and msg == "quit":
+                break
+            png.imwrite_bgr(msg["save_path"], msg["output"])

@@ -8,6 +8,8 @@ frames, so the port reads them here:
   alpha, 1/2/4-bit depths, Adam7) raises ValueError.
 - `imread_bgr` / `decode_bgr`: what cv2.imread(path, cv2.IMREAD_COLOR) returns
   for the 8-bit forms: (H, W, 3) uint8 BGR, gray replicated, alpha dropped.
+- `imread_unchanged`: cv2.imread(path, cv2.IMREAD_UNCHANGED) (gray 2-D,
+  BGR, BGRA; 8 or 16 bits).
 - `encode` / `imwrite_bgr`: a minimal writer (the tests' fixtures,
   chip_smoke.py's clip, KITTI flow maps, validation images), uint8 or
   uint16, one filter for every row or one per row.
@@ -204,13 +206,26 @@ def imread(path: str) -> np.ndarray:
         return decode(f.read())
 
 
+def imread_unchanged(path: str) -> np.ndarray:
+    """cv2.imread(path, cv2.IMREAD_UNCHANGED) of a supported PNG file, in
+    the file's depth: gray as (H, W), colour as (H, W, 3) BGR, colour with
+    alpha as (H, W, 4) BGRA."""
+    img = imread(path)
+    if img.shape[2] == 1:
+        return img[:, :, 0]
+    order = [2, 1, 0] + ([3] if img.shape[2] == 4 else [])
+    return np.ascontiguousarray(img[:, :, order])
+
+
 def imwrite_bgr(path: str, img: np.ndarray, filters=1):
-    """Write an (H, W, 3) uint8 or uint16 BGR image (or (H, W) gray) as
-    PNG, as cv2.imwrite would store it (RGB samples)."""
+    """Write an (H, W, 3) BGR, (H, W, 4) BGRA or (H, W) gray image, uint8
+    or uint16, as PNG, as cv2.imwrite would store it (RGB[A] samples)."""
     img = np.asarray(img)
     if img.ndim == 3:
-        if img.shape[2] != 3:
-            raise ValueError("imwrite_bgr writes (H, W, 3) BGR or (H, W)")
-        img = np.ascontiguousarray(img[:, :, ::-1])
+        if img.shape[2] not in (3, 4):
+            raise ValueError("imwrite_bgr writes (H, W, 3) BGR, (H, W, 4) "
+                             "BGRA or (H, W)")
+        order = [2, 1, 0] + ([3] if img.shape[2] == 4 else [])
+        img = np.ascontiguousarray(img[:, :, order])
     with open(path, "wb") as f:
         f.write(encode(img, filters))

@@ -145,9 +145,12 @@ def test_priors_decode_and_nms_match_jax():
 
 def test_detector_rows_match_jax_and_detect_batch_matches_frames(retina):
     """A low threshold lets random weights through: the port's rows equal
-    the JAX detector's within 1e-3 px; detect_batch gives each frame's rows
-    within 1e-3 px (the batched convolutions sum in another order:
-    measured 1.5e-5 px for ResNet50, 0 for MobileNet)."""
+    the JAX detector's within 1e-3 px, in order; detect_batch gives each
+    frame's rows within 1e-3 px (the batched convolutions sum in another
+    order: measured 1.5e-5 px for ResNet50, scores within 6e-8 for
+    MobileNet). Among ~250 candidates above 0.3, scores lie as close as
+    2e-7, so the batch may order two near-equal rows otherwise: each
+    batch row is matched to the frame's row with the nearest box first."""
     net, tree, model = retina
     frames = np.random.default_rng(3).integers(0, 256, (2, 64, 96, 3),
                                                dtype=np.uint8)
@@ -159,8 +162,35 @@ def test_detector_rows_match_jax_and_detect_batch_matches_frames(retina):
     assert single[0].shape == ref.shape and len(ref) > 0
     np.testing.assert_allclose(single[0], ref, atol=1e-3, rtol=1e-4)
     for s, b in zip(single, batch):
-        np.testing.assert_allclose(b, s, atol=1e-3, rtol=1e-5)
+        assert b.shape == s.shape
+        near = np.abs(s[:, None, :4] - b[None, :, :4]).sum(-1).argmin(1)
+        assert sorted(near) == list(range(len(b)))
+        np.testing.assert_allclose(b[near], s, atol=1e-3, rtol=1e-5)
         assert s.dtype == np.float32 and s.shape[1] == 15
+
+
+def test_score_order_breaks_ties_by_index():
+    """Equal scores keep their index order in the sort and in the NMS, so
+    inputs that tie order alike whichever frame or batch they came from;
+    unequal scores order as the JAX package's argsort does."""
+    scores = np.array([0.5, 0.9, 0.5, 0.7, 0.9, 0.5], np.float32)
+    assert tret.score_order(scores).tolist() == [1, 4, 3, 0, 2, 5]
+    rng = np.random.default_rng(8)
+    distinct = rng.permutation(64).astype(np.float32) / 64
+    np.testing.assert_array_equal(tret.score_order(distinct),
+                                  distinct.argsort()[::-1])
+    # disjoint boxes, all kept, in score order then index order
+    x = np.arange(6, dtype=np.float32)[:, None] * 10
+    dets = np.hstack([x, x, x + 5, x + 5, scores[:, None]])
+    assert tret.nms_numpy(dets, 0.4) == [1, 4, 3, 0, 2, 5]
+    # one box twice at one score: the first index survives
+    dets2 = np.array([[0, 0, 10, 10, 0.8], [0, 0, 10, 10, 0.8]], np.float32)
+    assert tret.nms_numpy(dets2, 0.4) == [0]
+    rows = tret.filter_sort_nms(dets[:, :4], scores, np.zeros((6, 10),
+                                                              np.float32),
+                                0.6, 0.4)
+    np.testing.assert_array_equal(rows[:, 4], scores[[1, 4, 3]])
+    np.testing.assert_array_equal(rows[:, 0], [10, 40, 30])
 
 
 def test_parsenet_matches_jax_and_round_trips():

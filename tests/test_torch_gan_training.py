@@ -24,7 +24,6 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
-import yaml
 
 from comfyui_keep_tpu.models import keep as jkeep
 from comfyui_keep_tpu.models import vqgan as jvq
@@ -34,6 +33,7 @@ from comfyui_keep_torch.models.keep import KEEP
 from comfyui_keep_torch.models.vqgan import Discriminator3D, VQHQEncoder
 from comfyui_keep_torch.training.trainers import KEEPGANTrainer, build_model
 from comfyui_keep_torch.utils.convert import params_from_jax
+from tests.torch_port_helpers import pyyaml_opt, same_values
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -247,27 +247,23 @@ def test_build_model_names_keep_gan():
 
 
 def test_chip_smoke_stage3_opt_matches_the_yml():
-    """chip_smoke.py drives options/train_keep_stage3_gan.yml from a dict
-    (the card machine has no pyyaml): the two agree field by field but for
-    the one departure its comment lists, the dataset's `scale: 1` (the yml
+    """chip_smoke.py reads options/train_keep_stage3_gan.yml with the port's
+    YAML reader (the card machine has no pyyaml) and applies its one
+    departure, the dataset's `scale: 1`, as --force_yml applies it (the yml
     sets none, and the dataset's default of 4 gives KEEP's 512 net a 128^2
-    LQ clip, on which both packages raise)."""
+    LQ clip, on which both packages raise): the result equals pyyaml's load
+    of the yml with the same departure, value for value, type for type, in
+    order."""
     sys.path.insert(0, REPO)
     import chip_smoke
-    with open(os.path.join(REPO, "options", "train_keep_stage3_gan.yml")) \
-            as f:
-        yml = yaml.safe_load(f)
-    ours = copy.deepcopy(chip_smoke.STAGE3_OPT)
+    assert chip_smoke.STAGE3_FORCE == ("datasets:train:scale=1",)
+    path = os.path.join(REPO, "options", "train_keep_stage3_gan.yml")
+    ours = chip_smoke.stage3_opt()
+    assert same_values(ours, pyyaml_opt(path, chip_smoke.STAGE3_FORCE))
     assert ours["datasets"]["train"].pop("scale") == 1
-    assert "scale" not in yml["datasets"]["train"]
-    assert ours.keys() == yml.keys()
-    for key, val in yml.items():
-        if isinstance(val, dict):
-            assert ours[key].keys() == val.keys(), key
-            for k, v in val.items():
-                assert ours[key][k] == v, (key, k)
-        else:
-            assert ours[key] == val, key
+    assert same_values(ours, pyyaml_opt(path))
+    assert ours["train"]["gan_opt"]["loss_weight"] == 1e-2
+    assert type(ours["logger"]["save_checkpoint_freq"]) is float
 
 
 def test_perceptual_term_in_the_generator_loss(setup):

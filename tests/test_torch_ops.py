@@ -263,12 +263,16 @@ def _port_files():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(d, f)
+    tools = os.path.join(REPO, "tools")
+    for f in sorted(os.listdir(tools)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(tools, f)
     yield os.path.join(REPO, "chip_smoke.py")
 
 
 def _importers(banned):
-    """Port files (and chip_smoke.py) that import `banned`, at any level of
-    any function."""
+    """Port files (the package, tools/torch_*.py and chip_smoke.py) that
+    import `banned`, at any level of any function."""
     offenders = []
     for path in _port_files():
         with open(path) as f:
@@ -290,19 +294,29 @@ def _importers(banned):
 
 @pytest.mark.parametrize("banned", ["jax", "comfyui_keep_tpu", "jaxlib"])
 def test_port_imports_no_jax(banned):
-    """No module of the port (nor chip_smoke.py) imports JAX or the JAX
-    package, at any level of any function."""
+    """No module of the port (nor a tools/torch_*.py, nor chip_smoke.py)
+    imports JAX or the JAX package, at any level of any function."""
     offenders = _importers(banned)
     assert not offenders, f"{banned} imported by {offenders}"
 
 
 def test_port_imports_no_opencv():
-    """The card machine has no OpenCV: no module of the port (nor
-    chip_smoke.py) imports cv2, at any level of any function; the resizes
-    are utils/resize.py's, the face toolkit's pixel operations
-    utils/cvops.py's."""
+    """The card machine has no OpenCV: no module of the port (nor a
+    tools/torch_*.py, nor chip_smoke.py) imports cv2, at any level of any
+    function; the resizes are utils/resize.py's, the face toolkit's pixel
+    operations utils/cvops.py's."""
     offenders = _importers("cv2")
     assert not offenders, f"cv2 imported by {offenders}"
+
+
+def test_port_imports_no_pyyaml():
+    """The card machine has no pyyaml: no module of the port (nor a
+    tools/torch_*.py, nor chip_smoke.py) imports yaml; the ymls go through
+    utils/options.py's own reader."""
+    assert any(p.endswith(os.path.join("tools", "torch_train.py"))
+               for p in _port_files())
+    offenders = _importers("yaml")
+    assert not offenders, f"yaml imported by {offenders}"
 
 
 def test_port_imports_lmdb_only_inside_functions():
@@ -372,10 +386,20 @@ def test_port_package_imports_without_jax_in_a_fresh_process():
             "import comfyui_keep_torch.parallel, "
             "comfyui_keep_torch.parallel.tensor, "
             "comfyui_keep_torch.training.train\n"
+            "import comfyui_keep_torch.utils.options, "
+            "comfyui_keep_torch.utils.profiler, "
+            "comfyui_keep_torch.utils.video, "
+            "comfyui_keep_torch.utils.plot\n"
+            "sys.path.insert(0, 'tools')\n"
+            "import torch_train, torch_test, torch_train_flow, "
+            "torch_bf16_fidelity, torch_synth_zoo\n"
+            "from comfyui_keep_torch.utils.options import yaml_load\n"
+            "yaml_load('options/train_keep_stage3_gan.yml')\n"
             "from comfyui_keep_torch.models import build_network\n"
             "build_network('DFDNet')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'comfyui_keep_tpu', 'cv2', 'lmdb')]\n"
+            "('jax', 'jaxlib', 'comfyui_keep_tpu', 'cv2', 'lmdb', "
+            "'yaml')]\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)

@@ -21,7 +21,6 @@ import jax
 import jax.numpy as jnp
 import optax
 import torch
-import yaml
 
 from comfyui_keep_tpu.models import gmflow as jgm
 from comfyui_keep_tpu.models import keep as jkeep
@@ -46,6 +45,7 @@ from comfyui_keep_torch.training.state import (build_optimizer, ema_init,
 from comfyui_keep_torch.training.trainers import (BaseTrainer, KEEPTrainer,
                                                   build_model)
 from comfyui_keep_torch.utils.convert import params_from_jax
+from tests.torch_port_helpers import pyyaml_opt, same_values
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -624,14 +624,15 @@ def test_build_model_and_unported_options():
 
 
 def test_chip_smoke_opt_matches_the_stage2_yml():
-    """chip_smoke.py drives options/train_keep_stage2.yml from a dict (the
-    card machine is not specified to have pyyaml): the two agree on every
-    field the port reads."""
+    """chip_smoke.py reads options/train_keep_stage2.yml with the port's
+    YAML reader (the card machine has no pyyaml): its opt equals pyyaml's
+    load of the yml, value for value, type for type, in order."""
     sys.path.insert(0, REPO)
     import chip_smoke
-    with open(os.path.join(REPO, "options", "train_keep_stage2.yml")) as f:
-        yml = yaml.safe_load(f)
-    ours = chip_smoke.TRAIN_OPT
+    yml = pyyaml_opt(os.path.join(REPO, "options", "train_keep_stage2.yml"))
+    ours = chip_smoke.train_opt()
+    assert same_values(ours, yml)
+    assert type(ours["train"]["optim_g"]["lr"]) is float
     for key in ("model_type", "manual_seed", "network_g", "train"):
         assert ours[key] == yml[key], key
     for key in ("num_frame", "batch_size_per_gpu"):

@@ -71,3 +71,29 @@ def rel(a, b):
 
 def state_numpy(model):
     return {k: v.numpy() for k, v in model.state_dict().items()}
+
+
+def same_values(a, b):
+    """Equal values of equal Python types, mappings in equal order (NaN
+    equal to NaN): how two YAML loads of one file are compared."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(same_values(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_values(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, float) and math.isnan(a):
+        return math.isnan(b)
+    return a == b
+
+
+def pyyaml_opt(path, force=()):
+    """A yml as the JAX package loads it (pyyaml's Loader through
+    utils/options.py:ordered_yaml), `force` applied by its
+    apply_force_yml."""
+    import yaml
+    from comfyui_keep_tpu.utils import options as jopt
+    with open(path) as f:
+        opt = yaml.load(f, Loader=jopt.ordered_yaml()[0])
+    return jopt.apply_force_yml(opt, force)

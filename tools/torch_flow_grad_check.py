@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Where the GMFlow training step's gradient differs between the card and
-the CPU: one pair (384x512, B = 1, GMFlowTrainer on chip_smoke.FLOW_OPT,
+the CPU: one pair (384x512, B = 1, GMFlowTrainer on chip_smoke.flow_opt(),
 the same seeded weights and a synthetic FlyingChairs pair) through
 chip_smoke.flow_step_runs, the runs phase train_flow's gates read:
 

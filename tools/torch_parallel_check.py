@@ -8,7 +8,7 @@ NCCL, each rank checked against one process and timed.
         tools/torch_parallel_check.py --cpu      # gloo, a tiny KEEP
 
 On the cards: KEEP + GMFlow 512^2 bf16 from api.load_models(seed=0)
-(20-frame chunks), the stage-II yml's step at full width (f32), TEST_OPT's
+(20-frame chunks), the stage-II yml's step at full width (f32), test_keep.yml's
 MSRResNet; with --cpu the same checks on CPU ranks at a tiny width (f32,
 4-frame chunks), as a rehearsal. World W (torchrun's WORLD_SIZE; 4 for the
 data x tensor mesh):
@@ -177,7 +177,7 @@ def phase_ring(r, proc):
 
 def sr_opt():
     import chip_smoke
-    opt = copy.deepcopy(chip_smoke.TEST_OPT)
+    opt = chip_smoke.test_opt()
     opt["train"] = {"pixel_opt": {"type": "L1Loss"},
                     "optim_g": {"type": "Adam", "lr": 2e-4}}
     return opt
@@ -223,7 +223,7 @@ def phase_tp(r):
     from unittest import mock
     import torch.distributed as dist
     from comfyui_keep_torch.models.gmflow import GMFlow
-    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.models.vqgan import HQ_KEYS, VQHQEncoder
     from comfyui_keep_torch.ops import kernels as K
     from comfyui_keep_torch.parallel import make_mesh, reduce_loss_dict
     from comfyui_keep_torch.parallel.tensor import (shard_params,
@@ -231,13 +231,13 @@ def phase_tp(r):
     from comfyui_keep_torch.training.trainers import KEEPTrainer
     import chip_smoke
     torch = r.torch
-    opt = copy.deepcopy(chip_smoke.TRAIN_OPT)
+    opt = chip_smoke.train_opt()
     if r.cpu:
         opt["network_g"] = {"type": "KEEP", **TINY,
                             "fix_modules": ["quantize", "generator"]}
     net = opt["network_g"]
     hq = VQHQEncoder(**{k: v for k, v in net.items()
-                        if k in chip_smoke.HQ_KEYS}, device="cpu",
+                        if k in HQ_KEYS}, device="cpu",
                      generator=torch.Generator().manual_seed(1))
     gm = GMFlow(num_layers=1 if r.cpu else 6, device="cpu",
                 generator=torch.Generator().manual_seed(2))

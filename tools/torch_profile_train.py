@@ -23,7 +23,6 @@ table (device ms, calls, name) goes to --out.
 """
 import argparse
 import contextlib
-import copy
 import json
 import os
 import subprocess
@@ -50,17 +49,17 @@ def main():
     sys.path.insert(0, ROOT)
     import chip_smoke
     from comfyui_keep_torch.models.gmflow import GMFlow
-    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.models.vqgan import HQ_KEYS, VQHQEncoder
     from comfyui_keep_torch.training.state import cast_parameters, ema_update
     from comfyui_keep_torch.training.trainers import KEEPTrainer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    opt = copy.deepcopy(chip_smoke.TRAIN_OPT)
+    opt = chip_smoke.train_opt()
     opt["train"]["mixed_precision"] = args.mixed
     net_g = opt["network_g"]
     hq = VQHQEncoder(**{k: v for k, v in net_g.items()
-                        if k in chip_smoke.HQ_KEYS}, device="cpu",
+                        if k in HQ_KEYS}, device="cpu",
                      generator=torch.Generator().manual_seed(1))
     gm = GMFlow(device="cpu", generator=torch.Generator().manual_seed(2))
     tr = KEEPTrainer(opt, hq_vqgan=hq, gmflow=gm)

@@ -6,11 +6,11 @@ beside the stage-II step it grows from, on one NVIDIA GPU.
 
 Full width, f32 as both ymls configure, random weights, TF32 off. Each case
 takes one warm-up call, then one call under torch.profiler:
-  * `stage2_b2`: options/train_keep_stage2.yml's step (chip_smoke.TRAIN_OPT),
+  * `stage2_b2`: options/train_keep_stage2.yml's step (chip_smoke.train_opt()),
     B = 2 x 8 random frames, as chip_smoke.py's `train` phase runs it;
   * `stage2_b1`: the same step at B = 1 x 8;
   * `stage3_alternation`: options/train_keep_stage3_gan.yml's g/d
-    alternation (chip_smoke.STAGE3_OPT, KEEPGANTrainer with
+    alternation (chip_smoke.stage3_opt(), KEEPGANTrainer with
     Discriminator3D), B = 1 x 8 random frames;
   * `stage3_iteration`: one iteration of the train loop as train_pipeline
     runs it: the prefetcher's next() (which makes the following item of a
@@ -23,7 +23,6 @@ the device ms by kernel. Prints one JSON line with the card's name and
 power limit; each case's kernel table goes to --out.
 """
 import argparse
-import copy
 import json
 import os
 import shutil
@@ -75,16 +74,16 @@ def main():
     import chip_smoke
     from comfyui_keep_torch.data.prefetch import CUDAPrefetcher
     from comfyui_keep_torch.models.gmflow import GMFlow
-    from comfyui_keep_torch.models.vqgan import VQHQEncoder
+    from comfyui_keep_torch.models.vqgan import HQ_KEYS, VQHQEncoder
     from comfyui_keep_torch.training.train import create_train_val_loaders
     from comfyui_keep_torch.training.trainers import build_model
     from comfyui_keep_torch.utils.logger import get_root_logger
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    net_g = chip_smoke.TRAIN_OPT["network_g"]
+    net_g = chip_smoke.train_opt()["network_g"]
     hq = VQHQEncoder(**{k: v for k, v in net_g.items()
-                        if k in chip_smoke.HQ_KEYS}, device="cpu",
+                        if k in HQ_KEYS}, device="cpu",
                      generator=torch.Generator().manual_seed(1))
     gm = GMFlow(device="cpu", generator=torch.Generator().manual_seed(2))
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -107,7 +106,7 @@ def main():
                     for k, (n, ms) in rows[:args.top]], **extra}
 
     for name, b in (("stage2_b2", 2), ("stage2_b1", 1)):
-        opt = copy.deepcopy(chip_smoke.TRAIN_OPT)
+        opt = chip_smoke.train_opt()
         opt["datasets"]["train"]["batch_size_per_gpu"] = b
         tr = build_model(opt, hq_vqgan=hq, gmflow=gm)
         state = tr.make_state()
@@ -123,7 +122,7 @@ def main():
     try:
         gt_root, meta = chip_smoke.write_vfhq_clip(
             work, chip_smoke.GAN_CLIP_FRAMES, 512)
-        opt = copy.deepcopy(chip_smoke.STAGE3_OPT)
+        opt = chip_smoke.stage3_opt()
         opt["datasets"]["train"].update(dataroot_gt=gt_root,
                                         meta_info_file=meta)
         tr = build_model(opt, hq_vqgan=hq, gmflow=gm)
