@@ -46,6 +46,30 @@ the verdict):
   8. stream   restore_face_stream(21 faces, carry_chunks=True): the state
               carried into a 1-frame second chunk; finite outputs and the
               launches the path implies (K6 240 + 18)
+     k6_levels  (packed_conv2x2, K6) at every new shape of slice 13's
+              serving forms (K6_LEVEL_CASES: the encoder's levels 2-5 with
+              their parity-0 Downsamples, the generator's levels 2-3 with
+              the four packed -> packed Upsample planes, GMFlow's packed
+              layer1), bf16 and f32: max|d| and tolerance, kernel / plain /
+              F.conv2d ms, the bound
+     packing_levels  KEEP at full width, f32 (TF32 off), on phase keep's
+              clip with the CPU's picks forced, packed at each
+              (phase_levels, phase_enc_levels) of LEVEL_CHECKS: outputs and
+              logits within KEEP's tolerance of the CPU, K6 launches equal
+              to the count derived from the plans; then the 20-frame bf16
+              chunk of unpacked, (1, 1), (2, 1), (3, 1), (1, 2), (1, 5),
+              (3, 2) and pack_gmflow=True processors in turns after a
+              warm-up round over 3 rounds: median ms, ratio to unpacked,
+              peak GiB, K6 launches against the plans', the uint8 distance
+              from the unpacked output (reported)
+     gmflow_packed  GMFlow.prepare_packed at 512^2: f32 flows against the
+              unpacked backbone on the card (5e-2 px), 4 K6 launches a call;
+              bf16 ms a pair of both forms
+     int8_acts  tools/torch_bf16_fidelity.py --int8-acts (20 frames,
+              unpacked and packed): pick agreement and forced PSNR beside
+              the floors PERF.md predicted (reported); the bf16 chunk with
+              and without int8 storage, unpacked and packed: median ms and
+              the int8 boundaries a chunk stores against the plans' count
      api      the node entry points without OpenCV: api.restore_image on
               an aligned 512^2 face at factor 1 and a 400^2 face at 1.5,
               api.restore_sequence on 3 aligned 512^2 frames at factor 2:
@@ -101,7 +125,7 @@ the verdict):
               form and at the group's shapes), the uint8 difference from
               "map" (reported) and "map" equal to the per-chunk loop bit
               for bit; each form's group program (restore_group) at G = 2
-              and 4 chunks: ms a face (median of 3) and peak GiB; GMFlow on
+              and 4 chunks: ms a face (median of 2) and peak GiB; GMFlow on
               the group against GMFlow on each chunk (f32 gated in px), the
               forms' KEEP with forced picks against the group's; one group
               of each form with phase512=True, K6 launches checked
@@ -304,7 +328,7 @@ FLOW_TOL_PX = 5e-2           # GMFlow card against CPU, pixels
 KEEP_ATOL, KEEP_RTOL = 5e-3, 1e-2   # KEEP forward tolerance of the golden tests
 FRAMES, WINDOWS, FEAT, CH, HID = 20, 4, 64, 128, 1024
 REFINE_FEAT, REFINE_WINDOWS = 128, 64   # refinement's 1/4 scale of 512^2
-CHUNK_RUNS = 3       # timed 41-face runs per chunk form, after a warm-up
+CHUNK_RUNS = 2       # timed 41-face runs per chunk form, after a warm-up
 STEP_PAIRS = 14      # the f32 training step's GMFlow: B=2 clips x 7 pairs
 KERNEL_ITERS = 20    # timed launches per kernel (a quarter for plain versions)
 MAIN_PAIRS = 10      # packed / unpacked chunk pairs timed in turns
@@ -312,7 +336,7 @@ VQ_T, VQ_N, VQ_C = 4096, 1024, 256   # B=2 x 8 frames x 16x16 latents
 # both dtypes accumulate the products in f32 (bf16 products are exact), so
 # kernel and plain distances differ by summation order only
 VQ_RTOL = 1e-5
-TRAIN_STEPS = 3      # timed steps per training run, after one warm-up step
+TRAIN_STEPS = 2      # timed steps per training run, after one warm-up step
 # loss terms and per-leaf gradients, card against CPU (and port against JAX
 # in tests/test_torch_training.py)
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-4, 2e-3, 1e-7
@@ -475,8 +499,14 @@ K1_K4 = ("attention[dv128]", "attention[dv128+bias]", "attention[dv2]",
          "global_correlation_expectation", "mlp_fused", "vq_nearest_indices")
 
 
+T0 = time.perf_counter()
+
+
 def say(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase line; t_s is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def fail(msg):
@@ -856,9 +886,11 @@ def phase_gmflow(torch):
 def phase_keep(torch, x, flows):
     """KEEP on the 2-frame clip, f32, card against CPU (unpacked), picks
     forced from the CPU: the card's unpacked forward, then its packed one,
-    which must launch K6 12 times per frame. Returns that count: the f32
-    kernel's launches in the kernel table (the serving runs count the bf16
-    kernel's)."""
+    which must launch K6 12 times per frame. Returns that count (the f32
+    kernel's launches in the kernel table; the serving runs count the bf16
+    kernel's) and what phase packing_levels compares with: the card's
+    network, the clip, the flows, the CPU's output and logits, the
+    picks."""
     from comfyui_keep_torch.models.keep import KEEP
     from comfyui_keep_torch.ops import kernels as K
     gen = torch.Generator().manual_seed(2)
@@ -896,7 +928,8 @@ def phase_keep(torch, x, flows):
     if not ok:
         fail(f"KEEP card (unpacked and packed) vs CPU outside atol/rtol, or "
              f"K6 launches {k6} != {want_k6}")
-    return k6
+    return k6, {"net": net_cuda, "x": x, "flows": flows, "out": out_c,
+                "logits": aux_c["logits"], "picks": picks}
 
 
 def serving_launches(k6_per_frame_chunks):
@@ -1034,6 +1067,382 @@ def phase_stream(torch, proc, faces):
     if not ok:
         fail(f"stream: launches {counts} (want {want}), shapes {shapes_ok}, "
              f"finite {finite}")
+
+
+# slice 13's serving forms: multi-level packing, GMFlow's packed backbone,
+# int8 activation storage (PERF.md section 6, PR 17)
+# K6 at the new shapes of those forms at 512^2 input, per frame of their
+# stack: (label, B, Hi = Wi, Cin, Cout, kh, kw, pads); the LQ encoder and
+# GMFlow's backbone batch a chunk's 20 frames
+K6_P0 = ((0, 1), (0, 1))
+K6_LEVEL_CASES = (
+    ("enc L2 res 64->128 conv1, parity 0->1", FRAMES, 128, 256, 512, 2, 2,
+     K6_SAME),
+    ("enc L2 res conv2, parity 1->0", FRAMES, 129, 512, 512, 2, 2, K6_VALID),
+    ("enc L2 res 128 conv1, parity 0->1", FRAMES, 128, 512, 512, 2, 2,
+     K6_SAME),
+    ("enc L2 downsample p0", FRAMES, 128, 512, 128, 2, 2, K6_P0),
+    ("enc L3 res conv1, parity 0->1", FRAMES, 64, 512, 512, 2, 2, K6_SAME),
+    ("enc L3 res conv2, parity 1->0", FRAMES, 65, 512, 512, 2, 2, K6_VALID),
+    ("enc L3 downsample p0", FRAMES, 64, 512, 128, 2, 2, K6_P0),
+    ("enc L4 res 128->256 conv1", FRAMES, 32, 512, 1024, 2, 2, K6_SAME),
+    ("enc L4 res conv2", FRAMES, 33, 1024, 1024, 2, 2, K6_VALID),
+    ("enc L4 res 256 conv1", FRAMES, 32, 1024, 1024, 2, 2, K6_SAME),
+    ("enc L4 downsample p0", FRAMES, 32, 1024, 256, 2, 2, K6_P0),
+    ("enc L5 res conv1", FRAMES, 16, 1024, 1024, 2, 2, K6_SAME),
+    ("enc L5 res conv2", FRAMES, 17, 1024, 1024, 2, 2, K6_VALID),
+    ("enc L5 downsample p0", FRAMES, 16, 1024, 256, 2, 2, K6_P0),
+    ("gen L3 upsample from 64^2", 1, 64, 256, 1024, 2, 2, K6_SAME),
+    ("gen L3 res 256->128 conv1", 1, 65, 1024, 512, 2, 2, K6_VALID),
+    ("gen L3 res conv2", 1, 64, 512, 512, 2, 2, K6_SAME),
+    ("gen L3 res 128 conv1", 1, 65, 512, 512, 2, 2, K6_VALID),
+    ("gen p2p 65 plane ee", 1, 65, 512, 512, 1, 1, K6_VALID),
+    ("gen p2p 65 plane eo", 1, 65, 512, 512, 1, 2, K6_VALID),
+    ("gen p2p 65 plane oe", 1, 65, 512, 512, 2, 1, K6_VALID),
+    ("gen p2p 65 plane oo", 1, 65, 512, 512, 2, 2, K6_VALID),
+    ("gen L2 upsample from 128^2", 1, 128, 128, 512, 2, 2, K6_SAME),
+    ("gen L2 res conv1", 1, 129, 512, 512, 2, 2, K6_VALID),
+    ("gen L2 res conv2", 1, 128, 512, 512, 2, 2, K6_SAME),
+    ("gen p2p 129 plane ee", 1, 129, 512, 512, 1, 1, K6_VALID),
+    ("gen p2p 129 plane eo", 1, 129, 512, 512, 1, 2, K6_VALID),
+    ("gen p2p 129 plane oe", 1, 129, 512, 512, 2, 1, K6_VALID),
+    ("gen p2p 129 plane oo", 1, 129, 512, 512, 2, 2, K6_VALID),
+    ("gmflow layer1 conv1, parity 0->1", FRAMES, 128, 256, 256, 2, 2,
+     K6_SAME),
+    ("gmflow layer1 conv2, parity 1->0", FRAMES, 129, 256, 256, 2, 2,
+     K6_VALID),
+)
+K6_LEVEL_ITERS = 10     # timed launches per new K6 row (plain: a quarter)
+# phase packing_levels: (phase_levels, phase_enc_levels) held in f32 to the
+# CPU's unpacked KEEP, and the serving configurations timed in turns (bf16
+# chunks; every new K6 shape runs in one of them)
+LEVEL_CHECKS = ((2, 1), (3, 1), (1, 2), (1, 5), (3, 2))
+LEVEL_TIMED = (("unpacked", dict()),
+               ("(1, 1)", dict(phase512=True)),
+               ("(2, 1)", dict(phase512=True, phase_levels=2)),
+               ("(3, 1)", dict(phase512=True, phase_levels=3)),
+               ("(1, 2)", dict(phase512=True, phase_enc_levels=2)),
+               ("(1, 5)", dict(phase512=True, phase_enc_levels=5)),
+               ("(3, 2)", dict(phase512=True, phase_levels=3,
+                               phase_enc_levels=2)),
+               ("pack_gmflow", dict(pack_gmflow=True)))
+LEVEL_ROUNDS = 3        # timed rounds in turns, after a warm-up round
+# phase int8_acts: the fidelity report's floors, predicted in PERF.md
+# (section 6, PR 17) before the first card run and not moved after it: the
+# forced bf16 + int8 run's own picks against the f32 run's, its uint8 PSNR
+INT8_FLOOR_AGREEMENT, INT8_FLOOR_PSNR_FORCED = 0.70, 28.0
+INT8_TIMED = (("bf16", dict()), ("bf16+int8", dict(int8_acts=True)),
+              ("packed", dict(phase512=True)),
+              ("packed+int8", dict(phase512=True, int8_acts=True)))
+
+
+def k6_row(torch, g, dtype, label, b, hi, cin, cout, kh, kw, pads, iters):
+    """One K6 row at a new shape: max|d| against the plain version within
+    KERNEL_RTOL x the plain output's spread, kernel / plain / F.conv2d ms
+    on the same packed tensor (channels-last; a (0, 1) pad applied before
+    the timed call), the bound."""
+    import torch.nn.functional as F
+    from comfyui_keep_torch.ops import kernels as K
+    dname = str(dtype).split(".")[-1]
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    x = torch.randn(b, hi, hi, cin, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(kh, kw, cin, cout, generator=g, device="cuda")
+         / math.sqrt(kh * kw * cin)).to(dtype)
+    got = K.packed_conv2x2(x, w, pads)
+    torch.cuda.synchronize()
+    ref = K.packed_conv2x2_plain(x, w, pads).float()
+    err = (got.float() - ref).abs().max().item()
+    spread = (ref - ref.mean()).abs().max().item()
+    tol = KERNEL_RTOL[dname] * spread
+    ms = time_ms(torch, lambda: K.packed_conv2x2(x, w, pads), iters)
+    plain_ms = time_ms(torch, lambda: K.packed_conv2x2_plain(x, w, pads),
+                       max(1, iters // 4))
+    (pt, pb), (pl, pr) = pads
+    xl = x.permute(0, 3, 1, 2)
+    if pt != pb or pl != pr:
+        xl = F.pad(xl, (pl, pr, pt, pb))
+        sym = 0
+    else:
+        sym = pt
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    lib_ms = time_ms(torch, lambda: F.conv2d(xl, wl, padding=sym), iters)
+    op_s = 2 * got.numel() * kh * kw * cin / peak
+    byte_s = (x.numel() + w.numel() + got.numel()) * x.element_size() / HBM
+    row = {"name": "packed_conv2x2", "case": label, "dtype": dname,
+           "x": [b, hi, hi, cin], "w": [kh, kw, cin, cout], "pads": pads,
+           "shape_key": K.packed_conv_shape(hi, hi, cin, kh, kw, cout, pads),
+           "max_abs_err": err, "tol": tol, "ref_spread": spread, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "cuDNN conv2d, channels-last",
+           "bound_ms": 1e3 * max(op_s, byte_s),
+           "bound_by": "operations" if op_s >= byte_s else "bytes",
+           "ok": bool(err <= tol)}
+    say("kernel", **row)
+    return row
+
+
+def phase_k6_levels(torch, iters=K6_LEVEL_ITERS):
+    """K6 at every new shape of the multi-level forms and GMFlow's packed
+    backbone (K6_LEVEL_CASES), bf16 and f32 (k6_row)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in K6_LEVEL_CASES:
+            row = k6_row(torch, g, dtype, *case, iters)
+            rows[(case[0], row["dtype"])] = row
+        torch.cuda.empty_cache()
+    bad = [k for k, r in rows.items() if not r["ok"]]
+    if bad:
+        fail(f"the packed conv kernel disagrees with its plain version at "
+             f"the new shapes: {bad}")
+    return rows
+
+
+def keep_plan_counts(keep, levels, enc_levels):
+    """(K6 launches, int8 boundaries) per packed pass of each stack of a
+    KEEP packed at (levels, enc_levels), derived from its plans: the
+    encoder's packed prefix (phase_encoder_end) launches one per conv and
+    Downsample and two per res block; the generator's packed tail
+    (phase_generator_start) one for its first Upsample, four per packed ->
+    packed Upsample, two per res block, one for the conv. Returns {"enc":
+    K6 per encoder pass, "gen": per generator pass, "enc_q": boundaries per
+    packed encoder pass, "gen_q": per packed tail}."""
+    from comfyui_keep_torch.models.vqgan import (phase_encoder_end,
+                                                 phase_generator_start)
+    cfg = keep.cfg
+    per = {"conv": 1, "res": 2, "down": 1, "norm": 0}
+    end = phase_encoder_end(keep.enc_plan, enc_levels)
+    fuse = {keep.gen_tap[f] for f in (tuple(cfg["cft_list"])
+                                      + tuple(cfg["cfa_list"])
+                                      + tuple(cfg["temp_reg_list"]))}
+    start = phase_generator_start(keep.gen_plan, fuse, levels)
+    enc = sum(per[s[0]] for s in keep.enc_plan[:end + 1])
+    tail = keep.gen_plan[start:]
+    gen = sum(4 if s[0] == "up" and j else 1 if s[0] == "up" else per[s[0]]
+              for j, s in enumerate(tail))
+    norms = sum(s[0] == "norm" for s in keep.enc_plan)
+    return {"enc": enc, "gen": gen,
+            "enc_q": len(keep.enc_plan) - 2 - norms,
+            "enc_q_unpacked": len(keep.enc_plan) - 1 - norms,
+            "gen_q": len(tail) - 1 - sum(s[0] == "norm" for s in tail)}
+
+
+def phase_packing_levels(torch, keep_ref, pack, faces):
+    """Multi-level packing. Correctness: the full-width f32 KEEP of phase
+    keep (TF32 off) on its 2-frame clip, picks forced from the CPU's
+    unpacked run, at each (phase_levels, phase_enc_levels) of LEVEL_CHECKS:
+    output and logits within KEEP_ATOL + KEEP_RTOL |ref| of the CPU's, K6
+    launches equal to the plans' count (keep_plan_counts). Timing: the
+    20-frame bf16 chunk of each LEVEL_TIMED processor on the pack, in turns
+    after a warm-up round over LEVEL_ROUNDS rounds: median ms, ratio to
+    unpacked, peak GiB, K6 launches against the plans', uint8 max and mean
+    distance from the unpacked output (not gated: bf16 picks can flip).
+    Returns the K6 launches by shape of the f32 checks and of the bf16
+    runs."""
+    from comfyui_keep_torch.ops import kernels as K
+    net, x, flows = keep_ref["net"], keep_ref["x"], keep_ref["flows"]
+    out_c, logits_c, picks = (keep_ref["out"], keep_ref["logits"],
+                              keep_ref["picks"])
+    lim = KEEP_ATOL + KEEP_RTOL * out_c.abs()
+    llim = KEEP_ATOL + KEEP_RTOL * logits_c.abs()
+    t = x.shape[1]
+    f32_shapes, ok = {}, True
+    for levels, enc_levels in LEVEL_CHECKS:
+        packed = net.prepare_phase512(levels, enc_levels)
+        K.reset_launch_counts()
+        with torch.no_grad():
+            out, aux = packed.apply(
+                x.cuda(), flows=tuple(f.cuda() for f in flows),
+                return_aux=True, force_indices=picks.cuda())
+        torch.cuda.synchronize()
+        k6 = K.LAUNCHES["packed_conv2x2"]
+        for k, v in K.PACKED_CONV_SHAPES.items():
+            f32_shapes[k] = f32_shapes.get(k, 0) + v
+        c = keep_plan_counts(net, levels, enc_levels)
+        want = (c["enc"] + c["gen"]) * t
+        d = (out.cpu() - out_c).abs()
+        dl = (aux["logits"].cpu() - logits_c).abs()
+        good = bool((d <= lim).all() and (dl <= llim).all() and k6 == want)
+        ok = ok and good
+        say("packing_levels", part="f32 against the CPU", levels=levels,
+            enc_levels=enc_levels, max_abs_err=d.max().item(),
+            logits_max_abs_err=dl.max().item(), atol=KEEP_ATOL,
+            rtol=KEEP_RTOL, k6_launches=k6, expected_k6_launches=want,
+            k6_per_frame=k6 / t, ok=good)
+        del packed, out, aux
+    if not ok:
+        fail("packing_levels: a multi-level KEEP is outside KEEP's "
+             "tolerance of the CPU, or its K6 launches differ from its "
+             "plans'")
+
+    procs = {name: pack.processor(dtype=torch.bfloat16, **kw)
+             for name, kw in LEVEL_TIMED}
+    runs = {k: [] for k in procs}
+    peaks = {k: 0.0 for k in procs}
+    counts, outs, bf16_shapes = {}, {}, {}
+    for i in range(LEVEL_ROUNDS + 1):   # a warm-up round, then timed ones
+        order = list(procs) if i % 2 == 0 else list(procs)[::-1]
+        for name in order:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            a = time.perf_counter()
+            outs[name] = procs[name].restore_face_stream(
+                faces[:FRAMES], max_clip_length=FRAMES)
+            torch.cuda.synchronize()
+            if i:
+                runs[name].append(1e3 * (time.perf_counter() - a))
+                peaks[name] = max(peaks[name],
+                                  torch.cuda.max_memory_allocated() / 2 ** 30)
+            counts[name] = K.LAUNCHES["packed_conv2x2"]
+            if i == LEVEL_ROUNDS:
+                for k, v in K.PACKED_CONV_SHAPES.items():
+                    bf16_shapes[k] = bf16_shapes.get(k, 0) + v
+    base = float(np.median(runs["unpacked"]))
+    ok = True
+    for name, kw in LEVEL_TIMED:
+        want = 0
+        if kw.get("phase512"):
+            c = keep_plan_counts(pack.keep, kw.get("phase_levels", 1),
+                                 kw.get("phase_enc_levels", 1))
+            want = (c["enc"] + c["gen"]) * FRAMES
+        if kw.get("pack_gmflow"):
+            want += 4        # layer1's two blocks, one backbone call
+        diff = np.stack([np.abs(a.astype(int) - b.astype(int)) for a, b in
+                         zip(outs[name], outs["unpacked"])])
+        med = float(np.median(runs[name]))
+        good = counts[name] == want
+        ok = ok and good
+        say("packing_levels", part="bf16 chunk", config=name,
+            chunk_ms_median=med, chunk_ms_runs=runs[name],
+            over_unpacked=med / base, peak_mem_gib=peaks[name],
+            k6_launches=counts[name], expected_k6_launches=want,
+            uint8_max_from_unpacked=int(diff.max()),
+            uint8_mean_from_unpacked=float(diff.mean()), ok=good)
+    del procs
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("packing_levels: a timed configuration's K6 launches differ "
+             "from its plans'")
+    return {"float32": f32_shapes, "bfloat16": bf16_shapes}
+
+
+def phase_gmflow_packed(torch, x):
+    """GMFlow's packed backbone (GMFlow.prepare_packed) at 512^2: f32 with
+    TF32 off on phase gmflow's 2-frame clip, packed against unpacked on the
+    card within FLOW_TOL_PX, 4 K6 launches per extract_features call; then
+    bf16 ms per pair of both forms on a 20-frame clip (19 pairs). Returns
+    the K6 launches by shape of the f32 and bf16 packed calls."""
+    from comfyui_keep_torch.models.gmflow import GMFlow, flow_from_clip
+    from comfyui_keep_torch.ops import kernels as K
+    gm = GMFlow(device="cpu",
+                generator=torch.Generator().manual_seed(1)).cuda()
+    packed = gm.prepare_packed()
+    shapes = {}
+    with torch.no_grad():
+        xc = x.cuda()
+        plain = flow_from_clip(gm, xc)
+        K.reset_launch_counts()
+        got = flow_from_clip(packed, xc)
+        torch.cuda.synchronize()
+        k6 = K.LAUNCHES["packed_conv2x2"]
+        shapes["float32"] = dict(K.PACKED_CONV_SHAPES)
+        err = max((a - b).abs().max().item() for a, b in zip(got, plain))
+        gb = copy.deepcopy(gm).to(torch.bfloat16)
+        pb = gb.prepare_packed()
+        rng = np.random.default_rng(5)
+        clip = torch.as_tensor(rng.random((1, FRAMES, 512, 512, 3),
+                                          dtype=np.float32) * 2 - 1,
+                               device="cuda").to(torch.bfloat16)
+        ms_plain = time_ms(torch, lambda: flow_from_clip(gb, clip), 3)
+        K.reset_launch_counts()
+        ms_packed = time_ms(torch, lambda: flow_from_clip(pb, clip), 3)
+        k6_bf16 = K.LAUNCHES["packed_conv2x2"]
+        shapes["bfloat16"] = dict(K.PACKED_CONV_SHAPES)
+    pairs = FRAMES - 1
+    ok = bool(np.isfinite(err) and err <= FLOW_TOL_PX and k6 == 4
+              and k6_bf16 == 4 * 4)
+    say("gmflow_packed", max_abs_err_px=err, tol_px=FLOW_TOL_PX,
+        k6_launches=k6, expected_k6_launches=4,
+        bf16_ms_per_pair_unpacked=ms_plain / pairs,
+        bf16_ms_per_pair_packed=ms_packed / pairs,
+        packed_over_unpacked=ms_packed / ms_plain,
+        bf16_k6_launches_4_calls=k6_bf16, ok=ok)
+    if not ok:
+        fail(f"gmflow_packed: max|d| {err} px (tol {FLOW_TOL_PX}), K6 "
+             f"launches {k6} / {k6_bf16} (want 4 / 16)")
+    del gm, packed, gb, pb
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def phase_int8_acts(torch, pack, faces):
+    """int8 activation storage. tools/torch_bf16_fidelity.py --int8-acts at
+    20 frames, unpacked and packed (one level): pick agreement with the f32
+    run and psnr_db_forced beside the floors PERF.md predicted
+    (INT8_FLOOR_*; reported, not gated). Then the 20-frame bf16 chunk with
+    and without int8, unpacked and packed, in turns after a warm-up round
+    over LEVEL_ROUNDS rounds: median ms and the int8 boundaries a chunk
+    stores, against the plans' count. Gated: finite numbers and outputs,
+    the counts."""
+    from comfyui_keep_torch.models import vqgan
+    from comfyui_keep_torch.utils.image import bgr_u8_to_rgb_pm1
+    fid = tool("torch_bf16_fidelity")
+    ok = True
+    for phase512 in (False, True):
+        a = time.perf_counter()
+        rep = fid.fidelity(FRAMES, "bf16", phase512=phase512, int8_acts=True)
+        nums = [v for k, v in rep.items() if isinstance(v, float)]
+        good = bool(all(math.isfinite(v) for v in nums
+                        if v != rep["psnr_db"]))
+        ok = ok and good
+        say("int8_acts", part="fidelity", **rep,
+            seconds=time.perf_counter() - a,
+            floor_agreement=INT8_FLOOR_AGREEMENT,
+            floor_psnr_forced=INT8_FLOOR_PSNR_FORCED,
+            agreement_above_floor=bool(
+                rep["index_agreement"] >= INT8_FLOOR_AGREEMENT),
+            psnr_forced_above_floor=bool(
+                rep["psnr_db_forced"] >= INT8_FLOOR_PSNR_FORCED), ok=good)
+    procs = {name: pack.processor(dtype=torch.bfloat16, **kw)
+             for name, kw in INT8_TIMED}
+    runs = {k: [] for k in procs}
+    counts = {}
+    for i in range(LEVEL_ROUNDS + 1):
+        order = list(procs) if i % 2 == 0 else list(procs)[::-1]
+        for name in order:
+            torch.cuda.synchronize()
+            vqgan.INT8_BOUNDARIES["count"] = 0
+            a = time.perf_counter()
+            procs[name].restore_face_stream(faces[:FRAMES],
+                                            max_clip_length=FRAMES)
+            torch.cuda.synchronize()
+            if i:
+                runs[name].append(1e3 * (time.perf_counter() - a))
+            counts[name] = vqgan.INT8_BOUNDARIES["count"]
+    c = keep_plan_counts(pack.keep, 1, 1)
+    want = {"bf16": 0, "packed": 0,
+            "bf16+int8": c["enc_q_unpacked"] * FRAMES,
+            "packed+int8": (c["enc_q"] + c["gen_q"]) * FRAMES}
+    x20 = np.stack([bgr_u8_to_rgb_pm1(f) for f in faces[:FRAMES]])
+    for name, kw in INT8_TIMED:
+        finite = (bool(np.isfinite(procs[name].restore_clip(x20)).all())
+                  if kw.get("int8_acts") else True)
+        med = float(np.median(runs[name]))
+        base = float(np.median(runs["packed" if kw.get("phase512")
+                                    else "bf16"]))
+        good = counts[name] == want[name] and finite
+        ok = ok and good
+        say("int8_acts", part="bf16 chunk", config=name, chunk_ms_median=med,
+            chunk_ms_runs=runs[name], over_int8_free=med / base,
+            int8_boundaries=counts[name], expected_int8_boundaries=want[name],
+            int8_boundaries_per_frame=counts[name] / FRAMES, finite=finite,
+            ok=good)
+    del procs
+    torch.cuda.empty_cache()
+    if not ok:
+        fail("int8_acts: a non-finite report or output, or int8 boundaries "
+             "other than the plans' count")
 
 
 def phase_api(torch, pack):
@@ -3023,7 +3432,9 @@ ARCH_TOL = {"SpyNet": (1e-3, 1e-2), "TOFlow": (1e-3, 1e-2),
             "RIDNet": (1e-3, 1e-3), "VGGStyleDiscriminator": (1e-3, 1e-3),
             "UNetDiscriminatorSN": (5e-3, 1e-2),
             "ResNetArcFace": (1e-3, 1e-2)}
-ARCH_TIME_ITERS = 3   # timed calls per arch at its users' size, after one
+# timed calls per arch at its users' size, after one warm-up call (3 until
+# slice 13's phases took ~70 s of the 1,200 s budget)
+ARCH_TIME_ITERS = 2
 REDS_HW = (180, 320)  # REDS x4 low-resolution frames
 DFD_LOCS = ((96, 96, 160, 160), (352, 96, 416, 160), (224, 192, 288, 288),
             (192, 352, 320, 416))   # the JAX package's 512^2 part boxes
@@ -5017,11 +5428,16 @@ def main():
     k6_rows = phase_k6(torch)
     vq_rows = phase_vq(torch)
     x, flows = phase_gmflow(torch)
-    keep_k6 = phase_keep(torch, x, flows)
+    keep_k6, keep_ref = phase_keep(torch, x, flows)
     counts, proc, faces, pack = phase_main(torch,
                                            k6_rows[(K6_OWN, "bfloat16")])
     phase_stream(torch, proc, faces)
     del proc
+    level_rows = phase_k6_levels(torch)
+    level_shapes = phase_packing_levels(torch, keep_ref, pack, faces)
+    del keep_ref
+    gm_shapes = phase_gmflow_packed(torch, x)
+    phase_int8_acts(torch, pack, faces)
     phase_api(torch, pack)
     chunk_counts = phase_chunks(torch, pack)
     par_counts = phase_parallel(torch, pack, card)
@@ -5221,7 +5637,28 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "unpacked_3x3_ms": r["unpacked_3x3_ms"], "dtype": dname,
             "status": "ported"})
-    idle = [(t["name"], t["dtype"]) for t in table if not t["launches"]]
+    # K6 at the new shapes of slice 13's forms: launches at the row's shape
+    # (any batch) over phase packing_levels' f32 checks or the last round
+    # of its bf16 chunks, and phase gmflow_packed's calls, in its dtype
+    for (label, dname), r in level_rows.items():
+        src, replaces = srcs["packed_conv2x2"]
+        key = r["shape_key"]
+        table.append({
+            "name": "packed_conv2x2", "case": label, "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": (level_shapes[dname].get(key, 0)
+                         + gm_shapes[dname].get(key, 0)),
+            "launches_at": key,
+            "launches_of": ("packing_levels' f32 checks and gmflow_packed's "
+                            "f32 call" if dname == "float32" else
+                            "packing_levels' last bf16 round (8 chunks) and "
+                            "gmflow_packed's 4 bf16 calls"),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": dname, "status": "ported"})
+    idle = [(t["name"], t.get("case"), t["dtype"]) for t in table
+            if not t["launches"]]
     if idle:
         fail(f"kernels with no launch on their path's run: {idle}")
     print(f"card: {card}")

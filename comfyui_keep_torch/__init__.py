@@ -43,4 +43,12 @@ path without OpenCV (`data/`, `utils/png.py`), save / resume
 (`training/state.py`), the rest of the losses and optimizers,
 `KEEPGANTrainer` with Discriminator3D; no new kernel. Entry point:
 `training.train.train_pipeline(opt)`.
+
+Slice 13: the JAX processor's last serving forms as keywords of
+`KEEPModelPack.processor` / `KEEPFaceProcessor`: multi-level phase packing
+(`phase_levels`, `phase_enc_levels`; `KEEP.prepare_phase512(levels,
+enc_levels)`), GMFlow's packed backbone (`pack_gmflow`;
+`GMFlow.prepare_packed`) and int8 activation storage (`int8_acts`;
+`KEEP.int8_acts_copy`); every packed 2x2 convolution runs on the packed
+convolution kernel.
 """

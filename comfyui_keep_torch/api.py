@@ -78,11 +78,15 @@ class KEEPModelPack:
     def processor(self, dtype: Optional[torch.dtype] = None,
                   device="cuda", phase512: bool = False,
                   chunk_batching: str = "map",
-                  chunks_per_dispatch: int = 8) -> KEEPFaceProcessor:
+                  chunks_per_dispatch: int = 8, phase_levels: int = 1,
+                  phase_enc_levels: int = 1, pack_gmflow: bool = False,
+                  int8_acts: bool = False) -> KEEPFaceProcessor:
         """A processor on `device` in `dtype`; moves the pack to `device`
         first (in place, as load_device) when a model sits elsewhere.
-        phase512, chunk_batching and chunks_per_dispatch as for
-        KEEPFaceProcessor: the pack's own KEEP stays unpacked."""
+        phase512, chunk_batching, chunks_per_dispatch, phase_levels,
+        phase_enc_levels, pack_gmflow and int8_acts as for
+        KEEPFaceProcessor: the pack's own KEEP and GMFlow stay as they
+        are."""
         device = torch.device(device)
         if any(next(m.parameters()).device.type != device.type
                for m in self.models()):
@@ -93,7 +97,11 @@ class KEEPModelPack:
                                  bg_upscaler=self.bg_upscaler,
                                  face_upscaler=self.face_upscaler,
                                  chunk_batching=chunk_batching,
-                                 chunks_per_dispatch=chunks_per_dispatch)
+                                 chunks_per_dispatch=chunks_per_dispatch,
+                                 phase_levels=phase_levels,
+                                 phase_enc_levels=phase_enc_levels,
+                                 pack_gmflow=pack_gmflow,
+                                 int8_acts=int8_acts)
 
 
 def load_models(model_type: str = "KEEP", keep_ckpt: Optional[str] = None,

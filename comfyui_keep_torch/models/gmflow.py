@@ -11,6 +11,11 @@ scale, local correlation within a radius, local propagation, and a residual
 flow per scale; `forward_backward_consistency_check` gives occlusion masks
 from a bidirectional pair.
 
+`GMFlow.prepare_packed()` (the JAX package's KEEP_TPU_PACK_GMFLOW, a
+serving form) gives a copy whose backbone runs layer1's two residual blocks
+phase-packed (ops/phase_pack.py): their 3x3 convolutions as K6's packed
+2x2 ones at half the size with four times the channels.
+
 The module tree and parameter names are the reference's, so its state dict
 (the `flownet.model.*` subtree of a KEEP checkpoint) loads as it is. The
 backbone and upsampler convolutions run NCHW; the transformer works on
@@ -26,8 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from comfyui_keep_torch.models.init import default_init_, finish
+from comfyui_keep_torch.models.init import default_init_, finish, shared_copy
+from comfyui_keep_torch.models.vqgan import PackedWeights, packed_weights
 from comfyui_keep_torch.ops import kernels as K
+from comfyui_keep_torch.ops import phase_pack as pp
 from comfyui_keep_torch.ops import (conv2d, flow_warp, grid_sample,
                                     instance_norm, layer_norm, linear, relu,
                                     resize_bilinear)
@@ -82,6 +89,19 @@ class MultiScaleTridentConv(nn.Conv2d):
 TRIDENT_STRIDES = {2: (1, 2), 3: (1, 2, 4), 4: (1, 2, 4, 8)}
 
 
+def _packed_residual_block(blk: ResidualBlock, x, true_hw):
+    """A stride-1 residual block of equal widths on a parity-0 packed map
+    (the JAX package's _rb_apply_packed): conv (parity 0 -> 1), instance
+    norm + ReLU, conv (1 -> 0), instance norm + ReLU, the skip added, ReLU.
+    Both convolutions are K6 launches."""
+    p = blk.p512
+    y = pp.packed_conv(x, p.conv1_w, None, parity=0)
+    y = pp.packed_instance_norm(y, true_hw, parity=1, relu_after=True)
+    y = pp.packed_conv(y, p.conv2_w, None, parity=1)
+    y = pp.packed_instance_norm(y, true_hw, parity=0, relu_after=True)
+    return (x + y).clamp_min_(0)
+
+
 class CNNEncoder(nn.Module):
     def __init__(self, output_dim: int = 128, num_output_scales: int = 1):
         super().__init__()
@@ -100,15 +120,39 @@ class CNNEncoder(nn.Module):
             self.trident_conv = MultiScaleTridentConv(
                 output_dim, TRIDENT_STRIDES[num_output_scales])
 
+    def prepare_packed(self) -> "CNNEncoder":
+        """A copy sharing this backbone's parameters whose layer1 carries
+        its two blocks' 3x3 weights packed, (2, 2, 4C, 4C) with no bias, as
+        non-persistent buffers (the JAX package's backbone_prepare_packed):
+        forward then runs layer1 phase-packed. Serving only."""
+        net = shared_copy(self)
+        for blk in net.layer1:
+            c1 = packed_weights(blk.conv1, pp.pack_conv3x3)
+            c2 = packed_weights(blk.conv2, pp.pack_conv3x3)
+            blk.p512 = PackedWeights(conv1_w=c1.w, conv2_w=c2.w)
+        return net
+
     def forward(self, x, num_output_scales: int = 1):
         """(N, 3, H, W) normalised -> (N, C, H/8, W/8); with more scales
         (the model's own number, a trident conv) the list of maps from high
         resolution (1/4) to low. As in the JAX package's backbone_apply, one
         scale runs layer3 at stride 2 and skips the trident conv whatever
-        the model was built with."""
+        the model was built with. A prepared backbone (prepare_packed) runs
+        layer1 packed, between space_to_depth and depth_to_space; it
+        refuses to record gradients."""
         x = relu(instance_norm(conv2d(x, self.conv1.weight, stride=2,
                                       padding=3)))
-        x = self.layer2(self.layer1(x))
+        if getattr(self.layer1[0], "p512", None) is not None:
+            if torch.is_grad_enabled():
+                raise RuntimeError("a packed backbone serves only: its "
+                                   "packed weights get no gradients")
+            true_hw = tuple(x.shape[-2:])
+            xp = pp.space_to_depth(x)
+            for blk in self.layer1:
+                xp = _packed_residual_block(blk, xp, true_hw)
+            x = self.layer2(pp.depth_to_space(xp))
+        else:
+            x = self.layer2(self.layer1(x))
         x = self.layer3[1](self.layer3[0](
             x, 2 if num_output_scales == 1 else 1))
         x = conv2d(x, self.conv2.weight, self.conv2.bias)
@@ -386,6 +430,15 @@ class GMFlow(nn.Module):
         if generator is not None:
             default_init_(self, generator)
         finish(self, device, dtype)
+
+    def prepare_packed(self) -> "GMFlow":
+        """A copy sharing this network's parameters whose backbone runs
+        layer1 phase-packed (CNNEncoder.prepare_packed; the JAX processor's
+        KEEP_TPU_PACK_GMFLOW). Serving only; this network stays as it
+        is."""
+        net = shared_copy(self)
+        net.backbone = self.backbone.prepare_packed()
+        return net
 
     def extract_features(self, imgs):
         """(N, H, W, 3) in [0, 255] -> single-scale backbone features

@@ -188,32 +188,51 @@ class KEEP(nn.Module):
             zero_(f.attn)
             zero_(f.ff)
 
-    def prepare_phase512(self) -> "KEEP":
+    def prepare_phase512(self, levels: int = 1,
+                         enc_levels: int = 1) -> "KEEP":
         """Serving-time weight preparation (the JAX package's
-        prepare_phase512 at its default of one level): a copy of this
-        network, sharing its parameters, whose encoders run their top level
-        phase-packed and whose generator runs its final Upsample level
-        packed when no CFT/CFA/temporal tap lands there (ops/phase_pack.py).
-        The packed weights are non-persistent buffers of the copy, so
-        state_dict() keys do not change and this network stays unpacked.
-        Off img_size 512 this network itself is returned. Do not train the
-        copy: gradients would not reach the parameters."""
+        prepare_phase512; its KEEP_TPU_PHASE_LEVELS and
+        KEEP_TPU_PHASE_ENC_LEVELS are the keywords here): a copy of this
+        network, sharing its parameters, whose encoders run their top
+        `enc_levels` levels phase-packed (capped at the last Downsample)
+        and whose generator runs its last `levels` Upsample levels packed,
+        of those with no CFT/CFA/temporal tap at or after them
+        (ops/phase_pack.py). The packed weights are non-persistent buffers
+        of the copy, so state_dict() keys do not change and this network
+        stays unpacked. Off img_size 512 this network itself is returned.
+        Do not train the copy: gradients would not reach the parameters."""
+        if levels < 1 or enc_levels < 1:
+            raise ValueError(f"packing levels start at 1, got levels="
+                             f"{levels}, enc_levels={enc_levels}")
         cfg = self.cfg
         if cfg["img_size"] != 512:
             return self
         net = shared_copy(self)
         # a tap inside the packed prefix is unpacked at tap time, so no
         # fusion constraint applies to the encoders
-        end = phase_encoder_end(self.enc_plan)
+        end = phase_encoder_end(self.enc_plan, max_levels=enc_levels)
         if end is not None:
             phase512_prepare(net.encoder, range(end + 1))
             phase512_prepare(net.hq_encoder, range(end + 1))
         fuse = {self.gen_tap[f] for f in (tuple(cfg["cft_list"])
                                           + tuple(cfg["cfa_list"])
                                           + tuple(cfg["temp_reg_list"]))}
-        start = phase_generator_start(self.gen_plan, fuse)
+        start = phase_generator_start(self.gen_plan, fuse, max_levels=levels)
         if start is not None:
             phase512_prepare(net.generator, range(start, len(self.gen_plan)))
+        return net
+
+    def int8_acts_copy(self) -> "KEEP":
+        """A copy of this network, sharing its parameters (and any packed
+        buffers), whose encoder, HQ encoder and generator store their
+        activations as int8 at block boundaries (the JAX package's
+        KEEP_TPU_INT8_ACTS; vqgan._quant_boundary): the encoders' stacks
+        and the generator's packed tail, not decode_frame's unpacked loop,
+        as in JAX. Serving only: it raises while gradients are
+        recorded."""
+        net = shared_copy(self)
+        for stack in (net.encoder, net.hq_encoder, net.generator):
+            stack.int8_acts = True
         return net
 
     # -- forward pieces -------------------------------------------------------

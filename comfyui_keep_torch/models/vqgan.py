@@ -11,10 +11,15 @@ VQAutoEncoder (nearest or Gumbel), the PatchGAN VQGANDiscriminator and the
 spectral-norm video Discriminator3D of stage-III GAN training. Their
 parameter names are the reference's, so a reference .pth loads.
 
-Serving runs the 512 level phase-packed (ops/phase_pack.py):
+Serving can run the top levels phase-packed (ops/phase_pack.py):
 `phase512_prepare` packs a stack's weights into non-persistent buffers
-(`block.p512`, ...), after which `BlockStack.forward` runs the encoder's
-packed prefix and `packed_generator_tail` the generator's packed tail.
+(`block.p512`, and the Downsamples' `p512_p0` and the Upsamples'
+`p512_p2p` for the deeper levels), after which `BlockStack.forward` runs
+the encoder's packed prefix (one level or several) and
+`packed_generator_tail` the generator's packed tail. A stack whose
+`int8_acts` is set (serving only) stores the activations at its block
+boundaries as int8 (`_quant_boundary`), as the JAX package's
+KEEP_TPU_INT8_ACTS does.
 """
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -183,6 +188,8 @@ class BlockStack(nn.Module):
         super().__init__()
         self.plan = list(plan)
         self.blocks = nn.ModuleList(make_block(s) for s in self.plan)
+        # int8 storage at block boundaries (serving; _quant_boundary)
+        self.int8_acts = False
 
     def packed_prefix_end(self) -> Optional[int]:
         """Index of the Downsample closing the leading run of blocks that
@@ -209,7 +216,10 @@ class BlockStack(nn.Module):
         recomputed in the backward pass instead of keeping its activations
         (the JAX package's blocks_apply(remat=True)). A prepared encoder
         (phase512_prepare) runs its packed prefix first; its packed weights
-        are not parameters, so it refuses to record gradients."""
+        are not parameters, so it refuses to record gradients. With
+        int8_acts, the input of every block after the first one run here
+        (the packed prefix's, then the rest's), but a norm's, is stored as
+        int8 (JAX's blocks_apply rule)."""
         taps: Dict[int, torch.Tensor] = {}
         remat = torch.is_grad_enabled()
         i0 = 0
@@ -222,6 +232,8 @@ class BlockStack(nn.Module):
             i0 = end + 1
         for i in range(i0, len(self.plan)):
             spec, blk = self.plan[i], self.blocks[i]
+            if self.int8_acts and i > i0 and spec[0] != "norm":
+                x = _quant_boundary(x)
             if remat and spec[0] in ("res", "attn"):
                 x = checkpoint(blk, x, use_reentrant=False)
             else:
@@ -235,29 +247,38 @@ class BlockStack(nn.Module):
 # Phase-packed execution of the 512 level (serving; ops/phase_pack.py)
 # ---------------------------------------------------------------------------
 
-def phase_encoder_end(plan) -> Optional[int]:
-    """Index of the Downsample that exits the top encoder level, if the
-    blocks before it are one conv and then res blocks (so a parity-1 packed
-    map reaches it)."""
+def phase_encoder_end(plan, max_levels: int = 1) -> Optional[int]:
+    """Index of the Downsample that exits the max_levels-th encoder level,
+    or of the last Downsample before a block that cannot run packed (only
+    conv, res and down can), or None if there is none. The latent level
+    past the last Downsample is never packed, so max_levels beyond the
+    plan's levels gives the last Downsample."""
+    end, seen = None, 0
     for i, s in enumerate(plan):
         if s[0] == "down":
-            return i
-        if s[0] != ("conv" if i == 0 else "res"):
-            return None
-    return None
+            seen += 1
+            end = i
+            if seen == max_levels:
+                return end
+        elif s[0] not in ("conv", "res"):
+            return end
+    return end
 
 
-def phase_generator_start(plan, fuse_indices=()) -> Optional[int]:
-    """Index of the final Upsample (into the top level), if every later
-    block is res/norm/conv and no fusion tap lands at or after it."""
-    ups = [i for i, s in enumerate(plan) if s[0] == "up"]
-    if not ups:
-        return None
-    start = ups[-1]
-    if (all(s[0] in ("res", "norm", "conv") for s in plan[start + 1:])
-            and all(f < start for f in fuse_indices)):
-        return start
-    return None
+def phase_generator_start(plan, fuse_indices=(),
+                          max_levels: Optional[int] = None) -> Optional[int]:
+    """Index of the earliest Upsample from which the generator's tail can
+    run packed: every later block is up/res/norm/conv (attention needs the
+    true layout) and no fusion tap lands at or after it. max_levels keeps
+    the last max_levels such Upsamples (None: all of them; 1: the final
+    Upsample alone)."""
+    valid = [u for u, s in enumerate(plan) if s[0] == "up"
+             and all(t[0] in ("up", "res", "norm", "conv")
+                     for t in plan[u + 1:])
+             and all(f < u for f in fuse_indices)]
+    if max_levels is not None:
+        valid = valid[-max_levels:]
+    return valid[0] if valid else None
 
 
 class PackedWeights(nn.Module):
@@ -281,14 +302,21 @@ def packed_weights(conv: nn.Conv2d, packer) -> PackedWeights:
     def dev(t):
         return None if t is None else t.contiguous().to(conv.weight.device)
 
+    if isinstance(pw, dict):   # the packed -> packed Upsample's planes
+        return PackedWeights(b=dev(pb), **{f"k_{p}": dev(k)
+                                           for p, k in pw.items()})
     return PackedWeights(w=dev(pw), b=dev(pb))
 
 
 def phase512_prepare(stack: BlockStack, blocks: range) -> BlockStack:
     """Pack (in place) the weights of `blocks` into non-persistent buffers:
     an encoder's packed prefix, range(phase_encoder_end + 1), or a
-    generator's packed tail, range(phase_generator_start, len(plan)).
-    Serving only: the trainers keep the unpacked path. Returns the stack."""
+    generator's packed tail, range(phase_generator_start, len(plan)). As in
+    the JAX package, every Downsample also gets its parity-0 kernel
+    (`p512_p0`, for a level entered by space_to_depth) and every Upsample
+    its packed -> packed planes (`p512_p2p`, for one between packed
+    levels). Serving only: the trainers keep the unpacked path. Returns
+    the stack."""
     for i in blocks:
         spec, blk = stack.plan[i], stack.blocks[i]
         if spec[0] == "conv":
@@ -300,8 +328,10 @@ def phase512_prepare(stack: BlockStack, blocks: range) -> BlockStack:
                                      conv2_w=c2.w, conv2_b=c2.b)
         elif spec[0] == "down":
             blk.p512 = packed_weights(blk.conv, pp.pack_downsample3x3)
+            blk.p512_p0 = packed_weights(blk.conv, pp.pack_downsample3x3_p0)
         elif spec[0] == "up":
             blk.p512 = packed_weights(blk.conv, pp.pack_upconv3x3)
+            blk.p512_p2p = packed_weights(blk.conv, pp.pack_upconv3x3_p2p)
         # "norm" uses its unpacked weight and bias
     return stack
 
@@ -320,43 +350,87 @@ def _packed_res_block(blk: ResBlock, x, parity: int, true_hw):
     return h.add_(x)
 
 
+# boundaries stored as int8 since the last reset (serving runs read it)
+INT8_BOUNDARIES = {"count": 0}
+
+
+def _quant_boundary(x):
+    """x stored as int8 and read back (the JAX package's _quant_boundary):
+    one scale s = max(max|x| / 127, 1e-8) in f32 over the whole tensor, the
+    batch included; q = clip(round_half_even(x / s), -127, 127) as int8;
+    back in x's dtype as q * s, the product rounded in that dtype. Counted
+    in INT8_BOUNDARIES. Serving only: it raises while gradients are
+    recorded."""
+    if torch.is_grad_enabled():
+        raise RuntimeError("int8 activation storage serves only: call it "
+                           "under torch.no_grad()")
+    INT8_BOUNDARIES["count"] += 1
+    s = torch.clamp_min(x.abs().max().float() / 127.0, 1e-8)
+    q = torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+    return q.to(x.dtype) * s.to(x.dtype)
+
+
 def _packed_encoder_prefix(stack: BlockStack, x, end: int, taps,
                            tap_indices):
-    """Blocks [0, end] (conv, res*, down) phase-packed on the NCHW input x;
-    returns the NCHW half-resolution map after the Downsample at `end`.
-    Taps inside the packed region are unpacked at tap time."""
+    """Blocks [0, end] (conv, res*, down per level) phase-packed on the NCHW
+    input x; returns the NCHW map after the Downsample at `end`. Each inner
+    Downsample's unpacked output is packed again (space_to_depth) and its
+    level runs at parity 0, its Downsample on the parity-0 kernel. Taps
+    inside the packed region are unpacked at tap time. With int8_acts every
+    block's input but the first's is stored as int8."""
     true_hw = tuple(x.shape[-2:])
     x = pp.space_to_depth(x)
     parity = 0
-    for i in range(end):
+    for i in range(end + 1):
         spec, blk = stack.plan[i], stack.blocks[i]
+        if stack.int8_acts and i > 0:
+            x = _quant_boundary(x)
         if spec[0] == "conv":
             x = pp.packed_conv(x, blk.p512.w, blk.p512.b, parity)
             parity ^= 1
-        else:  # res
+        elif spec[0] == "res":
             x = _packed_res_block(blk, x, parity, true_hw)
+        else:  # down: an unpacked NHWC map at half the size
+            if parity == 1:
+                x = pp.packed_downsample(x, blk.p512.w, blk.p512.b)
+            else:
+                x = pp.packed_downsample_p0(x, blk.p512_p0.w, blk.p512_p0.b)
+            x = x.permute(0, 3, 1, 2)
+            if i < end:   # a deeper packed level follows
+                true_hw = tuple(x.shape[-2:])
+                x = pp.space_to_depth(x)
+                parity = 0
+            else:
+                x = x.contiguous()
         if tap_indices is not None and i in tap_indices:
-            taps[i] = pp.depth_to_space(x, parity)
-    # the conv left the map at parity 1: the Downsample takes it VALID
-    down = stack.blocks[end].p512
-    x = pp.packed_downsample(x, down.w, down.b).permute(0, 3, 1,
-                                                        2).contiguous()
-    if tap_indices is not None and end in tap_indices:
-        taps[end] = x
+            taps[i] = x if i == end else pp.depth_to_space(x, parity)
     return x
 
 
 def packed_generator_tail(stack: BlockStack, x, start: int):
-    """Blocks [start, ...) (the final Upsample, then res*, norm, conv) of a
-    prepared generator, phase-packed, from the NCHW map x; returns the
-    NCHW full-resolution output."""
-    up = stack.blocks[start].p512
-    true_hw = (2 * x.shape[-2], 2 * x.shape[-1])
-    x = pp.packed_upconv(x.permute(0, 2, 3, 1), up.w, up.b)
-    parity = 1
-    for j in range(start + 1, len(stack.plan)):
+    """Blocks [start, ...) (Upsample and res* per level, then norm, conv) of
+    a prepared generator, phase-packed, from the NCHW map x; returns the
+    NCHW full-resolution output. The first Upsample takes the unpacked map;
+    one between packed levels goes packed -> packed (p512_p2p). With
+    int8_acts every block's input but the first's and a norm's is stored as
+    int8."""
+    parity, true_hw = None, None   # parity None: x is the unpacked map
+    for j in range(start, len(stack.plan)):
         spec, blk = stack.plan[j], stack.blocks[j]
-        if spec[0] == "res":
+        if stack.int8_acts and j > start and spec[0] != "norm":
+            x = _quant_boundary(x)
+        if spec[0] == "up":
+            if parity is None:
+                true_hw = (2 * x.shape[-2], 2 * x.shape[-1])
+                x = pp.packed_upconv(x.permute(0, 2, 3, 1), blk.p512.w,
+                                     blk.p512.b)
+            else:   # a packed level ends on res blocks: parity 1
+                true_hw = (2 * true_hw[0], 2 * true_hw[1])
+                p = blk.p512_p2p
+                x = pp.packed_upconv_p2p(
+                    x, {q: getattr(p, f"k_{q}") for q in pp.P2P_PLANES}, p.b)
+            parity = 1
+        elif spec[0] == "res":
             x = _packed_res_block(blk, x, parity, true_hw)
         elif spec[0] == "norm":
             x = pp.packed_group_norm(x, blk.weight, blk.bias, true_hw,

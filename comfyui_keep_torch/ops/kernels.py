@@ -27,6 +27,8 @@ with a bias) and `attention[dv2]` (the 2-wide V). `LAUNCHES_BY_SHAPE` counts
 the same launches of K1 to K4 by the shape they ran at, "<LAUNCHES key>
 B<batch> L<length>" for attention and the correlation, "mlp_fused rows<n>"
 and "vq_nearest_indices T<tokens>", each key from its first launch on.
+`PACKED_CONV_SHAPES` counts K6's launches by shape, whatever the batch:
+"<Hi>x<Wi>x<Cin> k<kh>x<kw> -> <Cout> pads <top><bottom><left><right>".
 """
 import contextlib
 import math
@@ -48,12 +50,22 @@ VQ_MAX_WIDTH = 512
 VQ_MAX_SPLITS = 16  # csrc/vq.cu kMaxSplits
 MAX_GRID_Y = 65535  # the attention launchers put the batch in gridDim.y
 LAUNCHES_BY_SHAPE: Dict[str, int] = {}
+PACKED_CONV_SHAPES: Dict[str, int] = {}
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCHES_BY_SHAPE.clear()
+    PACKED_CONV_SHAPES.clear()
+
+
+def packed_conv_shape(hi: int, wi: int, cin: int, kh: int, kw: int,
+                      cout: int, pads) -> str:
+    """K6's PACKED_CONV_SHAPES key of an input (B, hi, wi, cin), a (kh, kw,
+    cin, cout) weight and pads ((top, bottom), (left, right))."""
+    (pt, pb), (pl, pr) = pads
+    return f"{hi}x{wi}x{cin} k{kh}x{kw} -> {cout} pads {pt}{pb}{pl}{pr}"
 
 
 def _count(counter: str, shape: Optional[str] = None):
@@ -499,6 +511,8 @@ def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
             mask_c or 0, _DTYPE_CODE[x.dtype], _stream(x))
     _raise_on(err, "packed_conv2x2 kernel launch")
     _count("packed_conv2x2")
+    key = packed_conv_shape(hi, wi, cin, kh, kw, cout, pads)
+    PACKED_CONV_SHAPES[key] = PACKED_CONV_SHAPES.get(key, 0) + 1
     return out
 
 

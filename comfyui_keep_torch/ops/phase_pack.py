@@ -28,9 +28,15 @@ packed Upsample weight is rounded after each addition, as JAX's is. Every
 `ops/kernels.py:packed_conv2x2`, its bias and a parity-1 output's pad mask
 fused into the kernel's epilogue (one launch, one rounding of the f32 sum).
 
-Only the top (512) level is packed, as the JAX package packs it by default:
-its multi-level packing (the parity-0 Downsample and packed-to-packed
-Upsample kernels) and its packed GMFlow backbone are not ported.
+Multi-level packing (the JAX package's KEEP_TPU_PHASE_ENC_LEVELS /
+KEEP_TPU_PHASE_LEVELS, the port's `phase_enc_levels` / `phase_levels`)
+adds two forms. An encoder level entered by `space_to_depth` after an
+inner Downsample runs at parity 0, and its Downsample takes the parity-0
+kernel (`pack_downsample3x3_p0`, coarse pad (0, 1)). An Upsample between
+two packed generator levels goes packed to packed (`pack_upconv3x3_p2p`):
+four plane convolutions on the coarse grid, interleaved, with no
+full-layout map between the levels. GMFlow's packed backbone runs layer1's
+residual blocks packed, their instance norms in `packed_instance_norm`.
 
 space_to_depth / depth_to_space take and give the port's NCHW maps; the
 unpacked maps that packed_upconv takes and packed_downsample gives are NHWC,
@@ -215,3 +221,122 @@ def packed_group_norm(x, weight, bias, true_hw: Tuple[int, int],
     if parity == 1:   # normalising maps the pad zeros to -mean/std
         K.mask_parity1_(out, c)
     return out
+
+
+def packed_instance_norm(x, true_hw: Tuple[int, int], eps: float = 1e-5,
+                         parity: int = 0, relu_after: bool = False):
+    """InstanceNorm2d (no affine) over the original (H, W) geometry of a
+    packed tensor (GMFlow's backbone): the statistics fold the 4 phase
+    copies of each channel and divide by the true pixel count, as E[x^2] -
+    mean^2 in promote_types(dtype, f32); then the optional ReLU, the cast
+    back, and a parity-1 output's pad half-cells re-zeroed."""
+    c = x.shape[-1] // 4
+    n = true_hw[0] * true_hw[1]
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(ct)
+    mean = _fold_phases(xf.sum(dim=(1, 2)), c) / n
+    var = _fold_phases(xf.square().sum(dim=(1, 2)), c) / n - mean * mean
+    inv = torch.rsqrt(var + eps)
+    out = xf * inv.repeat(1, 4)[:, None, None, :] \
+        + (-mean * inv).repeat(1, 4)[:, None, None, :]
+    if relu_after:
+        out = out.clamp_min(0)
+    out = out.to(x.dtype)
+    if parity == 1:
+        K.mask_parity1_(out, c)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Multi-level packing: the parity-0 Downsample and the packed -> packed
+# Upsample
+# ---------------------------------------------------------------------------
+
+def pack_downsample3x3_p0(w, b):
+    """(0, 1, 0, 1)-pad stride-2 3x3 conv consuming a parity-0 packed input
+    -> (2, 2, 4Cin, Cout) kernel emitting an ordinary half-res map. Output
+    row j reads rows {2j, 2j+1, 2j+2}, which lie in cells {j, j+1}: tap 0
+    holds w0 (phase 0) and w1 (phase 1), tap 1 holds w2 (phase 0). Used
+    with coarse pads (0, 1), whose zero cell is the op's bottom / right
+    pad."""
+    cin = w.shape[2]
+    pw = w.new_zeros((2, 2, 4 * cin) + tuple(w.shape[3:]))
+    for dy in range(3):
+        for dx in range(3):
+            ty, qy = (0, dy) if dy < 2 else (1, 0)
+            tx, qx = (0, dx) if dx < 2 else (1, 0)
+            pw[ty, tx, (qy * 2 + qx) * cin:(qy * 2 + qx + 1) * cin] += w[dy, dx]
+    return pw, b
+
+
+# Per-axis weight folding of nearest-2x-up + 3x3 SAME conv from a parity-1
+# packed input to a parity-1 packed output at twice the size (the JAX
+# package's tables). [tap, output phase p, input phase q] -> coefficients of
+# (w0, w1, w2). An even output cell 2m reads input cell m alone (one tap),
+# an odd one 2m+1 cells m and m+1 (two taps).
+_FOLD_EVEN = ((((1, 1, 0), (0, 0, 1)), ((1, 0, 0), (0, 1, 1))),)
+_FOLD_ODD = ((((0, 0, 0), (1, 1, 0)), ((0, 0, 0), (1, 0, 0))),
+             (((0, 0, 1), (0, 0, 0)), ((0, 1, 1), (0, 0, 0))))
+P2P_PLANES = ("ee", "eo", "oe", "oo")
+
+
+def pack_upconv3x3_p2p(w, b):
+    """nearest-2x-up + 3x3 SAME conv, parity-1 packed input -> parity-1
+    packed output at twice the size, as four plane kernels {plane: (taps_y,
+    taps_x, 4Cin, 4Cout)}: the output cells split by row and column parity,
+    ee (1, 1), eo (1, 2), oe (2, 1) and oo (2, 2) taps on the coarse grid
+    (4/9 of the unpacked op's multiply-adds). Each packed block is the sum
+    of its weight taps in float64, rounded once to w's dtype, as the JAX
+    package's numpy einsum does; the bias is tiled per output phase."""
+    cin, cout = w.shape[2], w.shape[3]
+    w64 = w.to(torch.float64)
+    tables = {"e": _FOLD_EVEN, "o": _FOLD_ODD}
+    kernels = {}
+    for plane in P2P_PLANES:
+        fy, fx = tables[plane[0]], tables[plane[1]]
+        k = w.new_zeros((len(fy), len(fx), 4 * cin, 4 * cout))
+        for iy in range(len(fy)):
+            for ix in range(len(fx)):
+                for py in range(2):
+                    for px in range(2):
+                        for qy in range(2):
+                            for qx in range(2):
+                                taps = [(dy, dx) for dy in range(3)
+                                        for dx in range(3)
+                                        if fy[iy][py][qy][dy]
+                                        and fx[ix][px][qx][dx]]
+                                if not taps:
+                                    continue
+                                blk = w64[taps[0]]
+                                for t in taps[1:]:
+                                    blk = blk + w64[t]
+                                k[iy, ix,
+                                  (qy * 2 + qx) * cin:(qy * 2 + qx + 1) * cin,
+                                  (py * 2 + px) * cout:(py * 2 + px + 1) * cout] \
+                                    += blk.to(w.dtype)
+        kernels[plane] = k
+    return kernels, _tile4(b)
+
+
+def packed_downsample_p0(x, pw, pb):
+    """Parity-0 packed (B, Hc, Wc, 4C) -> unpacked NHWC (B, Hc, Wc, Cout):
+    one K6 launch, coarse pads (0, 1), bias fused."""
+    return _conv(x, pw, pb, ((0, 1), (0, 1)))
+
+
+def packed_upconv_p2p(x, kernels, pb):
+    """Parity-1 packed (B, Hc, Wc, 4Cin) -> parity-1 packed (B, 2Hc - 1,
+    2Wc - 1, 4Cout) at twice the true size: four VALID K6 launches, one
+    per output plane (the bias fused into each; one f32 rounding), the
+    planes interleaved on the coarse grid, then the parity-1 mask (K6's own
+    mask would zero every edge of a plane, right for the even planes
+    only). The input's pad half-cells must be zero."""
+    planes = {p: _conv(x, kernels[p], pb, _VALID) for p in P2P_PLANES}
+    ee = planes["ee"]
+    b, hc, wc, c4 = ee.shape
+    out = ee.new_empty((b, 2 * hc - 1, 2 * wc - 1, c4))
+    out[:, 0::2, 0::2] = ee
+    out[:, 0::2, 1::2] = planes["eo"]
+    out[:, 1::2, 0::2] = planes["oe"]
+    out[:, 1::2, 1::2] = planes["oo"]
+    return K.mask_parity1_(out, c4 // 4)

@@ -1,8 +1,9 @@
 """Grid sampling and flow warping with torch F.grid_sample semantics.
 
 Images are NCHW; grids (N, Ho, Wo, 2) with [..., 0] = x and [..., 1] = y in
-[-1, 1]. The coordinate arithmetic runs in f32 whatever the image dtype (a
-bf16 coordinate near x = 500 is quantised to ~2 px), as in the JAX package.
+[-1, 1]. The coordinate arithmetic runs in at least f32 whatever the image
+dtype (a bf16 coordinate near x = 500 is quantised to ~2 px), float64 in
+float64, as in the JAX package.
 """
 from typing import Tuple
 
@@ -14,7 +15,8 @@ from comfyui_keep_torch.ops.resample import resize_bilinear
 
 def grid_sample(img, grid, mode: str = "bilinear",
                 padding_mode: str = "zeros", align_corners: bool = True):
-    out = F.grid_sample(img.float(), grid.float(), mode=mode,
+    ct = torch.promote_types(img.dtype, torch.float32)
+    out = F.grid_sample(img.to(ct), grid.to(ct), mode=mode,
                         padding_mode=padding_mode, align_corners=align_corners)
     return out.to(img.dtype)
 
@@ -25,11 +27,13 @@ def flow_warp_xy(x, fx, fy, interp_mode: str = "bilinear",
     (reference arch_util.py flow_warp: align_corners normalisation
     2 v / (size - 1) - 1)."""
     n, _, h, w = x.shape
+    # the grid in at least f32, as in the JAX package (float64 stays float64)
+    ct = torch.promote_types(fx.dtype, torch.float32)
     gy, gx = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=x.device),
-        torch.arange(w, dtype=torch.float32, device=x.device), indexing="ij")
-    vx = gx[None] + fx.float()
-    vy = gy[None] + fy.float()
+        torch.arange(h, dtype=ct, device=x.device),
+        torch.arange(w, dtype=ct, device=x.device), indexing="ij")
+    vx = gx[None] + fx.to(ct)
+    vy = gy[None] + fy.to(ct)
     nx = 2.0 * vx / max(w - 1, 1) - 1.0
     ny = 2.0 * vy / max(h - 1, 1) - 1.0
     return grid_sample(x, torch.stack([nx, ny], dim=-1), mode=interp_mode,

@@ -13,6 +13,9 @@ as one call per chunk), "batch", one GMFlow and one KEEP call on the group's
 stack, or "stage", one GMFlow call and KEEP.apply_chunks. KEEP's 512-level
 convolutions run phase-packed (the JAX package's default) only when asked,
 phase512=True: on the H100 the packed chunk is the slower one (PERF.md).
+The JAX processor's other serving forms are keywords too: more packed
+levels (phase_levels, phase_enc_levels), GMFlow's packed backbone
+(pack_gmflow) and int8 activation storage (int8_acts).
 
 Whole frames (has_aligned=False) go through a FaceRestoreHelper with a
 detector and a parser attached: detect (the clip as one batch when its
@@ -92,6 +95,20 @@ class KEEPFaceProcessor:
     As in the JAX processor, the weights are packed in their own dtype and
     then cast to `dtype`, so both round a packed bf16 weight alike.
 
+    The JAX processor's other serving forms are keywords here, each on a
+    copy (the pack's own networks and their state_dict() keys stay as they
+    are): phase_levels and phase_enc_levels (KEEP_TPU_PHASE_LEVELS /
+    _ENC_LEVELS) pack that many generator and encoder levels, capped as
+    KEEP.prepare_phase512 caps them, and need phase512=True (a ValueError
+    names it otherwise); pack_gmflow=True (KEEP_TPU_PACK_GMFLOW) runs
+    GMFlow's backbone layer1 packed, with or without phase512; int8_acts=True
+    (KEEP_TPU_INT8_ACTS) stores KEEP's activations as int8 at the encoders'
+    block boundaries and the packed generator tail's. The int8 scale spans
+    the whole tensor at a boundary, batch included, as in JAX: the LQ
+    encoder's scale spans the frames it runs together (a chunk's, or a
+    "batch" / "stage" group's), so the grouped forms share one scale
+    across their chunks there.
+
     chunk_batching and chunks_per_dispatch choose how restore_face_stream
     runs a group of full chunks (the JAX processor's KEEP_TPU_BATCH_CHUNKS,
     KEEP_TPU_STAGE_BATCH and KEEP_TPU_CHUNKS_PER_DISPATCH): "map" restores
@@ -104,7 +121,9 @@ class KEEPFaceProcessor:
                  face_helper: Optional[FaceRestoreHelper] = None,
                  bg_upscaler: Optional[Callable] = None,
                  face_upscaler: Optional[Callable] = None,
-                 chunk_batching: str = "map", chunks_per_dispatch: int = 8):
+                 chunk_batching: str = "map", chunks_per_dispatch: int = 8,
+                 phase_levels: int = 1, phase_enc_levels: int = 1,
+                 pack_gmflow: bool = False, int8_acts: bool = False):
         if chunk_batching not in CHUNK_BATCHING:
             raise ValueError(f"chunk_batching must be one of {CHUNK_BATCHING},"
                              f" got {chunk_batching!r}")
@@ -120,9 +139,17 @@ class KEEPFaceProcessor:
         self.bg_upscaler, self.face_upscaler = bg_upscaler, face_upscaler
         if face_helper is not None:
             face_helper.device = device
-        self.keep = _cast(keep.prepare_phase512() if phase512 else keep,
-                          dtype)
-        self.gmflow = _cast(gmflow, dtype)
+        if not phase512 and (phase_levels != 1 or phase_enc_levels != 1):
+            raise ValueError(f"phase_levels={phase_levels} and "
+                             f"phase_enc_levels={phase_enc_levels} pack "
+                             f"levels only with phase512=True")
+        if pack_gmflow and gmflow is None:
+            raise ValueError("pack_gmflow=True needs a GMFlow")
+        net = (keep.prepare_phase512(phase_levels, phase_enc_levels)
+               if phase512 else keep)
+        self.keep = _cast(net.int8_acts_copy() if int8_acts else net, dtype)
+        self.gmflow = _cast(gmflow.prepare_packed() if pack_gmflow
+                            else gmflow, dtype)
         p = next(self.keep.parameters())
         self.device, self.dtype = p.device, p.dtype
         self.face_size = int(self.keep.cfg.get("img_size", 512))

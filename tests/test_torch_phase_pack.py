@@ -192,7 +192,7 @@ def test_packed_generator_tail_matches_jax():
     params = jv.blocks_init(jax.random.PRNGKey(0), plan)
     z = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (1, 32, 32, 32)))
     start = jv.phase512_generator_start(plan)
-    assert phase_generator_start(plan) == start
+    assert phase_generator_start(plan, max_levels=1) == start
     jprep = jv.phase512_prepare(params, plan, "generator")
     xj = z
     for j in range(start):
@@ -246,7 +246,7 @@ def test_packing_in_float64(x64, kind):
             np.testing.assert_allclose(_nhwc(gtaps[k]), _nhwc(ptaps[k]),
                                        atol=1e-10, err_msg=f"tap {k}")
     else:
-        start = phase_generator_start(plan)
+        start = phase_generator_start(plan, max_levels=1)
         assert start == jv.phase512_generator_start(plan)
         jprep = jv.phase512_prepare(params, plan, "generator")
         xj = jnp.asarray(x)
@@ -291,7 +291,7 @@ def test_prepare_phase512_is_a_noop_off_512_and_keeps_the_state_dict():
     # unpacked, as in JAX
     last = prepared.generator.packed_tail_start()
     for fuse in ({net.gen_tap[f] for f in ("32", "64")}, {last}, {last + 1}):
-        assert phase_generator_start(net.gen_plan, fuse) == \
+        assert phase_generator_start(net.gen_plan, fuse, max_levels=1) == \
             jv.phase_generator_start(net.gen_plan, fuse, max_levels=1)
     assert phase_generator_start(net.gen_plan, {last}) is None
 
@@ -317,16 +317,22 @@ def _perturbed(tree, seed):
         + 0.02 * rng.standard_normal(np.shape(a)).astype(np.float32), tree)
 
 
-def test_packed_keep_at_512_matches_jax_teacher_forced():
+@pytest.mark.parametrize("levels", [(1, 1), (3, 2)])
+def test_packed_keep_at_512_matches_jax_teacher_forced(monkeypatch, levels):
     """KEEP at 512 px (narrow), both packages prepared, 2 frames through the
     recurrence with flows: the packed encoders, the packed HQ encoder and
-    the packed generator tail. The JAX run's code picks are forced on the
-    port; outputs and logits within the golden tolerance."""
+    the packed generator tail, at (phase_levels, phase_enc_levels) and JAX
+    at the same KEEP_TPU_PHASE_LEVELS / _ENC_LEVELS ((3, 2): packed ->
+    packed Upsamples, a parity-0 level with its Downsample). The JAX run's
+    code picks are forced on the port; outputs and logits within the
+    golden tolerance."""
+    monkeypatch.setenv("KEEP_TPU_PHASE_LEVELS", str(levels[0]))
+    monkeypatch.setenv("KEEP_TPU_PHASE_ENC_LEVELS", str(levels[1]))
     tree = _perturbed(jkeep.KEEP.init(jax.random.PRNGKey(0), **NARROW_512),
                       0)
     net = KEEP(device="cpu", **NARROW_512)
     net.load_state_dict(params_from_jax(tree, net))
-    prepared = net.prepare_phase512()
+    prepared = net.prepare_phase512(*levels)
     rng = np.random.default_rng(4)
     x = rng.random((1, 2, 512, 512, 3), dtype=np.float32) * 2 - 1
     flows = tuple(rng.standard_normal((1, 1, 512, 512), dtype=np.float32)

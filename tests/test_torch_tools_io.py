@@ -9,8 +9,8 @@ fidelity tool and the synthetic zoo, on the CPU at small sizes:
   them;
 - tools/torch_bf16_fidelity.py: its report against the JAX tool's
   formulas on three runs that differ, its f32 run at a tiny config
-  against the JAX tool's forward on the same weights, and f32 against
-  itself;
+  against the JAX tool's forward on the same weights, f32 against
+  itself, and --int8-acts's report and label;
 - tools/torch_synth_zoo.py's files loaded by the port's loaders and by the
   JAX package's, which give the same weights and, on a small input, the
   same outputs within the golden tolerances (KEEP 5e-3 / 1e-2 with the
@@ -350,6 +350,41 @@ def test_fidelity_f32_against_itself():
     assert ref_out.shape == (1, 3, 64, 64, 3) and ref_idx.shape[:2] == (1, 3)
     np.testing.assert_array_equal(runs["forced"][1], ref_idx)
     np.testing.assert_array_equal(runs["forced"][0], ref_out)
+
+
+def test_fidelity_int8_acts_report_and_label():
+    """--int8-acts at the tiny config on the CPU: runs 2-3 are bf16 with
+    int8 storage (KEEP.int8_acts_copy), run 1 stays the f32 run; the report
+    equals tools/bf16_fidelity.py's formulas on the three runs and its
+    metric names "bf16+int8-acts", as the JAX tool's does. The packing
+    levels need --phase512, in fidelity() and on the command line."""
+    jtool = load_tool("bf16_fidelity")
+    runs = {}
+    rep = fidelity.fidelity(frames=3, serving="bf16", device="cpu",
+                            cfg_overrides=TINY, runs=runs, int8_acts=True)
+    assert "bf16+int8-acts serving output" in rep["metric"]
+    assert rep["int8_acts"] is True and rep["phase_levels"] is None
+    (out_ref, idx_ref), (out_srv, idx_srv), (out_forced, idx_forced) = (
+        runs["reference"], runs["serving"], runs["forced"])
+    a8, b8, c8 = (jtool.to_u8(o) for o in (out_srv, out_ref, out_forced))
+    for k, want in (("psnr_db", jtool.psnr_u8(a8, b8)),
+                    ("psnr_db_forced", jtool.psnr_u8(c8, b8))):
+        assert rep[k] == pytest.approx(want, rel=1e-7, abs=0), k
+    assert rep["index_agreement"] == float(np.mean(idx_forced == idx_ref))
+    assert rep["index_agreement_free_run"] == float(np.mean(idx_srv ==
+                                                            idx_ref))
+    assert rep["max_abs_err_u8_forced"] == float(np.max(np.abs(c8 - b8)))
+    assert rep["frac_pixels_exact_u8"] == float(np.mean(a8 == b8))
+    keep, gm, x = fidelity.build(3, "cpu", TINY)
+    plain_ref = fidelity.run(keep, gm, x, "f32")
+    np.testing.assert_array_equal(out_ref, plain_ref[0])
+    plain_srv = fidelity.run(keep, gm, x, "bf16")
+    assert np.abs(plain_srv[0] - out_srv).max() > 0   # int8 storage acted
+    with pytest.raises(ValueError, match="phase512"):
+        fidelity.fidelity(frames=3, device="cpu", cfg_overrides=TINY,
+                          levels=(2, 1))
+    with pytest.raises(SystemExit):
+        fidelity.main(["--phase-levels", "2", "--device", "cpu"])
 
 
 # -- the synthetic zoo ---------------------------------------------------------

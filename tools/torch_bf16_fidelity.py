@@ -20,12 +20,18 @@ flip swaps a decoded 16x16 patch), so the report holds:
   frac_pixels_exact_u8     share of run 2's uint8 values equal to run 1's
 
   python tools/torch_bf16_fidelity.py [--frames 20] [--phase512] \
+      [--phase-levels N] [--phase-enc-levels N] [--int8-acts] \
       [--out bf16_fidelity.json] [--device cuda]
 
 --phase512 serves the bf16 runs phase-packed (KEEP.prepare_phase512, K6),
 where the JAX tool packs unless KEEP_TPU_NO_PHASE512 is set; by default
-the runs are unpacked (K1-K3 in GMFlow). The JAX tool's int8 option is
-not ported. Prints one JSON line and writes it to --out.
+the runs are unpacked (K1-K3 in GMFlow). --phase-levels and
+--phase-enc-levels pack that many generator and encoder levels (the JAX
+tool reads KEEP_TPU_PHASE_LEVELS / _ENC_LEVELS) and need --phase512.
+--int8-acts serves runs 2-3 in bf16 with int8 activation storage at the
+block boundaries (KEEP.int8_acts_copy; the JAX tool's --int8-acts), the
+report labelled "bf16+int8-acts"; run 1 stays f32. Prints one JSON line
+and writes it to --out.
 """
 import argparse
 import contextlib
@@ -68,15 +74,22 @@ def build(frames, device="cuda", cfg_overrides=None):
     return keep.to(device), gm.to(device), x.to(device)
 
 
-def run(keep, gm, x, dtype, force_idx=None, phase512=False):
+def run(keep, gm, x, dtype, force_idx=None, phase512=False, levels=(1, 1),
+        int8_acts=False):
     """(output as f32 numpy, the natural top-1 picks (B, T, L) int32) of
-    one GMFlow + KEEP.apply pass in `dtype` ("f32": TF32 off)."""
+    one GMFlow + KEEP.apply pass in `dtype` ("f32": TF32 off); with
+    phase512 KEEP packed at levels = (phase_levels, phase_enc_levels), with
+    int8_acts its activations stored as int8 at block boundaries."""
     import torch
     from comfyui_keep_torch.models.gmflow import flow_from_clip
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     keep, gm, x = keep.to(dtype=dt), gm.to(dtype=dt), x.to(dt)
     if phase512:
-        keep = keep.prepare_phase512()
+        keep = keep.prepare_phase512(*levels)
+    elif tuple(levels) != (1, 1):
+        raise ValueError(f"packing levels {tuple(levels)} need phase512")
+    if int8_acts:
+        keep = keep.int8_acts_copy()
     fi = None if force_idx is None else torch.as_tensor(
         force_idx, dtype=torch.long, device=x.device)
     ctx = no_tf32() if dtype == "f32" else contextlib.nullcontext()
@@ -118,25 +131,29 @@ def report(reference, serving, forced):
 
 
 def fidelity(frames=20, serving="bf16", phase512=False, device="cuda",
-             cfg_overrides=None, runs=None):
+             cfg_overrides=None, runs=None, int8_acts=False, levels=(1, 1)):
     """The report of runs 1-3 (module docstring) with runs 2-3 in `serving`
-    ("bf16"; "f32" holds the tool to itself). `runs`, if given, is a dict
-    that receives each run's (output, picks)."""
+    ("bf16"; "f32" holds the tool to itself), packed at `levels` =
+    (phase_levels, phase_enc_levels) with phase512, with int8 activation
+    storage with int8_acts. `runs`, if given, is a dict that receives each
+    run's (output, picks)."""
     import torch
     keep, gm, x = build(frames, device, cfg_overrides)
     reference = run(keep, gm, x, "f32")
-    free = run(keep, gm, x, serving, phase512=phase512)
-    forced = run(keep, gm, x, serving, force_idx=reference[1],
-                 phase512=phase512)
+    served = dict(phase512=phase512, levels=levels, int8_acts=int8_acts)
+    free = run(keep, gm, x, serving, **served)
+    forced = run(keep, gm, x, serving, force_idx=reference[1], **served)
     if runs is not None:
         runs.update(reference=reference, serving=free, forced=forced)
     name = (torch.cuda.get_device_name(torch.device(device))
             if torch.device(device).type == "cuda" else "cpu")
+    label = f"{serving}+int8-acts" if int8_acts else serving
     return {
-        "metric": f"PSNR({serving} serving output vs f32 output, TF32 "
+        "metric": f"PSNR({label} serving output vs f32 output, TF32 "
                   "off), dB",
         "frames": frames, "device": name, "phase512": phase512,
-        **report(reference, free, forced),
+        "phase_levels": list(levels) if phase512 else None,
+        "int8_acts": int8_acts, **report(reference, free, forced),
     }
 
 
@@ -146,11 +163,22 @@ def main(argv=None):
     p.add_argument("--out", default="bf16_fidelity.json")
     p.add_argument("--phase512", action="store_true",
                    help="serve the bf16 runs phase-packed (K6)")
+    p.add_argument("--phase-levels", type=int, default=1,
+                   help="generator levels packed (needs --phase512)")
+    p.add_argument("--phase-enc-levels", type=int, default=1,
+                   help="encoder levels packed (needs --phase512)")
+    p.add_argument("--int8-acts", action="store_true",
+                   help="serve runs 2-3 with int8 activation storage at "
+                        "block boundaries (bf16 compute)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    levels = (args.phase_levels, args.phase_enc_levels)
+    if levels != (1, 1) and not args.phase512:
+        p.error("--phase-levels / --phase-enc-levels need --phase512")
     from comfyui_keep_torch.utils.options import check_device
     check_device(args.device)
-    report = fidelity(args.frames, "bf16", args.phase512, args.device)
+    report = fidelity(args.frames, "bf16", args.phase512, args.device,
+                      int8_acts=args.int8_acts, levels=levels)
     print(json.dumps(report))
     with open(args.out, "w") as f:
         json.dump(report, f, indent=2)
