@@ -94,10 +94,14 @@ the verdict):
               card against CPU from the same rows, K1-K3 launches, ms per
               call and per face of detection, alignment, restore and paste
      nodes    the three ComfyUI nodes: the loader, both execution nodes with
-              their default widgets ((None,): the loader builds no
-              detector, as in the JAX package), an aligned face (=
-              api.restore_image's pixels), an invalid pack, the pack
-              offloaded after each call
+              their default widgets ((None,) on a pack loaded without
+              model_rootpath: no detector, as in the JAX package), an
+              aligned face (= api.restore_image's pixels), an invalid
+              pack, the pack offloaded after each call; then the loader
+              with model_rootpath: random RetinaFace-ResNet50 (made to find
+              a face) and ParseNet .pth files in a temporary directory, a
+              960x640 frame restored through the image node's default
+              widgets on the card, detections card against CPU
      detect_yolo  YOLOv5n and YOLOv5l (random weights, seed 0, f32) on the
               20 frames of detect at their detection size: the 640^2
               letterbox card against CPU bitwise, the decoded predictions
@@ -109,7 +113,10 @@ the verdict):
               and SwinIR-M x2 at their public widths, f32: card against CPU
               on a 64^2 tile, then tiled (512, overlap 64) on a 1280x720
               frame (ms, peak GiB); RealESRGANer.enhance (x2plus) on RGBA
-              and gray frames, card against CPU small, timed at 720p
+              and gray frames, card against CPU small, timed at 720p;
+              SwinIR at sizes off its window (padded and cropped): a 37x53
+              tile card against CPU and against the pre-padded tile, a
+              480x854 frame tiled (a 406-px edge tile)
      full_workflow  BASELINE config 5: restore_sequence on the 20 frames
               of unaligned (40 planted faces), factor 2, KEEP bf16, YOLOv5l
               and BiSeNet, RealESRGAN_x2plus as background upscaler and
@@ -171,7 +178,9 @@ the verdict):
               auto_resume to 3. Losses
               finite with l_g_gan, l_d, l_d_real, l_d_fake; frozen leaves
               unchanged, watched G and D leaves moved from the init, D's
-              weight_u kept, the EMA rule; K1-K4 launches per alternation
+              weight_u advanced (torch's spectral_norm in training; one
+              layer held to torch.nn.utils.spectral_norm over train and
+              eval forwards), the EMA rule; K1-K4 launches per alternation
               as derived from the code (two flow_from_clip calls and one
               codebook search), counted over the 2 iterations and over
               the resumed one; net_g_2.pth and 2.state written; the
@@ -204,7 +213,9 @@ the verdict):
               a path and the R1 + path alternation, peak GiB, losses, K5
               launches per alternation; the EMA rule, D and G leaves moved
  16. gmflow_refine  GMFlow(num_scales=2) at full width (random weights, seed
-              0) on two 512^2 pairs: apply_refine forward and bidirectional,
+              0) on two 512^2 pairs (and the published form's upsampler,
+              upsample_factor=4: the input's size, card against CPU on a
+              128^2 crop): apply_refine forward and bidirectional,
               f32 card against CPU (pixels), bf16 finite; GMFlow.apply with
               corr_radius=4 and prop_radius=1 card against CPU; the
               occlusion check on the bidirectional flows (scaled so both
@@ -247,7 +258,10 @@ the verdict):
               on a synthetic FlyingChairs directory (FLOW_PAIRS pairs)
               through build_train_dataset("chairs") and the loader, B = 8,
               f32: the loader's steady s a batch alone, then 1 + 3 steps
-              inside one epoch: losses and metrics finite, every gradient
+              inside one epoch on the reference's two-term loss (the
+              flow before propagation, weight gamma, then the final one;
+              recomputed in float64 from the two flows on one batch):
+              losses and metrics finite, every gradient
               non-zero (the three leaves whose true gradient is zero at
               noise), the LR on optax's one-cycle schedule, K1-K3 launches
               a step as one GMFlow forward implies (by counter and by
@@ -428,9 +442,11 @@ SR_MODELS = {
 STAGE2_YML, STAGE3_YML, TEST_YML = ("train_keep_stage2.yml",
                                     "train_keep_stage3_gan.yml",
                                     "test_keep.yml")
-# stage III's one departure: the dataset's `scale: 1`. The yml sets none,
-# and the dataset's default of 4 gives KEEP's 512 net a 128^2 LQ clip, on
-# which both packages raise (ROADMAP Queue 3). Phase train_gan then points
+# stage III's one departure: the dataset's `scale: 1`, full-size LQ clips.
+# The yml sets none, and the dataset's default of 4 gives KEEP's 512 net a
+# 128^2 LQ clip, which the port's KEEP trainers run with need_upscale as
+# the reference trains (JAX raises on it); the departure keeps the phase's
+# data path and shapes those of earlier runs. Phase train_gan then points
 # the dataset at its synthetic clip and the run at a temporary directory,
 # and runs 2 iterations with a save at 2, then resumes to 3, all through
 # tools/torch_train.py.
@@ -1865,15 +1881,78 @@ def phase_unaligned(torch, detector, parser):
     return seq_counts
 
 
+FACE_CONF = 0.97          # the processor's detection threshold
+
+
+def face_finding_detector(torch, name, frame_bgr, seed=0):
+    """A random RetinaFace (`name`, on the CPU) that finds a face on
+    `frame_bgr` (random weights find none): random BatchNorm statistics;
+    the landmark heads' weights zero and their biases the FFHQ template
+    about each prior, so a detection carries a face-shaped set of five
+    points; the box heads zero (boxes are the priors); the class heads'
+    weights scaled by 100, then the face logit's bias moved so that the k
+    top anchors on this frame pass FACE_CONF, k in 1..4 where the gap to
+    the next margin is widest (tests/test_torch_nodes.py builds the same).
+    Returns (detector, k, that gap)."""
+    from comfyui_keep_torch.facelib import factory
+    from comfyui_keep_torch.facelib.helper import FFHQ_TEMPLATE_512
+    det = factory.init_detection_model(name, require_weights=False,
+                                       seed=seed, device="cpu")
+    m = det.model
+    g = torch.Generator().manual_seed(seed + 1)
+    rel = (FFHQ_TEMPLATE_512 - FFHQ_TEMPLATE_512.mean(0)) / 256
+    with torch.no_grad():
+        for b in m.modules():
+            if isinstance(b, torch.nn.BatchNorm2d):
+                c = b.num_features
+                b.weight.copy_(torch.rand(c, generator=g) + 0.5)
+                b.bias.copy_(torch.randn(c, generator=g) * 0.1)
+                b.running_mean.copy_(torch.randn(c, generator=g) * 0.1)
+                b.running_var.copy_(torch.rand(c, generator=g) * 1.5 + 0.5)
+        for h in m.LandmarkHead:
+            h.conv1x1.weight.zero_()
+            h.conv1x1.bias.copy_(torch.as_tensor(
+                np.tile(rel.reshape(-1) / 0.1, 2), dtype=torch.float32))
+        for h in m.BboxHead:
+            h.conv1x1.weight.zero_()
+            h.conv1x1.bias.zero_()
+        for h in m.ClassHead:
+            h.conv1x1.weight.mul_(100.0)
+    raw = []
+    hooks = [h.register_forward_hook(lambda mod, a, o: raw.append(o))
+             for h in m.ClassHead]
+    with torch.no_grad():
+        m(m.prepare(torch.from_numpy(frame_bgr[None])))
+    for h in hooks:
+        h.remove()
+    logits = torch.cat(raw, 1)[0].double()
+    margin = np.sort((logits[:, 1] - logits[:, 0]).numpy())[::-1]
+    k = 1 + int(np.argmax(margin[:4] - margin[1:5]))
+    shift = np.log(FACE_CONF / (1 - FACE_CONF)) - (margin[k - 1]
+                                                   + margin[k]) / 2
+    with torch.no_grad():
+        for h in m.ClassHead:
+            h.conv1x1.bias[1::2] += shift
+    return det, k, float(margin[k - 1] - margin[k])
+
+
 def phase_nodes(torch):
     """The three nodes: the loader builds a pack (random KEEP, f32); both
     execution nodes on ComfyUI IMAGE arrays with their default widgets
-    (whole frames) return (None,), as the JAX nodes do, since the loader
-    builds no detector; an aligned 512^2 face through the image node gives
-    api.restore_image's pixels; aligned frames through the sequence node
-    come back as they went in; an invalid pack gives (None,); the pack ends
-    offloaded after each call."""
+    (whole frames) return (None,) on a pack loaded without model_rootpath,
+    as the JAX nodes do, since that loader builds no detector; an aligned
+    512^2 face through the image node gives api.restore_image's pixels;
+    aligned frames through the sequence node come back as they went in; an
+    invalid pack gives (None,); the pack ends offloaded after each call.
+    Then the loader with model_rootpath: the widgets' default detector
+    (RetinaFace-ResNet50, made to find a face: face_finding_detector) and
+    ParseNet written as reference-named .pth files to a temporary
+    directory, read by the loader; a 960x640 frame through the image node
+    with its default widgets on the card: a face restored and pasted, the
+    card's detection rows against the CPU's within DETECT_RTOL, ms a
+    call."""
     from comfyui_keep_torch import api, nodes
+    from comfyui_keep_torch.facelib import factory
     from comfyui_keep_torch.utils.image import comfy_to_cv2, cv2_to_comfy
     loader = nodes.KEEP_ModelLoaderNode()
     req = loader.INPUT_TYPES()["required"]
@@ -1885,9 +1964,9 @@ def phase_nodes(torch):
                 node.INPUT_TYPES()["required"].items()
                 if len(v) > 1 and "default" in v[1]}
 
-    def on_host():
-        return all(p.device.type == "cpu" for m in pack.models()
-                   for p in m.parameters())
+    def on_host(p=None):
+        return all(q.device.type == "cpu" for m in (p or pack).models()
+                   for q in m.parameters())
 
     img_node = nodes.KEEP_FaceUpscaleImageNode()
     seq_node = nodes.KEEP_ProcessImageSequenceNode()
@@ -1918,9 +1997,61 @@ def phase_nodes(torch):
     rows["sequence_aligned_offloaded"] = on_host()
     rows["invalid_pack"] = img_node.upscale_face_image(
         faces[:1], object(), 1.0, True, True, False) == (None,)
+    del pack
+
+    # the loader with model_rootpath: detector and parser from .pth files
+    name = req["detection_model"][1]["default"]
+    frame = np.ascontiguousarray(whole_frames(1, seed=17)[0][:640, :960])
+    work = tempfile.mkdtemp(prefix="nodes_")
+    try:
+        det, k, gap = face_finding_detector(torch, name, frame)
+        torch.save({n: v for n, v in det.model.state_dict().items()
+                    if not n.endswith("num_batches_tracked")},
+                   os.path.join(work, factory.MODEL_NAMES[name]))
+        parser = factory.init_parsing_model("parsenet", require_weights=False,
+                                            seed=0, device="cpu")
+        torch.save(parser.model.state_dict(),
+                   os.path.join(work, factory.MODEL_NAMES["parsenet"]))
+        del det, parser
+        t0 = time.perf_counter()
+        rpack, = loader.load_model_pack(req["model"][1]["default"], name,
+                                        model_rootpath=work)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    helper = rpack.face_helper
+    rows_cpu = helper.detector(frame, FACE_CONF)
+    image = (frame[..., ::-1] / np.float32(255)).astype(np.float32)[None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, = img_node.upscale_face_image(image, rpack, **defaults(img_node))
+    rootpath_ms = 1e3 * (time.perf_counter() - t0)
+    rows["rootpath_offloaded"] = on_host(rpack)
+    n_faces = len(helper.restored_faces)
+    rpack.load_device()
+    rows_card = helper.detector(frame, FACE_CONF)
+    rpack.offload()
+    det_err = (float(np.abs(rows_card - rows_cpu).max() / max(
+        np.abs(rows_cpu).max(), 1e-30)) if rows_card.shape == rows_cpu.shape
+        and len(rows_cpu) else None)
+    got = None if out is None else comfy_to_cv2(out)
+    rows["rootpath_helper_built"] = bool(
+        helper is not None and helper.use_parse
+        and helper.parser is not None)
+    rows["rootpath_detections_card_vs_cpu"] = bool(
+        det_err is not None and det_err <= DETECT_RTOL)
+    rows["rootpath_whole_frame_restored"] = bool(
+        got is not None and got.shape == frame.shape and got.dtype == np.uint8
+        and n_faces == 1 and not np.array_equal(got, frame))
     ok = bool(all(rows.values()))
     say("nodes", checks=rows, aligned_image_max_diff_levels=diff,
-        aligned_image_node_ms=node_ms, cv2_imported="cv2" in sys.modules,
+        aligned_image_node_ms=node_ms, rootpath_detector=name,
+        rootpath_load_s=load_s, rootpath_anchors_passing=k,
+        rootpath_margin_gap=gap, rootpath_detections=len(rows_cpu),
+        rootpath_rows_rel_err=det_err, tol_rel=DETECT_RTOL,
+        rootpath_faces_restored=n_faces, rootpath_frame_hw=list(
+            frame.shape[:2]), rootpath_image_node_ms=rootpath_ms,
+        cv2_imported="cv2" in sys.modules,
         ok=ok and "cv2" not in sys.modules)
     if not ok or "cv2" in sys.modules:
         fail(f"nodes: {rows}")
@@ -2039,7 +2170,8 @@ def phase_upscale(torch):
     1280x720 frame on the card, ms a frame (after one warm-up frame) and
     peak GiB; then RealESRGANer.enhance with RealESRGAN_x2plus (tile 0,
     pre_pad 10) on an RGBA and a gray frame: 64x48 card against CPU within
-    1 level, and 1280x720 timed on the card. Returns the card models of
+    1 level, and 1280x720 timed on the card. SwinIR also takes a size that
+    is not a window multiple (swinir_ragged). Returns the card models of
     the full workflow."""
     from comfyui_keep_torch.pipeline.realesrganer import RealESRGANer
     from comfyui_keep_torch.pipeline.tiled import make_upscaler_fn
@@ -2047,6 +2179,7 @@ def phase_upscale(torch):
     tile = torch.from_numpy(rng.random((1, 3, 64, 64), dtype=np.float32))
     frame = whole_frames(1, seed=19)[0]
     rows, ok_all, keep = {}, True, {}
+    ragged = None
     for name, (arch, scale, _) in SR_MODELS.items():
         cpu = sr_model(torch, name, "cpu")
         card = copy.deepcopy(cpu).cuda()
@@ -2054,6 +2187,9 @@ def phase_upscale(torch):
             ref = cpu(tile)
             got = card(tile.cuda())
         err = rel_err(got, ref)
+        if arch == "SwinIR":
+            ragged = swinir_ragged(torch, cpu, card, scale, frame)
+            ok_all &= ragged["ok"]
         del cpu
         up = make_upscaler_fn(card, scale, SR_TILE, SR_OVERLAP)
         up(frame)
@@ -2105,10 +2241,57 @@ def phase_upscale(torch):
     del enh_cpu
     say("upscale", tile_hw=[64, 64], tol_rel=SR_RTOL, frame_hw=list(WHOLE_HW),
         tile=SR_TILE, overlap=SR_OVERLAP, models=rows,
-        realesrganer_x2plus=enhance, ok=bool(ok_all))
+        realesrganer_x2plus=enhance, swinir_ragged=ragged, ok=bool(ok_all))
     if not ok_all:
-        fail(f"upscale: {rows} {enhance}")
+        fail(f"upscale: {rows} {enhance} {ragged}")
     return keep
+
+
+# a frame 854 px wide: at tile 512 / overlap 64 its edge tile is 406 px,
+# not a multiple of SwinIR's 8-px window
+RAGGED_HW = (480, 854)
+
+
+def swinir_ragged(torch, cpu, card, scale, frame):
+    """SwinIR at a size that is not a window multiple, which it pads to one
+    (reflect, bottom and right) and crops back: a 37x53 tile card against
+    CPU within SR_RTOL, and against the card's forward on the tile padded
+    by F.pad beforehand, cropped (the same computation: within 1e-6,
+    reported whether bitwise); then make_upscaler_fn (SR_TILE, SR_OVERLAP)
+    over a RAGGED_HW frame, whose edge tile is ragged: output shape and
+    dtype, ms a frame after one warm-up."""
+    import torch.nn.functional as F
+    from comfyui_keep_torch.pipeline.tiled import (make_upscaler_fn,
+                                                   tile_origins)
+    ws = card.window_size
+    x = torch.from_numpy(np.random.default_rng(20).random(
+        (1, 3, 37, 53), dtype=np.float32))
+    xc = x.cuda()
+    with torch.no_grad():
+        ref = cpu(x)
+        got = card(xc)
+        padded = F.pad(xc, (0, -53 % ws, 0, -37 % ws), mode="reflect")
+        pre = card(padded)[:, :, :37 * scale, :53 * scale]
+    err = rel_err(got, ref)
+    pad_err = rel_err(got, pre)
+    edge = RAGGED_HW[1] - tile_origins(RAGGED_HW[1], SR_TILE, SR_OVERLAP)[-1]
+    img = np.ascontiguousarray(frame[:RAGGED_HW[0], :RAGGED_HW[1]])
+    up = make_upscaler_fn(card, scale, SR_TILE, SR_OVERLAP)
+    up(img)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = up(img)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    ok = bool(got.shape == (1, 3, 37 * scale, 53 * scale) and err <= SR_RTOL
+              and pad_err <= 1e-6 and edge % ws != 0
+              and out.shape == (RAGGED_HW[0] * scale, RAGGED_HW[1] * scale, 3)
+              and out.dtype == np.uint8)
+    return dict(tile_hw=[37, 53], window=ws, tile_rel_err=err,
+                vs_prepadded_rel_err=pad_err,
+                vs_prepadded_bitwise=bool(torch.equal(got, pre)),
+                frame_hw=list(RAGGED_HW), edge_tile_px=edge,
+                output_hw=list(out.shape[:2]), frame_ms=ms, ok=ok)
 
 
 def phase_full_workflow(torch, detector, parser, sr):
@@ -3257,12 +3440,46 @@ def phase_gmflow_refine(torch, iters=3):
     say("gmflow_refine", call="forward_backward_consistency_check",
         flow_scale=s, occluded_share=occluded,
         card_vs_cpu_share_differing=share, tol_share=OCC_FLIP_SHARE, ok=good)
+    ok = ok and phase_gmflow_refine_x4(torch, g0, g1, img0, img1, iters)
     if not ok:
         fail(f"gmflow_refine: card vs CPU {errs} px (tol {FLOW_TOL_PX}), "
-             f"launches off, bf16 not finite, or the occlusion masks differ")
+             f"launches off, bf16 not finite, the occlusion masks differ, "
+             f"or the x4 model's output is off")
     del gm_cuda
     torch.cuda.empty_cache()
     return {"float32": fwd_snap, "bfloat16": bf16_snap}
+
+
+def phase_gmflow_refine_x4(torch, g0, g1, img0, img1, iters):
+    """The published refinement model's form, GMFlow(num_scales=2,
+    upsample_factor=4) (random weights, seed 1): its convex upsampler has
+    4^2 * 9 = 144 mask channels, and apply_refine on the two 512x512 pairs
+    returns the input's size, finite, on the card; card against CPU on one
+    128x128 crop of the first pair within FLOW_TOL_PX; ms a pair. Returns
+    whether every check held."""
+    from comfyui_keep_torch.models.gmflow import GMFlow
+    x4 = GMFlow(device="cpu", num_scales=2, upsample_factor=4,
+                generator=torch.Generator().manual_seed(1))
+    x4_cuda = copy.deepcopy(x4).cuda()
+    out = x4_cuda.apply_refine(g0, g1)
+    torch.cuda.synchronize()
+    ms = time_ms(torch, lambda: x4_cuda.apply_refine(g0, g1), iters)
+    c0, c1 = img0[:1, :128, :128], img1[:1, :128, :128]
+    ref = x4.apply_refine(c0, c1)
+    got = x4_cuda.apply_refine(c0.cuda(), c1.cuda())
+    err = (got.cpu() - ref).abs().max().item()
+    channels = x4.upsampler[2].out_channels
+    good = bool(out.shape == g0.shape[:3] + (2,)
+                and torch.isfinite(out).all() and channels == 144
+                and got.shape == (1, 128, 128, 2) and np.isfinite(err)
+                and err <= FLOW_TOL_PX)
+    say("gmflow_refine", call="apply_refine upsample_factor=4",
+        dtype="float32", pairs=2, output=list(out.shape),
+        upsampler_mask_channels=channels, ms_per_pair=ms / 2,
+        crop_hw=[128, 128], crop_max_abs_err_px=err, tol_px=FLOW_TOL_PX,
+        ok=good)
+    del x4_cuda
+    return good
 
 
 def phase_vqgan(torch):
@@ -3891,8 +4108,8 @@ def phase_train_gan(torch, card):
         d_sd = {k: v.cpu() for k, v in tr1.disc.state_dict().items()}
         d_moved = all(not torch.equal(d_sd[k], v) for k, v in d_init.items()
                       if k.endswith("orig"))
-        u_same = all(torch.equal(d_sd[k], v) for k, v in d_init.items()
-                     if k.endswith("weight_u"))
+        u_moved = all(not torch.equal(d_sd[k], v) for k, v in d_init.items()
+                      if k.endswith("weight_u"))
         del init, d_init, params, d_sd
         files = sorted(os.listdir(os.path.join(exp, "models"))
                        + os.listdir(os.path.join(exp, "training_states")))
@@ -3956,13 +4173,14 @@ def phase_train_gan(torch, card):
         import shutil
         shutil.rmtree(work, ignore_errors=True)
 
+    sn = spectral_norm_vs_torch(torch, tr1.init_disc())
     gan_keys = {"l_g_gan", "l_d", "l_d_real", "l_d_fake"}
     finite = all(math.isfinite(v) for lg in (logs1, logs3)
                  for v in lg.values())
     want = {k: 2 * v for k, v in per_iter.items()}
     ok = bool(finite and gan_keys <= logs1.keys() and gan_keys <= logs3.keys()
-              and frozen_same and watch_moved and d_moved and u_same
-              and ema_ok and counts == want and counts3 == per_iter
+              and frozen_same and watch_moved and d_moved and u_moved
+              and sn["ok"] and ema_ok and counts == want and counts3 == per_iter
               and files == ["2.state", "net_g_2.pth"] and restored_equal
               and run3["start_iter"] == 2 and st3.iter == 3 and resume_ok
               and controls_ok)
@@ -3979,7 +4197,8 @@ def phase_train_gan(torch, card):
         launches_run1=counts, launches_resumed=counts3,
         expected_per_alternation=per_iter,
         frozen_leaves=len(frozen), frozen_unchanged=frozen_same,
-        watched_moved=watch_moved, d_moved=d_moved, weight_u_unchanged=u_same,
+        watched_moved=watch_moved, d_moved=d_moved, weight_u_moved=u_moved,
+        spectral_norm_vs_torch=sn,
         ema_max_abs_err=ema_err, files=files,
         resumed_at=run3["start_iter"], restored_equal_saved=restored_equal,
         resume_err_over_step=resume_err, resume_rtol=GAN_RESUME_RTOL,
@@ -3987,13 +4206,55 @@ def phase_train_gan(torch, card):
         ok=ok)
     if not ok:
         fail(f"train_gan: finite {finite}, frozen unchanged {frozen_same}, "
-             f"watched moved {watch_moved}, D moved {d_moved}, u kept "
-             f"{u_same}, EMA {ema_ok}, launches {counts} (want {want}) / "
+             f"watched moved {watch_moved}, D moved {d_moved}, u moved "
+             f"{u_moved}, spectral norm {sn}, EMA {ema_ok}, launches {counts} (want {want}) / "
              f"{counts3}, files {files}, restored {restored_equal}, resume "
              f"{resume_err}, controls {control}")
     del tr1, st1, st3, run1, run3, saved, straight, resumed, lost_ema
     torch.cuda.empty_cache()
     return counts3
+
+
+SN_MODES = ("train", "train", "eval", "train")
+SN_RTOL = 1e-5
+
+
+def spectral_norm_vs_torch(torch, disc):
+    """Discriminator3D's second spectral-norm layer (`disc`, on the card)
+    against torch.nn.utils.spectral_norm on an nn.Conv3d with the same
+    weight_orig, u and v, over SN_MODES forwards on one (1, C, 8, 64, 64)
+    input: each training forward's output and advanced u and v within
+    SN_RTOL of their largest magnitude, u moved; the eval forward moves
+    neither vector (its output, the JAX package's form, is not torch's)."""
+    layer = disc.conv[2].cuda()
+    w = layer.weight_orig
+    ref = torch.nn.Conv3d(w.shape[1], w.shape[0], w.shape[2:],
+                          layer.stride, layer.padding, bias=False).cuda()
+    ref = torch.nn.utils.spectral_norm(ref)
+    with torch.no_grad():
+        for n in ("weight_orig", "weight_u", "weight_v"):
+            getattr(ref, n).copy_(getattr(layer, n))
+    x = torch.randn((1, w.shape[1], 8, 64, 64), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(21))
+    errs, moved, kept = [], 0, True
+    for mode in SN_MODES:
+        layer.train(mode == "train")
+        ref.train(mode == "train")
+        u_in = layer.weight_u.clone()
+        with torch.no_grad():
+            got, want = layer(x), ref(x)
+        bufs = max(rel_err(layer.weight_u, ref.weight_u),
+                   rel_err(layer.weight_v, ref.weight_v))
+        if mode == "train":
+            errs.append(max(rel_err(got, want), bufs))
+            moved += not torch.equal(layer.weight_u, u_in)
+        else:
+            kept = kept and torch.equal(layer.weight_u, u_in) and bufs == 0
+    return {"modes": list(SN_MODES), "train_max_rel_err": max(errs),
+            "tol_rel": SN_RTOL, "u_moved_each_train_forward":
+            moved == SN_MODES.count("train"), "eval_kept_u_v": bool(kept),
+            "ok": bool(max(errs) <= SN_RTOL and kept
+                       and moved == SN_MODES.count("train"))}
 
 
 # GMFlow training (phase train_flow): tools/torch_train_flow.py's defaults
@@ -4404,6 +4665,28 @@ def phase_train_flow(torch, card, kernel_rows):
     parts = {"forward_ms": ev[0].elapsed_time(ev[1]),
              "backward_ms": ev[1].elapsed_time(ev[2]),
              "update_ms": ev[2].elapsed_time(ev[3])}
+    # the reference's two-term loss on that batch: the flow before
+    # propagation (bilinear x8, weight gamma) and the final flow, recomputed
+    # in float64 from the two flows the forward returns
+    with torch.no_grad():
+        loss2, _ = tr.loss_fn(state.model, b)
+        preds = state.model(b["img1"], b["img2"], tr.attn_splits,
+                            tr.corr_radius, tr.prop_radius,
+                            return_preds=True)
+    gt = b["flow"].double()
+    valid = ((b["valid"] >= 0.5) if "valid" in b
+             else torch.ones_like(gt[..., 0], dtype=torch.bool))
+    valid = (valid & (gt.norm(dim=-1) < 400)).double()
+    terms = [float(((p.double() - gt).abs().sum(-1) * valid).sum()
+                   / valid.sum().clamp_min(1)) for p in preds]
+    want_loss = tr.gamma * terms[0] + terms[1]
+    two_term = {"terms": terms, "gamma": tr.gamma, "loss": loss2.item(),
+                "float64": want_loss,
+                "rel_err": abs(loss2.item() - want_loss) / want_loss,
+                "tol_rel": LOSS_RTOL}
+    two_term["ok"] = bool(len(preds) == 2 and terms[0] != terms[1]
+                          and two_term["rel_err"] <= LOSS_RTOL)
+    del preds
     want = {k: v * FLOW_STEPS for k, v in gmflow_launches(1).items()}
     want.update(fused_bias_lrelu=0, packed_conv2x2=0)
     fh, fw = FLOW_HW[0] // 8, FLOW_HW[1] // 8
@@ -4438,14 +4721,16 @@ def phase_train_flow(torch, card, kernel_rows):
                  and by_shape == want_shape)
     steady = step_ms[1:]
     # the plain backward a step runs: each call's backward ms at its shape,
-    # as many as the forward launches; K3 takes none (its flow reaches the
-    # loss only through the propagation, which takes it detached)
+    # as many as the forward launches (K3's through the pre-propagation
+    # term of the loss)
     bwd_plain = sum(kernel_rows[r]["backward_ms"] * n for r, n in (
         ("attention[dv128] flow step", 6), ("attention[dv128+bias] flow step",
                                              6),
-        ("attention[dv2] flow step", 1), ("mlp_fused flow step", 6)))
+        ("attention[dv2] flow step", 1),
+        ("global_correlation_expectation flow step", 1),
+        ("mlp_fused flow step", 6)))
     ok = bool(finite and keys_ok and not dead and not noisy and lr_ok
-              and launch_ok)
+              and launch_ok and two_term["ok"])
     say("train_flow", card=card, batch=FLOW_B, hw=list(FLOW_HW),
         ms_per_step=float(np.mean(steady)), ms_steps=step_ms,
         pairs_per_s=1e3 * FLOW_B / float(np.mean(steady)), **parts,
@@ -4457,10 +4742,10 @@ def phase_train_flow(torch, card, kernel_rows):
         epe=[lg["epe"] for lg in logs_all], lr=lrs, watched_grads=watch,
         zero_grad_leaves=zero_grad, dead_leaves=dead, launches=counts,
         expected=want, launches_by_shape=by_shape,
-        expected_by_shape=want_shape, ok=ok)
+        expected_by_shape=want_shape, two_term_loss=two_term, ok=ok)
     if not ok:
-        fail("train_flow: the GMFlow steps broke a check (losses, "
-             "gradients, LR or launches)")
+        fail("train_flow: the GMFlow steps broke a check (losses, the "
+             "two-term loss, gradients, LR or launches)")
 
     one = {k: v[:1] for k, v in batch().items()}
     res = flow_step_runs(torch, one)

@@ -4,9 +4,12 @@ ESRGAN (128^2 or 256^2 input, BatchNorm on running statistics) and Real-
 ESRGAN's U-Net under spectral norm. NCHW.
 
 SpectralNormConv2d keeps torch's spectral_norm names (`weight_orig`,
-`weight_u`, `weight_v`); its forward normalises weight_orig by one power
-iteration from weight_u and leaves the buffers as they are, as the JAX
-package's apply does. HiFaceGAN and DFDNet use it too.
+`weight_u`, `weight_v`). In training its forward is torch's hook step: u
+and v advance in place (ops/spectral.py layer_weight), and the
+output equals the JAX package's apply from the same incoming u. In eval it
+normalises weight_orig by one power iteration from weight_u and leaves the
+buffers as they are, as the JAX package's apply does. HiFaceGAN and DFDNet
+use it too.
 """
 from typing import Optional
 
@@ -16,7 +19,8 @@ from torch import nn
 from comfyui_keep_torch.models.init import (default_init_, finish,
                                             spectral_init_)
 from comfyui_keep_torch.ops import (batch_norm, conv2d, leaky_relu, linear,
-                                    resize_bilinear, spectral_norm_weight)
+                                    resize_bilinear)
+from comfyui_keep_torch.ops import spectral
 from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
 
 
@@ -34,9 +38,8 @@ class SpectralNormConv2d(nn.Module):
         self.register_buffer("weight_v", torch.ones(n) / n ** 0.5)
 
     def forward(self, x):
-        w, _ = spectral_norm_weight(self.weight_orig, self.weight_u)
-        return conv2d(x, w.to(x.dtype), self.bias, self.stride, self.padding,
-                      self.dilation)
+        return conv2d(x, spectral.layer_weight(self).to(x.dtype), self.bias,
+                      self.stride, self.padding, self.dilation)
 
 
 def build(module: nn.Module, device, dtype, generator):

@@ -4,12 +4,19 @@ comfyui_keep_tpu/models/gmflow.py.
 CNN backbone (stride 8, InstanceNorm) -> sine position embedding -> 6
 single-head transformer blocks with split-window attention (shifted on odd
 layers), both images as one 2B batch -> global correlation softmax -> global
-flow-propagation attention -> convex x8 upsampling. The refinement model
-(`GMFlow(num_scales=2)`, `apply_refine`, the reference's gmflow_with_refine)
-adds a shared-weight trident conv that gives the backbone a 1/4-resolution
-scale, local correlation within a radius, local propagation, and a residual
-flow per scale; `forward_backward_consistency_check` gives occlusion masks
-from a bidirectional pair.
+flow-propagation attention -> convex x`upsample_factor` upsampling (8 by
+default). The refinement model (`GMFlow(num_scales=2, upsample_factor=4)`,
+`apply_refine`, the reference's gmflow_with_refine) adds a shared-weight
+trident conv that gives the backbone a 1/4-resolution scale, local
+correlation within a radius, local propagation, and a residual flow per
+scale; `forward_backward_consistency_check` gives occlusion masks from a
+bidirectional pair. As in the reference, the convex upsampler has
+upsample_factor^2 * 9 mask channels and runs at the last scale only (the
+JAX package fixes the factor at 8). In training, `forward(...,
+return_preds=True)` and `refine(..., return_preds=True)` also return the
+reference's intermediate predictions: each scale's flow before
+propagation (and, before the last scale, after it), upsampled bilinearly
+by upsample_factor * 2^(num_scales - 1 - scale), for the sequence loss.
 
 `GMFlow.prepare_packed()` (the JAX package's KEEP_TPU_PACK_GMFLOW, a
 serving form) gives a copy whose backbone runs layer1's two residual blocks
@@ -411,18 +418,18 @@ def upsample_flow_convex(upsampler: nn.Sequential, flow, feature,
 @ARCH_REGISTRY.register()
 class GMFlow(nn.Module):
     FEATURE_CHANNELS = 128
-    UPSAMPLE_FACTOR = 8
 
     def __init__(self, feature_channels: int = 128, num_layers: int = 6,
                  device="cuda", dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None,
-                 num_scales: int = 1):
+                 num_scales: int = 1, upsample_factor: int = 8):
         super().__init__()
         c = feature_channels
+        self.upsample_factor = upsample_factor
         self.backbone = CNNEncoder(c, num_scales)
         self.transformer = FeatureTransformer(num_layers, c)
         self.feature_flow_attn = FeatureFlowAttention(c)
-        f = self.UPSAMPLE_FACTOR
+        f = upsample_factor
         self.upsampler = nn.Sequential(nn.Conv2d(2 + c, 256, 3, 1, 1),
                                        nn.ReLU(inplace=True),
                                        nn.Conv2d(256, f * f * 9, 1))
@@ -473,20 +480,26 @@ class GMFlow(nn.Module):
             c0 = _unprep_tokens(sw, 2 * b, h, w, c, k, shift)
         return (c0[:b].reshape(b, h, w, c), c0[b:].reshape(b, h, w, c))
 
-    def match(self, f0, f1, attn_splits: int, corr_radius: int,
-              prop_radius: int, flow=None):
-        """One scale on features (B, H, W, C): position embedding, the
-        transformer, correlation softmax (global, or local within
-        corr_radius), added to `flow` if given, then propagation (global,
-        or local within prop_radius). Returns (flow (B, H, W, 2), f0 after
-        the transformer)."""
+    def correlate(self, f0, f1, attn_splits: int, corr_radius: int,
+                  flow=None):
+        """One scale's matching on features (B, H, W, C): position
+        embedding, the transformer, correlation softmax (global, or local
+        within corr_radius), added to `flow` if given. Returns (the flow
+        before propagation (B, H, W, 2), f0 after the transformer)."""
         f0, f1 = add_position(f0, f1, attn_splits, self.FEATURE_CHANNELS)
         f0, f1 = self.transformer_apply(f0, f1, attn_splits)
         if corr_radius == -1:
             pred = global_correlation_softmax(f0, f1)
         else:
             pred = local_correlation_softmax(f0, f1, corr_radius)
-        flow = pred if flow is None else flow + pred
+        return (pred if flow is None else flow + pred), f0
+
+    def match(self, f0, f1, attn_splits: int, corr_radius: int,
+              prop_radius: int, flow=None):
+        """One scale: correlate, then propagation (global, or local within
+        prop_radius) of the detached flow. Returns (flow (B, H, W, 2), f0
+        after the transformer)."""
+        flow, f0 = self.correlate(f0, f1, attn_splits, corr_radius, flow)
         return self.feature_flow_attn(f0, flow.detach(), prop_radius), f0
 
     def flow_from_features(self, f0, f1, attn_splits: int = 2,
@@ -494,19 +507,37 @@ class GMFlow(nn.Module):
         """Pair stages on backbone features (B, H, W, C) -> (fx, fy)."""
         flow, f0 = self.match(f0, f1, attn_splits, corr_radius, prop_radius)
         return upsample_flow_convex(self.upsampler, flow, f0,
-                                    self.UPSAMPLE_FACTOR)
+                                    self.upsample_factor)
+
+    @staticmethod
+    def bilinear_up(flow, factor: int):
+        """(B, H, W, 2) -> (B, H f, W f, 2): bilinear with align_corners,
+        times f (the reference's upsample_flow(bilinear=True))."""
+        b, h, w, _ = flow.shape
+        return resize_bilinear(flow.permute(0, 3, 1, 2),
+                               (h * factor, w * factor),
+                               align_corners=True).permute(0, 2, 3, 1) * factor
 
     def forward(self, img0, img1, attn_splits: int = 2, corr_radius: int = -1,
-                prop_radius: int = -1):
+                prop_radius: int = -1, return_preds: bool = False):
         """img0, img1: (B, H, W, 3) in [0, 255] -> flow (B, H, W, 2), img0
         -> img1 displacement, through the single-scale backbone: the JAX
         package's GMFlow.apply, differentiable (the trainer's forward; the
-        kernels' gradients are their plain versions')."""
+        kernels' gradients are their plain versions'). With return_preds
+        the reference's training predictions [the flow before propagation,
+        upsampled bilinearly by upsample_factor; the flow], the last
+        equal to the flow without it."""
         b = img0.shape[0]
         feats = self.extract_features(torch.cat([img0, img1], dim=0))
-        fx, fy = self.flow_from_features(feats[:b], feats[b:], attn_splits,
-                                         corr_radius, prop_radius)
-        return torch.stack([fx, fy], dim=-1)
+        pre, f0 = self.correlate(feats[:b], feats[b:], attn_splits,
+                                 corr_radius)
+        flow = self.feature_flow_attn(f0, pre.detach(), prop_radius)
+        fx, fy = upsample_flow_convex(self.upsampler, flow, f0,
+                                      self.upsample_factor)
+        out = torch.stack([fx, fy], dim=-1)
+        if return_preds:
+            return [self.bilinear_up(pre, self.upsample_factor), out]
+        return out
 
     @torch.no_grad()
     def apply(self, img0, img1, attn_splits: int = 2, corr_radius: int = -1,
@@ -514,26 +545,32 @@ class GMFlow(nn.Module):
         """forward without gradients (serving)."""
         return self.forward(img0, img1, attn_splits, corr_radius, prop_radius)
 
-    @torch.no_grad()
-    def apply_refine(self, img0, img1, attn_splits_list=(2, 8),
-                     corr_radius_list=(-1, 4), prop_radius_list=(-1, 1),
-                     num_scales: int = 2, pred_bidir_flow: bool = False):
+    def refine(self, img0, img1, attn_splits_list=(2, 8),
+               corr_radius_list=(-1, 4), prop_radius_list=(-1, 1),
+               num_scales: int = 2, pred_bidir_flow: bool = False,
+               return_preds: bool = False):
         """The multi-scale refinement forward (the reference's
-        gmflow_with_refine), on a model built with num_scales scales:
-        img0, img1 (B, H, W, 3) in [0, 255] -> flow (B, H', W', 2). Each
-        scale, coarse to fine, warps f1 by the flow so far (resized x2 with
-        align_corners=True and doubled) and adds its residual flow. With
+        gmflow_with_refine), differentiable, on a model built with
+        num_scales scales: img0, img1 (B, H, W, 3) in [0, 255] -> flow
+        (B, H', W', 2), H' = H / 2^(num_scales + 2) * upsample_factor (the
+        input's size at the published num_scales=2, upsample_factor=4).
+        Each scale, coarse to fine, warps f1 by the flow so far (resized x2
+        with align_corners=True, doubled and detached) and adds its
+        residual flow; the convex upsampler runs at the last scale. With
         pred_bidir_flow the forward and backward pairs run as one doubled
         batch: the output's first B entries are img0 -> img1, the rest img1
-        -> img0. As in the JAX package the convex upsampler is x8 at every
-        scale count, so two scales (1/4-resolution features) return twice
-        the input size."""
+        -> img0. With return_preds the reference's list of predictions,
+        each at the output's size: per scale the flow before propagation,
+        and before the last scale the flow after it, upsampled bilinearly
+        by upsample_factor * 2^(num_scales - 1 - scale); the convex flow
+        last."""
         b = img0.shape[0]
         mean = torch.tensor(IMAGENET_MEAN, dtype=img0.dtype, device=img0.device)
         std = torch.tensor(IMAGENET_STD, dtype=img0.dtype, device=img0.device)
         imgs = ((torch.cat([img0, img1], dim=0) / 255.0 - mean) / std)
         feats = self.backbone(imgs.permute(0, 3, 1, 2), num_scales)[::-1]
         flow = f0 = None
+        preds = []
         for si in range(num_scales):
             f = feats[si].permute(0, 2, 3, 1)
             f0, f1 = f[:b], f[b:]
@@ -543,14 +580,32 @@ class GMFlow(nn.Module):
                 flow = resize_bilinear(
                     flow.permute(0, 3, 1, 2),
                     (2 * flow.shape[1], 2 * flow.shape[2]),
-                    align_corners=True).permute(0, 2, 3, 1) * 2
+                    align_corners=True).permute(0, 2, 3, 1).detach() * 2
                 f1 = flow_warp(f1.permute(0, 3, 1, 2), flow).permute(0, 2, 3, 1)
-            flow, f0 = self.match(f0, f1, attn_splits_list[si],
-                                  corr_radius_list[si], prop_radius_list[si],
-                                  flow)
+            factor = self.upsample_factor * 2 ** (num_scales - 1 - si)
+            flow, f0 = self.correlate(f0, f1, attn_splits_list[si],
+                                      corr_radius_list[si], flow)
+            if return_preds:
+                preds.append(self.bilinear_up(flow, factor))
+            flow = self.feature_flow_attn(f0, flow.detach(),
+                                          prop_radius_list[si])
+            if return_preds and si < num_scales - 1:
+                preds.append(self.bilinear_up(flow, factor))
         fx, fy = upsample_flow_convex(self.upsampler, flow, f0,
-                                      self.UPSAMPLE_FACTOR)
-        return torch.stack([fx, fy], dim=-1)
+                                      self.upsample_factor)
+        out = torch.stack([fx, fy], dim=-1)
+        return preds + [out] if return_preds else out
+
+    @torch.no_grad()
+    def apply_refine(self, img0, img1, attn_splits_list=(2, 8),
+                     corr_radius_list=(-1, 4), prop_radius_list=(-1, 1),
+                     num_scales: int = 2, pred_bidir_flow: bool = False):
+        """refine without gradients (serving). At upsample_factor 8 (the
+        default, and the JAX package's only factor), two scales
+        (1/4-resolution features) return twice the input size; the
+        published refinement model is upsample_factor=4."""
+        return self.refine(img0, img1, attn_splits_list, corr_radius_list,
+                           prop_radius_list, num_scales, pred_bidir_flow)
 
 
 @torch.no_grad()

@@ -118,6 +118,15 @@ def kalman_calc_gain(kf: KalmanFilter, z_codes):
     return g.permute(0, 1, 3, 4, 2)
 
 
+def upscale_clip(x):
+    """KEEP's need_upscale resize: a clip (B, T, H, W, 3) -> (B, T, 4H, 4W,
+    3), bilinear, align_corners False (keep_arch.py's need_upscale)."""
+    b, t, h, w = x.shape[:4]
+    x = resize_bilinear(x.reshape(b * t, h, w, 3).permute(0, 3, 1, 2),
+                        (4 * h, 4 * w))
+    return x.permute(0, 2, 3, 1).reshape(b, t, 4 * h, 4 * w, 3)
+
+
 @ARCH_REGISTRY.register()
 class KEEP(nn.Module):
     """The KEEP network. Parameter names are the reference's (with the
@@ -347,10 +356,7 @@ class KEEP(nn.Module):
         encoders and each frame step after the first."""
         cfg = self.cfg
         if need_upscale:
-            b, t, h, w = x.shape[:4]
-            x = resize_bilinear(x.reshape(b * t, h, w, 3).permute(0, 3, 1, 2),
-                                (4 * h, 4 * w))
-            x = x.permute(0, 2, 3, 1).reshape(b, t, 4 * h, 4 * w, 3)
+            x = upscale_clip(x)
         b, t, h, w = x.shape[:4]
         # frame i's flow is plane i - off: T planes with a carry, T-1 without
         off = 0 if carry is not None else 1

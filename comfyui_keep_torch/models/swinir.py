@@ -8,8 +8,10 @@ reconstruction: "pixelshuffle", "pixelshuffledirect", "nearest+conv" or
 NCHW at the convolutions, (B, L, C) tokens in the transformer. The window
 attention is plain PyTorch, as the JAX package computes it outside any
 Pallas kernel: scores, the bias, the mask, a softmax and the product.
-H and W must be multiples of the window (as in the JAX package; the
-reference pads, this does not). Module names are the reference's
+Any H and W: as the reference's check_image_size does, the input is
+reflect-padded at the bottom and right to window multiples, and the output
+cropped to H s x W s (the JAX package takes window multiples only, where
+the two agree). Module names are the reference's
 (layers.{i}.residual_group.blocks.{j}.attn.qkv, ...); the reference's
 computed buffers (relative_position_index, attn_mask) are not state here,
 so its .pth loads once they are dropped (facelib/factory.py's
@@ -19,6 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from comfyui_keep_torch.models.init import default_init_, finish
@@ -130,7 +133,7 @@ class SwinTransformerBlock(nn.Module):
         b, l, c = x.shape
         ws = min(self.window_size, min(h, w))
         sh = 0 if min(h, w) <= self.window_size else self.shift
-        if h % ws or w % ws:
+        if h % ws or w % ws:     # SwinIR.forward pads to window multiples
             raise ValueError(f"SwinIR: H and W ({h}, {w}) must be multiples "
                              f"of the window ({ws})")
         rel, mask = window_tables(cache, h, w, ws, sh, x.device)
@@ -184,9 +187,10 @@ class RSTB(nn.Module):
 
 @ARCH_REGISTRY.register()
 class SwinIR(nn.Module):
-    """x (B, C, H, W) in [0, 1] -> (B, C, H s, W s); H and W multiples of
-    window_size. The input is centred on RGB_MEAN (3 channels) and scaled
-    by img_range, and the output brought back."""
+    """x (B, C, H, W) in [0, 1] -> (B, C, H s, W s), any H and W (padded
+    to window_size multiples and cropped back). The input is centred on
+    RGB_MEAN (3 channels) and scaled by img_range, and the output brought
+    back."""
 
     def __init__(self, in_chans: int = 3, embed_dim: int = 96,
                  depths: Sequence[int] = (6, 6, 6, 6),
@@ -205,6 +209,7 @@ class SwinIR(nn.Module):
                              "nearest+conv", ""):
             raise ValueError(f"upsampler {upsampler!r}")
         self.in_chans, self.upscale = in_chans, upscale
+        self.window_size = window_size
         self.img_range, self.upsampler = img_range, upsampler
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
         if patch_norm:
@@ -256,6 +261,11 @@ class SwinIR(nn.Module):
         return tokens.transpose(1, 2).reshape(b, c, h, w)
 
     def forward(self, x):
+        h, w = x.shape[2:]
+        ws = self.window_size
+        pad_h, pad_w = -h % ws, -w % ws
+        if pad_h or pad_w:       # the reference's check_image_size
+            x = F.pad(x, (0, pad_w, 0, pad_h), mode="reflect")
         mean = (torch.tensor(RGB_MEAN, dtype=x.dtype, device=x.device).view(
             1, 3, 1, 1) if self.in_chans == 3 else 0.0)
         x = (x - mean) * self.img_range
@@ -279,4 +289,8 @@ class SwinIR(nn.Module):
                           leaky_relu(conv3x3(self.conv_hr, feat), 0.2))
         else:
             out = x + conv3x3(self.conv_last, feat)
-        return out / self.img_range + mean
+        out = out / self.img_range + mean
+        if pad_h or pad_w:
+            s = out.shape[2] // x.shape[2]
+            out = out[:, :, :h * s, :w * s]
+        return out

@@ -31,9 +31,9 @@ from comfyui_keep_torch.models.init import (default_init_, finish,
                                             spectral_init_)
 from comfyui_keep_torch.ops import (batch_norm, conv2d, conv3d, group_norm,
                                     leaky_relu, linear, softmax_attention,
-                                    spectral_norm_weight, swish,
-                                    upsample_nearest_2x)
+                                    swish, upsample_nearest_2x)
 from comfyui_keep_torch.ops import kernels as K
+from comfyui_keep_torch.ops import spectral
 from comfyui_keep_torch.ops import phase_pack as pp
 from comfyui_keep_torch.ops.norm import GN_EPS
 from comfyui_keep_torch.utils.registry import ARCH_REGISTRY
@@ -690,10 +690,13 @@ class VQGANDiscriminator(nn.Module):
 class SpectralNormConv3d(nn.Module):
     """A Conv3d under torch's spectral_norm, by its state-dict names:
     `weight_orig`, `bias` (if any) and the power-iteration buffers
-    `weight_u` (O,) and `weight_v`. The forward normalises weight_orig by
-    one power iteration from weight_u (ops/spectral.py) and leaves the
-    buffers as they are, as the JAX package's apply does; weight_v is kept
-    for loading and unused."""
+    `weight_u` (O,) and `weight_v`. In training each forward runs torch's
+    hook step (ops/spectral.py layer_weight): u and v advance in
+    place, and the output equals the JAX package's apply from the same
+    incoming u. In eval the forward normalises weight_orig by one power
+    iteration from weight_u and leaves the buffers as they are, as the JAX
+    package's apply does (torch's hook would divide by u.(W v) from the
+    stored u and v)."""
 
     def __init__(self, cin: int, cout: int, kernel, stride, padding,
                  bias: bool):
@@ -706,8 +709,8 @@ class SpectralNormConv3d(nn.Module):
         self.register_buffer("weight_v", torch.ones(n) / n ** 0.5)
 
     def forward(self, x):
-        w, _ = spectral_norm_weight(self.weight_orig, self.weight_u)
-        return conv3d(x, w, self.bias, self.stride, self.padding)
+        return conv3d(x, spectral.layer_weight(self), self.bias, self.stride,
+                      self.padding)
 
 
 @ARCH_REGISTRY.register()

@@ -9,10 +9,14 @@ the card; their `device` keyword (not a widget) asks for another.
 As in the JAX package and the reference, the execution nodes trap every
 error, print the traceback, return (None,) and always offload the pack;
 the loader passes the two optional upscale models through to the pack
-(bgr_u8 -> bgr_u8 upscalers) and records the detection model's name
-without building a detector, so a whole-frame call through these nodes
-fails inside the trap (in both packages; whole frames go through
-api.load_models(detector=..., parser=...)).
+(bgr_u8 -> bgr_u8 upscalers) and records the detection model's name.
+Given `model_rootpath` (a keyword, not a widget: a directory holding the
+reference-named .pth files, facelib/factory.py's MODEL_NAMES), the loader
+also builds the named detector and the reference's ParseNet on the host,
+as the reference's loader does, so whole frames go through the nodes;
+nothing is downloaded. Without it the pack has no detector (as the JAX
+node's), and a whole frame fails inside the trap with a message naming
+`model_rootpath` and the files it must hold.
 """
 import traceback
 from typing import Optional
@@ -20,6 +24,7 @@ from typing import Optional
 import numpy as np
 
 from comfyui_keep_torch import api
+from comfyui_keep_torch.facelib import factory
 from comfyui_keep_torch.utils.image import comfy_to_cv2, cv2_to_comfy
 
 # the KEEP variants of the reference's KEEP_MODEL_CONFIGS (modules/utils.py)
@@ -52,12 +57,39 @@ class KEEP_ModelLoaderNode:
 
     def load_model_pack(self, model, detection_model,
                         bg_upscale_model=None, face_upscale_model=None,
-                        keep_ckpt: Optional[str] = None):
+                        keep_ckpt: Optional[str] = None,
+                        model_rootpath: Optional[str] = None):
+        helpers = {}
+        if model_rootpath is not None:
+            # the reference's loader: the named detector and ParseNet, on
+            # the host until the pack moves (a missing file raises
+            # FileNotFoundError naming it)
+            helpers = {
+                "detector": factory.init_detection_model(
+                    detection_model, model_rootpath=model_rootpath,
+                    device="cpu"),
+                "parser": factory.init_parsing_model(
+                    "parsenet", model_rootpath=model_rootpath, device="cpu")}
         pack = api.load_models(
             model_type=model, keep_ckpt=keep_ckpt,
-            bg_upscaler=bg_upscale_model, face_upscaler=face_upscale_model)
+            bg_upscaler=bg_upscale_model, face_upscaler=face_upscale_model,
+            **helpers)
         pack.detection_model = detection_model
         return (pack,)
+
+
+def _check_whole_frames(pack, aligned: bool):
+    """A whole frame needs the pack's face helper: without one, raise an
+    error that says how the loader builds it."""
+    if aligned or pack.face_helper is not None:
+        return
+    det = factory.MODEL_NAMES.get(getattr(pack, "detection_model", None),
+                                  factory.MODEL_NAMES["retinaface_resnet50"])
+    raise RuntimeError(
+        "a whole frame needs a face detector and parser, which this pack "
+        "lacks: load it with model_rootpath, a directory holding "
+        f"{det} and {factory.MODEL_NAMES['parsenet']} (nothing is "
+        "downloaded)")
 
 
 _UPSCALE_WIDGET = ("FLOAT", {
@@ -97,6 +129,7 @@ class KEEP_FaceUpscaleImageNode:
                   f"{type(keep_model)}")
             return (None,)
         try:
+            _check_whole_frames(keep_model, has_aligned_face)
             keep_model.load_device(device=device)
             # comfy_to_cv2 takes the first image of the batch (nodes.py:72)
             img_bgr = comfy_to_cv2(np.asarray(image))
@@ -153,6 +186,7 @@ class KEEP_ProcessImageSequenceNode:
                   f"{type(keep_model)}")
             return (None,)
         try:
+            _check_whole_frames(keep_model, has_aligned_frames)
             keep_model.load_device(device=device)
             frames = [comfy_to_cv2(f) for f in np.asarray(images)]
             outs = api.restore_sequence(

@@ -205,6 +205,8 @@ def train_pipeline(opt: Dict, max_iters: Optional[int] = None,
     train_loader, val_loaders = create_train_val_loaders(
         opt, logger, dist=mesh is not None)
     trainer = build_model(opt, mesh=mesh, **(trainer_kwargs or {}))
+    if hasattr(trainer, "check_lq_scale"):       # the KEEP trainers
+        trainer.check_lq_scale(getattr(train_loader.dataset, "scale", 1))
     trainer.batch_is_local = True
     state = trainer.make_state()
     run = {"trainer": trainer, "restored": None, "resume_s": None,

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from comfyui_keep_torch.models import build_network
 from comfyui_keep_torch.models.gmflow import GMFlow, flow_from_clip
-from comfyui_keep_torch.models.keep import KEEP, config
+from comfyui_keep_torch.models.keep import KEEP, config, upscale_clip
 from comfyui_keep_torch.models.stylegan2 import (StyleGAN2Discriminator,
                                                  StyleGAN2Generator)
 from comfyui_keep_torch.models.vqgan import Discriminator3D, VQHQEncoder
@@ -241,6 +241,11 @@ class KEEPTrainer(BaseTrainer):
     loss's features, feature_fn(x NCHW, layers) -> {layer: NCHW} (e.g. a
     VGGFeatureExtractor on the trainer's device), needed with
     perceptual_opt. The trainer runs on "cuda" unless given device="cpu".
+
+    The LQ clip is at img_size (a dataset at scale 1) or img_size / 4 (the
+    datasets' default scale 4, as the reference trains): KEEP then runs
+    with need_upscale, the flows taken on the upscaled clip
+    (check_lq_scale, need_upscale).
     """
     default_fix_modules = ("quantize", "generator")
 
@@ -292,11 +297,34 @@ class KEEPTrainer(BaseTrainer):
             return zero, zero
         return flow_from_clip(self.gmflow, clip.detach())
 
+    @staticmethod
+    def check_lq_scale(scale):
+        """The training dataset's scale: 1 (LQ at img_size) or 4 (LQ at
+        img_size / 4, which KEEP upscales); another raises."""
+        if scale not in (1, 4):
+            raise ValueError(
+                f"datasets.train.scale is {scale}: KEEP trains on LQ clips at "
+                "img_size (scale 1) or img_size / 4 (scale 4, upscaled inside "
+                "KEEP as the reference's need_upscale)")
+
+    def need_upscale(self, lq) -> bool:
+        """True for an LQ clip (B, T, h, w, 3) at img_size / 4, False at
+        img_size; another size raises."""
+        size, hw = self.cfg["img_size"], tuple(lq.shape[2:4])
+        if hw == (size // 4, size // 4) and size % 4 == 0:
+            return True
+        if hw == (size, size):
+            return False
+        raise ValueError(f"LQ frames of {hw[0]}x{hw[1]}: KEEP at img_size "
+                         f"{size} takes {size} or {size // 4} (need_upscale)")
+
     @torch.no_grad()
     def forward(self, model: KEEP, lq):
         """Eval forward (validation): the network on the LQ clip with its
-        flows."""
-        return model.apply(lq, flows=self._flows(lq))
+        flows (upscaled by KEEP when the clip is at img_size / 4)."""
+        up = self.need_upscale(lq)
+        return model.apply(lq, flows=self._flows(upscale_clip(lq) if up
+                                                  else lq), need_upscale=up)
 
     def loss_fn(self, model: KEEP, batch):
         total, loss_dict, _ = self._loss_outs(model, batch)
@@ -305,8 +333,11 @@ class KEEPTrainer(BaseTrainer):
     def _loss_outs(self, model: KEEP, batch):
         """(total, {name: loss}, restored frames)."""
         lq, gt = batch["lq"], batch["gt"]
-        flows = self._flows(lq) if self.gmflow is not None else None
-        outs, aux = model(lq, flows)
+        up = self.need_upscale(lq)
+        # the flows of the clip KEEP sees: the upscaled one when up
+        flows = (self._flows(upscale_clip(lq) if up else lq)
+                 if self.gmflow is not None else None)
+        outs, aux = model(lq, flows, need_upscale=up)
         total, loss_dict = 0.0, {}
         b, t = gt.shape[:2]
 
@@ -386,11 +417,14 @@ class KEEPGANTrainer(KEEPTrainer):
     D is built from network_d.args under its own generator (manual_seed +
     777), trains in f32 masters with its own optimizer (optim_d, the LR
     times the schedule at D's own update count, no accumulation), and sees
-    the compute dtype under mixed precision, as the generator does. Its
-    spectral-norm power-iteration vectors (weight_u) are buffers that no
-    forward advances and no optimizer holds, as the JAX package keeps u
-    fixed (ROADMAP Queue 3). D and its optimizer are the trainer's
-    extra_state, saved and resumed with the generator's state."""
+    the compute dtype under mixed precision, as the generator does. D runs
+    in training mode, so each of its forwards (on the restored clip in the
+    generator's step, then on gt and on the restored clip in its own)
+    advances its spectral-norm vectors weight_u and weight_v in place, as
+    the reference's spectral_norm does (the JAX package keeps u fixed);
+    they are buffers that no optimizer holds. D, these buffers included,
+    and its optimizer are the trainer's extra_state, saved and resumed
+    with the generator's state."""
 
     def __init__(self, opt: Dict, hq_vqgan: Optional[VQHQEncoder] = None,
                  gmflow: Optional[GMFlow] = None, device="cuda",
@@ -422,8 +456,8 @@ class KEEPGANTrainer(KEEPTrainer):
             generator=torch.Generator().manual_seed(self.seed + 777))
 
     def extra_state(self) -> Dict:
-        """The discriminator (its weight_u buffers included) and its
-        optimizer, for TrainState.save."""
+        """The discriminator (its weight_u and weight_v buffers included)
+        and its optimizer, for TrainState.save."""
         return {"d_params": self.disc.state_dict(),
                 "d_opt_state": self.d_optimizer.state_dict()}
 
@@ -1051,8 +1085,12 @@ class GMFlowTrainer(BaseTrainer):
     """GMFlow (reference archs/gmflow/main.py:180-420): AdamW (train.lr 4e-4,
     weight_decay 1e-4) after optax's global-norm clip (grad_clip 1.0) on
     optax's one-cycle cosine schedule over num_steps + 10 updates
-    (pct_start 0.05), and flow_loss_func (gamma 0.9) on GMFlow.forward's
-    final flow alone, as the JAX package passes [pred]. network_g:
+    (pct_start 0.05), and flow_loss_func (gamma 0.9) on the reference's two
+    predictions, GMFlow.forward(return_preds=True): the matched flow before
+    propagation upsampled bilinearly (weight gamma), then the final flow
+    (weight 1), so the correlation and the f1 half of the last cross
+    attention get a gradient; the metrics are the final flow's (the JAX
+    package passes the final flow alone). network_g:
     attn_splits, corr_radius, prop_radius; the net is GMFlow's default
     (128 channels, 6 layers), as the JAX package's init. Batches: "img1",
     "img2" (B, H, W, 3) in [0, 255], "flow" (B, H, W, 2), "valid" (B, H,
@@ -1089,9 +1127,9 @@ class GMFlowTrainer(BaseTrainer):
         clip_by_global_norm_(list(state.model.parameters()), self.grad_clip)
 
     def loss_fn(self, model: GMFlow, batch):
-        pred = model(batch["img1"], batch["img2"], self.attn_splits,
-                     self.corr_radius, self.prop_radius)
-        loss, metrics = flow_loss_func([pred], batch["flow"],
+        preds = model(batch["img1"], batch["img2"], self.attn_splits,
+                      self.corr_radius, self.prop_radius, return_preds=True)
+        loss, metrics = flow_loss_func(preds, batch["flow"],
                                        valid=batch.get("valid"),
                                        gamma=self.gamma)
         return loss, {**metrics, "l_flow": loss}

@@ -567,7 +567,8 @@ def check_device(device: str) -> str:
 
 def parse_options(root_path: str = ".", is_train: bool = True, args=None):
     """(opt, parsed arguments) from the command line: -opt the YAML,
-    --force_yml overrides, --debug, --auto_resume, --seed, --launcher
+    --force_yml overrides, --debug, --auto_resume, --seed (written into
+    manual_seed; without it and the yml's, a random one), --launcher
     torch (joins torch.distributed from torchrun's environment,
     parallel/mesh.py:init_distributed) and --device (default "cuda",
     which raises without a card). opt["path"] gains the experiment's
@@ -596,10 +597,12 @@ def parse_options(root_path: str = ".", is_train: bool = True, args=None):
         opt["name"] = "debug_" + opt["name"]
         set_debug(opt)
 
-    seed = parsed.seed if parsed.seed is not None else opt.get("manual_seed")
-    if seed is None:
-        seed = random.randint(1, 10000)
-        opt["manual_seed"] = seed
+    if parsed.seed is not None:
+        # --seed wins over the yml's manual_seed (the JAX package keeps the
+        # yml's)
+        opt["manual_seed"] = parsed.seed
+    elif opt.get("manual_seed") is None:
+        opt["manual_seed"] = random.randint(1, 10000)
 
     if parsed.launcher == "torch":
         from comfyui_keep_torch.parallel.mesh import init_distributed

@@ -469,18 +469,93 @@ def test_train_pipeline_gan_saves_and_resumes(tmp_path, monkeypatch):
 
 def test_default_dataset_scale_gives_keep_a_quarter_size_clip(tmp_path):
     """The stage-III yml sets no dataset scale, and the dataset's default is
-    4: a 64^2 clip gives 16^2 LQ frames, which KEEP at img_size 64 (no
-    need_upscale) refuses, in the port as in the JAX package (its
-    train_pipeline raises a broadcasting ValueError in the token
-    transformer's position add; ROADMAP Queue 3)."""
+    4: a 64^2 clip gives 16^2 LQ frames, which KEEP at img_size 64 refuses
+    without need_upscale (in both packages). The reference trains on such
+    quarter-size LQ, upscaled inside KEEP, and so do the port's KEEP
+    trainers: at img_size / 4 they run KEEP with need_upscale (flows, none
+    here, on the upscaled clip). Their training and eval forwards are held
+    to JAX's KEEP.apply(need_upscale=True) on the same weights (a perturbed
+    JAX init, the pick layer's LayerNorm scale 0 so both packages pick one
+    code: KEEP_TOL of tests/test_torch_chunks.py, 5e-3 / 1e-2), and
+    train_pipeline trains one step from the yml's dataset section (scale
+    unset; num_frame cut to 2 for the CPU) at img_size 64."""
+    import jax
+    import jax.numpy as jnp
+    from comfyui_keep_tpu.models.keep import KEEP as JKEEP
     from comfyui_keep_torch.models.keep import KEEP
+    from comfyui_keep_torch.training import train as train_mod
+    from comfyui_keep_torch.training.trainers import (KEEPGANTrainer,
+                                                      KEEPTrainer)
+    from comfyui_keep_torch.utils.convert import params_from_jax
+    from comfyui_keep_torch.utils.options import yaml_load
     gt_root, meta = write_clip(str(tmp_path), 4, 64)
-    ds = build_dataset({"type": "VFHQDataset", "dataroot_gt": gt_root,
-                        "meta_info_file": meta, "num_frame": 2})
+    yml = yaml_load(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "options", "train_keep_stage3_gan.yml"))
+    dataset_opt = {**yml["datasets"]["train"], "dataroot_gt": gt_root,
+                   "meta_info_file": meta, "num_frame": 2}
+    assert "scale" not in dataset_opt
+    ds = build_dataset(dataset_opt)
     item = ds[1]
     assert item["lq"].shape == (2, 16, 16, 3)
+    assert item["gt"].shape == (2, 64, 64, 3)
+    lq = torch.as_tensor(item["lq"])[None]
     net = KEEP(device="cpu", generator=torch.Generator().manual_seed(0),
                **TINY)
     with pytest.raises(RuntimeError):
         with torch.no_grad():
-            net.apply(torch.as_tensor(item["lq"])[None])
+            net.apply(lq)
+
+    rng = np.random.default_rng(40)
+    tree = jax.tree.map(
+        lambda a: np.asarray(a, np.float32) + 0.02 * rng.standard_normal(
+            np.shape(a)).astype(np.float32),
+        JKEEP.init(jax.random.PRNGKey(4), **TINY))
+    tree["idx_pred_layer"][0]["scale"] = np.zeros_like(
+        tree["idx_pred_layer"][0]["scale"])
+    net.load_state_dict(params_from_jax(tree, net))
+    ref = np.asarray(JKEEP.apply(tree, jnp.asarray(item["lq"])[None],
+                                 need_upscale=True, remat=False, **TINY))
+    tr = KEEPTrainer({"model_type": "KEEPModel", "manual_seed": 0,
+                      "network_g": {"type": "KEEP", **TINY},
+                      "train": {"pixel_opt": {"type": "L1Loss"}}},
+                     device="cpu")
+    assert tr.need_upscale(lq) and not tr.need_upscale(
+        torch.as_tensor(item["gt"])[None])
+    got = tr.forward(net, lq)
+    _, _, outs = tr._loss_outs(net, {"lq": lq, "gt": torch.as_tensor(
+        item["gt"])[None]})
+    for o in (got, outs.detach()):
+        assert o.shape == ref.shape == (1, 2, 64, 64, 3)
+        np.testing.assert_allclose(o.numpy(), ref, atol=5e-3, rtol=1e-2)
+    with pytest.raises(ValueError, match="LQ frames of 32x32"):
+        tr.need_upscale(torch.zeros(1, 2, 32, 32, 3))
+
+    opt = stage3_tiny(str(tmp_path), gt_root, meta)
+    opt["datasets"]["train"] = {**dataset_opt, "batch_size_per_gpu": 1}
+    opt["train"]["total_iter"] = 1
+    hq = VQHQEncoder(device="cpu", generator=torch.Generator().manual_seed(1),
+                     **{k: TINY[k] for k in ("img_size", "nf", "ch_mult",
+                                             "res_blocks", "attn_resolutions",
+                                             "codebook_size", "emb_dim")})
+    state, logs = train_mod.train_pipeline(
+        opt, trainer_kwargs={"hq_vqgan": hq, "device": "cpu"})
+    run = logs.pop("run")
+    assert isinstance(run["trainer"], KEEPGANTrainer) and state.iter == 1
+    assert run["batch"]["lq"].shape == (1, 2, 16, 16, 3)
+    assert {"l_g_gan", "l_d", "l_pix"} <= logs.keys()
+    assert all(np.isfinite(v) for v in logs.values())
+
+
+def test_keep_training_refuses_other_lq_scales(tmp_path):
+    """A KEEP trainer's dataset at any scale but 1 or 4 raises in
+    train_pipeline, naming datasets.train.scale."""
+    from comfyui_keep_torch.training import train as train_mod
+    gt_root, meta = write_clip(str(tmp_path), 4, 64)
+    opt = stage3_tiny(str(tmp_path), gt_root, meta, scale=2)
+    hq = VQHQEncoder(device="cpu", generator=torch.Generator().manual_seed(1),
+                     **{k: TINY[k] for k in ("img_size", "nf", "ch_mult",
+                                             "res_blocks", "attn_resolutions",
+                                             "codebook_size", "emb_dim")})
+    with pytest.raises(ValueError, match="datasets.train.scale is 2"):
+        train_mod.train_pipeline(opt, trainer_kwargs={"hq_vqgan": hq,
+                                                      "device": "cpu"})

@@ -6,7 +6,9 @@ One alternation from the same G and D weights (JAX trees, the KEEP one
 perturbed so that the zero-initialised CFT/CFA/temporal blocks are live,
 carried into the port by params_from_jax) and the same batch: the loss
 terms within 1e-4 relative; the updated generator, its EMA and the updated
-discriminator within 1e-5 of each leaf's largest magnitude. The code picks
+discriminator within 1e-5 of each leaf's largest magnitude; the port's D
+advances its spectral-norm u at each training forward, and JAX's D is fed
+the u the port's held before each of its calls. The code picks
 are argmaxes / argmins: their top-1/top-2 margins are asserted first, far
 above the numeric error, so no pick flips between the packages. G and D
 take SGD here (optim_g / optim_d), whose update is linear in the gradient,
@@ -33,7 +35,8 @@ from comfyui_keep_torch.models.keep import KEEP
 from comfyui_keep_torch.models.vqgan import Discriminator3D, VQHQEncoder
 from comfyui_keep_torch.training.trainers import KEEPGANTrainer, build_model
 from comfyui_keep_torch.utils.convert import params_from_jax
-from tests.torch_port_helpers import pyyaml_opt, same_values
+from tests.torch_port_helpers import (SpectralUFeed, power_iterations,
+                                      pyyaml_opt, same_values)
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -128,8 +131,14 @@ def assert_leaves_close(ours, ref, what):
 def test_keep_gan_alternation_vs_jax(setup):
     """Iteration 1 of the alternation in both packages: G's step with the
     hinge GAN term (D frozen for it), the EMA, then D's step on (gt,
-    restored)."""
+    restored). The port's D advances its spectral-norm u at each of its
+    three training forwards (torch's spectral_norm; the JAX package keeps
+    u): JAX's D is fed, at each call, the u the port's held before the
+    same call (SpectralUFeed), and the port's u after each call is the
+    float64 power iteration's from the weights and the initial u (within
+    1e-5)."""
     tr, state = port_trainer(setup)
+    feed = SpectralUFeed(jvq.Discriminator3D, setup["d_tree"], tr.disc)
     batch = tbatch(setup)
     with torch.no_grad():
         _, aux = state.model.apply(batch["lq"], flows=tr._flows(batch["lq"]),
@@ -141,6 +150,9 @@ def test_keep_gan_alternation_vs_jax(setup):
     assert rel_margin(aux["logits"].numpy()) > LOGIT_MARGIN
     assert rel_margin(dist.numpy(), smallest=True) > DIST_MARGIN
 
+    d_before = copy.deepcopy(tr.disc.state_dict())
+    state, logs = tr.gan_train_step(state, batch, current_iter=1)
+
     jtr = JKEEPGANTrainer(gan_opt(), hq_vqgan_params=jax.tree.map(
         jnp.asarray, setup["hq_tree"]))
     jstate = jtr.make_state(jax.random.PRNGKey(0))
@@ -149,12 +161,11 @@ def test_keep_gan_alternation_vs_jax(setup):
     jstate.ema_params = jstate.params
     jtr.d_params = jax.tree.map(jnp.asarray, setup["d_tree"])
     jtr.d_opt_state = jtr.tx_d.init(jtr.d_params)
+    jtr.disc = feed
     jstate, logs_j = jtr.gan_train_step(
         jstate, {k: jnp.asarray(v) for k, v in setup["batch"].items()},
         current_iter=1)
-
-    d_before = copy.deepcopy(tr.disc.state_dict())
-    state, logs = tr.gan_train_step(state, batch, current_iter=1)
+    assert len(feed.seen) == feed.calls == 3
     # JAX's l_total is the sum before the GAN term; the port's the whole
     # generator objective
     logs_j["l_total"] += logs_j["l_g_gan"]
@@ -169,23 +180,27 @@ def test_keep_gan_alternation_vs_jax(setup):
     ema_ref = params_from_jax(jax.tree.map(np.asarray, jstate.ema_params),
                               state.model)
     assert_leaves_close(state.ema, {n: ema_ref[n] for n in state.ema}, "EMA")
-    # weight_v: params_from_jax derives it from the weights it is given;
-    # neither package's forward reads it
+    # D's weights; its u and v are the port's own, held below (JAX keeps
+    # the tree's u, and params_from_jax derives v from it)
     d_ref = {k: v for k, v in params_from_jax(
         jax.tree.map(np.asarray, jtr.d_params), tr.disc).items()
-        if not k.endswith("weight_v")}
+        if not k.endswith(("weight_u", "weight_v"))}
     assert_leaves_close({k: v for k, v in tr.disc.state_dict().items()
                          if k in d_ref}, d_ref, "D")
-    # the updates are large against the tolerance, and u stays put
+    # the updates are large against the tolerance, and u advanced
     for n in ("feat_emb.weight", "encoder.blocks.0.weight"):
         moved = (params[n] - setup["net"].get_parameter(n)).abs().max()
         assert moved > 30 * PARAM_RTOL * params[n].abs().max(), n
     sd = tr.disc.state_dict()
     for k, v in d_before.items():
-        if k.endswith("weight_u"):
-            assert torch.equal(sd[k], v), k
-        elif k.endswith("weight_orig"):
+        if k.endswith(("weight_u", "weight_orig")):
             assert not torch.equal(sd[k], v), k
+        if k.endswith("weight_u"):
+            w = d_before[k.replace("weight_u", "weight_orig")]
+            want = power_iterations(w.numpy(), v.numpy(), 3)
+            got = [u[k] for u in feed.seen[1:]] + [sd[k].numpy()]
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
 
 
 def test_net_d_start_iter_gates_the_gan_terms(setup):
@@ -251,7 +266,8 @@ def test_chip_smoke_stage3_opt_matches_the_yml():
     YAML reader (the card machine has no pyyaml) and applies its one
     departure, the dataset's `scale: 1`, as --force_yml applies it (the yml
     sets none, and the dataset's default of 4 gives KEEP's 512 net a 128^2
-    LQ clip, on which both packages raise): the result equals pyyaml's load
+    LQ clip, which JAX refuses and the port's trainers upscale): the result
+    equals pyyaml's load
     of the yml with the same departure, value for value, type for type, in
     order."""
     sys.path.insert(0, REPO)

@@ -7,7 +7,10 @@ num_scales=2 (perturbed by 0.02) carried into the port by params_from_jax.
 At the defaults, attn_splits (2, 8), scale 0 runs 1/8-resolution features
 (8x8, 4x4 windows) with global matching and propagation, scale 1 the
 1/4-resolution ones (16x16, 2x2 windows of the 8x8 split) with local
-matching (radius 4) and propagation (radius 1). Tolerances are the JAX
+matching (radius 4) and propagation (radius 1). The published model's
+upsample_factor=4 (the port's; JAX is fixed at 8): its convex upsampling
+against JAX's factor-generic upsample_flow_convex, its output size and
+the reference's training predictions. Tolerances are the JAX
 package's GMFlow golden ones (tests/test_gmflow_golden.py): 2e-4/1e-3 for
 features, 2e-3 px / 1e-2 for flows.
 """
@@ -163,14 +166,86 @@ def test_apply_refine_matches_jax(nets, images):
 
 
 def test_apply_refine_upsamples_x8_from_quarter_resolution(nets, images):
-    """As in the JAX package, the convex upsampler is x8 whatever the
-    scale count, so two scales (1/4-resolution features) return twice the
-    input size; the published gmflow_with_refine model upsamples x4
-    (ROADMAP Queue 3)."""
-    _, net = nets
+    """At the default upsample_factor 8 (the JAX package's only factor) the
+    convex upsampler has 8^2 * 9 mask channels, so two scales
+    (1/4-resolution features) return twice the input size, as in JAX. The
+    published gmflow_with_refine is built with upsample_factor=4: its
+    upsampler.2 has the published 4^2 * 9 = 144 channels, and two scales
+    return the input's size."""
+    tree, net = nets
     img0, img1 = images
     assert net.upsampler[2].out_channels == 8 * 8 * 9
     assert net.apply_refine(_t(img0), _t(img1)).shape == (1, 128, 128, 2)
+    x4 = x4_net(tree)
+    assert x4.state_dict()["upsampler.2.weight"].shape == (144, 256, 1, 1)
+    assert x4.state_dict()["upsampler.2.bias"].shape == (144,)
+    assert x4.apply_refine(_t(img0), _t(img1)).shape == (1, 64, 64, 2)
+    assert x4.apply_refine(_t(img0), _t(img1),
+                           pred_bidir_flow=True).shape == (2, 64, 64, 2)
+
+
+def x4_net(tree, seed=5):
+    """The port's refinement model at upsample_factor=4 on `tree`, its
+    upsampler JAX's upsampler_init(factor=4) (perturbed by 0.02)."""
+    rng = np.random.default_rng(seed)
+    up = jax.tree.map(
+        lambda a: np.asarray(a, np.float32)
+        + 0.02 * rng.standard_normal(np.shape(a)).astype(np.float32),
+        jg.upsampler_init(jax.random.PRNGKey(seed), factor=4))
+    net = tg.GMFlow(num_layers=2, num_scales=2, upsample_factor=4,
+                    device="cpu")
+    net.load_state_dict(params_from_jax({**tree, "upsampler": up}, net))
+    return net
+
+
+def test_convex_upsampling_at_factor_4_matches_jax(nets):
+    """upsample_flow_convex at factor 4 (16 x 9 softmax weights a pixel)
+    against JAX's factor-generic upsample_flow_convex on the same
+    upsampler (upsampler_init(factor=4)), flow and features."""
+    tree, _ = nets
+    net = x4_net(tree)
+    rng = np.random.default_rng(6)
+    flow = (rng.standard_normal((2, 8, 12, 2)) * 3).astype(np.float32)
+    feat = rng.standard_normal((2, 8, 12, 128)).astype(np.float32)
+    p = jax.tree.map(jnp.asarray, params_from_jax_upsampler(net))
+    ref = jg.upsample_flow_convex(p, jnp.asarray(flow), jnp.asarray(feat),
+                                  factor=4)
+    with torch.no_grad():
+        fx, fy = tg.upsample_flow_convex(net.upsampler, _t(flow), _t(feat),
+                                         4)
+    ours = torch.stack([fx, fy], dim=-1).numpy()
+    assert ours.shape == (2, 32, 48, 2)
+    np.testing.assert_allclose(ours, np.asarray(ref), **FLOW_TOL)
+
+
+def params_from_jax_upsampler(net):
+    """The port upsampler's weights in JAX's layout ([conv, None, conv],
+    w (kh, kw, cin, cout))."""
+    c0, c2 = net.upsampler[0], net.upsampler[2]
+    return [{"w": c.weight.detach().permute(2, 3, 1, 0).numpy(),
+             "b": c.bias.detach().numpy()} if c is not None else None
+            for c in (c0, None, c2)]
+
+
+def test_refine_predictions_follow_the_reference(nets, images):
+    """refine(return_preds=True), the reference's training predictions on
+    the x4 model: scale 0's flow before and after propagation, bilinear
+    x8 (4 * 2^1) from 1/8 resolution, scale 1's before it, bilinear x4
+    from 1/4, then the convex flow, all at the input's size; the last is
+    apply_refine's, bitwise. The default factor's refine gives the same
+    list at twice the size."""
+    tree, net = nets
+    img0, img1 = images
+    x4 = x4_net(tree).requires_grad_(True)
+    preds = x4.refine(_t(img0), _t(img1), return_preds=True)
+    assert [tuple(p.shape) for p in preds] == [(1, 64, 64, 2)] * 4
+    assert preds[-1].requires_grad
+    np.testing.assert_array_equal(
+        preds[-1].detach().numpy(),
+        x4.apply_refine(_t(img0), _t(img1)).numpy())
+    with torch.no_grad():
+        preds8 = net.refine(_t(img0), _t(img1), return_preds=True)
+    assert [tuple(p.shape) for p in preds8] == [(1, 128, 128, 2)] * 4
 
 
 def test_apply_refine_bidirectional_matches_jax(nets, images):

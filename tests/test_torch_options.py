@@ -215,7 +215,8 @@ def test_parse_options_equals_jax(tmp_path, argv, is_train):
     """The same opt (path layout, seed, debug name and rewrites) as JAX's
     parse_options on the same argv; the port's takes --device too. A
     random seed (manual_seed unset) is drawn from the same `random`
-    state."""
+    state. --seed 5 is the one departure: it becomes manual_seed, where
+    JAX keeps the yml's (0 here)."""
     yml = os.path.join(REPO, "options", "train_keep_stage3_gan.yml")
     full = ["-opt", yml] + argv
     random.seed(3)
@@ -223,6 +224,9 @@ def test_parse_options_equals_jax(tmp_path, argv, is_train):
     random.seed(3)
     ours, args = topt.parse_options(str(tmp_path), is_train,
                                     full + ["--device", "cpu"])
+    if "--seed" in argv:
+        assert ref["manual_seed"] == 0 and ours["manual_seed"] == 5
+        ref["manual_seed"] = 5
     assert same(ours, ref)
     assert args.device == "cpu" and args.launcher == "none"
     assert {k: v for k, v in vars(args).items() if k != "device"} == {

@@ -37,7 +37,7 @@ from comfyui_keep_torch.training import trainers as ttr
 from comfyui_keep_torch.utils import img_process as timg
 from comfyui_keep_torch.utils.convert import params_from_jax
 
-from tests.torch_port_helpers import state_numpy
+from tests.torch_port_helpers import SpectralUFeed, state_numpy
 
 torch.set_num_threads(2)
 LOSS_RTOL = 1e-5
@@ -162,16 +162,23 @@ def test_srgan_alternation_vs_jax(it, d_init):
     state = tr.make_state()
     g_grads = capture_grads(state.model, state.optimizer)
     d_grads = capture_grads(tr.disc, tr.d_optimizer)
-    tree, d_tree = jax_tree(state.model), jax_tree(tr.disc)
+    # copies: the port's step below updates the weights these would view
+    tree, d_tree = (jax.tree.map(np.array, jax_tree(m))
+                    for m in (state.model, tr.disc))
     jt = jtr.SRGANTrainer(opt)
     js = jax_state(jt, tree)
     jt.d_params = d_tree
     jt.tx_d = jbuild_opt(dict(opt["train"]["optim_d"]), schedule=jt.schedule)
     jt.d_opt_state = jt.tx_d.init(d_tree)
     b = sr_batch(3)
-    js, ref_logs = jt.gan_train_step(js, b, current_iter=it)
+    # the port's D advances its spectral-norm u at each training forward;
+    # JAX's is fed the u the port's held before the same call
+    feed = SpectralUFeed(jt.d_arch, d_tree, tr.disc)
     state, logs = tr.train_step(state, {k: torch.as_tensor(v)
                                         for k, v in b.items()})
+    jt.d_arch = feed
+    js, ref_logs = jt.gan_train_step(js, b, current_iter=it)
+    assert feed.calls == len(feed.seen) == (2 if d_init else 3)
     assert logs.keys() == ref_logs.keys()
     assert_losses(logs, ref_logs, ref_logs.keys())
     assert state.iter == 1 and tr.d_updates == 1
@@ -290,11 +297,12 @@ def test_realesrgan_trainers_feed_and_step_vs_jax(model_type):
     tr = ttr.build_model(opt, device="cpu")
     state = tr.make_state()
     grads = capture_grads(state.model, state.optimizer)
-    tree = jax_tree(state.model)
+    # copies: the port's step below updates the weights these would view
+    tree = jax.tree.map(np.array, jax_tree(state.model))
     jt = jtr.build_model(opt)
     js = jax_state(jt, tree)
     if model_type == "RealESRGANModel":
-        jt.d_params = jax_tree(tr.disc)
+        jt.d_params = jax.tree.map(np.array, jax_tree(tr.disc))
         jt.tx_d = jbuild_opt(dict(opt["train"]["optim_d"]))
         jt.d_opt_state = jt.tx_d.init(jt.d_params)
     random.seed(0)
@@ -310,8 +318,14 @@ def test_realesrgan_trainers_feed_and_step_vs_jax(model_type):
         np.testing.assert_allclose(fed["gt"].numpy(), np.asarray(ref["gt"]),
                                    atol=1e-6)
     step = {k: fed[k] for k in ("lq", "gt")}
-    js, ref_logs = jt.train_step(js, {k: v.numpy() for k, v in step.items()})
+    if model_type == "RealESRGANModel":
+        # JAX's D fed the u the port's held before each of its training
+        # forwards (which advance it)
+        feed = SpectralUFeed(jt.d_arch, jt.d_params, tr.disc)
     state, logs = tr.train_step(state, step)
+    if model_type == "RealESRGANModel":
+        jt.d_arch = feed
+    js, ref_logs = jt.train_step(js, {k: v.numpy() for k, v in step.items()})
     assert logs.keys() == ref_logs.keys()
     assert_losses(logs, ref_logs, ref_logs.keys())
     assert_step_matches(state.model, grads, js.params, LR)

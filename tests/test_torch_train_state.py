@@ -8,8 +8,9 @@ gained, on the CPU.
   tests/test_training.py holds its own (on one thread): 2 alternations,
   save, a fresh
   trainer from another seed, resume, 1 alternation, against 3 without the
-  break: G, its EMA and Adam state, D (its spectral-norm weight_u too,
-  which nothing moves) and D's Adam state.
+  break: G, its EMA and Adam state, D (its spectral-norm weight_u and
+  weight_v too, which each of D's training forwards advances) and D's
+  Adam state.
 - merge_network_params without strict: a missing key or a shape mismatch
   keeps the live tensor and warns; with strict they raise.
 - Adamax, SGD (momentum), ASGD (plain SGD, as the JAX package maps it),
@@ -210,6 +211,8 @@ def test_keep_gan_resume_is_bitwise(tmp_path, one_thread):
     assert stats.get("kept", 0) == 0
     tr2.load_extra_state(st2.resume_extra)
     assert st2.iter == 2
+    for k, v in tr1.disc.state_dict().items():   # u and v restored too
+        assert torch.equal(tr2.disc.state_dict()[k], v), k
     st2, _ = tr2.train_step(st2, batches[2])
 
     for k, v in st.model.state_dict().items():
@@ -220,8 +223,10 @@ def test_keep_gan_resume_is_bitwise(tmp_path, one_thread):
     for k, v in tr.disc.state_dict().items():
         assert torch.equal(tr2.disc.state_dict()[k], v), k
     assert_opt_equal(tr2.d_optimizer, tr.d_optimizer)
-    for k, v in u0.items():                  # no optimizer moves u
-        assert torch.equal(tr.disc.state_dict()[k], v), k
+    for k, v in u0.items():       # D's forwards advanced u; no optimizer
+        assert not torch.equal(tr.disc.state_dict()[k], v), k
+    held = {id(p) for g in tr.d_optimizer.param_groups for p in g["params"]}
+    assert not any(id(b) in held for b in tr.disc.buffers())
 
 
 @pytest.mark.parametrize("optim", [

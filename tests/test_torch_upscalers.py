@@ -195,18 +195,94 @@ def test_swinir_window_tables_equal_jax():
         tswin.window_merge(win, 8, 16, 24).numpy(), x)
 
 
+def _jax_swinir_padded(tree, kw):
+    """JAX's SwinIR (window multiples only) on the input reflect-padded at
+    the bottom and right by np.pad, its output cropped: the reference's
+    check_image_size, as an oracle for the port's padding."""
+    ws, s = kw["window_size"], kw["upscale"] if kw["upsampler"] else 1
+    net = jax_apply(jswin.SwinIR, kw)
+
+    def fn(p, x):
+        h, w = x.shape[1:3]
+        xp = np.pad(np.asarray(x), ((0, 0), (0, -h % ws), (0, -w % ws),
+                                    (0, 0)), mode="reflect")
+        return np.asarray(net(p, jnp.asarray(xp)))[:, :h * s, :w * s]
+    return fn
+
+
 def test_swinir_ragged_tile_is_refused_in_both():
-    """H and W must be multiples of the window in both packages: a ragged
-    edge tile (here 18 x 24 against a window of 4) raises in both."""
+    """A ragged size (37 x 53 against a window of 4): JAX's SwinIR refuses
+    it; the port's reflect-pads at the bottom and right to window
+    multiples and crops its output, as the reference's check_image_size
+    does, and equals JAX's on the np.pad-ed input, cropped (within 1e-4
+    of the largest magnitude). At window multiples the port pads nothing
+    (F.pad is not called), so its output is the unpadded network's."""
+    _swinir_pads_and_crops("pixelshuffle")
+
+
+def test_swinir_pads_ragged_sizes_without_an_upsampler():
+    """As test_swinir_ragged_tile_is_refused_in_both for the denoising form
+    (no upsampler: the input plus a residual, cropped at scale 1)."""
+    _swinir_pads_and_crops("")
+
+
+def _swinir_pads_and_crops(upsampler):
+    kw = dict(upsampler=upsampler, **SWIN)
+    s = SWIN["upscale"] if upsampler else 1
+    model = port_net(tswin.SwinIR, kw)
+    tree = jax_tree(jswin.SwinIR, model)
+    x = np.random.default_rng(5).random((1, 37, 53, 3), dtype=np.float32)
+    with pytest.raises(Exception):
+        jax_apply(jswin.SwinIR, kw)(tree, jnp.asarray(x))
+    with torch.no_grad():
+        got = model(nchw(x)).permute(0, 2, 3, 1).numpy()
+    ref = _jax_swinir_padded(tree, kw)(tree, x)
+    assert got.shape == ref.shape == (1, 37 * s, 53 * s, 3)
+    assert rel(got, ref) <= 1e-4
+    # the per-block check still refuses an unpadded ragged size
+    with pytest.raises(ValueError, match="multiples of the window"):
+        model.layers[0](torch.zeros(1, 37 * 53, SWIN["embed_dim"]),
+                        (37, 53), {})
+
+    def no_pad(*a, **k):
+        raise AssertionError("padded a window multiple")
+    x = x[:, :36, :52]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tswin.F, "pad", no_pad)
+        with torch.no_grad():
+            got = model(nchw(np.ascontiguousarray(x))).permute(0, 2, 3, 1)
+    ref = jax_apply(jswin.SwinIR, kw)(tree, jnp.asarray(x))
+    assert rel(got.numpy(), np.asarray(ref)) <= 1e-4
+
+
+def test_swinir_upscales_a_frame_with_a_ragged_edge_tile():
+    """make_upscaler_fn (tile 512, overlap 64) over a 30 x 854 frame: the
+    edge tile is 406 px wide, not a window multiple. The tiles' sum
+    within 1e-5 of JAX's tiled_scale over its SwinIR on pre-padded tiles,
+    the truncated uint8 within 1 level at boundaries, as in
+    test_make_upscaler_fn_matches_jax."""
     kw = dict(upsampler="pixelshuffle", **SWIN)
     model = port_net(tswin.SwinIR, kw)
     tree = jax_tree(jswin.SwinIR, model)
-    x = np.random.default_rng(5).random((1, 18, 24, 3), dtype=np.float32)
-    with pytest.raises(Exception):
-        jax_apply(jswin.SwinIR, kw)(tree, jnp.asarray(x))
-    with pytest.raises(ValueError, match="multiples of the window"):
-        with torch.no_grad():
-            model(nchw(x))
+    assert ttiled.tile_origins(854, 512, 64) == [0, 448]
+    assert (854 - 448) % SWIN["window_size"] and 30 % SWIN["window_size"]
+    img = np.random.default_rng(17).integers(0, 256, (30, 854, 3),
+                                             dtype=np.uint8)
+    x = img[..., ::-1].astype(np.float32) / 255.0
+    fn = _jax_swinir_padded(tree, kw)
+    ref01 = np.clip(jtiled.tiled_scale(x, lambda t: fn(tree, t), 2, 512, 64),
+                    0, 1)[..., ::-1]
+    with torch.no_grad():
+        got01 = ttiled.tiled_scale(
+            torch.from_numpy(np.ascontiguousarray(x)), lambda t: model(
+                t.permute(0, 3, 1, 2)).permute(0, 2, 3, 1), 2, 512,
+            64).clamp(0, 1)
+    np.testing.assert_allclose(got01.flip(-1).numpy(), ref01, atol=1e-5,
+                               rtol=0)
+    got = ttiled.make_upscaler_fn(model, 2)(img)
+    ref = jtiled.make_upscaler_fn(fn, tree, 2, jit=False)(img)
+    assert got.dtype == np.uint8 and got.shape == ref.shape == (60, 1708, 3)
+    assert_uint8_near_boundary(got, ref, ref01, "trunc")
 
 
 # -- tiled_scale and make_upscaler_fn --------------------------------------------

@@ -344,3 +344,71 @@ def test_discriminator3d_without_spectral_norm_and_seeded():
     for m in (net, sn):
         out = m(x)
         assert out.shape == (1, 2, 1, 1, 16) and torch.isfinite(out).all()
+
+
+SN_MODES = ("train", "train", "eval", "train", "eval", "train")
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_spectral_norm_layers_step_as_torch_spectral_norm(dims):
+    """SpectralNormConv2d (discriminators.py: UNetDiscriminatorSN,
+    HiFaceGAN, DFDNet) and SpectralNormConv3d (Discriminator3D) against
+    torch.nn.utils.spectral_norm on an nn.Conv2d / nn.Conv3d with the same
+    weight_orig, bias, u and v, over a sequence of train and eval forwards.
+    Each training forward advances u and v in place as torch's does: the
+    outputs and both buffers within 1e-6 of their largest magnitude
+    (measured: equal) and the output equal to the JAX package's form from
+    the incoming u. Eval forwards move neither buffer, as torch's; their
+    output is the JAX package's (one power iteration from u, not kept),
+    where torch's divides by u.(W v) from the stored vectors (ROADMAP
+    Queue 3)."""
+    from comfyui_keep_torch.models.discriminators import SpectralNormConv2d
+    from comfyui_keep_torch.models.init import spectral_init_
+    g = torch.Generator().manual_seed(40 + dims)
+    if dims == 2:
+        ours = SpectralNormConv2d(6, 10, 3, stride=2, padding=1)
+        ref = torch.nn.Conv2d(6, 10, 3, 2, 1)
+        x = torch.randn(2, 6, 12, 12, generator=g)
+    else:
+        ours = tv.SpectralNormConv3d(6, 10, (3, 5, 5), (1, 2, 2), (1, 2, 2),
+                                     bias=True)
+        ref = torch.nn.Conv3d(6, 10, (3, 5, 5), (1, 2, 2), (1, 2, 2))
+        x = torch.randn(2, 6, 3, 12, 12, generator=g)
+    spectral_init_(ours, g)
+    ref = torch.nn.utils.spectral_norm(ref)
+    with torch.no_grad():
+        for n in ("weight_orig", "bias", "weight_u", "weight_v"):
+            getattr(ref, n).copy_(getattr(ours, n))
+
+    def close(a, b):
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max(), (
+            (a - b).abs().max(), b.abs().max())
+
+    def jax_form(u):
+        w = ours.weight_orig.detach()
+        wt = np.moveaxis(w.numpy(), (0, 1), (-1, -2))    # (..., I, O)
+        wn, _ = jsn(jnp.asarray(wt), jnp.asarray(u.numpy()))
+        wn = torch.from_numpy(np.moveaxis(np.array(wn), (-1, -2), (0, 1)))
+        fn = torch.nn.functional.conv2d if dims == 2 else \
+            torch.nn.functional.conv3d
+        return fn(x, wn.contiguous(), ours.bias.detach(), ours.stride,
+                  ours.padding)
+
+    moved = 0
+    for mode in SN_MODES:
+        ours.train(mode == "train")
+        ref.train(mode == "train")
+        u_in = ours.weight_u.clone()
+        with torch.no_grad():
+            got, want = ours(x), ref(x)
+        close(ours.weight_u, ref.weight_u)
+        close(ours.weight_v, ref.weight_v)
+        np.testing.assert_allclose(got.numpy(), jax_form(u_in).numpy(),
+                                   rtol=OP_RTOL, atol=1e-6)
+        if mode == "train":
+            close(got, want)
+            moved += not torch.equal(ours.weight_u, u_in)
+        else:
+            assert torch.equal(ours.weight_u, u_in)
+            assert (got - want).abs().max() > 1e-4 * want.abs().max()
+    assert moved == SN_MODES.count("train")

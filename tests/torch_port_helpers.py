@@ -97,3 +97,65 @@ def pyyaml_opt(path, force=()):
     with open(path) as f:
         opt = yaml.load(f, Loader=jopt.ordered_yaml()[0])
     return jopt.apply_force_yml(opt, force)
+
+
+class SpectralUFeed:
+    """A JAX discriminator class (its `apply` and everything else) whose
+    apply, at its n-th call, reads the spectral-norm vectors u the port's
+    discriminator held before its own n-th forward. The port's training
+    forwards advance u in place (torch's spectral_norm) where the JAX
+    package's apply keeps the u of its tree; fed the same incoming u, the
+    two compute the same forward. Run the port's step first: a JAX trainer
+    traces each jitted step once, and each traced apply call takes the
+    next recorded u as a constant."""
+
+    def __init__(self, jcls, tree, port_disc):
+        import jax
+        from comfyui_keep_torch.utils.convert import params_from_jax
+        self.jcls, self.seen, self.calls = jcls, [], 0
+        # the tree's u leaves by the port buffer they load into: each u
+        # marked with its index, carried over by params_from_jax
+        paths, treedef = jax.tree_util.tree_flatten_with_path(tree)
+        at = [i for i, (path, _) in enumerate(paths)
+              if getattr(path[-1], "key", None) == "u"]
+        marked = [np.asarray(leaf) for _, leaf in paths]
+        for j, i in enumerate(at):
+            marked[i] = np.full(np.shape(marked[i]), j + 1, np.float32)
+        sd = params_from_jax(jax.tree_util.tree_unflatten(treedef, marked),
+                             port_disc)
+        self.slots = {k: at[int(np.asarray(v).reshape(-1)[0]) - 1]
+                      for k, v in sd.items() if k.endswith("weight_u")}
+        port_disc.register_forward_pre_hook(self._record)
+
+    def _record(self, module, args):
+        self.seen.append({k: v.detach().cpu().numpy().copy() for k, v
+                          in module.state_dict().items()
+                          if k.endswith("weight_u")})
+
+    def apply(self, params, *args, **kw):
+        import jax
+        import jax.numpy as jnp
+        u = self.seen[self.calls]
+        self.calls += 1
+        leaves, treedef = jax.tree_util.tree_flatten(params)
+        for name, i in self.slots.items():
+            leaves[i] = jnp.asarray(u[name], leaves[i].dtype)
+        return self.jcls.apply(jax.tree_util.tree_unflatten(treedef, leaves),
+                               *args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.jcls, name)
+
+
+def power_iterations(w, u, n):
+    """The u after each of n power-iteration steps from u (float64), W
+    (O, ...) in torch's layout: torch's spectral_norm in training."""
+    wm = np.asarray(w, np.float64).reshape(np.shape(w)[0], -1)
+    out, u = [], np.asarray(u, np.float64)
+    for _ in range(n):
+        v = wm.T @ u
+        v = v / max(np.linalg.norm(v), 1e-12)
+        u = wm @ v
+        u = u / max(np.linalg.norm(u), 1e-12)
+        out.append(u)
+    return out
