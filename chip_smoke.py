@@ -247,13 +247,18 @@ the verdict):
               1e-6 on Y; float32 1e-4), ms; NIQE of one face; FID between
               two sets of 50 faces (Inception on the card); cv2 never
               imported
- 21. flow_kernel  K1-K3's "flow step" rows of phase kernel (f32 at the
-              GMFlow training step's shapes, 384 x 512, B = 8: 64 windows
-              of 768 tokens with and without the shifted mask, 8 maps of
-              3072 for the global attention and the correlation, 49,152
-              FFN rows; their forwards held there): the autograd wrapper's
-              input gradients against the plain version's autograd
-              (KGRAD_RTOL), the ms of its forward + backward
+ 21. flow_kernel  the backward kernels at the shapes of K1-K3's "flow
+              step" rows of phase kernel (the GMFlow training step's, 384
+              x 512, B = 8: 64 windows of 768 tokens with and without the
+              shifted mask, 8 maps of 3072 for the global attention and
+              the correlation, 49,152 FFN rows; their forwards held
+              there), f32 and once in bf16 on the same values: from the
+              kernel forward's saved statistics, each gradient's distance
+              to the plain version's float64 autograd within BWD_RATIO of
+              the plain backward's own (floor BWD_FLOOR), two calls
+              bitwise equal, no (B, L, L) allocation (the call's peak
+              bytes), the backward's ms beside the plain backward's and
+              SDPA's forward + backward, and the bound
      train_flow  GMFlowTrainer (tools/torch_train_flow.py's defaults)
               on a synthetic FlyingChairs directory (FLOW_PAIRS pairs)
               through build_train_dataset("chairs") and the loader, B = 8,
@@ -264,10 +269,13 @@ the verdict):
               losses and metrics finite, every gradient
               non-zero (the three leaves whose true gradient is zero at
               noise), the LR on optax's one-cycle schedule, K1-K3 launches
-              a step as one GMFlow forward implies (by counter and by
-              shape), ms a step (forward, backward, update apart), the
-              wait for data a step, the plain backward's ms a step, peak
-              GiB; one pair's step (train_flow_parity), leaf by leaf: the
+              a step as one GMFlow forward implies and as many backward
+              kernel launches (by counter and by shape), ms a step
+              (forward, backward, update apart), the wait for data a step,
+              the backward kernels' ms a step, peak GiB; one mixed-
+              precision step on the same batch (train_flow_bf16: K1-K3's
+              bf16 forms and backward kernels, launches as in f32); one
+              pair's step (train_flow_parity), leaf by leaf: the
               card against the CPU both in float64, the card's f32 step
               against the CPU's float64 within 3x its module group's f32
               noise (three f32 witnesses), a TF32 control that must fail
@@ -309,8 +317,10 @@ K1-K4 rows carry their launches on slice 7's paths (launches_chunk_*,
 launches_refine, launches_vqgan; null where a path did not run in the
 row's dtype), taken from the kernels' own counters: the L256 and G2 rows
 count their own shape alone (ops/kernels.py LAUNCHES_BY_SHAPE), and so do
-the "flow step" rows, with their launches over train_flow's 3 steps. A
-row with no launch on its path fails the run.
+the "flow step" rows, with their launches over train_flow's 3 steps, and
+the backward kernels' rows ("attention_bwd[dv128] flow step" and the like;
+f32 with train_flow's launches, bf16 with train_flow_bf16's). A row with
+no launch on its path fails the run.
 Every phase that counts launches counts K6 too: the training and StyleGAN2
 phases expect none. The script exits non-zero, printing no verdict, if
 there is no CUDA device, if a kernel does not build or disagrees, or if any
@@ -513,6 +523,12 @@ VQ_FAMILY_RTOL = 1e-3
 OCC_FLIP_SHARE = 1e-3
 K1_K4 = ("attention[dv128]", "attention[dv128+bias]", "attention[dv2]",
          "global_correlation_expectation", "mlp_fused", "vq_nearest_indices")
+# the backward kernels' counters (ops/kernels.py), each zero on every path
+# that records no gradient through K1-K3
+BWD_COUNTERS = ("attention_bwd[dv128]", "attention_bwd[dv128+bias]",
+                "attention_bwd[dv2]", "global_correlation_expectation_bwd",
+                "mlp_fused_bwd")
+NO_BWD = dict.fromkeys(BWD_COUNTERS, 0)
 
 
 T0 = time.perf_counter()
@@ -958,7 +974,8 @@ def serving_launches(k6_per_frame_chunks):
     return {"attention[dv128]": 12, "attention[dv128+bias]": 12,
             "attention[dv2]": 2, "mlp_fused": 12,
             "global_correlation_expectation": 2, "vq_nearest_indices": 0,
-            "fused_bias_lrelu": 0, "packed_conv2x2": k6_per_frame_chunks}
+            "fused_bias_lrelu": 0, "packed_conv2x2": k6_per_frame_chunks,
+            **NO_BWD}
 
 
 def phase_main(torch, k6_own):
@@ -1485,7 +1502,7 @@ def phase_api(torch, pack):
     want = {"attention[dv128]": 6, "attention[dv128+bias]": 6,
             "attention[dv2]": 1, "mlp_fused": 6,
             "global_correlation_expectation": 1, "vq_nearest_indices": 0,
-            "fused_bias_lrelu": 0, "packed_conv2x2": 0}
+            "fused_bias_lrelu": 0, "packed_conv2x2": 0, **NO_BWD}
     proc = pack.processor(dtype=torch.bfloat16)
     rows, ok_all = [], True
     for label, img, factor in (("image 512, x1", face512, 1.0),
@@ -1845,7 +1862,7 @@ def phase_unaligned(torch, detector, parser):
                    "attention[dv2]": 1, "mlp_fused": 6,
                    "global_correlation_expectation": 1,
                    "vq_nearest_indices": 0, "fused_bias_lrelu": 0,
-                   "packed_conv2x2": 0}
+                   "packed_conv2x2": 0, **NO_BWD}
     want_seq = {k: 2 * v for k, v in gmflow_call.items()}
     shapes_ok = (image.shape == up and image.dtype == np.uint8
                  and len(outs) == FRAMES and all(
@@ -2371,7 +2388,7 @@ def phase_full_workflow(torch, detector, parser, sr):
                    "attention[dv2]": 1, "mlp_fused": 6,
                    "global_correlation_expectation": 1,
                    "vq_nearest_indices": 0, "fused_bias_lrelu": 0,
-                   "packed_conv2x2": 0}
+                   "packed_conv2x2": 0, **NO_BWD}
     want = {k: 2 * v for k, v in gmflow_call.items()}
     up = (WHOLE_HW[0] * 2, WHOLE_HW[1] * 2, 3)
     shapes_ok = len(outs) == FRAMES and all(
@@ -2561,7 +2578,7 @@ def phase_train_parity(torch):
     want = {"attention[dv128]": 4, "attention[dv128+bias]": 4,
             "attention[dv2]": 2, "mlp_fused": 4,
             "global_correlation_expectation": 2, "vq_nearest_indices": 1,
-            "fused_bias_lrelu": 0, "packed_conv2x2": 0}
+            "fused_bias_lrelu": 0, "packed_conv2x2": 0, **NO_BWD}
     lf, f32 = res["cpu", False][:2]
     for mp in (False, True):
         (lc, gc, _), (lg, gg, counts) = res["cpu", mp], res["cuda", mp]
@@ -2615,7 +2632,7 @@ def phase_train(torch):
     per_step = {"attention[dv128]": 12, "attention[dv128+bias]": 12,
                 "attention[dv2]": 2, "mlp_fused": 12,
                 "global_correlation_expectation": 2, "vq_nearest_indices": 1,
-                "fused_bias_lrelu": 0, "packed_conv2x2": 0}
+                "fused_bias_lrelu": 0, "packed_conv2x2": 0, **NO_BWD}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     watch = ("feat_emb.weight", "position_emb", "encoder.blocks.0.weight",
              "hq_encoder.blocks.0.weight", "ft_layers.0.linear1.weight",
@@ -4273,10 +4290,16 @@ FLOW_PAIRS = -(-10 * FLOW_B * (FLOW_STEPS + 3 + 2 * FLOW_WORKERS) // 9)
 FLOW_ZERO_GRAD = ("backbone.layer2.0.downsample.0.bias",
                   "backbone.layer3.0.downsample.0.bias",
                   "feature_flow_attn.k_proj.bias")
-# the kernels' input gradients through the autograd wrapper against the
-# plain version's autograd: the same recompute on the same inputs and
-# upstream gradient, so equal up to summation order (0 expected)
-KGRAD_RTOL = 1e-6
+# the backward kernels (phase flow_kernel), each gradient against float64
+# (the plain version's autograd on the same values in float64): its max|d|
+# over the float64 gradient's largest within BWD_RATIO times the plain
+# backward's own distance (the same formula in torch ops, in f32, on the
+# same saved statistics), or BWD_FLOOR if that is larger. The kernel sums
+# in another order than the plain backward, so it may stand as far off
+# float64; the ratio leaves room for the order, not for a wrong term (a
+# dropped Delta, scale or rounding moves a gradient by far more)
+BWD_RATIO, BWD_FLOOR = 3.0, 1e-6
+BWD_ITERS = 10       # timed backward calls per form (a quarter for plain)
 # the whole GMFlow step on one pair (flow_step_gates; FLOW_ZERO_GRAD leaves
 # held as noise, below FLOW_NOISE of the tree's largest gradient; losses
 # within LOSS_RTOL), each leaf against its own limit:
@@ -4402,54 +4425,172 @@ def flow_step_cases(torch):
 # the inputs of each wrapper that carry a gradient (ops/kernels.py)
 GRAD_ARGS = {"attention": (0, 1, 2), "global_correlation_expectation": (0, 1),
              "mlp_fused": (0, 1, 2, 3, 4, 5)}
+# where the JAX package differentiates the plain branch each backward
+# kernel's function replaces (it has no Pallas backward)
+JAX_GRAD_OF = {"attention": "comfyui_keep_tpu/models/gmflow.py:213",
+               "global_correlation_expectation":
+                   "comfyui_keep_tpu/models/gmflow.py:394",
+               "mlp_fused": "comfyui_keep_tpu/models/gmflow.py:285"}
 
 
-def phase_flow_grads(torch, krows, iters=KERNEL_ITERS):
-    """A pass over phase kernel's "flow step" rows (their forwards are
-    held there): on the same inputs, the autograd wrapper's input gradients
-    against the plain version's autograd on one upstream gradient
-    (KGRAD_RTOL), and the ms of the wrapper's forward + backward (its plain
-    recompute) beside the plain version's. Adds these to the rows and
-    returns {row name: row}."""
+def backward_work(torch, fn_name, args):
+    """[(flops, peak rate)] of the least work of one backward call on
+    `args`: K1 five L x L products (Q K^T, dO V^T, dV, dQ, dK), the two
+    2-wide ones in FMAs when D_v = 2; K3 the same without dV; K2 a = [src |
+    msg] W1^T recomputed (the forward saves the LayerNorm's input, not a)
+    and the four products of the backward (dh, d[src | msg], dW1, dW2).
+    bf16 inputs at the tensor cores' rate, f32 at the FMA pipe's."""
+    peak = PEAK_BF16 if args[0].dtype == torch.bfloat16 else PEAK_F32
+    if fn_name == "mlp_fused":
+        rows, c = args[0].numel() // args[0].shape[-1], args[0].shape[-1]
+        return [(2 * rows * args[2].shape[0] * (3 * 2 * c + 2 * c), peak)]
+    b, l, d = args[0].shape
+    sq = 2 * b * l * l
+    dv = args[2].shape[-1] if fn_name == "attention" else 2
+    narrow = 1 if fn_name == "global_correlation_expectation" else 2
+    if dv == d:
+        return [(5 * sq * d, peak)]
+    return [(3 * sq * d, peak), (narrow * sq * dv, PEAK_F32)]
+
+
+def sdpa_backward_call(torch, fn_name, args, up):
+    """One SDPA forward + backward at the shape of a K1 / K3 backward call
+    (the yardstick of its row; the port never calls it): q, k (and v for
+    K1) require grad, the mask as phase kernel's rows pass it."""
+    import torch.nn.functional as F
+    q, k = args[0], args[1]
+    if fn_name == "attention":
+        v, scale, bias = args[2], args[3], args[4]
+        mask = (None if bias is None else bias.repeat(
+            q.shape[0] // bias.shape[0], 1, 1)[:, None].to(q.dtype))
+    else:
+        v = args[2].to(q.dtype).expand(q.shape[0], -1, 2)
+        scale, mask = 1.0 / math.sqrt(q.shape[-1]), None
+    leaves = [q.detach().requires_grad_(True), k.detach().requires_grad_(True),
+              v.detach().requires_grad_(fn_name == "attention")]
+    want = [x for x in leaves if x.requires_grad]
+    g = up[:, None].to(q.dtype)
+
+    def call():
+        o = F.scaled_dot_product_attention(*[x[:, None] for x in leaves],
+                                           attn_mask=mask, scale=scale)
+        torch.autograd.grad(o, want, g)
+    return call
+
+
+def backward_row(torch, fn_name, args, iters=BWD_ITERS):
+    """One backward kernel on a wrapper's `args` (K.LAUNCHERS: the kernel
+    forward's saved statistics, one seeded upstream gradient): each
+    gradient's max|d| to the float64 autograd of the plain version over
+    the float64 gradient's largest, the plain backward's the same on the
+    same statistics, and the gate (BWD_RATIO, BWD_FLOOR); two calls
+    bitwise equal; the bytes the call allocates at its peak beyond what
+    was allocated before it, which for K1 and K3 must stay below one
+    (B, L, L) f32 tensor; the backward alone on CUDA events beside the
+    plain backward and, for K1 and K3, SDPA's forward + backward (TF32
+    off); the least time the card could take. max_abs_err is the
+    kernel's largest distance to the plain backward."""
     from comfyui_keep_torch.ops import kernels as K
+    fwd, bwd = K.LAUNCHERS[fn_name]
+    diff = GRAD_ARGS[fn_name]
+    if fn_name == "attention" and len(args) == 4:
+        args = tuple(args) + (None,)
+    saved = fwd(*args)   # (out, the statistics its backward reads)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    up = torch.randn(saved[0].shape, generator=g,
+                     device="cuda").to(saved[0].dtype)
+
+    def kernel():
+        return bwd(*args, *saved, up)
+
+    def plain():
+        return K.PLAIN_BACKWARD[fn_name](*args, *saved, up)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = kernel()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    bitwise = all(torch.equal(x, y) for x, y in zip(got, kernel()))
+    want = plain()
+    a64 = [a.detach().double().requires_grad_(i in diff)
+           if torch.is_tensor(a) else a for i, a in enumerate(args)]
+    ref = torch.autograd.grad(K.PLAIN[fn_name](*a64),
+                              [a64[i] for i in diff], up.double())
+    del a64
+
+    def off(grads):
+        return [((x.double() - r).abs().max() / r.abs().max()).item()
+                for x, r in zip(grads, ref)]
+    k_off, p_off = off(got), off(want)
+    lim = [max(BWD_RATIO * p, BWD_FLOOR) for p in p_off]
+    err = max((x.float() - y.float()).abs().max().item()
+              for x, y in zip(got, want))
+    nbytes = (sum(t.numel() * t.element_size()
+                  for t in (*args, *saved, up) if torch.is_tensor(t))
+              + sum(x.numel() * x.element_size() for x in got))
+    del got, want, ref
+    ll = (None if fn_name == "mlp_fused"
+          else 4 * args[0].shape[0] * args[0].shape[1] ** 2)
+    flops = backward_work(torch, fn_name, args)
+    op_s, byte_s = sum(f / p for f, p in flops), nbytes / HBM
+    lib = (None if fn_name == "mlp_fused"
+           else time_ms(torch, sdpa_backward_call(torch, fn_name, args, up),
+                        iters))
+    row = {"off_f64": k_off, "plain_off_f64": p_off, "limit": lim,
+           "bitwise_repeat": bitwise, "peak_extra_bytes": extra,
+           "score_matrix_bytes": ll, "max_abs_err": err,
+           "ms": time_ms(torch, kernel, iters),
+           "plain_ms": time_ms(torch, plain, max(1, iters // 4)),
+           "library_ms": lib, "library": None if lib is None else
+           "SDPA forward + backward", "bound_ms": 1e3 * max(op_s, byte_s),
+           "bound_by": "operations" if op_s >= byte_s else "bytes",
+           "differentiates": JAX_GRAD_OF[fn_name]}
+    row["ok"] = bool(all(k <= m for k, m in zip(k_off, lim)) and bitwise
+                     and (ll is None or extra < ll))
+    return row
+
+
+def bf16_args(torch, fn_name, args):
+    """A wrapper's f32 arguments as mixed precision gives them: the
+    tensors in bf16 but the mask and the grid (f32 in both), the MLP with
+    the tanh gelu (GMFlow's pick in bf16)."""
+    keep = {"attention": (4,), "global_correlation_expectation": (2,),
+            "mlp_fused": ()}[fn_name]
+    out = [a.to(torch.bfloat16) if torch.is_tensor(a) and i not in keep
+           else a for i, a in enumerate(args)]
+    if fn_name == "mlp_fused":
+        out[6] = True
+    return tuple(out)
+
+
+def phase_flow_grads(torch, krows, iters=BWD_ITERS):
+    """Phase flow_kernel: every backward kernel at the GMFlow training
+    step's shapes (phase kernel's "flow step" rows, whose forwards are
+    held there), f32 and once in bf16 on the same values: backward_row's
+    checks and times. Returns {(row name, dtype): row}, the names the
+    backward counters' ("attention_bwd[dv128] flow step"), each with the
+    LAUNCHES_BY_SHAPE key its launches count under."""
     rows = {}
-    for name, fn_name, args, *_ in kernel_cases(torch, torch.float32):
-        if not name.endswith(" flow step"):
-            continue
-        fn, plain = getattr(K, fn_name), K.PLAIN[fn_name]
-        diff = GRAD_ARGS[fn_name]
-        leaves = [a.detach().clone().requires_grad_(True) if i in diff else a
-                  for i, a in enumerate(args)]
-        inputs = [leaves[i] for i in diff]
-        out = fn(*leaves)
-        up = torch.randn(out.shape, device="cuda",
-                         generator=torch.Generator(device="cuda").manual_seed(
-                             5))
-        wrapped = torch.autograd.grad(out, inputs, up)
-        want = torch.autograd.grad(plain(*leaves), inputs, up)
-        gerr = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                   .item() for a, b in zip(wrapped, want))
-        del out, wrapped, want
-
-        def fwd_bwd():
-            torch.autograd.grad(fn(*leaves), inputs, up)
-
-        def plain_fwd_bwd():
-            torch.autograd.grad(plain(*leaves), inputs, up)
-        fb_ms = time_ms(torch, fwd_bwd, max(1, iters // 4))
-        row = krows[(name, "float32")]
-        row.update(grad_max_rel_err=gerr, grad_rtol=KGRAD_RTOL,
-                   fwd_bwd_ms=fb_ms, backward_ms=fb_ms - row["ms"],
-                   plain_fwd_bwd_ms=time_ms(torch, plain_fwd_bwd,
-                                            max(1, iters // 4)))
-        say("flow_kernel", **row)
-        rows[name] = row
-        del leaves, inputs
-        torch.cuda.empty_cache()
-    bad = [k for k, r in rows.items()
-           if not r["grad_max_rel_err"] <= KGRAD_RTOL]
+    for name, fn_name, args, *_ in flow_step_cases(torch):
+        bname = name.replace(fn_name, f"{fn_name}_bwd", 1)
+        key = krows[(name, "float32")]["launch_key"].replace(
+            fn_name, f"{fn_name}_bwd", 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            a = args if dtype == torch.float32 else bf16_args(torch, fn_name,
+                                                              args)
+            row = {"name": bname, "dtype": dname, "launch_key": key,
+                   **backward_row(torch, fn_name, a, iters)}
+            say("flow_kernel", **row)
+            rows[(bname, dname)] = row
+            del a
+            torch.cuda.empty_cache()
+        del args
+    bad = [k for k, r in rows.items() if not r["ok"]]
     if bad:
-        fail(f"flow_kernel: gradient off its plain version's: {bad}")
+        fail(f"flow_kernel: backward kernels off float64 past the plain "
+             f"backward's noise, not repeatable or holding (L, L): {bad}")
     return rows
 
 
@@ -4577,7 +4718,7 @@ def flow_step_gates(res):
         "noise_of_largest": FLOW_NOISE, "leaves": len(g64)}
 
 
-def phase_train_flow(torch, card, kernel_rows):
+def phase_train_flow(torch, card, bwd_rows):
     """GMFlow training at full width (phase train_flow): a synthetic
     FlyingChairs directory (FLOW_PAIRS pairs of 384 x 512 .ppm frames and
     .flo flows), build_train_dataset("chairs"), the loader at B = 8 on
@@ -4587,12 +4728,13 @@ def phase_train_flow(torch, card, kernel_rows):
     FLOW_STEPS steps inside one epoch: loss and metrics finite, every
     leaf's gradient non-zero (but FLOW_ZERO_GRAD's, at noise), the LR on
     the one-cycle schedule, K1-K3's launches as one GMFlow forward implies
-    (the backward launches none), the wait for data a step; a step's
-    forward, backward and update ms apart; then one pair's step card
-    against CPU; one more epoch trained through (s a step, data
-    included); validate_chairs on the validation split. `kernel_rows`
-    are phase_flow_grads' rows. Returns the launches of the FLOW_STEPS
-    steps by shape key and counter."""
+    and as many of their backward kernels (by counter and by shape), the
+    wait for data a step; a step's forward, backward and update ms apart,
+    and the backward kernels' ms a step from `bwd_rows` (phase_flow_grads'
+    f32 rows); then one pair's step card against CPU; one more epoch
+    trained through (s a step, data included); validate_chairs on the
+    validation split. Returns the launches of the FLOW_STEPS steps by
+    shape key and counter."""
     from comfyui_keep_torch.data.flow_datasets import build_train_dataset
     from comfyui_keep_torch.data.prefetch import CUDAPrefetcher, DataLoader
     from comfyui_keep_torch.ops import kernels as K
@@ -4687,11 +4829,12 @@ def phase_train_flow(torch, card, kernel_rows):
     two_term["ok"] = bool(len(preds) == 2 and terms[0] != terms[1]
                           and two_term["rel_err"] <= LOSS_RTOL)
     del preds
-    want = {k: v * FLOW_STEPS for k, v in gmflow_launches(1).items()}
+    # every forward launch of K1-K3 records a gradient, so the backward
+    # launches its kernel once for each, at the same shape
+    fwd = gmflow_launches(1)
+    want = {k: v * FLOW_STEPS for k, v in fwd.items()}
     want.update(fused_bias_lrelu=0, packed_conv2x2=0)
     fh, fw = FLOW_HW[0] // 8, FLOW_HW[1] // 8
-    by_shape = {r["launch_key"]: counts.get(r["launch_key"], 0)
-                for r in kernel_rows.values()}
     want_shape = {f"attention[dv128] B{8 * FLOW_B} L{fh * fw // 4}":
                   6 * FLOW_STEPS,
                   f"attention[dv128+bias] B{8 * FLOW_B} L{fh * fw // 4}":
@@ -4700,6 +4843,13 @@ def phase_train_flow(torch, card, kernel_rows):
                   f"global_correlation_expectation B{FLOW_B} L{fh * fw}":
                   FLOW_STEPS,
                   f"mlp_fused rows{2 * FLOW_B * fh * fw}": 6 * FLOW_STEPS}
+    for counter in BWD_COUNTERS:
+        fc = counter.replace("_bwd", "", 1)
+        want[counter] = want[fc]
+        for k, v in list(want_shape.items()):
+            if k.split(" ")[0] == fc:
+                want_shape[k.replace(fc, counter, 1)] = v
+    by_shape = {k: counts.get(k, 0) for k in want_shape}
     finite = all(math.isfinite(v) for lg in logs_all for v in lg.values())
     keys_ok = all({"l_flow", "epe", "1px", "3px", "5px", "l_total"}
                   <= lg.keys() for lg in logs_all)
@@ -4720,21 +4870,18 @@ def phase_train_flow(torch, card, kernel_rows):
     launch_ok = ({k: counts[k] for k in want} == want
                  and by_shape == want_shape)
     steady = step_ms[1:]
-    # the plain backward a step runs: each call's backward ms at its shape,
-    # as many as the forward launches (K3's through the pre-propagation
-    # term of the loss)
-    bwd_plain = sum(kernel_rows[r]["backward_ms"] * n for r, n in (
-        ("attention[dv128] flow step", 6), ("attention[dv128+bias] flow step",
-                                             6),
-        ("attention[dv2] flow step", 1),
-        ("global_correlation_expectation flow step", 1),
-        ("mlp_fused flow step", 6)))
+    # the backward kernels a step runs: each call's ms at its shape (phase
+    # flow_kernel), as many as the forward launches (K3's through the
+    # pre-propagation term of the loss)
+    bwd_kernels = sum(r["ms"] * fwd[r["name"].split(" ")[0].replace(
+        "_bwd", "", 1)] for (_, dname), r in bwd_rows.items()
+        if dname == "float32")
     ok = bool(finite and keys_ok and not dead and not noisy and lr_ok
               and launch_ok and two_term["ok"])
     say("train_flow", card=card, batch=FLOW_B, hw=list(FLOW_HW),
         ms_per_step=float(np.mean(steady)), ms_steps=step_ms,
         pairs_per_s=1e3 * FLOW_B / float(np.mean(steady)), **parts,
-        plain_backward_ms_per_step=bwd_plain, peak_gib=peak,
+        backward_kernels_ms_per_step=bwd_kernels, peak_gib=peak,
         data_wait_s=data_s, loader_s_per_batch=loader_s,
         loader_workers=FLOW_WORKERS, pairs_written=FLOW_PAIRS,
         write_dataset_s=write_s,
@@ -4746,6 +4893,30 @@ def phase_train_flow(torch, card, kernel_rows):
     if not ok:
         fail("train_flow: the GMFlow steps broke a check (losses, the "
              "two-term loss, gradients, LR or launches)")
+
+    # one mixed-precision step on the same batch (train.mixed_precision:
+    # the network on a bf16 copy): K1-K3's bf16 forms and their backward
+    # kernels, one backward launch for each forward one, at the same shapes
+    mp_opt = copy.deepcopy(fopt)
+    mp_opt["train"]["mixed_precision"] = True
+    tr_mp = build_model(mp_opt)
+    st_mp = tr_mp.make_state()
+    K.reset_launch_counts()
+    st_mp, mp_logs = tr_mp.train_step(st_mp, b)
+    torch.cuda.synchronize()
+    mp_counts = {**K.LAUNCHES, **K.LAUNCHES_BY_SHAPE}
+    mp_want = {k: v // FLOW_STEPS for k, v in want.items()}
+    mp_shape = {k: v // FLOW_STEPS for k, v in want_shape.items()}
+    mp_ok = bool(all(math.isfinite(v) for v in mp_logs.values())
+                 and {k: mp_counts[k] for k in mp_want} == mp_want
+                 and {k: mp_counts.get(k, 0) for k in mp_shape} == mp_shape)
+    say("train_flow_bf16", card=card, losses=mp_logs, launches=mp_counts,
+        expected=mp_want, expected_by_shape=mp_shape, ok=mp_ok)
+    if not mp_ok:
+        fail("train_flow_bf16: the mixed-precision GMFlow step broke a "
+             "check (losses or launches)")
+    del tr_mp, st_mp
+    torch.cuda.empty_cache()
 
     one = {k: v[:1] for k, v in batch().items()}
     res = flow_step_runs(torch, one)
@@ -4826,7 +4997,7 @@ def phase_train_flow(torch, card, kernel_rows):
         fail("train_flow_cli: the CLI's save or --resume broke a check")
     del st_cli, st_res, saved, live, resumed
     torch.cuda.empty_cache()
-    return counts
+    return {"float32": counts, "bfloat16": mp_counts}
 
 
 # phase sr_test: the reference configurations' patch, clip and batch sizes
@@ -5744,8 +5915,8 @@ def main():
     phase_train_parity(torch)
     train_counts = phase_train(torch)
     gan_counts = phase_train_gan(torch, card)
-    flow_rows = phase_flow_grads(torch, krows)
-    flow_counts = phase_train_flow(torch, card, flow_rows)
+    bwd_rows = phase_flow_grads(torch, krows)
+    flow_counts = phase_train_flow(torch, card, bwd_rows)
     phase_sr_test(torch, card)
     k5_rows = phase_k5(torch)
     phase_stylegan2_parity(torch)
@@ -5823,15 +5994,12 @@ def main():
         elif at == "flow step":
             # K1-K3 (f32) at the GMFlow training step's shapes: launches at
             # each shape over the FLOW_STEPS timed steps of phase train_flow
-            launches = flow_counts.get(key, 0)
+            launches = flow_counts["float32"].get(key, 0)
             extra = {"launches_per_step": launches / FLOW_STEPS,
                      "launches_at": key,
                      "launches_of": f"{FLOW_STEPS} GMFlow training steps "
                                     f"(B = {FLOW_B}, "
-                                    f"{FLOW_HW[0]}x{FLOW_HW[1]})",
-                     "backward_ms": r["backward_ms"],
-                     "grad_max_rel_err": r["grad_max_rel_err"],
-                     "plain_fwd_bwd_ms": r["plain_fwd_bwd_ms"]}
+                                    f"{FLOW_HW[0]}x{FLOW_HW[1]})"}
         elif at == "L256":
             # the refinement's fine scale: launches at this shape in one
             # apply_refine forward call (2 pairs) in this dtype
@@ -5854,6 +6022,32 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": dname, "status": "ported", **extra,
             **({} if at == "flow step" else stage3(counter, dname))})
+    # the backward kernels at the GMFlow step's shapes: f32 with their
+    # launches over phase train_flow's f32 steps, bf16 with those of its
+    # mixed-precision step
+    for (name, dname), r in bwd_rows.items():
+        fn = name.split(" ")[0].split("[")[0].replace("_bwd", "")
+        key = r["launch_key"]
+        f32 = dname == "float32"
+        n = flow_counts[dname].get(key, 0)
+        table.append({
+            "name": name, "route": "cuda",
+            "source": ("comfyui_keep_torch/csrc/mlp.cu" if fn == "mlp_fused"
+                       else "comfyui_keep_torch/csrc/attention_bwd.cu"),
+            "replaces": srcs[fn][1], "differentiates": r["differentiates"],
+            "launches": n,
+            "launches_per_step": n / FLOW_STEPS if f32 else n,
+            "launches_at": key,
+            "launches_of": (f"{FLOW_STEPS} GMFlow training steps" if f32
+                            else "one mixed-precision GMFlow step")
+            + f" (B = {FLOW_B}, {FLOW_HW[0]}x{FLOW_HW[1]})",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": r["library"], "off_f64": r["off_f64"],
+            "plain_off_f64": r["plain_off_f64"],
+            "peak_extra_bytes": r["peak_extra_bytes"],
+            "dtype": dname, "status": "ported"})
     # the nearest-codebook kernel runs on the training path: f32 as
     # configured, bf16 under mixed precision; launches from those runs
     for (name, dname), r in vq_rows.items():

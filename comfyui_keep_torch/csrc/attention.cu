@@ -14,7 +14,10 @@
 // sum l), P rounded to V's dtype for P V (K1; K3 keeps P in f32), f32
 // accumulation, and one normalisation after the last key tile. No form
 // touches device memory with the score matrix (1 GB f32 per 20-frame chunk
-// for the two global forms alone), and each call is one launch.
+// for the two global forms alone), and each call is one launch. A call that
+// records a gradient passes an lse buffer: each kernel then also writes each
+// query row's log2-sum-exp2 (the running max plus log2 of the running sum),
+// which the backward kernels of attention_bwd.cu rebuild P from.
 //
 // Three kernels, one per bound:
 //
@@ -158,7 +161,8 @@ __global__ void __launch_bounds__(kFaThreads, 1)
                                 const bf16* __restrict__ k,
                                 const bf16* __restrict__ v,
                                 const float* __restrict__ bias, int bm,
-                                bf16* __restrict__ out, int L,
+                                bf16* __restrict__ out,
+                                float* __restrict__ lse, int L,
                                 float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sq = sm90::smem_u32(smem);
@@ -297,6 +301,10 @@ __global__ void __launch_bounds__(kFaThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, w);
   }
   const float i0 = 1.f / l0, i1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {  // the backward's row statistics
+    if (row0 < L) lse[(size_t)b * L + row0] = m0 + log2f(l0);
+    if (row0 + 8 < L) lse[(size_t)b * L + row0 + 8] = m1 + log2f(l1);
+  }
   const int r0 = 16 * warp + g;
 #pragma unroll
   for (int n = 0; n < 16; ++n) {
@@ -319,8 +327,8 @@ __global__ void __launch_bounds__(kFaThreads, 1)
 }
 
 int launch_flash_bf16(const void* q, const void* k, const void* v,
-                      const void* bias, int bm, void* out, int B, int L,
-                      float scale, cudaStream_t stream) {
+                      const void* bias, int bm, void* out, float* lse, int B,
+                      int L, float scale, cudaStream_t stream) {
   auto kernel = bias ? flash_attention_bf16_kernel<true>
                      : flash_attention_bf16_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -330,7 +338,7 @@ int launch_flash_bf16(const void* q, const void* k, const void* v,
   kernel<<<grid, kFaThreads, kFaSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias), bm,
-      static_cast<bf16*>(out), L, scale * kLog2e);
+      static_cast<bf16*>(out), lse, L, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -338,14 +346,6 @@ int launch_flash_bf16(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 // Shared by the narrow and f32 kernels
 // ---------------------------------------------------------------------------
-
-// 2^x by the MUFU's ex2.approx (as exp2f), denormal results flushed to 0:
-// saves exp2f's denormal fix-up on every score
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // element i of the 2-wide V slice of keys [k0, k0 + KEYS) (key k0 + i / 2,
 // column i % 2), 0 past L; a plain load, so V's rows need no alignment
@@ -386,7 +386,8 @@ __global__ void __launch_bounds__(kFaThreads, 2)
     flash_narrow_bf16_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const TV* __restrict__ v, size_t v_bstride,
-                             TO* __restrict__ out, int L, float scale_log2) {
+                             TO* __restrict__ out, float* __restrict__ lse,
+                             int L, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sq = sm90::smem_u32(smem);
   const uint32_t sk = sq + kFaQBytes;
@@ -510,6 +511,10 @@ __global__ void __launch_bounds__(kFaThreads, 2)
     o1y += __shfl_xor_sync(0xffffffffu, o1y, w);
   }
   if (t == 0) {
+    if (lse != nullptr) {  // the backward's row statistics
+      if (row0 < L) lse[(size_t)b * L + row0] = m0 + log2f(l0);
+      if (row0 + 8 < L) lse[(size_t)b * L + row0 + 8] = m1 + log2f(l1);
+    }
     if (row0 < L) {
       TO* o = out + ((size_t)b * L + row0) * 2;
       o[0] = from_f<TO>(o0x / l0);
@@ -525,8 +530,8 @@ __global__ void __launch_bounds__(kFaThreads, 2)
 
 template <typename TV, typename TO, bool ROUND_P>
 int launch_narrow_bf16(const void* q, const void* k, const void* v,
-                       size_t v_bstride, void* out, int B, int L, float scale,
-                       cudaStream_t stream) {
+                       size_t v_bstride, void* out, float* lse, int B, int L,
+                       float scale, cudaStream_t stream) {
   auto kernel = flash_narrow_bf16_kernel<TV, TO, ROUND_P>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kNbSmem);
@@ -534,7 +539,7 @@ int launch_narrow_bf16(const void* q, const void* k, const void* v,
   dim3 grid((L + kFaRows - 1) / kFaRows, B);
   kernel<<<grid, kFaThreads, kNbSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const TV*>(v), v_bstride, static_cast<TO*>(out), L,
+      static_cast<const TV*>(v), v_bstride, static_cast<TO*>(out), lse, L,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -616,7 +621,8 @@ __global__ void __launch_bounds__(kFfThreads, 1)
                                const float* __restrict__ k,
                                const float* __restrict__ v, size_t v_bstride,
                                const float* __restrict__ bias, int bm,
-                               float* __restrict__ out, int L,
+                               float* __restrict__ out,
+                               float* __restrict__ lse, int L,
                                float scale_log2) {
   using S = FfSmem<DV>;
   constexpr bool kWide = S::wide;
@@ -811,6 +817,8 @@ __global__ void __launch_bounds__(kFfThreads, 1)
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + wr + 4 * r;
     if (row >= L) continue;
+    if (lse != nullptr && cg == 0)  // the backward's row statistics
+      lse[(size_t)b * L + row] = m[r] + log2f(l[r]);
     const float inv = 1.f / l[r];
     float* orow = out + ((size_t)b * L + row) * DV;
     if constexpr (kWide) {
@@ -828,8 +836,8 @@ __global__ void __launch_bounds__(kFfThreads, 1)
 
 template <int DV, bool BIAS>
 int launch_f32(const void* q, const void* k, const void* v, size_t v_bstride,
-               const void* bias, int bm, void* out, int B, int L, float scale,
-               cudaStream_t stream) {
+               const void* bias, int bm, void* out, float* lse, int B, int L,
+               float scale, cudaStream_t stream) {
   using S = FfSmem<DV>;
   auto kernel = flash_attention_f32_kernel<DV, BIAS>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -839,7 +847,7 @@ int launch_f32(const void* q, const void* k, const void* v, size_t v_bstride,
   kernel<<<grid, kFfThreads, S::bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), v_bstride,
-      static_cast<const float*>(bias), bm, static_cast<float*>(out), L,
+      static_cast<const float*>(bias), bm, static_cast<float*>(out), lse, L,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -848,48 +856,54 @@ int launch_f32(const void* q, const void* k, const void* v, size_t v_bstride,
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value (0 = ok).
 // q, k: (B, L, D); v, out: (B, L, DV) of the same dtype; bias: (Bm, L, L)
-// f32 or null. D must be 128 and DV 128, or 2 without a bias.
+// f32 or null. D must be 128 and DV 128, or 2 without a bias. lse: (B, L)
+// f32 or null; when given, each query row's log2-sum-exp2 of its scores in
+// log2 units (the running max plus log2 of the running sum) is written
+// there for the backward (attention_bwd.cu); nothing else changes.
 extern "C" int keep_attention(const void* q, const void* k, const void* v,
-                              const void* bias, void* out, int B, int L, int D,
-                              int DV, int Bm, float scale, int dtype,
-                              void* stream) {
+                              const void* bias, void* out, void* lse_out,
+                              int B, int L, int D, int DV, int Bm,
+                              float scale, int dtype, void* stream) {
   using namespace keep;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (D != kD || B < 1 || L < 1 || (bias != nullptr && Bm < 1))
     return (int)cudaErrorInvalidValue;
   const size_t vb = (size_t)L * DV;
   if (DV == kD) {
     if (dtype == 1)
-      return launch_flash_bf16(q, k, v, bias, Bm, out, B, L, scale, st);
+      return launch_flash_bf16(q, k, v, bias, Bm, out, lse, B, L, scale, st);
     if (dtype == 0)
-      return bias ? launch_f32<kD, true>(q, k, v, vb, bias, Bm, out, B, L,
-                                         scale, st)
-                  : launch_f32<kD, false>(q, k, v, vb, bias, Bm, out, B, L,
-                                          scale, st);
+      return bias ? launch_f32<kD, true>(q, k, v, vb, bias, Bm, out, lse, B,
+                                         L, scale, st)
+                  : launch_f32<kD, false>(q, k, v, vb, bias, Bm, out, lse, B,
+                                          L, scale, st);
   } else if (DV == 2 && bias == nullptr) {
     if (dtype == 1)
-      return launch_narrow_bf16<bf16, bf16, true>(q, k, v, vb, out, B, L,
+      return launch_narrow_bf16<bf16, bf16, true>(q, k, v, vb, out, lse, B, L,
                                                   scale, st);
     if (dtype == 0)
-      return launch_f32<2, false>(q, k, v, vb, nullptr, 1, out, B, L, scale,
-                                  st);
+      return launch_f32<2, false>(q, k, v, vb, nullptr, 1, out, lse, B, L,
+                                  scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// f0, f1: (B, L, C) of dtype, C = 128; grid: (L, 2) f32; out: (B, L, 2) f32.
+// f0, f1: (B, L, C) of dtype, C = 128; grid: (L, 2) f32; out: (B, L, 2) f32;
+// lse: (B, L) f32 or null, as keep_attention's.
 extern "C" int keep_corr_expectation(const void* f0, const void* f1,
-                                     const void* grid, void* out, int B, int L,
-                                     int C, float scale, int dtype,
-                                     void* stream) {
+                                     const void* grid, void* out,
+                                     void* lse_out, int B, int L, int C,
+                                     float scale, int dtype, void* stream) {
   using namespace keep;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (C != kD || B < 1 || L < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return launch_narrow_bf16<float, float, false>(f0, f1, grid, 0, out, B, L,
-                                                   scale, st);
+    return launch_narrow_bf16<float, float, false>(f0, f1, grid, 0, out, lse,
+                                                   B, L, scale, st);
   if (dtype == 0)
-    return launch_f32<2, false>(f0, f1, grid, 0, nullptr, 1, out, B, L, scale,
-                                st);
+    return launch_f32<2, false>(f0, f1, grid, 0, nullptr, 1, out, lse, B, L,
+                                scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,12 @@
 // Shared pieces of the port's kernels: the bf16 type, bf16 / f32
-// conversions and log2(e).
+// conversions and vector loads / stores, log2(e) and the MUFU's 2^x.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace keep {
 
@@ -19,6 +21,55 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
+}
+
+template <typename T>
+constexpr bool is_f32 = std::is_same<T, float>::value;
+
+// x rounded to T's precision, as a float
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// four consecutive values as floats (16-byte aligned f32, 8-byte bf16)
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  o[0] = u.x; o[1] = u.y; o[2] = u.z; o[3] = u.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&o)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
+                                       float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      *reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// eight bf16 (one 16-byte load) as f32, into two float4 at dst
+__device__ __forceinline__ void cvt8(float* dst, uint4 u) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 e = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(e.x, e.y, f.x, f.y);
+}
+
+// 2^x by the MUFU's ex2.approx (as exp2f), denormal results flushed to 0:
+// saves exp2f's denormal fix-up on every score
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace keep

@@ -18,7 +18,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "csrc")
 _REPO = os.path.dirname(os.path.dirname(_CSRC))
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-SOURCES = ("attention", "mlp", "vq", "fused_act", "packed_conv")
+SOURCES = ("attention", "attention_bwd", "mlp", "vq", "fused_act",
+           "packed_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -29,12 +30,16 @@ _L = ctypes.c_longlong
 # argtypes of every exported function: pointers and the stream as c_void_p
 _SIGNATURES = {
     "attention": {
-        "keep_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-        "keep_corr_expectation": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+        "keep_attention": (_P,) * 6 + (_I,) * 5 + (_F, _I, _P),
+        "keep_corr_expectation": (_P,) * 5 + (_I,) * 3 + (_F, _I, _P),
+    },
+    "attention_bwd": {
+        "keep_attention_bwd": (_P,) * 11 + (_I,) * 5 + (_F, _I, _P),
+        "keep_corr_expectation_bwd": (_P,) * 9 + (_I,) * 3 + (_F, _I, _P),
     },
     "mlp": {
-        "keep_mlp_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P),
+        "keep_mlp_fused": (_P,) * 8 + (_I,) * 5 + (_P,),
+        "keep_mlp_fused_bwd": (_P,) * 14 + (_I,) * 5 + (_P,),
     },
     "vq": {
         "keep_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

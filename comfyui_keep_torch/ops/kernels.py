@@ -3,9 +3,9 @@ GMFlow's three, the nearest-codebook search of KEEP training, StyleGAN2's
 fused bias + leaky ReLU and the phase-packed convolution.
 
 | wrapper | CUDA source | replaces (comfyui_keep_tpu/ops/pallas_kernels.py) |
-| `attention` | csrc/attention.cu (bf16 D_v=128: `flash_attention_bf16_kernel`; bf16 D_v=2: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`) | `attention_pallas` |
-| `global_correlation_expectation` | csrc/attention.cu (bf16: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`) | `global_correlation_expectation_pallas` |
-| `mlp_fused` | csrc/mlp.cu | `mlp_fused_pallas` |
+| `attention` | csrc/attention.cu (bf16 D_v=128: `flash_attention_bf16_kernel`; bf16 D_v=2: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`); backward csrc/attention_bwd.cu | `attention_pallas` |
+| `global_correlation_expectation` | csrc/attention.cu (bf16: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`); backward csrc/attention_bwd.cu | `global_correlation_expectation_pallas` |
+| `mlp_fused` | csrc/mlp.cu (backward `mlp_fused_bwd_kernel`) | `mlp_fused_pallas` |
 | `vq_nearest_indices` | csrc/vq.cu | `vq_nearest_indices_pallas` |
 | `fused_bias_lrelu` | csrc/fused_act.cu | `fused_bias_lrelu_pallas` |
 | `packed_conv2x2` | csrc/packed_conv.cu | `pallas_conv` (tools/_prof_packedconv.py) |
@@ -14,19 +14,34 @@ A wrapper given CPU tensors computes its plain version (the CPU tests run
 there). Given CUDA tensors it launches its kernel, or raises on anything the
 kernel does not take: there is no switch and no fallback. Under grad mode,
 with an input that requires grad, `attention`, `global_correlation_expectation`
-and `mlp_fused` go through `PlainBackward`: the kernel's forward, and in the
-backward the plain version's gradient, recomputed from the saved inputs
-(the JAX package differentiates its plain branch too: no Pallas kernel
-there has a backward). `packed_conv2x2` serves only and refuses such an
-input; `vq_nearest_indices` returns indices; `fused_bias_lrelu` has its own
-autograd Function (ops/native.py). Each launch adds
-one to its entry of `LAUNCHES`; the plain versions count nothing. `attention`
-keeps one entry per form, whichever dtype's kernel it launches:
-`attention[dv128]` (V as wide as q/k), `attention[dv128+bias]` (the same
-with a bias) and `attention[dv2]` (the 2-wide V). `LAUNCHES_BY_SHAPE` counts
-the same launches of K1 to K4 by the shape they ran at, "<LAUNCHES key>
-B<batch> L<length>" for attention and the correlation, "mlp_fused rows<n>"
-and "vq_nearest_indices T<tokens>", each key from its first launch on.
+and `mlp_fused` go through their autograd Functions (`AttentionFn`,
+`CorrelationFn`, `MlpFn`): the forward kernel, which then also writes what
+the backward needs (K1 and K3: each query row's log2-sum-exp2, (B, L) f32;
+K2: the LayerNorm's input, (rows, C) f32), and in the backward the
+hand-written backward kernels
+(csrc/attention_bwd.cu: two kernels a call, dQ then dK / dV, no (L, L)
+tensor in memory and no atomics; csrc/mlp.cu `mlp_fused_bwd_kernel`: the
+input gradients, dgamma and dbeta, with dW1 = da^T [src | msg] and dW2 =
+dO'^T h left to torch.matmul over every row, as the JAX package leaves the
+weight products to XLA). The JAX package has no Pallas backward: it
+differentiates its plain branch, and these kernels compute the gradient of
+the function each forward kernel computes. Each Function takes its forward
+and backward launchers as arguments, so the CPU tests run it with the plain
+versions (`attention_stats_plain` / `attention_backward_plain` and the
+like). Without grad the wrappers launch the forward kernel alone, as
+serving does. `packed_conv2x2` serves only and refuses an input that
+records a gradient; `vq_nearest_indices` returns indices;
+`fused_bias_lrelu` has its own autograd Function (ops/native.py). Each
+launch adds one to its entry of `LAUNCHES`; the plain versions count
+nothing. `attention` keeps one entry per form, whichever dtype's kernel it
+launches: `attention[dv128]` (V as wide as q/k), `attention[dv128+bias]`
+(the same with a bias) and `attention[dv2]` (the 2-wide V), and its
+backward the same three as `attention_bwd[...]`; the other backwards count
+as `global_correlation_expectation_bwd` and `mlp_fused_bwd`.
+`LAUNCHES_BY_SHAPE` counts the same launches of K1 to K4 and of the
+backwards by the shape they ran at, "<LAUNCHES key> B<batch> L<length>"
+for attention and the correlation, "mlp_fused[_bwd] rows<n>" and
+"vq_nearest_indices T<tokens>", each key from its first launch on.
 `PACKED_CONV_SHAPES` counts K6's launches by shape, whatever the batch:
 "<Hi>x<Wi>x<Cin> k<kh>x<kw> -> <Cout> pads <top><bottom><left><right>".
 """
@@ -42,7 +57,10 @@ from comfyui_keep_torch.ops._build import library
 LAUNCHES: Dict[str, int] = {
     "attention[dv128]": 0, "attention[dv128+bias]": 0, "attention[dv2]": 0,
     "global_correlation_expectation": 0, "mlp_fused": 0,
-    "vq_nearest_indices": 0, "fused_bias_lrelu": 0, "packed_conv2x2": 0}
+    "vq_nearest_indices": 0, "fused_bias_lrelu": 0, "packed_conv2x2": 0,
+    "attention_bwd[dv128]": 0, "attention_bwd[dv128+bias]": 0,
+    "attention_bwd[dv2]": 0, "global_correlation_expectation_bwd": 0,
+    "mlp_fused_bwd": 0}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTH = 128  # q/k width of attention, C of the MLP
 VQ_CODE_TILE = 64   # the codebook size must be a multiple of this
@@ -114,58 +132,94 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
 
 
-class PlainBackward(torch.autograd.Function):
-    """apply(launch, plain, diff, *args): the forward is launch(*args) (the
-    kernel, counted as any launch); the backward differentiates
-    plain(*args) at the saved inputs, recomputed under enable_grad, and
-    returns its gradient for the inputs at positions `diff` (None for the
-    rest). One call's recompute lives only inside its own backward."""
+def _records_grad(*tensors) -> bool:
+    """Whether a call on these inputs records a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class AttentionFn(torch.autograd.Function):
+    """apply(forward, backward, q, k, v, scale, bias): out, lse =
+    forward(q, k, v, scale, bias) (lse the (B, L) f32 row statistics);
+    the backward is backward(q, k, v, scale, bias, out, lse, dout) ->
+    (dq, dk, dv). The bias gets no gradient. On the card the two are the
+    kernels' launchers; the CPU tests pass the plain versions."""
 
     @staticmethod
-    def forward(ctx, launch, plain, diff, *args):
-        ctx.plain, ctx.diff = plain, diff
-        ctx.is_tensor = [torch.is_tensor(a) for a in args]
-        ctx.args = [None if t else a for a, t in zip(args, ctx.is_tensor)]
-        ctx.save_for_backward(*[a for a in args if torch.is_tensor(a)])
-        return launch(*args)
+    def forward(ctx, fwd, bwd, q, k, v, scale, bias):
+        out, lse = fwd(q, k, v, scale, bias)
+        ctx.bwd, ctx.scale = bwd, scale
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
 
     @staticmethod
-    def backward(ctx, grad):
-        saved = iter(ctx.saved_tensors)
-        args = [next(saved) if t else a
-                for a, t in zip(ctx.args, ctx.is_tensor)]
-        want = [i for i in ctx.diff if ctx.needs_input_grad[3 + i]]
-        for i in want:
-            args[i] = args[i].detach().requires_grad_(True)
-        with torch.enable_grad():
-            out = ctx.plain(*args)
-        got = dict(zip(want, torch.autograd.grad(
-            out, [args[i] for i in want], grad, allow_unused=True)))
-        return (None, None, None) + tuple(got.get(i) for i in
-                                          range(len(args)))
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, ctx.scale, bias, out, lse,
+                             dout.contiguous())
+        return None, None, dq, dk, dv, None, None
 
 
-def _with_grad(launch, plain, diff, *args):
-    """launch(*args), through PlainBackward when grad mode is on and an
-    input at a position in `diff` requires grad."""
-    if torch.is_grad_enabled() and any(
-            torch.is_tensor(args[i]) and args[i].requires_grad for i in diff):
-        return PlainBackward.apply(launch, plain, diff, *args)
-    return launch(*args)
+class CorrelationFn(torch.autograd.Function):
+    """apply(forward, backward, f0, f1, grid): out, lse = forward(f0, f1,
+    grid); the backward is backward(f0, f1, grid, out, lse, dout) -> (df0,
+    df1). The grid gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, f0, f1, grid):
+        out, lse = fwd(f0, f1, grid)
+        ctx.bwd = bwd
+        ctx.save_for_backward(f0, f1, grid, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        f0, f1, grid, out, lse = ctx.saved_tensors
+        df0, df1 = ctx.bwd(f0, f1, grid, out, lse, dout.contiguous())
+        return None, None, df0, df1, None
+
+
+class MlpFn(torch.autograd.Function):
+    """apply(forward, backward, src, msg, w1, w2, gamma, beta,
+    approximate): out, o = forward(...) (o the LayerNorm's (rows, C) f32
+    input); the backward is backward(src, msg, w1, w2, gamma, beta,
+    approximate, out, o, dout) -> the six tensors' gradients."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, src, msg, w1, w2, gamma, beta, approximate):
+        out, o = fwd(src, msg, w1, w2, gamma, beta, approximate)
+        ctx.bwd, ctx.approximate = bwd, approximate
+        ctx.save_for_backward(src, msg, w1, w2, gamma, beta, out, o)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        *inputs, out, o = ctx.saved_tensors
+        grads = ctx.bwd(*inputs, ctx.approximate, out, o, dout.contiguous())
+        return (None, None) + tuple(grads) + (None,)
 
 
 # ---------------------------------------------------------------------------
 # K1: single-head attention
 # ---------------------------------------------------------------------------
 
+LOG2E = math.log2(math.e)
+
+
+def _attention_logits(q, k, scale: float, bias=None):
+    """q k^T * scale [+ bias[b % Bm]] in the plain versions' working type."""
+    acc_t = _acc_dtype(q)
+    s = torch.matmul(q.to(acc_t), k.to(acc_t).transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.to(acc_t).repeat(q.shape[0] // bias.shape[0], 1, 1)
+    return s
+
+
 def attention_plain(q, k, v, scale: float, bias=None):
     """softmax(q k^T * scale [+ bias[b % Bm]]) v with the kernel's rounding:
     f32 scores, probabilities cast to v's dtype for the PV product, f32
     accumulation, normalised after PV (float64 throughout on f64 inputs)."""
     acc_t = _acc_dtype(q)
-    s = torch.matmul(q.to(acc_t), k.to(acc_t).transpose(-1, -2)) * scale
-    if bias is not None:
-        s = s + bias.to(acc_t).repeat(q.shape[0] // bias.shape[0], 1, 1)
+    s = _attention_logits(q, k, scale, bias)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
@@ -173,17 +227,59 @@ def attention_plain(q, k, v, scale: float, bias=None):
     return (acc / denom).to(v.dtype)
 
 
+def attention_stats_plain(q, k, v, scale: float, bias=None):
+    """(attention_plain(...), lse): lse the (B, L) row statistics the
+    kernels' backward reads, log2 sum_j 2^(x_j log2 e) of each row's logits
+    x (the log-sum-exp times log2 e), f32 (float64 on f64 inputs)."""
+    lse = torch.logsumexp(_attention_logits(q, k, scale, bias), -1) * LOG2E
+    return attention_plain(q, k, v, scale, bias), lse
+
+
+def _softmax_backward_plain(x, v, out, lse, dout):
+    """(P, dS) of softmax(x) v from the saved statistics: P = 2^(x log2 e -
+    lse), dS = P (dout v^T - rowsum(dout * out)), in x's type."""
+    acc_t = x.dtype
+    p = torch.exp2(x * LOG2E - lse.to(acc_t)[..., None])
+    do = dout.to(acc_t)
+    delta = (do * out.to(acc_t)).sum(-1, keepdim=True)
+    dp = torch.matmul(do, v.to(acc_t).transpose(-1, -2))
+    return p, p * (dp - delta)
+
+
+def attention_backward_plain(q, k, v, scale: float, bias, out, lse, dout):
+    """The kernels' backward, written out: P rebuilt from the logits and
+    lse, dS = P (dP - Delta), dQ = scale dS K, dK = scale dS^T Q, dV = P^T
+    dO with P rounded to v's dtype as the forward rounds it before P V; f32
+    (float64 on f64 inputs), each gradient cast to its input's dtype. The
+    bias gets none."""
+    acc_t = _acc_dtype(q)
+    x = _attention_logits(q, k, scale, bias)
+    p, ds = _softmax_backward_plain(x, v, out, lse, dout)
+    dv = torch.matmul(p.to(v.dtype).to(acc_t).transpose(-1, -2),
+                      dout.to(acc_t))
+    dq = torch.matmul(ds, k.to(acc_t)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc_t)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
     """q, k: (B, L, D); v: (B, L, Dv); bias: (Bm, L, L) f32 with Bm dividing
     B, or None. Returns (B, L, Dv) in v's dtype. On CUDA: D = 128 and Dv in
-    {128, 2}, f32 or bf16, B at most 65,535."""
+    {128, 2}, f32 or bf16, B at most 65,535; a call that records a gradient
+    saves the row statistics and its backward is the backward kernels'."""
     if not q.is_cuda:
         return attention_plain(q, k, v, scale, bias)
-    return _with_grad(_attention_launch, attention_plain, (0, 1, 2), q, k, v,
-                      scale, bias)
+    if _records_grad(q, k, v):
+        return AttentionFn.apply(_attention_stats_launch,
+                                 _attention_bwd_launch, q, k, v, scale, bias)
+    return _attention_launch(q, k, v, scale, bias)
 
 
-def _attention_launch(q, k, v, scale: float, bias=None):
+def _attention_key(dv: int, bias) -> str:
+    return f"dv{dv}{'' if bias is None else '+bias'}"
+
+
+def _attention_launch(q, k, v, scale: float, bias=None, stats=False):
     b, l, d = q.shape
     _check_batch("attention", b)
     dv = v.shape[-1]
@@ -202,16 +298,45 @@ def _attention_launch(q, k, v, scale: float, bias=None):
         if b % bm:
             raise ValueError(f"attention: Bm={bm} does not divide B={b}")
     out = torch.empty_like(v)
+    lse = (torch.empty((b, l), dtype=torch.float32, device=q.device)
+           if stats else None)
     lib = library("attention")
     with _device(q):
         err = lib.keep_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  None if bias is None else bias.data_ptr(),
-                                 out.data_ptr(), b, l, d, dv, bm, float(scale),
+                                 out.data_ptr(),
+                                 None if lse is None else lse.data_ptr(), b,
+                                 l, d, dv, bm, float(scale),
                                  _DTYPE_CODE[q.dtype], _stream(q))
     _raise_on(err, "attention kernel launch")
-    _count(f"attention[dv{dv}{'' if bias is None else '+bias'}]",
-           f"B{b} L{l}")
-    return out
+    _count(f"attention[{_attention_key(dv, bias)}]", f"B{b} L{l}")
+    return (out, lse) if stats else out
+
+
+def _attention_stats_launch(q, k, v, scale: float, bias=None):
+    return _attention_launch(q, k, v, scale, bias, stats=True)
+
+
+def _attention_bwd_launch(q, k, v, scale: float, bias, out, lse, dout):
+    b, l, d = q.shape
+    dv = v.shape[-1]
+    _check("attention out", out, (b, l, dv), v.dtype, q.device)
+    _check("attention dout", dout, (b, l, dv), v.dtype, q.device)
+    _check("attention lse", lse, (b, l), torch.float32, q.device)
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, l), dtype=torch.float32, device=q.device)
+    lib = library("attention_bwd")
+    with _device(q):
+        err = lib.keep_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), b, l, d, dv,
+            0 if bias is None else bias.shape[0], float(scale),
+            _DTYPE_CODE[q.dtype], _stream(q))
+    _raise_on(err, "attention backward kernel launch")
+    _count(f"attention_bwd[{_attention_key(dv, bias)}]", f"B{b} L{l}")
+    return dq, dk, dvv
 
 
 # ---------------------------------------------------------------------------
@@ -228,18 +353,42 @@ def global_correlation_expectation_plain(f0, f1, grid):
     return torch.matmul(torch.softmax(s, dim=-1), grid.to(acc_t))
 
 
+def global_correlation_expectation_stats_plain(f0, f1, grid):
+    """(global_correlation_expectation_plain(...), lse), lse as
+    attention_stats_plain's at scale 1 / sqrt(C)."""
+    x = _attention_logits(f0, f1, 1.0 / math.sqrt(f0.shape[-1]))
+    return (global_correlation_expectation_plain(f0, f1, grid),
+            torch.logsumexp(x, -1) * LOG2E)
+
+
+def global_correlation_expectation_backward_plain(f0, f1, grid, out, lse,
+                                                  dout):
+    """The correlation kernel's backward, written out as
+    attention_backward_plain's with V the grid (no gradient, P kept in
+    f32): (df0, df1) in f0's dtype."""
+    scale = 1.0 / math.sqrt(f0.shape[-1])
+    acc_t = _acc_dtype(f0)
+    x = _attention_logits(f0, f1, scale)
+    _, ds = _softmax_backward_plain(x, grid, out, lse, dout)
+    df0 = torch.matmul(ds, f1.to(acc_t)) * scale
+    df1 = torch.matmul(ds.transpose(-1, -2), f0.to(acc_t)) * scale
+    return df0.to(f0.dtype), df1.to(f1.dtype)
+
+
 def global_correlation_expectation(f0, f1, grid):
     """f0, f1: (B, L, C); grid: (L, 2) f32 pixel coordinates. Returns the
     (B, L, 2) f32 softmax-weighted correspondence without the (B, L, L)
-    correlation. On CUDA: C = 128, f32 or bf16, B at most 65,535."""
+    correlation. On CUDA: C = 128, f32 or bf16, B at most 65,535; a call
+    that records a gradient has the backward kernels' backward."""
     if not f0.is_cuda:
         return global_correlation_expectation_plain(f0, f1, grid)
-    return _with_grad(_correlation_launch,
-                      global_correlation_expectation_plain, (0, 1), f0, f1,
-                      grid)
+    if _records_grad(f0, f1):
+        return CorrelationFn.apply(_correlation_stats_launch,
+                                   _correlation_bwd_launch, f0, f1, grid)
+    return _correlation_launch(f0, f1, grid)
 
 
-def _correlation_launch(f0, f1, grid):
+def _correlation_launch(f0, f1, grid, stats=False):
     b, l, c = f0.shape
     _check_batch("correlation", b)
     if c != KERNEL_WIDTH or f0.dtype not in _DTYPE_CODE:
@@ -249,14 +398,40 @@ def _correlation_launch(f0, f1, grid):
     _check("correlation f1", f1, (b, l, c), f0.dtype, f0.device)
     _check("correlation grid", grid, (l, 2), torch.float32, f0.device)
     out = torch.empty((b, l, 2), dtype=torch.float32, device=f0.device)
+    lse = (torch.empty((b, l), dtype=torch.float32, device=f0.device)
+           if stats else None)
     lib = library("attention")
     with _device(f0):
         err = lib.keep_corr_expectation(
-            f0.data_ptr(), f1.data_ptr(), grid.data_ptr(), out.data_ptr(), b,
-            l, c, 1.0 / math.sqrt(c), _DTYPE_CODE[f0.dtype], _stream(f0))
+            f0.data_ptr(), f1.data_ptr(), grid.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, l, c,
+            1.0 / math.sqrt(c), _DTYPE_CODE[f0.dtype], _stream(f0))
     _raise_on(err, "correlation kernel launch")
     _count("global_correlation_expectation", f"B{b} L{l}")
-    return out
+    return (out, lse) if stats else out
+
+
+def _correlation_stats_launch(f0, f1, grid):
+    return _correlation_launch(f0, f1, grid, stats=True)
+
+
+def _correlation_bwd_launch(f0, f1, grid, out, lse, dout):
+    b, l, c = f0.shape
+    _check("correlation out", out, (b, l, 2), torch.float32, f0.device)
+    _check("correlation dout", dout, (b, l, 2), torch.float32, f0.device)
+    _check("correlation lse", lse, (b, l), torch.float32, f0.device)
+    df0, df1 = torch.empty_like(f0), torch.empty_like(f1)
+    delta = torch.empty((b, l), dtype=torch.float32, device=f0.device)
+    lib = library("attention_bwd")
+    with _device(f0):
+        err = lib.keep_corr_expectation_bwd(
+            f0.data_ptr(), f1.data_ptr(), grid.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            df0.data_ptr(), df1.data_ptr(), b, l, c, 1.0 / math.sqrt(c),
+            _DTYPE_CODE[f0.dtype], _stream(f0))
+    _raise_on(err, "correlation backward kernel launch")
+    _count("global_correlation_expectation_bwd", f"B{b} L{l}")
+    return df0, df1
 
 
 # ---------------------------------------------------------------------------
@@ -278,43 +453,152 @@ def mlp_fused_plain(src, msg, w1, w2, gamma, beta, approximate: bool):
     return (src.to(acc_t) + o).to(src.dtype)
 
 
+def mlp_fused_stats_plain(src, msg, w1, w2, gamma, beta, approximate: bool):
+    """(mlp_fused_plain(...), o): o the LayerNorm's input [src | msg] W1^T
+    -> gelu -> W2^T as (rows, C), f32 (float64 on f64 inputs), which the
+    kernel's backward reads."""
+    acc_t = _acc_dtype(src)
+    c = src.shape[-1]
+    x = torch.cat([src, msg], dim=-1).to(acc_t).reshape(-1, 2 * c)
+    h = F.gelu(torch.matmul(x, w1.to(acc_t).t()),
+               approximate="tanh" if approximate else "none")
+    o = torch.matmul(h.to(src.dtype).to(acc_t), w2.to(acc_t).t())
+    return mlp_fused_plain(src, msg, w1, w2, gamma, beta, approximate), o
+
+
+def gelu_grad(a, approximate: bool):
+    """d gelu / d a (the erf form, or the tanh form as torch writes it)."""
+    if approximate:
+        c, k = math.sqrt(2.0 / math.pi), 0.044715
+        t = torch.tanh(c * (a + k * a * a * a))
+        return 0.5 * (1 + t) + 0.5 * a * ((1 - t * t) * c * (1 + 3 * k * a * a))
+    return (0.5 * (1 + torch.erf(a * math.sqrt(0.5)))
+            + a * (torch.exp(-0.5 * a * a) / math.sqrt(2 * math.pi)))
+
+
+def mlp_fused_backward_plain(src, msg, w1, w2, gamma, beta,
+                             approximate: bool, out, o, dout):
+    """The kernel's backward, written out in f32 (float64 on f64 inputs):
+    a = [src | msg] W1^T and h = gelu(a) rounded to src's dtype
+    recomputed; the LayerNorm statistics of the saved o (its input, out
+    unused); dO' = rs (g - mean(g) - ohat mean(g ohat)) with g = dout
+    gamma; dW2 = dO'^T h, dh = dO' W2, da = dh gelu'(a), dW1 = da^T [src |
+    msg], d[src | msg] = da W1 plus dout for src (the residual), dgamma =
+    sum(dout ohat), dbeta = sum(dout). Each gradient cast to its input's
+    dtype."""
+    acc_t = _acc_dtype(src)
+    c = src.shape[-1]
+    x = torch.cat([src, msg], dim=-1).to(acc_t).reshape(-1, 2 * c)
+    w1a, w2a = w1.to(acc_t), w2.to(acc_t)
+    a = torch.matmul(x, w1a.t())
+    h = F.gelu(a, approximate="tanh" if approximate else "none")
+    h = h.to(src.dtype).to(acc_t)
+    o = o.to(acc_t)
+    mean = o.mean(-1, keepdim=True)
+    rs = torch.rsqrt((o - mean).square().mean(-1, keepdim=True) + 1e-5)
+    oh = (o - mean) * rs
+    dy = dout.to(acc_t).reshape(-1, c)
+    g = dy * gamma.to(acc_t)
+    do = rs * (g - g.mean(-1, keepdim=True)
+               - oh * (g * oh).mean(-1, keepdim=True))
+    da = torch.matmul(do, w2a) * gelu_grad(a, approximate)
+    dx = torch.matmul(da, w1a)
+    dsrc = (dx[:, :c] + dy).reshape(src.shape)
+    dmsg = dx[:, c:].reshape(msg.shape)
+    return (dsrc.to(src.dtype), dmsg.to(msg.dtype),
+            torch.matmul(da.t(), x).to(w1.dtype),
+            torch.matmul(do.t(), h).to(w2.dtype),
+            (dy * oh).sum(0).to(gamma.dtype), dy.sum(0).to(beta.dtype))
+
+
 def mlp_fused(src, msg, w1, w2, gamma, beta, approximate: bool):
     """src, msg: (B, L, C); w1: (H, 2C) and w2: (C, H), as nn.Linear holds
     them (w1's first C columns act on src, the rest on msg); gamma, beta:
     (C,). approximate=True is the tanh gelu, False the erf gelu. On CUDA:
     C = 128, H a multiple of 64, every tensor in src's dtype (f32 or bf16),
-    contiguous and 16-byte aligned."""
+    contiguous and 16-byte aligned; a call that records a gradient has the
+    backward kernel's backward."""
     if not src.is_cuda:
         return mlp_fused_plain(src, msg, w1, w2, gamma, beta, approximate)
-    return _with_grad(_mlp_launch, mlp_fused_plain, (0, 1, 2, 3, 4, 5), src,
-                      msg, w1, w2, gamma, beta, approximate)
+    if _records_grad(src, msg, w1, w2, gamma, beta):
+        return MlpFn.apply(_mlp_stats_launch, _mlp_bwd_launch, src, msg, w1,
+                           w2, gamma, beta, approximate)
+    return _mlp_launch(src, msg, w1, w2, gamma, beta, approximate)
 
 
-def _mlp_launch(src, msg, w1, w2, gamma, beta, approximate: bool):
+def _mlp_check(src, msg, w1, w2, gamma, beta):
     b, l, c = src.shape
     h = w1.shape[0]
     if c != KERNEL_WIDTH or h % 64 or src.dtype not in _DTYPE_CODE:
         raise ValueError(f"mlp kernel takes C=128, H%64==0 in f32/bf16, got "
                          f"C={c} H={h} {src.dtype}")
-    dt = src.dtype
     args = (("src", src, (b, l, c)), ("msg", msg, (b, l, c)),
             ("w1", w1, (h, 2 * c)), ("w2", w2, (c, h)), ("gamma", gamma, (c,)),
             ("beta", beta, (c,)))
     for n, t, shp in args:
-        _check(f"mlp {n}", t, shp, dt, src.device)
+        _check(f"mlp {n}", t, shp, src.dtype, src.device)
         if t.data_ptr() % 16:
             raise ValueError(f"mlp {n}: must be 16-byte aligned")
+    return b * l, c, h
+
+
+def _mlp_launch(src, msg, w1, w2, gamma, beta, approximate: bool,
+                stats=False):
+    rows, c, h = _mlp_check(src, msg, w1, w2, gamma, beta)
     out = torch.empty_like(src)
+    o = (torch.empty((rows, c), dtype=torch.float32, device=src.device)
+         if stats else None)
     lib = library("mlp")
     with _device(src):
         err = lib.keep_mlp_fused(src.data_ptr(), msg.data_ptr(), w1.data_ptr(),
                                  w2.data_ptr(), gamma.data_ptr(),
-                                 beta.data_ptr(), out.data_ptr(), b * l, c, h,
-                                 int(bool(approximate)), _DTYPE_CODE[dt],
-                                 _stream(src))
+                                 beta.data_ptr(), out.data_ptr(),
+                                 None if o is None else o.data_ptr(), rows, c,
+                                 h, int(bool(approximate)),
+                                 _DTYPE_CODE[src.dtype], _stream(src))
     _raise_on(err, "mlp kernel launch")
-    _count("mlp_fused", f"rows{b * l}")
-    return out
+    _count("mlp_fused", f"rows{rows}")
+    return (out, o) if stats else out
+
+
+def _mlp_stats_launch(src, msg, w1, w2, gamma, beta, approximate: bool):
+    return _mlp_launch(src, msg, w1, w2, gamma, beta, approximate, stats=True)
+
+
+MLP_BWD_ROWS = 128  # rows per block of the backward kernel (csrc/mlp.cu)
+
+
+def _mlp_bwd_launch(src, msg, w1, w2, gamma, beta, approximate: bool, out,
+                    o, dout):
+    """The backward kernel from the forward's saved LayerNorm input o
+    (dsrc, dmsg, dgamma, dbeta; da, h and dO' in f32 memory), then the
+    weight gradients as products over every row, which the JAX package
+    leaves to XLA outside its Pallas kernel: dW1 = da^T [src | msg], dW2 =
+    dO'^T h."""
+    rows, c, h = _mlp_check(src, msg, w1, w2, gamma, beta)
+    _check("mlp dout", dout, src.shape, src.dtype, src.device)
+    _check("mlp o", o, (rows, c), torch.float32, src.device)
+    f32 = dict(dtype=torch.float32, device=src.device)
+    dsrc, dmsg = torch.empty_like(src), torch.empty_like(msg)
+    da = torch.empty((rows, h), **f32)
+    hid = torch.empty((rows, h), **f32)
+    do = torch.empty((rows, c), **f32)
+    part = torch.empty((-(-rows // MLP_BWD_ROWS), 2 * c), **f32)
+    dgb = torch.empty((2, c), **f32)
+    lib = library("mlp")
+    with _device(src):
+        err = lib.keep_mlp_fused_bwd(
+            src.data_ptr(), msg.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            gamma.data_ptr(), dout.data_ptr(), o.data_ptr(), dsrc.data_ptr(),
+            dmsg.data_ptr(), da.data_ptr(), hid.data_ptr(), do.data_ptr(),
+            part.data_ptr(), dgb.data_ptr(), rows, c, h,
+            int(bool(approximate)), _DTYPE_CODE[src.dtype], _stream(src))
+    _raise_on(err, "mlp backward kernel launch")
+    _count("mlp_fused_bwd", f"rows{rows}")
+    x = torch.cat([src, msg], dim=-1).reshape(rows, 2 * c).float()
+    return (dsrc, dmsg, torch.matmul(da.t(), x).to(w1.dtype),
+            torch.matmul(do.t(), hid).to(w2.dtype), dgb[0].to(gamma.dtype),
+            dgb[1].to(beta.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -523,3 +807,14 @@ PLAIN = {"attention": attention_plain,
          "vq_nearest_indices": vq_nearest_indices_plain,
          "fused_bias_lrelu": fused_bias_lrelu_plain,
          "packed_conv2x2": packed_conv2x2_plain}
+# the backward kernels' plain versions, by the wrapper they differentiate
+PLAIN_BACKWARD = {"attention": attention_backward_plain,
+                  "global_correlation_expectation":
+                      global_correlation_expectation_backward_plain,
+                  "mlp_fused": mlp_fused_backward_plain}
+# the launchers each autograd Function is given on the card: (the forward
+# that saves what the backward reads, the backward)
+LAUNCHERS = {"attention": (_attention_stats_launch, _attention_bwd_launch),
+             "global_correlation_expectation": (_correlation_stats_launch,
+                                                _correlation_bwd_launch),
+             "mlp_fused": (_mlp_stats_launch, _mlp_bwd_launch)}

@@ -4,7 +4,8 @@ global-norm clip, one GMFlowTrainer step (its final-prediction term
 against JAX's loss_fn and jax.grad from the same tree; the reference's
 two-term loss, which JAX lacks, against a float64 recomputation, and the
 update against optax's on the port's own gradients), and the kernels'
-autograd wrapper (PlainBackward) against the plain versions' autograd.
+autograd Functions (AttentionFn, CorrelationFn, MlpFn) with the plain
+launchers injected against the plain versions' autograd.
 
 GMFlow at its 128 channels (the position embedding fixes them) with 2
 transformer layers (one plain, one shifted), 64x96 crops (8x12 features,
@@ -17,9 +18,12 @@ theirs is rounding noise on both sides). The update: optax's clip and
 AdamW on the port's own gradients give the port's new leaves within 1e-5
 of each leaf's scale.
 The schedule within 1e-6 of the
-peak LR (optax evaluates its cosine in f32); the clip 1e-6 relative. The
-wrapper's forward is the launch it is given and its gradient the plain
-version's, so on the CPU both equal the plain version's bit for bit.
+peak LR (optax evaluates its cosine in f32); the clip 1e-6 relative. A
+Function's forward is the launch it is given and its gradient the
+backward it is given, so on the CPU they equal the plain forward and the
+plain backward bit for bit, and the plain version's autograd within 1e-5
+of the largest (the backward rebuilds the softmax from the saved row
+statistics, in f32).
 """
 import copy
 import math
@@ -326,80 +330,123 @@ def _kernel_inputs(seed):
 
 @pytest.mark.parametrize("form", ["window", "window+bias", "global"])
 def test_attention_autograd_wrapper_equals_plain(form):
+    """AttentionFn with the plain launchers injected (the CPU stand-ins of
+    the forward kernel that saves the row statistics and of the backward
+    kernels): its forward is the plain version's, bit for bit; its input
+    gradients are the plain backward's, bit for bit, and the plain
+    version's autograd within 1e-5 of the largest (f32: the backward
+    rebuilds P from the saved statistics)."""
     g, r = _kernel_inputs(11)
     dv = 2 if form == "global" else 16
     q, k, v = r(4, 24, 16), r(4, 24, 16), r(4, 24, dv, scale=3.0)
     bias = (torch.where(torch.rand(2, 24, 24, generator=g) < 0.3, -100.0, 0.0)
             if form == "window+bias" else None)
     args = (q, k, v, 0.25, bias)
-    out = K.PlainBackward.apply(K.attention_plain, K.attention_plain,
-                                (0, 1, 2), *args)
+    out = K.AttentionFn.apply(K.attention_stats_plain,
+                              K.attention_backward_plain, *args)
     ref = K.attention_plain(*args)
     go = torch.randn(ref.shape, generator=g)
     got = torch.autograd.grad(out, (q, k, v), go)
     want = torch.autograd.grad(ref, (q, k, v), go)
+    o, lse = K.attention_stats_plain(*args)
+    plain = K.attention_backward_plain(*args, o, lse, go)
     assert torch.equal(out, ref)
-    for a, b_ in zip(got, want):
-        assert torch.equal(a, b_)
+    for a, b_, p_ in zip(got, want, plain):
+        assert torch.equal(a, p_)
+        assert (a - b_).abs().max() <= 1e-5 * b_.abs().max()
 
 
 def test_correlation_autograd_wrapper_equals_plain():
+    """CorrelationFn with the plain launchers: the plain forward bit for
+    bit, the plain backward's gradients bit for bit and the plain
+    version's autograd within 1e-5 of the largest."""
     g, r = _kernel_inputs(12)
     f0, f1 = r(3, 20, 16), r(3, 20, 16)
     ys, xs = torch.meshgrid(torch.arange(4.0), torch.arange(5.0),
                             indexing="ij")
     grid = torch.stack([xs, ys], -1).reshape(20, 2)
-    out = K.PlainBackward.apply(K.global_correlation_expectation_plain,
-                                K.global_correlation_expectation_plain,
-                                (0, 1), f0, f1, grid)
+    out = K.CorrelationFn.apply(
+        K.global_correlation_expectation_stats_plain,
+        K.global_correlation_expectation_backward_plain, f0, f1, grid)
     ref = K.global_correlation_expectation_plain(f0, f1, grid)
     go = torch.randn(ref.shape, generator=g)
-    for a, b_ in zip(torch.autograd.grad(out, (f0, f1), go),
-                     torch.autograd.grad(ref, (f0, f1), go)):
-        assert torch.equal(a, b_)
+    o, lse = K.global_correlation_expectation_stats_plain(f0, f1, grid)
+    plain = K.global_correlation_expectation_backward_plain(f0, f1, grid, o,
+                                                            lse, go)
+    assert torch.equal(out, ref)
+    for a, b_, p_ in zip(torch.autograd.grad(out, (f0, f1), go),
+                         torch.autograd.grad(ref, (f0, f1), go), plain):
+        assert torch.equal(a, p_)
+        assert (a - b_).abs().max() <= 1e-5 * b_.abs().max()
 
 
 def test_mlp_autograd_wrapper_equals_plain_and_forward_is_the_launch():
-    """Every one of the six tensors gets the plain version's gradient; the
-    forward value is the launch's (here the plain output plus one, which
-    the backward must not see)."""
+    """Every one of the six tensors gets the backward's gradient from the
+    statistics the forward saved; the forward value is the launch's (here
+    the plain output plus one, which the backward must not see), and the
+    gradients are the plain version's autograd within 1e-5 of the
+    largest."""
     g, r = _kernel_inputs(13)
     c, h = 8, 32
     args = (r(2, 10, c), r(2, 10, c), r(h, 2 * c, scale=0.3),
             r(c, h, scale=0.3), r(c), r(c), False)
-    out = K.PlainBackward.apply(lambda *a: K.mlp_fused_plain(*a) + 1,
-                                K.mlp_fused_plain, (0, 1, 2, 3, 4, 5), *args)
+
+    def launch(*a):
+        out, o = K.mlp_fused_stats_plain(*a)
+        return out + 1, o
+    out = K.MlpFn.apply(launch, K.mlp_fused_backward_plain, *args)
     ref = K.mlp_fused_plain(*args)
     assert torch.equal(out, ref + 1)
     go = torch.randn(ref.shape, generator=g)
     tensors = args[:6]
-    for a, b_ in zip(torch.autograd.grad(out, tensors, go),
-                     torch.autograd.grad(ref, tensors, go)):
-        assert torch.equal(a, b_)
+    o_out, o = K.mlp_fused_stats_plain(*args)
+    plain = K.mlp_fused_backward_plain(*args, o_out, o, go)
+    for a, b_, p_ in zip(torch.autograd.grad(out, tensors, go),
+                         torch.autograd.grad(ref, tensors, go), plain):
+        assert torch.equal(a, p_)
+        assert (a - b_).abs().max() <= 1e-5 * b_.abs().max()
 
 
 def test_wrapper_gives_no_gradient_to_bias_or_grid_and_is_skipped_without_grad():
+    """The mask and the pixel grid get no gradient; a call without grad
+    launches the forward once and builds no graph (the wrappers launch
+    the forward kernel alone then: `_records_grad` is false), and the
+    backward launcher runs once per backward."""
     g, r = _kernel_inputs(14)
     q, k, v = r(2, 6, 4), r(2, 6, 4), r(2, 6, 4)
     bias = torch.zeros(1, 6, 6, requires_grad=True)
-    out = K.PlainBackward.apply(K.attention_plain, K.attention_plain,
-                                (0, 1, 2), q, k, v, 0.5, bias)
-    gq, gb = torch.autograd.grad(out.sum(), (q, bias), allow_unused=True)
-    assert gq is not None and gb is None
     calls = []
 
-    def launch(*a):
-        calls.append(1)
-        return K.attention_plain(*a)
+    def fwd(*a):
+        calls.append("fwd")
+        return K.attention_stats_plain(*a)
 
+    def bwd(*a):
+        calls.append("bwd")
+        return K.attention_backward_plain(*a)
+    out = K.AttentionFn.apply(fwd, bwd, q, k, v, 0.5, bias)
+    gq, gb = torch.autograd.grad(out.sum(), (q, bias), allow_unused=True)
+    assert gq is not None and gb is None and calls == ["fwd", "bwd"]
+    ys, xs = torch.meshgrid(torch.arange(2.0), torch.arange(3.0),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(6, 2).requires_grad_(True)
+    y = K.CorrelationFn.apply(
+        K.global_correlation_expectation_stats_plain,
+        K.global_correlation_expectation_backward_plain, q, k, grid)
+    g0, gg = torch.autograd.grad(y.sum(), (q, grid), allow_unused=True)
+    assert g0 is not None and gg is None
+    calls.clear()
     with torch.no_grad():
-        y = K._with_grad(launch, K.attention_plain, (0, 1, 2), q, k, v, 0.5)
-    assert not y.requires_grad and calls == [1]
-    y = K._with_grad(launch, K.attention_plain, (0, 1, 2), q.detach(),
-                     k.detach(), v.detach(), 0.5)
-    assert not y.requires_grad and y.grad_fn is None and calls == [1, 1]
-    y = K._with_grad(launch, K.attention_plain, (0, 1, 2), q, k, v, 0.5)
-    assert type(y.grad_fn).__name__ == "PlainBackwardBackward"
+        y = K.AttentionFn.apply(fwd, bwd, q, k, v, 0.5, None)
+        assert not K._records_grad(q, k, v)
+    assert not y.requires_grad and y.grad_fn is None and calls == ["fwd"]
+    d = [t.detach() for t in (q, k, v)]
+    assert not K._records_grad(*d)
+    y = K.AttentionFn.apply(fwd, bwd, *d, 0.5, None)
+    assert y.grad_fn is None and calls == ["fwd", "fwd"]
+    assert K._records_grad(q, *d[1:])
+    y = K.AttentionFn.apply(fwd, bwd, q, k, v, 0.5, None)
+    assert type(y.grad_fn).__name__ == "AttentionFnBackward"
 
 
 @pytest.mark.parametrize("fn", ["attention", "correlation", "mlp"])

@@ -1,0 +1,228 @@
+"""The plain versions of the port's backward kernels (ops/kernels.py:
+attention_backward_plain, global_correlation_expectation_backward_plain,
+mlp_fused_backward_plain), on the CPU, from the statistics their forwards
+save (attention_stats_plain and the like):
+
+- against torch autograd of the plain forward on the same inputs: within
+  1e-12 of the largest gradient magnitude in float64, 1e-5 in f32 (the
+  backward rebuilds the softmax from the saved log-sum-exp and sums in
+  another order);
+- against jax.vjp of the JAX package's plain branch on the same numpy
+  inputs, f32 on both sides, within 2e-5 of the largest magnitude (the
+  two sum in other orders): `_sdpa` over windows with and without the
+  shifted mask, the global flow attention (`flow_attention`, whose key is
+  k_proj(q_proj(x)), chained through its two projections; the key bias,
+  whose true gradient is zero, within 2e-5 of the call's largest), the
+  flow of
+  `global_correlation_softmax` and the unfused MLP branch of a transformer
+  sublayer.
+
+Small shapes: GMFlow's kernels need D = 128 on the card, their plain
+versions any width.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from comfyui_keep_tpu.models import gmflow as jg
+from comfyui_keep_tpu.ops.act import gelu as jgelu
+from comfyui_keep_tpu.ops.norm import layer_norm as jlayer_norm
+from comfyui_keep_torch.ops import kernels as K
+
+torch.set_num_threads(1)
+AUTOGRAD_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+JAX_RTOL = 2e-5
+FORMS = ("window", "window+mask", "global", "correlation", "mlp_erf",
+         "mlp_tanh")
+
+
+def _inputs(form, rng):
+    """(plain forward, its stats form, plain backward, the inputs (numpy,
+    f64), the indices that take a gradient)."""
+    def a(*s, scale=1.0):
+        return rng.standard_normal(s) * scale
+
+    if form.startswith("mlp"):
+        c, h = 8, 32
+        args = (a(2, 10, c), a(2, 10, c), a(h, 2 * c, scale=0.3),
+                a(c, h, scale=0.3), a(c), a(c), form == "mlp_tanh")
+        return (K.mlp_fused_plain, K.mlp_fused_stats_plain,
+                K.mlp_fused_backward_plain, args, range(6))
+    if form == "correlation":
+        ys, xs = np.meshgrid(np.arange(4.0), np.arange(5.0), indexing="ij")
+        grid = np.stack([xs, ys], -1).reshape(20, 2)
+        return (K.global_correlation_expectation_plain,
+                K.global_correlation_expectation_stats_plain,
+                K.global_correlation_expectation_backward_plain,
+                (a(3, 20, 16), a(3, 20, 16), grid), range(2))
+    dv = 2 if form == "global" else 16
+    bias = (np.where(rng.random((2, 24, 24)) < 0.3, -100.0, 0.0)
+            if form == "window+mask" else None)
+    return (K.attention_plain, K.attention_stats_plain,
+            K.attention_backward_plain,
+            (a(4, 24, 16), a(4, 24, 16), a(4, 24, dv, scale=3.0), 0.25, bias),
+            range(3))
+
+
+def _torch(args, dtype, diff):
+    """numpy inputs as tensors: those that take a gradient (and the MLP's
+    LayerNorm affine) in dtype, the mask and the grid f32 as the kernels
+    take them (exact values: 0 / -100, pixel coordinates)."""
+    return [torch.tensor(x, dtype=dtype if i in diff else torch.float32)
+            if isinstance(x, np.ndarray) else x for i, x in enumerate(args)]
+
+
+def _rel(got, want):
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("form", FORMS)
+def test_plain_backward_equals_autograd_of_plain_forward(form, dtype):
+    plain, stats, backward, args, diff = _inputs(
+        form, np.random.default_rng(FORMS.index(form)))
+    args = _torch(args, dtype, diff)
+    leaves = [x.clone().requires_grad_(True) if i in diff else x
+              for i, x in enumerate(args)]
+    out = plain(*leaves)
+    assert out.dtype == dtype
+    g = torch.tensor(np.random.default_rng(7).standard_normal(out.shape),
+                     dtype=out.dtype)
+    want = torch.autograd.grad(out, [leaves[i] for i in diff], g)
+    got = backward(*args, *stats(*args), g)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert _rel(x, y) <= AUTOGRAD_RTOL[dtype]
+
+
+def _f32(x):
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("mask", [False, True])
+def test_attention_backward_plain_vs_jax_vjp_sdpa(mask):
+    rng = np.random.default_rng(20 + mask)
+    q, k, v = (_f32(rng.standard_normal((4, 24, 16))) for _ in range(3))
+    bias = (_f32(np.where(rng.random((2, 24, 24)) < 0.3, -100.0, 0.0))
+            if mask else None)
+    g = _f32(rng.standard_normal((4, 24, 16)))
+    scale = 1.0 / math.sqrt(16)
+    out, vjp = jax.vjp(lambda a, b_, c: jg._sdpa(
+        a, b_, c, scale, None if bias is None else jnp.asarray(bias)),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    t = [torch.as_tensor(x) for x in (q, k, v)]
+    tb = None if bias is None else torch.as_tensor(bias)
+    o, lse = K.attention_stats_plain(*t, scale, tb)
+    np.testing.assert_allclose(o.numpy(), np.asarray(out), atol=1e-6 * 3,
+                               rtol=1e-5)
+    got = K.attention_backward_plain(*t, scale, tb, o, lse,
+                                     torch.as_tensor(g))
+    for x, y in zip(got, want):
+        y = np.asarray(y)
+        assert np.abs(x.numpy() - y).max() <= JAX_RTOL * np.abs(y).max()
+
+
+def test_attention_backward_plain_vs_jax_vjp_global_flow_attention():
+    """The global flow attention of GMFlow's propagation: JAX's
+    flow_attention (q = q_proj(x), k = k_proj(q), V the flow) against the
+    plain backward chained through the two projections by hand."""
+    rng = np.random.default_rng(30)
+    b, h, w, c = 2, 4, 6, 16
+    x = _f32(rng.standard_normal((b, h, w, c)))
+    flow = _f32(rng.standard_normal((b, h, w, 2)) * 3)
+    wq, wk = (_f32(rng.standard_normal((c, c)) * 0.3) for _ in range(2))
+    bq, bk = (_f32(rng.standard_normal(c) * 0.1) for _ in range(2))
+    g = _f32(rng.standard_normal((b, h, w, 2)))
+    p = {"q_proj": {"w": jnp.asarray(wq), "b": jnp.asarray(bq)},
+         "k_proj": {"w": jnp.asarray(wk), "b": jnp.asarray(bk)}}
+    out, vjp = jax.vjp(lambda pp, f0, fl: jg.flow_attention(pp, f0, fl), p,
+                       jnp.asarray(x), jnp.asarray(flow))
+    dp, dx, dflow = vjp(jnp.asarray(g))
+    tx = torch.as_tensor(x).reshape(b, h * w, c)
+    q = tx @ torch.as_tensor(wq) + torch.as_tensor(bq)
+    kk = q @ torch.as_tensor(wk) + torch.as_tensor(bk)
+    v = torch.as_tensor(flow).reshape(b, h * w, 2)
+    scale = 1.0 / math.sqrt(c)
+    o, lse = K.attention_stats_plain(q, kk, v, scale)
+    np.testing.assert_allclose(o.reshape(b, h, w, 2).numpy(),
+                               np.asarray(out), atol=1e-5, rtol=1e-5)
+    dq, dk, dv = K.attention_backward_plain(
+        q, kk, v, scale, None, o, lse, torch.as_tensor(g).reshape(b, -1, 2))
+    dq = dq + dk @ torch.as_tensor(wk).t()
+    got = {"x": (dq @ torch.as_tensor(wq).t()).reshape(b, h, w, c),
+           "flow": dv.reshape(b, h, w, 2),
+           "wq": torch.einsum("blc,bld->cd", tx, dq),
+           "bq": dq.sum((0, 1)),
+           "wk": torch.einsum("blc,bld->cd", q, dk), "bk": dk.sum((0, 1))}
+    want = {"x": dx, "flow": dflow, "wq": dp["q_proj"]["w"],
+            "bq": dp["q_proj"]["b"], "wk": dp["k_proj"]["w"],
+            "bk": dp["k_proj"]["b"]}
+    # the key bias's true gradient is zero (a shift of every score of a
+    # row, under the softmax): rounding noise on both sides, held to the
+    # largest gradient of the call
+    top = max(np.abs(np.asarray(y)).max() for y in want.values())
+    for n, y in want.items():
+        y = np.asarray(y)
+        lim = JAX_RTOL * (top if n == "bk" else np.abs(y).max())
+        assert np.abs(got[n].numpy() - y).max() <= lim, n
+
+
+def test_correlation_backward_plain_vs_jax_vjp_global_correlation_softmax():
+    rng = np.random.default_rng(40)
+    b, h, w, c = 2, 4, 5, 16
+    f0, f1 = (_f32(rng.standard_normal((b, h, w, c))) for _ in range(2))
+    g = _f32(rng.standard_normal((b, h, w, 2)))
+    flow, vjp = jax.vjp(lambda a, b_: jg.global_correlation_softmax(a, b_)[0],
+                        jnp.asarray(f0), jnp.asarray(f1))
+    want = vjp(jnp.asarray(g))
+    ys, xs = torch.meshgrid(torch.arange(float(h)), torch.arange(float(w)),
+                            indexing="ij")
+    grid = torch.stack([xs, ys], -1).reshape(h * w, 2)
+    t0, t1 = (torch.as_tensor(x).reshape(b, h * w, c) for x in (f0, f1))
+    o, lse = K.global_correlation_expectation_stats_plain(t0, t1, grid)
+    np.testing.assert_allclose((o - grid).reshape(b, h, w, 2).numpy(),
+                               np.asarray(flow), atol=1e-5, rtol=1e-5)
+    got = K.global_correlation_expectation_backward_plain(
+        t0, t1, grid, o, lse, torch.as_tensor(g).reshape(b, h * w, 2))
+    for x, y in zip(got, want):
+        y = np.asarray(y).reshape(b, h * w, c)
+        assert np.abs(x.numpy() - y).max() <= JAX_RTOL * np.abs(y).max()
+
+
+def test_mlp_backward_plain_vs_jax_vjp_unfused_branch():
+    """The unfused MLP branch of a transformer sublayer in f32 (gmflow.py
+    :302-303, erf gelu), as test_mlp_erf_plain_vs_jax_unfused_branch
+    builds it, with W1 split at C and the weights in the JAX layout."""
+    rng = np.random.default_rng(50)
+    c, hd = 16, 64
+    src, msg = (_f32(rng.standard_normal((2, 30, c))) for _ in range(2))
+    w1a, w1b = (_f32(rng.standard_normal((c, hd)) * 0.2) for _ in range(2))
+    w2 = _f32(rng.standard_normal((hd, c)) * 0.2)
+    gm, bt = _f32(rng.standard_normal(c)), _f32(rng.standard_normal(c))
+    g = _f32(rng.standard_normal((2, 30, c)))
+
+    def branch(s, m, a1, b1, a2, sc, bi):
+        hmid = jgelu(s @ a1 + m @ b1, approximate=False)
+        return s + jlayer_norm(hmid @ a2, {"scale": sc, "bias": bi})
+    out, vjp = jax.vjp(branch, *map(jnp.asarray, (src, msg, w1a, w1b, w2,
+                                                  gm, bt)))
+    d = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    want = [d[0], d[1], np.concatenate([d[2], d[3]], 0).T, d[4].T, d[5], d[6]]
+    args = [torch.as_tensor(x) for x in (
+        src, msg, np.ascontiguousarray(np.concatenate([w1a, w1b], 0).T),
+        np.ascontiguousarray(w2.T), gm, bt)]
+    o_out, o = K.mlp_fused_stats_plain(*args, False)
+    np.testing.assert_allclose(o_out.numpy(), np.asarray(out), atol=2e-5,
+                               rtol=1e-5)
+    got = K.mlp_fused_backward_plain(*args, False, o_out, o,
+                                     torch.as_tensor(g))
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        assert np.abs(x.numpy() - y).max() <= JAX_RTOL * np.abs(y).max()

@@ -12,7 +12,9 @@ in f32 (summation order, exp2 against exp) and 1.6e-2 in bf16 (4 ulps of
 an 8-bit mantissa: the online softmax rounds P at other points; the
 packed convolution rounds its f32 sum, bias included, once in both). The
 fused bias + leaky ReLU does the plain version's operations in its order,
-so it is held bitwise.
+so it is held bitwise. The backward kernels are held to float64 against
+the plain backward's own distance (BWD_RATIO, below), as chip_smoke.py
+holds them.
 """
 import copy
 
@@ -619,46 +621,104 @@ def test_packed_conv_refuses_a_cuda_input_that_requires_grad(cuda):
         assert K.packed_conv2x2(x, w, ((0, 1), (0, 1))).shape == (1, 4, 4, 8)
 
 
+# each backward kernel against float64 (the plain version's autograd on
+# the same values in float64): its max|d| over the largest float64
+# gradient within BWD_RATIO times the plain backward's own (the same
+# formula in torch ops on the same saved statistics) or the floor, as
+# chip_smoke.py's phase flow_kernel holds them; the f32 floor is 2e-6, not
+# chip_smoke.py's 1e-6: at these small shapes cuBLAS splits the plain
+# backward's sums where K2's kernel sums its 512 hidden units in order
+BWD_RATIO, BWD_FLOOR = 3.0, {torch.float32: 2e-6, torch.bfloat16: 1e-6}
+PLAIN_NAMES = ("attention_plain", "attention_stats_plain",
+               "attention_backward_plain",
+               "global_correlation_expectation_plain",
+               "global_correlation_expectation_stats_plain",
+               "global_correlation_expectation_backward_plain",
+               "mlp_fused_plain", "mlp_fused_stats_plain",
+               "mlp_fused_backward_plain")
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", ["window", "window+bias", "global", "corr",
                                   "mlp"])
-def test_kernel_gradients_on_the_card_equal_the_plain_versions(cuda, form):
+def test_kernel_gradients_on_the_card_equal_the_plain_versions(
+        cuda, monkeypatch, form, dtype):
     """On a CUDA tensor that requires grad, each of K1-K3 launches its
-    kernel forward and returns the plain version's gradient: the input
-    gradients equal the plain autograd's on the same upstream gradient
-    (the same recompute) within 1e-6 of their largest."""
+    forward kernel and, in the backward, its backward kernel once (counted
+    by its own LAUNCHES entry) and never a plain version (each made to
+    raise here); the gradients stand off float64 no further than BWD_RATIO
+    times the plain backward's, and two identical calls give equal bits.
+    Without grad the forward kernel alone launches and builds no graph."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    def r(*s):
-        return torch.randn(s, generator=g, device="cuda").requires_grad_(True)
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device="cuda") * scale).to(dtype)
 
     if form == "corr":
         grid = torch.rand(256, 2, generator=g, device="cuda") * 16
         args, diff = (r(4, 256, 128), r(4, 256, 128), grid), (0, 1)
-        fn, plain = (K.global_correlation_expectation,
-                     K.global_correlation_expectation_plain)
+        fn, counter = (K.global_correlation_expectation,
+                       "global_correlation_expectation")
     elif form == "mlp":
-        args = (r(2, 64, 128), r(2, 64, 128), r(512, 256) * 0.05,
-                r(128, 512) * 0.05, r(128), r(128), False)
-        args = tuple(a.detach().requires_grad_(True) if torch.is_tensor(a)
-                     else a for a in args)
-        diff, fn, plain = (0, 1, 2, 3, 4, 5), K.mlp_fused, K.mlp_fused_plain
+        args = (r(2, 64, 128), r(2, 64, 128), r(512, 256, scale=0.05),
+                r(128, 512, scale=0.05), r(128), r(128),
+                dtype == torch.bfloat16)
+        diff, fn, counter = (0, 1, 2, 3, 4, 5), K.mlp_fused, "mlp_fused"
     else:
         dv = 2 if form == "global" else 128
         bias = (torch.where(torch.rand(2, 256, 256, generator=g,
                                        device="cuda") < 0.3, -100.0, 0.0)
                 if form == "window+bias" else None)
         args = (r(4, 256, 128), r(4, 256, 128), r(4, 256, dv), 0.088, bias)
-        diff, fn, plain = (0, 1, 2), K.attention, K.attention_plain
-    before = dict(K.LAUNCHES)
-    out = fn(*args)
-    assert sum(K.LAUNCHES.values()) == sum(before.values()) + 1
-    assert out.grad_fn is not None
-    up = torch.randn(out.shape, generator=g, device="cuda")
-    inputs = [args[i] for i in diff]
-    got = torch.autograd.grad(out, inputs, up)
-    want = torch.autograd.grad(plain(*args), inputs, up)
-    for a, b_ in zip(got, want):
-        assert (a - b_).abs().max() <= 1e-6 * b_.abs().max()
-    with torch.no_grad():       # serving: the direct launch, no graph
-        assert fn(*args).grad_fn is None
+        diff, fn = (0, 1, 2), K.attention
+        counter = f"attention[dv{dv}{'' if bias is None else '+bias'}]"
+    fname = counter.split("[")[0]
+    bwd_counter = counter.replace(fname, f"{fname}_bwd", 1)
+    plain = {n: getattr(K, n) for n in PLAIN_NAMES}
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    for n in PLAIN_NAMES:
+        monkeypatch.setattr(K, n, refuse)
+    leaves = [a.detach().clone().requires_grad_(True) if i in diff else a
+              for i, a in enumerate(args)]
+    inputs = [leaves[i] for i in diff]
+    probe = fn(*args)   # no input requires grad: the forward kernel alone
+    up = torch.randn(probe.shape, generator=g, device="cuda").to(probe.dtype)
+    runs = []
+    for _ in range(2):
+        before = dict(K.LAUNCHES)
+        out = fn(*leaves)
+        assert out.grad_fn is not None
+        assert K.LAUNCHES == {**before, counter: before[counter] + 1}
+        runs.append(torch.autograd.grad(out, inputs, up))
+        torch.cuda.synchronize()
+        assert K.LAUNCHES == {**before, counter: before[counter] + 1,
+                              bwd_counter: before[bwd_counter] + 1}
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    with torch.no_grad():       # serving: the forward kernel alone, no graph
+        before = dict(K.LAUNCHES)
+        assert fn(*leaves).grad_fn is None
+        assert K.LAUNCHES == {**before, counter: before[counter] + 1}
+    monkeypatch.undo()
+    if fn is K.attention:
+        stats = plain["attention_stats_plain"](*args)
+        want = plain["attention_backward_plain"](*args, *stats, up)
+    elif fn is K.mlp_fused:
+        stats = plain["mlp_fused_stats_plain"](*args)
+        want = plain["mlp_fused_backward_plain"](*args, *stats, up)
+    else:
+        stats = plain["global_correlation_expectation_stats_plain"](*args)
+        want = plain["global_correlation_expectation_backward_plain"](
+            *args, *stats, up)
+    a64 = [a.detach().double().requires_grad_(i in diff)
+           if torch.is_tensor(a) else a for i, a in enumerate(args)]
+    ref = torch.autograd.grad(plain[f"{fn.__name__}_plain"](*a64),
+                              [a64[i] for i in diff], up.double())
+    for got, p_, r64 in zip(runs[0], want, ref):
+        assert got.dtype == p_.dtype == dtype
+        k_off = ((got.double() - r64).abs().max() / r64.abs().max()).item()
+        p_off = ((p_.double() - r64).abs().max() / r64.abs().max()).item()
+        assert k_off <= max(BWD_RATIO * p_off, BWD_FLOOR[dtype])

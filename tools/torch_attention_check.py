@@ -13,8 +13,12 @@ chip_smoke.py's: f32 1e-4 and bf16 1.6e-2 of max(1, max|plain|), and 1e-4
 for K3 in both dtypes. Last, it times each form at the shapes of one
 20-frame chunk, as phase `kernel` of chip_smoke.py does, beside SDPA
 (a yardstick the port never calls) and the bound, and names the device
-kernels of each f32 SDPA call. Prints the card's name and power limit
-first; exits 1 if any form disagrees.
+kernels of each f32 SDPA call. Then the backward kernels of K1 and K3 at
+the GMFlow training step's shapes, f32 and bf16, through
+chip_smoke.backward_row: off float64 against the plain backward's own
+distance, bitwise repeat, ms beside the plain backward's and SDPA's
+forward + backward (TF32 off) and the bound. Prints the card's name and
+power limit first; exits 1 if any form disagrees.
 """
 import json
 import os
@@ -89,13 +93,14 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
     _build.build_all()
-    log = _build.build_log.get("attention", "").splitlines()
-    for i, ln in enumerate(log):
-        if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
-            stats = [x.strip() for x in log[i + 1:i + 4]
-                     if "spill" in x or "registers" in x]
-            print(json.dumps({"kernel": name, "ptxas": stats}))
+    for src in ("attention", "attention_bwd"):
+        log = _build.build_log.get(src, "").splitlines()
+        for i, ln in enumerate(log):
+            if "Compiling entry function" in ln:
+                name = ln.split("'")[1]
+                stats = [x.strip() for x in log[i + 1:i + 4]
+                         if "spill" in x or "registers" in x]
+                print(json.dumps({"kernel": name, "ptxas": stats}))
 
     bad = []
     for what, err, tol in edge_cases(torch, K, cs):
@@ -105,7 +110,7 @@ def main():
 
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for name, fn_name, args, lib, flops, nbytes, rtol, _ in \
+        for name, fn_name, args, lib, flops, nbytes, rtol, *_ in \
                 cs.kernel_cases(torch, dtype):
             if fn_name == "mlp_fused":
                 continue
@@ -125,6 +130,18 @@ def main():
             print(json.dumps(row), flush=True)
             if not err <= tol:
                 bad.append(f"{name} {dname} at the path's shape")
+    for name, fn_name, args, *_ in cs.flow_step_cases(torch):
+        if fn_name == "mlp_fused":
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            a = (args if dtype == torch.float32
+                 else cs.bf16_args(torch, fn_name, args))
+            row = {"name": name.replace(fn_name, f"{fn_name}_bwd", 1),
+                   "dtype": str(dtype).split(".")[-1],
+                   **cs.backward_row(torch, fn_name, a)}
+            print(json.dumps(row), flush=True)
+            if not row["ok"]:
+                bad.append(f"{row['name']} {row['dtype']}")
     print(json.dumps({"ok": not bad, "disagree": bad}))
     sys.exit(1 if bad else 0)
 

@@ -9,7 +9,8 @@ defaults: GMFlow 128 channels, 6 layers, f32, TF32 off) and one synthetic
 batch of chip_smoke.py's FLOW_B pairs at FLOW_HW (random frames and flows,
 every pixel valid): three warm-up steps, then --steps steps timed with
 CUDA events and --steps more under torch.profiler, which gives the summed
-device time of the step's kernels and their number. --root runs another
+device time of the step's kernels and their number, and the peak device
+memory of the profiled steps (max_memory_allocated). --root runs another
 checkout's chip_smoke.py and comfyui_keep_torch (e.g. a parent commit
 unpacked by git archive), so that two commits compare in one call to the
 card. Prints one JSON line with the card's name and power limit.
@@ -67,6 +68,7 @@ def main():
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=act) as prof:
         for _ in range(args.steps):
             state, _ = tr.train_step(state, batch)
@@ -80,7 +82,9 @@ def main():
         "steps": args.steps,
         "event_ms_per_step": ev[0].elapsed_time(ev[1]) / args.steps,
         "device_ms_per_step": busy_us / 1e3 / args.steps,
-        "device_events_per_step": len(device) / args.steps}), flush=True)
+        "device_events_per_step": len(device) / args.steps,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}),
+        flush=True)
 
 
 if __name__ == "__main__":
