@@ -257,8 +257,10 @@ the verdict):
               to the plain version's float64 autograd within BWD_RATIO of
               the plain backward's own (floor BWD_FLOOR), two calls
               bitwise equal, no (B, L, L) allocation (the call's peak
-              bytes), the backward's ms beside the plain backward's and
-              SDPA's forward + backward, and the bound
+              bytes), the backward's ms beside the plain backward's,
+              SDPA's forward + backward and SDPA's backward alone, each K1
+              / K3 form's precision scheme (BWD_PRECISION) and the bound
+              at that scheme's rate (3xTF32 at the TF32 tensor cores')
      train_flow  GMFlowTrainer (tools/torch_train_flow.py's defaults)
               on a synthetic FlyingChairs directory (FLOW_PAIRS pairs)
               through build_train_dataset("chairs") and the loader, B = 8,
@@ -342,6 +344,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12   # H100 SXM dense TF32 tensor-core FLOP/s
 HBM = 3.35e12        # H100 SXM device memory bytes/s
 # relative tolerance of a kernel against its plain version, scaled by the
 # plain output's spread, max|plain - mean(plain)|: bf16 outputs round to 8
@@ -4439,24 +4442,38 @@ def backward_work(torch, fn_name, args):
     2-wide ones in FMAs when D_v = 2; K3 the same without dV; K2 a = [src |
     msg] W1^T recomputed (the forward saves the LayerNorm's input, not a)
     and the four products of the backward (dh, d[src | msg], dW1, dW2).
-    bf16 inputs at the tensor cores' rate, f32 at the FMA pipe's."""
-    peak = PEAK_BF16 if args[0].dtype == torch.bfloat16 else PEAK_F32
+    bf16 inputs at the tensor cores' rate. f32: K1 and K3 as their kernels
+    compute it, 3xTF32 (three TF32 products for each) at the TF32 tensor
+    cores' rate; K2 at the FMA pipe's."""
+    bf16 = args[0].dtype == torch.bfloat16
     if fn_name == "mlp_fused":
         rows, c = args[0].numel() // args[0].shape[-1], args[0].shape[-1]
-        return [(2 * rows * args[2].shape[0] * (3 * 2 * c + 2 * c), peak)]
+        return [(2 * rows * args[2].shape[0] * (3 * 2 * c + 2 * c),
+                 PEAK_BF16 if bf16 else PEAK_F32)]
+    mult, peak = (1, PEAK_BF16) if bf16 else (3, PEAK_TF32)
     b, l, d = args[0].shape
     sq = 2 * b * l * l
     dv = args[2].shape[-1] if fn_name == "attention" else 2
     narrow = 1 if fn_name == "global_correlation_expectation" else 2
     if dv == d:
-        return [(5 * sq * d, peak)]
-    return [(3 * sq * d, peak), (narrow * sq * dv, PEAK_F32)]
+        return [(mult * 5 * sq * d, peak)]
+    return [(mult * 3 * sq * d, peak), (narrow * sq * dv, PEAK_F32)]
 
 
-def sdpa_backward_call(torch, fn_name, args, up):
+# how each K1 / K3 backward form computes its products (csrc/attention_bwd.cu)
+BWD_PRECISION = {
+    "bfloat16": "bf16 mma.sync m16n8k16, f32 sums; dS as bf16 hi + lo",
+    "float32": "3xTF32 mma.sync m16n8k8 (hi x hi chains of 2 k steps in S, "
+               "4 in dP and in the 2-wide forms' S, 4 (32 rows) in dQ / dK "
+               "/ dV, each added in f32)"}
+
+
+def sdpa_backward_call(torch, fn_name, args, up, backward_only=False):
     """One SDPA forward + backward at the shape of a K1 / K3 backward call
     (the yardstick of its row; the port never calls it): q, k (and v for
-    K1) require grad, the mask as phase kernel's rows pass it."""
+    K1) require grad, the mask as phase kernel's rows pass it. With
+    backward_only, the forward runs once here and each call is its
+    backward alone (torch.autograd.grad on the retained graph)."""
     import torch.nn.functional as F
     q, k = args[0], args[1]
     if fn_name == "attention":
@@ -4471,11 +4488,14 @@ def sdpa_backward_call(torch, fn_name, args, up):
     want = [x for x in leaves if x.requires_grad]
     g = up[:, None].to(q.dtype)
 
-    def call():
-        o = F.scaled_dot_product_attention(*[x[:, None] for x in leaves],
-                                           attn_mask=mask, scale=scale)
-        torch.autograd.grad(o, want, g)
-    return call
+    def forward():
+        return F.scaled_dot_product_attention(*[x[:, None] for x in leaves],
+                                              attn_mask=mask, scale=scale)
+
+    if backward_only:
+        o = forward()
+        return lambda: torch.autograd.grad(o, want, g, retain_graph=True)
+    return lambda: torch.autograd.grad(forward(), want, g)
 
 
 def backward_row(torch, fn_name, args, iters=BWD_ITERS):
@@ -4487,9 +4507,10 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
     bitwise equal; the bytes the call allocates at its peak beyond what
     was allocated before it, which for K1 and K3 must stay below one
     (B, L, L) f32 tensor; the backward alone on CUDA events beside the
-    plain backward and, for K1 and K3, SDPA's forward + backward (TF32
-    off); the least time the card could take. max_abs_err is the
-    kernel's largest distance to the plain backward."""
+    plain backward and, for K1 and K3, SDPA's forward + backward and its
+    backward alone (TF32 off); the least time the card could take, at the
+    rate of the kernel's precision scheme (BWD_PRECISION). max_abs_err is
+    the kernel's largest distance to the plain backward."""
     from comfyui_keep_torch.ops import kernels as K
     fwd, bwd = K.LAUNCHERS[fn_name]
     diff = GRAD_ARGS[fn_name]
@@ -4534,16 +4555,24 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
           else 4 * args[0].shape[0] * args[0].shape[1] ** 2)
     flops = backward_work(torch, fn_name, args)
     op_s, byte_s = sum(f / p for f, p in flops), nbytes / HBM
-    lib = (None if fn_name == "mlp_fused"
-           else time_ms(torch, sdpa_backward_call(torch, fn_name, args, up),
-                        iters))
+    lib = lib_bwd = None
+    if fn_name != "mlp_fused":
+        lib = time_ms(torch, sdpa_backward_call(torch, fn_name, args, up),
+                      iters)
+        lib_bwd = time_ms(torch, sdpa_backward_call(torch, fn_name, args, up,
+                                                    backward_only=True),
+                          iters)
+        torch.cuda.empty_cache()
     row = {"off_f64": k_off, "plain_off_f64": p_off, "limit": lim,
            "bitwise_repeat": bitwise, "peak_extra_bytes": extra,
            "score_matrix_bytes": ll, "max_abs_err": err,
            "ms": time_ms(torch, kernel, iters),
            "plain_ms": time_ms(torch, plain, max(1, iters // 4)),
            "library_ms": lib, "library": None if lib is None else
-           "SDPA forward + backward", "bound_ms": 1e3 * max(op_s, byte_s),
+           "SDPA forward + backward", "sdpa_backward_ms": lib_bwd,
+           "precision": (None if fn_name == "mlp_fused" else
+                         BWD_PRECISION[str(args[0].dtype).split(".")[-1]]),
+           "bound_ms": 1e3 * max(op_s, byte_s),
            "bound_by": "operations" if op_s >= byte_s else "bytes",
            "differentiates": JAX_GRAD_OF[fn_name]}
     row["ok"] = bool(all(k <= m for k, m in zip(k_off, lim)) and bitwise

@@ -1,7 +1,9 @@
 // PTX building blocks of the port's register-resident tensor-core kernels
-// (attention.cu's bf16 flash attention, packed_conv.cu's bf16 implicit
-// GEMM): cp.async staging, ldmatrix, mma.sync, and Hopper's wgmma with its
-// shared-memory matrix descriptors. sm_90a only (wgmma).
+// (attention.cu's bf16 flash attention, attention_bwd.cu's backward,
+// packed_conv.cu's bf16 implicit GEMM): cp.async staging, ldmatrix,
+// mma.sync in bf16 and in TF32 (with the hi / lo splits of the bf16 and
+// 3xTF32 products), and Hopper's wgmma with its shared-memory matrix
+// descriptors. sm_90a only (wgmma).
 //
 // Shared-memory tiles here are rows of 16-byte chunks, swizzled: logical
 // chunk c of row r is stored at chunk c ^ (r & 7). Eight consecutive rows
@@ -86,6 +88,55 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as two packed bf16 pairs, hi = (x0, x1) rounded and lo = the
+// remainders rounded: hi + lo carries 16 mantissa bits of each value
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  const float2 h = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&hi));
+  lo = pack_bf16(x0 - h.x, x1 - h.y);
+}
+
+// d (16 x 8 f32) += a (16 x 8 tf32, row) . b (8 x 8 tf32, col). Operands
+// are f32 bit patterns; the tensor core reads their top 19 bits (sign,
+// exponent, 10 mantissa bits) and ignores the rest
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same with a zero accumulator: d = a . b. Neither is volatile, so
+// ptxas may interleave independent chains
+__device__ __forceinline__ void mma_tf32_0(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// x (f32 bits) = hi + lo: hi x rounded to TF32 (11 significant bits, to
+// nearest: a carry into bit 12, then the mask), lo = x - hi, exact in f32
+// (the tensor core then drops lo's own low bits: < 2^-22 of x). In
+// attention_bwd.cu on the H100, cvt.rna.tf32 (the same rounding) took
+// 1.2-1.5x this form's time and a split on the FP32 pipe (Veltkamp's)
+// 1.1-1.2x; the truncating mask alone leaves a bias that fails the gate
+// (tools/torch_attention_bwd_variants.py)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
 }
 
 // ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ and `mlp_fused` go through their autograd Functions (`AttentionFn`,
 the backward needs (K1 and K3: each query row's log2-sum-exp2, (B, L) f32;
 K2: the LayerNorm's input, (rows, C) f32), and in the backward the
 hand-written backward kernels
-(csrc/attention_bwd.cu: two kernels a call, dQ then dK / dV, no (L, L)
+(csrc/attention_bwd.cu: two kernels a call, Delta then dQ and dK / dV in
+one grid on the tensor cores, bf16 mma.sync and f32 by 3xTF32, no (L, L)
 tensor in memory and no atomics; csrc/mlp.cu `mlp_fused_bwd_kernel`: the
 input gradients, dgamma and dbeta, with dW1 = da^T [src | msg] and dW2 =
 dO'^T h left to torch.matmul over every row, as the JAX package leaves the

@@ -226,3 +226,198 @@ def test_mlp_backward_plain_vs_jax_vjp_unfused_branch():
     for x, y in zip(got, want):
         assert x.shape == y.shape
         assert np.abs(x.numpy() - y).max() <= JAX_RTOL * np.abs(y).max()
+
+
+# ---------------------------------------------------------------------------
+# A model of the backward kernels' rounding on the tensor cores
+# ---------------------------------------------------------------------------
+#
+# csrc/attention_bwd.cu computes its products on the tensor cores: bf16
+# inputs as exact bf16 products with f32 sums, dS (an f32 value) fed to
+# dQ = scale dS K and dK = scale dS^T Q as a bf16 hi part plus a bf16 lo
+# part; f32 inputs by 3xTF32, each operand x = hi + lo (hi x rounded to 11
+# significant bits, lo = x - hi) and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi
+# with every operand's low 13 mantissa bits dropped by the tensor core. The
+# tests below model that rounding in torch on the CPU (TF32 by mantissa
+# masking, f32 sums in torch's order) at small shapes and hold each scheme
+# to float64 as chip_smoke.py's phase flow_kernel holds the kernels: max|d|
+# over the float64 gradient's largest within BWD_RATIO times the plain
+# backward's own distance (or the floor). Two controls show that the gate
+# tells the schemes apart: a single TF32 product, and the f32 form's
+# operands rounded to bf16, each stand far past the limit. The model does
+# not see the order of the card's sums or the tensor core's truncating adds
+# (the kernels cut those chains short: bw_nt, bw_nn_f32): the card decides,
+# in chip_smoke.py's phase flow_kernel and tests/test_torch_kernels_cuda.py.
+
+BWD_RATIO = 3.0
+BWD_FLOOR = {torch.float32: 2e-6, torch.bfloat16: 1e-6}
+EMU_FORMS = ("window", "window+mask", "global", "correlation")
+
+
+def _tf32_trunc(x):
+    """x (f32) with its low 13 mantissa bits cleared: what the tensor core
+    reads of an f32 operand."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_split(x):
+    """(hi, lo) of the kernels' split: hi x rounded to TF32 by a carry into
+    bit 12 and the mask, lo = x - hi (exact in f32)."""
+    hi = ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, x - hi
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, every operand as
+    the tensor core reads it, f32 sums."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    t = _tf32_trunc
+    return (torch.matmul(t(al), t(bh)) + torch.matmul(t(ah), t(bl))
+            + torch.matmul(t(ah), t(bh)))
+
+
+def _mm_1xtf32(a, b):
+    """a @ b as one TF32 product (the control the gate must refuse)."""
+    return torch.matmul(_tf32_trunc(a), _tf32_trunc(b))
+
+
+def _mm_bf16_operands(a, b):
+    """a @ b with both operands rounded to bf16 and f32 sums: f32 inputs on
+    the bf16 tensor cores (a control)."""
+    r = torch.bfloat16
+    return torch.matmul(a.to(r).float(), b.to(r).float())
+
+
+def _mm_ds_bf16_split(ds, m):
+    """dS (f32) @ M (bf16 values) as the bf16 kernels feed it: dS's bf16
+    hi part and the bf16 of its remainder, two exact products, f32 sums."""
+    hi = ds.to(torch.bfloat16).float()
+    lo = (ds - hi).to(torch.bfloat16).float()
+    return torch.matmul(lo, m) + torch.matmul(hi, m)
+
+
+def _emulated_backward(form, args, stats, dout, mm_in, mm_ds, round_p):
+    """attention_backward_plain's (or the correlation's) formula with the
+    products that carry 128-wide rows through mm_in (Q K^T, dO V^T, P^T dO)
+    and mm_ds (dS K, dS^T Q); the 2-wide products (dO V^T and P^T dO at
+    D_v = 2, the grid) in f32, as the kernels do them in FMAs. f32 tensors
+    in, gradients in the inputs' dtype."""
+    out, lse = stats
+    f = [x.float() if torch.is_tensor(x) else x for x in args]
+    if form == "correlation":
+        q, k, v = f[0], f[1], f[2]
+        scale, bias = 1.0 / math.sqrt(q.shape[-1]), None
+    else:
+        q, k, v, scale, bias = f
+    wide = v.shape[-1] == q.shape[-1]
+    kt, vt = k.transpose(-1, -2), v.transpose(-1, -2)
+    x = mm_in(q, kt) * scale
+    if bias is not None:
+        x = x + bias.repeat(q.shape[0] // bias.shape[0], 1, 1)
+    p = torch.exp2(x * K.LOG2E - lse.float()[..., None])
+    do = dout.float()
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    dp = mm_in(do, vt) if wide else torch.matmul(do, vt)
+    ds = p * (dp - delta)
+    dq = mm_ds(ds, k) * scale
+    dk = mm_ds(ds.transpose(-1, -2), q) * scale
+    dt = args[0].dtype
+    if form == "correlation":
+        return dq.to(dt), dk.to(dt)
+    pv = p.to(torch.bfloat16).float() if round_p else p
+    dv = (mm_in(pv.transpose(-1, -2), do) if wide
+          else torch.matmul(pv.transpose(-1, -2), do))
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _emu_case(form, dtype, seed):
+    """The form's inputs at a small size with D = 128 (the kernels'
+    width), keys near the queries (peaked softmax rows, as the GMFlow
+    step's are), the mask a random 0 / -100 one; the plain backward's
+    arguments, the statistics, the upstream gradient and the float64
+    reference gradients."""
+    rng = np.random.default_rng(seed)
+    b, l, d = (2, 96, 128) if form.startswith("window") else (2, 160, 128)
+
+    def a(*s, scale=1.0):
+        return rng.standard_normal(s) * scale
+
+    q = a(b, l, d)
+    k = 0.7 * q[:, rng.permutation(l)] + a(b, l, d)
+    if form == "correlation":
+        ys, xs = np.meshgrid(np.arange(10.0), np.arange(16.0), indexing="ij")
+        grid = np.stack([xs, ys], -1).reshape(l, 2)
+        args64 = [q, k, grid]
+        plain, stats_fn, backward = (
+            K.global_correlation_expectation_plain,
+            K.global_correlation_expectation_stats_plain,
+            K.global_correlation_expectation_backward_plain)
+        diff = (0, 1)
+    else:
+        dv = 128 if form.startswith("window") else 2
+        bias = (np.where(rng.random((1, l, l)) < 0.3, -100.0, 0.0)
+                if form == "window+mask" else None)
+        args64 = [q, k, a(b, l, dv, scale=1.0 if dv == 128 else 8.0),
+                  1.0 / math.sqrt(d), bias]
+        plain, stats_fn, backward = (K.attention_plain,
+                                     K.attention_stats_plain,
+                                     K.attention_backward_plain)
+        diff = (0, 1, 2)
+    # the inputs that carry a gradient in dtype, the mask and the grid f32
+    args = _torch(args64, torch.float32, diff)
+    args = [x.to(dtype) if i in diff else x for i, x in enumerate(args)]
+    a64 = [x.double().requires_grad_(i in diff) if torch.is_tensor(x) else x
+           for i, x in enumerate(args)]
+    # the statistics from float64, rounded: on the card the kernel forward
+    # writes them with its own sums, which neither backward repeats (here a
+    # plain f32 forward's would cancel the plain backward's own rounding)
+    with torch.no_grad():
+        out64, lse64 = stats_fn(*a64)
+    stats = (out64.to(args[2].dtype if form != "correlation"
+                      else torch.float32), lse64.float())
+    up = torch.tensor(rng.standard_normal(tuple(stats[0].shape)),
+                      dtype=torch.float32).to(stats[0].dtype)
+    ref = torch.autograd.grad(plain(*a64), [a64[i] for i in diff],
+                              up.double())
+    want = backward(*args, *stats, up)
+    return args, stats, up, ref, want
+
+
+def _offs(grads, ref):
+    return [_rel(x, r) for x, r in zip(grads, ref)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", EMU_FORMS)
+def test_kernel_rounding_model_holds_the_gate(form, dtype):
+    """The kernels' scheme (3xTF32 in f32; exact bf16 products and dS as
+    hi + lo in bf16), modelled on the CPU, stands within BWD_RATIO of the
+    plain backward's distance to float64 on every gradient."""
+    args, stats, up, ref, want = _emu_case(form, dtype,
+                                           EMU_FORMS.index(form))
+    if dtype == torch.float32:
+        mm_in, mm_ds = _mm_3xtf32, _mm_3xtf32
+    else:
+        mm_in, mm_ds = torch.matmul, _mm_ds_bf16_split
+    got = _emulated_backward(form, args, stats, up, mm_in, mm_ds,
+                             round_p=dtype == torch.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+    for k_off, p_off in zip(_offs(got, ref), _offs(want, ref)):
+        assert k_off <= max(BWD_RATIO * p_off, BWD_FLOOR[dtype])
+
+
+@pytest.mark.parametrize("control", ["1xTF32", "bf16 operands"])
+@pytest.mark.parametrize("form", EMU_FORMS)
+def test_kernel_rounding_model_controls_break_the_gate(form, control):
+    """In f32, a single TF32 product or bf16 operands put some gradient
+    past BWD_RATIO times the plain backward's distance (and past the
+    floor): the gate refuses them."""
+    args, stats, up, ref, want = _emu_case(form, torch.float32,
+                                           EMU_FORMS.index(form))
+    mm = _mm_1xtf32 if control == "1xTF32" else _mm_bf16_operands
+    got = _emulated_backward(form, args, stats, up, mm, mm, round_p=False)
+    limits = [max(BWD_RATIO * p, BWD_FLOOR[torch.float32])
+              for p in _offs(want, ref)]
+    assert any(k > lim for k, lim in zip(_offs(got, ref), limits))

@@ -642,8 +642,12 @@ PLAIN_NAMES = ("attention_plain", "attention_stats_plain",
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", ["window", "window+bias", "global", "corr",
                                   "mlp"])
+# the backward kernels tile 128 own rows and 32 or 64 streamed ones: L at
+# a multiple of 128, two ragged L (the mask's too), and the GMFlow step's
+# window L = 768 at B = 2
+@pytest.mark.parametrize("b,l", [(4, 256), (4, 200), (4, 1000), (2, 768)])
 def test_kernel_gradients_on_the_card_equal_the_plain_versions(
-        cuda, monkeypatch, form, dtype):
+        cuda, monkeypatch, b, l, form, dtype):
     """On a CUDA tensor that requires grad, each of K1-K3 launches its
     forward kernel and, in the backward, its backward kernel once (counted
     by its own LAUNCHES entry) and never a plain version (each made to
@@ -656,21 +660,21 @@ def test_kernel_gradients_on_the_card_equal_the_plain_versions(
         return (torch.randn(s, generator=g, device="cuda") * scale).to(dtype)
 
     if form == "corr":
-        grid = torch.rand(256, 2, generator=g, device="cuda") * 16
-        args, diff = (r(4, 256, 128), r(4, 256, 128), grid), (0, 1)
+        grid = torch.rand(l, 2, generator=g, device="cuda") * 16
+        args, diff = (r(b, l, 128), r(b, l, 128), grid), (0, 1)
         fn, counter = (K.global_correlation_expectation,
                        "global_correlation_expectation")
     elif form == "mlp":
-        args = (r(2, 64, 128), r(2, 64, 128), r(512, 256, scale=0.05),
+        args = (r(b, l, 128), r(b, l, 128), r(512, 256, scale=0.05),
                 r(128, 512, scale=0.05), r(128), r(128),
                 dtype == torch.bfloat16)
         diff, fn, counter = (0, 1, 2, 3, 4, 5), K.mlp_fused, "mlp_fused"
     else:
         dv = 2 if form == "global" else 128
-        bias = (torch.where(torch.rand(2, 256, 256, generator=g,
+        bias = (torch.where(torch.rand(2, l, l, generator=g,
                                        device="cuda") < 0.3, -100.0, 0.0)
                 if form == "window+bias" else None)
-        args = (r(4, 256, 128), r(4, 256, 128), r(4, 256, dv), 0.088, bias)
+        args = (r(b, l, 128), r(b, l, 128), r(b, l, dv), 0.088, bias)
         diff, fn = (0, 1, 2), K.attention
         counter = f"attention[dv{dv}{'' if bias is None else '+bias'}]"
     fname = counter.split("[")[0]
