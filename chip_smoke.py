@@ -256,11 +256,13 @@ the verdict):
               kernel forward's saved statistics, each gradient's distance
               to the plain version's float64 autograd within BWD_RATIO of
               the plain backward's own (floor BWD_FLOOR), two calls
-              bitwise equal, no (B, L, L) allocation (the call's peak
-              bytes), the backward's ms beside the plain backward's,
-              SDPA's forward + backward and SDPA's backward alone, each K1
-              / K3 form's precision scheme (BWD_PRECISION) and the bound
-              at that scheme's rate (3xTF32 at the TF32 tensor cores')
+              bitwise equal, no (B, L, L) allocation for K1 / K3 and in
+              bf16 none (rows, H) wide for K2 (the call's peak bytes), the
+              backward's ms beside the plain backward's, SDPA's forward +
+              backward and SDPA's backward alone (K1 / K3), the unfused
+              autograd backward as K2's reference, each form's precision
+              scheme (BWD_PRECISION) and the bound at that scheme's rate
+              (3xTF32 at the TF32 tensor cores')
      train_flow  GMFlowTrainer (tools/torch_train_flow.py's defaults)
               on a synthetic FlyingChairs directory (FLOW_PAIRS pairs)
               through build_train_dataset("chairs") and the loader, B = 8,
@@ -4303,6 +4305,10 @@ FLOW_ZERO_GRAD = ("backbone.layer2.0.downsample.0.bias",
 # dropped Delta, scale or rounding moves a gradient by far more)
 BWD_RATIO, BWD_FLOOR = 3.0, 1e-6
 BWD_ITERS = 10       # timed backward calls per form (a quarter for plain)
+# K2's f32 backward may allocate at its peak no more than its FMA form did
+# at the GMFlow step's shape (530,449,408 B at 49,152 rows, H = 1024), per
+# row and hidden unit: da and h, (rows, H) f32 each, are most of it
+MLP_F32_BWD_PEAK_PER_ROW_UNIT = 530_449_408 / (49_152 * 1024)
 # the whole GMFlow step on one pair (flow_step_gates; FLOW_ZERO_GRAD leaves
 # held as noise, below FLOW_NOISE of the tree's largest gradient; losses
 # within LOSS_RTOL), each leaf against its own limit:
@@ -4442,15 +4448,15 @@ def backward_work(torch, fn_name, args):
     2-wide ones in FMAs when D_v = 2; K3 the same without dV; K2 a = [src |
     msg] W1^T recomputed (the forward saves the LayerNorm's input, not a)
     and the four products of the backward (dh, d[src | msg], dW1, dW2).
-    bf16 inputs at the tensor cores' rate. f32: K1 and K3 as their kernels
-    compute it, 3xTF32 (three TF32 products for each) at the TF32 tensor
-    cores' rate; K2 at the FMA pipe's."""
-    bf16 = args[0].dtype == torch.bfloat16
+    bf16 inputs at the tensor cores' rate. f32 as the kernels compute it,
+    3xTF32 (three TF32 products for each) at the TF32 tensor cores'
+    rate."""
+    mult, peak = ((1, PEAK_BF16) if args[0].dtype == torch.bfloat16
+                  else (3, PEAK_TF32))
     if fn_name == "mlp_fused":
         rows, c = args[0].numel() // args[0].shape[-1], args[0].shape[-1]
-        return [(2 * rows * args[2].shape[0] * (3 * 2 * c + 2 * c),
-                 PEAK_BF16 if bf16 else PEAK_F32)]
-    mult, peak = (1, PEAK_BF16) if bf16 else (3, PEAK_TF32)
+        return [(mult * 2 * rows * args[2].shape[0] * (3 * 2 * c + 2 * c),
+                 peak)]
     b, l, d = args[0].shape
     sq = 2 * b * l * l
     dv = args[2].shape[-1] if fn_name == "attention" else 2
@@ -4460,12 +4466,38 @@ def backward_work(torch, fn_name, args):
     return [(mult * 3 * sq * d, peak), (narrow * sq * dv, PEAK_F32)]
 
 
-# how each K1 / K3 backward form computes its products (csrc/attention_bwd.cu)
-BWD_PRECISION = {
+# how each backward form computes its products (csrc/attention_bwd.cu for
+# K1 and K3, csrc/mlp.cu for K2), by wrapper and dtype
+_ATTN_BWD_PRECISION = {
     "bfloat16": "bf16 mma.sync m16n8k16, f32 sums; dS as bf16 hi + lo",
     "float32": "3xTF32 mma.sync m16n8k8 (hi x hi chains of 2 k steps in S, "
                "4 in dP and in the 2-wide forms' S, 4 (32 rows) in dQ / dK "
                "/ dV, each added in f32)"}
+BWD_PRECISION = {
+    "attention": _ATTN_BWD_PRECISION,
+    "global_correlation_expectation": _ATTN_BWD_PRECISION,
+    "mlp_fused": {
+        "bfloat16": "bf16 wgmma (64-row warpgroup tiles, operands in shared "
+                    "memory; da from registers in d[src | msg]), f32 sums; "
+                    "dO' as bf16 hi + lo in dh and dW2, da rounded to bf16 "
+                    "once in d[src | msg] and dW1; the weight blocks "
+                    "recompute a and dh",
+        "float32": "3xTF32 mma.sync m16n8k8 (hi x hi chains of 2 k steps in "
+                   "a, 4 in dh, 2 in d[src | msg], 4 (32 rows) in dW1 / "
+                   "dW2, each added in f32); da and h (rows, H) f32 handed "
+                   "from the row blocks to the weight blocks"}}
+
+
+def mlp_reference_call(torch, args, up):
+    """The unfused autograd backward of mlp_fused_plain at a K2 backward
+    call's shape (a reference of its row, not a library yardstick: no
+    single PyTorch call computes the function; the port never calls it):
+    the forward runs once here, each call is torch.autograd.grad on the
+    retained graph, TF32 off as everywhere in this script."""
+    from comfyui_keep_torch.ops import kernels as K
+    leaves = [a.detach().requires_grad_(True) for a in args[:6]]
+    out = K.mlp_fused_plain(*leaves, args[6])
+    return lambda: torch.autograd.grad(out, leaves, up, retain_graph=True)
 
 
 def sdpa_backward_call(torch, fn_name, args, up, backward_only=False):
@@ -4505,12 +4537,15 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
     the float64 gradient's largest, the plain backward's the same on the
     same statistics, and the gate (BWD_RATIO, BWD_FLOOR); two calls
     bitwise equal; the bytes the call allocates at its peak beyond what
-    was allocated before it, which for K1 and K3 must stay below one
-    (B, L, L) f32 tensor; the backward alone on CUDA events beside the
-    plain backward and, for K1 and K3, SDPA's forward + backward and its
-    backward alone (TF32 off); the least time the card could take, at the
-    rate of the kernel's precision scheme (BWD_PRECISION). max_abs_err is
-    the kernel's largest distance to the plain backward."""
+    was allocated before it, which must stay below one (B, L, L) f32
+    tensor for K1 and K3 and, for K2, one (rows, H) f32 tensor in bf16 and
+    MLP_F32_BWD_PEAK_PER_ROW_UNIT a row and hidden unit in f32;
+    the backward alone on CUDA events beside the plain backward and, for
+    K1 and K3, SDPA's forward + backward and its backward alone, for K2
+    the unfused autograd backward of its plain version (TF32 off); the
+    least time the card could take, at the rate of the kernel's precision
+    scheme (BWD_PRECISION). max_abs_err is the kernel's largest distance
+    to the plain backward."""
     from comfyui_keep_torch.ops import kernels as K
     fwd, bwd = K.LAUNCHERS[fn_name]
     diff = GRAD_ARGS[fn_name]
@@ -4551,12 +4586,20 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
                   for t in (*args, *saved, up) if torch.is_tensor(t))
               + sum(x.numel() * x.element_size() for x in got))
     del got, want, ref
-    ll = (None if fn_name == "mlp_fused"
-          else 4 * args[0].shape[0] * args[0].shape[1] ** 2)
+    dname = str(args[0].dtype).split(".")[-1]
+    if fn_name != "mlp_fused":  # one (B, L, L) f32 tensor
+        ll = 4 * args[0].shape[0] * args[0].shape[1] ** 2
+    else:  # one (rows, H) f32 tensor in bf16; below the FMA form in f32
+        rows_h = args[0].numel() // args[0].shape[-1] * args[2].shape[0]
+        ll = (4 * rows_h if dname == "bfloat16"
+              else int(MLP_F32_BWD_PEAK_PER_ROW_UNIT * rows_h))
     flops = backward_work(torch, fn_name, args)
     op_s, byte_s = sum(f / p for f, p in flops), nbytes / HBM
-    lib = lib_bwd = None
-    if fn_name != "mlp_fused":
+    lib = lib_bwd = ref_ms = None
+    if fn_name == "mlp_fused":
+        ref_ms = time_ms(torch, mlp_reference_call(torch, args, up), iters)
+        torch.cuda.empty_cache()
+    else:
         lib = time_ms(torch, sdpa_backward_call(torch, fn_name, args, up),
                       iters)
         lib_bwd = time_ms(torch, sdpa_backward_call(torch, fn_name, args, up,
@@ -4565,18 +4608,19 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
         torch.cuda.empty_cache()
     row = {"off_f64": k_off, "plain_off_f64": p_off, "limit": lim,
            "bitwise_repeat": bitwise, "peak_extra_bytes": extra,
-           "score_matrix_bytes": ll, "max_abs_err": err,
+           "peak_limit_bytes": ll, "max_abs_err": err,
            "ms": time_ms(torch, kernel, iters),
            "plain_ms": time_ms(torch, plain, max(1, iters // 4)),
            "library_ms": lib, "library": None if lib is None else
            "SDPA forward + backward", "sdpa_backward_ms": lib_bwd,
-           "precision": (None if fn_name == "mlp_fused" else
-                         BWD_PRECISION[str(args[0].dtype).split(".")[-1]]),
+           "reference_ms": ref_ms, "reference": None if ref_ms is None else
+           "autograd backward of mlp_fused_plain (unfused, TF32 off)",
+           "precision": BWD_PRECISION[fn_name][dname],
            "bound_ms": 1e3 * max(op_s, byte_s),
            "bound_by": "operations" if op_s >= byte_s else "bytes",
            "differentiates": JAX_GRAD_OF[fn_name]}
     row["ok"] = bool(all(k <= m for k, m in zip(k_off, lim)) and bitwise
-                     and (ll is None or extra < ll))
+                     and extra < ll)
     return row
 
 
@@ -4619,7 +4663,8 @@ def phase_flow_grads(torch, krows, iters=BWD_ITERS):
     bad = [k for k, r in rows.items() if not r["ok"]]
     if bad:
         fail(f"flow_kernel: backward kernels off float64 past the plain "
-             f"backward's noise, not repeatable or holding (L, L): {bad}")
+             f"backward's noise, not repeatable or past their peak limit "
+             f"((L, L); K2 bf16 (rows, H)): {bad}")
     return rows
 
 
@@ -6076,6 +6121,9 @@ def main():
             "library": r["library"], "off_f64": r["off_f64"],
             "plain_off_f64": r["plain_off_f64"],
             "peak_extra_bytes": r["peak_extra_bytes"],
+            "peak_limit_bytes": r["peak_limit_bytes"],
+            "precision": r["precision"], "reference_ms": r["reference_ms"],
+            "reference": r["reference"],
             "dtype": dname, "status": "ported"})
     # the nearest-codebook kernel runs on the training path: f32 as
     # configured, bf16 under mixed precision; launches from those runs

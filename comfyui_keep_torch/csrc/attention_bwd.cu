@@ -156,13 +156,6 @@ __device__ __forceinline__ float bw_narrow(const TV* m, int r0, int i, int n,
   return (i < 2 * n && r0 + i / 2 < L) ? to_f(m[(size_t)r0 * 2 + i]) : 0.f;
 }
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // acc (the warp's 16 x 8 NT accumulator fragments) += A B^T over the
 // 128-wide rows: A rows a0 .. a0 + 15 of the tile at sa, B rows 0 .. 8 NT -
 // 1 of the tile at sb, both swizzled with 128 T a row; d ascending. bf16:

@@ -55,13 +55,18 @@ __device__ __forceinline__ void store4(bf16* p, float a, float b, float c,
       *reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
 }
 
-// eight bf16 (one 16-byte load) as f32, into two float4 at dst
-__device__ __forceinline__ void cvt8(float* dst, uint4 u) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 e = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(e.x, e.y, f.x, f.y);
+// two consecutive values (8-byte aligned f32, 4-byte bf16)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // 2^x by the MUFU's ex2.approx (as exp2f), denormal results flushed to 0:

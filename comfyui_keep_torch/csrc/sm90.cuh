@@ -1,9 +1,10 @@
 // PTX building blocks of the port's register-resident tensor-core kernels
 // (attention.cu's bf16 flash attention, attention_bwd.cu's backward,
-// packed_conv.cu's bf16 implicit GEMM): cp.async staging, ldmatrix,
-// mma.sync in bf16 and in TF32 (with the hi / lo splits of the bf16 and
-// 3xTF32 products), and Hopper's wgmma with its shared-memory matrix
-// descriptors. sm_90a only (wgmma).
+// packed_conv.cu's bf16 implicit GEMM, mlp.cu's backward): cp.async
+// staging, ldmatrix, mma.sync in bf16 and in TF32 (with the hi / lo splits
+// of the bf16 and 3xTF32 products), and Hopper's wgmma with its
+// shared-memory matrix descriptors, A from shared memory or registers.
+// sm_90a only (wgmma).
 //
 // Shared-memory tiles here are rows of 16-byte chunks, swizzled: logical
 // chunk c of row r is stored at chunk c ^ (r & 7). Eight consecutive rows
@@ -226,6 +227,84 @@ struct Wgmma<256> {
         : "l"(da), "l"(db), "r"(1));
   }
 };
+
+// d (64 x N f32) += A (64 x 16 bf16, descriptor da) . B (16 x N bf16,
+// descriptor db), both in shared memory: TA / TB 0 for a K-major operand
+// (stored row by row of M or N), 1 for an MN-major one (stored k-row by
+// k-row)
+template <int N, int TA, int TB>
+struct WgSS;
+
+template <>
+struct WgSS<32, 0, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, "
+        "%17, p, 1, 1, 0, 0;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgSS<64, 1, 1> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgSS<128, 1, 1> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+        "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, "
+        "1;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32), KEEP_F8(40), KEEP_F8(48), KEEP_F8(56)
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// d (64 x 256 f32) += A (64 x 16 bf16 in registers: each warp's 16 rows as
+// mma.sync m16n8k16's A fragment) . B (16 x 256 bf16, MN-major, descriptor
+// db). A's registers must stay as they are until the group is waited for.
+__device__ __forceinline__ void wgmma_rs_256(float (&d)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, "
+      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
+      "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, "
+      "%95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, "
+      "%107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32), KEEP_F8(40), KEEP_F8(48), KEEP_F8(56), KEEP_F8(64), KEEP_F8(72), KEEP_F8(80), KEEP_F8(88), KEEP_F8(96), KEEP_F8(104), KEEP_F8(112), KEEP_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 #undef KEEP_F8
 

@@ -39,7 +39,8 @@ _SIGNATURES = {
     },
     "mlp": {
         "keep_mlp_fused": (_P,) * 8 + (_I,) * 5 + (_P,),
-        "keep_mlp_fused_bwd": (_P,) * 14 + (_I,) * 5 + (_P,),
+        "keep_mlp_fused_bwd": (_P,) * 18 + (_I,) * 5 + (_P,),
+        "keep_mlp_fused_bwd_scratch": (_I,) * 4 + (_P,),
     },
     "vq": {
         "keep_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -5,7 +5,7 @@ fused bias + leaky ReLU and the phase-packed convolution.
 | wrapper | CUDA source | replaces (comfyui_keep_tpu/ops/pallas_kernels.py) |
 | `attention` | csrc/attention.cu (bf16 D_v=128: `flash_attention_bf16_kernel`; bf16 D_v=2: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`); backward csrc/attention_bwd.cu | `attention_pallas` |
 | `global_correlation_expectation` | csrc/attention.cu (bf16: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`); backward csrc/attention_bwd.cu | `global_correlation_expectation_pallas` |
-| `mlp_fused` | csrc/mlp.cu (backward `mlp_fused_bwd_kernel`) | `mlp_fused_pallas` |
+| `mlp_fused` | csrc/mlp.cu (backward `mlp_bwd_prep_kernel`, `mlp_fused_bwd_kernel`, `mlp_bwd_reduce_kernel`) | `mlp_fused_pallas` |
 | `vq_nearest_indices` | csrc/vq.cu | `vq_nearest_indices_pallas` |
 | `fused_bias_lrelu` | csrc/fused_act.cu | `fused_bias_lrelu_pallas` |
 | `packed_conv2x2` | csrc/packed_conv.cu | `pallas_conv` (tools/_prof_packedconv.py) |
@@ -21,10 +21,12 @@ K2: the LayerNorm's input, (rows, C) f32), and in the backward the
 hand-written backward kernels
 (csrc/attention_bwd.cu: two kernels a call, Delta then dQ and dK / dV in
 one grid on the tensor cores, bf16 mma.sync and f32 by 3xTF32, no (L, L)
-tensor in memory and no atomics; csrc/mlp.cu `mlp_fused_bwd_kernel`: the
-input gradients, dgamma and dbeta, with dW1 = da^T [src | msg] and dW2 =
-dO'^T h left to torch.matmul over every row, as the JAX package leaves the
-weight products to XLA). The JAX package has no Pallas backward: it
+tensor in memory and no atomics; csrc/mlp.cu: the LayerNorm's backward,
+then row blocks for d[src | msg] and weight blocks for dW1 and dW2 on the
+tensor cores, bf16 on wgmma and f32 by 3xTF32 on mma.sync, then a
+fixed-order reduce: three kernels a call in bf16, whose weight blocks
+recompute a and dh so that nothing (rows, H) wide reaches memory, four in
+f32, whose row blocks hand da and h to the weight blocks). The JAX package has no Pallas backward: it
 differentiates its plain branch, and these kernels compute the gradient of
 the function each forward kernel computes. Each Function takes its forward
 and backward launchers as arguments, so the CPU tests run it with the plain
@@ -47,6 +49,7 @@ for attention and the correlation, "mlp_fused[_bwd] rows<n>" and
 "<Hi>x<Wi>x<Cin> k<kh>x<kw> -> <Cout> pads <top><bottom><left><right>".
 """
 import contextlib
+import ctypes
 import math
 from typing import Dict, Optional
 
@@ -566,40 +569,46 @@ def _mlp_stats_launch(src, msg, w1, w2, gamma, beta, approximate: bool):
     return _mlp_launch(src, msg, w1, w2, gamma, beta, approximate, stats=True)
 
 
-MLP_BWD_ROWS = 128  # rows per block of the backward kernel (csrc/mlp.cu)
+def mlp_bwd_scratch_bytes(rows: int, c: int, h: int, dtype) -> list:
+    """The bytes of each scratch buffer K2's backward kernels take for
+    `rows` rows: dO' (bf16: hi and lo), W2^T, the LayerNorm backward's
+    block sums, the weight blocks' slice partials, and da and h (f32 only;
+    0 in bf16), as csrc/mlp.cu's tiling decides them
+    (`keep_mlp_fused_bwd_scratch`)."""
+    sizes = (ctypes.c_longlong * 6)()
+    _raise_on(library("mlp").keep_mlp_fused_bwd_scratch(
+        rows, c, h, _DTYPE_CODE[dtype], sizes), "mlp backward scratch query")
+    return list(sizes)
 
 
 def _mlp_bwd_launch(src, msg, w1, w2, gamma, beta, approximate: bool, out,
                     o, dout):
-    """The backward kernel from the forward's saved LayerNorm input o
-    (dsrc, dmsg, dgamma, dbeta; da, h and dO' in f32 memory), then the
-    weight gradients as products over every row, which the JAX package
-    leaves to XLA outside its Pallas kernel: dW1 = da^T [src | msg], dW2 =
-    dO'^T h."""
+    """The backward kernels from the forward's saved LayerNorm input o:
+    every gradient, the weight products included (csrc/mlp.cu: the
+    LayerNorm's backward, row and weight blocks, a fixed-order reduce of
+    the weight blocks' slice partials)."""
     rows, c, h = _mlp_check(src, msg, w1, w2, gamma, beta)
     _check("mlp dout", dout, src.shape, src.dtype, src.device)
     _check("mlp o", o, (rows, c), torch.float32, src.device)
-    f32 = dict(dtype=torch.float32, device=src.device)
     dsrc, dmsg = torch.empty_like(src), torch.empty_like(msg)
-    da = torch.empty((rows, h), **f32)
-    hid = torch.empty((rows, h), **f32)
-    do = torch.empty((rows, c), **f32)
-    part = torch.empty((-(-rows // MLP_BWD_ROWS), 2 * c), **f32)
-    dgb = torch.empty((2, c), **f32)
+    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    dgb = torch.empty((2, c), dtype=src.dtype, device=src.device)
+    # dO', W2^T, part, ws, and in f32 da and h
+    scratch = [torch.empty(n, dtype=torch.uint8, device=src.device)
+               if n else None
+               for n in mlp_bwd_scratch_bytes(rows, c, h, src.dtype)]
     lib = library("mlp")
     with _device(src):
         err = lib.keep_mlp_fused_bwd(
             src.data_ptr(), msg.data_ptr(), w1.data_ptr(), w2.data_ptr(),
             gamma.data_ptr(), dout.data_ptr(), o.data_ptr(), dsrc.data_ptr(),
-            dmsg.data_ptr(), da.data_ptr(), hid.data_ptr(), do.data_ptr(),
-            part.data_ptr(), dgb.data_ptr(), rows, c, h,
+            dmsg.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), dgb.data_ptr(),
+            *[None if t is None else t.data_ptr() for t in scratch], rows, c,
+            h,
             int(bool(approximate)), _DTYPE_CODE[src.dtype], _stream(src))
     _raise_on(err, "mlp backward kernel launch")
     _count("mlp_fused_bwd", f"rows{rows}")
-    x = torch.cat([src, msg], dim=-1).reshape(rows, 2 * c).float()
-    return (dsrc, dmsg, torch.matmul(da.t(), x).to(w1.dtype),
-            torch.matmul(do.t(), hid).to(w2.dtype), dgb[0].to(gamma.dtype),
-            dgb[1].to(beta.dtype))
+    return dsrc, dmsg, dw1, dw2, dgb[0], dgb[1]
 
 
 # ---------------------------------------------------------------------------

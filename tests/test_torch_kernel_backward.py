@@ -237,21 +237,31 @@ def test_mlp_backward_plain_vs_jax_vjp_unfused_branch():
 # dQ = scale dS K and dK = scale dS^T Q as a bf16 hi part plus a bf16 lo
 # part; f32 inputs by 3xTF32, each operand x = hi + lo (hi x rounded to 11
 # significant bits, lo = x - hi) and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi
-# with every operand's low 13 mantissa bits dropped by the tensor core. The
-# tests below model that rounding in torch on the CPU (TF32 by mantissa
-# masking, f32 sums in torch's order) at small shapes and hold each scheme
-# to float64 as chip_smoke.py's phase flow_kernel holds the kernels: max|d|
-# over the float64 gradient's largest within BWD_RATIO times the plain
-# backward's own distance (or the floor). Two controls show that the gate
-# tells the schemes apart: a single TF32 product, and the f32 form's
-# operands rounded to bf16, each stand far past the limit. The model does
-# not see the order of the card's sums or the tensor core's truncating adds
-# (the kernels cut those chains short: bw_nt, bw_nn_f32): the card decides,
-# in chip_smoke.py's phase flow_kernel and tests/test_torch_kernels_cuda.py.
+# with every operand's low 13 mantissa bits dropped by the tensor core.
+# csrc/mlp.cu's backward (K2) does the same with its products: in bf16 a =
+# [src | msg] W1^T and dW2 = dO'^T h (h the bf16 hidden) exact, dO' (f32)
+# as hi + lo in dh = dO' W2 and dW2, da (f32) rounded to bf16 once in
+# d[src | msg] = da W1 and dW1 = da^T [src | msg]; in f32 all five by
+# 3xTF32; the weight products summed per row tile (64 rows bf16, 32 f32)
+# and the tiles added in f32. The tests below model that rounding in torch
+# on the CPU (TF32 by mantissa masking, f32 sums in torch's order) at small
+# shapes and hold each scheme to float64 as chip_smoke.py's phase
+# flow_kernel holds the kernels: max|d| over the float64 gradient's largest
+# within BWD_RATIO times the plain backward's own distance (or the floor).
+# Two controls show that the gate tells the schemes apart: a single TF32
+# product, and the f32 form's operands rounded to bf16, each stand far past
+# the limit; for K2 in bf16 a third, dO' rounded once too, breaks it at a
+# single row. The model does not see the order of the card's sums or the
+# tensor core's truncating adds (the kernels cut those chains short:
+# bw_nt, bw_nn_f32, mm_nt, mm_nn): the card decides, in chip_smoke.py's
+# phase flow_kernel and tests/test_torch_kernels_cuda.py.
 
 BWD_RATIO = 3.0
 BWD_FLOOR = {torch.float32: 2e-6, torch.bfloat16: 1e-6}
-EMU_FORMS = ("window", "window+mask", "global", "correlation")
+EMU_FORMS = ("window", "window+mask", "global", "correlation", "mlp_erf",
+             "mlp_tanh")
+# K2's weight products: rows a tile of the weight blocks, by dtype
+MLP_TILE = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def _tf32_trunc(x):
@@ -295,6 +305,46 @@ def _mm_ds_bf16_split(ds, m):
     hi = ds.to(torch.bfloat16).float()
     lo = (ds - hi).to(torch.bfloat16).float()
     return torch.matmul(lo, m) + torch.matmul(hi, m)
+
+
+def _mm_bf16_a(a, m):
+    """a (f32) @ M (bf16 values) with a rounded to bf16 once: K2's da."""
+    return torch.matmul(a.to(torch.bfloat16).float(), m)
+
+
+def _emulated_mlp_backward(args, stats, dout, mm_x, mm_do, mm_da, tile):
+    """mlp_fused_backward_plain's formula with a = [src | msg] W1^T through
+    mm_x, the products of dO' (dh = dO' W2, dW2 = dO'^T h) through mm_do and
+    those of da (d[src | msg] = da W1, dW1 = da^T [src | msg]) through
+    mm_da; the weight products summed over row tiles of `tile` rows, the
+    tiles added in f32 in order. f32 tensors in, gradients in the inputs'
+    dtype."""
+    src, msg, w1, w2, gamma = (x.float() for x in args[:5])
+    approximate, o = args[6], stats[1]
+    c = src.shape[-1]
+    x = torch.cat([src, msg], -1).reshape(-1, 2 * c)
+    a = mm_x(x, w1.t().contiguous())
+    h = torch.nn.functional.gelu(a, approximate="tanh" if approximate
+                                 else "none")
+    h = h.to(args[0].dtype).float()
+    mean = o.mean(-1, keepdim=True)
+    rs = torch.rsqrt((o - mean).square().mean(-1, keepdim=True) + 1e-5)
+    oh = (o - mean) * rs
+    dy = dout.float().reshape(-1, c)
+    g = dy * gamma
+    do = rs * (g - g.mean(-1, keepdim=True)
+               - oh * (g * oh).mean(-1, keepdim=True))
+    da = mm_do(do, w2) * K.gelu_grad(a, approximate)
+    dx = mm_da(da, w1)
+    t = range(0, x.shape[0], tile)
+    dw1 = sum(mm_da(da[i:i + tile].t().contiguous(), x[i:i + tile])
+              for i in t)
+    dw2 = sum(mm_do(do[i:i + tile].t().contiguous(), h[i:i + tile])
+              for i in t)
+    dt = args[0].dtype
+    return ((dx[:, :c] + dy).reshape(args[0].shape).to(dt),
+            dx[:, c:].reshape(args[1].shape).to(dt), dw1.to(dt), dw2.to(dt),
+            (dy * oh).sum(0).to(dt), dy.sum(0).to(dt))
 
 
 def _emulated_backward(form, args, stats, dout, mm_in, mm_ds, round_p):
@@ -343,6 +393,8 @@ def _emu_case(form, dtype, seed):
     def a(*s, scale=1.0):
         return rng.standard_normal(s) * scale
 
+    if form.startswith("mlp"):
+        return _emu_mlp_case(form, dtype, rng, (b, l), 512)
     q = a(b, l, d)
     k = 0.7 * q[:, rng.permutation(l)] + a(b, l, d)
     if form == "correlation":
@@ -384,6 +436,38 @@ def _emu_case(form, dtype, seed):
     return args, stats, up, ref, want
 
 
+def _emu_mlp_case(form, dtype, rng, rows, h):
+    """_emu_case's for K2: src, msg (rows..., 128), W1 (h, 256) and W2 (128,
+    h) at nn.Linear's scale, gamma, beta; o the LayerNorm's input from a
+    float64 forward, rounded to f32."""
+    def a(*s, scale=1.0):
+        return rng.standard_normal(s) * scale
+
+    c = 128
+    args = [torch.tensor(x, dtype=torch.float32).to(dtype) for x in (
+        a(*rows, c), a(*rows, c), a(h, 2 * c, scale=0.05),
+        a(c, h, scale=0.05), a(c), a(c))] + [form == "mlp_tanh"]
+    a64 = [x.double().requires_grad_(True) for x in args[:6]] + [args[6]]
+    with torch.no_grad():
+        out64, o64 = K.mlp_fused_stats_plain(*a64)
+    stats = (out64.to(dtype), o64.float())
+    up = torch.tensor(a(*rows, c), dtype=torch.float32).to(dtype)
+    ref = torch.autograd.grad(K.mlp_fused_plain(*a64), a64[:6], up.double())
+    want = K.mlp_fused_backward_plain(*args, *stats, up)
+    return args, stats, up, ref, want
+
+
+def _emulated(form, args, stats, up, mm_in, mm_ds, mm_da=None, tile=64,
+              round_p=False):
+    """_emulated_backward, or for K2 _emulated_mlp_backward with a through
+    mm_in, dO''s products through mm_ds and da's through mm_da (mm_ds when
+    None)."""
+    if form.startswith("mlp"):
+        return _emulated_mlp_backward(args, stats, up, mm_in, mm_ds,
+                                      mm_da or mm_ds, tile)
+    return _emulated_backward(form, args, stats, up, mm_in, mm_ds, round_p)
+
+
 def _offs(grads, ref):
     return [_rel(x, r) for x, r in zip(grads, ref)]
 
@@ -391,17 +475,18 @@ def _offs(grads, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", EMU_FORMS)
 def test_kernel_rounding_model_holds_the_gate(form, dtype):
-    """The kernels' scheme (3xTF32 in f32; exact bf16 products and dS as
-    hi + lo in bf16), modelled on the CPU, stands within BWD_RATIO of the
-    plain backward's distance to float64 on every gradient."""
+    """The kernels' scheme (3xTF32 in f32; in bf16 exact bf16 products,
+    dS and K2's dO' as hi + lo, K2's da rounded once), modelled on the CPU,
+    stands within BWD_RATIO of the plain backward's distance to float64 on
+    every gradient."""
     args, stats, up, ref, want = _emu_case(form, dtype,
                                            EMU_FORMS.index(form))
     if dtype == torch.float32:
-        mm_in, mm_ds = _mm_3xtf32, _mm_3xtf32
+        mm_in, mm_ds, mm_da = _mm_3xtf32, _mm_3xtf32, None
     else:
-        mm_in, mm_ds = torch.matmul, _mm_ds_bf16_split
-    got = _emulated_backward(form, args, stats, up, mm_in, mm_ds,
-                             round_p=dtype == torch.bfloat16)
+        mm_in, mm_ds, mm_da = torch.matmul, _mm_ds_bf16_split, _mm_bf16_a
+    got = _emulated(form, args, stats, up, mm_in, mm_ds, mm_da,
+                    MLP_TILE[dtype], round_p=dtype == torch.bfloat16)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == dtype and g.shape == w.shape
     for k_off, p_off in zip(_offs(got, ref), _offs(want, ref)):
@@ -417,7 +502,33 @@ def test_kernel_rounding_model_controls_break_the_gate(form, control):
     args, stats, up, ref, want = _emu_case(form, torch.float32,
                                            EMU_FORMS.index(form))
     mm = _mm_1xtf32 if control == "1xTF32" else _mm_bf16_operands
-    got = _emulated_backward(form, args, stats, up, mm, mm, round_p=False)
+    got = _emulated(form, args, stats, up, mm, mm, tile=32)
     limits = [max(BWD_RATIO * p, BWD_FLOOR[torch.float32])
               for p in _offs(want, ref)]
     assert any(k > lim for k, lim in zip(_offs(got, ref), limits))
+
+
+# K2 at a single row: no sum over rows averages the rounding of dW1 and
+# dW2, nor much of d[src | msg]'s over H
+MLP_ONE_ROW_SEEDS = range(12)
+
+
+@pytest.mark.parametrize("scheme", ["kernel", "dO' rounded once"])
+def test_mlp_rounding_model_at_one_row(scheme):
+    """K2's bf16 scheme (dO' as hi + lo, da rounded once) holds the gate at
+    one row and H = 512 for every seed and both gelus; with dO' rounded
+    once as well (a control) some case breaks it."""
+    worst = 0.0
+    for seed in MLP_ONE_ROW_SEEDS:
+        for form in ("mlp_erf", "mlp_tanh"):
+            args, stats, up, ref, want = _emu_mlp_case(
+                form, torch.bfloat16, np.random.default_rng(100 + seed),
+                (1, 1), 512)
+            mm_do = (_mm_ds_bf16_split if scheme == "kernel"
+                     else _mm_bf16_a)
+            got = _emulated_mlp_backward(args, stats, up, torch.matmul,
+                                         mm_do, _mm_bf16_a, 64)
+            worst = max(worst, max(
+                k / max(BWD_RATIO * p, BWD_FLOOR[torch.bfloat16])
+                for k, p in zip(_offs(got, ref), _offs(want, ref))))
+    assert (worst <= 1.0) == (scheme == "kernel")

@@ -726,3 +726,77 @@ def test_kernel_gradients_on_the_card_equal_the_plain_versions(
         k_off = ((got.double() - r64).abs().max() / r64.abs().max()).item()
         p_off = ((p_.double() - r64).abs().max() / r64.abs().max()).item()
         assert k_off <= max(BWD_RATIO * p_off, BWD_FLOOR[dtype])
+
+
+def _mlp_bwd_bytes(rows, c, h, dtype):
+    """What K2's backward may allocate beyond its inputs: the gradients and
+    the scratch csrc/mlp.cu sizes (K.mlp_bwd_scratch_bytes: dO', W2^T, the
+    LayerNorm's block sums, the weight blocks' slice partials, and in f32
+    only da and h, (rows, H) each). Each tensor rounds up to the caching
+    allocator's 512 bytes, and one over 1 MiB may take a cached block up to
+    1 MiB larger (the allocator splits no smaller remainder off)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    sizes = [rows * c * es] * 2 + [2 * c * h * es, c * h * es, 2 * c * es]
+    sizes += [n for n in K.mlp_bwd_scratch_bytes(rows, c, h, dtype) if n]
+    return sum(-(-n // 512) * 512 + (2 ** 20 if n > 2 ** 20 else 0)
+               for n in sizes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tanh", [False, True])
+@pytest.mark.parametrize("h", [64, 512, 1024])
+# K2's backward tiles rows in 128 (bf16) / 64 (f32) a row block and sums
+# the weight products over slices of 2,048 rows: one row, three, one past
+# a row block, and 5,000 (slices of 2,048, 2,048 and 904 rows)
+@pytest.mark.parametrize("rows", [1, 3, 129, 5000])
+def test_mlp_gradients_on_the_card_at_the_partitions_edges(
+        cuda, monkeypatch, rows, h, tanh, dtype):
+    """K2's backward kernels at the edges of their partition: each gradient
+    off float64 within BWD_RATIO times the plain backward's distance (or
+    the floor), two calls equal bit for bit, one mlp_fused_bwd launch a
+    backward and no plain version, and no more memory than the gradients
+    and the documented scratch (in bf16 nothing (rows, H) wide)."""
+    g = torch.Generator(device="cuda").manual_seed(rows + h)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device="cuda") * scale).to(dtype)
+
+    args = (r(1, rows, 128), r(1, rows, 128), r(h, 256, scale=0.05),
+            r(128, h, scale=0.05), r(128), r(128), tanh)
+    plain = {n: getattr(K, n) for n in PLAIN_NAMES}
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+    for n in PLAIN_NAMES:
+        monkeypatch.setattr(K, n, refuse)
+    leaves = [a.detach().clone().requires_grad_(True) for a in args[:6]]
+    up = torch.randn((1, rows, 128), generator=g, device="cuda").to(dtype)
+    out = K.mlp_fused(*leaves, tanh)
+    runs, extra = [], None
+    for _ in range(2):
+        before = dict(K.LAUNCHES)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs.append(torch.autograd.grad(out, leaves, up, retain_graph=True))
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert K.LAUNCHES == {**before, "mlp_fused_bwd":
+                              before["mlp_fused_bwd"] + 1}
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    assert extra <= _mlp_bwd_bytes(rows, 128, h, dtype)
+    if dtype == torch.bfloat16:  # no da or h in memory
+        assert K.mlp_bwd_scratch_bytes(rows, 128, h, dtype)[4:] == [0, 0]
+    monkeypatch.undo()
+    stats = plain["mlp_fused_stats_plain"](*args)
+    want = plain["mlp_fused_backward_plain"](*args, *stats, up)
+    a64 = [a.detach().double().requires_grad_(True) for a in args[:6]]
+    ref = torch.autograd.grad(plain["mlp_fused_plain"](*a64, tanh), a64,
+                              up.double())
+    for got, p_, r64 in zip(runs[0], want, ref):
+        assert got.dtype == p_.dtype == dtype
+        k_off = ((got.double() - r64).abs().max() / r64.abs().max()).item()
+        p_off = ((p_.double() - r64).abs().max() / r64.abs().max()).item()
+        assert k_off <= max(BWD_RATIO * p_off, BWD_FLOOR[dtype])

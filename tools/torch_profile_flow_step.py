@@ -3,9 +3,12 @@
 GPU.
 
     python3 tools/torch_profile_flow_step.py [--root DIR] [--steps 5]
+                                             [--mixed]
 
 GMFlowTrainer on chip_smoke.py's flow_opt() (tools/torch_train_flow.py's
-defaults: GMFlow 128 channels, 6 layers, f32, TF32 off) and one synthetic
+defaults: GMFlow 128 channels, 6 layers, f32, TF32 off; with --mixed
+train.mixed_precision, the network run on a bf16 copy: K1-K3's bf16 forms
+and their bf16 backward kernels) and one synthetic
 batch of chip_smoke.py's FLOW_B pairs at FLOW_HW (random frames and flows,
 every pixel valid): three warm-up steps, then --steps steps timed with
 CUDA events and --steps more under torch.profiler, which gives the summed
@@ -29,6 +32,8 @@ def main():
     ap.add_argument("--root", default=ROOT,
                     help="the checkout whose port is timed")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--mixed", action="store_true",
+                    help="train.mixed_precision (bf16 compute)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -55,7 +60,9 @@ def main():
              "flow": torch.randn((n, h, w, 2), device="cuda",
                                  generator=g) * 4,
              "valid": torch.ones((n, h, w), device="cuda")}
-    tr = build_model(cs.flow_opt())
+    opt = cs.flow_opt()
+    opt["train"]["mixed_precision"] = args.mixed
+    tr = build_model(opt)
     state = tr.make_state()
     for _ in range(3):
         state, _ = tr.train_step(state, batch)
@@ -79,6 +86,7 @@ def main():
                   for e in device)
     print(json.dumps({
         "card": card, "root": root, "batch": n, "hw": [h, w],
+        "precision": "bf16 mixed" if args.mixed else "f32",
         "steps": args.steps,
         "event_ms_per_step": ev[0].elapsed_time(ev[1]) / args.steps,
         "device_ms_per_step": busy_us / 1e3 / args.steps,
