@@ -615,7 +615,9 @@ def kernel_cases(torch, dtype):
     a group of G = 2 chunks ("G2", the "batch" and "stage" chunk forms); in
     both dtypes K1 at the refinement's fine scale ("L256"). The launch key
     is the LAUNCHES_BY_SHAPE key of a G2 or L256 case's shape, None for a
-    case whose launches are its counter's over every shape."""
+    case whose launches are its counter's over every shape. The "flow
+    step" cases are flow_step_cases': every form in f32, and K1's window
+    forms and K2 in bf16 as the mixed-precision step runs them."""
     import torch.nn.functional as F
     from comfyui_keep_torch.models.gmflow import shifted_window_mask
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -727,6 +729,29 @@ def kernel_cases(torch, dtype):
              3 * src2.numel() * isz + 3 * CH * HID * isz, rtol,
              lambda: mlp_unfused_at(src2, msg2), f"mlp_fused rows{2 * rows}"),
         ]
+    flow = []
+    if tanh:
+        # bf16, the mixed-precision GMFlow step's shapes (flow_step_cases'
+        # on the same values): K1's window forms at B = 64, L = 768 beside
+        # SDPA, and K2 at 49,152 rows
+        for name, fn_name, args, _, fl, _, _, _, key in \
+                flow_step_cases(torch):
+            if fn_name == "attention" and args[2].shape[-1] == CH:
+                a = bf16_args(torch, fn_name, args)
+                m = a[4] if len(a) > 4 else None
+                full = None if m is None else m.repeat(
+                    a[0].shape[0] // m.shape[0], 1, 1)[:, None].to(dtype)
+                flow.append((name, fn_name, a, sdpa(a[0], a[1], a[2], full),
+                             [(f, peak) for f, _ in fl],
+                             4 * a[0].numel() * isz
+                             + (0 if m is None else m.numel() * 4), rtol,
+                             None, key))
+            elif fn_name == "mlp_fused":
+                a = bf16_args(torch, fn_name, args)
+                flow.append((name, fn_name, a, None,
+                             [(f, peak) for f, _ in fl],
+                             3 * a[0].numel() * isz + 3 * CH * HID * isz,
+                             rtol, None, key))
     return [
         ("attention[dv128]", "attention", (q, k, v, scale),
          sdpa(q, k, v), [(2 * att_fl, peak)], 4 * q.numel() * isz, rtol,
@@ -757,7 +782,7 @@ def kernel_cases(torch, dtype):
          None, [(6 * rows * CH * HID, peak)],
          3 * src.numel() * isz + 3 * CH * HID * isz, rtol,
          lambda: mlp_unfused_at(src, msg), None),
-    ] + group + step + ([] if tanh else flow_step_cases(torch))
+    ] + group + step + (flow if tanh else flow_step_cases(torch))
 
 
 def phase_kernels(torch, iters=KERNEL_ITERS):
@@ -787,6 +812,8 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
                    "launch_key": key, "ok": bool(err <= tol)}
             if unfused is not None:   # reported, not gated
                 row["unfused_ms"] = time_ms(torch, unfused, iters)
+            if name.startswith("attention[dv128"):  # reported, not gated
+                row["vs_library"] = ms / lib_ms
             if lib is not None and dtype == torch.float32:
                 row["library_kernels"] = kernel_names(torch, lib)
             say("kernel", **row)
@@ -6065,13 +6092,21 @@ def main():
             launches = chunk_counts["batch"].get(key, 0)
             extra = {"launches_at": key, **slice7(key, dname),
                      "launches_of": 'the "batch" chunk form\'s 41-face run'}
-        elif at == "flow step":
+        elif at == "flow step" and dname == "float32":
             # K1-K3 (f32) at the GMFlow training step's shapes: launches at
             # each shape over the FLOW_STEPS timed steps of phase train_flow
             launches = flow_counts["float32"].get(key, 0)
             extra = {"launches_per_step": launches / FLOW_STEPS,
                      "launches_at": key,
                      "launches_of": f"{FLOW_STEPS} GMFlow training steps "
+                                    f"(B = {FLOW_B}, "
+                                    f"{FLOW_HW[0]}x{FLOW_HW[1]})"}
+        elif at == "flow step":
+            # K1's window forms and K2 (bf16) at the step's shapes: launches
+            # at each shape in phase train_flow_bf16's mixed-precision step
+            launches = flow_counts["bfloat16"].get(key, 0)
+            extra = {"launches_per_step": launches, "launches_at": key,
+                     "launches_of": "one mixed-precision GMFlow step "
                                     f"(B = {FLOW_B}, "
                                     f"{FLOW_HW[0]}x{FLOW_HW[1]})"}
         elif at == "L256":
@@ -6088,6 +6123,8 @@ def main():
             launches = counts[name]
         if "unfused_ms" in r:
             extra["unfused_ms"] = r["unfused_ms"]
+        if "vs_library" in r:
+            extra["vs_library"] = r["vs_library"]
         table.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,

@@ -21,26 +21,40 @@
 //
 // Three kernels, one per bound:
 //
-// flash_attention_bf16_kernel: bf16, D_v = 128 (the window attentions, 24
-// launches per chunk). Bound on the H100 by the tensor cores: ~4 L^2 D
-// flops against ~4 L D bytes per batch entry, far above the card's ~295
-// flop/byte ridge. A block of 8 warps owns 128 query rows, 16 per warp;
-// the warp holds its Q as mma.sync A fragments, computes its 16 x 64 score
-// tile with mma.sync m16n8k16 (bf16 in, f32 out; K fragments by ldmatrix
-// from a swizzled shared tile), runs the online softmax on those registers
-// (quad shuffles for the row max and sum), rounds P to bf16 in place as the
-// A fragments of P V (the accumulator layout is the A layout), and
-// accumulates its 16 x 128 O in registers (V fragments by ldmatrix.trans).
-// The bias goes from L2 straight into the score layout one key tile ahead,
-// so its loads fly during the P V and Q K^T products before it is used
-// (loads issued only one product ahead stall the softmax: 2.2x the
-// unbiased kernel's time on the H100). The next K/V tile loads with 16-byte
-// cp.async while this one multiplies (two buffers, one __syncthreads a
-// tile). mma.sync rather than wgmma: a 16-row warp tile keeps the P -> A
-// reuse in registers with no warpgroup choreography. What holds it back:
-// mma.sync's rate (below wgmma's) and one shared read of K and V per 16
-// query rows; a wgmma form with 64-row warpgroups and a producer warp is
-// the next step.
+// flash_attention_bf16_kernel: bf16, D_v = 128 (the window attentions:
+// per 20-frame chunk 6 launches unmasked at B = 152, L = 1024 and 6 under
+// the shifted-window mask; 6 + 6 in a mixed-precision GMFlow step at B =
+// 64, L = 768). ~4 L^2 D flops against ~4 L D bytes per batch entry, far
+// above the card's ~295 flop/byte ridge, so the tensor cores bound it --
+// at 989 TFLOP/s only through wgmma, whose 64-row warpgroup tiles read
+// each shared operand once for four warps (mma.sync's 16-row warp tiles
+// read K and V once per warp: the earlier design lost to SDPA by 1.9x).
+// One exp2 a score on the MUFU (16 a clock per SM) costs half the score's
+// two products, so the softmax has to run beside them, and with two warps
+// an SM sub-partition its instruction chains stall: the warpgroups must
+// not wait for each other. A block owns 128 query rows: two consumer
+// warpgroups of 64 rows and a producer warpgroup, whose first thread
+// issues every load by TMA (Q once, then each 128-key K and V tile into a
+// ring of buffers, three each without a bias and two with one, in wgmma's
+// 128-byte-swizzle layout) and which
+// hands its registers to the consumers (setmaxnreg: 24 / 240). mbarriers
+// say when a tile has landed and when both consumers have released its
+// buffer, so the consumers run free of each other (one __syncthreads a
+// tile in lockstep, with every thread issuing cp.async, took 1.3-1.4x
+// this kernel's time on the H100). Per tile a consumer issues S = Q K^T on wgmma
+// m64n128k16 (Q and K in shared memory, both K-major) and the last tile's
+// O += P V (P from registers, V MN-major) together, waits for S alone,
+// and runs the online softmax on the accumulator registers (quad shuffles
+// for the row max and sum; without a bias the scale folds into the
+// exponent's FFMA) while P V runs; once that has landed it rescales O and
+// packs P to bf16 as the next product's register A (packing it while the
+// product ran gave wrong outputs that changed from run to run). The bias
+// (f32, no reuse inside a block: at B = 152 each of the 4 masks is read by
+// 38 batch entries from L2) goes by each consumer warp's own cp.async into
+// its 8 KB of shared memory one tile ahead, read in the score layout (a
+// 16-byte swizzle, two wavefronts a read); 226 KB a block with the bias. A
+// block that took the same rows of b and b + Bm to share one bias tile
+// would read K and V twice as often, as many bytes as the bias it saves.
 //
 // flash_narrow_bf16_kernel: bf16 q/k with a 2-wide V (K1's global flow
 // attention, bf16 V, P rounded to bf16) or the f32 pixel grid (K3 bf16, P
@@ -48,10 +62,10 @@
 // (256 flops), one exp2 on the MUFU (16 a clock per SM, so at D = 128 one
 // exp2 costs about what the score's product does) and ~6 FP32 operations;
 // the bytes are negligible (K is re-read from L2). So it is bound by issue
-// across three pipes. It takes the Q K^T half of the window kernel's
-// machinery (128 query rows, 16 per warp, Q as A fragments, K by ldmatrix
-// from swizzled cp.async tiles, double-buffered, the softmax on the
-// accumulator registers) and drops the second product: each lane multiplies
+// across three pipes. On mma.sync: 128 query rows, 16 per warp, Q as A
+// fragments, K by ldmatrix from swizzled cp.async tiles, double-buffered,
+// the softmax on the accumulator registers, and no second product on the
+// tensor cores: each lane multiplies
 // its own 2 x 16 probabilities of a key tile by the 2 values of V (or of
 // the grid) for its key columns, read from a 64-key slice staged beside K,
 // and keeps 2 x 2 partial sums, reduced over the quad once after the last
@@ -95,158 +109,249 @@ namespace keep {
 constexpr int kD = 128;    // q/k width the kernels are built for
 
 // ---------------------------------------------------------------------------
-// bf16, D = D_v = 128: S, P and O in registers (mma.sync)
+// bf16, D = D_v = 128: warpgroups on wgmma, tiles by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kFaRows = 128;            // query rows per block: 8 warps x 16
-constexpr int kFaKeys = 64;             // keys per tile
-constexpr int kFaThreads = 256;
-constexpr int kFaRowBytes = kD * 2;     // one swizzled row of Q, K or V
-constexpr int kFaQBytes = kFaRows * kFaRowBytes;     // 32 KB
-constexpr int kFaKvBytes = kFaKeys * kFaRowBytes;    // 16 KB
-constexpr int kFaSmem = kFaQBytes + 4 * kFaKvBytes;  // Q, K[2], V[2]: 96 KB
+constexpr int kWaRows = 128;    // query rows per block: 2 warpgroups x 64
+constexpr int kWaKeys = 128;    // keys per tile
+constexpr int kWaThreads = 384;  // 2 consumer warpgroups and a producer
+constexpr int kWaQBytes = kWaRows * kD * 2;    // 32 KB
+constexpr int kWaTile = kWaKeys * kD * 2;      // one K or V tile: 32 KB
+constexpr int kWaBiasRows = 16 * kWaKeys * 4;  // a warp's bias rows: 8 KB
+// A block's shared memory: the mbarriers, Q, a ring of `stages` K and V
+// buffers each, then (BIAS) each consumer warp's bias rows; every tile in
+// wgmma's 128-byte-swizzle layout (sm90::am_at) on a 1024-byte boundary.
+// mbarriers (8 bytes each): Q landed; K / V buffer s landed; K / V buffer
+// s released by both consumer warpgroups (every consumer thread arrives).
+template <bool BIAS>
+struct WaSmem {
+  static constexpr int stages = BIAS ? 2 : 3;
+  static constexpr uint32_t q = 1024;
+  static constexpr uint32_t k = q + kWaQBytes;
+  static constexpr uint32_t v = k + stages * kWaTile;
+  static constexpr uint32_t bias = v + stages * kWaTile;
+  // + 1024 for rounding the base up to a swizzle atom: 226 KB either way
+  static constexpr int bytes = bias + (BIAS ? 8 * kWaBiasRows : 0) + 1024;
+  static_assert(bytes <= 232448, "227 KB a block");
+  static constexpr int bar_q = 0, k_full = 1, k_empty = 1 + stages,
+                       v_full = 1 + 2 * stages, v_empty = 1 + 3 * stages;
+};
 
-// rows [r0, r0 + ROWS) of a (L, 128) bf16 matrix into a swizzled tile, 16
-// bytes per cp.async; rows at or past L are zero-filled
-template <int ROWS>
-__device__ __forceinline__ void fa_load_rows(uint32_t dst, const bf16* src,
-                                             int r0, int L) {
+// a warp's 16 bias rows (query rows row0 ..) of the key tile at k0, f32, by
+// the warp's own cp.async into its 8 KB: row rr at 512 rr, 16-byte chunk c
+// at c ^ (rr & 7); 0 past L. 16-byte copies when `wide` (L % 4 == 0 and the
+// bias 16-byte aligned: every row's chunks start on 16-byte boundaries),
+// else 4-byte ones
+__device__ __forceinline__ void wa_load_bias(uint32_t dst, const float* biasb,
+                                             int row0, int k0, int L,
+                                             bool wide, int lane) {
+  if (wide) {
 #pragma unroll
-  for (int k = 0; k < ROWS * 16 / kFaThreads; ++k) {
-    const int i = threadIdx.x + k * kFaThreads;
-    const int r = i >> 4, c = i & 15;
-    const bool ok = r0 + r < L;
-    sm90::cp_async16(dst + sm90::swz(r, c, kFaRowBytes),
-                     src + (size_t)(ok ? r0 + r : 0) * kD + c * 8,
-                     ok ? 16 : 0);
-  }
-}
-
-// this lane's 2 x 16 bias values of the key tile at k0 (rows row0 and
-// row0 + 8), in the score layout, times log2(e); 0 past L
-__device__ __forceinline__ void fa_load_bias(float (&bb)[8][4],
-                                             const float* biasb, int row0,
-                                             int k0, int t, int L) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int key = k0 + 8 * j + 2 * t;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      float2 bv = make_float2(0.f, 0.f);
-      if (row < L) {
-        const float* p = biasb + (size_t)row * L + key;
-        if ((L & 1) == 0) {
-          if (key < L) bv = __ldg(reinterpret_cast<const float2*>(p));
-        } else {
-          if (key < L) bv.x = __ldg(p);
-          if (key + 1 < L) bv.y = __ldg(p + 1);
-        }
-      }
-      bb[j][2 * h] = bv.x * kLog2e;
-      bb[j][2 * h + 1] = bv.y * kLog2e;
+    for (int rr = 0; rr < 16; ++rr) {
+      const int row = row0 + rr, key = k0 + 4 * lane;
+      const bool ok = row < L && key < L;
+      sm90::cp_async16(dst + rr * 512 + ((lane ^ (rr & 7)) << 4),
+                       biasb + (ok ? (size_t)row * L + key : 0), ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = lane; i < 16 * kWaKeys; i += 32) {
+      const int rr = i >> 7, kk = i & 127;
+      const int row = row0 + rr, key = k0 + kk;
+      const bool ok = row < L && key < L;
+      sm90::cp_async4(dst + rr * 512 + (((kk >> 2) ^ (rr & 7)) << 4) +
+                          4 * (kk & 3),
+                      biasb + (ok ? (size_t)row * L + key : 0), ok ? 4 : 0);
     }
   }
 }
 
-// q, k, v, out: (B, L, 128) bf16; bias: (Bm, L, L) f32 for BIAS. Grid
-// (ceil(L / 128), B), 256 threads; warp w owns query rows 16w..16w+15 of the
-// block. Each lane holds, per 8-column tile j of a 16-row fragment, the
-// elements (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) with g = lane / 4,
-// t = lane % 4 (mma.sync's accumulator layout), so its two rows' softmax
-// statistics reduce over the 4 lanes of a quad.
+// q, k, v, out: (B, L, 128) bf16, read through the tensor maps tq, tk, tv;
+// bias: (Bm, L, L) f32 for BIAS. Grid (ceil(L / 128), B), 384 threads:
+// warpgroup wg < 2 owns query rows 64 wg .. of the block, its warp w the
+// 16 rows from 64 wg + 16 w; warpgroup 2 is the producer (24 registers a
+// thread, the consumers 240), whose first thread issues every TMA load (Q,
+// then K_it and V_it into buffer it % stages once both warpgroups have
+// released it). A wgmma accumulator gives each lane, per
+// 8-column group j, the elements (g, 8j + 2t), (g, 8j + 2t + 1), (g + 8,
+// 8j + 2t), (g + 8, 8j + 2t + 1) of its warp's rows (g = lane / 4, t = lane
+// % 4: mma.sync's layout), so a row's softmax statistics reduce over a
+// quad, and its P packed to bf16 pairs is the A operand of P V from
+// registers.
 template <bool BIAS>
-__global__ void __launch_bounds__(kFaThreads, 1)
-    flash_attention_bf16_kernel(const bf16* __restrict__ q,
-                                const bf16* __restrict__ k,
-                                const bf16* __restrict__ v,
+__global__ void __launch_bounds__(kWaThreads, 1)
+    flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
                                 const float* __restrict__ bias, int bm,
                                 bf16* __restrict__ out,
                                 float* __restrict__ lse, int L,
                                 float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sq = sm90::smem_u32(smem);
-  const uint32_t sk = sq + kFaQBytes, sv = sk + 2 * kFaKvBytes;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  using S = WaSmem<BIAS>;
+  constexpr int NS = S::stages;
+  const uint32_t s0 = sm90::smem_u32(smem);
+  const uint32_t sq = s0 + S::q, sk = s0 + S::k, sv = s0 + S::v;
+  auto bar = [&](int i) { return s0 + 8 * i; };
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int b = blockIdx.y, q0 = blockIdx.x * kWaRows;
+  const int n_tiles = (L + kWaKeys - 1) / kWaKeys;
+
+  if (tid == 0) {
+    sm90::mbar_init(bar(S::bar_q), 1);
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(bar(S::k_full + s), 1);
+      sm90::mbar_init(bar(S::v_full + s), 1);
+      sm90::mbar_init(bar(S::k_empty + s), 256);
+      sm90::mbar_init(bar(S::v_empty + s), 256);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: its registers go to the consumers
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 256) {
+      sm90::mbar_expect_tx(bar(S::bar_q), kWaQBytes);
+      sm90::tma_load_3d(sq, &tq, 0, q0, b, bar(S::bar_q));
+      sm90::tma_load_3d(sq + kWaRows * 128, &tq, 64, q0, b, bar(S::bar_q));
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % NS, k0 = it * kWaKeys;
+        const int done = (it / NS - 1) & 1;  // the phase that released s
+        if (it >= NS) sm90::mbar_wait(bar(S::k_empty + s), done);
+        sm90::mbar_expect_tx(bar(S::k_full + s), kWaTile);
+        sm90::tma_load_3d(sk + s * kWaTile, &tk, 0, k0, b, bar(S::k_full + s));
+        sm90::tma_load_3d(sk + s * kWaTile + kWaKeys * 128, &tk, 64, k0, b,
+                          bar(S::k_full + s));
+        if (it >= NS) sm90::mbar_wait(bar(S::v_empty + s), done);
+        sm90::mbar_expect_tx(bar(S::v_full + s), kWaTile);
+        sm90::tma_load_3d(sv + s * kWaTile, &tv, 0, k0, b, bar(S::v_full + s));
+        sm90::tma_load_3d(sv + s * kWaTile + kWaKeys * 128, &tv, 64, k0, b,
+                          bar(S::v_full + s));
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.y, q0 = blockIdx.x * kFaRows;
   const size_t bo = (size_t)b * L * kD;
+  const int rw = 16 * (tid >> 5);      // the warp's first row in the block
+  const int row0 = q0 + rw + g;        // this lane's rows: row0, row0 + 8
   const float* biasb =
       BIAS ? bias + (size_t)(b % bm) * (size_t)L * (size_t)L : nullptr;
-  const int row0 = q0 + 16 * warp + g;  // this lane's rows: row0, row0 + 8
+  const uint32_t sb = s0 + S::bias + (tid >> 5) * kWaBiasRows;
+  const float* bs = reinterpret_cast<const float*>(smem + S::bias +
+                                                   (tid >> 5) * kWaBiasRows);
+  // 16-byte bias copies need 16-byte aligned rows
+  const bool wide =
+      ((L & 3) | (reinterpret_cast<uintptr_t>(bias) & 15)) == 0;
+  // without a bias the scale folds into the exponent's FFMA, so the row
+  // max is taken on the raw scores: their min when the scale is negative
+  const bool neg = scale_log2 < 0.f;
+  if constexpr (BIAS) {
+    wa_load_bias(sb, biasb, q0 + rw, 0, L, wide, lane);
+    sm90::cp_async_commit();
+  }
 
-  fa_load_rows<kFaRows>(sq, q + bo, q0, L);
-  fa_load_rows<kFaKeys>(sk, k + bo, 0, L);
-  fa_load_rows<kFaKeys>(sv, v + bo, 0, L);
-  sm90::cp_async_commit();
-
-  uint32_t qa[8][4];  // the warp's 16 x 128 Q as A fragments, per 16-wide k
-  float o[16][4];     // 16 x 128 f32 accumulator, per 8-wide d tile
-#pragma unroll
-  for (int n = 0; n < 16; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float o[64];  // the warpgroup's 64 x 128 O, f32 (first set by P_0 V_0)
+  float s[64];  // its 64 x 128 scores of one key tile
+  uint32_t pp[8][4];  // P of the last tile, packed: the A of P V
   float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 units)
   float l0 = 0.f, l1 = 0.f;              // running sums, this lane's part
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
-  const int n_tiles = (L + kFaKeys - 1) / kFaKeys;
-  // the bias goes straight from L2 into the score layout, one tile ahead:
-  // its loads fly during the P V and Q K^T products before its use
-  float bb[8][4];
-  if constexpr (BIAS) fa_load_bias(bb, biasb, row0, 0, t, L);
+  sm90::mbar_wait(bar(S::bar_q), 0);
 
+  // Tile it: S = Q K_it^T on wgmma, and with it in flight P_(it-1) V_(it-1);
+  // then the online softmax of S in place while that product runs, and
+  // once it has landed the rescale of O and P_it packed into its A
+  // registers (the product reads them until then). Each buffer is
+  // released as soon as its product has landed.
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kFaKeys;
-    sm90::cp_async_wait<0>();
-    __syncthreads();  // tile `it` landed; every warp is done with it - 1
-    if (it == 0) {
+    // this tile's buffer, the last tile's, and their fill phases
+    const int k0 = it * kWaKeys, kb = it % NS, pb = (it + NS - 1) % NS;
+    sm90::mbar_wait(bar(S::k_full + kb), (it / NS) & 1);
+    sm90::wg_fence();
 #pragma unroll
-      for (int s = 0; s < 8; ++s)
-        sm90::ldsm_x4(sq + sm90::swz(16 * warp + (mi & 1) * 8 + mr,
-                                     2 * s + (mi >> 1), kFaRowBytes),
-                      qa[s]);
+    for (int ks = 0; ks < kD / 16; ++ks)
+      sm90::WgSS<128, 0, 0>::mma(
+          s, sm90::desc_k(sq, kWaRows, 64 * wg, ks),
+          sm90::desc_k(sk + kb * kWaTile, kWaKeys, 0, ks), ks > 0);
+    sm90::wg_commit();
+    if (it > 0) {
+      sm90::mbar_wait(bar(S::v_full + pb), ((it - 1) / NS) & 1);
+#pragma unroll
+      for (int ks = 0; ks < kWaKeys / 16; ++ks)
+        sm90::WgRS<128, 1>::mma(
+            o, pp[ks], sm90::desc_mn(sv + pb * kWaTile, kWaKeys, 0, ks),
+            it > 1 || ks > 0);
+      sm90::wg_commit();
+      sm90::wg_wait<1>();  // S landed; P V still runs
+    } else {
+      sm90::wg_wait<0>();
     }
-    if (it + 1 < n_tiles) {  // the next tile loads while this one computes
-      const uint32_t nb = ((it + 1) & 1) * kFaKvBytes;
-      fa_load_rows<kFaKeys>(sk + nb, k + bo, k0 + kFaKeys, L);
-      fa_load_rows<kFaKeys>(sv + nb, v + bo, k0 + kFaKeys, L);
-    }
-    sm90::cp_async_commit();
-    const uint32_t kt = sk + (it & 1) * kFaKvBytes;
-    const uint32_t vt = sv + (it & 1) * kFaKvBytes;
+    sm90::fence_regs(s);
+    sm90::mbar_arrive(bar(S::k_empty + kb));
 
-    // S = Q K^T: 16 x 64 per warp, f32 in registers
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t kb[4];  // key tiles 2p, 2p+1 x d halves of this k step
-        sm90::ldsm_x4(kt + sm90::swz(16 * p + (mi >> 1) * 8 + mr,
-                                     2 * ks + (mi & 1), kFaRowBytes),
-                      kb);
-        sm90::mma_bf16(s[2 * p], qa[ks], kb[0], kb[1]);
-        sm90::mma_bf16(s[2 * p + 1], qa[ks], kb[2], kb[3]);
-      }
-    }
-
-    // scale, bias, ragged keys; online softmax in log2 units
-    const bool ragged = k0 + kFaKeys > L;
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if constexpr (BIAS) x += bb[j][e];
-        if (ragged && k0 + 8 * j + 2 * t + (e & 1) >= L) x = -INFINITY;
-        s[j][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
+    // the row max (log2 units) of the scaled scores, + bias, ragged keys -inf
+    const bool ragged = k0 + kWaKeys > L;
+    float mx0, mx1;
     if constexpr (BIAS) {
-      if (it + 1 < n_tiles) fa_load_bias(bb, biasb, row0, k0 + kFaKeys, t, L);
+      sm90::cp_async_wait<0>();  // this warp's bias rows of tile it
+      __syncwarp();
+      mx0 = mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 bv = *reinterpret_cast<const float2*>(
+              bs + (g + 8 * h) * kWaKeys + (((2 * j + (t >> 1)) ^ g) << 2) +
+              2 * (t & 1));
+          float x0 = fmaf(bv.x, kLog2e, s[4 * j + 2 * h] * scale_log2);
+          float x1 = fmaf(bv.y, kLog2e, s[4 * j + 2 * h + 1] * scale_log2);
+          if (ragged) {
+            const int key = k0 + 8 * j + 2 * t;
+            if (key >= L) x0 = -INFINITY;
+            if (key + 1 >= L) x1 = -INFINITY;
+          }
+          s[4 * j + 2 * h] = x0;
+          s[4 * j + 2 * h + 1] = x1;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      __syncwarp();  // the next tile's bias rows into the same place
+      if (it + 1 < n_tiles) {
+        wa_load_bias(sb, biasb, q0 + rw, k0 + kWaKeys, L, wide, lane);
+        sm90::cp_async_commit();
+      }
+    } else {
+      const float off = neg ? INFINITY : -INFINITY;  // scaled: -inf
+      if (ragged) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int key = k0 + 8 * j + 2 * t;
+          if (key >= L) s[4 * j] = s[4 * j + 2] = off;
+          if (key + 1 >= L) s[4 * j + 1] = s[4 * j + 3] = off;
+        }
+      }
+      float r0 = s[0], r1 = s[2];
+      if (neg) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          r0 = fminf(r0, fminf(s[4 * j], s[4 * j + 1]));
+          r1 = fminf(r1, fminf(s[4 * j + 2], s[4 * j + 3]));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          r0 = fmaxf(r0, fmaxf(s[4 * j], s[4 * j + 1]));
+          r1 = fmaxf(r1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+      }
+      mx0 = r0 * scale_log2;
+      mx1 = r1 * scale_log2;
     }
 #pragma unroll
     for (int w = 1; w < 4; w <<= 1) {
@@ -254,47 +359,59 @@ __global__ void __launch_bounds__(kFaThreads, 1)
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite
-    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
+    // P = 2^(x - mn), in place; x = the scaled score (bias: s holds x)
+    const float sc = BIAS ? 1.f : scale_log2;
     float sum0 = 0.f, sum1 = 0.f;
-    uint32_t pa[4][4];  // P rounded to bf16: the A fragments of P V
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float p0 = exp2f(s[j][0] - mn0), p1 = exp2f(s[j][1] - mn0);
-      const float p2 = exp2f(s[j][2] - mn1), p3 = exp2f(s[j][3] - mn1);
-      sum0 += p0 + p1;
-      sum1 += p2 + p3;
-      pa[j >> 1][(j & 1) * 2] = sm90::pack_bf16(p0, p1);
-      pa[j >> 1][(j & 1) * 2 + 1] = sm90::pack_bf16(p2, p3);
+    for (int j = 0; j < 16; ++j) {
+      s[4 * j] = ex2(fmaf(s[4 * j], sc, -mn0));
+      s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sc, -mn0));
+      s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sc, -mn1));
+      s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sc, -mn1));
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
     }
     l0 = l0 * a0 + sum0;
     l1 = l1 * a1 + sum1;
+    if (it > 0) {  // O through tile it - 1 landed: rescale it to mn
+      sm90::wg_wait<0>();
+      sm90::fence_regs(o);
+      sm90::fence_regs(pp);
+      sm90::mbar_arrive(bar(S::v_empty + pb));
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      o[n][0] *= a0;
-      o[n][1] *= a0;
-      o[n][2] *= a1;
-      o[n][3] *= a1;
-    }
-
-    // O += P V: 16 x 128 per warp
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        uint32_t vb[4];  // keys 16ks..+15 x d tiles 2p, 2p+1
-        sm90::ldsm_x4_t(vt + sm90::swz(16 * ks + (mi & 1) * 8 + mr,
-                                       2 * p + (mi >> 1), kFaRowBytes),
-                        vb);
-        sm90::mma_bf16(o[2 * p], pa[ks], vb[0], vb[1]);
-        sm90::mma_bf16(o[2 * p + 1], pa[ks], vb[2], vb[3]);
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j] *= a0;
+        o[4 * j + 1] *= a0;
+        o[4 * j + 2] *= a1;
+        o[4 * j + 3] *= a1;
       }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      pp[j >> 1][(j & 1) * 2] = sm90::pack_bf16(s[4 * j], s[4 * j + 1]);
+      pp[j >> 1][(j & 1) * 2 + 1] =
+          sm90::pack_bf16(s[4 * j + 2], s[4 * j + 3]);
     }
   }
 
-  // normalise once, round to bf16 into the warp's own Q rows (read only by
-  // this warp, at the first tile), then 16-byte coalesced stores
+  // the last tile's P V
+  const int vb = (n_tiles - 1) % NS;
+  sm90::mbar_wait(bar(S::v_full + vb), ((n_tiles - 1) / NS) & 1);
+  sm90::wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < kWaKeys / 16; ++ks)
+    sm90::WgRS<128, 1>::mma(o, pp[ks],
+                            sm90::desc_mn(sv + vb * kWaTile, kWaKeys, 0, ks),
+                            n_tiles > 1 || ks > 0);
+  sm90::wg_commit();
+  sm90::wg_wait<0>();
+  sm90::fence_regs(o);
+
+  // normalise once, round to bf16 into the warp's own Q rows (no wgmma
+  // reads them any more), then 16-byte coalesced stores
 #pragma unroll
   for (int w = 1; w < 4; w <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, w);
@@ -305,24 +422,24 @@ __global__ void __launch_bounds__(kFaThreads, 1)
     if (row0 < L) lse[(size_t)b * L + row0] = m0 + log2f(l0);
     if (row0 + 8 < L) lse[(size_t)b * L + row0 + 8] = m1 + log2f(l1);
   }
-  const int r0 = 16 * warp + g;
+  unsigned char* so = smem + S::q;
 #pragma unroll
-  for (int n = 0; n < 16; ++n) {
-    *reinterpret_cast<uint32_t*>(smem + sm90::swz(r0, n, kFaRowBytes) +
+  for (int j = 0; j < 16; ++j) {
+    *reinterpret_cast<uint32_t*>(so + sm90::am_at(rw + g, j, kWaRows) +
                                  4 * t) =
-        sm90::pack_bf16(o[n][0] * i0, o[n][1] * i0);
-    *reinterpret_cast<uint32_t*>(smem + sm90::swz(r0 + 8, n, kFaRowBytes) +
+        sm90::pack_bf16(o[4 * j] * i0, o[4 * j + 1] * i0);
+    *reinterpret_cast<uint32_t*>(so + sm90::am_at(rw + g + 8, j, kWaRows) +
                                  4 * t) =
-        sm90::pack_bf16(o[n][2] * i1, o[n][3] * i1);
+        sm90::pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
   }
   __syncwarp();
 #pragma unroll
   for (int k2 = 0; k2 < 8; ++k2) {
     const int i = lane + 32 * k2;
-    const int r = 16 * warp + (i >> 4), c = i & 15;
+    const int r = rw + (i >> 4), c = i & 15;
     if (q0 + r < L)
       *reinterpret_cast<uint4*>(out + bo + (size_t)(q0 + r) * kD + 8 * c) =
-          *reinterpret_cast<const uint4*>(smem + sm90::swz(r, c, kFaRowBytes));
+          *reinterpret_cast<const uint4*>(so + sm90::am_at(r, c, kWaRows));
   }
 }
 
@@ -331,17 +448,21 @@ int launch_flash_bf16(const void* q, const void* k, const void* v,
                       int L, float scale, cudaStream_t stream) {
   auto kernel = bias ? flash_attention_bf16_kernel<true>
                      : flash_attention_bf16_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFaSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + kFaRows - 1) / kFaRows, B);
-  kernel<<<grid, kFaThreads, kFaSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias), bm,
+  const int smem = bias ? WaSmem<true>::bytes : WaSmem<false>::bytes;
+  CUtensorMap tq, tk, tv;
+  int err = sm90::tma_map_bf16(&tq, q, kD, L, B, kWaRows);
+  if (err == 0) err = sm90::tma_map_bf16(&tk, k, kD, L, B, kWaKeys);
+  if (err == 0) err = sm90::tma_map_bf16(&tv, v, kD, L, B, kWaKeys);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  dim3 grid((L + kWaRows - 1) / kWaRows, B);
+  kernel<<<grid, kWaThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<const float*>(bias), bm,
       static_cast<bf16*>(out), lse, L, scale * kLog2e);
   return (int)cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // Shared by the narrow and f32 kernels
@@ -374,13 +495,37 @@ __device__ __forceinline__ void narrow_pair(const float* vt, int c,
 // bf16 q/k, D_v = 2: scores on the tensor cores, the narrow product in FMAs
 // ---------------------------------------------------------------------------
 
+constexpr int kFaRows = 128;            // query rows per block: 8 warps x 16
+constexpr int kFaKeys = 64;             // keys per tile
+constexpr int kFaThreads = 256;
+constexpr int kFaRowBytes = kD * 2;     // one swizzled row of Q, K or V
+constexpr int kFaQBytes = kFaRows * kFaRowBytes;     // 32 KB
+constexpr int kFaKvBytes = kFaKeys * kFaRowBytes;    // 16 KB
+
+// rows [r0, r0 + ROWS) of a (L, 128) bf16 matrix into a swizzled tile, 16
+// bytes per cp.async; rows at or past L are zero-filled
+template <int ROWS>
+__device__ __forceinline__ void fa_load_rows(uint32_t dst, const bf16* src,
+                                             int r0, int L) {
+#pragma unroll
+  for (int k = 0; k < ROWS * 16 / kFaThreads; ++k) {
+    const int i = threadIdx.x + k * kFaThreads;
+    const int r = i >> 4, c = i & 15;
+    const bool ok = r0 + r < L;
+    sm90::cp_async16(dst + sm90::swz(r, c, kFaRowBytes),
+                     src + (size_t)(ok ? r0 + r : 0) * kD + c * 8,
+                     ok ? 16 : 0);
+  }
+}
+
 constexpr int kNbVBytes = 2 * kFaKeys * 4;  // one staged slice, f32 at most
 constexpr int kNbSmem = kFaQBytes + 2 * kFaKvBytes + 2 * kNbVBytes;  // 65 KB
 
 // q, k: (B, L, 128) bf16; v: (L, 2) of TV at batch stride v_bstride
 // elements (0: one V for the batch); out: (B, L, 2) of TO. ROUND_P rounds P to bf16 before the product (K1), as
 // JAX's p.astype(v.dtype) does; K3 keeps it f32. Grid (ceil(L / 128), B),
-// 256 threads; lane layout as flash_attention_bf16_kernel's.
+// 256 threads; warp w owns query rows 16w..16w+15 of the block, in
+// mma.sync's accumulator layout (g = lane / 4, t = lane % 4).
 template <typename TV, typename TO, bool ROUND_P>
 __global__ void __launch_bounds__(kFaThreads, 2)
     flash_narrow_bf16_kernel(const bf16* __restrict__ q,

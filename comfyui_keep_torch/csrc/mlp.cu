@@ -16,25 +16,37 @@
 // reaches device memory (318 MB bf16 per call at the 20-frame chunk's
 // 155,648 rows, written and read back). At that shape the bound is 0.124 ms.
 //
-// What the design does about it (bf16): one block of 8 warps owns 128 rows,
-// one warp 16 of them. The warp's [src | msg] rows (16 x 256) are staged by
-// cp.async into a swizzled shared tile and held in registers as mma.sync
-// A fragments. The block walks the hidden dimension in chunks of 64: W1's 64
-// rows (32 KB) and W2's 64 columns (16 KB) of a chunk land by 16-byte
-// cp.async in swizzled tiles, three chunks deep, shared by the 8 warps and
-// read by ldmatrix. Per chunk each warp forms its 16 x 64 hidden in f32
-// registers (mma.sync m16n8k16), applies the gelu there, packs it to bf16 --
-// the accumulator layout of m16n8k16 is its A-fragment layout, so the packed
-// hidden feeds the second product directly -- and accumulates 16 x 128 of
-// output in f32 registers. The LayerNorm runs on those registers: a row's
-// 128 outputs sit in one quad of lanes, so its mean and variance are quad
-// shuffles; the residual comes from the staged src, and the rows leave
-// through shared memory in 16-byte stores. Neither the hidden nor the
-// output accumulator passes through shared memory. The tanh gelu uses
-// tanh.approx.f32 (relative error ~2^-11, under the bf16 rounding of the
-// hidden that follows). Every block re-reads the 768 KB of weights from L2
-// (~0.9 GB per call at the path's shape); sharing them across a cluster by
-// TMA multicast is left for later work.
+// What the design does about it (bf16): wgmma, whose 64-row warpgroup
+// tiles read each weight tile in shared memory once for four warps
+// (mma.sync's 16-row warp tiles read every weight chunk once per warp,
+// which made shared memory the limit of the earlier design). A block owns
+// 128 rows: two consumer warpgroups of 64 rows and a producer warpgroup,
+// whose first thread issues every load by TMA and which hands its
+// registers to the consumers (setmaxnreg: 24 / 240). The [src | msg] rows
+// (128 x 256) land once and are held in registers as wgmma's register A
+// operand. The block walks the hidden dimension in chunks of 64: W1's 64
+// rows (32 KB) and W2's 64 columns (16 KB) of a chunk land in wgmma's
+// 128-byte-swizzle layout, both K-major, through a ring of three stages;
+// mbarriers say when a stage has landed and when both consumers have
+// released it, so the consumers run free of each other (with one
+// __syncthreads a chunk and cp.async from every thread the kernel took
+// 1.16x the time). Per chunk a consumer forms its 64 x 64 hidden on wgmma
+// m64n64k16 in f32 registers, applies the gelu there and packs it to bf16
+// -- a wgmma accumulator's rows packed to bf16 pairs are its register A
+// layout, so the packed hidden feeds the second product directly -- and
+// accumulates 64 x 128 of output on m64n128k16 in f32 registers. The next
+// chunk's hidden product is issued before this chunk's gelu and runs while
+// it is computed; the two hidden accumulators swap roles between chunks
+// (copying one into the other made ptxas serialize every product). The
+// LayerNorm runs on the output registers: a row's 128 outputs sit in one
+// quad of lanes, so its mean and variance are quad shuffles; the residual
+// comes from the staged src, and the rows leave through shared memory in
+// 16-byte stores. Neither the hidden nor the output accumulator passes
+// through shared memory. The tanh gelu uses tanh.approx.f32 (relative
+// error ~2^-11, under the bf16 rounding of the hidden that follows). Every
+// block reads the 768 KB of weights from L2 (~0.9 GB per call at the
+// path's shape): more rows a block would need registers the overlap takes
+// (the accumulators and the register A take 208 a thread).
 //
 // f32 (the f32 training step's GMFlow, erf gelu): mlp_fused_f32_kernel
 // keeps the arithmetic f32 (no TF32), so the FMA pipe's 67 TFLOP/s bounds
@@ -121,6 +133,10 @@
 
 namespace keep {
 
+using sm90::am_at;
+using sm90::desc_k;
+using sm90::desc_mn;
+
 constexpr int kC = 128;  // model width the kernels are built for
 
 __device__ __forceinline__ float tanh_approx(float x) {
@@ -144,166 +160,188 @@ __device__ __forceinline__ float gelu_erf(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: hidden and output accumulator in registers (mma.sync)
+// bf16: warpgroups on wgmma, [src | msg] and the hidden in registers,
+// tiles by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kMRows = 128;                       // rows per block: 8 x 16
-constexpr int kMThreads = 256;
-constexpr int kMHc = 64;                          // hidden units per chunk
+constexpr int kMRows = 128;                   // rows per block: 2 x 64
+constexpr int kMThreads = 384;   // 2 consumer warpgroups and a producer
+constexpr int kMHc = 64;                      // hidden units per chunk
 constexpr int kMStages = 3;
-constexpr int kARowBytes = 2 * kC * 2;            // a [src | msg] row: 512 B
-constexpr int kW1RowBytes = 2 * kC * 2;           // a W1 row: 512 B
-constexpr int kW2RowBytes = kMHc * 2;             // a W2 chunk row: 128 B
-constexpr int kABytes = kMRows * kARowBytes;      // 64 KB
-constexpr int kW1Bytes = kMHc * kW1RowBytes;      // 32 KB
-constexpr int kStageBytes = kW1Bytes + kC * kW2RowBytes;   // 48 KB
-constexpr int kMSmem = kABytes + kMStages * kStageBytes;   // 208 KB
+constexpr int kABytes = kMRows * 2 * kC * 2;  // [src | msg]: 64 KB
+constexpr int kW1Bytes = kMHc * 2 * kC * 2;   // W1's chunk rows: 32 KB
+constexpr int kStageBytes = kW1Bytes + kC * kMHc * 2;  // + W2's: 48 KB
+// byte offsets: the mbarriers, [src | msg], the stages (W1's rows, then
+// W2's columns of a chunk), every tile an am_at tile on a 1024-byte
+// boundary; the launch's bytes + 1024 for rounding the base up
+constexpr uint32_t kMX = 1024;
+constexpr uint32_t kMW = kMX + kABytes;
+constexpr int kMSmem = kMW + kMStages * kStageBytes + 1024;  // 210 KB
+// mbarriers: [src | msg] landed; stage s landed; stage s released by both
+// consumer warpgroups (every consumer thread arrives)
+constexpr int kBarX = 0, kBarWFull = 1, kBarWEmpty = 1 + kMStages;
 
-// W1 rows [h0, h0 + 64) and W2 columns [h0, h0 + 64) into one stage
-__device__ __forceinline__ void mlp_load_chunk(uint32_t stage, const bf16* w1,
-                                               const bf16* w2, int h0, int H) {
+// d = [src | msg] W1[h0:h0+64]^T on wgmma, issued and committed: xa the
+// warp's rows as register A, W1's 64 rows at w1t K-major
+__device__ __forceinline__ void mlp_hidden(float (&d)[32],
+                                           const uint32_t (&xa)[16][4],
+                                           uint32_t w1t) {
+  sm90::wg_fence();
 #pragma unroll
-  for (int k = 0; k < kMHc * 32 / kMThreads; ++k) {   // 8 per thread
-    const int i = threadIdx.x + k * kMThreads;
-    const int r = i >> 5, c = i & 31;
-    sm90::cp_async16(stage + sm90::swz(r, c, kW1RowBytes),
-                     w1 + (size_t)(h0 + r) * (2 * kC) + c * 8, 16);
-  }
-  const uint32_t s2 = stage + kW1Bytes;
-#pragma unroll
-  for (int k = 0; k < kC * 8 / kMThreads; ++k) {      // 4 per thread
-    const int i = threadIdx.x + k * kMThreads;
-    const int r = i >> 3, c = i & 7;
-    sm90::cp_async16(s2 + sm90::swz(r, c, kW2RowBytes),
-                     w2 + (size_t)r * H + h0 + c * 8, 16);
-  }
+  for (int ks = 0; ks < 16; ++ks)
+    sm90::WgRS<64, 0>::mma(d, xa[ks], desc_k(w1t, kMHc, 0, ks), ks > 0);
+  sm90::wg_commit();
 }
 
-// src, msg, out: (rows, 128); w1: (H, 256); w2: (128, H); gamma, beta:
-// (128,), all bf16. H % 64 == 0. Grid ceil(rows / 128), 256 threads; warp
-// w owns rows 16w..16w+15 of the block, and each lane holds, per 8-column
-// tile j, the elements (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1), g =
-// lane / 4, t = lane % 4 (mma.sync's accumulator layout).
+// Chunk j of a consumer warpgroup: its hidden a landed (and o through chunk
+// j - 1, so stage (j - 1) % 3 is released); chunk j + 1's hidden product
+// into an runs while the gelu of a packs it to bf16 as the register A of
+// o += h W2[:, h0:h0+64]^T. Only wgmma defines a, an and o (the caller
+// swaps a and an between chunks: a copy made ptxas serialize the products)
+template <bool TANH>
+__device__ __forceinline__ void mlp_chunk(int j, int n_chunks, float (&a)[32],
+                                          float (&an)[32], float (&o)[64],
+                                          const uint32_t (&xa)[16][4],
+                                          uint32_t s0) {
+  sm90::wg_wait<0>();
+  sm90::fence_regs(a);
+  if (j > 0) sm90::mbar_arrive(s0 + 8 * (kBarWEmpty + (j - 1) % kMStages));
+  if (j + 1 < n_chunks) {
+    const int st = (j + 1) % kMStages;
+    sm90::mbar_wait(s0 + 8 * (kBarWFull + st), ((j + 1) / kMStages) & 1);
+    mlp_hidden(an, xa, s0 + kMW + st * kStageBytes);
+  }
+
+  uint32_t ha[4][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = TANH ? gelu_tanh_fast(a[4 * n + e]) : gelu_erf(a[4 * n + e]);
+    ha[n >> 1][(n & 1) * 2] = sm90::pack_bf16(v[0], v[1]);
+    ha[n >> 1][(n & 1) * 2 + 1] = sm90::pack_bf16(v[2], v[3]);
+  }
+  const uint32_t w2t = s0 + kMW + (j % kMStages) * kStageBytes + kW1Bytes;
+  sm90::wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < kMHc / 16; ++ks)
+    sm90::WgRS<128, 0>::mma(o, ha[ks], desc_k(w2t, kC, 0, ks),
+                            j > 0 || ks > 0);
+  sm90::wg_commit();
+}
+
+// src, msg, out: (rows, 128), w1: (H, 256), w2: (128, H), gamma, beta:
+// (128,), all bf16; src, msg, w1 and w2 are read through the tensor maps
+// tsrc, tmsg, tw1, tw2. H % 64 == 0. Grid ceil(rows / 128), 384 threads:
+// warpgroup wg < 2 owns rows 64 wg .. of the block, its warp w the 16 rows
+// from 64 wg + 16 w; warpgroup 2 is the producer (24 registers a thread,
+// the consumers 240), whose first thread issues every TMA load ([src |
+// msg], then chunk j's W1 rows and W2 columns into stage j % 3 once both
+// warpgroups have released it). Each lane holds, per 8-column group n of a
+// wgmma accumulator, the elements (g, 8n + 2t), (g, 8n + 2t + 1), (g + 8,
+// 8n + 2t), (g + 8, 8n + 2t + 1) of its warp's rows, g = lane / 4, t = lane
+// % 4 (mma.sync's layout, which is also wgmma's register A layout).
 template <bool TANH>
 __global__ void __launch_bounds__(kMThreads, 1)
-    mlp_fused_bf16_kernel(const bf16* __restrict__ src,
-                          const bf16* __restrict__ msg,
-                          const bf16* __restrict__ w1,
-                          const bf16* __restrict__ w2,
+    mlp_fused_bf16_kernel(const __grid_constant__ CUtensorMap tsrc,
+                          const __grid_constant__ CUtensorMap tmsg,
+                          const __grid_constant__ CUtensorMap tw1,
+                          const __grid_constant__ CUtensorMap tw2,
                           const bf16* __restrict__ gamma,
                           const bf16* __restrict__ beta,
                           bf16* __restrict__ out,
                           float* __restrict__ o_out, int rows, int H) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const uint32_t sa = sm90::smem_u32(smem);
-  const uint32_t sw = sa + kABytes;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = sm90::smem_u32(smem);
+  const uint32_t sa = s0 + kMX;
+  unsigned char* sx = smem + kMX;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int r0 = blockIdx.x * kMRows;
   const int n_chunks = H / kMHc;
 
-  // [src | msg] rows: chunks 0..15 of a row are src, 16..31 msg; rows at or
-  // past `rows` are zero-filled
-#pragma unroll
-  for (int k = 0; k < kMRows * 32 / kMThreads; ++k) {  // 16 per thread
-    const int i = tid + k * kMThreads;
-    const int r = i >> 5, c = i & 31;
-    const bool ok = r0 + r < rows;
-    const bf16* base = c < 16 ? src : msg;
-    sm90::cp_async16(sa + sm90::swz(r, c, kARowBytes),
-                     base + (size_t)(ok ? r0 + r : 0) * kC + (c & 15) * 8,
-                     ok ? 16 : 0);
-  }
-  mlp_load_chunk(sw, w1, w2, 0, H);
-  sm90::cp_async_commit();
-  if (n_chunks > 1) mlp_load_chunk(sw + kStageBytes, w1, w2, kMHc, H);
-  sm90::cp_async_commit();
-
-  uint32_t a[16][4];  // the warp's 16 x 256 [src | msg] as A fragments
-  float o[16][4];     // 16 x 128 f32 output accumulator
-#pragma unroll
-  for (int n = 0; n < 16; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int j = 0; j < n_chunks; ++j) {
-    sm90::cp_async_wait<1>();
-    __syncthreads();  // chunk j landed; every warp is done with chunk j - 1
-    if (j == 0) {
-#pragma unroll
-      for (int s = 0; s < 16; ++s)
-        sm90::ldsm_x4(sa + sm90::swz(16 * warp + (mi & 1) * 8 + mr,
-                                     2 * s + (mi >> 1), kARowBytes),
-                      a[s]);
+  if (tid == 0) {
+    sm90::mbar_init(s0 + 8 * kBarX, 1);
+    for (int st = 0; st < kMStages; ++st) {
+      sm90::mbar_init(s0 + 8 * (kBarWFull + st), 1);
+      sm90::mbar_init(s0 + 8 * (kBarWEmpty + st), 256);
     }
-    if (j + 2 < n_chunks)
-      mlp_load_chunk(sw + ((j + 2) % kMStages) * kStageBytes, w1, w2,
-                     (j + 2) * kMHc, H);
-    sm90::cp_async_commit();
-    const uint32_t w1t = sw + (j % kMStages) * kStageBytes;
-    const uint32_t w2t = w1t + kW1Bytes;
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
 
-    // hidden = [src | msg] W1[h0:h0+64]^T: 16 x 64 per warp, f32
-    float h[8][4];
+  if (tid >= 256) {  // the producer: its registers go to the consumers
+    sm90::setmaxnreg_dec<24>();
+    if (tid == 256) {
+      const uint32_t bx = s0 + 8 * kBarX;
+      sm90::mbar_expect_tx(bx, kABytes);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) h[n][0] = h[n][1] = h[n][2] = h[n][3] = 0.f;
+      for (int cb = 0; cb < 2; ++cb) {
+        sm90::tma_load_3d(sa + cb * kMRows * 128, &tsrc, 64 * cb, r0, 0, bx);
+        sm90::tma_load_3d(sa + (2 + cb) * kMRows * 128, &tmsg, 64 * cb, r0, 0,
+                          bx);
+      }
+      for (int j = 0; j < n_chunks; ++j) {
+        const int st = j % kMStages;
+        const uint32_t full = s0 + 8 * (kBarWFull + st);
+        const uint32_t w = s0 + kMW + st * kStageBytes;
+        if (j >= kMStages)
+          sm90::mbar_wait(s0 + 8 * (kBarWEmpty + st),
+                          (j / kMStages - 1) & 1);
+        sm90::mbar_expect_tx(full, kStageBytes);
 #pragma unroll
-    for (int ks = 0; ks < 16; ++ks) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t b[4];  // hidden tiles 2p, 2p+1 x k halves of this k step
-        sm90::ldsm_x4(w1t + sm90::swz(16 * p + (mi >> 1) * 8 + mr,
-                                      2 * ks + (mi & 1), kW1RowBytes),
-                      b);
-        sm90::mma_bf16(h[2 * p], a[ks], b[0], b[1]);
-        sm90::mma_bf16(h[2 * p + 1], a[ks], b[2], b[3]);
+        for (int cb = 0; cb < 4; ++cb)
+          sm90::tma_load_3d(w + cb * kMHc * 128, &tw1, 64 * cb, j * kMHc, 0,
+                            full);
+        sm90::tma_load_3d(w + kW1Bytes, &tw2, j * kMHc, 0, 0, full);
       }
     }
-
-    // gelu on the registers, rounded to bf16: the A fragments of h W2^T
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v[e] = TANH ? gelu_tanh_fast(h[n][e]) : gelu_erf(h[n][e]);
-      pa[n >> 1][(n & 1) * 2] = sm90::pack_bf16(v[0], v[1]);
-      pa[n >> 1][(n & 1) * 2 + 1] = sm90::pack_bf16(v[2], v[3]);
-    }
-
-    // out += gelu(hidden) W2[:, h0:h0+64]^T: 16 x 128 per warp
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        uint32_t b[4];  // output tiles 2p, 2p+1 x k halves of this k step
-        sm90::ldsm_x4(w2t + sm90::swz(16 * p + (mi >> 1) * 8 + mr,
-                                      2 * ks + (mi & 1), kW2RowBytes),
-                      b);
-        sm90::mma_bf16(o[2 * p], pa[ks], b[0], b[1]);
-        sm90::mma_bf16(o[2 * p + 1], pa[ks], b[2], b[3]);
-      }
-    }
+    return;
   }
+
+  sm90::setmaxnreg_inc<240>();
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix, row
+  const int rw = 16 * (tid >> 5);           // the warp's first row
+  sm90::mbar_wait(s0 + 8 * kBarX, 0);
+  uint32_t xa[16][4];  // the warp's 16 x 256 [src | msg]: register A
+#pragma unroll
+  for (int s = 0; s < 16; ++s)
+    sm90::ldsm_x4(sa + am_at(rw + (mi & 1) * 8 + mr, 2 * s + (mi >> 1),
+                             kMRows),
+                  xa[s]);
+  float o[64];          // the warpgroup's 64 x 128 output, f32
+  float a[32], an[32];  // hidden chunks j and j + 1: 64 x 64, f32
+  sm90::mbar_wait(s0 + 8 * kBarWFull, 0);
+  mlp_hidden(a, xa, s0 + kMW);
+  for (int j = 0; j < n_chunks; j += 2) {  // a and an swap roles
+    mlp_chunk<TANH>(j, n_chunks, a, an, o, xa, s0);
+    if (j + 1 < n_chunks)
+      mlp_chunk<TANH>(j + 1, n_chunks, an, a, o, xa, s0);
+  }
+  sm90::wg_wait<0>();
+  sm90::fence_regs(o);
 
   // LayerNorm over each row's 128 outputs, held by one quad: rows g and g+8
-  float s0 = 0.f, s1 = 0.f;
+  float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int n = 0; n < 16; ++n) {
-    s0 += o[n][0] + o[n][1];
-    s1 += o[n][2] + o[n][3];
+    sum0 += o[4 * n] + o[4 * n + 1];
+    sum1 += o[4 * n + 2] + o[4 * n + 3];
   }
 #pragma unroll
   for (int w = 1; w < 4; w <<= 1) {
-    s0 += __shfl_xor_sync(0xffffffffu, s0, w);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, w);
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, w);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, w);
   }
-  const float mean0 = s0 * (1.f / kC), mean1 = s1 * (1.f / kC);
+  const float mean0 = sum0 * (1.f / kC), mean1 = sum1 * (1.f / kC);
   float q0 = 0.f, q1 = 0.f;
 #pragma unroll
   for (int n = 0; n < 16; ++n) {
-    const float d0 = o[n][0] - mean0, d1 = o[n][1] - mean0;
-    const float d2 = o[n][2] - mean1, d3 = o[n][3] - mean1;
+    const float d0 = o[4 * n] - mean0, d1 = o[4 * n + 1] - mean0;
+    const float d2 = o[4 * n + 2] - mean1, d3 = o[4 * n + 3] - mean1;
     q0 = fmaf(d0, d0, fmaf(d1, d1, q0));
     q1 = fmaf(d2, d2, fmaf(d3, d3, q1));
   }
@@ -317,19 +355,18 @@ __global__ void __launch_bounds__(kMThreads, 1)
   if (o_out != nullptr) {  // the LayerNorm's input, for the backward
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int row = r0 + 16 * warp + g + 8 * hh;
+      const int row = r0 + rw + g + 8 * hh;
       if (row < rows) {
 #pragma unroll
         for (int n = 0; n < 16; ++n)
           *reinterpret_cast<float2*>(o_out + (size_t)row * kC + 8 * n + 2 * t) =
-              make_float2(o[n][2 * hh], o[n][2 * hh + 1]);
+              make_float2(o[4 * n + 2 * hh], o[4 * n + 2 * hh + 1]);
       }
     }
   }
 
   // + src (the staged tile's chunks 0..15), rounded to bf16 into the same
   // place: only this warp reads or writes its rows, each lane its own words
-  const int ra = 16 * warp + g;
 #pragma unroll
   for (int n = 0; n < 16; ++n) {
     const int c = 8 * n + 2 * t;
@@ -341,11 +378,11 @@ __global__ void __launch_bounds__(kMThreads, 1)
     for (int hh = 0; hh < 2; ++hh) {
       const float mean = hh ? mean1 : mean0, rs = hh ? rs1 : rs0;
       uint32_t* p = reinterpret_cast<uint32_t*>(
-          smem + sm90::swz(ra + 8 * hh, n, kARowBytes) + 4 * t);
+          sx + am_at(rw + g + 8 * hh, n, kMRows) + 4 * t);
       const float2 x = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(p));
-      const float y0 = (o[n][2 * hh] - mean) * rs * gm.x + bt.x;
-      const float y1 = (o[n][2 * hh + 1] - mean) * rs * gm.y + bt.y;
+      const float y0 = (o[4 * n + 2 * hh] - mean) * rs * gm.x + bt.x;
+      const float y1 = (o[4 * n + 2 * hh + 1] - mean) * rs * gm.y + bt.y;
       *p = sm90::pack_bf16(x.x + y0, x.y + y1);
     }
   }
@@ -353,11 +390,10 @@ __global__ void __launch_bounds__(kMThreads, 1)
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int i = lane + 32 * k;
-    const int r = 16 * warp + (i >> 4), c = i & 15;
+    const int r = rw + (i >> 4), c = i & 15;
     if (r0 + r < rows)
       *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * kC + 8 * c) =
-          *reinterpret_cast<const uint4*>(smem +
-                                          sm90::swz(r, c, kARowBytes));
+          *reinterpret_cast<const uint4*>(sx + am_at(r, c, kMRows));
   }
 }
 
@@ -366,16 +402,21 @@ int launch_mlp_bf16(const void* src, const void* msg, const void* w1,
                     const void* w2, const void* gamma, const void* beta,
                     void* out, float* o_out, int rows, int H,
                     cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fused_bf16_kernel<TANH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kMSmem);
-  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tsrc, tmsg, tw1, tw2;
+  int err = sm90::tma_map_bf16(&tsrc, src, kC, rows, 1, kMRows);
+  if (err == 0) err = sm90::tma_map_bf16(&tmsg, msg, kC, rows, 1, kMRows);
+  if (err == 0) err = sm90::tma_map_bf16(&tw1, w1, 2 * kC, H, 1, kMHc);
+  if (err == 0) err = sm90::tma_map_bf16(&tw2, w2, H, kC, 1, kC);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(mlp_fused_bf16_kernel<TANH>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kMSmem);
+  if (err != 0) return err;
   const int blocks = (rows + kMRows - 1) / kMRows;
   mlp_fused_bf16_kernel<TANH><<<blocks, kMThreads, kMSmem, stream>>>(
-      static_cast<const bf16*>(src), static_cast<const bf16*>(msg),
-      static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
-      static_cast<bf16*>(out), o_out, rows, H);
+      tsrc, tmsg, tw1, tw2, static_cast<const bf16*>(gamma),
+      static_cast<const bf16*>(beta), static_cast<bf16*>(out), o_out, rows,
+      H);
   return (int)cudaGetLastError();
 }
 
@@ -740,28 +781,6 @@ __device__ __forceinline__ uint32_t tile_at(int r, int col, int RB) {
   return sm90::swz(r, b >> 4, RB) + (b & 15);
 }
 
-// byte offset of 16-byte chunk c of row r of a bf16 tile of `rows` rows in
-// wgmma's 128-byte-swizzle layout: 64-column (128-byte) blocks of rows x
-// 128 B, chunk c & 7 of a row at (c & 7) ^ (r & 7)
-__device__ __forceinline__ uint32_t am_at(int r, int c, int rows) {
-  return (uint32_t)((c >> 3) * rows * 128 + r * 128 +
-                    (((c & 7) ^ (r & 7)) << 4));
-}
-
-// wgmma descriptors of such a tile (1024-byte aligned) at shared address
-// tile: K-major, rows r0 .. (a multiple of 8) of k step s (columns 16 s
-// ..); MN-major, k-rows 16 s .. from column block b on
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0,
-                                           int s) {
-  return sm90::desc_sw128(
-      tile + (s >> 2) * rows * 128 + r0 * 128 + (s & 3) * 32, 16, 1024);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int b,
-                                            int s) {
-  return sm90::desc_sw128(tile + b * rows * 128 + s * 16 * 128, rows * 128,
-                          1024);
-}
-
 // rows [r0, r0 + R) of a matrix of T (ld elements a row), columns [c0, c0 +
 // W), into a tile of W a row at shared address dst by 16-byte cp.async (the
 // caller commits), swizzled for f32 and in am_at's layout for bf16; rows
@@ -1112,8 +1131,8 @@ __device__ __forceinline__ void bwd_row_block(unsigned char* smem,
         sm90::wg_fence();
 #pragma unroll
         for (int ks = 0; ks < NT / 2; ++ks) {
-          sm90::wgmma_rs_256(d, ah[ks],
-                             desc_mn(s0 + w1o, HC, 0, hs / 16 + ks));
+          sm90::WgRS<256, 1>::mma(d, ah[ks],
+                                  desc_mn(s0 + w1o, HC, 0, hs / 16 + ks));
         }
         sm90::wg_commit();
         sm90::wg_wait<0>();

@@ -1,10 +1,11 @@
 // PTX building blocks of the port's register-resident tensor-core kernels
 // (attention.cu's bf16 flash attention, attention_bwd.cu's backward,
-// packed_conv.cu's bf16 implicit GEMM, mlp.cu's backward): cp.async
-// staging, ldmatrix, mma.sync in bf16 and in TF32 (with the hi / lo splits
-// of the bf16 and 3xTF32 products), and Hopper's wgmma with its
-// shared-memory matrix descriptors, A from shared memory or registers.
-// sm_90a only (wgmma).
+// packed_conv.cu's bf16 implicit GEMM, mlp.cu's bf16 forward and its
+// backward): cp.async staging, ldmatrix, mma.sync in bf16 and in TF32
+// (with the hi / lo splits of the bf16 and 3xTF32 products), and Hopper's
+// mbarriers, TMA loads and wgmma with its shared-memory matrix descriptors
+// and its 128-byte-swizzle tile layout (am_at, which is also TMA's 128-byte
+// swizzle), A from shared memory or registers. sm_90a only (wgmma).
 //
 // Shared-memory tiles here are rows of 16-byte chunks, swizzled: logical
 // chunk c of row r is stored at chunk c ^ (r & 7). Eight consecutive rows
@@ -14,6 +15,7 @@
 // swizzle layout.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the driver's encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +51,12 @@ __device__ __forceinline__ void cp_async16_l1(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -141,6 +149,62 @@ __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
 }
 
 // ---------------------------------------------------------------------------
+// mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// the inits, visible to the async proxy (TMA) and the other threads' waits
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// one arrival that also expects `bytes` of TMA transactions this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// a warpgroup's registers a thread, raised or lowered to N (a multiple of
+// 8): a producer warpgroup hands its registers to the consumers
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// a box of a 3-D tensor map (coordinates innermost first) into shared
+// memory at dst; its bytes complete a transaction on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
 
@@ -155,6 +219,27 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo,
   return (uint64_t)((saddr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+// byte offset of 16-byte chunk c of row r of a bf16 tile of `rows` rows in
+// wgmma's 128-byte-swizzle layout: 64-column (128-byte) blocks of rows x
+// 128 B, chunk c & 7 of a row at (c & 7) ^ (r & 7)
+__device__ __forceinline__ uint32_t am_at(int r, int c, int rows) {
+  return (uint32_t)((c >> 3) * rows * 128 + r * 128 +
+                    (((c & 7) ^ (r & 7)) << 4));
+}
+
+// wgmma descriptors of such a tile (1024-byte aligned) at shared address
+// tile: K-major, rows r0 .. (a multiple of 8) of k step s (columns 16 s
+// ..); MN-major, k-rows 16 s .. from column block b on
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0,
+                                           int s) {
+  return desc_sw128(tile + (s >> 2) * rows * 128 + r0 * 128 + (s & 3) * 32,
+                    16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int b,
+                                            int s) {
+  return desc_sw128(tile + b * rows * 128 + s * 16 * 128, rows * 128, 1024);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -176,6 +261,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int A, int B>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[A][B]) {
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < B; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 #define KEEP_F8(i)                                                       \
@@ -282,31 +375,177 @@ struct WgSS<128, 1, 1> {
   }
 };
 
-// d (64 x 256 f32) += A (64 x 16 bf16 in registers: each warp's 16 rows as
-// mma.sync m16n8k16's A fragment) . B (16 x 256 bf16, MN-major, descriptor
-// db). A's registers must stay as they are until the group is waited for.
-__device__ __forceinline__ void wgmma_rs_256(float (&d)[128],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, "
-      "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
-      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, "
-      "%69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
-      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, "
-      "%95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, "
-      "%107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
-      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32), KEEP_F8(40), KEEP_F8(48), KEEP_F8(56), KEEP_F8(64), KEEP_F8(72), KEEP_F8(80), KEEP_F8(88), KEEP_F8(96), KEEP_F8(104), KEEP_F8(112), KEEP_F8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+template <>
+struct WgSS<128, 0, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+        " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32),
+          KEEP_F8(40), KEEP_F8(48), KEEP_F8(56)
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// d (64 x N f32) += A (64 x 16 bf16 in registers: each warp's 16 rows as
+// mma.sync m16n8k16's A fragment, which is also the layout of a wgmma
+// accumulator's 16 rows packed to bf16 pairs) . B (16 x N bf16, descriptor
+// db; TB 0 K-major, 1 MN-major). A's registers must stay as they are until
+// the group is waited for.
+template <int N, int TB>
+struct WgRS;
+
+template <>
+struct WgRS<64, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+        " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgRS<128, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+        " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, "
+        "1, 1, 0;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32),
+          KEEP_F8(40), KEEP_F8(48), KEEP_F8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgRS<128, 1> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+        " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, "
+        "1, 1, 1;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32),
+          KEEP_F8(40), KEEP_F8(48), KEEP_F8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgRS<256, 1> {
+  static __device__ __forceinline__ void mma(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+        " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+        "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, "
+        "%83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+        " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+        "%119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129,"
+        " %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32),
+          KEEP_F8(40), KEEP_F8(48), KEEP_F8(56), KEEP_F8(64), KEEP_F8(72),
+          KEEP_F8(80), KEEP_F8(88), KEEP_F8(96), KEEP_F8(104), KEEP_F8(112),
+          KEEP_F8(120)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
 
 #undef KEEP_F8
+
+
+// ---------------------------------------------------------------------------
+// host: TMA tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (the library
+// links only the runtime), or null
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &res) !=
+            cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &res) != cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tensor map of a contiguous (batch, rows, d) bf16 array (d a multiple of
+// 64) for TMA boxes of 64 columns x box_rows rows x 1 in the 128-byte
+// swizzle: each box lands as box_rows rows of 128 bytes, an am_at column
+// block; rows past `rows` are zero-filled. Returns a cudaError_t value.
+inline int tma_map_bf16(CUtensorMap* map, const void* base, int d, int rows,
+                        int batch, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)d * rows * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
 
 }  // namespace sm90
 }  // namespace keep

@@ -269,8 +269,10 @@ def attention_backward_plain(q, k, v, scale: float, bias, out, lse, dout):
 def attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
     """q, k: (B, L, D); v: (B, L, Dv); bias: (Bm, L, L) f32 with Bm dividing
     B, or None. Returns (B, L, Dv) in v's dtype. On CUDA: D = 128 and Dv in
-    {128, 2}, f32 or bf16, B at most 65,535; a call that records a gradient
-    saves the row statistics and its backward is the backward kernels'."""
+    {128, 2}, f32 or bf16, B at most 65,535, q, k and v 16-byte aligned
+    (the bf16 Dv = 128 kernel reads them by TMA); a call that records a
+    gradient saves the row statistics and its backward is the backward
+    kernels'."""
     if not q.is_cuda:
         return attention_plain(q, k, v, scale, bias)
     if _records_grad(q, k, v):

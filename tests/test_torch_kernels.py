@@ -481,3 +481,111 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
         rtol=0, atol=0)
     assert set(K.LAUNCHES.values()) == {0}
     assert "packed_conv2x2" in K.LAUNCHES and "packed_conv2x2" in K.PLAIN
+
+
+# ---------------------------------------------------------------------------
+# K1's dense bf16 kernel (csrc/attention.cu flash_attention_bf16_kernel):
+# its online softmax, modelled in numpy at its key-tile width
+# ---------------------------------------------------------------------------
+
+KERNEL_KEYS = 128           # csrc/attention.cu kWaKeys: keys a tile
+KERNEL_RTOL_BF16 = 1.6e-2   # chip_smoke.py KERNEL_RTOL["bfloat16"]
+
+
+def _bf16_round(x):
+    """x (f32) rounded to bf16, to nearest even, as f32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _online_softmax_model(q, k, v, scale, bias=None, rescale=True):
+    """The kernel's order of operations: f32 scores in log2 units (bias
+    times log2 e), then per key tile of KERNEL_KEYS the running max m, P =
+    2^(x - m) rounded to bf16 against that running max, O += P V and the
+    running sum l += sum P in f32, both first rescaled by 2^(m_old - m_new)
+    when m moves (rescale=False drops that rescale); one normalisation at
+    the end, the output rounded to bf16. Returns (out, lse), lse = m +
+    log2 l."""
+    b, n, _ = q.shape
+    x = np.matmul(q, k.transpose(0, 2, 1)) * np.float32(scale / math.log(2))
+    if bias is not None:
+        x = x + np.tile(bias, (b // bias.shape[0], 1, 1)) * np.float32(
+            1 / math.log(2))
+    m = np.full((b, n), -np.inf, np.float32)
+    l = np.zeros((b, n), np.float32)
+    o = np.zeros((b, n, v.shape[-1]), np.float32)
+    for k0 in range(0, n, KERNEL_KEYS):
+        xt = x[:, :, k0:k0 + KERNEL_KEYS]
+        mn = np.maximum(m, xt.max(-1))
+        a = np.exp2(m - mn) if rescale else np.ones_like(m)
+        p = np.exp2(xt - mn[..., None])
+        l = l * a + p.sum(-1)
+        o = o * a[..., None] + np.matmul(_bf16_round(p),
+                                         v[:, k0:k0 + KERNEL_KEYS])
+        m = mn
+    return _bf16_round(o / l[..., None]), m + np.log2(l)
+
+
+def _peaked_inputs(seed, b=4, n=1024, d=128):
+    """bf16-valued q, k, v as chip_smoke.py's matched_keys makes them: key
+    perm[i] = 0.8 q[i] + unit noise, so each softmax row puts about half its
+    mass on one key and its running max moves between key tiles."""
+    rng = np.random.default_rng(seed)
+    q = _bf16_round(_np(rng, b, n, d))
+    k = np.empty_like(q)
+    k[:, rng.permutation(n)] = 0.8 * q + _np(rng, b, n, d)
+    return q, _bf16_round(k), _bf16_round(_np(rng, b, n, d))
+
+
+def _within(got, ref):
+    """max|got - ref| and chip_smoke.py's tolerance for it: the bf16 rtol of
+    the reference's spread, max|ref - mean(ref)|."""
+    return (np.abs(got - ref).max(),
+            KERNEL_RTOL_BF16 * np.abs(ref - ref.mean()).max())
+
+
+def _float64_attention(q, k, v, scale, bias):
+    x = np.matmul(q.astype(np.float64), k.transpose(0, 2, 1)) * scale
+    if bias is not None:
+        x = x + np.tile(bias, (q.shape[0] // bias.shape[0], 1, 1))
+    p = np.exp(x - x.max(-1, keepdims=True))
+    return np.matmul(p / p.sum(-1, keepdims=True), v)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_online_softmax_model_matches_plain_and_float64(with_bias):
+    """The kernel's softmax order at its 128-key tiles stays within the bf16
+    tolerance of the plain version (which rounds P against the row's final
+    max) and of float64, on peaked keys at L = 1024 (the window attention's
+    length), unmasked and under the (4, L, L) shifted-window mask; its lse
+    matches attention_stats_plain's."""
+    q, k, v = _peaked_inputs(5)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bias = (jg.shifted_window_mask(64, 64, 2).astype(np.float32)
+            if with_bias else None)
+    out, lse = _online_softmax_model(q, k, v, scale, bias)
+    tb = None if bias is None else torch.as_tensor(bias)
+    plain, plain_lse = K.attention_stats_plain(
+        *(torch.as_tensor(a).to(torch.bfloat16) for a in (q, k, v)), scale,
+        tb)
+    err, tol = _within(out, plain.float().numpy())
+    assert err <= tol, (err, tol)
+    err, tol = _within(out, _float64_attention(q, k, v, scale, bias))
+    assert err <= tol, (err, tol)
+    np.testing.assert_allclose(lse, plain_lse.numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_online_softmax_model_without_rescale_breaks_tolerance(with_bias):
+    """Control: the same model without the rescale of O and of the running
+    sum when the running max moves is far outside the tolerance on the same
+    inputs, so the tests above see the rescale."""
+    q, k, v = _peaked_inputs(5)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    bias = (jg.shifted_window_mask(64, 64, 2).astype(np.float32)
+            if with_bias else None)
+    out, _ = _online_softmax_model(q, k, v, scale, bias, rescale=False)
+    err, tol = _within(out, _float64_attention(q, k, v, scale, bias))
+    assert err > 10 * tol, (err, tol)

@@ -57,16 +57,20 @@ def _mlp_inputs(dev, dtype, rows=(3, 1000), c=128, h=1024, seed=9):
             rnd(c, h, scale=0.05), rnd(c), rnd(c))
 
 
-# Every kernel tiles 128 query rows and 64 keys. D_v = 128 at those edges,
-# with the (4, L, L) mask (an L that is not a multiple of 4 takes the f32
-# kernel's unaligned mask path) and with a per-batch bias (Bm = B); the
-# 2-wide V of the global flow attention at the same edges and at its path's
-# L = 4096
+# The kernels tile 128 query rows (bf16 D_v = 128: two 64-row warpgroups)
+# and 64 keys (bf16 D_v = 128: 128, through a ring of two K and two V
+# buffers, so three and more key tiles reuse them). D_v = 128 at those
+# edges, with the (4, L, L) mask (an L that is not a multiple of 4 takes the
+# unaligned mask paths) and with a per-batch bias (Bm = B); the 2-wide V of
+# the global flow attention at the same edges and at its path's L = 4096
 TILE_EDGES = (63, 64, 65, 127, 128, 129, 200, 1000)
+DENSE_EDGES = (191, 192, 193, 255, 256, 257, 383, 384, 385)
 ATTN_CASES = ([(l, 128, bias) for l in (16,) + TILE_EDGES + (1024,)
                for bias in (False, True)]
               + [(200, 128, "per_batch")]
-              + [(l, 2, False) for l in TILE_EDGES + (4096,)])
+              + [(l, 2, False) for l in TILE_EDGES + (4096,)]
+              + [(l, 128, bias) for l in DENSE_EDGES
+                 for bias in (False, True, "per_batch")])
 
 
 def _matched_keys(q, strength, g):
@@ -190,6 +194,88 @@ def test_attention_peaked_matches_plain(cuda, dtype, l, dv, bias):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l", (16, 129, 257, 385, 1024))
+def test_attention_bias_row_of_each_batch_entry(cuda, l):
+    """The bias of batch entry b is bias[b % Bm]: entries b and b + Bm read
+    one bias, and a bias that differs by entry shows a wrong index. Bm = 3
+    strongly different masks over B = 9 entries, bf16 and f32."""
+    g = torch.Generator(device=cuda).manual_seed(l)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(9, l, 128, generator=g, device=cuda).to(dtype)
+                   for _ in range(3))
+        m = torch.where(torch.rand(3, l, l, generator=g, device=cuda) > 0.5,
+                        0.0, -100.0)
+        m[1] = torch.randn(l, l, generator=g, device=cuda) * 4.0
+        got = K.attention(q, k, v, 0.088, m)
+        torch.cuda.synchronize()
+        ref = K.attention_plain(q, k, v, 0.088, m)
+        assert _rel_err(got, ref) <= RTOL[dtype]
+        # entry b against entry b % 3 with the same q, k, v
+        same = K.attention(q[:3].repeat(3, 1, 1), k[:3].repeat(3, 1, 1),
+                           v[:3].repeat(3, 1, 1), 0.088, m)
+        torch.cuda.synchronize()
+        assert torch.equal(same[:3], same[3:6]) and torch.equal(same[:3],
+                                                                same[6:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,bias", [(l, b) for l in (65, 192, 257, 385, 768)
+                                    for b in (False, True)])
+def test_attention_stats_lse_matches_plain(cuda, dtype, l, bias):
+    """The forward a gradient records writes each query row's lse (log2
+    units) beside its output: both against attention_stats_plain's, on
+    peaked keys, with and without the (4, L, L) mask."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(8, l, 128, generator=g, device=cuda).to(dtype)
+    k = _matched_keys(q, 0.8, g)
+    v = torch.randn(8, l, 128, generator=g, device=cuda).to(dtype)
+    m = (torch.where(torch.rand(4, l, l, generator=g, device=cuda) > 0.5,
+                     0.0, -100.0) if bias else None)
+    out, lse = K._attention_stats_launch(q, k, v, 0.088, m)
+    torch.cuda.synchronize()
+    ref, ref_lse = K.attention_stats_plain(q, k, v, 0.088, m)
+    assert lse.dtype == torch.float32 and lse.shape == (8, l)
+    assert _rel_err(out, ref) <= RTOL[dtype]
+    assert _rel_err(lse, ref_lse) <= RTOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,bias", [(l, b) for l in (129, 385)
+                                    for b in (False, True)])
+def test_attention_negative_scale_matches_plain(cuda, dtype, l, bias):
+    """A negative scale flips which raw score is a row's largest (the bf16
+    kernel takes the row max on the raw scores when there is no bias); the
+    ragged last key tile is masked either way."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(4, l, 128, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    m = (torch.where(torch.rand(2, l, l, generator=g, device=cuda) > 0.5,
+                     0.0, -100.0) if bias else None)
+    got = K.attention(q, k, v, -0.088, m)
+    torch.cuda.synchronize()
+    assert _rel_err(got, K.attention_plain(q, k, v, -0.088, m)) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,bias", [(l, b) for l in (200, 385, 1024)
+                                    for b in (False, True)])
+def test_attention_two_launches_are_bitwise_equal(cuda, l, bias):
+    """No atomics and a fixed order: two launches on the same inputs give
+    the same bits, bf16 and f32."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    m = (torch.where(torch.rand(4, l, l, generator=g, device=cuda) > 0.5,
+                     0.0, -100.0) if bias else None)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(8, l, 128, generator=g, device=cuda).to(dtype)
+                   for _ in range(3))
+        a, b = K.attention(q, k, v, 0.088, m), K.attention(q, k, v, 0.088, m)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l", TILE_EDGES + (333, 4096))
 def test_correlation_matches_plain(cuda, dtype, l):
@@ -236,14 +322,16 @@ def test_mlp_matches_plain(cuda, dtype, approximate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("approximate", [True, False])
-@pytest.mark.parametrize("n_rows", [1, 15, 63, 64, 65, 127, 129, 333, 1000])
-@pytest.mark.parametrize("h", [64, 128, 1024])
+@pytest.mark.parametrize("n_rows", [1, 15, 63, 64, 65, 127, 128, 129, 191,
+                                    192, 193, 255, 256, 257, 333, 1000])
+@pytest.mark.parametrize("h", [64, 128, 256, 1024])
 def test_mlp_ragged_rows_and_hidden_widths(cuda, dtype, approximate, n_rows,
                                            h):
-    """Row counts at and around the 128-row block and its 16-row warp
-    slices, and ones that no block divides (the ragged rows are zero-filled
-    and never written); one hidden chunk (H = 64), two (H = 128: the weight
-    stream runs into a second chunk) and the path's 16 (H = 1024); one
+    """Row counts at and around the 128-row block, its 64-row warpgroups
+    (bf16) and 16-row warp slices, and ones that no block divides (the
+    ragged rows are zero-filled and never written); one hidden chunk (H =
+    64), two (H = 128: the weight stream runs into a second chunk), four (H
+    = 256: the three-stage ring wraps) and the path's 16 (H = 1024); one
     launch counted per call."""
     args = _mlp_inputs(cuda, dtype, rows=(1, n_rows), h=h, seed=n_rows + h)
     before = K.LAUNCHES["mlp_fused"]
@@ -252,6 +340,22 @@ def test_mlp_ragged_rows_and_hidden_widths(cuda, dtype, approximate, n_rows,
     assert K.LAUNCHES["mlp_fused"] == before + 1
     assert got.dtype == dtype and got.shape == (1, n_rows, 128)
     assert _rel_err(got, K.mlp_fused_plain(*args, approximate)) <= RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("approximate", [True, False])
+def test_mlp_two_launches_are_bitwise_equal(cuda, dtype, approximate):
+    """No atomics and a fixed order: two launches give the same bits, with
+    and without the LayerNorm input a gradient records."""
+    args = _mlp_inputs(cuda, dtype, rows=(1, 1000), seed=12)
+    a = K.mlp_fused(*args, approximate=approximate)
+    b = K.mlp_fused(*args, approximate=approximate)
+    (c, o1), (d, o2) = (K._mlp_stats_launch(*args, approximate)
+                        for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d) and torch.equal(o1, o2)
+    assert torch.equal(a, c)
 
 
 @pytest.mark.cuda

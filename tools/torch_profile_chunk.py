@@ -2,7 +2,8 @@
 """Where the time of one main-path chunk of the PyTorch port goes, on one
 NVIDIA GPU.
 
-    python3 tools/torch_profile_chunk.py [--unpacked] [--out chiprun_out/profile.txt]
+    python3 tools/torch_profile_chunk.py [--unpacked] [--root DIR]
+                                         [--out chiprun_out/profile.txt]
 
 Runs api.load_models(seed=0) -> load_device(bf16) -> processor(bf16)
 .restore_face_stream on 20 random aligned 512x512 faces (one chunk) once to
@@ -11,9 +12,13 @@ level phase-packed (phase512=True); --unpacked profiles the processor's
 default, phase512=False. Prints one JSON line: the wall time,
 the device's busy time (the summed durations of the device-side events,
 which never overlap on one stream) and idle share, and the kernels with the
-most device time, beside the card's name and power limit. The profiler's own
-host overhead lengthens the wall time, so the idle share is an upper bound.
-The full table (device ms, calls, name) goes to --out.
+most device time, and the device ms and launches of K1's dense bf16
+kernel and K2's bf16 kernel, beside the card's name and power limit. The
+profiler's own host overhead lengthens the wall time, so the idle share is
+an upper bound. The full table (device ms, calls, name) goes to --out.
+--root profiles another checkout's comfyui_keep_torch (e.g. a parent commit
+unpacked by git archive under build/), so two commits compare in one call
+to the card.
 """
 import argparse
 import json
@@ -35,15 +40,22 @@ def main():
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--unpacked", action="store_true",
                     help="KEEP's 512-level convolutions unpacked")
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose port is profiled")
     args = ap.parse_args()
+    root = os.path.abspath(args.root)
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script profiles the port on a GPU")
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, root)
+    import comfyui_keep_torch
     from comfyui_keep_torch import api
+    if not comfyui_keep_torch.__file__.startswith(root):
+        raise RuntimeError(f"comfyui_keep_torch came from "
+                           f"{comfyui_keep_torch.__file__}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -74,8 +86,15 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    kernels = {}
+    for key, pat in (("K1_dense_bf16", "flash_attention_bf16_kernel"),
+                     ("K2_bf16", "mlp_fused_bf16_kernel")):
+        hits = [v for k, v in by_name.items() if pat in k]
+        kernels[key] = {"calls": sum(n for n, _ in hits),
+                        "device_ms": sum(ms for _, ms in hits)}
     print(json.dumps({
-        "card": smi, "phase512": not args.unpacked, "wall_ms": wall_ms,
+        "card": smi, "root": root, "kernels": kernels,
+        "phase512": not args.unpacked, "wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
         "device_events": sum(n for n, _ in by_name.values()),
         "top": [{"name": k[:90], "calls": n, "device_ms": ms}
