@@ -347,6 +347,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_TF32 = 495e12   # H100 SXM dense TF32 tensor-core FLOP/s
+# the rate of a product the f32 kernels run as 3xTF32 (three TF32 products
+# for each on the tensor cores): op_seconds counts it at PEAK_TF32, and
+# with fma=True at the FMA pipe's PEAK_F32 (the rows' fma_bound_ms)
+F32_TC = "3xTF32"
 HBM = 3.35e12        # H100 SXM device memory bytes/s
 # relative tolerance of a kernel against its plain version, scaled by the
 # plain output's spread, max|plain - mean(plain)|: bf16 outputs round to 8
@@ -608,6 +612,13 @@ def matched_keys(torch, q, strength, g):
     return k
 
 
+def op_seconds(flops, fma=False):
+    """The least seconds of [(flops, rate)]: F32_TC items as three TF32
+    products at PEAK_TF32 (fma: one pass of the FMA pipe at PEAK_F32)."""
+    return sum((f / PEAK_F32 if fma else 3 * f / PEAK_TF32) if p == F32_TC
+               else f / p for f, p in flops)
+
+
 def kernel_cases(torch, dtype):
     """(counter, wrapper, args, library call, [(flops, peak rate)], bytes,
     rtol, unfused PyTorch calls or None, launch key) at the shapes one
@@ -624,7 +635,7 @@ def kernel_cases(torch, dtype):
     dev = "cuda"
     isz = torch.finfo(dtype).bits // 8
     dname = str(dtype).split(".")[-1]
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else F32_TC
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
@@ -768,7 +779,9 @@ def kernel_cases(torch, dtype):
          4 * qr.numel() * isz + mask_r.numel() * 4, rtol, None,
          f"attention[dv128+bias] B{br} L{lr}"),
         ("attention[dv2]", "attention", (qg, kg, vg, scale),
-         sdpa(qg, kg, vg), [(glb_fl + exp_fl, peak)],
+         sdpa(qg, kg, vg),
+         [(glb_fl + exp_fl, peak)] if tanh
+         else [(glb_fl, peak), (exp_fl, PEAK_F32)],
          (2 * qg.numel() + 2 * vg.numel()) * isz, rtol, None, None),
         # softmax and expectation stay f32 in both dtypes: f32 tolerance
         ("global_correlation_expectation", "global_correlation_expectation",
@@ -802,7 +815,7 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
             ms = time_ms(torch, lambda: fn(*args), iters)
             plain_ms = time_ms(torch, lambda: plain(*args), max(1, iters // 4))
             lib_ms = None if lib is None else time_ms(torch, lib, iters)
-            op_s = sum(f / p for f, p in flops)
+            op_s = op_seconds(flops)
             byte_s = nbytes / HBM
             row = {"name": name, "dtype": dname, "max_abs_err": err,
                    "tol": tol, "ref_spread": spread, "ms": ms,
@@ -810,9 +823,13 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
                    "bound_ms": 1e3 * max(op_s, byte_s),
                    "bound_by": "operations" if op_s >= byte_s else "bytes",
                    "launch_key": key, "ok": bool(err <= tol)}
+            if dtype == torch.float32:
+                # f32 runs as 3xTF32: the FMA pipe's bound beside it
+                row["fma_bound_ms"] = 1e3 * max(op_seconds(flops, fma=True),
+                                                byte_s)
             if unfused is not None:   # reported, not gated
                 row["unfused_ms"] = time_ms(torch, unfused, iters)
-            if name.startswith("attention[dv128"):  # reported, not gated
+            if lib_ms is not None:  # reported, not gated
                 row["vs_library"] = ms / lib_ms
             if lib is not None and dtype == torch.float32:
                 row["library_kernels"] = kernel_names(torch, lib)
@@ -4433,26 +4450,26 @@ def flow_step_cases(torch):
     rows = bw * lw
     return [
         ("attention[dv128] flow step", "attention", (q, k, v, scale),
-         sdpa(q, k, v), [(2 * att_fl, PEAK_F32)], 4 * q.numel() * 4, rtol,
+         sdpa(q, k, v), [(2 * att_fl, F32_TC)], 4 * q.numel() * 4, rtol,
          None, f"attention[dv128] B{bw} L{lw}"),
         ("attention[dv128+bias] flow step", "attention",
          (q, k, v, scale, mask), sdpa(q, k, v, mask_full),
-         [(2 * att_fl, PEAK_F32)], 4 * q.numel() * 4 + mask.numel() * 4,
+         [(2 * att_fl, F32_TC)], 4 * q.numel() * 4 + mask.numel() * 4,
          rtol, None, f"attention[dv128+bias] B{bw} L{lw}"),
         ("attention[dv2] flow step", "attention", (qg, kg, vg, scale),
-         sdpa(qg, kg, vg), [(glb_fl + exp_fl, PEAK_F32)],
+         sdpa(qg, kg, vg), [(glb_fl, F32_TC), (exp_fl, PEAK_F32)],
          (2 * qg.numel() + 2 * vg.numel()) * 4, rtol, None,
          f"attention[dv2] B{bg} L{lg}"),
         ("global_correlation_expectation flow step",
          "global_correlation_expectation", (qg, kg, grid),
          lambda: F.scaled_dot_product_attention(
              qg, kg, grid.expand(bg, lg, 2), scale=scale),
-         [(glb_fl, PEAK_F32), (exp_fl, PEAK_F32)],
+         [(glb_fl, F32_TC), (exp_fl, PEAK_F32)],
          2 * qg.numel() * 4 + grid.numel() * 4 + bg * lg * 2 * 4, rtol,
          None, f"global_correlation_expectation B{bg} L{lg}"),
         ("mlp_fused flow step", "mlp_fused",
          (src, msg, w1, w2, gamma, beta, False), None,
-         [(6 * rows * CH * HID, PEAK_F32)],
+         [(6 * rows * CH * HID, F32_TC)],
          3 * src.numel() * 4 + 3 * CH * HID * 4, rtol, None,
          f"mlp_fused rows{rows}"),
     ]
@@ -6123,8 +6140,9 @@ def main():
             launches = counts[name]
         if "unfused_ms" in r:
             extra["unfused_ms"] = r["unfused_ms"]
-        if "vs_library" in r:
-            extra["vs_library"] = r["vs_library"]
+        for opt in ("vs_library", "fma_bound_ms"):
+            if opt in r:
+                extra[opt] = r[opt]
         table.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
@@ -6206,7 +6224,8 @@ def main():
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "unfused_ms": r["unfused_ms"], "dtype": "float32",
+        "unfused_ms": r["unfused_ms"], "fma_bound_ms": r["fma_bound_ms"],
+        "dtype": "float32",
         "status": "ported", **slice7("mlp_fused", "float32"),
         **stage3("mlp_fused", "float32"), **parallel("mlp_fused", "float32"),
         "step_rows_ms": rs["ms"],

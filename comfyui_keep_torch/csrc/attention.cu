@@ -78,29 +78,43 @@
 // waves; one 16-warp block per SM whose two halves take alternate key
 // tiles and merge at the end (4.6 waves) measured 1.1-1.3x slower.
 //
-// flash_attention_f32_kernel: f32 throughout (the f32 training step's
-// window attentions +- mask, its global flow attention, K3 f32). No TF32:
-// the step's results stay f32, so the bound is the FMA pipe's 67 TFLOP/s
-// (4 L^2 D flops per batch entry at D_v = 128, half of that at D_v = 2).
-// A register-tiled FMA design: 8 warps own 128 query rows, Q resident in
-// shared memory, 64-key K tiles double-buffered with 16-byte cp.async. Each
-// lane computes a 4 x 8 score sub-tile (rows 16w + rg + 4r, keys cg + 8c
-// for lane = 8 rg + cg) from float4 reads of Q and K rows, padded to 132
-// floats so that a warp's reads fall in distinct banks: 12 loads per 128
-// FMAs, since shared-memory wavefronts, not the FMAs, bound a 4 x 4 tile
-// (8 per 64: 48-51 % of the FMA peak on the H100, against 52-53 % now).
-// The row max and sum reduce over the 8 lanes of a row with three
-// shuffles. P passes through the warp's own rows of a shared tile to the
-// P V product, in which the lane owns 4 rows x 16 columns of O in
-// registers (20 loads per 256 FMAs), normalised once at the end. V's tile
-// loads during Q K^T; the (Bm, L, L) mask is staged by cp.async into the
-// warp's P rows at the same time, so it costs neither registers nor time
-// (a mask read into registers one tile ahead took 0.6 ms of 3.2). Q, two
-// K tiles, V and P take 201 KB and 254 registers: one block per SM. The
-// narrow forms (D_v = 2) stage V's 128-value slice beside K and multiply
-// each lane's probabilities by it in registers, as the bf16 narrow kernel
-// does. No model passes a bias with a 2-wide V, and no narrow form takes
-// one.
+// flash_attention_f32_kernel: f32 inputs (the f32 training step's window
+// attentions +- mask, its global flow attention, K3 f32), every product as
+// 3xTF32 on the tensor cores: x = hi + lo with hi x rounded to TF32 (11
+// significant bits) and lo the rest, a b = a_hi b_hi + a_hi b_lo + a_lo
+// b_hi, f32 accumulation (attention_bwd.cu's scheme, whose gate a single
+// TF32 product fails). 3 x 4 L^2 D flops a batch entry at D_v = 128 bound
+// it at 495 TFLOP/s (the FMA pipe's 67 TFLOP/s, which the earlier
+// register-tiled FMA kernel ran at 53 %, is 2.5x slower). wgmma takes TF32
+// operands from shared memory only K-major, and TMA neither splits nor
+// transposes, so a producer warpgroup does both: its first thread loads
+// K's raw tiles by TMA into their stage's lo tile and V's into a staging
+// tile, and its 128 threads split K in place (raw and split tiles share
+// wgmma's 128-byte-swizzle layout) and V into V^T's hi and lo tiles, keys
+// relabelled within each 8 (slot t key 2t, slot t + 4 key 2t + 1) so that
+// P's accumulator registers are its A fragments as they stand; the block
+// reads each raw K / V byte from L2 once (split tiles at 128-row blocks
+// would read ~2.5 GB a call at B = 152, L = 1024, twice the raw bytes).
+// Two consumer warpgroups of 64 rows run free of each other as in the bf16
+// kernel (setmaxnreg 40 / 232). Q lands once by TMA and is read by
+// ldmatrix every tile: its A fragments carry its bits + 0x1000, which the
+// tensor core reads as Q rounded to TF32, and its lo parts, two k steps at
+// a time in one of two register sets, each rewritten once its group has
+// landed (held in registers, Q's fragments and O's 64 made ptxas serialize
+// the wgmmas and spill). A key tile is 32 keys at D_v = 128 (S 16
+// registers, the last P's hi and lo 32) and 64 at D_v = 2, in two stages.
+// Per tile: S on m64n32k8 (m64n64k8), the last tile's P V on m64n128k8
+// issued behind it, the online softmax on S's registers while P V runs,
+// then O rescaled and P split into its hi bits and lo. The tensor core's
+// adds truncate, so S's sums run as attention_bwd.cu's, whose kernels
+// rebuild P from this lse: the small terms in one chain, the hi x hi
+// products in chains of 2 k steps (D_v = 2: 4) added in f32 (one chain of
+// all 48 products a row failed the gradient gate of the card tests). The
+// (Bm, L, L) mask is staged by each consumer warp's cp.async one tile
+// ahead, as in the bf16 kernel; the 2-wide forms multiply each lane's
+// probabilities by V's 2 values (or the grid's), read through L1, in FMAs.
+// Shared memory: 226 KB with the mask, 210 KB without, 194 KB at D_v = 2.
+// No model passes a bias with a 2-wide V, and no narrow form takes one.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -465,7 +479,7 @@ int launch_flash_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Shared by the narrow and f32 kernels
+// The narrow bf16 kernel's 2-wide V slices
 // ---------------------------------------------------------------------------
 
 // element i of the 2-wide V slice of keys [k0, k0 + KEYS) (key k0 + i / 2,
@@ -690,291 +704,524 @@ int launch_narrow_bf16(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// f32: register-tiled FMA (no TF32)
+// f32: 3xTF32 on wgmma, K and V split on chip by a producer warpgroup
 // ---------------------------------------------------------------------------
 
-constexpr int kFfRows = 128;          // query rows per block: 8 warps x 16
-constexpr int kFfKeys = 64;           // keys per tile
-constexpr int kFfThreads = 256;
-constexpr int kFfLd = kD + 4;         // floats per shared row of Q, K, V
-constexpr int kFfLdp = kFfKeys + 8;   // floats per shared row of P
+constexpr int kXRows = 128;      // query rows per block: 2 warpgroups x 64
+constexpr int kXThreads = 384;   // 2 consumer warpgroups and a producer
+constexpr int kXStages = 2;
 
-// Q, K[2], then V and P (wide) or the 2-wide V slices: 201 KB wide
-template <int DV>
-struct FfSmem {
+// A block's shared memory: the mbarriers, then two stages of K's TF32 hi
+// and lo tiles (keys x 128, K-major) and, D_v = 128, V^T's (128 x keys,
+// keys relabelled as the P fragments read them), then (D_v = 128) V's raw
+// tile, Q's raw rows (128 x 128) and each consumer warp's bias rows
+// (BIAS); every tile in wgmma's 128-byte-swizzle layout on a 1024-byte
+// boundary. K's raw tile lands by TMA in its lo tile and is split in
+// place. mbarriers (8 bytes each): stage s split (the producer's 128
+// threads arrive); stage s released by both consumer warpgroups (256
+// arrive); K's raw tile of stage s landed; V's raw tile landed; Q landed.
+template <int DV, bool BIAS>
+struct XfSmem {
   static constexpr bool wide = DV == kD;
-  static constexpr size_t kv = sizeof(float) * kFfKeys * kFfLd;  // K or V
-  static constexpr size_t k = sizeof(float) * kFfRows * kFfLd;   // after Q
-  static constexpr size_t v = k + 2 * kv;
-  static constexpr size_t p = v + (wide ? kv : sizeof(float) * 4 * kFfKeys);
-  static constexpr size_t bytes =
-      p + (wide ? sizeof(float) * kFfRows * kFfLdp : 0);
+  static constexpr int keys = wide ? 32 : 64;  // keys a tile
+  // S's q' Khi chains: groups of 2 k steps (attention_bwd.cu's kSChain,
+  // kSChainNarrow)
+  static constexpr int chain = wide ? 1 : 2;
+  static constexpr uint32_t kt = keys * kD * 4;    // a K hi or lo tile
+  static constexpr uint32_t vt = wide ? kt : 0;    // a V^T hi or lo tile
+  static constexpr uint32_t stage = 2 * kt + 2 * vt;
+  static constexpr uint32_t st0 = 1024;
+  static constexpr uint32_t vraw = st0 + kXStages * stage;
+  static constexpr uint32_t q = vraw + vt;
+  static constexpr uint32_t bias = q + kXRows * kD * 4;
+  static constexpr int bias_warp = 16 * keys * 4;  // a warp's bias rows
+  static constexpr int bytes = bias + (BIAS ? 8 * bias_warp : 0) + 1024;
+  static_assert(bytes <= 232448, "227 KB a block");
+  static_assert(!BIAS || wide, "no narrow form takes a bias");
+  static constexpr int full = 0, empty = kXStages, kraw = 2 * kXStages,
+                       vbar = 3 * kXStages, qbar = vbar + 1;
+  static __device__ __forceinline__ uint32_t khi(int s) {
+    return st0 + s * stage;
+  }
+  static __device__ __forceinline__ uint32_t klo(int s) {
+    return khi(s) + kt;
+  }
+  static __device__ __forceinline__ uint32_t vhi(int s) {
+    return khi(s) + 2 * kt;
+  }
+  static __device__ __forceinline__ uint32_t vlo(int s) {
+    return vhi(s) + vt;
+  }
 };
 
-// rows [r0, r0 + ROWS) of a (L, 128) f32 matrix into a padded shared tile
-// at dst, 16 bytes per cp.async; rows at or past L are zero-filled
-template <int ROWS>
-__device__ __forceinline__ void ff_load_rows(uint32_t dst, const float* src,
-                                             int r0, int L) {
+// a warp's 16 bias rows (query rows row0 ..) of the KEYS-key tile at k0,
+// f32, by the warp's own cp.async into its rows: row rr at KEYS * 4 rr,
+// 16-byte chunk c at c ^ (rr & 7); 0 past L. 16-byte copies when `wide`
+// (L % 4 == 0 and the bias 16-byte aligned), else 4-byte ones
+template <int KEYS>
+__device__ __forceinline__ void xf_load_bias(uint32_t dst, const float* biasb,
+                                             int row0, int k0, int L,
+                                             bool wide, int lane) {
+  constexpr int CH = KEYS / 4;  // 16-byte chunks a row
+  if (wide) {
 #pragma unroll
-  for (int i0 = 0; i0 < ROWS * 32; i0 += kFfThreads) {
-    const int i = threadIdx.x + i0;
-    const int r = i >> 5, c = i & 31;
-    const bool ok = r0 + r < L;
-    sm90::cp_async16(dst + 4 * (r * kFfLd + 4 * c),
-                     src + (size_t)(ok ? r0 + r : 0) * kD + 4 * c,
-                     ok ? 16 : 0);
-  }
-}
-
-// the bias of the warp's 16 rows (from row0) x the key tile at k0 into its
-// rows of the P tile (pw, at pw_addr in the shared space), 0 past L: by
-// cp.async when rows are 16-byte aligned (L % 4 == 0), else by plain loads
-__device__ __forceinline__ void ff_stage_bias(float* pw, uint32_t pw_addr,
-                                              const float* biasb, int row0,
-                                              int k0, int L, int lane) {
-  if ((L & 3) == 0) {
-#pragma unroll
-    for (int i = lane; i < 16 * kFfKeys / 4; i += 32) {
-      const int r = i / (kFfKeys / 4), c = i % (kFfKeys / 4);
-      const int row = row0 + r, key = k0 + 4 * c;
+    for (int i = lane; i < 16 * CH; i += 32) {
+      const int rr = i / CH, c = i % CH;
+      const int row = row0 + rr, key = k0 + 4 * c;
       const bool ok = row < L && key < L;
-      sm90::cp_async16(pw_addr + 4 * (r * kFfLdp + 4 * c),
+      sm90::cp_async16(dst + rr * KEYS * 4 + ((c ^ (rr & 7)) << 4),
                        biasb + (ok ? (size_t)row * L + key : 0), ok ? 16 : 0);
     }
   } else {
-    for (int i = lane; i < 16 * kFfKeys; i += 32) {
-      const int r = i / kFfKeys, c = i % kFfKeys;
-      const int row = row0 + r, key = k0 + c;
-      pw[r * kFfLdp + c] =
-          (row < L && key < L) ? __ldg(biasb + (size_t)row * L + key) : 0.f;
+#pragma unroll 4
+    for (int i = lane; i < 16 * KEYS; i += 32) {
+      const int rr = i / KEYS, kk = i % KEYS;
+      const int row = row0 + rr, key = k0 + kk;
+      const bool ok = row < L && key < L;
+      sm90::cp_async4(dst + rr * KEYS * 4 + (((kk >> 2) ^ (rr & 7)) << 4) +
+                          4 * (kk & 3),
+                      biasb + (ok ? (size_t)row * L + key : 0), ok ? 4 : 0);
     }
   }
 }
 
-// q, k: (B, L, 128) f32; v: (L, DV) f32 at batch stride v_bstride elements
-// (0: one V for the batch); bias: (Bm, L, L) f32 for BIAS (D_v = 128 only);
-// out: (B, L, DV) f32. Grid (ceil(L / 128), B), 256 threads. Lane 8 rg + cg of warp w owns
-// query rows 16w + rg + 4r (r < 4) of the block, key columns cg + 8c (c <
-// 8) of a tile and, for D_v = 128, O's columns 4 (cg + 8 c4) + e (c4, e <
-// 4); a row's 8 lanes differ in lane bits 0-2. Each iteration commits two
-// cp.async groups: V and the bias of this tile (waited for after Q K^T),
-// then K of the next (waited for at the next iteration).
+// S (64 x N scores of the warpgroup) = Q K^T as 3xTF32 over the 16 k steps
+// of d, issued in 8 groups of 2 k steps, with Q's A fragments read from its
+// raw rows in shared memory by ldmatrix (an 8 x 8 b16 matrix is 8 rows of
+// 4 f32: the TF32 A fragment's; the warp's rows from rw) and split into
+// hi bits and lo in one of two register sets, each rewritten only once the
+// group that read it has landed (wgmma.wait_group 1). The tensor core's
+// adds truncate, so the sums run as attention_bwd.cu's do: the two small
+// terms (q' Klo, qlo Khi) in one chain over all of d into sl, the q' Khi
+// products in chains of CH groups, each from zero into one of two part
+// sets and added to s in f32 once it has landed. Returns with the last
+// group in flight; xf_scores_end finishes s once it has landed.
+template <int N, int CH>
+__device__ __forceinline__ void xf_chain_add(float (&s)[N / 2],
+                                             float (&part)[2][N / 2], int ch) {
+  sm90::fence_regs(part[ch & 1]);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i)
+    s[i] = ch == 0 ? part[0][i] : s[i] + part[ch & 1][i];
+}
+
+template <int N, int CH>
+__device__ __forceinline__ void xf_scores(float (&s)[N / 2],
+                                          float (&sl)[N / 2],
+                                          float (&part)[2][N / 2],
+                                          uint32_t sq, int rw, uint32_t khi,
+                                          uint32_t klo) {
+  const uint64_t dkh = sm90::desc_k(khi, N, 0, 0);
+  const uint64_t dkl = sm90::desc_k(klo, N, 0, 0);
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
+  uint32_t qh[2][2][4], ql[2][2][4];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (c >= 2) {
+      sm90::wg_wait<1>();  // group c - 2 landed
+      if ((c - 2) % CH == CH - 1) xf_chain_add<N, CH>(s, part, (c - 2) / CH);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t a[4];
+      sm90::ldsm_x4(sq + sm90::am_at(rw + (mi & 1) * 8 + mr,
+                                     2 * (2 * c + kk) + (mi >> 1), kXRows),
+                    a);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        qh[c & 1][kk][e] = sm90::tf32_hi_bits(a[e]);
+        ql[c & 1][kk][e] = sm90::tf32_lo_of_hi(qh[c & 1][kk][e]);
+      }
+    }
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int ks = 2 * c + kk;
+      const uint64_t dh = sm90::desc_k_at(dkh, N, ks);
+      sm90::WgTf32<N>::mma(part[(c / CH) & 1], qh[c & 1][kk], dh,
+                           c % CH > 0 || kk > 0);
+      sm90::WgTf32<N>::mma(sl, qh[c & 1][kk], sm90::desc_k_at(dkl, N, ks),
+                           ks > 0);
+      sm90::WgTf32<N>::mma(sl, ql[c & 1][kk], dh, 1);
+    }
+    sm90::wg_commit();
+  }
+}
+
+template <int N, int CH>
+__device__ __forceinline__ void xf_scores_end(float (&s)[N / 2],
+                                              float (&sl)[N / 2],
+                                              float (&part)[2][N / 2]) {
+#pragma unroll
+  for (int c = 6; c < 8; ++c)
+    if (c % CH == CH - 1) xf_chain_add<N, CH>(s, part, c / CH);
+  sm90::fence_regs(sl);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] += sl[i];
+}
+
+// q, k: (B, L, 128) f32 through the tensor maps tq, tk; v: (L, DV) f32 at
+// batch stride v_bstride elements (0: one V for the batch; DV = 128
+// through tv, DV = 2 read directly); bias: (Bm, L, L) f32 for BIAS; out:
+// (B, L, DV) f32. Grid (ceil(L / 128), B), 384 threads: warpgroup wg < 2
+// owns query rows 64 wg .. of the block, its warp w the 16 rows from 16 w;
+// warpgroup 2 is the producer (40 registers a thread, the consumers 232):
+// its first thread issues the TMA loads of Q's rows and of K's and V's raw
+// tiles, and its 128 threads split them into TF32 hi and lo tiles (V
+// transposed). A wgmma accumulator gives each lane, per 8-column group j,
+// the elements (g, 8j + 2t), (g, 8j + 2t + 1), (g + 8, 8j + 2t), (g + 8, 8j
+// + 2t + 1) of its warp's rows (g = lane / 4, t = lane % 4); as the A of P
+// V, slot t of k step j is key 8j + 2t and slot t + 4 key 8j + 2t + 1,
+// which V^T's tiles are written to match.
 template <int DV, bool BIAS>
-__global__ void __launch_bounds__(kFfThreads, 1)
-    flash_attention_f32_kernel(const float* __restrict__ q,
-                               const float* __restrict__ k,
+__global__ void __launch_bounds__(kXThreads, 1)
+    flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
                                const float* __restrict__ v, size_t v_bstride,
                                const float* __restrict__ bias, int bm,
                                float* __restrict__ out,
                                float* __restrict__ lse, int L,
                                float scale_log2) {
-  using S = FfSmem<DV>;
+  using S = XfSmem<DV, BIAS>;
   constexpr bool kWide = S::wide;
-  static_assert(kWide || !BIAS, "the bias is staged in the P tile");
-  constexpr int kO = kWide ? 16 : 2;  // O columns per lane and row
-  constexpr int kSlice = 2 * kFfKeys;  // narrow V values of one tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sq = sm90::smem_u32(smem);
-  const float* Qs = reinterpret_cast<const float*>(smem);
-  const float* Vs = reinterpret_cast<const float*>(smem + S::v);
-  float* Vn = reinterpret_cast<float*>(smem + S::v);  // narrow: [2][128]
-  float* Ps = reinterpret_cast<float*>(smem + S::p);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = lane >> 3, cg = lane & 7;
-  const int b = blockIdx.y, q0 = blockIdx.x * kFfRows;
-  const int wr = 16 * warp + rg;  // the lane's rows: wr + 4r of the block
-  const size_t bo = (size_t)b * L * kD;
-  const float* vb = v + (size_t)b * v_bstride;
+  constexpr int KEYS = S::keys, NS = kXStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = sm90::smem_u32(smem);
+  auto bar = [&](int i) { return s0 + 8 * i; };
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int b = blockIdx.y, q0 = blockIdx.x * kXRows;
+  const int n_tiles = (L + KEYS - 1) / KEYS;
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      sm90::mbar_init(bar(S::full + s), 128);
+      sm90::mbar_init(bar(S::empty + s), 256);
+      sm90::mbar_init(bar(S::kraw + s), 1);
+    }
+    sm90::mbar_init(bar(S::vbar), 1);
+    sm90::mbar_init(bar(S::qbar), 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer
+    sm90::setmaxnreg_dec<40>();
+    const int p = tid - 256;
+    // every producer thread waits for a stage to be released; the first
+    // alone issues the loads, none of which waits (the warps stay converged
+    // for bar.sync)
+    auto wait_free = [&](int j) {
+      if (j >= NS) sm90::mbar_wait(bar(S::empty + j % NS), (j / NS - 1) & 1);
+    };
+    auto issue_k = [&](int j) {  // K_j's raw tile into its stage's lo tile
+      const int s = j % NS;
+      sm90::mbar_expect_tx(bar(S::kraw + s), S::kt);
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb)
+        sm90::tma_load_3d(s0 + S::klo(s) + cb * KEYS * 128, &tk, 32 * cb,
+                          j * KEYS, b, bar(S::kraw + s));
+    };
+    auto issue_v = [&](int j) {  // V_j's raw tile
+      sm90::mbar_expect_tx(bar(S::vbar), S::vt);
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb)
+        sm90::tma_load_3d(s0 + S::vraw + cb * KEYS * 128, &tv, 32 * cb,
+                          j * KEYS, b, bar(S::vbar));
+    };
+    // K_x goes into stage x % NS once the consumers have released tile x -
+    // NS; they release tile j - 1 once tile j is split (wide: after P_(j-1)
+    // V_(j-1), behind S_j), so K runs one tile ahead of the split
+    static_assert(NS == 2, "K loads one tile ahead");
+    if (p == 0) {
+      sm90::mbar_expect_tx(bar(S::qbar), kXRows * kD * 4);
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb)
+        sm90::tma_load_3d(s0 + S::q + cb * kXRows * 128, &tq, 32 * cb, q0, b,
+                          bar(S::qbar));
+      issue_k(0);
+      if constexpr (kWide) issue_v(0);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % NS;
+      sm90::mbar_wait(bar(S::kraw + s), (j / NS) & 1);
+      // K: the raw tile and the split ones share a layout: split in place
+#pragma unroll 2
+      for (int i = p; i < KEYS * 32; i += 128) {
+        uint4* lo = reinterpret_cast<uint4*>(smem + S::klo(s) + 16 * i);
+        uint4 x = *lo, hi;
+        sm90::split_tf32_4(x, hi);
+        *reinterpret_cast<uint4*>(smem + S::khi(s) + 16 * i) = hi;
+        *lo = x;
+      }
+      if constexpr (kWide) {
+        // V^T: row n (of 128) holds the tile's 32 keys, slots 4c .. 4c + 3
+        // in its 16-byte chunk c (at c ^ (n & 7)): keys 8 (c / 2) + 2e +
+        // (c % 2), e < 4. Raw V: key r, column n at block n / 32 (r, chunk
+        // (n / 4) % 8) as TMA's swizzle lays it
+        sm90::mbar_wait(bar(S::vbar), j & 1);
+#pragma unroll 1
+        for (int i = p; i < kD * 8; i += 128) {
+          const int n = i & 127, c = i >> 7;
+          const uint32_t col = (n >> 5) * KEYS * 128 + 4 * (n & 3);
+          uint32_t xv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 8 * (c >> 1) + 2 * e + (c & 1);
+            xv[e] = *reinterpret_cast<const uint32_t*>(
+                smem + S::vraw + col + r * 128 +
+                ((((n >> 2) & 7) ^ (r & 7)) << 4));
+          }
+          uint4 x = make_uint4(xv[0], xv[1], xv[2], xv[3]), hi;
+          sm90::split_tf32_4(x, hi);
+          const uint32_t o = n * 128 + ((c ^ (n & 7)) << 4);
+          *reinterpret_cast<uint4*>(smem + S::vhi(s) + o) = hi;
+          *reinterpret_cast<uint4*>(smem + S::vlo(s) + o) = x;
+        }
+      }
+      sm90::fence_async_smem();  // the split tiles, to wgmma
+      sm90::mbar_arrive(bar(S::full + s));
+      if constexpr (kWide) {
+        sm90::named_sync(1, 128);  // V's raw tile read by every thread
+        if (p == 0 && j + 1 < n_tiles) issue_v(j + 1);
+      }
+      if (j + 1 < n_tiles) {
+        wait_free(j + 1);
+        if (p == 0) issue_k(j + 1);
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (tid >> 5);      // the warp's first row in the block
+  const int row0 = q0 + rw + g;        // this lane's rows: row0, row0 + 8
   const float* biasb =
       BIAS ? bias + (size_t)(b % bm) * (size_t)L * (size_t)L : nullptr;
-  float* pw = Ps + 16 * warp * kFfLdp;  // the warp's rows of P
-  const uint32_t pw_addr = sq + S::p + 4 * 16 * warp * kFfLdp;
+  const uint32_t sb = s0 + S::bias + (tid >> 5) * S::bias_warp;
+  const float* bs = reinterpret_cast<const float*>(smem + S::bias +
+                                                   (tid >> 5) * S::bias_warp);
+  const bool wide_bias =
+      ((L & 3) | (reinterpret_cast<uintptr_t>(bias) & 15)) == 0;
+  if constexpr (BIAS) {
+    xf_load_bias<KEYS>(sb, biasb, q0 + rw, 0, L, wide_bias, lane);
+    sm90::cp_async_commit();
+  }
 
-  ff_load_rows<kFfRows>(sq, q + bo, q0, L);
-  ff_load_rows<kFfKeys>(sq + S::k, k + bo, 0, L);
-  sm90::cp_async_commit();
+  sm90::mbar_wait(bar(S::qbar), 0);  // Q's rows, 0 past L
+  const float* vb = v + (size_t)b * v_bstride;
+
+  constexpr int kO = kWide ? 64 : 4;
+  float o[kO];  // wide: the warpgroup's 64 x 128 O (first set by P_0 V_0);
+                // narrow: (row0, x), (row0, y), (row0 + 8, x), (.., y)
   if constexpr (!kWide) {
-    if (tid < kSlice) Vn[tid] = narrow_fetch<kFfKeys>(vb, 0, tid, L);
+#pragma unroll
+    for (int i = 0; i < kO; ++i) o[i] = 0.f;
   }
+  float s[KEYS / 2];              // the 64 x KEYS scores of one tile
+  float sl[KEYS / 2], part[2][KEYS / 2];  // their small terms, chains
+  uint32_t pp[KEYS / 8][4], pl[KEYS / 8][4];  // P of the last tile: hi, lo
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 units)
+  float l0 = 0.f, l1 = 0.f;              // running sums, this lane's part
 
-  float o[4][kO];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int n = 0; n < kO; ++n) o[r][n] = 0.f;
-  float m[4], l[4];  // running max (log2 units), this lane's running sum
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
-  const int n_tiles = (L + kFfKeys - 1) / kFfKeys;
-
+  // Tile it: S = Q K_it^T, then (wide) P_(it-1) V_(it-1) issued behind it;
+  // the softmax of S while that runs; once it has landed, O rescaled, its
+  // stage released and P_it split into pp / pl (read by the next P V).
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kFfKeys, buf = it & 1;
-    sm90::cp_async_wait<0>();
-    __syncthreads();  // K of tile `it` landed; every warp is done with it - 1
-    if constexpr (kWide) ff_load_rows<kFfKeys>(sq + S::v, vb, k0, L);
-    if constexpr (BIAS)
-      ff_stage_bias(pw, pw_addr, biasb, q0 + 16 * warp, k0, L, lane);
-    sm90::cp_async_commit();
-    float vn = 0.f;
-    if (it + 1 < n_tiles) {  // the next K tile loads while this one computes
-      ff_load_rows<kFfKeys>(sq + S::k + (buf ^ 1) * S::kv, k + bo,
-                            k0 + kFfKeys, L);
-      if constexpr (!kWide) vn = narrow_fetch<kFfKeys>(vb, k0 + kFfKeys, tid, L);
-    }
-    sm90::cp_async_commit();
-    const float* Ks =
-        reinterpret_cast<const float*>(smem + S::k + buf * S::kv);
-
-    // S = Q K^T: 4 x 8 per lane, float4 reads along d
-    float s[4][8];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kD; d += 4) {
-      float4 a[4], kk[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        a[r] = *reinterpret_cast<const float4*>(Qs + (wr + 4 * r) * kFfLd + d);
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        kk[c] = *reinterpret_cast<const float4*>(Ks + (cg + 8 * c) * kFfLd + d);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          s[r][c] = fmaf(a[r].x, kk[c].x, s[r][c]);
-          s[r][c] = fmaf(a[r].y, kk[c].y, s[r][c]);
-          s[r][c] = fmaf(a[r].z, kk[c].z, s[r][c]);
-          s[r][c] = fmaf(a[r].w, kk[c].w, s[r][c]);
-        }
-    }
-
-    // scale, bias, ragged keys; online softmax in log2 units
-    if constexpr (BIAS) {
-      sm90::cp_async_wait<1>();  // this lane's V and bias copies
-      __syncwarp();              // the warp's bias rows
-    }
-    const bool ragged = k0 + kFfKeys > L;
-    float mx[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      mx[r] = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        float x = s[r][c] * scale_log2;
-        if constexpr (BIAS) x += pw[(rg + 4 * r) * kFfLdp + cg + 8 * c] * kLog2e;
-        if (ragged && k0 + cg + 8 * c >= L) x = -INFINITY;
-        s[r][c] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-    }
-#pragma unroll
-    for (int w = 1; w < 8; w <<= 1)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], w));
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float mn = fmaxf(m[r], mx[r]);  // finite: key 0 is always valid
-      const float alpha = ex2(m[r] - mn);
-      m[r] = mn;
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        s[r][c] = ex2(s[r][c] - mn);
-        sum += s[r][c];
-      }
-      l[r] = l[r] * alpha + sum;
-#pragma unroll
-      for (int n = 0; n < kO; ++n) o[r][n] *= alpha;
-    }
-
+    const int k0 = it * KEYS, st = it % NS, ps = (it + NS - 1) % NS;
+    sm90::mbar_wait(bar(S::full + st), (it / NS) & 1);
+    xf_scores<KEYS, S::chain>(s, sl, part, s0 + S::q, rw, s0 + S::khi(st),
+                              s0 + S::klo(st));
     if constexpr (kWide) {
-      // P through the warp's rows of a shared tile (over its bias, which
-      // each lane read at exactly the places it writes), then O += P V
+      if (it > 0) {
+        sm90::wg_fence();
+        const uint64_t dvh = sm90::desc_k(s0 + S::vhi(ps), kD, 0, 0);
+        const uint64_t dvl = sm90::desc_k(s0 + S::vlo(ps), kD, 0, 0);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int ks = 0; ks < KEYS / 8; ++ks) {
+          const uint64_t dh = sm90::desc_k_at(dvh, kD, ks);
+          const uint64_t dl = sm90::desc_k_at(dvl, kD, ks);
+          sm90::WgTf32<128>::mma(o, pp[ks], dh, it > 1 || ks > 0);
+          sm90::WgTf32<128>::mma(o, pp[ks], dl, 1);
+          sm90::WgTf32<128>::mma(o, pl[ks], dh, 1);
+        }
+        sm90::wg_commit();
+        sm90::wg_wait<1>();  // S landed; P V still runs
+      } else {
+        sm90::wg_wait<0>();
+      }
+    } else {
+      sm90::wg_wait<0>();
+    }
+    xf_scores_end<KEYS, S::chain>(s, sl, part);
+    if constexpr (!kWide) sm90::mbar_arrive(bar(S::empty + st));
+
+    // x = the scaled score (+ bias) in log2 units, ragged keys -inf
+    const bool ragged = k0 + KEYS > L;
+    if constexpr (BIAS) {
+      sm90::cp_async_wait<0>();  // this warp's bias rows of tile it
+      __syncwarp();
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
-          pw[(rg + 4 * r) * kFfLdp + cg + 8 * c] = s[r][c];
-      sm90::cp_async_wait<1>();
-      __syncthreads();  // V of this tile from every thread; P of the warp
-#pragma unroll 2
-      for (int j = 0; j < kFfKeys; j += 4) {
-        float4 p4[4];
+    for (int j = 0; j < KEYS / 8; ++j) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          p4[r] = *reinterpret_cast<const float4*>(pw + (rg + 4 * r) * kFfLdp + j);
+      for (int h = 0; h < 2; ++h) {
+        float x0 = s[4 * j + 2 * h] * scale_log2;
+        float x1 = s[4 * j + 2 * h + 1] * scale_log2;
+        if constexpr (BIAS) {
+          const int rr = g + 8 * h;
+          const float2 bv = *reinterpret_cast<const float2*>(
+              bs + rr * KEYS + (((2 * j + (t >> 1)) ^ (rr & 7)) << 2) +
+              2 * (t & 1));
+          x0 = fmaf(bv.x, kLog2e, x0);
+          x1 = fmaf(bv.y, kLog2e, x1);
+        }
+        if (ragged) {
+          const int key = k0 + 8 * j + 2 * t;
+          if (key >= L) x0 = -INFINITY;
+          if (key + 1 >= L) x1 = -INFINITY;
+        }
+        s[4 * j + 2 * h] = x0;
+        s[4 * j + 2 * h + 1] = x1;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    if constexpr (BIAS) {
+      __syncwarp();  // the next tile's bias rows into the same place
+      if (it + 1 < n_tiles) {
+        xf_load_bias<KEYS>(sb, biasb, q0 + rw, k0 + KEYS, L, wide_bias,
+                           lane);
+        sm90::cp_async_commit();
+      }
+    }
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float* vrow = Vs + (j + jj) * kFfLd + 4 * cg;
+    for (int w = 1; w < 4; w <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);  // finite
+    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-          for (int c4 = 0; c4 < 4; ++c4) {
-            const float4 vv = *reinterpret_cast<const float4*>(vrow + 32 * c4);
+    for (int j = 0; j < KEYS / 8; ++j) {
+      s[4 * j] = ex2(s[4 * j] - mn0);
+      s[4 * j + 1] = ex2(s[4 * j + 1] - mn0);
+      s[4 * j + 2] = ex2(s[4 * j + 2] - mn1);
+      s[4 * j + 3] = ex2(s[4 * j + 3] - mn1);
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+    if constexpr (kWide) {
+      if (it > 0) {  // O through tile it - 1 landed: rescale it to mn
+        sm90::wg_wait<0>();
+        sm90::fence_regs(o);
+        sm90::fence_regs(pp);
+        sm90::fence_regs(pl);
+        sm90::mbar_arrive(bar(S::empty + ps));
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              const float p = jj == 0 ? p4[r].x : jj == 1 ? p4[r].y
-                            : jj == 2 ? p4[r].z : p4[r].w;
-              o[r][4 * c4 + 0] = fmaf(p, vv.x, o[r][4 * c4 + 0]);
-              o[r][4 * c4 + 1] = fmaf(p, vv.y, o[r][4 * c4 + 1]);
-              o[r][4 * c4 + 2] = fmaf(p, vv.z, o[r][4 * c4 + 2]);
-              o[r][4 * c4 + 3] = fmaf(p, vv.w, o[r][4 * c4 + 3]);
-            }
-          }
+        for (int j = 0; j < 16; ++j) {
+          o[4 * j] *= a0;
+          o[4 * j + 1] *= a0;
+          o[4 * j + 2] *= a1;
+          o[4 * j + 3] *= a1;
+        }
+      }
+      // P_it as the A of P V: slot t of k step j is key 8j + 2t
+#pragma unroll
+      for (int j = 0; j < KEYS / 8; ++j) {
+        const uint32_t e4[4] = {
+            __float_as_uint(s[4 * j]), __float_as_uint(s[4 * j + 2]),
+            __float_as_uint(s[4 * j + 1]), __float_as_uint(s[4 * j + 3])};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pp[j][e] = sm90::tf32_hi_bits(e4[e]);
+          pl[j][e] = sm90::tf32_lo_of_hi(pp[j][e]);
         }
       }
     } else {
-      const float* vt = Vn + buf * kSlice;
+      // the 2-wide product in FMAs: V's 2 values of keys 8j + 2t, + 1
+      o[0] *= a0;
+      o[1] *= a0;
+      o[2] *= a1;
+      o[3] *= a1;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float2 vv =
-            *reinterpret_cast<const float2*>(vt + 2 * (cg + 8 * c));
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          o[r][0] = fmaf(s[r][c], vv.x, o[r][0]);
-          o[r][1] = fmaf(s[r][c], vv.y, o[r][1]);
-        }
+      for (int j = 0; j < KEYS / 8; ++j) {
+        const int key = k0 + 8 * j + 2 * t;
+        const float2 w0 = key < L ? __ldg(reinterpret_cast<const float2*>(
+                                        vb + 2 * (size_t)key))
+                                  : make_float2(0.f, 0.f);
+        const float2 w1 = key + 1 < L
+                              ? __ldg(reinterpret_cast<const float2*>(
+                                    vb + 2 * (size_t)key + 2))
+                              : make_float2(0.f, 0.f);
+        o[0] = fmaf(s[4 * j], w0.x, fmaf(s[4 * j + 1], w1.x, o[0]));
+        o[1] = fmaf(s[4 * j], w0.y, fmaf(s[4 * j + 1], w1.y, o[1]));
+        o[2] = fmaf(s[4 * j + 2], w0.x, fmaf(s[4 * j + 3], w1.x, o[2]));
+        o[3] = fmaf(s[4 * j + 2], w0.y, fmaf(s[4 * j + 3], w1.y, o[3]));
       }
-      // slice it + 1 into the buffer of it - 1 (see the bf16 kernel)
-      if (it + 1 < n_tiles && tid < kSlice) Vn[(buf ^ 1) * kSlice + tid] = vn;
     }
   }
 
-  // the row's sum (and, narrow, its 2 partial products) over its 8 lanes;
-  // normalise once
 #pragma unroll
-  for (int w = 1; w < 8; w <<= 1)
+  for (int w = 1; w < 4; w <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+  }
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {  // the backward's row statistics
+    if (row0 < L) lse[(size_t)b * L + row0] = m0 + log2f(l0);
+    if (row0 + 8 < L) lse[(size_t)b * L + row0 + 8] = m1 + log2f(l1);
+  }
+  if constexpr (kWide) {
+    // the last tile's P V
+    const int vs = (n_tiles - 1) % NS;
+    sm90::wg_fence();
+    const uint64_t dvh = sm90::desc_k(s0 + S::vhi(vs), kD, 0, 0);
+    const uint64_t dvl = sm90::desc_k(s0 + S::vlo(vs), kD, 0, 0);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], w);
-      if constexpr (!kWide) {
-        o[r][0] += __shfl_xor_sync(0xffffffffu, o[r][0], w);
-        o[r][1] += __shfl_xor_sync(0xffffffffu, o[r][1], w);
-      }
+    for (int ks = 0; ks < KEYS / 8; ++ks) {
+      const uint64_t dh = sm90::desc_k_at(dvh, kD, ks);
+      const uint64_t dl = sm90::desc_k_at(dvl, kD, ks);
+      sm90::WgTf32<128>::mma(o, pp[ks], dh, n_tiles > 1 || ks > 0);
+      sm90::WgTf32<128>::mma(o, pp[ks], dl, 1);
+      sm90::WgTf32<128>::mma(o, pl[ks], dh, 1);
     }
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+    sm90::fence_regs(o);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + wr + 4 * r;
-    if (row >= L) continue;
-    if (lse != nullptr && cg == 0)  // the backward's row statistics
-      lse[(size_t)b * L + row] = m[r] + log2f(l[r]);
-    const float inv = 1.f / l[r];
-    float* orow = out + ((size_t)b * L + row) * DV;
-    if constexpr (kWide) {
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= L) continue;
+      const float inv = h ? i1 : i0;
+      float* orow = out + ((size_t)b * L + row) * kD;
 #pragma unroll
-      for (int c4 = 0; c4 < 4; ++c4)
-        *reinterpret_cast<float4*>(orow + 4 * cg + 32 * c4) =
-            make_float4(o[r][4 * c4] * inv, o[r][4 * c4 + 1] * inv,
-                        o[r][4 * c4 + 2] * inv, o[r][4 * c4 + 3] * inv);
-    } else if (cg == 0) {
-      orow[0] = o[r][0] * inv;
-      orow[1] = o[r][1] * inv;
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) = make_float2(
+            o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    }
+  } else {
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[i] += __shfl_xor_sync(0xffffffffu, o[i], w);
+    if (t == 0) {
+      if (row0 < L)
+        *reinterpret_cast<float2*>(out + ((size_t)b * L + row0) * 2) =
+            make_float2(o[0] * i0, o[1] * i0);
+      if (row0 + 8 < L)
+        *reinterpret_cast<float2*>(out + ((size_t)b * L + row0 + 8) * 2) =
+            make_float2(o[2] * i1, o[3] * i1);
     }
   }
 }
@@ -983,15 +1230,22 @@ template <int DV, bool BIAS>
 int launch_f32(const void* q, const void* k, const void* v, size_t v_bstride,
                const void* bias, int bm, void* out, float* lse, int B, int L,
                float scale, cudaStream_t stream) {
-  using S = FfSmem<DV>;
+  using S = XfSmem<DV, BIAS>;
   auto kernel = flash_attention_f32_kernel<DV, BIAS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + kFfRows - 1) / kFfRows, B);
-  kernel<<<grid, kFfThreads, S::bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), v_bstride,
+  CUtensorMap tq, tk, tv;
+  int err = sm90::tma_map_f32(&tk, k, kD, L, B, S::keys);
+  if (err == 0) err = sm90::tma_map_f32(&tq, q, kD, L, B, kXRows);
+  // D_v = 2 reads V directly: its map is K's, unused
+  if (err == 0)
+    err = DV == kD ? sm90::tma_map_f32(&tv, v, kD, L, B, S::keys)
+                   : sm90::tma_map_f32(&tv, k, kD, L, B, S::keys);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::bytes);
+  if (err != 0) return err;
+  dim3 grid((L + kXRows - 1) / kXRows, B);
+  kernel<<<grid, kXThreads, S::bytes, stream>>>(
+      tq, tk, tv, static_cast<const float*>(v), v_bstride,
       static_cast<const float*>(bias), bm, static_cast<float*>(out), lse, L,
       scale * kLog2e);
   return (int)cudaGetLastError();

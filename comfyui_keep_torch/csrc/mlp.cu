@@ -49,23 +49,41 @@
 // (the accumulators and the register A take 208 a thread).
 //
 // f32 (the f32 training step's GMFlow, erf gelu): mlp_fused_f32_kernel
-// keeps the arithmetic f32 (no TF32), so the FMA pipe's 67 TFLOP/s bounds
-// it: 1.83 ms at the chunk's shape. A register-tiled FMA design, after the
-// f32 flash attention kernel: one block of 8 warps owns 128 rows, staged
-// once by cp.async into padded rows ([src | msg], 260 floats). Both
-// products read K-contiguous operands, since nn.Linear's W1 row is a hidden
-// unit over the inputs and W2's row an output over the hidden units. The
-// weights stream through a 3-slot ring of 64 x 64 slices (16-byte cp.async,
-// rows padded to 68 floats, two slices in flight while one multiplies):
-// per 64-wide hidden chunk, W1 in four 64-deep input slices, then W2 in two
-// 64-output halves. Lane 8 rg + cg of warp w forms a 4 x 8 hidden tile in
-// registers (rows 16 w + rg + 4 r, units cg + 8 c: 12 float4 loads per 128
-// FMAs, a warp's reads in distinct banks), applies the gelu there and
-// stores it once into its warp's rows of a padded hidden tile, from which
-// the same lane accumulates its 4 x 16 outputs in registers across all of
-// H. The LayerNorm runs on those registers (a row's 8 lanes reduce with 3
-// shuffles), and the residual comes from the staged src. 220 KB of shared
-// memory: one block per SM.
+// runs both products as 3xTF32 on wgmma (x = hi + lo, hi x rounded to
+// TF32, a b = a_hi b_hi + a_hi b_lo + a_lo b_hi, f32 accumulation; a
+// single TF32 product fails the f32 gates), so 3 x 6 C H flops a row at
+// 495 TFLOP/s bound it: 0.742 ms at the chunk's 155,648 rows (the FMA
+// pipe's 67 TFLOP/s, which the earlier register-tiled FMA kernel ran at
+// 51-54 %, gives 1.83). TF32 wgmma takes shared-memory operands only
+// K-major, which both weights are as nn.Linear holds them, and the split
+// has to happen on chip: split weights read by every 128-row block would
+// be 3.6 GB of L2 reads a call at that shape, the raw ones are 1.8 GB. So a
+// block of 128 rows is two consumer warpgroups and a producer warpgroup
+// (setmaxnreg 40 / 232): the producer's first thread loads [src | msg]
+// (128 KB, raw) and, through a ring of three 32 KB slots, each 16 KB
+// weight slice by TMA into its slot's lo tile, and its 128 threads split
+// the slice in place into hi and lo tiles (raw and split share wgmma's
+// 128-byte-swizzle layout). A consumer holds no [src | msg] in registers
+// (its 64 x 256 would take 128 a thread): product 1 reads its A fragments
+// from the staged rows by ldmatrix for every chunk and splits them two k
+// steps at a time into one of two register sets. Per 64-wide hidden chunk
+// it forms its 64 x 64 hidden on m64n64k8 in f32 registers, applies the
+// gelu there and splits it into hi bits (the value's bits + 0x1000, which
+// the tensor core reads as the TF32 rounding) and lo -- a wgmma
+// accumulator's registers are its own A fragments once W2's hidden units
+// are relabelled within each 8, which the producer does as it splits W2 --
+// and accumulates 64 x 128 of output on m64n128k8. The tensor core's adds
+// truncate, so no long sum runs through it (one chain over a row's 256
+// inputs, and over the 1024 hidden units, failed the gradient gate of the
+// card tests, whose backward reads this forward's LayerNorm input): the
+// hidden's products run in groups of 2 k steps, each from zero, added in
+// f32 once landed (two sets in flight), and each chunk's output product
+// from zero too, added to the output in f32. Those sums take the registers
+// that overlapping one chunk's output product with the next chunk's hidden
+// would need, so a consumer runs its chunks in order and the two
+// warpgroups overlap each other. A slot is released one group after its
+// last product. The LayerNorm and the residual run on the output registers
+// as in bf16, and the f32 rows leave by 8-byte stores.
 //
 // Backward: the TPU kernel has none (the JAX package differentiates its
 // unfused branch); these compute the gradient of the function above from
@@ -421,228 +439,353 @@ int launch_mlp_bf16(const void* src, const void* msg, const void* w1,
 }
 
 // ---------------------------------------------------------------------------
-// f32: register-tiled FMA (no TF32)
+// f32: 3xTF32 on wgmma, [src | msg] in shared memory, the weights split on
+// chip by a producer warpgroup
 // ---------------------------------------------------------------------------
 
-constexpr int kFRows = 128;           // rows per block: 8 warps x 16
-constexpr int kFThreads = 256;
-constexpr int kFHc = 64;              // hidden units per chunk
-constexpr int kFSlice = 64;           // rows and depth of a weight slice
-constexpr int kFParts = 6;            // slices per chunk: W1 in 4, W2 in 2
-constexpr int kFStages = 3;           // ring slots; two slices load ahead
-constexpr int kFLdx = 2 * kC + 4;     // floats per staged [src | msg] row
-constexpr int kFLds = kFSlice + 4;    // floats per slice or hidden row
-constexpr int kFXBytes = 4 * kFRows * kFLdx;         // 133,120
-constexpr int kFHBytes = 4 * kFRows * kFLds;         // 34,816
-constexpr int kFSlotBytes = 4 * kFSlice * kFLds;     // 17,408
-constexpr int kFSmem = kFXBytes + kFHBytes + kFStages * kFSlotBytes;  // 220,160
-static_assert(kFParts % kFStages == 0, "a part keeps its ring slot");
+constexpr int kFRows = 128;        // rows per block: 2 warpgroups x 64
+constexpr int kFThreads = 384;     // 2 consumer warpgroups and a producer
+constexpr int kFHc = 64;           // hidden units per chunk
+constexpr int kFStages = 3;        // slots of the weight ring
+constexpr int kFTile = 16384;      // a slice's hi or lo tile
+constexpr int kFXBytes = kFRows * 2 * kC * 4;  // [src | msg]: 128 KB
+// byte offsets: the mbarriers, [src | msg] (raw f32, eight am_at column
+// blocks of 32: src's four, then msg's), the ring's slots (a slice's hi
+// tile, then its lo tile); the launch's bytes + 1024 for rounding the base
+constexpr uint32_t kFX = 1024;
+constexpr uint32_t kFW = kFX + kFXBytes;
+constexpr int kFSmem = kFW + kFStages * 2 * kFTile + 1024;  // 226 KB
+// mbarriers: [src | msg] landed; slot u split (128 producer threads
+// arrive); slot u released (256 consumer threads); slot u's raw tile landed
+constexpr int kFBarX = 0, kFFull = 1, kFEmpty = 1 + kFStages,
+              kFRaw = 1 + 2 * kFStages;
+static_assert(kFSmem <= 232448, "227 KB a block");
 
-// slice t of the weight stream into ring slot (t % 6) % 3: chunk j = t / 6
-// (hidden units h0 = 64 j ..), part p = t % 6. Parts 0-3 are W1's rows h0..
-// over inputs 64 p .. 64 p + 63; parts 4-5 are W2's rows 64 (p - 4) .. over
-// hidden units h0 .. h0 + 63. Each row of 64 floats is K-contiguous.
-__device__ __forceinline__ void mlp_f32_load_slice(uint32_t ring,
-                                                   const float* w1,
-                                                   const float* w2, int t,
-                                                   int H) {
-  const int h0 = (t / kFParts) * kFHc, part = t % kFParts;
-  const float* base = part < 4
-      ? w1 + (size_t)h0 * (2 * kC) + kFSlice * part
-      : w2 + (size_t)(kFSlice * (part - 4)) * H + h0;
-  const size_t ld = part < 4 ? 2 * kC : (size_t)H;
-  const uint32_t dst = ring + (part % kFStages) * kFSlotBytes;
+// The weight stream, slice by slice (16 KB raw each), six a chunk c in the
+// order the consumers read them: W1's 64 rows of the chunk over inputs 64 p
+// .. (parts p = 0..3), then W2's 128 rows over the chunk's hidden units 32
+// (p - 4) .. (parts 4, 5)
+constexpr int kFSlices = 6;
+
+// the sums of a 3xTF32 product (the tensor core's adds truncate): every
+// group's products from zero into one of two part sets, each added to sum
+// in f32 once it has landed (sum is assigned at the first)
+template <int N>
+__device__ __forceinline__ void f_add(float (&sum)[N], const float (&part)[N],
+                                      bool first) {
 #pragma unroll
-  for (int k = 0; k < kFSlice * (kFSlice / 4) / kFThreads; ++k) {  // 4 each
-    const int i = threadIdx.x + k * kFThreads;
-    const int r = i >> 4, c = i & 15;
-    sm90::cp_async16(dst + 4 * (r * kFLds + 4 * c), base + r * ld + 4 * c, 16);
+  for (int i = 0; i < N; ++i) sum[i] = first ? part[i] : sum[i] + part[i];
+}
+
+// Product 1's groups of slice p (stream index ts): the chunk's hidden +=
+// [src | msg][:, 64 p ..] W1[chunk, 64 p ..]^T as 3xTF32 (x' Whi + x' Wlo
+// + xlo Whi), 8 k steps in 4 groups of 2, each committed into part[c & 1]
+// from zero (c = 4 p + q, the group in the chunk) and added to h once it
+// has landed (the wait before group c + 2; the caller adds groups 14 and
+// 15); [src | msg] read as A fragments by ldmatrix (an 8 x 8 b16 matrix is
+// 8 rows of 4 f32: the TF32 A fragment's) and split into one of two
+// register sets, each rewritten only once its group has landed. The
+// slice's full wait comes after its first group's release of slice p - 1
+// (released at the wait before group 4 p + 1, one group after its last),
+// so a slot is released with at most the next slice waited for and the
+// producer can load one slice ahead of the one it splits.
+__device__ __forceinline__ void f_p1_slice(float (&h)[32],
+                                           float (&part)[2][32], int p,
+                                           int ts, uint32_t s0, int rw,
+                                           int lane, uint32_t (&xh)[2][2][4],
+                                           uint32_t (&xl)[2][2][4]) {
+  const int mi = lane >> 3, mr = lane & 7;
+  const int u = ts % kFStages;
+  const uint32_t whi = s0 + kFW + u * 2 * kFTile;
+  const uint64_t dwh = desc_k(whi, kFHc, 0, 0);
+  const uint64_t dwl = desc_k(whi + kFTile, kFHc, 0, 0);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = 4 * p + q;
+    if (c >= 2) {
+      sm90::wg_wait<1>();  // group c - 2 landed
+      sm90::fence_regs(part[c & 1]);
+      f_add(h, part[c & 1], c == 2);
+      if (q == 1 && p > 0)  // slice p - 1's last group landed
+        sm90::mbar_arrive(s0 + 8 * (kFEmpty + (ts - 1) % kFStages));
+    }
+    if (q == 0) sm90::mbar_wait(s0 + 8 * (kFFull + u), (ts / kFStages) & 1);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int kg = 8 * p + 2 * q + kk;  // the k step over [src | msg]
+      uint32_t a[4];
+      sm90::ldsm_x4(s0 + kFX + am_at(rw + (mi & 1) * 8 + mr,
+                                     2 * kg + (mi >> 1), kFRows),
+                    a);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xh[q & 1][kk][e] = sm90::tf32_hi_bits(a[e]);
+        xl[q & 1][kk][e] = sm90::tf32_lo_of_hi(xh[q & 1][kk][e]);
+      }
+    }
+    sm90::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int ks = 2 * q + kk;  // within the slice
+      const uint64_t dh = sm90::desc_k_at(dwh, kFHc, ks);
+      sm90::WgTf32<64>::mma(part[c & 1], xh[q & 1][kk], dh, kk > 0);
+      sm90::WgTf32<64>::mma(part[c & 1], xh[q & 1][kk],
+                            sm90::desc_k_at(dwl, kFHc, ks), 1);
+      sm90::WgTf32<64>::mma(part[c & 1], xl[q & 1][kk], dh, 1);
+    }
+    sm90::wg_commit();
   }
 }
 
-// acc[r][c] += sum_{k < 64} a[4 r LDA + k] b[8 c kFLds + k]: the lane's
-// 4 x 8 tile, both operands K-contiguous, read 16 bytes at a time (12 loads
-// per 128 FMAs)
-template <int LDA>
-__device__ __forceinline__ void mlp_f32_tile(float (&acc)[4][8],
-                                             const float* a, const float* b) {
-#pragma unroll 4
-  for (int k = 0; k < kFSlice; k += 4) {
-    float4 av[4], bv[8];
+// Product 2's group of W2 half p (stream index ts): op (+)= h[:, 32 p ..]
+// W2[:, chunk, 32 p ..]^T as 3xTF32 from the split hidden's registers, op
+// from zero at half 0; committed
+__device__ __forceinline__ void f_p2_half(float (&op)[64], int p, int ts,
+                                          uint32_t s0,
+                                          const uint32_t (&ah)[8][4],
+                                          const uint32_t (&al)[8][4]) {
+  const int u = ts % kFStages;
+  const uint32_t whi = s0 + kFW + u * 2 * kFTile;
+  const uint64_t dwh = desc_k(whi, kC, 0, 0);
+  const uint64_t dwl = desc_k(whi + kFTile, kC, 0, 0);
+  sm90::mbar_wait(s0 + 8 * (kFFull + u), (ts / kFStages) & 1);
+  sm90::wg_fence();
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      av[r] = *reinterpret_cast<const float4*>(a + 4 * r * LDA + k);
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      bv[c] = *reinterpret_cast<const float4*>(b + 8 * c * kFLds + k);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        acc[r][c] = fmaf(av[r].x, bv[c].x, acc[r][c]);
-        acc[r][c] = fmaf(av[r].y, bv[c].y, acc[r][c]);
-        acc[r][c] = fmaf(av[r].z, bv[c].z, acc[r][c]);
-        acc[r][c] = fmaf(av[r].w, bv[c].w, acc[r][c]);
-      }
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t dh = sm90::desc_k_at(dwh, kC, kk);
+    const uint64_t dl = sm90::desc_k_at(dwl, kC, kk);
+    sm90::WgTf32<128>::mma(op, ah[4 * p + kk], dh, p > 0 || kk > 0);
+    sm90::WgTf32<128>::mma(op, ah[4 * p + kk], dl, 1);
+    sm90::WgTf32<128>::mma(op, al[4 * p + kk], dh, 1);
   }
+  sm90::wg_commit();
 }
 
 // src, msg, out: (rows, 128); w1: (H, 256); w2: (128, H); gamma, beta:
-// (128,), all f32. H % 64 == 0. Grid ceil(rows / 128), 256 threads. Lane
-// 8 rg + cg of warp w owns rows 16 w + rg + 4 r (r < 4) of the block: hidden
-// units cg + 8 c (c < 8) of a chunk, and outputs 64 hh + cg + 8 c (hh < 2);
-// a row's 8 lanes differ in lane bits 0-2. Every slice step commits one
-// cp.async group, and the first carries the staged rows.
+// (128,), all f32; src, msg, w1 and w2 are read through the tensor maps
+// tsrc, tmsg, tw1, tw2. H % 64 == 0. Grid ceil(rows / 128), 384 threads:
+// warpgroup wg < 2 owns rows 64 wg .. of the block, its warp w the 16 rows
+// from 16 w; warpgroup 2 is the producer (40 registers a thread, the
+// consumers 232): its first thread loads [src | msg] and each slice's raw
+// tile by TMA (into the slot's lo tile), and its 128 threads split the
+// slice in place into TF32 hi and lo tiles (W2's hidden units relabelled
+// within each 8: slot t unit 2t, slot t + 4 unit 2t + 1, so that the gelu'd
+// hidden's accumulator registers are the A fragments of product 2 as they
+// stand). Per chunk a consumer forms its 64 x 64 hidden on m64n64k8 in f32
+// registers, applies the gelu there, splits it into hi bits and lo, and
+// accumulates 64 x 128 of output on m64n128k8, the sums in f32 (f_add).
 template <bool TANH>
 __global__ void __launch_bounds__(kFThreads, 1)
-    mlp_fused_f32_kernel(const float* __restrict__ src,
-                         const float* __restrict__ msg,
-                         const float* __restrict__ w1,
-                         const float* __restrict__ w2,
+    mlp_fused_f32_kernel(const __grid_constant__ CUtensorMap tsrc,
+                         const __grid_constant__ CUtensorMap tmsg,
+                         const __grid_constant__ CUtensorMap tw1,
+                         const __grid_constant__ CUtensorMap tw2,
                          const float* __restrict__ gamma,
                          const float* __restrict__ beta,
                          float* __restrict__ out,
                          float* __restrict__ o_out, int rows, int H) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t sx = sm90::smem_u32(smem);
-  const uint32_t ring = sx + kFXBytes + kFHBytes;
-  const float* Xs = reinterpret_cast<const float*>(smem);
-  float* Hs = reinterpret_cast<float*>(smem + kFXBytes);
-  const float* Ring = reinterpret_cast<const float*>(smem + kFXBytes + kFHBytes);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = lane >> 3, cg = lane & 7;
-  const int wr = 16 * warp + rg;  // the lane's rows: wr + 4 r of the block
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = sm90::smem_u32(smem);
+  const int tid = threadIdx.x, lane = tid & 31;
   const int r0 = blockIdx.x * kFRows;
-  const int steps = (H / kFHc) * kFParts;
+  const int n_chunks = H / kFHc, n_slices = kFSlices * n_chunks;
+  auto bar = [&](int i) { return s0 + 8 * i; };
 
-  // [src | msg] rows: 16-byte chunks 0..31 of a row are src, 32..63 msg;
-  // rows at or past `rows` are zero-filled
-#pragma unroll 8
-  for (int k = 0; k < kFRows * 64 / kFThreads; ++k) {  // 32 per thread
-    const int i = tid + k * kFThreads;
-    const int r = i >> 6, c = i & 63;
-    const bool ok = r0 + r < rows;
-    const float* base = c < 32 ? src : msg;
-    sm90::cp_async16(sx + 4 * (r * kFLdx + 4 * c),
-                     base + (size_t)(ok ? r0 + r : 0) * kC + 4 * (c & 31),
-                     ok ? 16 : 0);
+  if (tid == 0) {
+    sm90::mbar_init(bar(kFBarX), 1);
+    for (int u = 0; u < kFStages; ++u) {
+      sm90::mbar_init(bar(kFFull + u), 128);
+      sm90::mbar_init(bar(kFEmpty + u), 256);
+      sm90::mbar_init(bar(kFRaw + u), 1);
+    }
+    sm90::mbar_fence_init();
   }
-  mlp_f32_load_slice(ring, w1, w2, 0, H);
-  sm90::cp_async_commit();
-  mlp_f32_load_slice(ring, w1, w2, 1, H);
-  sm90::cp_async_commit();
+  __syncthreads();
 
-  float o[2][4][8];  // the lane's 4 x 16 outputs, f32, across all of H
-  float h[4][8];     // its 4 x 8 hidden units of the chunk
+  if (tid >= 256) {  // the producer
+    sm90::setmaxnreg_dec<40>();
+    const int p = tid - 256;
+    auto issue = [&](int t) {  // slice t's raw tile into its slot's lo tile
+      const int u = t % kFStages;
+      const int chunk = t / kFSlices, part = t % kFSlices;
+      const uint32_t lo = s0 + kFW + u * 2 * kFTile + kFTile;
+      sm90::mbar_expect_tx(bar(kFRaw + u), kFTile);
+      if (part >= 4) {
+        sm90::tma_load_3d(lo, &tw2, chunk * kFHc + 32 * (part - 4), 0, 0,
+                          bar(kFRaw + u));
+      } else {
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
+        for (int cb = 0; cb < 2; ++cb)
+          sm90::tma_load_3d(lo + cb * kFHc * 128, &tw1, 64 * part + 32 * cb,
+                            chunk * kFHc, 0, bar(kFRaw + u));
+      }
+    };
+    if (p == 0) {
+      sm90::mbar_expect_tx(bar(kFBarX), kFXBytes);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+      for (int cb = 0; cb < 4; ++cb) {
+        sm90::tma_load_3d(s0 + kFX + cb * kFRows * 128, &tsrc, 32 * cb, r0, 0,
+                          bar(kFBarX));
+        sm90::tma_load_3d(s0 + kFX + (4 + cb) * kFRows * 128, &tmsg, 32 * cb,
+                          r0, 0, bar(kFBarX));
+      }
+      issue(0);
+    }
+    // slice t + 1's raw tile is loaded while slice t is split: its slot is
+    // released once the consumers have waited for slice t - 1 (f_p1_slice),
+    // which is split already, so this wait cannot hold up slice t
+    for (int t = 0; t < n_slices; ++t) {
+      const int u = t % kFStages;
+      unsigned char* hi = smem + kFW + u * 2 * kFTile;
+      unsigned char* lo = hi + kFTile;
+      if (t + 1 < n_slices) {
+        const int t1 = t + 1;
+        if (t1 >= kFStages)  // every producer thread waits: warps converged
+          sm90::mbar_wait(bar(kFEmpty + t1 % kFStages),
+                          (t1 / kFStages - 1) & 1);
+        if (p == 0) issue(t1);
+      }
+      sm90::mbar_wait(bar(kFRaw + u), (t / kFStages) & 1);
+      if (t % kFSlices >= 4) {
+        // row n, hidden units 8 q .. 8 q + 7 (chunks 2q, 2q + 1, at c ^ (n
+        // & 7)): slots 0-3 take units 0, 2, 4, 6, slots 4-7 units 1, 3, 5, 7
 #pragma unroll
-      for (int c = 0; c < 8; ++c) o[hh][r][c] = 0.f;
-
-  for (int t0 = 0; t0 < steps; t0 += kFParts) {
-#pragma unroll
-    for (int part = 0; part < kFParts; ++part) {
-      const int t = t0 + part;
-      sm90::cp_async_wait<1>();
-      __syncthreads();  // slice t landed; every warp is done with slice t - 1
-      if (t + 2 < steps) mlp_f32_load_slice(ring, w1, w2, t + 2, H);
-      sm90::cp_async_commit();
-      const float* slot = Ring + (part % kFStages) * (kFSlotBytes / 4) +
-                          cg * kFLds;
-      if (part < 4) {
-        // hidden += [src | msg][:, 64 part ..] W1[h0 .., 64 part ..]^T
-        if (part == 0) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) h[r][c] = 0.f;
-        }
-        mlp_f32_tile<kFLdx>(h, Xs + wr * kFLdx + kFSlice * part, slot);
-        if (part == 3) {
-          // gelu on the registers, stored once into the warp's rows of the
-          // hidden tile; the next step's barrier orders it before the reads
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 8; ++c)
-              Hs[(wr + 4 * r) * kFLds + cg + 8 * c] =
-                  TANH ? gelu_tanh(h[r][c]) : gelu_erf(h[r][c]);
+        for (int i = p; i < kC * 4; i += 128) {
+          const int n = i & 127, q = i >> 7;
+          const uint32_t oa = n * 128 + (((2 * q) ^ (n & 7)) << 4);
+          const uint32_t ob = n * 128 + (((2 * q + 1) ^ (n & 7)) << 4);
+          const uint4 ra = *reinterpret_cast<const uint4*>(lo + oa);
+          const uint4 rb = *reinterpret_cast<const uint4*>(lo + ob);
+          uint4 xa = make_uint4(ra.x, ra.z, rb.x, rb.z), ha;
+          uint4 xb = make_uint4(ra.y, ra.w, rb.y, rb.w), hb;
+          sm90::split_tf32_4(xa, ha);
+          sm90::split_tf32_4(xb, hb);
+          *reinterpret_cast<uint4*>(hi + oa) = ha;
+          *reinterpret_cast<uint4*>(hi + ob) = hb;
+          *reinterpret_cast<uint4*>(lo + oa) = xa;
+          *reinterpret_cast<uint4*>(lo + ob) = xb;
         }
       } else {
-        // out[:, 64 (part - 4) ..] += gelu(hidden) W2[64 (part - 4) .., h0 ..]^T
-        mlp_f32_tile<kFLds>(o[part & 1], Hs + wr * kFLds, slot);
+#pragma unroll
+        for (int i = p; i < kFTile / 16; i += 128) {
+          uint4* l = reinterpret_cast<uint4*>(lo + 16 * i);
+          uint4 x = *l, h;
+          sm90::split_tf32_4(x, h);
+          *reinterpret_cast<uint4*>(hi + 16 * i) = h;
+          *l = x;
+        }
       }
+      sm90::fence_async_smem();  // the split tiles, to wgmma
+      sm90::mbar_arrive(bar(kFFull + u));
     }
+    return;
   }
 
-  // LayerNorm over each row's 128 outputs, held by its 8 lanes
-  float mean[4], rs[4];
+  sm90::setmaxnreg_inc<232>();
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (tid >> 5);  // the warp's first row in the block
+  auto release = [&](int ts) {
+    sm90::mbar_arrive(bar(kFEmpty + ts % kFStages));
+  };
+  sm90::mbar_wait(bar(kFBarX), 0);
+
+  float o[64];           // the warpgroup's 64 x 128 output, f32
+  float op[64];          // a chunk's part of it, from zero
+  float h[32];           // its 64 x 64 hidden of a chunk, f32
+  float part[2][32];     // the hidden's groups in flight, from zero
+  uint32_t ah[8][4], al[8][4];  // the gelu'd hidden as A: hi bits, lo
+  uint32_t xh[2][2][4], xl[2][2][4];  // [src | msg] A fragments in flight
+
+  // Per chunk: its hidden (product 1, 16 groups of 2 k steps, summed in
+  // f32), the gelu split into product 2's A (slot t of k step j is unit 8j
+  // + 2t), then product 2 into op from zero, added to o in f32. The tensor
+  // core's adds truncate: one chain over a row's 256 inputs or a chunk
+  // sequence's 1024 hidden units failed the gradient gate of the card
+  // tests, whose backward reads this o
+#pragma unroll 1
+  for (int j = 0; j < n_chunks; ++j) {
+    const int b = kFSlices * j;  // the chunk's first stream index
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    float s = 0.f;
+    for (int p = 0; p < 4; ++p)
+      f_p1_slice(h, part, p, b + p, s0, rw, lane, xh, xl);
+    sm90::wg_wait<0>();
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) s += o[hh][r][c];
-    mean[r] = s;
-  }
-#pragma unroll
-  for (int w = 1; w < 8; w <<= 1)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      mean[r] += __shfl_xor_sync(0xffffffffu, mean[r], w);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    mean[r] *= 1.f / kC;
-    float q = 0.f;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float d = o[hh][r][c] - mean[r];
-        q = fmaf(d, d, q);
-      }
-    rs[r] = q;
-  }
-#pragma unroll
-  for (int w = 1; w < 8; w <<= 1)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], w);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) rs[r] = rsqrtf(rs[r] * (1.f / kC) + 1e-5f);
-  if (o_out != nullptr) {  // the LayerNorm's input, for the backward
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = r0 + wr + 4 * r;
-      if (row >= rows) continue;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          o_out[(size_t)row * kC + 64 * hh + cg + 8 * c] = o[hh][r][c];
+    for (int c = 0; c < 2; ++c) {
+      sm90::fence_regs(part[c]);
+      f_add(h, part[c], false);
     }
+    release(b + 3);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float v[4] = {h[4 * jj], h[4 * jj + 2], h[4 * jj + 1], h[4 * jj + 3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = TANH ? gelu_tanh(v[e]) : gelu_erf(v[e]);
+        ah[jj][e] = sm90::tf32_hi_bits(__float_as_uint(v[e]));
+        al[jj][e] = sm90::tf32_lo_of_hi(ah[jj][e]);
+      }
+    }
+    f_p2_half(op, 0, b + 4, s0, ah, al);
+    f_p2_half(op, 1, b + 5, s0, ah, al);
+    sm90::wg_wait<0>();
+    sm90::fence_regs(op);
+    release(b + 4);
+    release(b + 5);
+    f_add(o, op, j == 0);
   }
 
-  // + src from the staged rows; each store writes 8 consecutive floats of
-  // 4 rows
+  // LayerNorm over each row's 128 outputs, held by one quad: rows g and g+8
+  float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
+  for (int n = 0; n < 16; ++n) {
+    sum0 += o[4 * n] + o[4 * n + 1];
+    sum1 += o[4 * n + 2] + o[4 * n + 3];
+  }
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = 64 * hh + cg + 8 * c;
-      const float gm = __ldg(gamma + col), bt = __ldg(beta + col);
+  for (int w = 1; w < 4; w <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, w);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, w);
+  }
+  const float mean0 = sum0 * (1.f / kC), mean1 = sum1 * (1.f / kC);
+  float q0 = 0.f, q1 = 0.f;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = wr + 4 * r;
-        if (r0 + row < rows)
-          out[(size_t)(r0 + row) * kC + col] =
-              Xs[row * kFLdx + col] +
-              ((o[hh][r][c] - mean[r]) * rs[r] * gm + bt);
-      }
+  for (int n = 0; n < 16; ++n) {
+    const float d0 = o[4 * n] - mean0, d1 = o[4 * n + 1] - mean0;
+    const float d2 = o[4 * n + 2] - mean1, d3 = o[4 * n + 3] - mean1;
+    q0 = fmaf(d0, d0, fmaf(d1, d1, q0));
+    q1 = fmaf(d2, d2, fmaf(d3, d3, q1));
+  }
+#pragma unroll
+  for (int w = 1; w < 4; w <<= 1) {
+    q0 += __shfl_xor_sync(0xffffffffu, q0, w);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, w);
+  }
+  const float rs0 = rsqrtf(q0 * (1.f / kC) + 1e-5f);
+  const float rs1 = rsqrtf(q1 * (1.f / kC) + 1e-5f);
+  // + src from the staged tile (column block c / 32, chunk (c / 4) % 8)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + rw + g + 8 * hh;
+    if (row >= rows) continue;
+    const float mean = hh ? mean1 : mean0, rs = hh ? rs1 : rs0;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int c = 8 * n + 2 * t;
+      const float y0 = o[4 * n + 2 * hh], y1 = o[4 * n + 2 * hh + 1];
+      if (o_out != nullptr)  // the LayerNorm's input, for the backward
+        *reinterpret_cast<float2*>(o_out + (size_t)row * kC + c) =
+            make_float2(y0, y1);
+      const float2 x = *reinterpret_cast<const float2*>(
+          smem + kFX + am_at(rw + g + 8 * hh, c >> 2, kFRows) + 4 * (c & 3));
+      const float2 gm = __ldg(reinterpret_cast<const float2*>(gamma + c));
+      const float2 bt = __ldg(reinterpret_cast<const float2*>(beta + c));
+      *reinterpret_cast<float2*>(out + (size_t)row * kC + c) = make_float2(
+          x.x + ((y0 - mean) * rs * gm.x + bt.x),
+          x.y + ((y1 - mean) * rs * gm.y + bt.y));
     }
+  }
 }
 
 template <bool TANH>
@@ -650,16 +793,21 @@ int launch_mlp_f32(const void* src, const void* msg, const void* w1,
                    const void* w2, const void* gamma, const void* beta,
                    void* out, float* o_out, int rows, int H,
                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_fused_f32_kernel<TANH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kFSmem);
-  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tsrc, tmsg, tw1, tw2;
+  int err = sm90::tma_map_f32(&tsrc, src, kC, rows, 1, kFRows);
+  if (err == 0) err = sm90::tma_map_f32(&tmsg, msg, kC, rows, 1, kFRows);
+  if (err == 0) err = sm90::tma_map_f32(&tw1, w1, 2 * kC, H, 1, kFHc);
+  if (err == 0) err = sm90::tma_map_f32(&tw2, w2, H, kC, 1, kC);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(mlp_fused_f32_kernel<TANH>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kFSmem);
+  if (err != 0) return err;
   const int blocks = (rows + kFRows - 1) / kFRows;
   mlp_fused_f32_kernel<TANH><<<blocks, kFThreads, kFSmem, stream>>>(
-      static_cast<const float*>(src), static_cast<const float*>(msg),
-      static_cast<const float*>(w1), static_cast<const float*>(w2),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<float*>(out), o_out, rows, H);
+      tsrc, tmsg, tw1, tw2, static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<float*>(out), o_out, rows,
+      H);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,12 @@
 // PTX building blocks of the port's register-resident tensor-core kernels
-// (attention.cu's bf16 flash attention, attention_bwd.cu's backward,
-// packed_conv.cu's bf16 implicit GEMM, mlp.cu's bf16 forward and its
-// backward): cp.async staging, ldmatrix, mma.sync in bf16 and in TF32
-// (with the hi / lo splits of the bf16 and 3xTF32 products), and Hopper's
-// mbarriers, TMA loads and wgmma with its shared-memory matrix descriptors
-// and its 128-byte-swizzle tile layout (am_at, which is also TMA's 128-byte
-// swizzle), A from shared memory or registers. sm_90a only (wgmma).
+// (attention.cu's flash attention, attention_bwd.cu's backward,
+// packed_conv.cu's bf16 implicit GEMM, mlp.cu's forwards and backward):
+// cp.async staging, ldmatrix, mma.sync in bf16 and in TF32 (with the hi /
+// lo splits of the bf16 and 3xTF32 products), and Hopper's mbarriers, TMA
+// loads and wgmma in bf16 and TF32 with its shared-memory matrix
+// descriptors and its 128-byte-swizzle tile layout (am_at, which is also
+// TMA's 128-byte swizzle), A from shared memory or registers. sm_90a only
+// (wgmma).
 //
 // Shared-memory tiles here are rows of 16-byte chunks, swizzled: logical
 // chunk c of row r is stored at chunk c ^ (r & 7). Eight consecutive rows
@@ -240,6 +241,19 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int r0,
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int b,
                                             int s) {
   return desc_sw128(tile + b * rows * 128 + s * 16 * 128, rows * 128, 1024);
+}
+
+// desc_k's k step s of a K-major tile of `rows` rows (r0 = 0), from the
+// tile's descriptor d = desc_k(tile, rows, 0, 0): the start address field
+// (bytes / 16, its low 14 bits; shared addresses stay below 2^18) moved
+// on, in an asm volatile so that the compiler computes it where it is used
+// instead of hoisting every k step's descriptor into registers
+__device__ __forceinline__ uint64_t desc_k_at(uint64_t d, int rows, int s) {
+  uint64_t r;
+  asm volatile("add.s64 %0, %1, %2;\n"
+               : "=l"(r)
+               : "l"(d), "l"((uint64_t)((s >> 2) * rows * 8 + (s & 3) * 2)));
+  return r;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -488,7 +502,94 @@ struct WgRS<256, 1> {
   }
 };
 
+// d (64 x N f32) += A (64 x 8 tf32 in registers) . B (8 x N tf32, K-major,
+// descriptor db): the TF32 products of the 3xTF32 forwards. A's fragment
+// is mma.sync m16n8k8's per warp: (g, t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4), g = lane / 4, t = lane % 4. The tensor core reads each operand's
+// top 19 bits: a register that holds x's bits + 0x1000 (tf32_hi_bits) is
+// read as x rounded to TF32. A's registers must stay as they are until the
+// group is waited for.
+template <int N>
+struct WgTf32;
+
+template <>
+struct WgTf32<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, "
+        "%17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+        " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct WgTf32<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+        " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, "
+        "1, 1;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32),
+          KEEP_F8(40), KEEP_F8(48), KEEP_F8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
 #undef KEEP_F8
+
+// 3xTF32 operands of the forwards. x's bits + 0x1000: the tensor core reads
+// it as hi, x rounded to TF32 as split_tf32 rounds it
+__device__ __forceinline__ uint32_t tf32_hi_bits(uint32_t x) {
+  return x + 0x1000u;
+}
+// lo = x - hi from the hi_bits form (x = h - 0x1000)
+__device__ __forceinline__ uint32_t tf32_lo_of_hi(uint32_t h) {
+  return __float_as_uint(__uint_as_float(h - 0x1000u) -
+                         __uint_as_float(h & 0xffffe000u));
+}
+// four values split in place: a 16-byte chunk of a tile, hi out, lo in x
+__device__ __forceinline__ void split_tf32_4(uint4& x, uint4& hi) {
+  split_tf32(x.x, hi.x, x.x);
+  split_tf32(x.y, hi.y, x.y);
+  split_tf32(x.z, hi.z, x.z);
+  split_tf32(x.w, hi.w, x.w);
+}
+// a barrier of the `threads` threads from warp `first` on (id > 0; 0 is
+// __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 
 // ---------------------------------------------------------------------------
@@ -525,26 +626,38 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a contiguous (batch, rows, d) bf16 array (d a multiple of
-// 64) for TMA boxes of 64 columns x box_rows rows x 1 in the 128-byte
+// A tensor map of a contiguous (batch, rows, d) array of 2-byte (bf16) or
+// 4-byte (f32) elements, d a multiple of 128 bytes, for TMA boxes of 128
+// bytes (64 bf16 or 32 f32 columns) x box_rows rows x 1 in the 128-byte
 // swizzle: each box lands as box_rows rows of 128 bytes, an am_at column
 // block; rows past `rows` are zero-filled. Returns a cudaError_t value.
-inline int tma_map_bf16(CUtensorMap* map, const void* base, int d, int rows,
-                        int batch, int box_rows) {
+inline int tma_map(CUtensorMap* map, const void* base, int esize, int d,
+                   int rows, int batch, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)d * rows * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * esize,
+                                 (cuuint64_t)d * rows * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows,
+                             1};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+         3, const_cast<void*>(base), dims, strides, box, estr,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+inline int tma_map_bf16(CUtensorMap* map, const void* base, int d, int rows,
+                        int batch, int box_rows) {
+  return tma_map(map, base, 2, d, rows, batch, box_rows);
+}
+inline int tma_map_f32(CUtensorMap* map, const void* base, int d, int rows,
+                       int batch, int box_rows) {
+  return tma_map(map, base, 4, d, rows, batch, box_rows);
 }
 
 }  // namespace sm90

@@ -32,6 +32,8 @@ from comfyui_keep_tpu.models import gmflow as jg
 from comfyui_keep_tpu.ops.act import gelu as jgelu
 from comfyui_keep_tpu.ops.norm import layer_norm as jlayer_norm
 from comfyui_keep_torch.ops import kernels as K
+from tests.torch_port_helpers import mm_1xtf32 as _mm_1xtf32
+from tests.torch_port_helpers import mm_3xtf32 as _mm_3xtf32
 
 torch.set_num_threads(1)
 AUTOGRAD_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -262,34 +264,6 @@ EMU_FORMS = ("window", "window+mask", "global", "correlation", "mlp_erf",
              "mlp_tanh")
 # K2's weight products: rows a tile of the weight blocks, by dtype
 MLP_TILE = {torch.float32: 32, torch.bfloat16: 64}
-
-
-def _tf32_trunc(x):
-    """x (f32) with its low 13 mantissa bits cleared: what the tensor core
-    reads of an f32 operand."""
-    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_split(x):
-    """(hi, lo) of the kernels' split: hi x rounded to TF32 by a carry into
-    bit 12 and the mask, lo = x - hi (exact in f32)."""
-    hi = ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-    return hi, x - hi
-
-
-def _mm_3xtf32(a, b):
-    """a @ b as 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, every operand as
-    the tensor core reads it, f32 sums."""
-    ah, al = _tf32_split(a)
-    bh, bl = _tf32_split(b)
-    t = _tf32_trunc
-    return (torch.matmul(t(al), t(bh)) + torch.matmul(t(ah), t(bl))
-            + torch.matmul(t(ah), t(bh)))
-
-
-def _mm_1xtf32(a, b):
-    """a @ b as one TF32 product (the control the gate must refuse)."""
-    return torch.matmul(_tf32_trunc(a), _tf32_trunc(b))
 
 
 def _mm_bf16_operands(a, b):

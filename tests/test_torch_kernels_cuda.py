@@ -57,9 +57,11 @@ def _mlp_inputs(dev, dtype, rows=(3, 1000), c=128, h=1024, seed=9):
             rnd(c, h, scale=0.05), rnd(c), rnd(c))
 
 
-# The kernels tile 128 query rows (bf16 D_v = 128: two 64-row warpgroups)
-# and 64 keys (bf16 D_v = 128: 128, through a ring of two K and two V
-# buffers, so three and more key tiles reuse them). D_v = 128 at those
+# The kernels tile 128 query rows (bf16 D_v = 128 and every f32 form: two
+# 64-row warpgroups) and 64 keys (bf16 D_v = 128: 128, through a ring of
+# two K and two V buffers, so three and more key tiles reuse them; f32: 32
+# at D_v = 128 and 64 at D_v = 2 and in K3, through a ring of two stages,
+# F32_KEY_EDGES). D_v = 128 at those
 # edges, with the (4, L, L) mask (an L that is not a multiple of 4 takes the
 # unaligned mask paths) and with a per-batch bias (Bm = B); the 2-wide V of
 # the global flow attention at the same edges and at its path's L = 4096
@@ -273,6 +275,52 @@ def test_attention_two_launches_are_bitwise_equal(cuda, l, bias):
         a, b = K.attention(q, k, v, 0.088, m), K.attention(q, k, v, 0.088, m)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+# f32 key tiles' edges: one tile, the ring's two stages and its wrap (32-
+# and 64-key tiles)
+F32_KEY_EDGES = (31, 32, 33, 95, 96, 97, 191, 192, 193, 320)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", F32_KEY_EDGES)
+@pytest.mark.parametrize("form", ["dv128", "dv128+mask", "dv128+per_batch",
+                                  "dv2", "correlation"])
+def test_f32_forms_at_key_tile_edges(cuda, l, form):
+    """Every f32 form at and around its key tile (32 keys at D_v = 128, 64
+    at D_v = 2 and in K3) and the three-stage ring's wrap, on peaked keys:
+    the output and the lse a gradient records against the plain versions
+    (the mask with Bm = 4 < B = 8, a per-batch bias with Bm = B), and two
+    launches bitwise equal."""
+    g = torch.Generator(device=cuda).manual_seed(l)
+    b = 8
+    q = torch.randn(b, l, 128, generator=g, device=cuda)
+    k = _matched_keys(q, 0.8, g)
+    if form == "correlation":
+        grid = torch.randn(l, 2, generator=g, device=cuda) * 8.0
+        args = (q, k, grid)
+        fn, stats = (K.global_correlation_expectation,
+                     K._correlation_stats_launch)
+        plain = K.global_correlation_expectation_stats_plain
+    else:
+        dv = 2 if form == "dv2" else 128
+        v = torch.randn(b, l, dv, generator=g, device=cuda)
+        m = None
+        if form == "dv128+mask":
+            m = torch.where(torch.rand(4, l, l, generator=g, device=cuda)
+                            > 0.5, 0.0, -100.0)
+        elif form == "dv128+per_batch":
+            m = torch.randn(b, l, l, generator=g, device=cuda) * 3.0
+        args = (q, k, v, 0.088, m)
+        fn, stats = K.attention, K._attention_stats_launch
+        plain = K.attention_stats_plain
+    got, again = fn(*args), fn(*args)
+    out, lse = stats(*args)
+    torch.cuda.synchronize()
+    ref, ref_lse = plain(*args)
+    assert torch.equal(got, again) and torch.equal(got, out)
+    assert _rel_err(got, ref) <= RTOL[torch.float32]
+    assert _rel_err(lse, ref_lse) <= RTOL[torch.float32]
 
 
 @pytest.mark.cuda

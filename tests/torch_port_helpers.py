@@ -159,3 +159,34 @@ def power_iterations(w, u, n):
         u = u / max(np.linalg.norm(u), 1e-12)
         out.append(u)
     return out
+
+
+# The tensor cores' TF32 products as the port's 3xTF32 kernels do them
+# (csrc/sm90.cuh split_tf32, tf32_hi_bits): modelled in torch on the CPU by
+# mantissa masking, f32 sums in torch's order.
+def tf32_trunc(x):
+    """x (f32) with its low 13 mantissa bits cleared: what the tensor core
+    reads of an f32 operand."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x):
+    """(hi, lo) of the kernels' split: hi x rounded to TF32 by a carry into
+    bit 12 and the mask, lo = x - hi (exact in f32)."""
+    hi = ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, x - hi
+
+
+def mm_3xtf32(a, b):
+    """a @ b as 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, every operand as
+    the tensor core reads it, f32 sums."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    t = tf32_trunc
+    return (torch.matmul(t(al), t(bh)) + torch.matmul(t(ah), t(bl))
+            + torch.matmul(t(ah), t(bh)))
+
+
+def mm_1xtf32(a, b):
+    """a @ b as one TF32 product (the control the f32 gates must refuse)."""
+    return torch.matmul(tf32_trunc(a), tf32_trunc(b))

@@ -123,7 +123,7 @@ def main():
             row = {"name": name, "dtype": dname, "max_abs_err": err,
                    "tol": tol, "ms": cs.time_ms(torch, lambda: fn(*args), 20),
                    "library_ms": cs.time_ms(torch, lib, 20),
-                   "bound_ms": 1e3 * max(sum(f / p for f, p in flops),
+                   "bound_ms": 1e3 * max(cs.op_seconds(flops),
                                          nbytes / cs.HBM)}
             if dtype == torch.float32:
                 row["library_kernels"] = cs.kernel_names(torch, lib)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The design choices of K1's dense bf16 forward (csrc/attention.cu:
-flash_attention_bf16_kernel) and K2's bf16 forward (csrc/mlp.cu:
-mlp_fused_bf16_kernel), measured against their alternatives on one NVIDIA
+"""The design choices of K1's dense forwards (csrc/attention.cu:
+flash_attention_bf16_kernel, and at D_v = 128 flash_attention_f32_kernel)
+and K2's forwards (csrc/mlp.cu: mlp_fused_bf16_kernel,
+mlp_fused_f32_kernel), measured against their alternatives on one NVIDIA
 GPU.
 
     python3 tools/torch_forward_variants.py [--rounds 2] [--only a,b]
@@ -20,12 +21,17 @@ own kernels in a process of its own:
     memory (wgmma's SS form; the source holds it in registers);
   * gelu_5op: K2's tanh gelu in five FP32 operations and one tanh.approx
     (the source calls gelu_tanh_fast, which the backward's recompute
-    shares).
+    shares);
+  * f32_pv_mma_sync: K1 f32's P V as 3xTF32 on mma.sync m16n8k8, each
+    warp reading its B fragments from V^T's split tiles (the source issues
+    it on wgmma m64n128k8, from shared memory for the four warps, behind
+    the next tile's S).
 Each copy then times K1 unmasked and masked at one 20-frame chunk's shape
 (B = 152, L = 1024, the (4, L, L) shifted-window mask) and K2 at its
-155,648 rows (tanh gelu) on CUDA events, --rounds rounds with the copies
-in turns, and gives each output's max |kernel - plain| over chip_smoke.py's
-tolerance (bf16 1.6e-2 of the plain output's spread). One JSON line a row,
+155,648 rows (tanh gelu) on CUDA events, in bf16 and in f32 (K2's f32
+form with the erf gelu), --rounds rounds with the copies in turns, and
+gives each output's max |kernel - plain| over chip_smoke.py's tolerance
+(bf16 1.6e-2, f32 1e-4 of the plain output's spread). One JSON line a row,
 also into chiprun_out/forward_variants.jsonl; the card's name and power
 limit first.
 """
@@ -72,6 +78,78 @@ GELU = ("      v[e] = TANH ? gelu_tanh_fast(a[4 * n + e]) : gelu_erf(a[4 * n "
 GELU5 = ("      v[e] = TANH ? fmaf(0.5f * a[4 * n + e], tanh_approx(a[4 * n + e]"
          " * fmaf(0.0356774081f, a[4 * n + e] * a[4 * n + e], "
          "0.7978845608f)), 0.5f * a[4 * n + e]) : gelu_erf(a[4 * n + e]);")
+F32_KERNEL = ("template <int DV, bool BIAS>\n__global__ void "
+              "__launch_bounds__(kXThreads, 1)\n"
+              "    flash_attention_f32_kernel(")
+PV_SYNC = r"""// O (the warp's 16 x 128 of wgmma's accumulator, per 8 columns mma.sync
+// m16n8's layout) += P V on mma.sync m16n8k8 as 3xTF32, B read from V^T's
+// split tiles (row n, the tile's 32 key slots in 128 bytes, swizzled)
+__device__ __forceinline__ void xf_pv_sync(float (&o)[64],
+                                           const uint32_t (&pp)[4][4],
+                                           const uint32_t (&pl)[4][4],
+                                           const unsigned char* vh,
+                                           const unsigned char* vl, bool acc) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) {
+    const int n = 8 * nt + g;
+    float d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] = acc ? o[4 * nt + e] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t o0 = n * 128 + (((2 * j) ^ (n & 7)) << 4) + 4 * t;
+      const uint32_t o1 = n * 128 + (((2 * j + 1) ^ (n & 7)) << 4) + 4 * t;
+      const uint32_t h0 = *reinterpret_cast<const uint32_t*>(vh + o0);
+      const uint32_t h1 = *reinterpret_cast<const uint32_t*>(vh + o1);
+      const uint32_t l0 = *reinterpret_cast<const uint32_t*>(vl + o0);
+      const uint32_t l1 = *reinterpret_cast<const uint32_t*>(vl + o1);
+      sm90::mma_tf32(d, pl[j], h0, h1);
+      sm90::mma_tf32(d, pp[j], l0, l1);
+      sm90::mma_tf32(d, pp[j], h0, h1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[4 * nt + e] = d[e];
+  }
+}
+
+"""
+F32_PV_LOOP = """      if (it > 0) {
+        sm90::wg_fence();
+        const uint64_t dvh = sm90::desc_k(s0 + S::vhi(ps), kD, 0, 0);
+        const uint64_t dvl = sm90::desc_k(s0 + S::vlo(ps), kD, 0, 0);
+#pragma unroll
+        for (int ks = 0; ks < KEYS / 8; ++ks) {
+          const uint64_t dh = sm90::desc_k_at(dvh, kD, ks);
+          const uint64_t dl = sm90::desc_k_at(dvl, kD, ks);
+          sm90::WgTf32<128>::mma(o, pp[ks], dh, it > 1 || ks > 0);
+          sm90::WgTf32<128>::mma(o, pp[ks], dl, 1);
+          sm90::WgTf32<128>::mma(o, pl[ks], dh, 1);
+        }
+        sm90::wg_commit();
+        sm90::wg_wait<1>();  // S landed; P V still runs
+"""
+F32_PV_LOOP_SYNC = """      if (it > 0) {
+        sm90::wg_wait<0>();
+        xf_pv_sync(o, pp, pl, smem + S::vhi(ps), smem + S::vlo(ps), it > 1);
+"""
+F32_PV_LAST = """    sm90::wg_fence();
+    const uint64_t dvh = sm90::desc_k(s0 + S::vhi(vs), kD, 0, 0);
+    const uint64_t dvl = sm90::desc_k(s0 + S::vlo(vs), kD, 0, 0);
+#pragma unroll
+    for (int ks = 0; ks < KEYS / 8; ++ks) {
+      const uint64_t dh = sm90::desc_k_at(dvh, kD, ks);
+      const uint64_t dl = sm90::desc_k_at(dvl, kD, ks);
+      sm90::WgTf32<128>::mma(o, pp[ks], dh, n_tiles > 1 || ks > 0);
+      sm90::WgTf32<128>::mma(o, pp[ks], dl, 1);
+      sm90::WgTf32<128>::mma(o, pl[ks], dh, 1);
+    }
+    sm90::wg_commit();
+    sm90::wg_wait<0>();
+"""
+F32_PV_LAST_SYNC = """    xf_pv_sync(o, pp, pl, smem + S::vhi(vs), smem + S::vlo(vs),
+               n_tiles > 1);
+"""
 # name: [(file, text in the source, its replacement)]
 VARIANTS = {
     "two_stages": [("attention.cu", "static constexpr int stages = BIAS ? 2 : 3;",
@@ -99,6 +177,9 @@ VARIANTS = {
          "  sm90::wg_fence();\n#pragma unroll\n  for (int ks = 0; ks < 16; "
          "++ks)\n    sm90::WgSS<64")],
     "gelu_5op": [("mlp.cu", GELU, GELU5)],
+    "f32_pv_mma_sync": [("attention.cu", F32_KERNEL, PV_SYNC + F32_KERNEL),
+                        ("attention.cu", F32_PV_LOOP, F32_PV_LOOP_SYNC),
+                        ("attention.cu", F32_PV_LAST, F32_PV_LAST_SYNC)],
 }
 TIMING_ONLY = ("bias_once",)
 RUN = r'''
@@ -115,10 +196,10 @@ def tm(fn, it=30):
     a.record()
     for _ in range(it): fn()
     b.record(); torch.cuda.synchronize(); return a.elapsed_time(b) / it
-def off(got, ref):
+def off(got, ref, rtol):
     ref = ref.float()
     return ((got.float() - ref).abs().max()
-            / (1.6e-2 * (ref - ref.mean()).abs().max())).item()
+            / (rtol * (ref - ref.mean()).abs().max())).item()
 g = torch.Generator(device="cuda").manual_seed(0)
 bf = torch.bfloat16
 q, k, v = (torch.randn(152, 1024, 128, generator=g, device="cuda").to(bf) for _ in range(3))
@@ -129,14 +210,21 @@ x, y = (torch.randn(1, n, 128, generator=g, device="cuda").to(bf) for _ in range
 w1 = (torch.randn(1024, 256, generator=g, device="cuda") * .05).to(bf)
 w2 = (torch.randn(128, 1024, generator=g, device="cuda") * .05).to(bf)
 gm, bt = (torch.randn(128, generator=g, device="cuda").to(bf) for _ in range(2))
+f = torch.float32
+qf, kf, vf = (t.to(f) for t in (q, k, v))
+xf, yf, w1f, w2f, gmf, btf = (t.to(f) for t in (x, y, w1, w2, gm, bt))
 out = {}
 for name, fn, plain in (
         ("k1_ms", lambda: K.attention(q, k, v, s), lambda: K.attention_plain(q[:8], k[:8], v[:8], s)),
         ("k1_masked_ms", lambda: K.attention(q, k, v, s, m), lambda: K.attention_plain(q[:8], k[:8], v[:8], s, m)),
-        ("k2_ms", lambda: K.mlp_fused(x, y, w1, w2, gm, bt, True), lambda: K.mlp_fused_plain(x[:, :8192], y[:, :8192], w1, w2, gm, bt, True))):
+        ("k2_ms", lambda: K.mlp_fused(x, y, w1, w2, gm, bt, True), lambda: K.mlp_fused_plain(x[:, :8192], y[:, :8192], w1, w2, gm, bt, True)),
+        ("k1_f32_ms", lambda: K.attention(qf, kf, vf, s), lambda: K.attention_plain(qf[:8], kf[:8], vf[:8], s)),
+        ("k1_f32_masked_ms", lambda: K.attention(qf, kf, vf, s, m), lambda: K.attention_plain(qf[:8], kf[:8], vf[:8], s, m)),
+        ("k2_f32_ms", lambda: K.mlp_fused(xf, yf, w1f, w2f, gmf, btf, False), lambda: K.mlp_fused_plain(xf[:, :8192], yf[:, :8192], w1f, w2f, gmf, btf, False))):
     out[name] = tm(fn)
     got = fn()
-    out[name.replace("_ms", "_off_tol")] = off(got[:8] if name.startswith("k1") else got[:, :8192], plain())
+    rtol = 1e-4 if "f32" in name else 1.6e-2
+    out[name.replace("_ms", "_off_tol")] = off(got[:8] if name.startswith("k1") else got[:, :8192], plain(), rtol)
 print(json.dumps(out))
 '''
 
