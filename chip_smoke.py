@@ -4511,15 +4511,31 @@ def backward_work(torch, fn_name, args):
 
 
 # how each backward form computes its products (csrc/attention_bwd.cu for
-# K1 and K3, csrc/mlp.cu for K2), by wrapper and dtype
+# K1 and K3, csrc/mlp.cu for K2), by wrapper and dtype; K1's 2-wide form
+# and K3 as _ATTN_BWD_NARROW_PRECISION says (bwd_precision)
 _ATTN_BWD_PRECISION = {
-    "bfloat16": "bf16 mma.sync m16n8k16, f32 sums; dS as bf16 hi + lo",
-    "float32": "3xTF32 mma.sync m16n8k8 (hi x hi chains of 2 k steps in S, "
-               "4 in dP and in the 2-wide forms' S, 4 (32 rows) in dQ / dK "
-               "/ dV, each added in f32)"}
+    "bfloat16": "bf16 wgmma (two 64-row consumer warpgroups, a TMA "
+                "producer; S and dP m64n64k16 with both operands in shared "
+                "memory, the products over the 64-row streamed tiles "
+                "m64n128k16 with P~ and dS from registers), f32 sums; dS "
+                "as bf16 hi + lo",
+    "float32": "3xTF32 wgmma (16-row streamed tiles split on chip into hi "
+               "and lo, K^T / Q^T / dO^T as transposed tiles; S and dP "
+               "m64n16k8 with hi x hi chains of 4 k steps, each tile's dQ "
+               "/ dK / dV m64n128k8 from zero, each added in f32; dK / dV "
+               "blocks of 64 keys, P^T and dP^T swapped between the "
+               "warpgroups)"}
+_ATTN_BWD_NARROW_PRECISION = {
+    "bfloat16": "bf16 wgmma (S m64n64k16 with both operands in shared "
+                "memory, dQ / dK m64n128k16 with dS as bf16 hi + lo from "
+                "registers), f32 sums; the 2-wide products in FMAs",
+    "float32": "3xTF32 wgmma (16-row streamed tiles split and transposed on "
+               "chip; S m64n16k8 with hi x hi chains of 4 k steps, each "
+               "tile's dQ / dK m64n128k8 from zero, each added in f32); the "
+               "2-wide products in FMAs"}
 BWD_PRECISION = {
     "attention": _ATTN_BWD_PRECISION,
-    "global_correlation_expectation": _ATTN_BWD_PRECISION,
+    "global_correlation_expectation": _ATTN_BWD_NARROW_PRECISION,
     "mlp_fused": {
         "bfloat16": "bf16 wgmma (64-row warpgroup tiles, operands in shared "
                     "memory; da from registers in d[src | msg]), f32 sums; "
@@ -4530,6 +4546,14 @@ BWD_PRECISION = {
                    "a, 4 in dh, 2 in d[src | msg], 4 (32 rows) in dW1 / "
                    "dW2, each added in f32); da and h (rows, H) f32 handed "
                    "from the row blocks to the weight blocks"}}
+
+
+def bwd_precision(fn_name, dname, args):
+    """BWD_PRECISION's text of the backward form that `args` reach: K1 at
+    D_v = 2 runs the narrow kernel."""
+    if fn_name == "attention" and args[2].shape[-1] != args[0].shape[-1]:
+        return _ATTN_BWD_NARROW_PRECISION[dname]
+    return BWD_PRECISION[fn_name][dname]
 
 
 def mlp_reference_call(torch, args, up):
@@ -4659,7 +4683,7 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
            "SDPA forward + backward", "sdpa_backward_ms": lib_bwd,
            "reference_ms": ref_ms, "reference": None if ref_ms is None else
            "autograd backward of mlp_fused_plain (unfused, TF32 off)",
-           "precision": BWD_PRECISION[fn_name][dname],
+           "precision": bwd_precision(fn_name, dname, args),
            "bound_ms": 1e3 * max(op_s, byte_s),
            "bound_by": "operations" if op_s >= byte_s else "bytes",
            "differentiates": JAX_GRAD_OF[fn_name]}

@@ -724,8 +724,8 @@ template <int DV, bool BIAS>
 struct XfSmem {
   static constexpr bool wide = DV == kD;
   static constexpr int keys = wide ? 32 : 64;  // keys a tile
-  // S's q' Khi chains: groups of 2 k steps (attention_bwd.cu's kSChain,
-  // kSChainNarrow)
+  // S's q' Khi chains: groups of 2 k steps (4 k steps at D_v = 2), each
+  // added in f32
   static constexpr int chain = wide ? 1 : 2;
   static constexpr uint32_t kt = keys * kD * 4;    // a K hi or lo tile
   static constexpr uint32_t vt = wide ? kt : 0;    // a V^T hi or lo tile

@@ -76,13 +76,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 
 // d (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -345,14 +338,29 @@ struct WgSS;
 template <>
 struct WgSS<32, 0, 0> {
   static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, "
         "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, "
         "%17, p, 1, 1, 0, 0;\n}\n"
         : KEEP_F8(0), KEEP_F8(8)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgSS<64, 0, 0> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24)
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
@@ -511,6 +519,21 @@ struct WgRS<256, 1> {
 // group is waited for.
 template <int N>
 struct WgTf32;
+
+template <>
+struct WgTf32<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : KEEP_F8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
 
 template <>
 struct WgTf32<32> {

@@ -19,9 +19,11 @@ and `mlp_fused` go through their autograd Functions (`AttentionFn`,
 the backward needs (K1 and K3: each query row's log2-sum-exp2, (B, L) f32;
 K2: the LayerNorm's input, (rows, C) f32), and in the backward the
 hand-written backward kernels
-(csrc/attention_bwd.cu: two kernels a call, Delta then dQ and dK / dV in
-one grid on the tensor cores, bf16 mma.sync and f32 by 3xTF32, no (L, L)
-tensor in memory and no atomics; csrc/mlp.cu: the LayerNorm's backward,
+(csrc/attention_bwd.cu: two kernels a call, Delta then dQ and dK / dV
+blocks in one grid, warp-specialized on wgmma with TMA, bf16 and f32 by
+3xTF32 with the streamed tiles split and transposed on chip, the 2-wide
+products in FMAs; no (L, L) tensor in memory and no atomics; csrc/mlp.cu:
+the LayerNorm's backward,
 then row blocks for d[src | msg] and weight blocks for dW1 and dW2 on the
 tensor cores, bf16 on wgmma and f32 by 3xTF32 on mma.sync, then a
 fixed-order reduce: three kernels a call in bf16, whose weight blocks
@@ -270,9 +272,9 @@ def attention(q, k, v, scale: float, bias: Optional[torch.Tensor] = None):
     """q, k: (B, L, D); v: (B, L, Dv); bias: (Bm, L, L) f32 with Bm dividing
     B, or None. Returns (B, L, Dv) in v's dtype. On CUDA: D = 128 and Dv in
     {128, 2}, f32 or bf16, B at most 65,535, q, k and v 16-byte aligned
-    (the bf16 Dv = 128 kernel reads them by TMA); a call that records a
-    gradient saves the row statistics and its backward is the backward
-    kernels'."""
+    (the kernels read them by TMA, and at Dv = 128 the backward dO too); a
+    call that records a gradient saves the row statistics and its backward
+    is the backward kernels'."""
     if not q.is_cuda:
         return attention_plain(q, k, v, scale, bias)
     if _records_grad(q, k, v):

@@ -239,7 +239,9 @@ def test_mlp_backward_plain_vs_jax_vjp_unfused_branch():
 # dQ = scale dS K and dK = scale dS^T Q as a bf16 hi part plus a bf16 lo
 # part; f32 inputs by 3xTF32, each operand x = hi + lo (hi x rounded to 11
 # significant bits, lo = x - hi) and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi
-# with every operand's low 13 mantissa bits dropped by the tensor core.
+# with every operand's low 13 mantissa bits dropped by the tensor core. The
+# f32 kernel streams 16-row tiles (ATTN_F32_TILE): dQ, dK and (D_v = 128)
+# dV are each tile's product from zero, the tiles added in f32 in order.
 # csrc/mlp.cu's backward (K2) does the same with its products: in bf16 a =
 # [src | msg] W1^T and dW2 = dO'^T h (h the bf16 hidden) exact, dO' (f32)
 # as hi + lo in dh = dO' W2 and dW2, da (f32) rounded to bf16 once in
@@ -253,10 +255,11 @@ def test_mlp_backward_plain_vs_jax_vjp_unfused_branch():
 # Two controls show that the gate tells the schemes apart: a single TF32
 # product, and the f32 form's operands rounded to bf16, each stand far past
 # the limit; for K2 in bf16 a third, dO' rounded once too, breaks it at a
-# single row. The model does not see the order of the card's sums or the
-# tensor core's truncating adds (the kernels cut those chains short:
-# bw_nt, bw_nn_f32, mm_nt, mm_nn): the card decides, in chip_smoke.py's
-# phase flow_kernel and tests/test_torch_kernels_cuda.py.
+# single row. The model does not see the order of the card's sums within
+# a tile or the tensor core's truncating adds (the kernels cut those chains
+# short: bwf_scores and the per-tile `part` of bwf_consume, mm_nt, mm_nn):
+# the card decides, in chip_smoke.py's phase flow_kernel
+# and tests/test_torch_kernels_cuda.py.
 
 BWD_RATIO = 3.0
 BWD_FLOOR = {torch.float32: 2e-6, torch.bfloat16: 1e-6}
@@ -264,6 +267,21 @@ EMU_FORMS = ("window", "window+mask", "global", "correlation", "mlp_erf",
              "mlp_tanh")
 # K2's weight products: rows a tile of the weight blocks, by dtype
 MLP_TILE = {torch.float32: 32, torch.bfloat16: 64}
+# K1 / K3's f32 backward: streamed rows a tile (csrc/attention_bwd.cu
+# kFRows), each tile's dQ / dK / dV product added to the gradient in f32
+ATTN_F32_TILE = 16
+
+
+def _tiled(mm, a, b, tile):
+    """a @ b through mm, summed over the inner dimension in tiles of `tile`
+    (all of it when None), the tiles' products added in f32 in order."""
+    n = a.shape[-1]
+    if tile is None or tile >= n:
+        return mm(a, b)
+    out = mm(a[..., :tile], b[..., :tile, :])
+    for i in range(tile, n, tile):
+        out = out + mm(a[..., i:i + tile], b[..., i:i + tile, :])
+    return out
 
 
 def _mm_bf16_operands(a, b):
@@ -321,12 +339,14 @@ def _emulated_mlp_backward(args, stats, dout, mm_x, mm_do, mm_da, tile):
             (dy * oh).sum(0).to(dt), dy.sum(0).to(dt))
 
 
-def _emulated_backward(form, args, stats, dout, mm_in, mm_ds, round_p):
+def _emulated_backward(form, args, stats, dout, mm_in, mm_ds, round_p,
+                       tile=None):
     """attention_backward_plain's (or the correlation's) formula with the
     products that carry 128-wide rows through mm_in (Q K^T, dO V^T, P^T dO)
-    and mm_ds (dS K, dS^T Q); the 2-wide products (dO V^T and P^T dO at
-    D_v = 2, the grid) in f32, as the kernels do them in FMAs. f32 tensors
-    in, gradients in the inputs' dtype."""
+    and mm_ds (dS K, dS^T Q), those over keys or queries (dS K, dS^T Q, P^T
+    dO) summed in tiles of `tile` rows (_tiled); the 2-wide products (dO
+    V^T and P^T dO at D_v = 2, the grid) in f32, as the kernels do them in
+    FMAs. f32 tensors in, gradients in the inputs' dtype."""
     out, lse = stats
     f = [x.float() if torch.is_tensor(x) else x for x in args]
     if form == "correlation":
@@ -344,13 +364,13 @@ def _emulated_backward(form, args, stats, dout, mm_in, mm_ds, round_p):
     delta = (do * out.float()).sum(-1, keepdim=True)
     dp = mm_in(do, vt) if wide else torch.matmul(do, vt)
     ds = p * (dp - delta)
-    dq = mm_ds(ds, k) * scale
-    dk = mm_ds(ds.transpose(-1, -2), q) * scale
+    dq = _tiled(mm_ds, ds, k, tile) * scale
+    dk = _tiled(mm_ds, ds.transpose(-1, -2), q, tile) * scale
     dt = args[0].dtype
     if form == "correlation":
         return dq.to(dt), dk.to(dt)
     pv = p.to(torch.bfloat16).float() if round_p else p
-    dv = (mm_in(pv.transpose(-1, -2), do) if wide
+    dv = (_tiled(mm_in, pv.transpose(-1, -2), do, tile) if wide
           else torch.matmul(pv.transpose(-1, -2), do))
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
@@ -432,14 +452,16 @@ def _emu_mlp_case(form, dtype, rng, rows, h):
 
 
 def _emulated(form, args, stats, up, mm_in, mm_ds, mm_da=None, tile=64,
-              round_p=False):
-    """_emulated_backward, or for K2 _emulated_mlp_backward with a through
+              round_p=False, attn_tile=None):
+    """_emulated_backward (its products over keys or queries in tiles of
+    attn_tile rows), or for K2 _emulated_mlp_backward with a through
     mm_in, dO''s products through mm_ds and da's through mm_da (mm_ds when
     None)."""
     if form.startswith("mlp"):
         return _emulated_mlp_backward(args, stats, up, mm_in, mm_ds,
                                       mm_da or mm_ds, tile)
-    return _emulated_backward(form, args, stats, up, mm_in, mm_ds, round_p)
+    return _emulated_backward(form, args, stats, up, mm_in, mm_ds, round_p,
+                              attn_tile)
 
 
 def _offs(grads, ref):
@@ -449,8 +471,9 @@ def _offs(grads, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", EMU_FORMS)
 def test_kernel_rounding_model_holds_the_gate(form, dtype):
-    """The kernels' scheme (3xTF32 in f32; in bf16 exact bf16 products,
-    dS and K2's dO' as hi + lo, K2's da rounded once), modelled on the CPU,
+    """The kernels' scheme (3xTF32 in f32, K1 / K3's products over keys or
+    queries in 16-row tiles added in f32; in bf16 exact bf16 products, dS
+    and K2's dO' as hi + lo, K2's da rounded once), modelled on the CPU,
     stands within BWD_RATIO of the plain backward's distance to float64 on
     every gradient."""
     args, stats, up, ref, want = _emu_case(form, dtype,
@@ -460,7 +483,9 @@ def test_kernel_rounding_model_holds_the_gate(form, dtype):
     else:
         mm_in, mm_ds, mm_da = torch.matmul, _mm_ds_bf16_split, _mm_bf16_a
     got = _emulated(form, args, stats, up, mm_in, mm_ds, mm_da,
-                    MLP_TILE[dtype], round_p=dtype == torch.bfloat16)
+                    MLP_TILE[dtype], round_p=dtype == torch.bfloat16,
+                    attn_tile=ATTN_F32_TILE if dtype == torch.float32
+                    else None)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == dtype and g.shape == w.shape
     for k_off, p_off in zip(_offs(got, ref), _offs(want, ref)):
@@ -476,7 +501,8 @@ def test_kernel_rounding_model_controls_break_the_gate(form, control):
     args, stats, up, ref, want = _emu_case(form, torch.float32,
                                            EMU_FORMS.index(form))
     mm = _mm_1xtf32 if control == "1xTF32" else _mm_bf16_operands
-    got = _emulated(form, args, stats, up, mm, mm, tile=32)
+    got = _emulated(form, args, stats, up, mm, mm, tile=32,
+                    attn_tile=ATTN_F32_TILE)
     limits = [max(BWD_RATIO * p, BWD_FLOOR[torch.float32])
               for p in _offs(want, ref)]
     assert any(k > lim for k, lim in zip(_offs(got, ref), limits))

@@ -794,10 +794,14 @@ PLAIN_NAMES = ("attention_plain", "attention_stats_plain",
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", ["window", "window+bias", "global", "corr",
                                   "mlp"])
-# the backward kernels tile 128 own rows and 32 or 64 streamed ones: L at
-# a multiple of 128, two ragged L (the mask's too), and the GMFlow step's
-# window L = 768 at B = 2
-@pytest.mark.parametrize("b,l", [(4, 256), (4, 200), (4, 1000), (2, 768)])
+# the backward kernels tile 128 own rows (64 on the f32 D_v = 128 dK / dV
+# side), 64 a warpgroup, and 16 (f32) or 64 (bf16) streamed ones: L at a
+# multiple of 128, ragged L (the mask's too), the warpgroups' edges 64 k
+# +- 1 (129 and 193 leave a last streamed tile one row wide at both tile
+# sizes), and the GMFlow step's window L = 768 at B = 2; at B = 4 the mask
+# has Bm = 2 < B
+@pytest.mark.parametrize("b,l", [(4, 256), (4, 200), (4, 1000), (2, 768),
+                                 (4, 127), (4, 129), (4, 193)])
 def test_kernel_gradients_on_the_card_equal_the_plain_versions(
         cuda, monkeypatch, b, l, form, dtype):
     """On a CUDA tensor that requires grad, each of K1-K3 launches its

@@ -1,26 +1,40 @@
 #!/usr/bin/env python3
-"""The design choices of K1 / K3's f32 backward (csrc/attention_bwd.cu,
-3xTF32 on the tensor cores), measured against their alternatives on one
-NVIDIA GPU.
+"""The design choices of K1 / K3's backward (csrc/attention_bwd.cu),
+measured against their alternatives on one NVIDIA GPU.
 
-    python3 tools/torch_attention_bwd_variants.py [--rounds 2]
+    python3 tools/torch_attention_bwd_variants.py [--rounds 2] [--only a,b]
 
 Builds the port's kernels, then each variant of attention_bwd.cu from a
 patched copy of csrc/ under build/bwd_variants/<name>/ (one nvcc per
-variant, all at once):
-  * chains_1: every hi x hi chain of S = Q K^T and dP = dO V^T one k step
-    (8 terms) long before its f32 add (the source: 2, 4, 4 for the 2-wide
-    forms' S);
-  * chains_16: the hi x hi chains over the whole 128-deep row, each sum
-    carried through every mma of the product;
-  * split_cvt: the TF32 split's hi by cvt.rna.tf32.f32;
-  * split_trunc: hi by the truncating mask alone;
-  * split_fp: hi by Veltkamp's split on the FP32 pipe.
-Each variant's f32 backward, and the source's f32 and bf16 ones, then runs
-on the GMFlow training step's shapes (chip_smoke.flow_step_cases: windows
-of 768 tokens ± the shifted mask, B = 64; the global flow attention and
-the correlation, B = 8, L = 3072) and on small ragged shapes with a random
-0 / -100 mask (as tests/test_torch_kernels_cuda.py's): each gradient's
+variant, all at once). Every form runs on wgmma (`attn_bwd_kernel`):
+  * fchain_2, fchain_16: the f32 wgmma kernel's hi x hi chains of S = Q
+    K^T and dP = dO V^T (bwf_scores, the source: kFChain = 4 k steps of 8
+    terms) 2 or 16 k steps (the whole 128-deep row) long before each f32
+    add;
+  * fsets_2: two sets of A fragment registers in bwf_scores, one k step
+    in flight while the next one's fragments load (the source: three
+    sets, two k steps in flight);
+  * split_cvt, split_trunc, split_fp: the TF32 split's hi (split_tf32:
+    the f32 producer's split of the streamed tiles) by cvt.rna.tf32.f32,
+    by the truncating mask alone, or by Veltkamp's split on the FP32 pipe;
+  * bf16_stages2: the bf16 wgmma kernel without a mask in two stages of
+    its streamed tiles (the source: three);
+  * bf16_regs_240: the bf16 warpgroups' registers at 24 / 240 (producer /
+    consumers; the source: 40 / 232);
+  * f32_consumers_alone: a diagnostic, times only (its gradients are
+    wrong): the f32 producer loads and splits the first two tiles and then
+    hands their stages out again, so the consumers run without waiting
+    for TMA or the split;
+  * f32_dq_alone, f32_dkdv_alone, bf16_dq_alone, bf16_dkdv_alone:
+    diagnostics, times only: the kernel's blocks of the other side return
+    at once.
+The variants that patched the earlier mma.sync kernel went with that code.
+Each variant's backward (f32, and bf16 where it changes bf16), and the
+source's in both dtypes, then runs on the
+GMFlow training step's shapes (chip_smoke.flow_step_cases: windows of 768
+tokens +- the shifted mask, B = 64; the global flow attention and the
+correlation, B = 8, L = 3072) and on small ragged shapes with a random 0 /
+-100 mask (as tests/test_torch_kernels_cuda.py's): each gradient's
 distance to the float64 autograd of the plain version over the plain
 backward's own distance (chip_smoke.BWD_RATIO = 3 is the gate), two calls
 bitwise equal, and ms a call on CUDA events (--rounds rounds, variants in
@@ -39,24 +53,64 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CSRC = os.path.join(ROOT, "comfyui_keep_torch", "csrc")
-CHAINS = "constexpr int kSChain = 2, kDpChain = 4, kSChainNarrow = 4;"
+FCHAIN = "constexpr int kFChain = 4, kFSets = 3;"
 SPLIT = "  hi = (x + 0x1000u) & 0xffffe000u;\n"
-# name: [(file, text in the source, its replacement)]
+STAGES = "  static constexpr int stages = F::BIAS ? 2 : 3;\n"
+PRODUCER_TOP = "    unsigned char* st = smem + S::st0 + s * S::stage;\n"
+TMA_NEXT = "      if (p == 0) issue(j + 1);\n"
+F32_BLOCK = "    using S = BwF<F, false>;\n"
+BF16_BLOCK = "    using S = BwW<F>;\n"
+BF16_PRODUCER = ("    if (tid >= 256) {\n      sm90::setmaxnreg_dec<40>();\n"
+                 "      if (kv)\n        bw_produce<")
+BF16_CONSUMER = "    sm90::setmaxnreg_inc<232>();\n    if (kv)\n      bw_consume<"
+# name: ([(file, text in the source, its replacement)], dtypes it changes)
 VARIANTS = {
-    "chains_1": [("attention_bwd.cu", CHAINS, CHAINS.replace("2, kDpChain = 4",
-                                                             "1, kDpChain = 1")
-                  .replace("Narrow = 4", "Narrow = 1"))],
-    "chains_16": [("attention_bwd.cu", CHAINS,
-                   "constexpr int kSChain = 16, kDpChain = 16, "
-                   "kSChainNarrow = 16;")],
-    "split_cvt": [("sm90.cuh", SPLIT, '  asm("cvt.rna.tf32.f32 %0, %1;\\n" '
-                   ': "=r"(hi) : "f"(__uint_as_float(x)));\n')],
-    "split_trunc": [("sm90.cuh", SPLIT, "  hi = x & 0xffffe000u;\n")],
-    "split_fp": [("sm90.cuh", SPLIT,
-                  "  {\n    const float xf = __uint_as_float(x);\n"
-                  "    const float g = __fmul_rn(xf, 8193.f);\n"
-                  "    hi = __float_as_uint(__fadd_rn(g, __fsub_rn(xf, g)));"
-                  "\n  }\n")],
+    "fchain_2": ([("attention_bwd.cu", FCHAIN,
+                   FCHAIN.replace("kFChain = 4", "kFChain = 2"))],
+                 ("float32",)),
+    "fchain_16": ([("attention_bwd.cu", FCHAIN,
+                    FCHAIN.replace("kFChain = 4", "kFChain = 16"))],
+                  ("float32",)),
+    "fsets_2": ([("attention_bwd.cu", FCHAIN,
+                  FCHAIN.replace("kFSets = 3", "kFSets = 2"))],
+                ("float32",)),
+    "split_cvt": ([("sm90.cuh", SPLIT, '  asm("cvt.rna.tf32.f32 %0, %1;\\n" '
+                    ': "=r"(hi) : "f"(__uint_as_float(x)));\n')],
+                  ("float32",)),
+    "split_trunc": ([("sm90.cuh", SPLIT, "  hi = x & 0xffffe000u;\n")],
+                    ("float32",)),
+    "split_fp": ([("sm90.cuh", SPLIT,
+                   "  {\n    const float xf = __uint_as_float(x);\n"
+                   "    const float g = __fmul_rn(xf, 8193.f);\n"
+                   "    hi = __float_as_uint(__fadd_rn(g, __fsub_rn(xf, g)));"
+                   "\n  }\n")], ("float32",)),
+    "bf16_stages2": ([("attention_bwd.cu", STAGES,
+                       STAGES.replace("3", "2"))], ("bfloat16",)),
+    "f32_consumers_alone": ([
+        ("attention_bwd.cu", PRODUCER_TOP, PRODUCER_TOP +
+         "    if (j >= NS) {\n"
+         "      sm90::mbar_wait(bar(S::empty + s), (j / NS - 1) & 1);\n"
+         "      sm90::mbar_arrive(bar(S::full + s));\n"
+         "      continue;\n    }\n"),
+        ("attention_bwd.cu", TMA_NEXT,
+         TMA_NEXT.replace("p == 0", "p == 0 && j + 1 < NS"))],
+        ("float32",)),
+    "f32_dq_alone": ([("attention_bwd.cu", F32_BLOCK,
+                       "    if (kv) return;\n" + F32_BLOCK)], ("float32",)),
+    "f32_dkdv_alone": ([("attention_bwd.cu", F32_BLOCK,
+                         "    if (!kv) return;\n" + F32_BLOCK)],
+                       ("float32",)),
+    "bf16_dq_alone": ([("attention_bwd.cu", BF16_BLOCK,
+                        "    if (kv) return;\n" + BF16_BLOCK)],
+                      ("bfloat16",)),
+    "bf16_dkdv_alone": ([("attention_bwd.cu", BF16_BLOCK,
+                          "    if (!kv) return;\n" + BF16_BLOCK)],
+                        ("bfloat16",)),
+    "bf16_regs_240": ([("attention_bwd.cu", BF16_PRODUCER,
+                        BF16_PRODUCER.replace("<40>", "<24>")),
+                       ("attention_bwd.cu", BF16_CONSUMER,
+                        BF16_CONSUMER.replace("<232>", "<240>"))],
+                      ("bfloat16",)),
 }
 # (B, L, form) of the ragged rows
 RAGGED = [(4, 200, "window+bias"), (2, 129, "window+bias"),
@@ -65,10 +119,11 @@ RAGGED = [(4, 200, "window+bias"), (2, 129, "window+bias"),
           (2, 129, "global"), (2, 129, "corr")]
 
 
-def build_variants(_build):
-    """{name: (Popen, library path)}: each variant's nvcc, started."""
+def build_variants(_build, names):
+    """{name: (Popen, library path)}: each named variant's nvcc, started."""
     procs = {}
-    for name, patches in VARIANTS.items():
+    for name in names:
+        patches = VARIANTS[name][0]
         d = os.path.join(ROOT, "build", "bwd_variants", name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(CSRC, d)
@@ -144,7 +199,13 @@ def off(x, r):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--only", default=",".join(VARIANTS),
+                    help="the variants to build and run, comma-separated")
     opts = ap.parse_args()
+    names = [n for n in opts.only.split(",") if n]
+    unknown = set(names) - set(VARIANTS)
+    if unknown:
+        ap.error(f"unknown variants {sorted(unknown)}")
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script measures kernels on a GPU")
@@ -165,7 +226,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()})
-    procs = build_variants(_build)
+    procs = build_variants(_build, names)
     libs = {"source": _build.library("attention_bwd")}
     for name, (proc, path) in procs.items():
         log, _ = proc.communicate()
@@ -198,7 +259,7 @@ def main():
                     cases += [(False, c) for c in ragged]
                 for timed, case in cases:
                     name, dname, fn_name, args, saved, up, ref, p_off = case
-                    if dname == "bfloat16" and vname != "source":
+                    if vname != "source" and dname not in VARIANTS[vname][1]:
                         continue
                     bwd = K.LAUNCHERS[fn_name][1]
                     got = bwd(*args, *saved, up)

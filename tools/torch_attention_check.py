@@ -2,7 +2,7 @@
 """K1 (attention) and K3 (global correlation expectation) of the PyTorch
 port on one NVIDIA GPU: a short check for a changed attention kernel.
 
-    python3 tools/torch_attention_check.py
+    python3 tools/torch_attention_check.py [--root DIR] [--backward-only]
 
 Builds the kernels (`comfyui_keep_torch/ops/_build.py`) and prints the
 ptxas registers and spills of every attention kernel. It then holds every
@@ -10,16 +10,22 @@ K1/K3 form against its plain version, in f32 and bf16, at the kernels'
 tile edges (L from 16 to 4096) with random keys and with keys near the
 queries (`chip_smoke.matched_keys`: a peaked softmax). The tolerances are
 chip_smoke.py's: f32 1e-4 and bf16 1.6e-2 of max(1, max|plain|), and 1e-4
-for K3 in both dtypes. Last, it times each form at the shapes of one
+for K3 in both dtypes. Then it times each form at the shapes of one
 20-frame chunk, as phase `kernel` of chip_smoke.py does, beside SDPA
 (a yardstick the port never calls) and the bound, and names the device
-kernels of each f32 SDPA call. Then the backward kernels of K1 and K3 at
+kernels of each f32 SDPA call. Last, the backward kernels of K1 and K3 at
 the GMFlow training step's shapes, f32 and bf16, through
 chip_smoke.backward_row: off float64 against the plain backward's own
-distance, bitwise repeat, ms beside the plain backward's and SDPA's
-forward + backward (TF32 off) and the bound. Prints the card's name and
-power limit first; exits 1 if any form disagrees.
+distance, bitwise repeat, peak bytes, ms beside the plain backward's and
+SDPA's forward + backward and backward alone (TF32 off) and the bound.
+--backward-only skips the forward rows. --root checks and times another
+checkout's comfyui_keep_torch (e.g. a parent commit unpacked by git
+archive under build/) with this checkout's chip_smoke.py as the harness,
+so two commits' backward kernels compare in one call to the card. Prints
+the card's name and power limit first; exits 1 if any form disagrees.
 """
+import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -82,16 +88,32 @@ def edge_cases(torch, K, cs):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose port is checked and timed")
+    ap.add_argument("--backward-only", action="store_true",
+                    help="only the backward kernels' rows")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script checks the kernels on a GPU")
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import comfyui_keep_torch
     from comfyui_keep_torch.ops import _build, kernels as K
+    if not comfyui_keep_torch.__file__.startswith(root):
+        raise RuntimeError(f"comfyui_keep_torch came from "
+                           f"{comfyui_keep_torch.__file__}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip(), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(json.dumps({"root": root, "card": card}), flush=True)
     _build.build_all()
     for src in ("attention", "attention_bwd"):
         log = _build.build_log.get(src, "").splitlines()
@@ -103,12 +125,14 @@ def main():
                 print(json.dumps({"kernel": name, "ptxas": stats}))
 
     bad = []
-    for what, err, tol in edge_cases(torch, K, cs):
+    for what, err, tol in ([] if args.backward_only
+                           else edge_cases(torch, K, cs)):
         print(f"{what}: {err:.3g} (tol {tol:g})", flush=True)
         if not err <= tol:
             bad.append(what)
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (() if args.backward_only
+                  else (torch.bfloat16, torch.float32)):
         dname = str(dtype).split(".")[-1]
         for name, fn_name, args, lib, flops, nbytes, rtol, *_ in \
                 cs.kernel_cases(torch, dtype):
@@ -139,7 +163,7 @@ def main():
             row = {"name": name.replace(fn_name, f"{fn_name}_bwd", 1),
                    "dtype": str(dtype).split(".")[-1],
                    **cs.backward_row(torch, fn_name, a)}
-            print(json.dumps(row), flush=True)
+            print(json.dumps({"card": card, **row}), flush=True)
             if not row["ok"]:
                 bad.append(f"{row['name']} {row['dtype']}")
     print(json.dumps({"ok": not bad, "disagree": bad}))
