@@ -842,6 +842,15 @@ def phase_kernels(torch, iters=KERNEL_ITERS):
     return rows
 
 
+def k6_plan(K, b, hi, cin, cout, kh, kw, pads, dtype):
+    """K6's route, tile (BM x BN) and ring stages at a square input
+    (ops/kernels.py:packed_conv_plan)."""
+    (pt, pb), (pl, pr) = pads
+    p = K.packed_conv_plan(b, hi, hi, cin, cout, kh, kw, ((pt, pb), (pl, pr)),
+                           dtype)
+    return {"route": p.route, "tile": [p.bm, p.bn], "stages": p.stages}
+
+
 def phase_k6(torch, iters=KERNEL_ITERS):
     """K6 at every shape of the packed path, bf16 and f32: max|d| against
     its plain version within KERNEL_RTOL x the plain output's spread; kernel,
@@ -896,7 +905,9 @@ def phase_k6(torch, iters=KERNEL_ITERS):
                 x.element_size() / HBM
             row = {"name": "packed_conv2x2", "case": label, "dtype": dname,
                    "x": [b, hi, hi, cin], "w": [2, 2, cin, cout],
-                   "pads": pads, "max_abs_err": err, "tol": tol,
+                   "pads": pads, "plan": k6_plan(K, b, hi, cin, cout, 2, 2,
+                                                 pads, dtype),
+                   "max_abs_err": err, "tol": tol,
                    "ref_spread": spread, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "unpacked_3x3_ms": unpacked_ms,
                    "unpacked_3x3": [kind, b, uci, uco],
@@ -1074,12 +1085,13 @@ def phase_main(torch, k6_own):
         k6_over_cudnn=k6_over_cudnn, k6_limit=1.5,
         packing_condition_holds=holds, processor_default_phase512=default)
 
-    outs, counts = {}, {}
+    outs, counts, k6_shapes = {}, {}, {}
     for name, proc in procs.items():
         K.reset_launch_counts()
         outs[name] = proc.restore_face_stream(faces, max_clip_length=FRAMES)
         torch.cuda.synchronize()
         counts[name] = dict(K.LAUNCHES)
+        k6_shapes[name] = dict(K.PACKED_CONV_SHAPES)
     proc = procs["packed"]
     shapes_ok = (len(outs["packed"]) == FRAMES + 1 and all(
         o.dtype == np.uint8 and o.shape == (512, 512, 3)
@@ -1095,6 +1107,7 @@ def phase_main(torch, k6_own):
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         faces_per_s=FRAMES / (chunk_ms["packed"] / 1e3),
         launches=counts["packed"], expected_launches=want,
+        k6_launches_by_shape=k6_shapes["packed"],
         outputs_uint8_512=shapes_ok, finite=finite, ok=ok)
     if not ok:
         fail(f"main path: launches {counts['packed']} (want {want}), shapes "
@@ -1252,6 +1265,7 @@ def k6_row(torch, g, dtype, label, b, hi, cin, cout, kh, kw, pads, iters):
     byte_s = (x.numel() + w.numel() + got.numel()) * x.element_size() / HBM
     row = {"name": "packed_conv2x2", "case": label, "dtype": dname,
            "x": [b, hi, hi, cin], "w": [kh, kw, cin, cout], "pads": pads,
+           "plan": k6_plan(K, b, hi, cin, cout, kh, kw, pads, dtype),
            "shape_key": K.packed_conv_shape(hi, hi, cin, kh, kw, cout, pads),
            "max_abs_err": err, "tol": tol, "ref_spread": spread, "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms,

@@ -29,31 +29,48 @@
 // of the input, so the input is re-read from L2 once per tap (4x), and each
 // block reads the whole weight slab (512 KB) from L2.
 //
-// bf16 (the packed path's dtype): packed_conv_wgmma_kernel, an implicit
-// GEMM with M = output pixels, N = Cout, K = taps x Cin. A block of 2
-// warpgroups owns 128 pixels x BN channels (BN 256 when Cout > 64, so at
-// the hot shapes each input patch is read once per tap; BN 64 for the
-// narrow outputs) and walks K in steps of 64 input channels of one tap
-// (128 bytes of bf16, one 128-byte swizzle row), channel block by channel
-// block, the taps of a block in turn: a tap's patch is its neighbour's
-// shifted by a pixel, so those copies go through L1 (cp.async.ca). Each
-// step's 128 x 64 input patch and 64 x BN weight slice go through a
-// 4-stage shared-memory ring filled by 16-byte cp.async with zero-fill
-// (8-byte when Cin or Cout is not a multiple of 8), which serves the pad
-// cells, the pixels past the end and the channels past Cin; three steps
-// load ahead of the tensor cores. Each warpgroup multiplies its 64 pixels
-// by the slice with wgmma m64nBNk16 (A K-major, B N-major as the HWIO
-// weight lies, both 128-byte swizzled, accumulators in registers), then
-// waits for its previous step only, so one step multiplies while the next
-// loads. The epilogue adds the bias in f32, rounds once to bf16 into
-// shared memory and writes 16-byte coalesced rows, zeroing a masked
-// pixel's pad half-cells on the way, so a packed op is one launch with
-// no separate bias add or mask zeroing. What bounds it now: the
-// bytes each SM pulls from L2 per step (16 KB of patch, 32 KB of weights
-// that every block re-reads), ~17 B/clock/SM at its own shape, which
-// holds it near 35 % of the bf16 peak (~1.7x cuDNN's 2x2). Multicasting
-// the weight slice across a 2-block cluster with TMA would halve the
-// larger part.
+// bf16 (the packed path's dtype), Cin and Cout multiples of 8:
+// packed_conv_wgmma_kernel, an implicit GEMM with M = output pixels, N =
+// Cout, K = taps x Cin, on a persistent grid (one block an SM) whose blocks
+// walk the (M, N) tiles, M fastest within an N slice so that the slice's
+// weights stay in L2. A block is two consumer warpgroups and a producer
+// warpgroup (setmaxnreg 40 / 232) whose first thread keeps a ring of
+// stages filled by TMA, one full and one empty mbarrier a stage, with no
+// block-wide barrier in the K loop. A K step is 64 input channels of one
+// tap: the input patch comes as one im2col load (tma_map_im2col_bf16) of
+// BM consecutive output pixels, crossing rows and images, each read at its
+// pixel shifted by the tap; the map's bounding box (lower corner (-pt,
+// -pl), upper (pb - kh + 1, pr - kw + 1)) makes the traversal the output
+// grid, and TMA zero-fills the pad cells, the pixels past the end and the
+// channels past Cin, so no thread computes an address. The weight slice
+// comes as BN / 64 boxes of 64 K-rows x 64 outputs of HWIO seen as (taps,
+// Cin, Cout), N-major and 128-byte swizzled as wgmma's B reads it (read as
+// K-major it was no faster: tools/torch_k6_variants.py b_k_major). Each
+// consumer warpgroup multiplies its 64 MI pixels by the slice with wgmma
+// m64nBNk16 (accumulators in registers) and releases the stage of the step
+// before once that step's products are done. At the end of a tile it adds
+// the bias, zeroes a masked pixel's pad half-cells, rounds into a staging
+// tile and stores it by TMA, and goes on to the next tile, whose first
+// stages the producer has already loaded. The tile (BM = 128 MI pixels x
+// BN outputs) and the ring's depth come from
+// ops/kernels.py:packed_conv_plan: 128 x 256 where Cout allows (256 x 128
+// at Cout = 128, where a 256-wide tile would be half zero columns),
+// narrower where the call's tiles would leave the card's last round mostly
+// idle. What bounds it now (tools/torch_k6_variants.py, PERF.md): the K
+// loop runs at ~75-80 % of the tensor cores' rate (an epilogue that only
+// sums the accumulators), and the epilogue and its TMA stores add ~15 % at
+// K6's own shape and cannot overlap the products (the accumulators fill
+// the registers). Sharing each weight slice across a 2- or 4-block cluster
+// by multicast TMA was no faster and is not kept.
+//
+// bf16 with Cin or Cout not a multiple of 8 (the encoder's first conv, Cin
+// 12, and the generator's last, Cout 12; TMA needs 16-byte strides):
+// packed_conv_cp_async_kernel. A block of 2
+// warpgroups owns 128 pixels x BN channels (BN 256 when Cout > 64, else
+// 64) and walks K in steps of 64 input channels of one tap through a
+// 4-stage ring filled by 8-byte cp.async with zero-fill from every thread,
+// two block barriers a step, wgmma m64nBNk16 as above, and an epilogue
+// through shared memory.
 //
 // f32 (the f32 packed KEEP forward, processor(float32, phase512=True)):
 // packed_conv_f32_kernel<128|64>, the same implicit GEMM on the FMA pipe,
@@ -73,6 +90,9 @@
 // wavefront each. The epilogue adds the bias in f32, zeroes a masked
 // pixel's pad half-cells and stores 16 bytes a lane straight from the
 // registers.
+#include <array>
+#include <mutex>
+
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -118,7 +138,7 @@ __device__ __forceinline__ bool pc_masked(int edges, int mask_c, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma implicit GEMM
+// bf16, channels not a multiple of 8: cp.async and wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kWgRows = 128;     // output pixels per block (2 x 64)
@@ -143,9 +163,9 @@ struct WgLayout {
 // Grid (ceil(M / 128), ceil(Cout / BN)), 256 threads.
 template <int BN>
 __global__ void __launch_bounds__(kWgThreads, 1)
-    packed_conv_wgmma_kernel(const bf16* __restrict__ x,
-                             const bf16* __restrict__ w,
-                             bf16* __restrict__ out, PcGeom g, PcEpi e) {
+    packed_conv_cp_async_kernel(const bf16* __restrict__ x,
+                                const bf16* __restrict__ w,
+                                bf16* __restrict__ out, PcGeom g, PcEpi e) {
   using Lay = WgLayout<BN>;
   constexpr int NACC = BN / 2;  // f32 accumulators per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -332,22 +352,375 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 template <int BN>
-int launch_packed_conv_bf16(const void* x, const void* w, void* out,
-                            const PcGeom& g, const PcEpi& e,
-                            cudaStream_t stream) {
+int launch_packed_conv_cp_async(const void* x, const void* w, void* out,
+                                const PcGeom& g, const PcEpi& e,
+                                cudaStream_t stream) {
   const long long mt = (g.M + kWgRows - 1) / kWgRows;
   if (mt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      packed_conv_wgmma_kernel<BN>,
+      packed_conv_cp_async_kernel<BN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, WgLayout<BN>::bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)mt, (g.Cout + BN - 1) / BN);
-  packed_conv_wgmma_kernel<BN>
+  packed_conv_cp_async_kernel<BN>
       <<<grid, kWgThreads, WgLayout<BN>::bytes, stream>>>(
           static_cast<const bf16*>(x), static_cast<const bf16*>(w),
           static_cast<bf16*>(out), g, e);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// bf16, channels multiples of 8: TMA (im2col) into an mbarrier ring,
+// warp-specialized wgmma, persistent
+// ---------------------------------------------------------------------------
+
+constexpr int kTThreads = 384;   // 2 consumer warpgroups and a producer
+constexpr int kTMaxStages = 8;
+constexpr int kTSmemLimit = 232448;  // a block's shared memory on the H100
+constexpr int kTOutBytes = 2 * 64 * 64 * 2;  // a warpgroup's two 64 x 64 tiles
+constexpr int kMaxDevices = 64;
+
+template <int MI, int BN>
+struct TmaTile {
+  static constexpr int BM = 128 * MI;             // pixels: 2 x 64 MI
+  static constexpr int a_bytes = BM * kWgK * 2;   // BM K-major 128-B rows
+  static constexpr int b_bytes = kWgK * BN * 2;   // BN / 64 blocks of 8 KB
+  static constexpr int stage = a_bytes + b_bytes;
+  // the mbarriers' 1 KB, the two warpgroups' epilogue staging, the ring; +
+  // 1 KB to round the base up to the swizzle's 1024 B
+  // (ops/kernels.py:packed_conv_plan counts the same)
+  static constexpr int bytes(int stages) {
+    return 2048 + 2 * kTOutBytes + stages * stage;
+  }
+};
+
+// the phase blocks (bit q) a pixel with these edge flags (pc_edges) zeroes:
+// blocks 0, 1 on the first cell row, 2, 3 on the last, 0, 2 on the first
+// cell column, 1, 3 on the last
+__device__ __forceinline__ int pc_zero_blocks(int edges) {
+  return ((edges & 1) ? 0x3 : 0) | ((edges & 2) ? 0xC : 0) |
+         ((edges & 4) ? 0x5 : 0) | ((edges & 8) ? 0xA : 0);
+}
+
+// One staging pass of the TMA kernel's epilogue: the 64 outputs from column
+// 64 sub of a warpgroup's accumulator (rows 16 warp + lane / 4 (+ 8)) plus
+// the bias (BIAS 0: none, 1: f32, 2: bf16, read at column n, clamped to
+// Cout: what lies past Cout is never stored) and, with MASK, the phase
+// blocks zero[h] of row h zeroed (a pair of columns lies in one block:
+// mask_c is even at Cout % 8 == 0), rounded once into a staging tile of 64
+// 128-byte rows in the 128-byte swizzle. Every decision is made once for
+// the pass, so the unrolled loop is straight-line code (per-element
+// branches on the bias and the mask made this loop the kernel's largest
+// cost after the products: PERF.md)
+template <int BN, int BIAS, bool MASK>
+__device__ __forceinline__ void tma_stage_pass(const float (&acc)[BN / 2],
+                                               int sub, int n0,
+                                               const int (&zero)[2],
+                                               const PcGeom& g,
+                                               const PcEpi& e, int warp,
+                                               int lane,
+                                               unsigned char* tile) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int j = 8 * sub + jj;
+    const int n = n0 + 8 * j + 2 * (lane & 3);
+    const int nb = n < g.Cout ? n : 0;
+    float b0 = 0.f, b1 = 0.f;
+    if (BIAS == 1) {
+      const float* b = static_cast<const float*>(e.bias) + nb;
+      b0 = __ldg(b), b1 = __ldg(b + 1);
+    } else if (BIAS == 2) {
+      const bf16* b = static_cast<const bf16*>(e.bias) + nb;
+      b0 = __bfloat162float(b[0]), b1 = __bfloat162float(b[1]);
+    }
+    const int q = (n >= e.mask_c) + (n >= 2 * e.mask_c) + (n >= 3 * e.mask_c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + (lane >> 2) + 8 * h;
+      float v0 = acc[4 * j + 2 * h] + b0;
+      float v1 = acc[4 * j + 2 * h + 1] + b1;
+      if (MASK && ((zero[h] >> q) & 1)) v0 = v1 = 0.f;
+      *reinterpret_cast<uint32_t*>(tile + r * 128 + ((jj ^ (r & 7)) << 4) +
+                                   4 * (lane & 3)) = sm90::pack_bf16(v0, v1);
+    }
+  }
+}
+
+// x: (B, Hi, Wi, Cin) through the im2col map tx (BM pixels a box); w:
+// (kh, kw, Cin, Cout) through the tiled map tw over (taps, Cin, Cout), 64 x
+// 64 boxes; out: (B, Ho, Wo, Cout) through the tiled map to over (M, Cout),
+// 64 x 64 boxes. 384 threads, min(tiles, SMs) blocks: block b takes tiles
+// b, b + gridDim.x, ..., tile t the pixels from (t % m_tiles) BM and the
+// outputs from (t / m_tiles) BN. Warpgroup wg < 2 owns pixels 64 (wg MI +
+// mi) .. of the tile (mi < MI), its warp w the 16 from there + 16 w, each
+// lane (g, t4 = lane / 4, lane % 4) rows g and g + 8 of those at columns 8
+// j + 2 t4 + {0, 1} (acc[mi][4 j + 2 h + {0, 1}], row g + 8 h). Stage st:
+// full mbarrier s0 + 8 st (the producer's arrival and the stage's TMA
+// bytes), empty s0 + 8 (kTMaxStages + st) (lane 0 of each consumer warp,
+// once the warp's products of the stage are done).
+template <int MI, int BN>
+__global__ void __launch_bounds__(kTThreads, 1)
+    packed_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                             const __grid_constant__ CUtensorMap tw,
+                             const __grid_constant__ CUtensorMap to,
+                             PcGeom g, PcEpi e, int stages, int m_tiles,
+                             int tiles) {
+  using T = TmaTile<MI, BN>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t s0 = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (s0 - sm90::smem_u32(smem_raw));
+  const uint32_t ring = s0 + 1024 + 2 * kTOutBytes;
+  const int tid = threadIdx.x;
+  const int taps = g.kh * g.kw;
+  const int ksteps = taps * ((g.Cin + kWgK - 1) / kWgK);
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      sm90::mbar_init(s0 + 8 * st, 1);
+      sm90::mbar_init(s0 + 8 * (kTMaxStages + st), 8);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer: its registers go to the consumers
+    sm90::setmaxnreg_dec<40>();
+    if (tid == 256) {
+      const long long hw = (long long)g.Ho * g.Wo;
+      int st = 0, ph = 0, used = 0;  // slot, its wrap parity, slots filled
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const long long m0 = (long long)(t % m_tiles) * T::BM;
+        const int n0 = (t / m_tiles) * BN;
+        // the tile's first pixel as the traversal's start: (j - pl, i - pt)
+        // of image m0 / hw
+        const int img = (int)(m0 / hw), rem = (int)(m0 % hw);
+        const int h0 = rem / g.Wo - g.pt, w0 = rem % g.Wo - g.pl;
+        for (int s = 0; s < ksteps; ++s) {
+          // taps innermost: a K step's neighbour reads the same channels
+          // of neighbouring pixels, which L2 still holds
+          const int tap = s % taps, c0 = (s / taps) * kWgK;
+          if (used >= stages)
+            sm90::mbar_wait(s0 + 8 * (kTMaxStages + st), ph ^ 1);
+          const uint32_t full = s0 + 8 * st;
+          const uint32_t sa = ring + st * T::stage;
+          sm90::mbar_expect_tx(full, T::stage);
+          sm90::tma_load_im2col_4d(sa, &tx, c0, w0, h0, img,
+                                   (uint16_t)(tap % g.kw),
+                                   (uint16_t)(tap / g.kw), full);
+#pragma unroll
+          for (int b = 0; b < BN / 64; ++b)
+            sm90::tma_load_3d(sa + T::a_bytes + b * kWgK * 128, &tw,
+                              n0 + 64 * b, c0, tap, full);
+          ++used;
+          if (++st == stages) st = 0, ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wtid = tid & 127;
+  unsigned char* stage_out = smem + 1024 + wg * kTOutBytes;
+  const uint32_t stage_out_s = s0 + 1024 + wg * kTOutBytes;
+  int passes = 0;  // staging passes so far: the tiles alternate
+  // a stage goes back to the producer: lane 0 of each warp arrives once
+  // the warp's products of it are done
+  auto release = [&](int st) {
+    if (lane == 0) sm90::mbar_arrive(s0 + 8 * (kTMaxStages + st));
+    __syncwarp();
+  };
+  float acc[MI][BN / 2];
+  int st = 0, ph = 0, prev = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int s = 0; s < ksteps; ++s) {
+      sm90::mbar_wait(s0 + 8 * st, ph);
+      const uint32_t sa = ring + st * T::stage;
+      sm90::wg_fence();
+#pragma unroll
+      for (int k = 0; k < kWgK / 16; ++k)
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          sm90::Wgmma<BN>::mma(
+              acc[mi],
+              sm90::desc_sw128(sa + (wg * MI + mi) * 64 * 128 + 32 * k, 16,
+                               1024),
+              sm90::desc_sw128(sa + T::a_bytes + 16 * 128 * k, kWgK * 128,
+                               1024),
+              s > 0 || k > 0);
+      sm90::wg_commit();
+      // step s multiplies while the stage of step s - 1 goes back
+      sm90::wg_wait<1>();
+      if (s > 0) release(prev);
+      prev = st;
+      if (++st == stages) st = 0, ph ^= 1;
+    }
+    sm90::wg_wait<0>();
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) sm90::fence_regs(acc[mi]);
+    release(prev);
+
+    // epilogue: bias in f32, a masked pixel's pad half-cells zeroed,
+    // rounded once into one of the warpgroup's two staging tiles (64 rows x
+    // 64 outputs, tma_stage_pass), each stored by TMA (rows past M and
+    // outputs past Cout are not written) while the next pass fills the
+    // other tile and the warpgroup goes on to the next tile
+    const long long m0 = (long long)(t % m_tiles) * T::BM;
+    const int n0 = (t / m_tiles) * BN;
+    const int bias_kind = e.bias == nullptr ? 0 : e.bias_bf16 ? 2 : 1;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const long long r0 = m0 + (wg * MI + mi) * 64;  // the pass's rows
+      int zero[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        zero[h] = pc_zero_blocks(
+            pc_edges(g, e, r0 + 16 * warp + (lane >> 2) + 8 * h));
+      // the masked pass only for a warp that holds an edge pixel (a few of
+      // a tile's 16-pixel warps)
+      const bool masked = __any_sync(0xffffffffu, zero[0] | zero[1]);
+#pragma unroll
+      for (int sub = 0; sub < BN / 64; ++sub) {
+        const int buf = passes & 1;
+        if (passes >= 2) {  // the store two passes back has read this tile
+          if (wtid == 0) sm90::bulk_wait_read<1>();
+          sm90::named_sync(1 + wg, 128);
+        }
+#define KEEP_STAGE(BIAS, MASK)                                            \
+  tma_stage_pass<BN, BIAS, MASK>(acc[mi], sub, n0, zero, g, e, warp, lane, \
+                                 stage_out + buf * 8192)
+        if (masked) {
+          if (bias_kind == 0) KEEP_STAGE(0, true);
+          else if (bias_kind == 1) KEEP_STAGE(1, true);
+          else KEEP_STAGE(2, true);
+        } else {
+          if (bias_kind == 0) KEEP_STAGE(0, false);
+          else if (bias_kind == 1) KEEP_STAGE(1, false);
+          else KEEP_STAGE(2, false);
+        }
+#undef KEEP_STAGE
+        sm90::fence_async_smem();
+        sm90::named_sync(1 + wg, 128);
+        if (wtid == 0) {
+          sm90::tma_store_3d(&to, stage_out_s + buf * 8192, n0 + 64 * sub,
+                             (int)r0, 0);
+          sm90::bulk_commit();
+        }
+        ++passes;
+      }
+    }
+  }
+  if (wtid == 0) sm90::bulk_wait<0>();
+}
+
+// The launcher's caches have internal linkage: a static of an inline or
+// template function is one symbol for every library that defines it, so
+// two builds of this file in one process (tools/torch_k6_check.py --root)
+// would share them.
+namespace {
+
+// The tensor maps of recent launches by what they encode (an address, a
+// geometry, a box): a call that repeats one (the same weights, or an
+// activation the allocator hands out at the same address) encodes nothing
+// (an encode validates the whole map on the host, at every launch
+// otherwise; tools/torch_k6_check.py --host). Any number of host threads.
+class TmaMapCache {
+ public:
+  using Key = std::array<long long, 8>;
+  // the map for key, encoded by encode(map) on a miss; a cudaError_t value
+  template <typename Encode>
+  int get(const Key& key, CUtensorMap* map, Encode encode) {
+    std::lock_guard<std::mutex> lock(mu_);
+    for (int i = 0; i < kSlots; ++i)
+      if (used_[i] && keys_[i] == key) {
+        *map = maps_[i];
+        return 0;
+      }
+    const int err = encode(map);
+    if (err == 0) {
+      keys_[next_] = key;
+      maps_[next_] = *map;
+      used_[next_] = true;
+      next_ = (next_ + 1) % kSlots;
+    }
+    return err;
+  }
+
+ private:
+  static constexpr int kSlots = 64;
+  std::mutex mu_;
+  Key keys_[kSlots];
+  CUtensorMap maps_[kSlots];
+  bool used_[kSlots] = {};
+  int next_ = 0;
+};
+
+inline TmaMapCache& tma_maps() {
+  static TmaMapCache cache;
+  return cache;
+}
+
+template <int MI, int BN>
+int launch_packed_conv_tma(const void* x, const void* w, void* out, int B,
+                           const PcGeom& g, const PcEpi& e, int stages,
+                           cudaStream_t stream) {
+  using T = TmaTile<MI, BN>;
+  const int bytes = T::bytes(stages);
+  if (stages < 2 || stages > kTMaxStages || bytes > kTSmemLimit ||
+      (g.Cin & 7) || (g.Cout & 7) || g.M > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const long long m_tiles = (g.M + T::BM - 1) / T::BM;
+  const long long tiles = m_tiles * ((g.Cout + BN - 1) / BN);
+  // the input's bounding box: the base pixel (i - pt, j - pl) of every
+  // output pixel
+  const int taps = g.kh * g.kw;
+  const int lo_w = -g.pl, lo_h = -g.pt;
+  const int hi_w = g.Wo - g.Wi - g.pl, hi_h = g.Ho - g.Hi - g.pt;
+  CUtensorMap tx, tw, to;
+  int err = tma_maps().get(
+      {(long long)x, B, g.Hi, g.Wi, g.Cin, T::BM,
+       (lo_w + 2) | (lo_h + 2) << 4 | (hi_w + 2) << 8 | (hi_h + 2) << 12, 0},
+      &tx, [&](CUtensorMap* m) {
+        return sm90::tma_map_im2col_bf16(m, x, B, g.Hi, g.Wi, g.Cin, T::BM,
+                                         lo_w, lo_h, hi_w, hi_h);
+      });
+  if (err == 0)
+    err = tma_maps().get({(long long)w, g.Cout, g.Cin, taps, kWgK, 0, 0, 1},
+                         &tw, [&](CUtensorMap* m) {
+                           return sm90::tma_map_bf16(m, w, g.Cout, g.Cin,
+                                                     taps, kWgK);
+                         });
+  if (err == 0)
+    err = tma_maps().get({(long long)out, g.Cout, g.M, 1, 64, 0, 0, 2}, &to,
+                         [&](CUtensorMap* m) {
+                           return sm90::tma_map_bf16(m, out, g.Cout,
+                                                     (int)g.M, 1, 64);
+                         });
+  if (err != 0) return err;
+  // the device's SM count and the kernel's shared-memory attribute, once a
+  // device
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = (int)cudaFuncSetAttribute(
+        packed_conv_wgmma_kernel<MI, BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kTSmemLimit);
+    if (err == 0)
+      err = (int)cudaDeviceGetAttribute(&sms[dev],
+                                        cudaDevAttrMultiProcessorCount, dev);
+    if (err != 0) return err;
+  }
+  const int grid = (int)(tiles < sms[dev] ? tiles : sms[dev]);
+  packed_conv_wgmma_kernel<MI, BN><<<grid, kTThreads, bytes, stream>>>(
+      tx, tw, to, g, e, stages, (int)m_tiles, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // ---------------------------------------------------------------------------
 // f32: register-tiled FMA implicit GEMM (no TF32)
@@ -550,16 +923,24 @@ int launch_packed_conv_f32(const void* x, const void* w, void* out,
 
 }  // namespace keep
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out). kh, kw in {1, 2}; pads
-// in {0, 1}; Cin and Cout multiples of 4; x and w 16-byte aligned. bias:
-// Cout values or null, bfloat16 if bias_bf16 else float32; mask_c: 0, or
-// the phase-block width with Cout = 4 mask_c. Returns a cudaError_t value
-// (0 = ok).
+// a: B, Hi, Wi, Cin, Cout, kh, kw, pt, pb, pl, pr, bias_bf16, mask_c, dtype,
+// route, bm, bn, stages. dtype: 0 = float32, 1 = bfloat16 (x, w and out).
+// kh, kw in {1, 2}; pads in {0, 1}; Cin and Cout multiples of 4; x and w
+// 16-byte aligned. bias: Cout values or null, bfloat16 if bias_bf16 else
+// float32; mask_c: 0, or the phase-block width with Cout = 4 mask_c. The
+// plan (ops/kernels.py:packed_conv_plan): route 0 = TMA (bf16, Cin and Cout
+// multiples of 8; bm x bn in {128 x 256, 256 x 128, 128 x 128, 256 x 64,
+// 128 x 64}, 2 .. 8 stages within the shared memory), 1 = cp.async (bf16;
+// 128 x 256 or 128 x 64, 4 stages), 2 = FMA (f32; 128 x 128 or 128 x 64, 4
+// stages). Returns a cudaError_t value (0 = ok; cudaErrorInvalidValue for a
+// geometry or a plan the kernels do not take).
 extern "C" int keep_packed_conv(const void* x, const void* w,
-                                const void* bias, void* out, int B, int Hi,
-                                int Wi, int Cin, int Cout, int kh, int kw,
-                                int pt, int pb, int pl, int pr, int bias_bf16,
-                                int mask_c, int dtype, void* stream) {
+                                const void* bias, void* out, const int* a,
+                                void* stream) {
+  const int B = a[0], Hi = a[1], Wi = a[2], Cin = a[3], Cout = a[4];
+  const int kh = a[5], kw = a[6], pt = a[7], pb = a[8], pl = a[9], pr = a[10];
+  const int bias_bf16 = a[11], mask_c = a[12], dtype = a[13], route = a[14];
+  const int bm = a[15], bn = a[16], stages = a[17];
   using namespace keep;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   PcGeom g;
@@ -576,11 +957,25 @@ extern "C" int keep_packed_conv(const void* x, const void* w,
       !pads_ok || Cin < 4 || Cin % 4 != 0 || Cout < 4 || Cout % 4 != 0 ||
       g.Ho < 1 || g.Wo < 1 || mask_c < 0 || (mask_c > 0 && 4 * mask_c != Cout))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return Cout > 64 ? launch_packed_conv_bf16<256>(x, w, out, g, e, st)
-                     : launch_packed_conv_bf16<64>(x, w, out, g, e, st);
-  if (dtype == 0)
-    return Cout > 64 ? launch_packed_conv_f32<128>(x, w, out, g, e, st)
-                     : launch_packed_conv_f32<64>(x, w, out, g, e, st);
+  if (dtype == 1 && route == 0) {
+    if (bm == 128 && bn == 256)
+      return launch_packed_conv_tma<1, 256>(x, w, out, B, g, e, stages, st);
+    if (bm == 256 && bn == 128)
+      return launch_packed_conv_tma<2, 128>(x, w, out, B, g, e, stages, st);
+    if (bm == 128 && bn == 128)
+      return launch_packed_conv_tma<1, 128>(x, w, out, B, g, e, stages, st);
+    if (bm == 256 && bn == 64)
+      return launch_packed_conv_tma<2, 64>(x, w, out, B, g, e, stages, st);
+    if (bm == 128 && bn == 64)
+      return launch_packed_conv_tma<1, 64>(x, w, out, B, g, e, stages, st);
+  }
+  if (dtype == 1 && route == 1 && bm == kWgRows && stages == kWgStages) {
+    if (bn == 256) return launch_packed_conv_cp_async<256>(x, w, out, g, e, st);
+    if (bn == 64) return launch_packed_conv_cp_async<64>(x, w, out, g, e, st);
+  }
+  if (dtype == 0 && route == 2 && bm == kPfRows && stages == kPfStages) {
+    if (bn == 128) return launch_packed_conv_f32<128>(x, w, out, g, e, st);
+    if (bn == 64) return launch_packed_conv_f32<64>(x, w, out, g, e, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

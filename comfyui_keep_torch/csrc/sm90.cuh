@@ -3,10 +3,10 @@
 // packed_conv.cu's bf16 implicit GEMM, mlp.cu's forwards and backward):
 // cp.async staging, ldmatrix, mma.sync in bf16 and in TF32 (with the hi /
 // lo splits of the bf16 and 3xTF32 products), and Hopper's mbarriers, TMA
-// loads and wgmma in bf16 and TF32 with its shared-memory matrix
-// descriptors and its 128-byte-swizzle tile layout (am_at, which is also
-// TMA's 128-byte swizzle), A from shared memory or registers. sm_90a only
-// (wgmma).
+// loads (tiled and im2col) and stores, and wgmma in bf16 and TF32 with its
+// shared-memory matrix descriptors and its 128-byte-swizzle tile layout
+// (am_at, which is also TMA's 128-byte swizzle), A from shared memory or
+// registers. sm_90a only (wgmma).
 //
 // Shared-memory tiles here are rows of 16-byte chunks, swizzled: logical
 // chunk c of row r is stored at chunk c ^ (r & 7). Eight consecutive rows
@@ -198,6 +198,48 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// a box of shared memory at src into a 3-D tensor map's box (coordinates
+// innermost first; what falls outside the tensor is not written), as a
+// bulk group of this thread: commit, then wait for the groups' reads of
+// shared memory (the source may be overwritten) or for their completion
+__device__ __forceinline__ void tma_store_3d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// BM pixels x 64 channels of an NHWC input by an im2col tensor map
+// (tma_map_im2col_bf16): from pixel (w, h) of image n of the map's
+// bounding box on, in raster order across rows and images, each pixel's
+// channels c .. c + 63 read at (w + ow, h + oh); reads outside the input
+// are zeros
+__device__ __forceinline__ void tma_load_im2col_4d(uint32_t dst,
+                                                   const void* map, int c,
+                                                   int w, int h, int n,
+                                                   uint16_t ow, uint16_t oh,
+                                                   uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};\n" ::
+          "r"(dst),
+      "l"(map), "r"(c), "r"(w), "r"(h), "r"(n), "r"(bar), "h"(ow), "h"(oh)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -283,14 +325,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[A][B]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
 // d (64 x N f32, the warpgroup's fragment) += A (64 x 16 bf16, K-major,
-// descriptor da) . B (16 x N bf16, MN-major, descriptor db)
+// descriptor da) . B (16 x N bf16, MN-major, descriptor db); scale_d 0
+// starts d from zero
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -298,14 +341,33 @@ struct Wgmma<64> {
         "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
         "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
         : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+        "1, 0, 1;\n}\n"
+        : KEEP_F8(0), KEEP_F8(8), KEEP_F8(16), KEEP_F8(24), KEEP_F8(32),
+          KEEP_F8(40), KEEP_F8(48), KEEP_F8(56)
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
 template <>
 struct Wgmma<256> {
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
-                                             uint64_t db) {
+                                             uint64_t db, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -324,7 +386,7 @@ struct Wgmma<256> {
           KEEP_F8(40), KEEP_F8(48), KEEP_F8(56), KEEP_F8(64), KEEP_F8(72),
           KEEP_F8(80), KEEP_F8(88), KEEP_F8(96), KEEP_F8(104), KEEP_F8(112),
           KEEP_F8(120)
-        : "l"(da), "l"(db), "r"(1));
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
@@ -626,26 +688,42 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, through the runtime (the library
-// links only the runtime), or null
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// a CUDA entry point (its 12.0 form) fetched through the runtime (the
+// library links only the runtime), or null
+inline void* entry_point(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult res;
 #if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &res) !=
-            cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      p = nullptr;
+  if (cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault,
+                                       &res) != cudaSuccess ||
+      res != cudaDriverEntryPointSuccess)
+    p = nullptr;
 #else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &res) != cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      p = nullptr;
+  if (cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &res) !=
+          cudaSuccess ||
+      res != cudaDriverEntryPointSuccess)
+    p = nullptr;
 #endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
+  return p;
+}
+
+// cuTensorMapEncodeTiled / cuTensorMapEncodeIm2col, or null
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(entry_point("cuTensorMapEncodeTiled"));
+  return fn;
+}
+inline EncodeIm2col encode_im2col() {
+  static const EncodeIm2col fn =
+      reinterpret_cast<EncodeIm2col>(entry_point("cuTensorMapEncodeIm2col"));
   return fn;
 }
 
@@ -681,6 +759,33 @@ inline int tma_map_bf16(CUtensorMap* map, const void* base, int d, int rows,
 inline int tma_map_f32(CUtensorMap* map, const void* base, int d, int rows,
                        int batch, int box_rows) {
   return tma_map(map, base, 4, d, rows, batch, box_rows);
+}
+
+// An im2col tensor map of a contiguous bf16 NHWC input (n, hi, wi, c), c a
+// multiple of 8, for tma_load_im2col_4d: boxes of `pixels` pixels x 64
+// channels (128 bytes, the 128-byte swizzle: each box lands as `pixels`
+// K-major rows of an am_at column block). A pixel (w, h) of the box
+// traversal runs over lo_w .. wi - 1 + hi_w and lo_h .. hi - 1 + hi_h of
+// each image (the corners of the bounding box, relative to the input's
+// first and last pixel). Returns a cudaError_t value.
+inline int tma_map_im2col_bf16(CUtensorMap* map, const void* base, int n,
+                               int hi, int wi, int c, int pixels, int lo_w,
+                               int lo_h, int hi_w, int hi_h) {
+  const EncodeIm2col fn = encode_im2col();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)wi, (cuuint64_t)hi,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)c * wi * 2,
+                                 (cuuint64_t)c * wi * hi * 2};
+  const int lower[2] = {lo_w, lo_h}, upper[2] = {hi_w, hi_h};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+         dims, strides, lower, upper, 64, (cuuint32_t)pixels, estr,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

@@ -27,6 +27,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # argtypes of every exported function: pointers and the stream as c_void_p
 _SIGNATURES = {
     "attention": {
@@ -49,7 +50,7 @@ _SIGNATURES = {
         "keep_fused_bias_lrelu": (_P, _P, _P, _L, _L, _I, _F, _F, _I, _P),
     },
     "packed_conv": {
-        "keep_packed_conv": (_P, _P, _P, _P) + (_I,) * 14 + (_P,),
+        "keep_packed_conv": (_P, _P, _P, _P, _IP, _P),
     },
 }
 

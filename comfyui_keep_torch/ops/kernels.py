@@ -52,6 +52,8 @@ for attention and the correlation, "mlp_fused[_bwd] rows<n>" and
 """
 import contextlib
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Dict, Optional
 
@@ -122,7 +124,10 @@ def _raise_on(err: int, what: str):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card as a raw handle (the public
+    torch.cuda.current_stream(device).cuda_stream builds a Stream object
+    first, on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _device(t: torch.Tensor):
@@ -755,6 +760,127 @@ def packed_conv2x2_plain(x, w, pads, bias=None, mask_c: Optional[int] = None):
     return acc.to(x.dtype)
 
 
+# K6's launch plans (csrc/packed_conv.cu keep_packed_conv): the route's
+# code, the shared memory a block may take on the H100, its SM count
+PACKED_CONV_ROUTES = {"tma": 0, "cp.async": 1, "fma": 2}
+SMEM_LIMIT = 232448
+H100_SMS = 132
+# the TMA kernel's tiles (BM pixels, BN outputs) and the rate of each per
+# output element relative to 128 x 256's, from the device times of every
+# tile at K6's own shape, the LQ encoder's batch of 20 and the encoder's
+# level-2 res conv2 (H100 80GB HBM3; `tools/torch_k6_check.py --tiles`)
+PACKED_CONV_TILES = {(128, 256): 1.0, (256, 128): 0.9, (128, 128): 0.86,
+                     (256, 64): 0.6, (128, 64): 0.57}
+PACKED_CONV_MAX_STAGES = 8   # packed_conv.cu kTMaxStages
+K_STEP = 64                  # input channels a K step, every bf16 route
+TMA_FIXED_SMEM = 1024 + 1024 + 2 * 16384  # barriers, alignment, epilogue
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedConvPlan:
+    """How K6 runs one call: `route` ("tma": the bf16 kernel fed by TMA,
+    Cin and Cout multiples of 8; "cp.async": the bf16 kernel for other
+    channel counts; "fma": the f32 kernel), its tile of `bm` output pixels
+    x `bn` output channels and `stages` ring stages; `m_tiles` x `n_tiles`
+    tiles, walked by `grid` blocks (TMA: persistent blocks, block b takes
+    tiles b, b + grid, ..., tile t pixel tile t % m_tiles of output tile
+    t // m_tiles; the others one tile a block); `smem_bytes` a block's
+    shared memory."""
+    route: str
+    bm: int
+    bn: int
+    stages: int
+    m_tiles: int
+    n_tiles: int
+    grid: int
+    smem_bytes: int
+
+
+def _tma_stage_bytes(bm: int, bn: int) -> int:
+    return (bm + bn) * K_STEP * 2
+
+
+def _tma_plan(m: int, cout: int, bm: int, bn: int,
+              sms: int) -> PackedConvPlan:
+    stage = _tma_stage_bytes(bm, bn)
+    stages = min(PACKED_CONV_MAX_STAGES, (SMEM_LIMIT - TMA_FIXED_SMEM) // stage)
+    mt, nt = -(-m // bm), -(-cout // bn)
+    return PackedConvPlan("tma", bm, bn, stages, mt, nt, min(mt * nt, sms),
+                          TMA_FIXED_SMEM + stages * stage)
+
+
+@functools.lru_cache(maxsize=512)
+def packed_conv_plan(b: int, hi: int, wi: int, cin: int, cout: int, kh: int,
+                     kw: int, pads, dtype=torch.bfloat16) -> PackedConvPlan:
+    """K6's plan for an input (b, hi, wi, cin), a (kh, kw, cin, cout) weight
+    and pads ((top, bottom), (left, right)), picked by geometry alone. bf16
+    with Cin and Cout multiples of 8 (TMA needs 16-byte strides) takes the
+    TMA route: of PACKED_CONV_TILES no wider than Cout rounded up to 64, the
+    tile whose rounds of H100_SMS tiles, times its area over its rate, cost
+    least (the card's last round runs whole tiles however few), ties to the
+    larger; as many ring stages as the shared memory holds. Other bf16
+    channel counts take the cp.async route, f32 the FMA kernel, each with
+    its fixed tiling."""
+    (pt, pb), (pl, pr) = pads
+    m = b * (hi + pt + pb - kh + 1) * (wi + pl + pr - kw + 1)
+    if dtype == torch.float32:
+        bn = 64 if cout <= 64 else 128
+        mt, nt = -(-m // 128), -(-cout // bn)
+        # packed_conv.cu PfLayout, + row_pix, row_i, row_j, row_edges, bias_s
+        smem = 4 * (4 * 128 * 36 + 4 * 32 * bn) + 2560 + 4 * bn
+        return PackedConvPlan("fma", 128, bn, 4, mt, nt, mt * nt, smem)
+    if cin % 8 or cout % 8:
+        bn = 64 if cout <= 64 else 256
+        mt, nt = -(-m // 128), -(-cout // bn)
+        # packed_conv.cu WgLayout, + the same per-pixel arrays and bias_s
+        smem = 4 * _tma_stage_bytes(128, bn) + 1024 + 2560 + 4 * bn
+        return PackedConvPlan("cp.async", 128, bn, 4, mt, nt, mt * nt, smem)
+    widest = -(-cout // 64) * 64
+    best = None
+    for (bm, bn), rate in PACKED_CONV_TILES.items():
+        if bn > widest:
+            continue
+        tiles = -(-m // bm) * -(-cout // bn)
+        cost = -(-tiles // H100_SMS) * bm * bn / rate
+        if best is None or cost < best[0]:
+            best = (cost, bm, bn)
+    return _tma_plan(m, cout, best[1], best[2], H100_SMS)
+
+
+@functools.lru_cache(maxsize=512)
+def _packed_conv_call(x_shape, w_shape, pads, dtype, bias_bf16, mask_c):
+    """What the calls of one geometry share, checked once: the output's
+    shape, the C entry's 18 int arguments (B, Hi, Wi, Cin, Cout, kh, kw, pt,
+    pb, pl, pr, bias_bf16, mask_c, dtype, then the plan's route, bm, bn,
+    stages) as one ctypes array, and the PACKED_CONV_SHAPES key. Raises
+    ValueError on a geometry the kernels do not take. A call then passes
+    six arguments (ctypes converts every argument of every call; the host's
+    time a call: tools/torch_k6_check.py --host)."""
+    (pt, pb), (pl, pr) = pads
+    b, hi, wi, cin = x_shape
+    kh, kw, cout = w_shape[0], w_shape[1], w_shape[3]
+    ho, wo = hi + pt + pb - kh + 1, wi + pl + pr - kw + 1
+    if (kh not in (1, 2) or kw not in (1, 2)
+            or any(p not in (0, 1) for p in (pt, pb, pl, pr))
+            or cin % 4 or cout % 4 or min(b, cin, cout, ho, wo) < 1):
+        raise ValueError(f"packed_conv2x2 kernel takes 1-2 taps, pads of 0 "
+                         f"or 1 and channels a multiple of 4, got w "
+                         f"{w_shape}, pads {pads}, x {x_shape}")
+    if w_shape != (kh, kw, cin, cout):
+        raise ValueError(f"packed_conv2x2 w: shape {w_shape} != "
+                         f"{(kh, kw, cin, cout)}")
+    if mask_c is not None and (mask_c < 1 or 4 * mask_c != cout):
+        raise ValueError(f"packed_conv2x2: mask_c={mask_c} needs Cout = "
+                         f"4 mask_c, got Cout={cout}")
+    plan = packed_conv_plan(b, hi, wi, cin, cout, kh, kw, pads, dtype)
+    args = (ctypes.c_int * 18)(
+        b, hi, wi, cin, cout, kh, kw, pt, pb, pl, pr, bias_bf16, mask_c or 0,
+        _DTYPE_CODE[dtype], PACKED_CONV_ROUTES[plan.route], plan.bm, plan.bn,
+        plan.stages)
+    return ((b, ho, wo, cout), args,
+            packed_conv_shape(hi, wi, cin, kh, kw, cout, pads))
+
+
 def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
                    mask_c: Optional[int] = None):
     """x: (B, Hi, Wi, Cin) NHWC; w: (kh, kw, Cin, Cout) HWIO; pads:
@@ -765,51 +891,42 @@ def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
     is taken in f32 and rounded once. On CUDA: kh, kw in {1, 2}, pads in
     {0, 1}, Cin and Cout multiples of 4, x and w contiguous, 16-byte aligned
     and of one dtype (f32 or bf16), the bias contiguous in f32 or x's
-    dtype. It serves only: a CUDA input that records a gradient (grad mode
-    on, any tensor requiring grad) raises rather than detach."""
+    dtype. The kernel and its tiles follow packed_conv_plan. It serves
+    only: a CUDA input that records a gradient (grad mode on, any tensor
+    requiring grad) raises rather than detach."""
     if not x.is_cuda:
         return packed_conv2x2_plain(x, w, pads, bias, mask_c)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, bias)):
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or (
+            bias is not None and bias.requires_grad)):
         raise RuntimeError("packed_conv2x2: the kernel has no backward; call "
                            "it under torch.no_grad() (serving only)")
-    (pt, pb), (pl, pr) = pads
     if x.dim() != 4 or w.dim() != 4 or x.dtype not in _DTYPE_CODE:
         raise ValueError(f"packed_conv2x2 takes NHWC x and HWIO w in "
                          f"f32/bf16, got {tuple(x.shape)}, {tuple(w.shape)} "
                          f"{x.dtype}")
-    b, hi, wi, cin = x.shape
-    kh, kw, cout = w.shape[0], w.shape[1], w.shape[3]
-    ho, wo = hi + pt + pb - kh + 1, wi + pl + pr - kw + 1
-    if (kh not in (1, 2) or kw not in (1, 2)
-            or any(p not in (0, 1) for p in (pt, pb, pl, pr))
-            or cin % 4 or cout % 4 or min(b, cin, cout, ho, wo) < 1):
-        raise ValueError(f"packed_conv2x2 kernel takes 1-2 taps, pads of 0 "
-                         f"or 1 and channels a multiple of 4, got w "
-                         f"{tuple(w.shape)}, pads {pads}, x {tuple(x.shape)}")
-    _check("packed_conv2x2 x", x, (b, hi, wi, cin), x.dtype, x.device)
-    _check("packed_conv2x2 w", w, (kh, kw, cin, cout), x.dtype, x.device)
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
+    (pt, pb), (pl, pr) = pads
+    bias_bf16 = bias is not None and bias.dtype == torch.bfloat16
+    out_shape, args, key = _packed_conv_call(
+        tuple(x.shape), tuple(w.shape), ((pt, pb), (pl, pr)), x.dtype,
+        int(bias_bf16), mask_c)
+    _check("packed_conv2x2 x", x, x.shape, x.dtype, x.device)
+    _check("packed_conv2x2 w", w, w.shape, x.dtype, x.device)
+    xp, wp = x.data_ptr(), w.data_ptr()
+    if xp % 16 or wp % 16:
         raise ValueError("packed_conv2x2: x and w must be 16-byte aligned")
     if bias is not None:
         if bias.dtype not in (torch.float32, x.dtype):
             raise ValueError(f"packed_conv2x2 bias: dtype {bias.dtype}")
-        _check("packed_conv2x2 bias", bias, (cout,), bias.dtype, x.device)
-    if mask_c is not None and (mask_c < 1 or 4 * mask_c != cout):
-        raise ValueError(f"packed_conv2x2: mask_c={mask_c} needs Cout = "
-                         f"4 mask_c, got Cout={cout}")
-    out = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+        _check("packed_conv2x2 bias", bias, (out_shape[3],), bias.dtype,
+               x.device)
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     lib = library("packed_conv")
     with _device(x):
         err = lib.keep_packed_conv(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), b, hi,
-            wi, cin, cout, kh, kw, pt, pb, pl, pr,
-            int(bias is not None and bias.dtype == torch.bfloat16),
-            mask_c or 0, _DTYPE_CODE[x.dtype], _stream(x))
+            xp, wp, None if bias is None else bias.data_ptr(),
+            out.data_ptr(), args, _stream(x))
     _raise_on(err, "packed_conv2x2 kernel launch")
     _count("packed_conv2x2")
-    key = packed_conv_shape(hi, wi, cin, kh, kw, cout, pads)
     PACKED_CONV_SHAPES[key] = PACKED_CONV_SHAPES.get(key, 0) + 1
     return out
 

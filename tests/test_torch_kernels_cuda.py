@@ -17,6 +17,7 @@ the plain backward's own distance (BWD_RATIO, below), as chip_smoke.py
 holds them.
 """
 import copy
+import functools
 
 import numpy as np
 import pytest
@@ -771,6 +772,153 @@ def test_packed_conv_refuses_a_cuda_input_that_requires_grad(cuda):
         K.packed_conv2x2(x, w, ((0, 1), (0, 1)))
     with torch.no_grad():
         assert K.packed_conv2x2(x, w, ((0, 1), (0, 1))).shape == (1, 4, 4, 8)
+
+
+# K6's bf16 routes (ops/kernels.py:packed_conv_plan): every tile of the
+# TMA kernel, forced through the plan
+TMA_TILES = list(K.PACKED_CONV_TILES)
+
+
+def _force_tma_plan(monkeypatch, bm, bn):
+    real = K.packed_conv_plan
+
+    def plan(b, hi, wi, cin, cout, kh, kw, pads, dtype=torch.bfloat16):
+        p = real(b, hi, wi, cin, cout, kh, kw, pads, dtype)
+        if p.route != "tma":
+            return p
+        (pt, pb), (pl, pr) = pads
+        m = b * (hi + pt + pb - kh + 1) * (wi + pl + pr - kw + 1)
+        return K._tma_plan(m, cout, bm, bn, K.H100_SMS)
+    monkeypatch.setattr(K, "packed_conv_plan", plan)
+    # the wrapper's per-geometry arguments, cached apart from the real ones
+    monkeypatch.setattr(K, "_packed_conv_call", functools.lru_cache()(
+        K._packed_conv_call.__wrapped__))
+
+
+def _packed_case(g, dev, dtype, b, h, w_, cin, cout, taps, scale=0.1):
+    x = torch.randn(b, h, w_, cin, generator=g, device=dev).to(dtype)
+    w = (torch.randn(*taps, cin, cout, generator=g, device=dev)
+         * scale).to(dtype)
+    return x, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", TMA_TILES,
+                         ids=[f"{a}x{b}" for a, b in TMA_TILES])
+def test_packed_conv_tma_forms_match_plain(cuda, monkeypatch, tile):
+    """Each TMA tile, forced, at every taps and pads form, with and without
+    the fused bias (f32 and bf16) and mask: outputs narrower than the tile
+    (24, 136 of 256), Cout = 128, Cin below one K step (16) and over
+    several (512), batches whose pixel tiles cross rows and images, one
+    launch a call."""
+    bm, bn = tile
+    _force_tma_plan(monkeypatch, bm, bn)
+    g = torch.Generator(device=cuda).manual_seed(25)
+    for b, h, w_, cin, cout in ((3, 7, 30, 16, 24), (2, 11, 14, 256, 128),
+                                (1, 33, 33, 128, 136), (2, 12, 12, 512, 64)):
+        for taps in ((1, 1), (1, 2), (2, 1), (2, 2)):
+            x, w = _packed_case(g, cuda, torch.bfloat16, b, h, w_, cin, cout,
+                                taps)
+            for pads in PACKED_PADS:
+                for bias, mask_c in _epilogues(g, cout, torch.bfloat16, cuda):
+                    assert (K.packed_conv_plan(b, h, w_, cin, cout, *taps,
+                                               pads).bn == bn)
+                    before = K.LAUNCHES["packed_conv2x2"]
+                    got = K.packed_conv2x2(x, w, pads, bias, mask_c)
+                    torch.cuda.synchronize()
+                    assert K.LAUNCHES["packed_conv2x2"] == before + 1
+                    ref = K.packed_conv2x2_plain(x, w, pads, bias, mask_c)
+                    assert _rel_err(got, ref) <= RTOL[torch.bfloat16], (
+                        pads, taps, b, h, cin, cout, mask_c)
+
+
+@pytest.mark.cuda
+def test_packed_conv_cout_128_at_every_pads_form(cuda):
+    """Cout = 128 (the downsample p0 convolutions' width: a 128-wide tile
+    where the grid is not small) through the plan at every taps and pads
+    form, bias and mask."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    for taps in ((1, 1), (1, 2), (2, 1), (2, 2)):
+        x, w = _packed_case(g, cuda, torch.bfloat16, 3, 64, 64, 512, 128,
+                            taps, 0.05)
+        for pads in PACKED_PADS:
+            plan = K.packed_conv_plan(3, 64, 64, 512, 128, *taps, pads)
+            assert plan.route == "tma" and plan.bn == 128
+            for bias, mask_c in _epilogues(g, 128, torch.bfloat16, cuda):
+                got = K.packed_conv2x2(x, w, pads, bias, mask_c)
+                torch.cuda.synchronize()
+                ref = K.packed_conv2x2_plain(x, w, pads, bias, mask_c)
+                assert _rel_err(got, ref) <= RTOL[torch.bfloat16], (pads,
+                                                                    taps)
+
+
+@pytest.mark.cuda
+def test_packed_conv_tiles_across_images(cuda):
+    """A batch of 7 images of 9 x 11 outputs (99 pixels: every pixel tile
+    crosses images, the last runs past the batch) through the plan."""
+    g = torch.Generator(device=cuda).manual_seed(27)
+    x, w = _packed_case(g, cuda, torch.bfloat16, 7, 10, 12, 256, 256, (2, 2))
+    for pads in (((0, 0), (0, 0)), ((1, 1), (1, 1)), ((0, 1), (0, 1))):
+        got = K.packed_conv2x2(x, w, pads)
+        torch.cuda.synchronize()
+        ref = K.packed_conv2x2_plain(x, w, pads)
+        assert _rel_err(got, ref) <= RTOL[torch.bfloat16], pads
+
+
+@pytest.mark.cuda
+def test_packed_conv_small_grids_are_repeatable(cuda):
+    """The generator's B = 1 levels (65^2 and 129^2, the plans that narrow
+    the tile for a small grid): against the plain version, and two calls
+    bitwise equal (no atomics: every output is one block's f32 sum)."""
+    import chip_smoke as cs
+    g = torch.Generator(device=cuda).manual_seed(28)
+    for label, b, hi, cin, cout, kh, kw, pads in cs.K6_LEVEL_CASES:
+        if b != 1:
+            continue
+        x, w = _packed_case(g, cuda, torch.bfloat16, b, hi, hi, cin, cout,
+                            (kh, kw), 0.02)
+        one = K.packed_conv2x2(x, w, pads)
+        two = K.packed_conv2x2(x, w, pads)
+        torch.cuda.synchronize()
+        assert torch.equal(one, two), label
+        ref = K.packed_conv2x2_plain(x, w, pads)
+        assert _rel_err(one, ref) <= RTOL[torch.bfloat16], label
+
+
+@pytest.mark.cuda
+def test_packed_conv_narrow_channels_take_cp_async(cuda):
+    """Cin = 12 (the encoder's first conv) and Cout = 12 (the generator's
+    last): 8-byte strides, the cp.async route, bias and mask."""
+    g = torch.Generator(device=cuda).manual_seed(29)
+    same, valid = ((1, 1), (1, 1)), ((0, 0), (0, 0))
+    for cin, cout, pads in ((12, 256, same), (256, 12, valid),
+                            (12, 12, same)):
+        plan = K.packed_conv_plan(2, 33, 33, cin, cout, 2, 2, pads)
+        assert plan.route == "cp.async"
+        x, w = _packed_case(g, cuda, torch.bfloat16, 2, 33, 33, cin, cout,
+                            (2, 2), 0.1)
+        for bias, mask_c in _epilogues(g, cout, torch.bfloat16, cuda):
+            got = K.packed_conv2x2(x, w, pads, bias, mask_c)
+            torch.cuda.synchronize()
+            ref = K.packed_conv2x2_plain(x, w, pads, bias, mask_c)
+            assert _rel_err(got, ref) <= RTOL[torch.bfloat16], (cin, cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_conv_at_the_level_shapes_batch_2(cuda, dtype):
+    """Every geometry of chip_smoke.py's K6_LEVEL_CASES (the multi-level
+    forms and GMFlow's packed layer1) at batch 2."""
+    import chip_smoke as cs
+    g = torch.Generator(device=cuda).manual_seed(30)
+    for label, _, hi, cin, cout, kh, kw, pads in cs.K6_LEVEL_CASES:
+        x, w = _packed_case(g, cuda, dtype, 2, hi, hi, cin, cout, (kh, kw),
+                            0.02)
+        got = K.packed_conv2x2(x, w, pads)
+        torch.cuda.synchronize()
+        ref = K.packed_conv2x2_plain(x, w, pads)
+        assert _rel_err(got, ref) <= RTOL[dtype], label
+        del x, w, got, ref
 
 
 # each backward kernel against float64 (the plain version's autograd on

@@ -13,7 +13,8 @@ default, phase512=False. Prints one JSON line: the wall time,
 the device's busy time (the summed durations of the device-side events,
 which never overlap on one stream) and idle share, and the kernels with the
 most device time, and the device ms and launches of K1's dense bf16
-kernel and K2's bf16 kernel, beside the card's name and power limit. The
+kernel, K2's bf16 kernel and K6's bf16 kernels (the packed convolution,
+both routes), beside the card's name and power limit. The
 profiler's own host overhead lengthens the wall time, so the idle share is
 an upper bound. The full table (device ms, calls, name) goes to --out.
 --root profiles another checkout's comfyui_keep_torch (e.g. a parent commit
@@ -87,9 +88,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     kernels = {}
-    for key, pat in (("K1_dense_bf16", "flash_attention_bf16_kernel"),
-                     ("K2_bf16", "mlp_fused_bf16_kernel")):
-        hits = [v for k, v in by_name.items() if pat in k]
+    for key, pats in (("K1_dense_bf16", ("flash_attention_bf16_kernel",)),
+                      ("K2_bf16", ("mlp_fused_bf16_kernel",)),
+                      ("K6_bf16", ("packed_conv_wgmma_kernel",
+                                   "packed_conv_cp_async_kernel"))):
+        hits = [v for k, v in by_name.items() if any(p in k for p in pats)]
         kernels[key] = {"calls": sum(n for n, _ in hits),
                         "device_ms": sum(ms for _, ms in hits)}
     print(json.dumps({
