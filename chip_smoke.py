@@ -568,22 +568,88 @@ def time_ms(torch, fn, iters):
     return a.elapsed_time(b) / iters
 
 
+def device_events(torch, calls, iters):
+    """The device kernels of iters calls of each fn in calls, in one
+    torch.profiler trace, in the order they ran: [(name, us)]. Read from
+    prof.events(), one entry a kernel launch (self times summed from
+    key_averages() read a fraction of K2's backward launches, or none).
+    The trace follows a warm-up cycle of one call each (traced and
+    dropped): traces taken late in a long process without one lost their
+    first kernels."""
+    kept = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1),
+            on_trace_ready=lambda p: kept.append(list(p.events()))) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for fn in calls:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        prof.step()
+    ev = sorted((e for e in (kept[0] if kept else [])
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in ev]
+
+
 def device_ms(torch, fn, iters):
     """Device time per call of fn from torch.profiler: the device time of
     every kernel over iters calls, divided by iters (host gaps between
-    launches excluded, unlike time_ms). Only the kernels' own entries count:
-    an ATen op's entry repeats its kernels' time."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
+    launches excluded, unlike time_ms)."""
+    return sum(us for _, us in device_events(torch, [fn], iters)) / 1e3 / iters
+
+
+PORT_KERNEL = "keep::"   # every kernel of comfyui_keep_torch/csrc/ is in it
+
+
+def kernel_name(name):
+    """A device kernel's name without its return type, namespaces and
+    parameters: 'mlp_bwd_gemm_kernel<1, false>'."""
+    name = name.split("(")[0].removeprefix("void ")
+    head, lt, tail = name.partition("<")
+    return head.split("::")[-1] + lt + tail
+
+
+def paired_device_ms(torch, kernel, other, iters, bound_ms, ms, other_ms):
+    """Device ms a call of a port wrapper and of its yardstick (a PyTorch
+    call, or the unfused reference) from one torch.profiler trace: iters
+    calls of kernel, then iters of other. The wrapper's time is its
+    kernels' (PORT_KERNEL in the name), each also by name
+    (device_kernels); the yardstick's every kernel after the wrapper's
+    last. A reading is refused, its times None and the reason in
+    device_refused, when a count of kernels is no multiple of iters or a
+    time lies below bound_ms (the least the work can take: records were
+    lost) or above 1.25 times its CUDA-event ms (ms, other_ms) plus 10 us;
+    the trace is taken twice before it is refused."""
+    for _ in range(2):
+        ev = device_events(torch, [kernel, other], iters)
+        mine = [i for i, (n, _) in enumerate(ev) if PORT_KERNEL in n]
+        theirs = ev[mine[-1] + 1:] if mine else []
+        k_ms = sum(ev[i][1] for i in mine) / 1e3 / iters
+        o_ms = sum(us for _, us in theirs) / 1e3 / iters
+        why = None
+        if not mine or len(mine) % iters or not theirs or len(theirs) % iters:
+            why = (f"{len(mine)} port kernels and {len(theirs)} yardstick "
+                   f"kernels over {iters} calls each")
+        else:
+            for what, t, ev_ms in (("kernel", k_ms, ms), ("yardstick", o_ms,
+                                                          other_ms)):
+                if not bound_ms <= t <= 1.25 * ev_ms + 0.01:
+                    why = (f"{what} device ms {t} outside [bound {bound_ms}, "
+                           f"1.25 x event ms {ev_ms} + 0.01]")
+        if why is None:
+            per = {}
+            for i in mine:
+                k = kernel_name(ev[i][0])
+                per[k] = per.get(k, 0.0) + ev[i][1] / 1e3 / iters
+            return {"kernel": k_ms, "other": o_ms, "kernels": per,
+                    "refused": None}
+    return {"kernel": None, "other": None, "kernels": None, "refused": why}
 
 
 def kernel_names(torch, fn):
@@ -865,7 +931,6 @@ def phase_k6(torch, iters=KERNEL_ITERS):
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         for label, b, hi, cin, cout, pads, (kind, uci, uco) in K6_CASES:
             x = torch.randn(b, hi, hi, cin, generator=g,
                             device="cuda").to(dtype)
@@ -900,9 +965,12 @@ def phase_k6(torch, iters=KERNEL_ITERS):
                 unpacked = lambda: conv2d(upsample_nearest_2x(ux), uw,
                                           padding=1)
             unpacked_ms = time_ms(torch, unpacked, iters)
-            op_s = 2 * got.numel() * 4 * cin / peak
-            byte_s = (x.numel() + w.numel() + got.numel()) * \
-                x.element_size() / HBM
+            flops = 2 * got.numel() * 4 * cin
+            op_s, byte_s, f32_extra = k6_bound(
+                torch, dtype, flops, (x.numel() + w.numel() + got.numel())
+                * x.element_size(), lambda: K.packed_conv2x2(x, w, pads),
+                lambda: F.conv2d(xl, wl, padding=pads[0][0]), ms, lib_ms,
+                iters)
             row = {"name": "packed_conv2x2", "case": label, "dtype": dname,
                    "x": [b, hi, hi, cin], "w": [2, 2, cin, cout],
                    "pads": pads, "plan": k6_plan(K, b, hi, cin, cout, 2, 2,
@@ -913,7 +981,7 @@ def phase_k6(torch, iters=KERNEL_ITERS):
                    "unpacked_3x3": [kind, b, uci, uco],
                    "bound_ms": 1e3 * max(op_s, byte_s),
                    "bound_by": "operations" if op_s >= byte_s else "bytes",
-                   "ok": bool(err <= tol)}
+                   **f32_extra, "ok": bool(err <= tol)}
             say("kernel", **row)
             rows[(label, dname)] = row
             if pads == K6_SAME:
@@ -932,17 +1000,27 @@ def phase_k6(torch, iters=KERNEL_ITERS):
                 def unfused():
                     K.mask_parity1_(K.packed_conv2x2(x, w, pads).add_(bias),
                                     mc)
+
+                def fused_call():
+                    return K.packed_conv2x2(x, w, pads, bias, mc)
+
+                def lib_bias():
+                    return F.conv2d(xl, wl, bias, padding=1)
+                fms = time_ms(torch, fused_call, iters)
+                flib = time_ms(torch, lib_bias, iters)
                 frow = dict(row, case=label + ", + bias + mask",
                             max_abs_err=ferr, tol=ftol, ref_spread=fspread,
-                            ms=time_ms(torch, lambda: K.packed_conv2x2(
-                                x, w, pads, bias, mc), iters),
+                            ms=fms,
                             plain_ms=time_ms(
                                 torch, lambda: K.packed_conv2x2_plain(
                                     x, w, pads, bias, mc), max(1, iters // 4)),
                             unfused_ms=time_ms(torch, unfused, iters),
-                            library_ms=time_ms(torch, lambda: F.conv2d(
-                                xl, wl, bias, padding=1), iters),
+                            library_ms=flib,
                             library="cuDNN conv2d + bias (no mask)",
+                            **k6_bound(torch, dtype, flops, (
+                                x.numel() + w.numel() + got.numel())
+                                * x.element_size(), fused_call, lib_bias,
+                                fms, flib, iters)[2],
                             ok=bool(ferr <= ftol))
                 say("kernel", **frow)
                 rows[(frow["case"], dname)] = frow
@@ -1231,6 +1309,36 @@ INT8_TIMED = (("bf16", dict()), ("bf16+int8", dict(int8_acts=True)),
               ("packed+int8", dict(phase512=True, int8_acts=True)))
 
 
+def k6_bound(torch, dtype, flops, nbytes, kernel, library, ms, lib_ms,
+             iters):
+    """(operation seconds, byte seconds, f32 extras) of one K6 call: bf16
+    products at PEAK_BF16, f32 as the kernel computes them, 3xTF32 (F32_TC);
+    for f32 also fma_bound_ms (the FMA pipe's bound), the kernel's and
+    cuDNN's device ms from one torch.profiler trace (paired_device_ms;
+    device_kernels: the weights' split and the convolution apart) beside
+    their event ms, and ms over cuDNN's (vs_library)."""
+    byte_s = nbytes / HBM
+    if dtype == torch.bfloat16:
+        return flops / PEAK_BF16, byte_s, {}
+    op_s = op_seconds([(flops, F32_TC)])
+    dev = paired_device_ms(torch, kernel, library, iters,
+                           1e3 * max(op_s, byte_s), ms, lib_ms)
+    return op_s, byte_s, {
+        "fma_bound_ms": 1e3 * max(op_seconds([(flops, F32_TC)], fma=True),
+                                  byte_s),
+        "device_ms": dev["kernel"], "library_device_ms": dev["other"],
+        "device_kernels": dev["kernels"], "device_refused": dev["refused"],
+        "vs_library": ms / lib_ms}
+
+
+def k6_extra(row):
+    """A K6 row's f32 extras (k6_bound) for the final kernels line."""
+    return {k: row[k] for k in ("fma_bound_ms", "device_ms",
+                                "library_device_ms", "device_kernels",
+                                "device_refused", "vs_library")
+            if k in row}
+
+
 def k6_row(torch, g, dtype, label, b, hi, cin, cout, kh, kw, pads, iters):
     """One K6 row at a new shape: max|d| against the plain version within
     KERNEL_RTOL x the plain output's spread, kernel / plain / F.conv2d ms
@@ -1239,7 +1347,6 @@ def k6_row(torch, g, dtype, label, b, hi, cin, cout, kh, kw, pads, iters):
     import torch.nn.functional as F
     from comfyui_keep_torch.ops import kernels as K
     dname = str(dtype).split(".")[-1]
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     x = torch.randn(b, hi, hi, cin, generator=g, device="cuda").to(dtype)
     w = (torch.randn(kh, kw, cin, cout, generator=g, device="cuda")
          / math.sqrt(kh * kw * cin)).to(dtype)
@@ -1261,8 +1368,11 @@ def k6_row(torch, g, dtype, label, b, hi, cin, cout, kh, kw, pads, iters):
         sym = pt
     wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     lib_ms = time_ms(torch, lambda: F.conv2d(xl, wl, padding=sym), iters)
-    op_s = 2 * got.numel() * kh * kw * cin / peak
-    byte_s = (x.numel() + w.numel() + got.numel()) * x.element_size() / HBM
+    op_s, byte_s, f32_extra = k6_bound(
+        torch, dtype, 2 * got.numel() * kh * kw * cin,
+        (x.numel() + w.numel() + got.numel()) * x.element_size(),
+        lambda: K.packed_conv2x2(x, w, pads),
+        lambda: F.conv2d(xl, wl, padding=sym), ms, lib_ms, iters)
     row = {"name": "packed_conv2x2", "case": label, "dtype": dname,
            "x": [b, hi, hi, cin], "w": [kh, kw, cin, cout], "pads": pads,
            "plan": k6_plan(K, b, hi, cin, cout, kh, kw, pads, dtype),
@@ -1272,7 +1382,7 @@ def k6_row(torch, g, dtype, label, b, hi, cin, cout, kh, kw, pads, iters):
            "library": "cuDNN conv2d, channels-last",
            "bound_ms": 1e3 * max(op_s, byte_s),
            "bound_by": "operations" if op_s >= byte_s else "bytes",
-           "ok": bool(err <= tol)}
+           **f32_extra, "ok": bool(err <= tol)}
     say("kernel", **row)
     return row
 
@@ -2535,22 +2645,24 @@ def phase_vq(torch, iters=KERNEL_ITERS):
         def lib():
             return torch.addmm(e2, zc, ec.t(), alpha=-2).argmin(-1)
         lib_ms = time_ms(torch, lib, iters)
-        # at ~0.02-0.06 ms a call the loop above can be bound by the host's
-        # launches: the device's own time of each, from the profiler
-        dev_ms = device_ms(torch, lambda: K.vq_nearest_indices(zc, ec),
-                           iters)
-        lib_dev_ms = device_ms(torch, lib, iters)
         peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
         op_s = 2 * VQ_T * VQ_N * VQ_C / peak
         byte_s = ((VQ_T + VQ_N) * VQ_C * zc.element_size()
                   + 4 * (VQ_N + VQ_T)) / HBM
+        # at ~0.02-0.06 ms a call the loop above can be bound by the host's
+        # launches: the device's own time of each, from one profiler trace
+        dev = paired_device_ms(torch, lambda: K.vq_nearest_indices(zc, ec),
+                               lib, iters, 1e3 * max(op_s, byte_s), ms,
+                               lib_ms)
         row = {"name": "vq_nearest_indices", "dtype": dname,
                "max_abs_err": err, "tol": tol,
                "picks_differing": pc["differing"],
                "picks_differing_past_tol": mismatched,
                "tokens_past_tol": pc["tokens_past_tol"],
                "repeat_codes_picked": repeats, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+               "device_ms": dev["kernel"], "library_device_ms": dev["other"],
+               "device_kernels": dev["kernels"],
+               "device_refused": dev["refused"],
                "bound_ms": 1e3 * max(op_s, byte_s),
                "bound_by": "operations" if op_s >= byte_s else "bytes",
                "ok": bool(mismatched == 0 and err <= tol and repeats == 0)}
@@ -4556,10 +4668,14 @@ BWD_PRECISION = {
                     "dO' as bf16 hi + lo in dh and dW2, da rounded to bf16 "
                     "once in d[src | msg] and dW1; the weight blocks "
                     "recompute a and dh",
-        "float32": "3xTF32 mma.sync m16n8k8 (hi x hi chains of 2 k steps in "
-                   "a, 4 in dh, 2 in d[src | msg], 4 (32 rows) in dW1 / "
-                   "dW2, each added in f32); da and h (rows, H) f32 handed "
-                   "from the row blocks to the weight blocks"}}
+        "float32": "3xTF32 wgmma (three launches of one warp-specialized "
+                   "GEMM, two 64-row consumer warpgroups and a TMA "
+                   "producer that splits B into hi and lo in shared "
+                   "memory, A split in registers; each K step of 4 k "
+                   "steps from zero, added in f32): a and dh (m64n64k8), "
+                   "then da^T and h^T (H, rows) f32 written for d[src | "
+                   "msg] = da W1 and the weight products over 2,048-row "
+                   "slices (m64n128k8)"}}
 
 
 def bwd_precision(fn_name, dname, args):
@@ -4678,8 +4794,19 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
     flops = backward_work(torch, fn_name, args)
     op_s, byte_s = sum(f / p for f, p in flops), nbytes / HBM
     lib = lib_bwd = ref_ms = None
+    dev = {}
+    ms = time_ms(torch, kernel, iters)
     if fn_name == "mlp_fused":
-        ref_ms = time_ms(torch, mlp_reference_call(torch, args, up), iters)
+        ref_call = mlp_reference_call(torch, args, up)
+        ref_ms = time_ms(torch, ref_call, iters)
+        # the kernels' and the reference's device time, one profiler trace
+        pair = paired_device_ms(torch, kernel, ref_call, iters,
+                                1e3 * max(op_s, byte_s), ms, ref_ms)
+        dev = {"device_ms": pair["kernel"],
+               "reference_device_ms": pair["other"],
+               "device_kernels": pair["kernels"],
+               "device_refused": pair["refused"]}
+        del ref_call
         torch.cuda.empty_cache()
     else:
         lib = time_ms(torch, sdpa_backward_call(torch, fn_name, args, up),
@@ -4691,8 +4818,7 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
     row = {"off_f64": k_off, "plain_off_f64": p_off, "limit": lim,
            "bitwise_repeat": bitwise, "peak_extra_bytes": extra,
            "peak_limit_bytes": ll, "max_abs_err": err,
-           "ms": time_ms(torch, kernel, iters),
-           "plain_ms": time_ms(torch, plain, max(1, iters // 4)),
+           "ms": ms, "plain_ms": time_ms(torch, plain, max(1, iters // 4)),
            "library_ms": lib, "library": None if lib is None else
            "SDPA forward + backward", "sdpa_backward_ms": lib_bwd,
            "reference_ms": ref_ms, "reference": None if ref_ms is None else
@@ -4700,7 +4826,7 @@ def backward_row(torch, fn_name, args, iters=BWD_ITERS):
            "precision": bwd_precision(fn_name, dname, args),
            "bound_ms": 1e3 * max(op_s, byte_s),
            "bound_by": "operations" if op_s >= byte_s else "bytes",
-           "differentiates": JAX_GRAD_OF[fn_name]}
+           "differentiates": JAX_GRAD_OF[fn_name], **dev}
     row["ok"] = bool(all(k <= m for k, m in zip(k_off, lim)) and bitwise
                      and extra < ll)
     return row
@@ -6217,6 +6343,9 @@ def main():
             "peak_limit_bytes": r["peak_limit_bytes"],
             "precision": r["precision"], "reference_ms": r["reference_ms"],
             "reference": r["reference"],
+            **{k: r[k] for k in ("device_ms", "reference_device_ms",
+                                 "device_kernels", "device_refused")
+               if k in r},
             "dtype": dname, "status": "ported"})
     # the nearest-codebook kernel runs on the training path: f32 as
     # configured, bf16 under mixed precision; launches from those runs
@@ -6230,6 +6359,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
+            "device_kernels": r["device_kernels"],
+            "device_refused": r["device_refused"],
             "dtype": dname, "status": "ported", **slice7(name, dname),
             **stage3(name, dname), **parallel(name, dname)})
     # K5 on StyleGAN2's paths: times at the largest activation; launches of
@@ -6286,7 +6417,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "unpacked_3x3_ms": r["unpacked_3x3_ms"], "dtype": dname,
-            "status": "ported"})
+            "status": "ported", **k6_extra(r)})
     # K6 at the new shapes of slice 13's forms: launches at the row's shape
     # (any batch) over phase packing_levels' f32 checks or the last round
     # of its bf16 chunks, and phase gmflow_packed's calls, in its dtype
@@ -6306,7 +6437,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": dname, "status": "ported"})
+            "dtype": dname, "status": "ported", **k6_extra(r)})
     idle = [(t["name"], t.get("case"), t["dtype"]) for t in table
             if not t["launches"]]
     if idle:

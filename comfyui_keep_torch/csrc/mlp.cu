@@ -94,58 +94,57 @@
 // dout for src), dW1 = da^T [src | msg], dW2 = dO'^T h. At the GMFlow
 // step's 49,152 rows (C = 128, H = 1024) that is 103.1 GFLOP of products:
 // at 989 TFLOP/s the bf16 bound is 0.104 ms, and f32 done as 3xTF32 (three
-// TF32 products each) 0.625 ms at 495. Nothing (rows, H) wide is needed in
-// memory except, in f32, da and h.
+// TF32 products each) 0.625 ms at 495. No atomics anywhere (two calls are
+// bitwise equal); the weight products sum over slices of kSlice rows, whose
+// partials a last kernel adds in a fixed order.
 //   * mlp_bwd_prep_kernel: the LayerNorm's backward, a warp a row: dO'
 //     (rows, C) and per-block column sums of dout ohat and dout; and W2^T
-//     (H, C), so that both products with W2 read K-contiguous rows.
-//   * mlp_fused_bwd_kernel, 8 warps a block, two kinds of block. Row blocks
-//     own rows (bf16 128, f32 64) and stream W1 and W2^T in hidden chunks
-//     through two cp.async stages: per chunk they form a = [src | msg]
-//     W1^T and dh = dO' W2 for their rows, da on the registers, and d[src
-//     | msg] += da W1 from those registers into a 16 x 256 accumulator a
-//     warp across H. Weight blocks own a 64-wide hidden chunk over a slice
-//     of 2,048 rows, in row tiles double-buffered by cp.async, and sum
-//     dW1[chunk] and dW2[:, chunk] over the slice in registers. Per tile
-//     the bf16 blocks recompute a and dh for the chunk from the staged
-//     tiles and the chunk's weights (h and da for every row would be a
-//     (rows, H) f32 tensor's bytes) and store da and h as tiles; the f32
-//     ones read da and h, which the f32 row blocks wrote, in a second
-//     launch (recomputing them took 1.4x the time on the H100: PERF.md).
-//     bf16 runs both kinds in one grid, weight blocks first, so that they
-//     fill the card's waves together.
-//   * mlp_bwd_reduce_kernel: dgamma, dbeta and the slices' weight partials
-//     summed in a fixed order. No atomics anywhere: two calls are bitwise
-//     equal.
-// bf16 on wgmma: every product a warpgroup issues (64-row tiles) reads its
-// shared-memory operands once for the 4 warps, where mma.sync's 16-row
-// warp tiles read each B operand by ldmatrix for every warp and made
-// shared memory the limit. Each tile is stored once, in wgmma's
-// 128-byte-swizzle layout (am_at), and is a K-major operand of one product
-// and an MN-major one of the other: W1's rows are B of a and of d[src |
-// msg], [src | msg] and dO' are A of a and dh and B and A of dW1 and dW2.
-// d[src | msg] takes da as its A operand from registers (wgmma's register
-// A layout is mma.sync's, and so is its accumulator layout). f32 on
-// mma.sync by 3xTF32 (TF32 wgmma would need every operand K-major and
-// split in shared memory): ldmatrix reads the K-contiguous tiles, scalar
-// reads with the k slots relabelled the others (mm_nt, mm_nn, mm_tn).
-// Precision. bf16: [src | msg], W1, W2 and h are bf16 values, so a and the
-// products with h are exact bf16 products with f32 sums; dO' enters dh
-// and dW2 as bf16 hi + lo (two products), da enters d[src | msg] and dW1
-// rounded once. In a model of the rounding at a single row
-// (tests/test_torch_kernel_backward.py) this scheme stood within 2.0x the
-// plain backward's distance to float64 and dO' rounded once too up to 3.2x
-// (the gate is 3x); hi + lo for da as well took 1.1x the time on the H100.
-// f32: 3xTF32 on m16n8k8, every operand split into a TF32 hi and lo as it
-// is loaded; the tensor core's adds truncate, so the hi x hi products run
-// in short chains added in f32 (kAChain, kDhChain; the weight products'
-// per row tile).
-// What bounds it on the H100: bf16, the wgmmas run one group at a time,
-// each waited for before the next (the da registers, the tiles' reuse),
-// and the weight blocks' recompute adds 38.7 GFLOP; f32, issue: the
-// splits, the chains' f32 adds and the scalar reads come to about five
-// instructions an mma, and the 16 x 256 accumulator fills the registers
-// (255, with 240-244 bytes spilled).
+//     (H, C) (f32: and W1^T (2C, H)), so that every product reads its
+//     weights K-contiguous.
+//   * bf16: mlp_fused_bwd_kernel, 8 warps a block, two kinds of block in one
+//     grid, weight blocks first, so that they fill the card's waves
+//     together. Row blocks own 128 rows and stream W1 and W2^T in 64-unit
+//     chunks through two cp.async stages: per chunk they form a = [src |
+//     msg] W1^T and dh = dO' W2 for their rows, da on the registers, and
+//     d[src | msg] += da W1 from those registers into a 16 x 256
+//     accumulator a warp across H. Weight blocks own a 64-wide hidden chunk
+//     over a slice of kSlice rows, in row tiles double-buffered by cp.async,
+//     recompute a and dh for the chunk (h and da for every row would be a
+//     (rows, H) f32 tensor's bytes), store da and h as tiles and sum dW1 and
+//     dW2 over the slice in registers. Every product a warpgroup issues
+//     (64-row tiles) reads its shared-memory operands once for the 4 warps;
+//     each tile is stored once, in wgmma's 128-byte-swizzle layout (am_at),
+//     and is a K-major operand of one product and an MN-major one of the
+//     other; d[src | msg] takes da as its A operand from registers (wgmma's
+//     register A layout is mma.sync's, and so is its accumulator layout).
+//     Precision: [src | msg], W1, W2 and h are bf16 values, so a and the
+//     products with h are exact bf16 products with f32 sums; dO' enters dh
+//     and dW2 as bf16 hi + lo (two products), da enters d[src | msg] and
+//     dW1 rounded once. In a model of the rounding at a single row
+//     (tests/test_torch_kernel_backward.py) this scheme stood within 2.0x
+//     the plain backward's distance to float64 and dO' rounded once too up
+//     to 3.2x (the gate is 3x); hi + lo for da as well took 1.1x the time.
+//   * f32: mlp_bwd_gemm_kernel, three launches of one warp-specialized
+//     3xTF32 wgmma GEMM (AH, DX, W below), x = hi + lo with hi x rounded to
+//     TF32, a b = a_lo b_hi + a_hi b_lo + a_hi b_hi in f32. TF32 wgmma
+//     reads shared memory only K-major, and of the weight products' operands
+//     (K = rows) only da and h can be written so: AH computes a and dh for
+//     128 rows x 64 units and writes da^T and h^T (H, rows) f32 from a
+//     transposing staging tile by TMA (two (rows, H) f32 tensors' bytes);
+//     DX forms d[src | msg] = da W1 from da^T
+//     and W1^T; W forms dW1^T = [src | msg]^T da and dW2 = dO'^T h over row
+//     slices from da^T and h^T (B, K-major) and the raw row tiles (A). A
+//     block is two consumer warpgroups of 64 rows and a producer warpgroup
+//     whose first thread loads a K step's raw A tile and B tile by TMA into
+//     a ring of slots; its 128 threads split B in place into TF32 hi and lo
+//     tiles, relabelling its K within each 8 (slots 0-3 the even K, 4-7 the
+//     odd); the consumers read A from the raw tile into registers in the
+//     same K order (K-major rows by 8-byte loads, MN-major tiles by 4-byte
+//     loads, both without bank conflicts) and split it there. The tensor
+//     core's adds truncate, so each K step's (4 k8 steps') products run
+//     from zero into a part set, added in f32 once it has landed (the two
+//     warpgroups overlap each other). AH's tiles are 64 units wide (it
+//     holds a and dh), DX's and W's 128.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -154,6 +153,7 @@ namespace keep {
 using sm90::am_at;
 using sm90::desc_k;
 using sm90::desc_mn;
+using sm90::f_add;
 
 constexpr int kC = 128;  // model width the kernels are built for
 
@@ -467,15 +467,6 @@ static_assert(kFSmem <= 232448, "227 KB a block");
 // (p - 4) .. (parts 4, 5)
 constexpr int kFSlices = 6;
 
-// the sums of a 3xTF32 product (the tensor core's adds truncate): every
-// group's products from zero into one of two part sets, each added to sum
-// in f32 once it has landed (sum is assigned at the first)
-template <int N>
-__device__ __forceinline__ void f_add(float (&sum)[N], const float (&part)[N],
-                                      bool first) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) sum[i] = first ? part[i] : sum[i] + part[i];
-}
 
 // Product 1's groups of slice p (stream index ts): the chunk's hidden +=
 // [src | msg][:, 64 p ..] W1[chunk, 64 p ..]^T as 3xTF32 (x' Whi + x' Wlo
@@ -819,26 +810,17 @@ constexpr int kGThreads = 256;
 constexpr int kLnRows = 128;   // rows a block of the LayerNorm backward
 constexpr int kWHc = 64;       // hidden units a weight block owns
 constexpr int kSlice = 2048;   // rows a weight block sums over
-// 3xTF32 hi x hi chain lengths (k steps of 8) of a = [src | msg] W1^T and
-// dh = dO' W2 before each is added to its f32 sum (the tensor core's adds
-// truncate; attention_bwd.cu's S and dP chains)
-constexpr int kAChain = 2, kDhChain = 4;
 
-// A form's tiling. Row blocks own `rows` rows (8 warps: row groups of 16,
-// `ks` warps splitting each chunk's hidden units; bf16: two warpgroups of
-// 64 rows) and stream W1 and W2^T in chunks of `hc` hidden units through
-// two stages, `hstep` units at a time. Weight blocks walk their rows in
-// tiles of `wt`.
+// The bf16 form's tiling. Row blocks own `rows` rows (two warpgroups of
+// 64) and stream W1 and W2^T in chunks of `hc` hidden units through two
+// stages, `hstep` units at a time. Weight blocks walk their rows in tiles
+// of `wt`.
 template <typename T> struct BwdCfg;
 template <> struct BwdCfg<bf16> {
   static constexpr int rows = 128, hc = 64, ks = 1, hstep = 32, wt = 64;
 };
-template <> struct BwdCfg<float> {
-  static constexpr int rows = 64, hc = 32, ks = 2, hstep = 16, wt = 32;
-};
 
-// byte offsets in a backward block's shared memory. f32 tiles are rows of
-// 16-byte chunks at c ^ (r & 7) (sm90::swz); bf16 tiles are in wgmma's
+// byte offsets in a bf16 backward block's shared memory: tiles in wgmma's
 // 128-byte-swizzle layout (am_at): 64-column blocks of the tile's rows x
 // 128 B, so that one tile is a K-major operand of one product and an
 // MN-major one of the other (W1's rows: B of a = X W1^T and of d[src |
@@ -847,10 +829,9 @@ template <> struct BwdCfg<float> {
 template <typename T>
 struct BwdSmem {
   using Cf = BwdCfg<T>;
-  // bf16: dO' enters dh and dW2 as bf16 hi + lo (lo the rounded
-  // remainder), two products each, and da enters d[src | msg] and dW1
-  // rounded once; f32: both as they are (3xTF32)
-  static constexpr int nd = is_f32<T> ? 1 : 2;
+  // dO' enters dh and dW2 as bf16 hi + lo (lo the rounded remainder), two
+  // products each, and da enters d[src | msg] and dW1 rounded once
+  static constexpr int nd = 2;
   static constexpr int rbx = 2 * kC * (int)sizeof(T);  // [src | msg], W1 row
   static constexpr int rbd = kC * (int)sizeof(T);      // dO', W2^T row
   static constexpr int rbh = kWHc * (int)sizeof(T);    // da, h tile row
@@ -862,27 +843,20 @@ struct BwdSmem {
   static constexpr uint32_t r_w2 = Cf::hc * rbx;  // W2^T's rows in a stage
   static constexpr uint32_t r_stage = Cf::hc * (rbx + rbd);
   static constexpr uint32_t r_bytes = r_ring + 2 * r_stage;
-  // weight blocks: bf16, the chunk's W1 and W2^T rows, two buffers of a row
+  // weight blocks: the chunk's W1 and W2^T rows, two buffers of a row
   // tile's [src | msg] and dO' (hi, lo), then the tile's da and h, which
-  // the block recomputes; f32, two buffers of a row tile's [src | msg],
-  // dO', da and h, the last two from the row blocks
+  // the block recomputes
   static constexpr uint32_t w_w2 = kWHc * rbx;
-  static constexpr uint32_t w_buf = is_f32<T> ? 0 : w_w2 + kWHc * rbd;
+  static constexpr uint32_t w_buf = w_w2 + kWHc * rbd;
   static constexpr uint32_t b_d = Cf::wt * rbx;
   static constexpr uint32_t b_dlo = b_d + Cf::wt * rbd;
-  static constexpr uint32_t b_da = b_d + nd * Cf::wt * rbd;  // f32
-  static constexpr uint32_t b_h = b_da + Cf::wt * rbh;        // f32
-  static constexpr uint32_t buf = is_f32<T> ? b_h + Cf::wt * rbh : b_da;
-  static constexpr uint32_t w_da = w_buf + 2 * buf;  // bf16
+  static constexpr uint32_t buf = b_d + nd * Cf::wt * rbd;
+  static constexpr uint32_t w_da = w_buf + 2 * buf;
   static constexpr uint32_t w_h = w_da + Cf::wt * rbh;
-  static constexpr uint32_t w_bytes =
-      is_f32<T> ? w_buf + 2 * buf : w_h + Cf::wt * rbh;
+  static constexpr uint32_t w_bytes = w_h + Cf::wt * rbh;
   static constexpr uint32_t bytes = r_bytes > w_bytes ? r_bytes : w_bytes;
   // the launch's: the base is rounded up to 1024 B (wgmma's swizzle atoms)
   static constexpr uint32_t launch_bytes = bytes + 1024;
-  // the f32 row block's second hidden half of d[src | msg], padded rows
-  static constexpr int red_ld = 2 * kC + 8;
-  static_assert(!is_f32<T> || 4 * Cf::rows * red_ld <= r_ring, "fits");
   static_assert(launch_bytes <= 232448, "227 KB a block");
   static_assert(r_ring % 1024 == 0 && r_stage % 1024 == 0 &&
                     w_buf % 1024 == 0 && buf % 1024 == 0 && b_d % 1024 == 0,
@@ -894,9 +868,8 @@ struct BwdArgs {
   const T* src; const T* msg; const T* w1;
   const T* w2t;    // W2^T (H, C), the LayerNorm kernel's
   const T* dout;
-  const T* dop;    // dO' (rows, C) in T; bf16: hi, then lo at + rows C
+  const T* dop;    // dO' (rows, C): hi, then lo at + rows C
   T* dsrc; T* dmsg;
-  float* da; float* hid;  // f32: (rows, H) each, the row blocks' da and h
   float* ws;       // the weight blocks' partials: slice s at s 3 C H:
                    // dW1 (H, 2C) then dW2 (C, H)
   int rows, H, nwb;  // nwb: weight blocks, first in the grid
@@ -931,8 +904,7 @@ __device__ __forceinline__ uint32_t tile_at(int r, int col, int RB) {
 
 // rows [r0, r0 + R) of a matrix of T (ld elements a row), columns [c0, c0 +
 // W), into a tile of W a row at shared address dst by 16-byte cp.async (the
-// caller commits), swizzled for f32 and in am_at's layout for bf16; rows
-// at or past lim are zero-filled
+// caller commits), in am_at's layout; rows at or past lim are zero-filled
 template <typename T, int R, int W>
 __device__ __forceinline__ void g_tile(uint32_t dst, const T* src, size_t ld,
                                        int c0, int r0, int lim) {
@@ -942,7 +914,7 @@ __device__ __forceinline__ void g_tile(uint32_t dst, const T* src, size_t ld,
   for (int i0 = 0; i0 < R * CH; i0 += kGThreads) {
     const int i = i0 + threadIdx.x, r = i / CH, c = i % CH;
     const bool ok = r0 + r < lim;
-    sm90::cp_async16(dst + (is_f32<T> ? sm90::swz(r, c, RB) : am_at(r, c, R)),
+    sm90::cp_async16(dst + am_at(r, c, R),
                      src + (size_t)(ok ? r0 + r : 0) * ld + c0 + c * E,
                      ok ? 16 : 0);
   }
@@ -960,200 +932,12 @@ __device__ __forceinline__ void g_xtile(uint32_t dst, const T* src,
     const int i = i0 + threadIdx.x, r = i / CH, c = i % CH;
     const bool ok = r0 + r < lim;
     const T* base = c < CH / 2 ? src : msg;
-    sm90::cp_async16(dst + (is_f32<T> ? sm90::swz(r, c, RB) : am_at(r, c, R)),
+    sm90::cp_async16(dst + am_at(r, c, R),
                      base + (size_t)(ok ? r0 + r : 0) * kC + (c % (CH / 2)) * E,
                      ok ? 16 : 0);
   }
 }
 
-// f32: acc (the warp's 16 x 8 NT accumulator fragments) += A B^T, A rows a0
-// .. a0 + 15 of the swizzled tile at sa, B rows b0 .. b0 + 8 NT - 1 of the
-// tile at sb, both K floats a row, k ascending: 3xTF32 on m16n8k8, each
-// operand split as loaded (ldmatrix reads an f32 tile as the TF32
-// fragments); the hi x hi products in chains of G k steps from zero, each
-// then added to acc in f32, the two small terms in one chain over all of
-// K, added at the end
-template <int NT, int K, int G>
-__device__ __forceinline__ void mm_nt(float (&acc)[NT][4], uint32_t sa,
-                                      int a0, uint32_t sb, int b0) {
-  constexpr int RB = K * 4;
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
-  float part[NT][4], small[NT][4];
-#pragma unroll
-  for (int ks = 0; ks < K / 8; ++ks) {  // two 16-byte chunks a k step
-    uint32_t a[4];
-    sm90::ldsm_x4(sa + sm90::swz(a0 + (mi & 1) * 8 + mr, 2 * ks + (mi >> 1),
-                                 RB), a);
-    uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sm90::split_tf32(a[e], ah[e], al[e]);
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      uint32_t b[4];
-      sm90::ldsm_x4(sb + sm90::swz(b0 + 16 * p + (mi >> 1) * 8 + mr,
-                                   2 * ks + (mi & 1), RB), b);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sm90::split_tf32(b[e], bh[2 * p + e / 2][e % 2],
-                         bl[2 * p + e / 2][e % 2]);
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (ks == 0)
-        sm90::mma_tf32_0(small[n], al, bh[n][0], bh[n][1]);
-      else
-        sm90::mma_tf32(small[n], al, bh[n][0], bh[n][1]);
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      sm90::mma_tf32(small[n], ah, bl[n][0], bl[n][1]);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (ks % G == 0)
-        sm90::mma_tf32_0(part[n], ah, bh[n][0], bh[n][1]);
-      else
-        sm90::mma_tf32(part[n], ah, bh[n][0], bh[n][1]);
-    }
-    if (ks % G == G - 1) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += small[n][e];
-}
-
-// f32: acc (16 x 2C, the warp's rows of d[src | msg]) += D W, D the warp's
-// 16 x 8 NT fragments in accumulator layout (k the hidden unit), W rows w0
-// .. w0 + 8 NT - 1 of the stage's W1 tile at byte offset off: 3xTF32; k
-// step j relabels its k slots (slot t the hidden unit 8 j + 2 t, slot t +
-// 4 the unit 8 j + 2 t + 1), so D[j] = (c0, c1, c2, c3) is the A fragment
-// (c0, c2, c1, c3) and W's B fragments are scalar reads, conflict-free in
-// the swizzle; four output tiles at a time, chains over all NT k steps
-// from zero, added in f32
-template <int NT>
-__device__ __forceinline__ void mm_nn(float (&acc)[32][4],
-                                      const float (&d)[NT][4],
-                                      const unsigned char* smem, uint32_t off,
-                                      int w0) {
-  constexpr int RB = 2 * kC * 4;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  uint32_t base[2][4];  // row w0 + 2 t + e, column 8 n + g for n % 4 = m
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      base[e][m] = off + (w0 + 2 * t + e) * RB +
-                   ((2 * (m ^ t) + ((g >> 2) ^ e)) << 4) + 4 * (g & 3);
-  uint32_t ah[NT][4], al[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    sm90::split_tf32(__float_as_uint(d[j][0]), ah[j][0], al[j][0]);
-    sm90::split_tf32(__float_as_uint(d[j][2]), ah[j][1], al[j][1]);
-    sm90::split_tf32(__float_as_uint(d[j][1]), ah[j][2], al[j][2]);
-    sm90::split_tf32(__float_as_uint(d[j][3]), ah[j][3], al[j][3]);
-  }
-#pragma unroll
-  for (int n0 = 0; n0 < 32; n0 += 4) {
-    float part[4][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const uint32_t o = 8 * j * RB + n0 * 32;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          sm90::split_tf32(
-              *reinterpret_cast<const uint32_t*>(smem + base[e][m] + o),
-              bh[m][e], bl[m][e]);
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        if (j == 0)
-          sm90::mma_tf32_0(part[m], al[j], bh[m][0], bh[m][1]);
-        else
-          sm90::mma_tf32(part[m], al[j], bh[m][0], bh[m][1]);
-      }
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        sm90::mma_tf32(part[m], ah[j], bl[m][0], bl[m][1]);
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        sm90::mma_tf32(part[m], ah[j], bh[m][0], bh[m][1]);
-    }
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n0 + m][e] += part[m][e];
-  }
-}
-
-// f32: acc (16 MT x 8 NT) += A^T B over the K rows of two swizzled tiles,
-// A's columns m0 .. m0 + 16 MT - 1 (tile at byte offset oa, RBA bytes a
-// row), B's columns n0 .. n0 + 8 NT - 1 (ob, RBB): the weight products,
-// summed over rows. 3xTF32, both operands scalar reads with the k slots
-// relabelled (slot t row 2 t, slot t + 4 row 2 t + 1 of each k step:
-// conflict-free in the swizzle); per output m tile the hi x hi and the
-// small chains run over the tile's K rows from zero and are added to acc
-// in f32
-template <int MT, int NT, int K, int RBA, int RBB>
-__device__ __forceinline__ void mm_tn(float (&acc)[MT][NT][4],
-                                      const unsigned char* smem, uint32_t oa,
-                                      int m0, uint32_t ob, int n0) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  auto ld = [&](uint32_t o, int r, int col, int RB) {
-    return *reinterpret_cast<const uint32_t*>(smem + o +
-                                              tile_at<float>(r, col, RB));
-  };
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    float part[NT][4], small[NT][4];
-#pragma unroll
-    for (int ks = 0; ks < K / 8; ++ks) {
-      const int r = 8 * ks + 2 * t, m = m0 + 16 * mt + g;
-      const uint32_t a[4] = {ld(oa, r, m, RBA), ld(oa, r, m + 8, RBA),
-                             ld(oa, r + 1, m, RBA),
-                             ld(oa, r + 1, m + 8, RBA)};
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sm90::split_tf32(a[e], ah[e], al[e]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t bh[2], bl[2];
-        sm90::split_tf32(ld(ob, r, n0 + 8 * n + g, RBB), bh[0], bl[0]);
-        sm90::split_tf32(ld(ob, r + 1, n0 + 8 * n + g, RBB), bh[1], bl[1]);
-        if (ks == 0) {
-          sm90::mma_tf32_0(small[n], al, bh[0], bh[1]);
-          sm90::mma_tf32_0(part[n], ah, bh[0], bh[1]);
-        } else {
-          sm90::mma_tf32(small[n], al, bh[0], bh[1]);
-          sm90::mma_tf32(part[n], ah, bh[0], bh[1]);
-        }
-        sm90::mma_tf32(small[n], ah, bl[0], bl[1]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][n][e] += part[n][e] + small[n][e];
-  }
-}
-
-template <int A, int B, int C>
-__device__ __forceinline__ void zero(float (&x)[A][B][C]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i)
-#pragma unroll
-    for (int j = 0; j < B; ++j)
-#pragma unroll
-      for (int k = 0; k < C; ++k) x[i][j][k] = 0.f;
-}
 template <int A, int B>
 __device__ __forceinline__ void zero(float (&x)[A][B]) {
 #pragma unroll
@@ -1194,30 +978,26 @@ __device__ __forceinline__ void wg_a_dh(float (&a)[4][4], float (&dh)[4][4],
 // (W1's rows and W2^T's, streamed through two stages), HS units at a time:
 // a = [src | msg] W1^T and dh = dO' W2, da = dh gelu'(a) on the registers,
 // then d[src | msg] += da W1 into each warp's 16 x 2C accumulator across
-// H. bf16: warpgroup wgi owns rows 64 wgi .. and its products run on
-// wgmma, d[src | msg]'s with da as the A operand from registers. f32: warp
-// w = rg + 4 kh owns rows 16 rg .., takes the chunk's units kh HC / 2 ..,
-// 3xTF32 on mma.sync (mm_nt, mm_nn), writes da and h = gelu(a) (f32) for
-// the weight blocks, and its two hidden halves' sums are added (kh 0 + kh
-// 1) through shared memory at the end.
+// H. Warpgroup wgi owns rows 64 wgi .. (its warp w the 16 from 16 w) and
+// its products run on wgmma, d[src | msg]'s with da as the A operand from
+// registers.
 template <typename T, bool TANH>
 __device__ __forceinline__ void bwd_row_block(unsigned char* smem,
                                               const BwdArgs<T>& p, int rb) {
   using Cf = BwdCfg<T>;
   using S = BwdSmem<T>;
-  constexpr int R = Cf::rows, HC = Cf::hc, KS = Cf::ks, HS = Cf::hstep;
-  constexpr int NT = HS / 8, RG = 8 / KS;
+  constexpr int R = Cf::rows, HC = Cf::hc, HS = Cf::hstep;
+  constexpr int NT = HS / 8;
   const uint32_t s0 = sm90::smem_u32(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp % RG, kh = warp / RG, a0 = 16 * rg;
+  const int a0 = 16 * warp;
   const int r0 = rb * R, nc = p.H / HC;
 
   g_xtile<T, R>(s0, p.src, p.msg, r0, p.rows);
   g_tile<T, R, kC>(s0 + S::r_d, p.dop, kC, 0, r0, p.rows);
-  if constexpr (!is_f32<T>)
-    g_tile<T, R, kC>(s0 + S::r_dlo, p.dop + (size_t)p.rows * kC, kC, 0, r0,
-                     p.rows);
+  g_tile<T, R, kC>(s0 + S::r_dlo, p.dop + (size_t)p.rows * kC, kC, 0, r0,
+                   p.rows);
   auto load_chunk = [&](int j) {
     const uint32_t w = s0 + S::r_ring + (j & 1) * S::r_stage;
     g_tile<T, HC, 2 * kC>(w, p.w1, 2 * kC, 0, j * HC, p.H);
@@ -1230,24 +1010,18 @@ __device__ __forceinline__ void bwd_row_block(unsigned char* smem,
   zero(dx);
   for (int j = 0; j < nc; ++j) {
     sm90::cp_async_wait<0>();
-    if constexpr (!is_f32<T>) sm90::fence_async_smem();  // visible to wgmma
+    sm90::fence_async_smem();  // visible to wgmma
     __syncthreads();  // chunk j landed; every warp left chunk j - 1
     if (j + 1 < nc) load_chunk(j + 1);  // into chunk j - 1's stage
     sm90::cp_async_commit();
     const uint32_t w1o = S::r_ring + (j & 1) * S::r_stage;
 #pragma unroll 1
-    for (int st = 0; st < HC / KS / HS; ++st) {
-      const int hs = kh * (HC / KS) + st * HS;
+    for (int hs = 0; hs < HC; hs += HS) {
       float a[NT][4], dh[NT][4];
       zero(a);
       zero(dh);
-      if constexpr (!is_f32<T>)
-        wg_a_dh<R, HC>(a, dh, s0, s0 + S::r_d, s0 + S::r_dlo, 64 * (warp >> 2),
-                       s0 + w1o, s0 + w1o + S::r_w2, hs);
-      else {
-        mm_nt<NT, 2 * kC, kAChain>(a, s0, a0, s0 + w1o, hs);
-        mm_nt<NT, kC, kDhChain>(dh, s0 + S::r_d, a0, s0 + w1o + S::r_w2, hs);
-      }
+      wg_a_dh<R, HC>(a, dh, s0, s0 + S::r_d, s0 + S::r_dlo, 64 * (warp >> 2),
+                     s0 + w1o, s0 + w1o + S::r_w2, hs);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -1255,64 +1029,30 @@ __device__ __forceinline__ void bwd_row_block(unsigned char* smem,
           const float x0 = a[n][2 * hh], x1 = a[n][2 * hh + 1];
           a[n][2 * hh] = dh[n][2 * hh] * gelu_grad<TANH>(x0);
           a[n][2 * hh + 1] = dh[n][2 * hh + 1] * gelu_grad<TANH>(x1);
-          if constexpr (is_f32<T>) {
-            const int row = r0 + a0 + g + 8 * hh;
-            if (row < p.rows) {
-              const size_t o = (size_t)row * p.H + j * HC + hs + 8 * n + 2 * t;
-              store2(p.da + o, a[n][2 * hh], a[n][2 * hh + 1]);
-              store2(p.hid + o, gelu_fwd<T, TANH>(x0), gelu_fwd<T, TANH>(x1));
-            }
-          }
         }
-      if constexpr (!is_f32<T>) {
-        // d[src | msg] += da W1[hs ..]: da as bf16 A fragments (m16n8k16's
-        // accumulator layout is its A layout), W1's rows MN-major; waited
-        // for at once (the A registers)
-        float(&d)[128] = reinterpret_cast<float(&)[128]>(dx);
-        uint32_t ah[NT / 2][4];
+      // d[src | msg] += da W1[hs ..]: da as bf16 A fragments (m16n8k16's
+      // accumulator layout is its A layout), W1's rows MN-major; waited
+      // for at once (the A registers)
+      float(&d)[128] = reinterpret_cast<float(&)[128]>(dx);
+      uint32_t ah[NT / 2][4];
 #pragma unroll
-        for (int jj = 0; jj < NT; ++jj)
+      for (int jj = 0; jj < NT; ++jj)
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            ah[jj >> 1][(jj & 1) * 2 + h] =
-                sm90::pack_bf16(a[jj][2 * h], a[jj][2 * h + 1]);
-        sm90::wg_fence();
+        for (int h = 0; h < 2; ++h)
+          ah[jj >> 1][(jj & 1) * 2 + h] =
+              sm90::pack_bf16(a[jj][2 * h], a[jj][2 * h + 1]);
+      sm90::wg_fence();
 #pragma unroll
-        for (int ks = 0; ks < NT / 2; ++ks) {
-          sm90::WgRS<256, 1>::mma(d, ah[ks],
-                                  desc_mn(s0 + w1o, HC, 0, hs / 16 + ks));
-        }
-        sm90::wg_commit();
-        sm90::wg_wait<0>();
-        sm90::fence_regs(d);
-      } else {
-        mm_nn<NT>(dx, a, smem, w1o, hs);
+      for (int ks = 0; ks < NT / 2; ++ks) {
+        sm90::WgRS<256, 1>::mma(d, ah[ks],
+                                desc_mn(s0 + w1o, HC, 0, hs / 16 + ks));
       }
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(d);
     }
   }
 
-  if constexpr (KS == 2) {  // the second hidden half's sums, then kh 0 + kh 1
-    __syncthreads();
-    float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-    for (int n = 0; n < 32; ++n)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        if (kh == 1)
-          store2(red + (a0 + g + 8 * hh) * S::red_ld + 8 * n + 2 * t,
-                 dx[n][2 * hh], dx[n][2 * hh + 1]);
-    __syncthreads();
-    if (kh == 1) return;
-#pragma unroll
-    for (int n = 0; n < 32; ++n)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const float2 v =
-            load2(red + (a0 + g + 8 * hh) * S::red_ld + 8 * n + 2 * t);
-        dx[n][2 * hh] += v.x;
-        dx[n][2 * hh + 1] += v.y;
-      }
-  }
   // dsrc = d[src | msg][:, :C] + dout (the residual), dmsg the rest
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -1336,15 +1076,13 @@ __device__ __forceinline__ void bwd_row_block(unsigned char* smem,
 // wb / (H / 64) (kSlice rows; neighbouring blocks share a slice, so its
 // rows are read from L2), in tiles of TR rows double-buffered by cp.async;
 // dW1[h0 ..] (64 x 2C) and dW2[:, h0 ..] (C x 64) summed in registers
-// across the slice, at the end into the slice's partials. bf16: per tile
+// across the slice, at the end into the slice's partials. Per tile
 // warpgroup wgi recomputes a and dh for the tile's rows and units 32 wgi ..
 // from [src | msg], dO' and the chunk's W1 and W2^T rows (staged once) on
 // wgmma and stores da (rounded to bf16) and h = gelu(a) as tiles; then it
 // forms dW1[h0 .., 128 wgi ..] (64 x 128) += da^T [src | msg] and
 // dW2[64 wgi .., h0 ..] (64 x 64) += dO'^T h, every operand MN-major in
-// shared memory. f32: the tile's da and h come from the row blocks, and
-// warp w forms dW1[h0 .., 32 w ..] and dW2[16 w .., h0 ..] by 3xTF32
-// (mm_tn).
+// shared memory.
 template <typename T, bool TANH>
 __device__ __forceinline__ void bwd_weight_block(unsigned char* smem,
                                                  const BwdArgs<T>& p, int wb) {
@@ -1363,118 +1101,84 @@ __device__ __forceinline__ void bwd_weight_block(unsigned char* smem,
     const int r = rs0 + i * TR;
     g_xtile<T, TR>(d, p.src, p.msg, r, rs1);
     g_tile<T, TR, kC>(d + S::b_d, p.dop, kC, 0, r, rs1);
-    if constexpr (is_f32<T>) {
-      g_tile<T, TR, kWHc>(d + S::b_da, p.da, p.H, h0, r, rs1);
-      g_tile<T, TR, kWHc>(d + S::b_h, p.hid, p.H, h0, r, rs1);
-    } else {
-      g_tile<T, TR, kC>(d + S::b_dlo, p.dop + (size_t)p.rows * kC, kC, 0, r,
-                        rs1);
-    }
+    g_tile<T, TR, kC>(d + S::b_dlo, p.dop + (size_t)p.rows * kC, kC, 0, r,
+                      rs1);
   };
-  if constexpr (!is_f32<T>) {
-    g_tile<T, kWHc, 2 * kC>(s0, p.w1, 2 * kC, 0, h0, p.H);
-    g_tile<T, kWHc, kC>(s0 + S::w_w2, p.w2t, kC, 0, h0, p.H);
-  }
+  g_tile<T, kWHc, 2 * kC>(s0, p.w1, 2 * kC, 0, h0, p.H);
+  g_tile<T, kWHc, kC>(s0 + S::w_w2, p.w2t, kC, 0, h0, p.H);
   load_tile(0);
   sm90::cp_async_commit();
 
-  // bf16: the warpgroup's dW1 (64 x 128) and dW2 (64 x 64) accumulators;
-  // f32: the warp's dW1 (64 x 32) and dW2 (16 x 64) tiles
-  float a1[4][4][4], a2[1][8][4];
-  zero(a1);
-  zero(a2);
+  // the warpgroup's dW1 (64 x 128) and dW2 (64 x 64) accumulators
+  float w1a[64], w2a[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) w1a[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) w2a[i] = 0.f;
+  const int wgi = warp >> 2;
   for (int i = 0; i < ntile; ++i) {
     sm90::cp_async_wait<0>();
-    if constexpr (!is_f32<T>) sm90::fence_async_smem();  // visible to wgmma
+    sm90::fence_async_smem();  // visible to wgmma
     __syncthreads();  // tile i landed; every warp left tile i - 1
     if (i + 1 < ntile) load_tile(i + 1);
     sm90::cp_async_commit();
     const uint32_t bo = S::w_buf + (i & 1) * S::buf;
-    if constexpr (is_f32<T>) {
-      mm_tn<4, 4, TR, S::rbh, S::rbx>(a1, smem, bo + S::b_da, 0, bo,
-                                      32 * warp);
-      mm_tn<1, 8, TR, S::rbd, S::rbh>(a2, smem, bo + S::b_d, 16 * warp,
-                                      bo + S::b_h, 0);
-    } else {
-      // a and dh for the warpgroup's 64 rows x 32 units, the warp's 16 rows
-      const int wgi = warp >> 2, rw = 16 * (warp & 3), hs = 32 * wgi;
-      float a[4][4], dh[4][4];
-      zero(a);
-      zero(dh);
-      wg_a_dh<TR, kWHc>(a, dh, s0 + bo, s0 + bo + S::b_d, s0 + bo + S::b_dlo,
-                        0, s0, s0 + S::w_w2, hs);
+    // a and dh for the warpgroup's 64 rows x 32 units, the warp's 16 rows
+    const int rw = 16 * (warp & 3), hs = 32 * wgi;
+    float a[4][4], dh[4][4];
+    zero(a);
+    zero(dh);
+    wg_a_dh<TR, kWHc>(a, dh, s0 + bo, s0 + bo + S::b_d, s0 + bo + S::b_dlo,
+                      0, s0, s0 + S::w_w2, hs);
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = rw + g + 8 * hh, col = hs + 8 * n + 2 * t;
-          const float x0 = a[n][2 * hh], x1 = a[n][2 * hh + 1];
-          const uint32_t o = tile_at<T>(row, col, S::rbh);
-          store2(reinterpret_cast<T*>(smem + S::w_da + o),
-                 dh[n][2 * hh] * gelu_grad<TANH>(x0),
-                 dh[n][2 * hh + 1] * gelu_grad<TANH>(x1));
-          store2(reinterpret_cast<T*>(smem + S::w_h + o),
-                 gelu_fwd<T, TANH>(x0), gelu_fwd<T, TANH>(x1));
-        }
-      sm90::fence_async_smem();  // visible to wgmma
-      __syncthreads();           // the da and h tiles written
-      float(&w1a)[64] = reinterpret_cast<float(&)[64]>(a1);
-      float(&w2a)[32] = reinterpret_cast<float(&)[32]>(a2);
-      sm90::wg_fence();
-#pragma unroll
-      for (int ks = 0; ks < TR / 16; ++ks) {
-        const uint64_t bh = desc_mn(s0 + S::w_h, TR, 0, ks);
-        sm90::WgSS<128, 1, 1>::mma(w1a, desc_mn(s0 + S::w_da, TR, 0, ks),
-                                   desc_mn(s0 + bo, TR, 2 * wgi, ks));
-        sm90::WgSS<64, 1, 1>::mma(w2a, desc_mn(s0 + bo + S::b_dlo, TR, wgi, ks),
-                                  bh);
-        sm90::WgSS<64, 1, 1>::mma(w2a, desc_mn(s0 + bo + S::b_d, TR, wgi, ks),
-                                  bh);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = rw + g + 8 * hh, col = hs + 8 * n + 2 * t;
+        const float x0 = a[n][2 * hh], x1 = a[n][2 * hh + 1];
+        const uint32_t o = tile_at<T>(row, col, S::rbh);
+        store2(reinterpret_cast<T*>(smem + S::w_da + o),
+               dh[n][2 * hh] * gelu_grad<TANH>(x0),
+               dh[n][2 * hh + 1] * gelu_grad<TANH>(x1));
+        store2(reinterpret_cast<T*>(smem + S::w_h + o),
+               gelu_fwd<T, TANH>(x0), gelu_fwd<T, TANH>(x1));
       }
-      sm90::wg_commit();
-      sm90::wg_wait<0>();  // before the next tile overwrites the operands
-      sm90::fence_regs(w1a);
-      sm90::fence_regs(w2a);
+    sm90::fence_async_smem();  // visible to wgmma
+    __syncthreads();           // the da and h tiles written
+    sm90::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < TR / 16; ++ks) {
+      const uint64_t bh = desc_mn(s0 + S::w_h, TR, 0, ks);
+      sm90::WgSS<128, 1, 1>::mma(w1a, desc_mn(s0 + S::w_da, TR, 0, ks),
+                                 desc_mn(s0 + bo, TR, 2 * wgi, ks));
+      sm90::WgSS<64, 1, 1>::mma(w2a, desc_mn(s0 + bo + S::b_dlo, TR, wgi, ks),
+                                bh);
+      sm90::WgSS<64, 1, 1>::mma(w2a, desc_mn(s0 + bo + S::b_d, TR, wgi, ks),
+                                bh);
     }
+    sm90::wg_commit();
+    sm90::wg_wait<0>();  // before the next tile overwrites the operands
+    sm90::fence_regs(w1a);
+    sm90::fence_regs(w2a);
   }
 
   float* w1p = p.ws + (size_t)sl * 3 * kC * p.H;  // dW1 (H, 2C)
   float* w2p = w1p + (size_t)2 * kC * p.H;        // dW2 (C, H)
-  if constexpr (!is_f32<T>) {
-    // warp w of warpgroup wgi holds rows 16 (w % 4) + g (+ 8) of its 64-row
-    // tiles, columns 8 j + 2 t (+ 1) at index 4 j (+ 2) (+ 1)
-    const float(&w1a)[64] = reinterpret_cast<const float(&)[64]>(a1);
-    const float(&w2a)[32] = reinterpret_cast<const float(&)[32]>(a2);
-    const int wgi = warp >> 2, wr = 16 * (warp & 3) + g;
+  // warp w of warpgroup wgi holds rows 16 (w % 4) + g (+ 8) of its 64-row
+  // tiles, columns 8 j + 2 t (+ 1) at index 4 j (+ 2) (+ 1)
+  const int wr = 16 * (warp & 3) + g;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
+  for (int hh = 0; hh < 2; ++hh) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        store2(w1p + (size_t)(h0 + wr + 8 * hh) * 2 * kC + 128 * wgi + 8 * j +
-                   2 * t,
-               w1a[4 * j + 2 * hh], w1a[4 * j + 2 * hh + 1]);
+    for (int j = 0; j < 16; ++j)
+      store2(w1p + (size_t)(h0 + wr + 8 * hh) * 2 * kC + 128 * wgi + 8 * j +
+                 2 * t,
+             w1a[4 * j + 2 * hh], w1a[4 * j + 2 * hh + 1]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        store2(w2p + (size_t)(64 * wgi + wr + 8 * hh) * p.H + h0 + 8 * j +
-                   2 * t,
-               w2a[4 * j + 2 * hh], w2a[4 * j + 2 * hh + 1]);
-    }
-  } else {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          store2(w1p + (size_t)(h0 + 16 * mt + g + 8 * hh) * 2 * kC +
-                     32 * warp + 8 * n + 2 * t,
-                 a1[mt][n][2 * hh], a1[mt][n][2 * hh + 1]);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        store2(w2p + (size_t)(16 * warp + g + 8 * hh) * p.H + h0 + 8 * n +
-                   2 * t,
-               a2[0][n][2 * hh], a2[0][n][2 * hh + 1]);
-    }
+    for (int j = 0; j < 8; ++j)
+      store2(w2p + (size_t)(64 * wgi + wr + 8 * hh) * p.H + h0 + 8 * j +
+                 2 * t,
+             w2a[4 * j + 2 * hh], w2a[4 * j + 2 * hh + 1]);
   }
 }
 
@@ -1498,19 +1202,25 @@ __global__ void __launch_bounds__(kGThreads, 1)
 // C, each rounded to bf16); the block's column
 // sums of dout ohat (dgamma) and of dout (dbeta), each lane's over its
 // rows in order, then the 8 warps in order, into part (nb, 2C). Blocks
-// from nb on write W2^T (H, C) of T.
+// from nb on write W2^T (H, C) of T and, if w1t is given, W1^T (2C, H).
 template <typename T>
 __global__ void __launch_bounds__(kGThreads)
     mlp_bwd_prep_kernel(const T* __restrict__ w2, const T* __restrict__ gamma,
                         const T* __restrict__ dout,
                         const float* __restrict__ o, T* __restrict__ dop,
                         float* __restrict__ part, T* __restrict__ w2t,
-                        int rows, int H, int nb) {
+                        int rows, int H, int nb, const T* __restrict__ w1,
+                        T* __restrict__ w1t) {
   __shared__ float red[kGThreads / 32][2 * kC];
   const int tid = threadIdx.x;
   if ((int)blockIdx.x >= nb) {
     const int i = (blockIdx.x - nb) * kGThreads + tid;  // h C + c
-    if (i < H * kC) w2t[i] = w2[(size_t)(i % kC) * H + i / kC];
+    if (i < H * kC) {
+      w2t[i] = w2[(size_t)(i % kC) * H + i / kC];
+    } else if (w1t != nullptr && i < 3 * H * kC) {
+      const int j = i - H * kC;  // c H + h
+      w1t[j] = w1[(size_t)(j % H) * 2 * kC + j / H];
+    }
     return;
   }
   const int warp = tid >> 5, lane = tid & 31, c0 = 4 * lane;
@@ -1608,13 +1318,524 @@ __global__ void __launch_bounds__(128)
 inline int bwd_ln_blocks(int rows) { return (rows + kLnRows - 1) / kLnRows; }
 inline int bwd_slices(int rows) { return (rows + kSlice - 1) / kSlice; }
 
-template <typename T, bool TANH>
-int launch_mlp_bwd(const void* src, const void* msg, const void* w1,
-                   const void* w2, const void* gamma, const void* dout,
-                   const void* o_in, void* dsrc, void* dmsg, void* dw1,
-                   void* dw2, void* dgb, void* dop, void* w2t, void* part,
-                   void* ws, void* da, void* hid, int rows, int H,
-                   cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// f32 backward: 3xTF32 on wgmma, three GEMM launches of one warp-specialized
+// kernel (mlp_bwd_gemm_kernel), fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kGBM = 128;     // rows of a tile: 2 consumer warpgroups x 64
+constexpr int kGBK = 32;      // a K step: 128 bytes of f32
+constexpr int kGMaxStages = 8;
+constexpr int kGA = kGBM * 128;          // a slot's raw A tile, 16 KB
+constexpr int kGOut = 4 * 64 * 128;      // a warpgroup's da^T and h^T tiles
+
+// The three products (f32, rows R, C = 128, H): the tiles' columns are H's
+// hidden units in AH and W, d[src | msg]'s in DX.
+//   AH: a = [src | msg] W1^T (K steps 0-7) and dh = dO' W2 (K steps 8-11,
+//       W2^T from the prep kernel) for 128 rows x 64 units; the epilogue
+//       writes da = dh gelu'(a) and h = gelu(a) transposed, da^T and h^T
+//       (H, ld) f32, by TMA. A: the rows, K-major.
+//   DX: d[src | msg] = da W1 (+ dout for src) for 128 rows x 128 columns of
+//       2C, K = H (W1^T from the prep kernel). A: da^T's tiles, MN-major.
+//   W:  dW1^T (2C x H) = [src | msg]^T da and dW2 (C x H) = dO'^T h over a
+//       slice of kSlice rows (K), 128 columns of [src | msg] or dO' x 128
+//       units a tile, into the slice's partials. A: the rows' tiles,
+//       MN-major; B: da^T and h^T, K-major.
+enum { kModeAH = 0, kModeDX = 1, kModeW = 2 };
+
+// A mode's tile columns (AH holds two accumulators, a and dh, so 64) and
+// shared memory: the mbarriers, AH's two warpgroups' staging, the ring of
+// slots (the raw A tile, then B's hi and lo tiles); + 1 KB to round the
+// base up to 1024 B
+template <int MODE>
+struct GemmTile {
+  static constexpr int BN = MODE == kModeAH ? 64 : 128;
+  static constexpr int B = BN * 128;  // a B hi or lo tile
+  static constexpr int slot = kGA + 2 * B;
+  static constexpr int out = MODE == kModeAH ? 2 * kGOut : 0;
+  static constexpr int stages = MODE == kModeAH ? 5 : 4;
+  static constexpr int smem = 1024 + out + stages * slot + 1024;
+  static_assert(smem <= 232448 && stages <= kGMaxStages, "227 KB a block");
+};
+
+// tensor maps by mode (unused slots zero): A loads a[], B loads b[], the
+// epilogue's stores out[]
+struct GemmMaps {
+  CUtensorMap a[3];   // AH: src, msg, dO' (32 x 128 boxes); DX: da^T (32 x
+                      // 32); W: src, msg, dO' (32 x 32)
+  CUtensorMap b[2];   // AH: W1, W2^T (32 x 64); DX: W1^T; W: da^T, h^T
+                      // (32 x 128)
+  CUtensorMap out[2]; // AH: da^T, h^T (32 x 64)
+};
+
+struct GemmArgs {
+  const float* dout;
+  float* dsrc;
+  float* dmsg;
+  float* ws;  // W: the slices' partials, slice s at s 3 C H: dW1, dW2
+  int rows, H, m_tiles, n_tiles, tiles;
+};
+
+// W's tiles of one slice: 3 row tiles (src's and msg's columns of dW1^T,
+// dO''s of dW2) x ceil(H / 128) unit tiles (H is a multiple of 64: the
+// last may be half past H, read as TMA's zeros and not stored)
+inline __host__ __device__ int w_tiles_a_slice(int H) {
+  constexpr int bn = GemmTile<kModeW>::BN;
+  return 3 * ((H + bn - 1) / bn);
+}
+
+// a tile's K steps
+template <int MODE>
+__device__ __forceinline__ int gemm_ksteps(const GemmArgs& p, int t) {
+  if (MODE == kModeAH) return (2 * kC + kC) / kGBK;
+  if (MODE == kModeDX) return p.H / kGBK;
+  const int sl = t / w_tiles_a_slice(p.H);
+  const int n = min(kSlice, p.rows - sl * kSlice);
+  return (n + kGBK - 1) / kGBK;
+}
+
+// The producer's first thread: K step s of tile t into the slot at sa (its
+// raw A tile, then B's raw tile into the lo tile), bytes on bar
+template <int MODE>
+__device__ __forceinline__ void gemm_issue(const GemmMaps& mp,
+                                           const GemmArgs& p, int t, int s,
+                                           uint32_t sa, uint32_t bar) {
+  using G = GemmTile<MODE>;
+  sm90::mbar_expect_tx(bar, kGA + G::B);
+  const uint32_t sb = sa + kGA + G::B;
+  if (MODE == kModeAH) {
+    const int r0 = (t / p.n_tiles) * kGBM, u0 = (t % p.n_tiles) * G::BN;
+    const int src = s < 4 ? 0 : s < 8 ? 1 : 2;
+    sm90::tma_load_3d(sa, &mp.a[src], 32 * (s & 3), r0, 0, bar);
+    if (s < 8)
+      sm90::tma_load_3d(sb, &mp.b[0], 32 * s, u0, 0, bar);
+    else
+      sm90::tma_load_3d(sb, &mp.b[1], 32 * (s - 8), u0, 0, bar);
+  } else if (MODE == kModeDX) {
+    const int r0 = (t / p.n_tiles) * kGBM, n0 = (t % p.n_tiles) * G::BN;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sm90::tma_load_3d(sa + 4096 * i, &mp.a[0], r0 + 32 * i, 32 * s, 0, bar);
+    sm90::tma_load_3d(sb, &mp.b[0], 32 * s, n0, 0, bar);
+  } else {
+    const int per = w_tiles_a_slice(p.H), sl = t / per, i0 = t % per;
+    const int mt = i0 % 3, u0 = (i0 / 3) * G::BN;
+    const int r = sl * kSlice + kGBK * s;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sm90::tma_load_3d(sa + 4096 * i, &mp.a[mt], 32 * i, r, 0, bar);
+    sm90::tma_load_3d(sb, &mp.b[mt == 2], r, u0, 0, bar);
+  }
+}
+
+// A fragments of the K step's 4 k8 steps from the slot's raw A tile at sa
+// for the warp's rows m = 64 wg + 16 warp + g (+ 8), k slot t the K index
+// 2 t of the k8 step and slot t + 4 index 2 t + 1 (B's split relabels its
+// K the same way), split into hi bits and lo. K-major (AH): row m's 32 K
+// values as 128 swizzled bytes; MN-major (DX, W): four 4 KB boxes of 32 K
+// rows x 32 m, m's box m / 32 (both conflict-free)
+template <bool KMAJOR>
+__device__ __forceinline__ void gemm_frags(uint32_t sa, int m, int t,
+                                           uint32_t (&ah)[kGBK / 8][4],
+                                           uint32_t (&al)[kGBK / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < kGBK / 8; ++j) {
+    uint32_t x[4];
+    if (KMAJOR) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m + 8 * h;
+        uint2 v;
+        asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                     : "=r"(v.x), "=r"(v.y)
+                     : "r"(sa + r * 128 + (((2 * j + (t >> 1)) ^ (r & 7)) << 4) +
+                           8 * (t & 1)));
+        x[h] = v.x;
+        x[2 + h] = v.y;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m + 8 * (e & 1), k = 8 * j + 2 * t + (e >> 1);
+        asm volatile("ld.shared.u32 %0, [%1];\n"
+                     : "=r"(x[e])
+                     : "r"(sa + (r >> 5) * 4096 + k * 128 +
+                           ((((r & 31) >> 2) ^ (k & 7)) << 4) + 4 * (r & 3)));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ah[j][e] = sm90::tf32_hi_bits(x[e]);
+      al[j][e] = sm90::tf32_lo_of_hi(ah[j][e]);
+    }
+  }
+}
+
+// A K step's products: part = A (the fragments) times the slot's B (hi at
+// sb, lo at sb + the tile's bytes) over its 4 k8 steps, 3xTF32 from zero;
+// issued and committed
+template <int BN>
+__device__ __forceinline__ void gemm_group(float (&part)[BN / 2], uint32_t sb,
+                                           const uint32_t (&ah)[kGBK / 8][4],
+                                           const uint32_t (&al)[kGBK / 8][4]) {
+  sm90::wg_fence();
+#pragma unroll
+  for (int j = 0; j < kGBK / 8; ++j) {
+    const uint64_t dh = sm90::desc_sw128(sb + 32 * j, 16, 1024);
+    sm90::WgTf32<BN>::mma(part, ah[j], dh, j > 0);
+    sm90::WgTf32<BN>::mma(part, ah[j],
+                          sm90::desc_sw128(sb + BN * 128 + 32 * j, 16, 1024),
+                          1);
+    sm90::WgTf32<BN>::mma(part, al[j], dh, 1);
+  }
+  sm90::wg_commit();
+}
+
+// One launch of the f32 backward's products (MODE above). 384 threads:
+// warpgroups 0, 1 consume (warpgroup wg owns a tile's rows 64 wg ..), 2
+// produces (setmaxnreg 40 / 232); min(tiles, SMs) persistent blocks walk
+// the tiles b, b + gridDim.x, ... (AH and DX: the column tile fastest, so
+// a row tile's rows stay in L2; W: slice by slice, the three row tiles of
+// a unit tile together). K step q of the block goes to slot q % stages:
+// raw mbarrier (the TMA bytes), full (the 128 producer threads, once B's
+// raw tile is split into hi and lo in place, its K relabelled within each
+// 8 as the A fragments read it), empty (lane 0 of each consumer warp). A
+// is split in registers as it is read (gemm_frags); a K step's 4 k8 steps
+// x 3 products run from zero into a part set, which is waited for and
+// added in f32 (the tensor core's adds truncate; a group in flight across
+// the loop would make ptxas serialize the wgmmas, C7514), the two
+// warpgroups overlapping each other.
+template <int MODE, bool TANH>
+__global__ void __launch_bounds__(kFThreads, 1)
+    mlp_bwd_gemm_kernel(const __grid_constant__ GemmMaps mp,
+                        const GemmArgs p) {
+  using G = GemmTile<MODE>;
+  constexpr int BN = G::BN, stages = G::stages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t s0 = sm90::smem_u32(smem);
+  const uint32_t ring = s0 + 1024 + G::out;
+  const int tid = threadIdx.x;
+  auto raw = [&](int st) { return s0 + 8 * st; };
+  auto full = [&](int st) { return s0 + 8 * (kGMaxStages + st); };
+  auto empty = [&](int st) { return s0 + 8 * (2 * kGMaxStages + st); };
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      sm90::mbar_init(raw(st), 1);
+      sm90::mbar_init(full(st), 128);
+      sm90::mbar_init(empty(st), 8);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer
+    sm90::setmaxnreg_dec<40>();
+    const int pt = tid - 256;
+    int it = blockIdx.x, is = 0, n_is = gemm_ksteps<MODE>(p, it);
+    auto issue = [&](int q) {  // the next K step's loads (the first thread)
+      const int st = q % stages;
+      gemm_issue<MODE>(mp, p, it, is, ring + st * G::slot, raw(st));
+      if (++is == n_is) {
+        is = 0;
+        it += gridDim.x;
+        if (it < p.tiles) n_is = gemm_ksteps<MODE>(p, it);
+      }
+    };
+    int total = 0;  // this block's K steps
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x)
+      total += gemm_ksteps<MODE>(p, t);
+    if (pt == 0 && total > 0) issue(0);
+    for (int q = 0; q < total; ++q) {
+      if (q + 1 < total) {
+        if (q + 1 >= stages)  // every producer thread waits: warps converged
+          sm90::mbar_wait(empty((q + 1) % stages), ((q + 1) / stages - 1) & 1);
+        if (pt == 0) issue(q + 1);
+      }
+      const int st = q % stages;
+      sm90::mbar_wait(raw(st), (q / stages) & 1);
+      unsigned char* hi = smem + (ring - s0) + st * G::slot + kGA;
+      unsigned char* lo = hi + G::B;
+      // row n, K 8 c .. 8 c + 7 (chunks 2c, 2c + 1 at c' ^ (n & 7)): slots
+      // 0-3 take K 0, 2, 4, 6, slots 4-7 K 1, 3, 5, 7
+#pragma unroll
+      for (int i = pt; i < BN * 4; i += 128) {
+        const int n = i % BN, c = i / BN;
+        const uint32_t oa = n * 128 + (((2 * c) ^ (n & 7)) << 4);
+        const uint32_t ob = n * 128 + (((2 * c + 1) ^ (n & 7)) << 4);
+        const uint4 ra = *reinterpret_cast<const uint4*>(lo + oa);
+        const uint4 rb = *reinterpret_cast<const uint4*>(lo + ob);
+        uint4 xa = make_uint4(ra.x, ra.z, rb.x, rb.z), ha;
+        uint4 xb = make_uint4(ra.y, ra.w, rb.y, rb.w), hb;
+        sm90::split_tf32_4(xa, ha);
+        sm90::split_tf32_4(xb, hb);
+        *reinterpret_cast<uint4*>(hi + oa) = ha;
+        *reinterpret_cast<uint4*>(hi + ob) = hb;
+        *reinterpret_cast<uint4*>(lo + oa) = xa;
+        *reinterpret_cast<uint4*>(lo + ob) = xb;
+      }
+      sm90::fence_async_smem();  // the split tiles, to wgmma
+      sm90::mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, wtid = tid & 127;
+  const int m = 64 * wg + 16 * warp + g;  // the lane's first row of a tile
+  float part[BN / 2];
+  uint32_t ah[kGBK / 8][4], al[kGBK / 8][4];
+  // K step q into acc
+  auto kstep = [&](float (&acc)[BN / 2], int q) {
+    const int st = q % stages;
+    const uint32_t sa = ring + st * G::slot;
+    sm90::mbar_wait(raw(st), (q / stages) & 1);
+    sm90::mbar_wait(full(st), (q / stages) & 1);
+    gemm_frags<MODE == kModeAH>(sa, m, t4, ah, al);
+    gemm_group<BN>(part, sa + kGA, ah, al);
+    sm90::wg_wait<0>();
+    sm90::fence_regs(part);
+    f_add(acc, part, false);
+    if (lane == 0) sm90::mbar_arrive(empty(st));
+    __syncwarp();
+  };
+  auto zero = [](float (&x)[BN / 2]) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) x[i] = 0.f;
+  };
+  float acc[BN / 2], acc2[BN / 2];  // AH: a, dh; else acc
+  int q = 0;
+  int passes = 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int ks = gemm_ksteps<MODE>(p, t);
+    zero(acc);
+    if (MODE == kModeAH) {
+      zero(acc2);
+#pragma unroll 1
+      for (int s = 0; s < 8; ++s, ++q) kstep(acc, q);
+#pragma unroll 1
+      for (int s = 8; s < ks; ++s, ++q) kstep(acc2, q);
+    } else {
+#pragma unroll 1
+      for (int s = 0; s < ks; ++s, ++q) kstep(acc, q);
+    }
+
+    // lane (g, t4) holds rows m, m + 8 (h) x columns 8 j + 2 t4 + e of the
+    // tile at index 4 j + 2 h + e
+    if (MODE == kModeAH) {
+      const int r0 = (t / p.n_tiles) * kGBM, u0 = (t % p.n_tiles) * BN;
+      unsigned char* out = smem + 1024 + wg * kGOut;
+      if (passes > 0) {  // the last tile's stores have read the staging
+        if (wtid == 0) sm90::bulk_wait_read<0>();
+        sm90::named_sync(1 + wg, 128);
+      }
+      // da^T then h^T, each two 32-row boxes (64 units x 128 B, swizzled)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            const float x = acc[i];
+            const float da = acc2[i] * gelu_grad<TANH>(x);
+            const float hv = gelu_fwd<float, TANH>(x);
+            const int lr = 16 * warp + g + 8 * h, u = 8 * j + 2 * t4 + e;
+            const uint32_t o = (lr >> 5) * 8192 + u * 128 +
+                               ((((lr & 31) >> 2) ^ (u & 7)) << 4) +
+                               4 * (lr & 3);
+            *reinterpret_cast<float*>(out + o) = da;
+            *reinterpret_cast<float*>(out + 2 * 8192 + o) = hv;
+          }
+      sm90::fence_async_smem();
+      sm90::named_sync(1 + wg, 128);
+      if (wtid == 0) {
+        const uint32_t so = s0 + 1024 + wg * kGOut;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int r = r0 + 64 * wg + 32 * b;
+          sm90::tma_store_3d(&mp.out[0], so + 8192 * b, r, u0, 0);
+          sm90::tma_store_3d(&mp.out[1], so + 2 * 8192 + 8192 * b, r, u0, 0);
+        }
+        sm90::bulk_commit();
+      }
+      ++passes;
+    } else if (MODE == kModeDX) {
+      const int r0 = (t / p.n_tiles) * kGBM, n0 = (t % p.n_tiles) * BN;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + m + 8 * h;
+        if (row >= p.rows) continue;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * t4;
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (col < kC) {
+            const float2 d = load2(p.dout + (size_t)row * kC + col);
+            store2(p.dsrc + (size_t)row * kC + col, v0 + d.x, v1 + d.y);
+          } else {
+            store2(p.dmsg + (size_t)row * kC + col - kC, v0, v1);
+          }
+        }
+      }
+    } else {
+      const int per = w_tiles_a_slice(p.H), sl = t / per, i0 = t % per;
+      const int mt = i0 % 3, u0 = (i0 / 3) * BN;
+      float* w1p = p.ws + (size_t)sl * 3 * kC * p.H;  // dW1 (H, 2C)
+      float* w2p = w1p + (size_t)2 * kC * p.H;        // dW2 (C, H)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = m + 8 * h;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int u = u0 + 8 * j + 2 * t4;
+          const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (u >= p.H) continue;
+          if (mt < 2) {
+            w1p[(size_t)u * 2 * kC + kC * mt + c] = v0;
+            w1p[(size_t)(u + 1) * 2 * kC + kC * mt + c] = v1;
+          } else {
+            store2(w2p + (size_t)c * p.H + u, v0, v1);
+          }
+        }
+      }
+    }
+  }
+  if (MODE == kModeAH && wtid == 0) sm90::bulk_wait<0>();
+}
+
+// the elements between rows of da^T and h^T (H, ld): rows rounded up to 4
+// (a TMA stride is a multiple of 16 bytes)
+inline long long bwd_f32_ld(int rows) { return (rows + 3LL) / 4 * 4; }
+
+// The f32 launcher's statics have internal linkage (see sm90.cuh's
+// TmaMapCache): the variants tool loads several builds of this file.
+namespace {
+
+// A tensor map of a (rows, d) f32 matrix (ld elements a row) for boxes of
+// 32 columns x box_rows rows, from the source's cache: a backward call
+// takes 14, mostly of the same weights and of scratch the allocator hands
+// out again
+inline int gmap(CUtensorMap* m, const void* base, int d, int rows,
+                int box_rows, long long ld = 0) {
+  return sm90::tma_maps<128>().get(
+      {(long long)base, d, rows, box_rows, ld, 0, 0, 0}, m,
+      [&](CUtensorMap* mm) {
+        return sm90::tma_map_f32(mm, base, d, rows, 1, box_rows, ld);
+      });
+}
+
+template <bool TANH>
+int launch_mlp_bwd_f32(const void* src, const void* msg, const void* w1,
+                       const void* w2, const void* gamma, const void* dout,
+                       const void* o_in, void* dsrc, void* dmsg, void* dw1,
+                       void* dw2, void* dgb, void* dop, void* w2t, void* part,
+                       void* ws, void* da, void* hid, int rows, int H,
+                       cudaStream_t stream) {
+  const int nb = bwd_ln_blocks(rows), ns = bwd_slices(rows);
+  const long long ld = bwd_f32_ld(rows);
+  float* w1t = static_cast<float*>(w2t) + (size_t)H * kC;  // (2C, H)
+  mlp_bwd_prep_kernel<float><<<nb + (3 * H * kC + kGThreads - 1) / kGThreads,
+                               kGThreads, 0, stream>>>(
+      static_cast<const float*>(w2), static_cast<const float*>(gamma),
+      static_cast<const float*>(dout), static_cast<const float*>(o_in),
+      static_cast<float*>(dop), static_cast<float*>(part),
+      static_cast<float*>(w2t), rows, H, nb, static_cast<const float*>(w1),
+      w1t);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  // the device's SM count and the three kernels' shared-memory attribute,
+  // once a device
+  static int sm_count[sm90::kMaxDevices] = {};
+  int dev = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev >= sm90::kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0) {
+    err = (int)cudaFuncSetAttribute(
+        mlp_bwd_gemm_kernel<kModeAH, TANH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, GemmTile<kModeAH>::smem);
+    if (err == 0)
+      err = (int)cudaFuncSetAttribute(
+          mlp_bwd_gemm_kernel<kModeDX, TANH>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          GemmTile<kModeDX>::smem);
+    if (err == 0)
+      err = (int)cudaFuncSetAttribute(
+          mlp_bwd_gemm_kernel<kModeW, TANH>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          GemmTile<kModeW>::smem);
+    if (err == 0)
+      err = (int)cudaDeviceGetAttribute(&sm_count[dev],
+                                        cudaDevAttrMultiProcessorCount, dev);
+    if (err != 0) return err;
+  }
+  const int sms = sm_count[dev];
+  GemmArgs a{static_cast<const float*>(dout), static_cast<float*>(dsrc),
+             static_cast<float*>(dmsg), static_cast<float*>(ws), rows, H,
+             0, 0, 0};
+  auto run = [&](auto kernel, int bytes, const GemmMaps& maps, int m_tiles,
+                 int n_tiles, int tiles) {
+    a.m_tiles = m_tiles, a.n_tiles = n_tiles, a.tiles = tiles;
+    const int grid = tiles < sms ? tiles : sms;
+    kernel<<<grid, kFThreads, bytes, stream>>>(maps, a);
+    return (int)cudaGetLastError();
+  };
+  constexpr int nah = GemmTile<kModeAH>::BN, nb2 = GemmTile<kModeDX>::BN;
+  const int mt = (rows + kGBM - 1) / kGBM;
+  GemmMaps mp = {};
+  // AH: a and dh, then da^T and h^T
+  err = gmap(&mp.a[0], src, kC, rows, kGBM);
+  if (err == 0) err = gmap(&mp.a[1], msg, kC, rows, kGBM);
+  if (err == 0) err = gmap(&mp.a[2], dop, kC, rows, kGBM);
+  if (err == 0) err = gmap(&mp.b[0], w1, 2 * kC, H, nah);
+  if (err == 0) err = gmap(&mp.b[1], w2t, kC, H, nah);
+  if (err == 0) err = gmap(&mp.out[0], da, rows, H, nah, ld);
+  if (err == 0) err = gmap(&mp.out[1], hid, rows, H, nah, ld);
+  if (err == 0)
+    err = run(mlp_bwd_gemm_kernel<kModeAH, TANH>, GemmTile<kModeAH>::smem, mp,
+              mt, H / nah, mt * (H / nah));
+  if (err != 0) return err;
+  // DX: d[src | msg] = da W1
+  mp = {};
+  err = gmap(&mp.a[0], da, rows, H, 32, ld);
+  if (err == 0) err = gmap(&mp.b[0], w1t, H, 2 * kC, nb2);
+  if (err == 0)
+    err = run(mlp_bwd_gemm_kernel<kModeDX, TANH>, GemmTile<kModeDX>::smem, mp,
+              mt, 2 * kC / nb2, mt * (2 * kC / nb2));
+  if (err != 0) return err;
+  // W: the weight gradients' slice partials
+  mp = {};
+  err = gmap(&mp.a[0], src, kC, rows, 32);
+  if (err == 0) err = gmap(&mp.a[1], msg, kC, rows, 32);
+  if (err == 0) err = gmap(&mp.a[2], dop, kC, rows, 32);
+  if (err == 0) err = gmap(&mp.b[0], da, rows, H, nb2, ld);
+  if (err == 0) err = gmap(&mp.b[1], hid, rows, H, nb2, ld);
+  if (err == 0)
+    err = run(mlp_bwd_gemm_kernel<kModeW, TANH>, GemmTile<kModeW>::smem, mp,
+              0, 0, ns * w_tiles_a_slice(H));
+  if (err != 0) return err;
+  mlp_bwd_reduce_kernel<float><<<2 * kC + (3 * kC * H + 127) / 128, 128, 0,
+                                 stream>>>(
+      static_cast<const float*>(part), nb, static_cast<const float*>(ws), ns,
+      H, static_cast<float*>(dgb), static_cast<float*>(dw1),
+      static_cast<float*>(dw2));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+template <bool TANH>
+int launch_mlp_bwd_bf16(const void* src, const void* msg, const void* w1,
+                        const void* w2, const void* gamma, const void* dout,
+                        const void* o_in, void* dsrc, void* dmsg, void* dw1,
+                        void* dw2, void* dgb, void* dop, void* w2t,
+                        void* part, void* ws, void*, void*, int rows, int H,
+                        cudaStream_t stream) {
+  using T = bf16;
   using S = BwdSmem<T>;
   auto kb = mlp_fused_bwd_kernel<T, TANH>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1628,25 +1849,15 @@ int launch_mlp_bwd(const void* src, const void* msg, const void* w1,
       static_cast<const T*>(w2), static_cast<const T*>(gamma),
       static_cast<const T*>(dout), static_cast<const float*>(o_in),
       static_cast<T*>(dop), static_cast<float*>(part), static_cast<T*>(w2t),
-      rows, H, nb);
+      rows, H, nb, nullptr, nullptr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   BwdArgs<T> a{static_cast<const T*>(src), static_cast<const T*>(msg),
                static_cast<const T*>(w1),  static_cast<const T*>(w2t),
                static_cast<const T*>(dout), static_cast<const T*>(dop),
                static_cast<T*>(dsrc),      static_cast<T*>(dmsg),
-               static_cast<float*>(da),    static_cast<float*>(hid),
                static_cast<float*>(ws),    rows, H, nwb};
-  if constexpr (!is_f32<T>) {
-    kb<<<nwb + nrb, kGThreads, S::launch_bytes, stream>>>(a);
-  } else {  // the weight blocks read the row blocks' da and h
-    a.nwb = 0;
-    kb<<<nrb, kGThreads, S::launch_bytes, stream>>>(a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    a.nwb = nwb;
-    kb<<<nwb, kGThreads, S::launch_bytes, stream>>>(a);
-  }
+  kb<<<nwb + nrb, kGThreads, S::launch_bytes, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   mlp_bwd_reduce_kernel<T><<<2 * kC + (3 * kC * H + 127) / 128, 128, 0,
@@ -1689,9 +1900,10 @@ extern "C" int keep_mlp_fused(const void* src, const void* msg, const void* w1,
 
 // The bytes of the scratch keep_mlp_fused_bwd takes (arguments as there),
 // into bytes[6]: dop (rows, C) of dtype (bf16: (2, rows, C), dO' hi and
-// lo), w2t (H, C) of dtype, part (the LayerNorm backward's blocks, 2C) f32,
-// ws (the weight blocks' row slices, 3 C H) f32, da and hid (rows, H) f32
-// for dtype 0 and 0 (none) for 1. Returns a cudaError_t value (0 = ok).
+// lo), w2t (H, C) of dtype (f32: then W1^T (2C, H)), part (the LayerNorm
+// backward's blocks, 2C) f32, ws (the weight blocks' row slices, 3 C H)
+// f32, da and hid (H, ld) f32 for dtype 0 (da^T and h^T, ld = rows rounded
+// up to 4) and 0 (none) for 1. Returns a cudaError_t value (0 = ok).
 extern "C" int keep_mlp_fused_bwd_scratch(int rows, int C, int H, int dtype,
                                           long long* bytes) {
   using namespace keep;
@@ -1699,10 +1911,10 @@ extern "C" int keep_mlp_fused_bwd_scratch(int rows, int C, int H, int dtype,
     return (int)cudaErrorInvalidValue;
   const long long r = rows, h = H, es = dtype == 0 ? 4 : 2;
   bytes[0] = (dtype == 0 ? 1 : 2) * r * kC * es;
-  bytes[1] = h * kC * es;
+  bytes[1] = (dtype == 0 ? 3 : 1) * h * kC * es;
   bytes[2] = (long long)bwd_ln_blocks(rows) * 2 * kC * 4;
   bytes[3] = (long long)bwd_slices(rows) * 3 * kC * h * 4;
-  bytes[4] = bytes[5] = dtype == 0 ? r * h * 4 : 0;
+  bytes[4] = bytes[5] = dtype == 0 ? bwd_f32_ld(rows) * h * 4 : 0;
   return 0;
 }
 
@@ -1710,10 +1922,11 @@ extern "C" int keep_mlp_fused_bwd_scratch(int rows, int C, int H, int dtype,
 // it). dout, dsrc, dmsg: (rows, C) of dtype; o_in: (rows, C) f32, the
 // forward's o_out. Outputs of dtype: dw1 (H, 2C), dw2 (C, H), dgb (2, C)
 // (dgamma, dbeta). Scratch: dop, w2t, part, ws, da and hid of the bytes
-// keep_mlp_fused_bwd_scratch gives (da and hid null for dtype 1). Four
-// kernels on the stream in f32 (the LayerNorm's backward, the row blocks,
-// the weight blocks, the reduce), three in bf16 (row and weight blocks in
-// one grid); returns a cudaError_t value (0 = ok).
+// keep_mlp_fused_bwd_scratch gives (da and hid null for dtype 1). Five
+// kernels on the stream in f32 (the LayerNorm's backward, then
+// mlp_bwd_gemm_kernel's AH, DX and W launches, the reduce), three in bf16
+// (row and weight blocks in one grid); returns a cudaError_t value (0 =
+// ok).
 extern "C" int keep_mlp_fused_bwd(const void* src, const void* msg,
                                   const void* w1, const void* w2,
                                   const void* gamma, const void* dout,
@@ -1733,10 +1946,10 @@ extern "C" int keep_mlp_fused_bwd(const void* src, const void* msg,
                   dgb, dop, w2t, part, ws, da, hid, rows, H, st);
   };
   if (dtype == 0)
-    return approximate ? go(launch_mlp_bwd<float, true>)
-                       : go(launch_mlp_bwd<float, false>);
+    return approximate ? go(launch_mlp_bwd_f32<true>)
+                       : go(launch_mlp_bwd_f32<false>);
   if (dtype == 1)
-    return approximate ? go(launch_mlp_bwd<bf16, true>)
-                       : go(launch_mlp_bwd<bf16, false>);
+    return approximate ? go(launch_mlp_bwd_bf16<true>)
+                       : go(launch_mlp_bwd_bf16<false>);
   return (int)cudaErrorInvalidValue;
 }

@@ -73,26 +73,30 @@
 // through shared memory.
 //
 // f32 (the f32 packed KEEP forward, processor(float32, phase512=True)):
-// packed_conv_f32_kernel<128|64>, the same implicit GEMM on the FMA pipe,
-// all f32 (no TF32), bound by its 67 TFLOP/s. A block of 8 warps owns 128
-// pixels x BN channels (BN 128, or 64 when Cout <= 64), so at Cout = 256
-// each input patch comes from L2 twice per tap. K steps of one tap x 32
-// input channels go through a 4-stage ring filled by 16-byte cp.async with
-// zero-fill (pad cells, pixels past the end, channels past Cin), three
-// steps ahead, one barrier a step. Operand layouts: the input patch lies
-// [pixel][channel] (K-contiguous, rows padded to 36 floats) and the HWIO
-// weight slice [channel][output] (N-contiguous, unpadded), as they arrive.
-// A lane owns 8 pixels x 8 outputs (two groups of 4 consecutive outputs,
-// 64 apart; 8 x 4 at BN 64): per 4 channels it reads 8 float4 of the patch
-// along K (a warp's 4 pixel rows fall in distinct banks, its 8 lanes of a
-// row share the address) and, per channel, 2 float4 of the weight row (8
-// lanes read 128 consecutive bytes): 16 shared loads per 256 FMAs, one
-// wavefront each. The epilogue adds the bias in f32, zeroes a masked
-// pixel's pad half-cells and stores 16 bytes a lane straight from the
-// registers.
-#include <array>
-#include <mutex>
-
+// packed_conv_tf32_kernel<BN>, the same persistent warp-specialized implicit
+// GEMM on the TF32 tensor cores as 3xTF32 (x = hi + lo, hi x rounded to
+// TF32 by split_tf32, a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, f32 sums),
+// bound by 3 x 34.4 GFLOP at 495 TFLOP/s, 0.21 ms at K6's own shape (the
+// FMA pipe's 67 TFLOP/s gives 0.51). TF32 wgmma reads shared memory only
+// K-major: the patch is (channels innermost), the HWIO weights are not, so
+// a first kernel (packed_conv_w_split_kernel) writes the weights as (taps,
+// Cout, Cin) hi and lo planes (1 MB -> 2 MB at K6's shape), which TMA loads
+// as they are: 0.1-7.4 % of a call's device time (the producer's threads
+// transposing raw HWIO slices into the ring instead left it 3 stages deep
+// at 128 x 128 and took 1.8x the time: PERF.md). A K step is 32 input
+// channels (128 bytes) of one tap: the producer's first thread loads the
+// raw patch by im2col TMA (tma_map_im2col_f32; the zero fill pads K at Cin
+// = 12) and the weights' hi and lo tiles. Each consumer warpgroup reads
+// its rows of the patch by ldmatrix and splits them in registers (the producer splitting the patch
+// in shared memory instead left the ring 3 stages deep at 128 x 128 and
+// took 1.65x the time: PERF.md), runs the K step's 4 k8 steps x 3 products
+// (m64nBNk8, A from registers, B in shared memory) from zero into a part
+// set, waits for it and adds it in f32 to its accumulators (the tensor
+// core's adds truncate, so no sum longer than a K step runs through them),
+// the two warpgroups overlapping each other. The epilogue (bias, parity-1
+// mask, TMA store in 32-column passes, clipped at Cout) is the bf16
+// kernel's in f32. The tile (BM = 128 x BN 128, 64 or 32) and the ring's
+// depth come from ops/kernels.py:packed_conv_plan.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -378,7 +382,6 @@ constexpr int kTThreads = 384;   // 2 consumer warpgroups and a producer
 constexpr int kTMaxStages = 8;
 constexpr int kTSmemLimit = 232448;  // a block's shared memory on the H100
 constexpr int kTOutBytes = 2 * 64 * 64 * 2;  // a warpgroup's two 64 x 64 tiles
-constexpr int kMaxDevices = 64;
 
 template <int MI, int BN>
 struct TmaTile {
@@ -614,52 +617,279 @@ __global__ void __launch_bounds__(kTThreads, 1)
   if (wtid == 0) sm90::bulk_wait<0>();
 }
 
-// The launcher's caches have internal linkage: a static of an inline or
-// template function is one symbol for every library that defines it, so
-// two builds of this file in one process (tools/torch_k6_check.py --root)
-// would share them.
-namespace {
+// ---------------------------------------------------------------------------
+// f32: 3xTF32 on wgmma, fed by TMA (im2col), the patch split on chip,
+// warp-specialized, persistent
+// ---------------------------------------------------------------------------
 
-// The tensor maps of recent launches by what they encode (an address, a
-// geometry, a box): a call that repeats one (the same weights, or an
-// activation the allocator hands out at the same address) encodes nothing
-// (an encode validates the whole map on the host, at every launch
-// otherwise; tools/torch_k6_check.py --host). Any number of host threads.
-class TmaMapCache {
- public:
-  using Key = std::array<long long, 8>;
-  // the map for key, encoded by encode(map) on a miss; a cudaError_t value
-  template <typename Encode>
-  int get(const Key& key, CUtensorMap* map, Encode encode) {
-    std::lock_guard<std::mutex> lock(mu_);
-    for (int i = 0; i < kSlots; ++i)
-      if (used_[i] && keys_[i] == key) {
-        *map = maps_[i];
-        return 0;
-      }
-    const int err = encode(map);
-    if (err == 0) {
-      keys_[next_] = key;
-      maps_[next_] = *map;
-      used_[next_] = true;
-      next_ = (next_ + 1) % kSlots;
-    }
-    return err;
+constexpr int kFK = 32;  // input channels a K step: 128 bytes of f32
+
+template <int BN>
+struct F32Tile {
+  static constexpr int BM = 128;            // pixels: 2 x 64
+  static constexpr int a_bytes = BM * 128;  // the raw patch
+  static constexpr int b_bytes = BN * 128;  // the weights' hi or lo tile
+  // a stage: the raw patch, the weights' hi and lo tiles; the rest as
+  // TmaTile's (ops/kernels.py counts the same)
+  static constexpr int stage = a_bytes + 2 * b_bytes;
+  static constexpr int bytes(int stages) {
+    return 2048 + 2 * kTOutBytes + stages * stage;
   }
-
- private:
-  static constexpr int kSlots = 64;
-  std::mutex mu_;
-  Key keys_[kSlots];
-  CUtensorMap maps_[kSlots];
-  bool used_[kSlots] = {};
-  int next_ = 0;
 };
 
-inline TmaMapCache& tma_maps() {
-  static TmaMapCache cache;
-  return cache;
+// w (taps, Cin, Cout) f32 -> wt (2, taps, Cout, Cin): the TF32 hi plane,
+// then the lo plane (split_tf32), each K-major as TF32 wgmma reads it.
+// Block (32, 8) transposes a 32 x 32 tile through shared memory; grid
+// (ceil(Cout / 32), ceil(Cin / 32), taps)
+__global__ void __launch_bounds__(256)
+    packed_conv_w_split_kernel(const float* __restrict__ w,
+                               float* __restrict__ wt, int cin, int cout) {
+  __shared__ float t[32][33];
+  const int tap = blockIdx.z, c0 = blockIdx.y * 32, n0 = blockIdx.x * 32;
+  const int taps = gridDim.z;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int ci = c0 + i, co = n0 + threadIdx.x;
+    t[i][threadIdx.x] = ci < cin && co < cout
+                            ? w[((size_t)tap * cin + ci) * cout + co]
+                            : 0.f;
+  }
+  __syncthreads();
+  const size_t plane = (size_t)taps * cout * cin;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int co = n0 + i, ci = c0 + threadIdx.x;
+    if (co >= cout || ci >= cin) continue;
+    uint32_t hi, lo;
+    sm90::split_tf32(__float_as_uint(t[threadIdx.x][i]), hi, lo);
+    const size_t o = ((size_t)tap * cout + co) * cin + ci;
+    wt[o] = __uint_as_float(hi);
+    wt[plane + o] = __uint_as_float(lo);
+  }
 }
+
+// A K step of a consumer warpgroup, issued and committed: part = its 64
+// pixels' patch times the weights' BN outputs (hi, lo) over the step's 32
+// channels, 4 k8 steps of a_hi b_hi + a_hi b_lo + a_lo b_hi, from zero. The
+// warp's 16 patch rows (from rw) are read by ldmatrix (an 8 x 8 b16 matrix
+// is 8 rows of 4 f32: the TF32 A fragment's) into ah as hi bits (x +
+// 0x1000, which the tensor core reads as x rounded to TF32) and al (lo),
+// which must stay as they are until the group is waited for
+template <int BN>
+__device__ __forceinline__ void f32_kstep(float (&part)[BN / 2], uint32_t sa,
+                                          int rw, int lane,
+                                          uint32_t (&ah)[kFK / 8][4],
+                                          uint32_t (&al)[kFK / 8][4]) {
+  using T = F32Tile<BN>;
+  const uint32_t bhi = sa + T::a_bytes, blo = bhi + T::b_bytes;
+  const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int k = 0; k < kFK / 8; ++k) {
+    uint32_t a[4];
+    sm90::ldsm_x4(sa + sm90::am_at(rw + (mi & 1) * 8 + mr, 2 * k + (mi >> 1),
+                                   T::BM),
+                  a);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ah[k][e] = sm90::tf32_hi_bits(a[e]);
+      al[k][e] = sm90::tf32_lo_of_hi(ah[k][e]);
+    }
+  }
+  sm90::wg_fence();
+#pragma unroll
+  for (int k = 0; k < kFK / 8; ++k) {
+    const uint64_t dbh = sm90::desc_sw128(bhi + 32 * k, 16, 1024);
+    sm90::WgTf32<BN>::mma(part, ah[k], dbh, k > 0);
+    sm90::WgTf32<BN>::mma(part, ah[k],
+                          sm90::desc_sw128(blo + 32 * k, 16, 1024), 1);
+    sm90::WgTf32<BN>::mma(part, al[k], dbh, 1);
+  }
+  sm90::wg_commit();
+}
+
+// One staging pass of the f32 epilogue: the 32 outputs from column 32 sub
+// of a warpgroup's accumulator plus the bias (BIAS: f32, read at column n,
+// clamped to Cout) and, with MASK, the phase blocks zero[h] of row h zeroed
+// (each column's block on its own: mask_c may be odd in f32), into a
+// staging tile of 64 128-byte rows in the 128-byte swizzle
+template <int BN, bool BIAS, bool MASK>
+__device__ __forceinline__ void f32_stage_pass(const float (&acc)[BN / 2],
+                                               int sub, int n0,
+                                               const int (&zero)[2],
+                                               const PcGeom& g,
+                                               const PcEpi& e, int warp,
+                                               int lane,
+                                               unsigned char* tile) {
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    const int j = 4 * sub + jj;
+    const int n = n0 + 8 * j + 2 * (lane & 3);
+    float b0 = 0.f, b1 = 0.f;
+    if (BIAS) {
+      const float* b = static_cast<const float*>(e.bias) + (n < g.Cout ? n : 0);
+      b0 = __ldg(b), b1 = __ldg(b + 1);
+    }
+    const int q0 = (n >= e.mask_c) + (n >= 2 * e.mask_c) + (n >= 3 * e.mask_c);
+    const int q1 = (n + 1 >= e.mask_c) + (n + 1 >= 2 * e.mask_c) +
+                   (n + 1 >= 3 * e.mask_c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + (lane >> 2) + 8 * h;
+      float v0 = acc[4 * j + 2 * h] + b0;
+      float v1 = acc[4 * j + 2 * h + 1] + b1;
+      if (MASK && ((zero[h] >> q0) & 1)) v0 = 0.f;
+      if (MASK && ((zero[h] >> q1) & 1)) v1 = 0.f;
+      *reinterpret_cast<float2*>(
+          tile + r * 128 + (((2 * jj + ((lane >> 1) & 1)) ^ (r & 7)) << 4) +
+          8 * (lane & 1)) = make_float2(v0, v1);
+    }
+  }
+}
+
+// x: (B, Hi, Wi, Cin) f32 through the im2col map tx (128 pixels a box); the
+// split weights (2, taps, Cout, Cin) through the tiled map tw over (2 taps,
+// Cout, Cin), 32 x BN boxes (hi at tap, lo at taps + tap); out: (B, Ho, Wo,
+// Cout) through the tiled map to over (M, Cout), 32 x 64 boxes. 384
+// threads, min(tiles, SMs) blocks walking the tiles as
+// packed_conv_wgmma_kernel's (M fastest within an N slice); warpgroup wg <
+// 2 owns pixels 64 wg .. of a tile, its accumulators as there. K step q of
+// the block goes to stage q % stages: full mbarrier s0 + 8 st (the
+// producer's arrival and the step's TMA bytes), empty s0 + 8 (kTMaxStages
+// + st) (lane 0 of each consumer warp, once the warp's products of the
+// step have landed).
+template <int BN>
+__global__ void __launch_bounds__(kTThreads, 1)
+    packed_conv_tf32_kernel(const __grid_constant__ CUtensorMap tx,
+                            const __grid_constant__ CUtensorMap tw,
+                            const __grid_constant__ CUtensorMap to, PcGeom g,
+                            PcEpi e, int stages, int m_tiles, int tiles) {
+  using T = F32Tile<BN>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t s0 = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (s0 - sm90::smem_u32(smem_raw));
+  const uint32_t ring = s0 + 1024 + 2 * kTOutBytes;
+  const int tid = threadIdx.x;
+  const int taps = g.kh * g.kw;
+  const int ksteps = taps * ((g.Cin + kFK - 1) / kFK);
+  auto full = [&](int st) { return s0 + 8 * st; };
+  auto empty = [&](int st) { return s0 + 8 * (kTMaxStages + st); };
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      sm90::mbar_init(full(st), 1);
+      sm90::mbar_init(empty(st), 8);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer: its registers go to the consumers
+    sm90::setmaxnreg_dec<40>();
+    if (tid == 256) {
+      const long long hw = (long long)g.Ho * g.Wo;
+      int q = 0;  // the block's K step
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const long long m0 = (long long)(t % m_tiles) * T::BM;
+        const int n0 = (t / m_tiles) * BN;
+        const int img = (int)(m0 / hw), rem = (int)(m0 % hw);
+        const int h0 = rem / g.Wo - g.pt, w0 = rem % g.Wo - g.pl;
+        for (int s = 0; s < ksteps; ++s, ++q) {
+          const int st = q % stages;
+          const int tap = s % taps, c0 = (s / taps) * kFK;
+          if (q >= stages)
+            sm90::mbar_wait(empty(st), (q / stages - 1) & 1);
+          const uint32_t slot = ring + st * T::stage;
+          sm90::mbar_expect_tx(full(st), T::stage);
+          sm90::tma_load_im2col_4d(slot, &tx, c0, w0, h0, img,
+                                   (uint16_t)(tap % g.kw),
+                                   (uint16_t)(tap / g.kw), full(st));
+          sm90::tma_load_3d(slot + T::a_bytes, &tw, c0, n0, tap, full(st));
+          sm90::tma_load_3d(slot + T::a_bytes + T::b_bytes, &tw, c0, n0,
+                            taps + tap, full(st));
+        }
+      }
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wtid = tid & 127;
+  unsigned char* stage_out = smem + 1024 + wg * kTOutBytes;
+  const uint32_t stage_out_s = s0 + 1024 + wg * kTOutBytes;
+  int passes = 0;  // staging passes so far: the two tiles alternate
+  auto release = [&](int q) {
+    if (lane == 0) sm90::mbar_arrive(empty(q % stages));
+    __syncwarp();
+  };
+  // K step by K step: its products into part from zero, waited for and
+  // added to acc in f32 (no group stays in flight across the loop, which
+  // would make ptxas serialize the wgmmas, C7514); the two warpgroups
+  // overlap each other
+  float acc[BN / 2], part[BN / 2];
+  uint32_t ah[kFK / 8][4], al[kFK / 8][4];
+  int q = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    for (int s = 0; s < ksteps; ++s, ++q) {
+      const int st = q % stages;
+      sm90::mbar_wait(full(st), (q / stages) & 1);
+      f32_kstep<BN>(part, ring + st * T::stage, 64 * wg + 16 * warp, lane, ah,
+                    al);
+      sm90::wg_wait<0>();
+      sm90::fence_regs(part);
+      sm90::f_add(acc, part, s == 0);
+      release(q);
+    }
+
+    // epilogue: as packed_conv_wgmma_kernel's, in 32-column passes
+    const long long m0 = (long long)(t % m_tiles) * T::BM;
+    const int n0 = (t / m_tiles) * BN;
+    const long long r0 = m0 + wg * 64;
+    int zero[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      zero[h] =
+          pc_zero_blocks(pc_edges(g, e, r0 + 16 * warp + (lane >> 2) + 8 * h));
+    const bool masked = __any_sync(0xffffffffu, zero[0] | zero[1]);
+    const bool bias = e.bias != nullptr;
+#pragma unroll
+    for (int sub = 0; sub < BN / 32; ++sub) {
+      const int buf = passes & 1;
+      if (passes >= 2) {  // the store two passes back has read this tile
+        if (wtid == 0) sm90::bulk_wait_read<1>();
+        sm90::named_sync(1 + wg, 128);
+      }
+      unsigned char* tile = stage_out + buf * 8192;
+      if (masked) {
+        if (bias)
+          f32_stage_pass<BN, true, true>(acc, sub, n0, zero, g, e, warp, lane,
+                                         tile);
+        else
+          f32_stage_pass<BN, false, true>(acc, sub, n0, zero, g, e, warp,
+                                          lane, tile);
+      } else {
+        if (bias)
+          f32_stage_pass<BN, true, false>(acc, sub, n0, zero, g, e, warp,
+                                          lane, tile);
+        else
+          f32_stage_pass<BN, false, false>(acc, sub, n0, zero, g, e, warp,
+                                           lane, tile);
+      }
+      sm90::fence_async_smem();
+      sm90::named_sync(1 + wg, 128);
+      if (wtid == 0) {
+        sm90::tma_store_3d(&to, stage_out_s + buf * 8192, n0 + 32 * sub,
+                           (int)r0, 0);
+        sm90::bulk_commit();
+      }
+      ++passes;
+    }
+  }
+  if (wtid == 0) sm90::bulk_wait<0>();
+}
+
+// The launchers' statics have internal linkage (see sm90.cuh's
+// TmaMapCache): two builds of this file in one process
+// (tools/torch_k6_check.py --root) must not share them.
+namespace {
 
 template <int MI, int BN>
 int launch_packed_conv_tma(const void* x, const void* w, void* out, int B,
@@ -678,7 +908,7 @@ int launch_packed_conv_tma(const void* x, const void* w, void* out, int B,
   const int lo_w = -g.pl, lo_h = -g.pt;
   const int hi_w = g.Wo - g.Wi - g.pl, hi_h = g.Ho - g.Hi - g.pt;
   CUtensorMap tx, tw, to;
-  int err = tma_maps().get(
+  int err = sm90::tma_maps().get(
       {(long long)x, B, g.Hi, g.Wi, g.Cin, T::BM,
        (lo_w + 2) | (lo_h + 2) << 4 | (hi_w + 2) << 8 | (hi_h + 2) << 12, 0},
       &tx, [&](CUtensorMap* m) {
@@ -686,25 +916,25 @@ int launch_packed_conv_tma(const void* x, const void* w, void* out, int B,
                                          lo_w, lo_h, hi_w, hi_h);
       });
   if (err == 0)
-    err = tma_maps().get({(long long)w, g.Cout, g.Cin, taps, kWgK, 0, 0, 1},
-                         &tw, [&](CUtensorMap* m) {
-                           return sm90::tma_map_bf16(m, w, g.Cout, g.Cin,
-                                                     taps, kWgK);
-                         });
+    err = sm90::tma_maps().get(
+        {(long long)w, g.Cout, g.Cin, taps, kWgK, 0, 0, 1}, &tw,
+        [&](CUtensorMap* m) {
+          return sm90::tma_map_bf16(m, w, g.Cout, g.Cin, taps, kWgK);
+        });
   if (err == 0)
-    err = tma_maps().get({(long long)out, g.Cout, g.M, 1, 64, 0, 0, 2}, &to,
-                         [&](CUtensorMap* m) {
-                           return sm90::tma_map_bf16(m, out, g.Cout,
-                                                     (int)g.M, 1, 64);
-                         });
+    err = sm90::tma_maps().get(
+        {(long long)out, g.Cout, g.M, 1, 64, 0, 0, 2}, &to,
+        [&](CUtensorMap* m) {
+          return sm90::tma_map_bf16(m, out, g.Cout, (int)g.M, 1, 64);
+        });
   if (err != 0) return err;
   // the device's SM count and the kernel's shared-memory attribute, once a
   // device
-  static int sms[kMaxDevices] = {};
+  static int sms[sm90::kMaxDevices] = {};
   int dev = 0;
   err = (int)cudaGetDevice(&dev);
   if (err != 0) return err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (dev >= sm90::kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (sms[dev] == 0) {
     err = (int)cudaFuncSetAttribute(
         packed_conv_wgmma_kernel<MI, BN>,
@@ -720,206 +950,68 @@ int launch_packed_conv_tma(const void* x, const void* w, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// ---------------------------------------------------------------------------
-// f32: register-tiled FMA implicit GEMM (no TF32)
-// ---------------------------------------------------------------------------
-
-constexpr int kPfRows = 128;          // output pixels per block
-constexpr int kPfK = 32;              // input channels per K step
-constexpr int kPfStages = 4;
-constexpr int kPfAhead = kPfStages - 1;  // K steps loading ahead
-constexpr int kPfThreads = 256;
-constexpr int kPfLda = kPfK + 4;      // floats per staged pixel row
-
 template <int BN>
-struct PfLayout {
-  static constexpr int a_bytes = 4 * kPfRows * kPfLda;  // 18,432
-  static constexpr int b_bytes = 4 * kPfK * BN;         // 16,384 at BN 128
-  static constexpr int stage = a_bytes + b_bytes;
-  static constexpr int bytes = kPfStages * stage;       // 139,264 at BN 128
-};
-
-// x: (B, Hi, Wi, Cin); w: (kh, kw, Cin, Cout); out: (B, Ho, Wo, Cout).
-// Grid (ceil(M / 128), ceil(Cout / BN)), 256 threads. Warp w = 4 wn + wm,
-// lane 8 rg + cg: pixels 32 wm + rg + 4 r (r < 8) of the block against
-// channels 32 wn + 4 cg + 64 q + e (q < BN / 64, e < 4).
-template <int BN>
-__global__ void __launch_bounds__(kPfThreads, 1)
-    packed_conv_f32_kernel(const float* __restrict__ x,
-                           const float* __restrict__ w,
-                           float* __restrict__ out, PcGeom g, PcEpi e) {
-  using Lay = PfLayout<BN>;
-  constexpr int NQ = BN / 64;  // float4 channel groups per lane
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ long long row_pix[kPfRows];  // pixel index of (i - pt, j - pl)
-  __shared__ int row_i[kPfRows], row_j[kPfRows];  // i - pt (kNoRow), j - pl
-  __shared__ int row_edges[kPfRows];  // pc_edges of each output pixel
-  __shared__ float bias_s[BN];
-
-  const uint32_t base = sm90::smem_u32(smem);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 3, wn = warp >> 2, rg = lane >> 3, cg = lane & 7;
-  const long long m0 = (long long)blockIdx.x * kPfRows;
-  const int n0 = blockIdx.y * BN;
-  if (tid < kPfRows) {
-    const long long p = m0 + tid;
-    const long long hw = (long long)g.Ho * g.Wo;
-    const long long rem = p % hw;
-    const int i = (int)(rem / g.Wo) - g.pt, j = (int)(rem % g.Wo) - g.pl;
-    row_pix[tid] = ((p / hw) * g.Hi + i) * g.Wi + j;
-    row_i[tid] = p < g.M ? i : kNoRow;
-    row_j[tid] = j;
-    row_edges[tid] = pc_edges(g, e, p);
-  }
-  for (int i = tid; i < BN; i += kPfThreads)
-    bias_s[i] = n0 + i < g.Cout ? pc_bias(e, n0 + i) : 0.f;
-  __syncthreads();
-
+int launch_packed_conv_tf32(const void* x, const void* w, void* out,
+                            void* wt, int B, const PcGeom& g, const PcEpi& e,
+                            int stages, cudaStream_t stream) {
+  using T = F32Tile<BN>;
+  const int bytes = T::bytes(stages);
+  if (stages < 2 || stages > kTMaxStages || bytes > kTSmemLimit ||
+      wt == nullptr || (e.bias != nullptr && e.bias_bf16) ||
+      g.M > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const int taps = g.kh * g.kw;
-  const int steps = taps * ((g.Cin + kPfK - 1) / kPfK);
-
-  // 16-byte copies (4 channels; Cin and Cout are multiples of 4): each
-  // thread's 4 pixel rows and its weight chunk are fixed across K steps, so
-  // their geometry stays in registers
-  constexpr int kAPer = kPfRows * (kPfK / 4) / kPfThreads;  // 4
-  const int a_c = (tid & 7) * 4;                           // channel in step
-  long long a_pix[kAPer];
-  int a_i[kAPer], a_j[kAPer];
-#pragma unroll
-  for (int k = 0; k < kAPer; ++k) {
-    const int r = (tid >> 3) + 32 * k;
-    a_pix[k] = row_pix[r];
-    a_i[k] = row_i[r];
-    a_j[k] = row_j[r];
+  const dim3 sgrid((g.Cout + 31) / 32, (g.Cin + 31) / 32, taps);
+  packed_conv_w_split_kernel<<<sgrid, dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(w), static_cast<float*>(wt), g.Cin, g.Cout);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const long long m_tiles = (g.M + T::BM - 1) / T::BM;
+  const long long tiles = m_tiles * ((g.Cout + BN - 1) / BN);
+  const int lo_w = -g.pl, lo_h = -g.pt;
+  const int hi_w = g.Wo - g.Wi - g.pl, hi_h = g.Ho - g.Hi - g.pt;
+  CUtensorMap tx, tw, to;
+  err = sm90::tma_maps().get(
+      {(long long)x, B, g.Hi, g.Wi, g.Cin, T::BM,
+       (lo_w + 2) | (lo_h + 2) << 4 | (hi_w + 2) << 8 | (hi_h + 2) << 12, 3},
+      &tx, [&](CUtensorMap* m) {
+        return sm90::tma_map_im2col_f32(m, x, B, g.Hi, g.Wi, g.Cin, T::BM,
+                                        lo_w, lo_h, hi_w, hi_h);
+      });
+  if (err == 0)
+    err = sm90::tma_maps().get(
+        {(long long)wt, g.Cin, g.Cout, 2 * taps, BN, 0, 0, 4}, &tw,
+        [&](CUtensorMap* m) {
+          return sm90::tma_map_f32(m, wt, g.Cin, g.Cout, 2 * taps, BN);
+        });
+  if (err == 0)
+    err = sm90::tma_maps().get(
+        {(long long)out, g.Cout, g.M, 1, 64, 0, 0, 5}, &to,
+        [&](CUtensorMap* m) {
+          return sm90::tma_map_f32(m, out, g.Cout, (int)g.M, 1, 64);
+        });
+  if (err != 0) return err;
+  static int sms[sm90::kMaxDevices] = {};
+  int dev = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev >= sm90::kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = (int)cudaFuncSetAttribute(
+        packed_conv_tf32_kernel<BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kTSmemLimit);
+    if (err == 0)
+      err = (int)cudaDeviceGetAttribute(&sms[dev],
+                                        cudaDevAttrMultiProcessorCount, dev);
+    if (err != 0) return err;
   }
-  constexpr int kBCpr = BN / 4;              // 16-byte chunks per K row
-  constexpr int kBRpi = kPfThreads / kBCpr;  // K rows per pass
-  const int b_nn = (tid % kBCpr) * 4, b_kr = tid / kBCpr;
-  const bool b_col_ok = n0 + b_nn < g.Cout;
-
-  // K step s: input channels c0 .. c0 + 31 of tap s % taps -> stage s % 4
-  // (consecutive taps read the same channels of neighbouring pixels, which
-  // the L1 still holds). Pad cells, pixels past the end and channels past
-  // Cin are zero-filled.
-  auto load_step = [&](int s) {
-    const int tap = s % taps, c0 = (s / taps) * kPfK;
-    const int ty = tap / g.kw, tx = tap % g.kw;
-    const uint32_t sa = base + (s % kPfStages) * Lay::stage;
-    const uint32_t sb = sa + Lay::a_bytes;
-    // input patch: 128 pixels x 32 channels, [pixel][channel]
-    const long long shift = (long long)ty * g.Wi + tx;
-    const bool c_ok = c0 + a_c < g.Cin;
-#pragma unroll
-    for (int k = 0; k < kAPer; ++k) {
-      const int ii = a_i[k] + ty, jj = a_j[k] + tx;
-      const bool ok = c_ok && ii >= 0 && ii < g.Hi && jj >= 0 && jj < g.Wi;
-      const float* src = ok ? x + (a_pix[k] + shift) * g.Cin + c0 + a_c : x;
-      sm90::cp_async16_l1(
-          sa + 4 * (((tid >> 3) + 32 * k) * kPfLda + a_c), src, ok ? 16 : 0);
-    }
-    // weight slice: 32 input channels x BN outputs, [channel][output]
-    const float* wt = w + ((size_t)tap * g.Cin + c0) * g.Cout + n0;
-#pragma unroll
-    for (int k = 0; k < kPfK / kBRpi; ++k) {
-      const int kr = b_kr + kBRpi * k;
-      const bool ok = b_col_ok && c0 + kr < g.Cin;
-      const float* src = ok ? wt + (size_t)kr * g.Cout + b_nn : w;
-      sm90::cp_async16(sb + 4 * (kr * BN + b_nn), src, ok ? 16 : 0);
-    }
-  };
-
-  float acc[8][4 * NQ];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int n = 0; n < 4 * NQ; ++n) acc[r][n] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kPfAhead; ++s) {
-    if (s < steps) load_step(s);
-    sm90::cp_async_commit();
-  }
-  for (int s = 0; s < steps; ++s) {
-    sm90::cp_async_wait<kPfAhead - 1>();  // this thread's copies of step s
-    __syncthreads();  // every copy of step s landed; step s - 1 is done
-    if (s + kPfAhead < steps) load_step(s + kPfAhead);  // into s - 1's stage
-    sm90::cp_async_commit();
-    const float* as = reinterpret_cast<const float*>(
-        smem + (s % kPfStages) * Lay::stage) + (32 * wm + rg) * kPfLda;
-    const float* bs = reinterpret_cast<const float*>(
-        smem + (s % kPfStages) * Lay::stage + Lay::a_bytes) + 32 * wn + 4 * cg;
-#pragma unroll
-    for (int k = 0; k < kPfK; k += 4) {
-      float4 a[8];  // 4 channels of each of the lane's 8 pixels
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        a[r] = *reinterpret_cast<const float4*>(as + 4 * r * kPfLda + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float4 b[NQ];  // 4 outputs of each group at channel k + kk
-#pragma unroll
-        for (int q = 0; q < NQ; ++q)
-          b[q] = *reinterpret_cast<const float4*>(bs + (k + kk) * BN + 64 * q);
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          const float av = kk == 0 ? a[r].x : kk == 1 ? a[r].y
-                         : kk == 2 ? a[r].z : a[r].w;
-#pragma unroll
-          for (int q = 0; q < NQ; ++q) {
-            acc[r][4 * q + 0] = fmaf(av, b[q].x, acc[r][4 * q + 0]);
-            acc[r][4 * q + 1] = fmaf(av, b[q].y, acc[r][4 * q + 1]);
-            acc[r][4 * q + 2] = fmaf(av, b[q].z, acc[r][4 * q + 2]);
-            acc[r][4 * q + 3] = fmaf(av, b[q].w, acc[r][4 * q + 3]);
-          }
-        }
-      }
-    }
-  }
-  sm90::cp_async_wait<0>();
-
-  // bias in f32, a masked pixel's pad half-cells zeroed, 16-byte stores of
-  // 4 consecutive outputs (a store instruction writes 128 bytes of 4 rows)
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int pl = 32 * wm + rg + 4 * r;
-    const long long p = m0 + pl;
-    if (p >= g.M) continue;
-    const int edges = row_edges[pl];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const int nl = 32 * wn + 4 * cg + 64 * q;
-      if (n0 + nl >= g.Cout) continue;
-      float v[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        v[c] = acc[r][4 * q + c] + bias_s[nl + c];
-        if (edges && pc_masked(edges, e.mask_c, n0 + nl + c)) v[c] = 0.f;
-      }
-      *reinterpret_cast<float4*>(out + p * g.Cout + n0 + nl) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
-template <int BN>
-int launch_packed_conv_f32(const void* x, const void* w, void* out,
-                           const PcGeom& g, const PcEpi& e,
-                           cudaStream_t stream) {
-  const long long mt = (g.M + kPfRows - 1) / kPfRows;
-  if (mt > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_conv_f32_kernel<BN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, PfLayout<BN>::bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)mt, (g.Cout + BN - 1) / BN);
-  packed_conv_f32_kernel<BN>
-      <<<grid, kPfThreads, PfLayout<BN>::bytes, stream>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w),
-          static_cast<float*>(out), g, e);
+  const int grid = (int)(tiles < sms[dev] ? tiles : sms[dev]);
+  packed_conv_tf32_kernel<BN><<<grid, kTThreads, bytes, stream>>>(
+      tx, tw, to, g, e, stages, (int)m_tiles, (int)tiles);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 }  // namespace keep
 
@@ -927,16 +1019,20 @@ int launch_packed_conv_f32(const void* x, const void* w, void* out,
 // route, bm, bn, stages. dtype: 0 = float32, 1 = bfloat16 (x, w and out).
 // kh, kw in {1, 2}; pads in {0, 1}; Cin and Cout multiples of 4; x and w
 // 16-byte aligned. bias: Cout values or null, bfloat16 if bias_bf16 else
-// float32; mask_c: 0, or the phase-block width with Cout = 4 mask_c. The
-// plan (ops/kernels.py:packed_conv_plan): route 0 = TMA (bf16, Cin and Cout
+// float32 (float32 for dtype 0); mask_c: 0, or the phase-block width with
+// Cout = 4 mask_c. wt: for dtype 0, scratch of 2 kh kw Cin Cout f32 (the
+// split weights), 16-byte aligned; else unused. The plan
+// (ops/kernels.py:packed_conv_plan): route 0 = TMA (bf16, Cin and Cout
 // multiples of 8; bm x bn in {128 x 256, 256 x 128, 128 x 128, 256 x 64,
 // 128 x 64}, 2 .. 8 stages within the shared memory), 1 = cp.async (bf16;
-// 128 x 256 or 128 x 64, 4 stages), 2 = FMA (f32; 128 x 128 or 128 x 64, 4
-// stages). Returns a cudaError_t value (0 = ok; cudaErrorInvalidValue for a
-// geometry or a plan the kernels do not take).
+// 128 x 256 or 128 x 64, 4 stages), 2 = 3xTF32 (f32; 128 x 128, 128 x 64 or
+// 128 x 32, 3 .. 8 stages within the shared memory; two kernels: the
+// weights' split, then the convolution). Returns a cudaError_t value (0 =
+// ok; cudaErrorInvalidValue for a geometry or a plan the kernels do not
+// take).
 extern "C" int keep_packed_conv(const void* x, const void* w,
-                                const void* bias, void* out, const int* a,
-                                void* stream) {
+                                const void* bias, void* out, void* wt,
+                                const int* a, void* stream) {
   const int B = a[0], Hi = a[1], Wi = a[2], Cin = a[3], Cout = a[4];
   const int kh = a[5], kw = a[6], pt = a[7], pb = a[8], pl = a[9], pr = a[10];
   const int bias_bf16 = a[11], mask_c = a[12], dtype = a[13], route = a[14];
@@ -973,9 +1069,13 @@ extern "C" int keep_packed_conv(const void* x, const void* w,
     if (bn == 256) return launch_packed_conv_cp_async<256>(x, w, out, g, e, st);
     if (bn == 64) return launch_packed_conv_cp_async<64>(x, w, out, g, e, st);
   }
-  if (dtype == 0 && route == 2 && bm == kPfRows && stages == kPfStages) {
-    if (bn == 128) return launch_packed_conv_f32<128>(x, w, out, g, e, st);
-    if (bn == 64) return launch_packed_conv_f32<64>(x, w, out, g, e, st);
+  if (dtype == 0 && route == 2 && bm == 128) {
+    if (bn == 128)
+      return launch_packed_conv_tf32<128>(x, w, out, wt, B, g, e, stages, st);
+    if (bn == 64)
+      return launch_packed_conv_tf32<64>(x, w, out, wt, B, g, e, stages, st);
+    if (bn == 32)
+      return launch_packed_conv_tf32<32>(x, w, out, wt, B, g, e, stages, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -21,6 +21,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <mutex>
+
 namespace keep {
 namespace sm90 {
 
@@ -670,6 +673,15 @@ __device__ __forceinline__ void split_tf32_4(uint4& x, uint4& hi) {
   split_tf32(x.z, hi.z, x.z);
   split_tf32(x.w, hi.w, x.w);
 }
+// the sums of a 3xTF32 product (the tensor core's adds truncate): a
+// group's products from zero into part, added to sum in f32 once it has
+// landed (sum is assigned at the first)
+template <int N>
+__device__ __forceinline__ void f_add(float (&sum)[N], const float (&part)[N],
+                                      bool first) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) sum[i] = first ? part[i] : sum[i] + part[i];
+}
 // a barrier of the `threads` threads from warp `first` on (id > 0; 0 is
 // __syncthreads')
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -727,19 +739,34 @@ inline EncodeIm2col encode_im2col() {
   return fn;
 }
 
+// Binds the current device's primary context to the calling thread. A
+// thread whose first CUDA call is an encode has none, and the encode then
+// fails (CUDA_ERROR_INVALID_CONTEXT): autograd's device thread, when the
+// caching allocator serves a backward's tensors without a runtime call. A
+// cudaError_t value.
+inline int bind_context() {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0) err = (int)cudaSetDevice(dev);
+  return err;
+}
+
 // A tensor map of a contiguous (batch, rows, d) array of 2-byte (bf16) or
-// 4-byte (f32) elements, d a multiple of 128 bytes, for TMA boxes of 128
+// 4-byte (f32) elements, d a multiple of 16 bytes, for TMA boxes of 128
 // bytes (64 bf16 or 32 f32 columns) x box_rows rows x 1 in the 128-byte
 // swizzle: each box lands as box_rows rows of 128 bytes, an am_at column
-// block; rows past `rows` are zero-filled. Returns a cudaError_t value.
+// block; rows past `rows` and columns past d are zero-filled (and not
+// written by a store). Returns a cudaError_t value.
 inline int tma_map(CUtensorMap* map, const void* base, int esize, int d,
-                   int rows, int batch, int box_rows) {
+                   int rows, int batch, int box_rows, long long ld = 0) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (const int err = bind_context()) return err;
+  if (ld == 0) ld = d;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * esize,
-                                 (cuuint64_t)d * rows * esize};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * esize,
+                                 (cuuint64_t)ld * rows * esize};
   const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows,
                              1};
   const cuuint32_t estr[3] = {1, 1, 1};
@@ -756,37 +783,110 @@ inline int tma_map_bf16(CUtensorMap* map, const void* base, int d, int rows,
                         int batch, int box_rows) {
   return tma_map(map, base, 2, d, rows, batch, box_rows);
 }
+// (ld: the elements between rows, d if 0)
 inline int tma_map_f32(CUtensorMap* map, const void* base, int d, int rows,
-                       int batch, int box_rows) {
-  return tma_map(map, base, 4, d, rows, batch, box_rows);
+                       int batch, int box_rows, long long ld = 0) {
+  return tma_map(map, base, 4, d, rows, batch, box_rows, ld);
 }
 
-// An im2col tensor map of a contiguous bf16 NHWC input (n, hi, wi, c), c a
-// multiple of 8, for tma_load_im2col_4d: boxes of `pixels` pixels x 64
-// channels (128 bytes, the 128-byte swizzle: each box lands as `pixels`
-// K-major rows of an am_at column block). A pixel (w, h) of the box
-// traversal runs over lo_w .. wi - 1 + hi_w and lo_h .. hi - 1 + hi_h of
-// each image (the corners of the bounding box, relative to the input's
-// first and last pixel). Returns a cudaError_t value.
-inline int tma_map_im2col_bf16(CUtensorMap* map, const void* base, int n,
-                               int hi, int wi, int c, int pixels, int lo_w,
-                               int lo_h, int hi_w, int hi_h) {
+// An im2col tensor map of a contiguous NHWC input (n, hi, wi, c) of 2-byte
+// (bf16) or 4-byte (f32) elements, c a multiple of 16 bytes, for
+// tma_load_im2col_4d: boxes of `pixels` pixels x 128 bytes of channels (64
+// bf16 or 32 f32; the 128-byte swizzle: each box lands as `pixels` K-major
+// rows of an am_at column block; channels past c read as zeros). A pixel
+// (w, h) of the box traversal runs over lo_w .. wi - 1 + hi_w and lo_h ..
+// hi - 1 + hi_h of each image (the corners of the bounding box, relative to
+// the input's first and last pixel). Returns a cudaError_t value.
+inline int tma_map_im2col(CUtensorMap* map, const void* base, int esize,
+                          int n, int hi, int wi, int c, int pixels, int lo_w,
+                          int lo_h, int hi_w, int hi_h) {
   const EncodeIm2col fn = encode_im2col();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (const int err = bind_context()) return err;
   const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)wi, (cuuint64_t)hi,
                               (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)c * wi * 2,
-                                 (cuuint64_t)c * wi * hi * 2};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * esize,
+                                 (cuuint64_t)c * wi * esize,
+                                 (cuuint64_t)c * wi * hi * esize};
   const int lower[2] = {lo_w, lo_h}, upper[2] = {hi_w, hi_h};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-         dims, strides, lower, upper, 64, (cuuint32_t)pixels, estr,
+      fn(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+         4, const_cast<void*>(base), dims, strides, lower, upper,
+         (cuuint32_t)(128 / esize), (cuuint32_t)pixels, estr,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
+inline int tma_map_im2col_bf16(CUtensorMap* map, const void* base, int n,
+                               int hi, int wi, int c, int pixels, int lo_w,
+                               int lo_h, int hi_w, int hi_h) {
+  return tma_map_im2col(map, base, 2, n, hi, wi, c, pixels, lo_w, lo_h, hi_w,
+                        hi_h);
+}
+inline int tma_map_im2col_f32(CUtensorMap* map, const void* base, int n,
+                              int hi, int wi, int c, int pixels, int lo_w,
+                              int lo_h, int hi_w, int hi_h) {
+  return tma_map_im2col(map, base, 4, n, hi, wi, c, pixels, lo_w, lo_h, hi_w,
+                        hi_h);
+}
+
+constexpr int kMaxDevices = 64;  // a launcher's per-device statics
+
+// The host's caches of a launcher have internal linkage (an anonymous
+// namespace: each source that includes this file has its own): a static of
+// an inline or template function is one symbol for every library that
+// defines it, so two builds of one source loaded in one process (the
+// tools' --root and variants) would share them.
+namespace {
+
+// The tensor maps of recent launches by what they encode (an address, a
+// geometry, a box): a call that repeats one (the same weights, or an
+// activation or scratch the allocator hands out at the same address)
+// encodes nothing (an encode validates the whole map on the host, at every
+// launch otherwise; tools/torch_k6_check.py --host). Any number of host
+// threads.
+template <int kSlots>
+class TmaMapCache {
+ public:
+  using Key = std::array<long long, 8>;
+  // the map for key, encoded by encode(map) on a miss; a cudaError_t value
+  template <typename Encode>
+  int get(const Key& key, CUtensorMap* map, Encode encode) {
+    std::lock_guard<std::mutex> lock(mu_);
+    for (int i = 0; i < kSlots; ++i)
+      if (used_[i] && keys_[i] == key) {
+        *map = maps_[i];
+        return 0;
+      }
+    const int err = encode(map);
+    if (err == 0) {
+      keys_[next_] = key;
+      maps_[next_] = *map;
+      used_[next_] = true;
+      next_ = (next_ + 1) % kSlots;
+    }
+    return err;
+  }
+
+ private:
+  std::mutex mu_;
+  Key keys_[kSlots];
+  CUtensorMap maps_[kSlots];
+  bool used_[kSlots] = {};
+  int next_ = 0;
+};
+
+// the source's cache of kSlots maps
+template <int kSlots = 64>
+inline TmaMapCache<kSlots>& tma_maps() {
+  static TmaMapCache<kSlots> cache;
+  return cache;
+}
+
+}  // namespace
 
 }  // namespace sm90
 }  // namespace keep

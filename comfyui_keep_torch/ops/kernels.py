@@ -5,10 +5,10 @@ fused bias + leaky ReLU and the phase-packed convolution.
 | wrapper | CUDA source | replaces (comfyui_keep_tpu/ops/pallas_kernels.py) |
 | `attention` | csrc/attention.cu (bf16 D_v=128: `flash_attention_bf16_kernel`; bf16 D_v=2: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`); backward csrc/attention_bwd.cu | `attention_pallas` |
 | `global_correlation_expectation` | csrc/attention.cu (bf16: `flash_narrow_bf16_kernel`; f32: `flash_attention_f32_kernel`); backward csrc/attention_bwd.cu | `global_correlation_expectation_pallas` |
-| `mlp_fused` | csrc/mlp.cu (backward `mlp_bwd_prep_kernel`, `mlp_fused_bwd_kernel`, `mlp_bwd_reduce_kernel`) | `mlp_fused_pallas` |
+| `mlp_fused` | csrc/mlp.cu (backward `mlp_bwd_prep_kernel`, bf16 `mlp_fused_bwd_kernel` / f32 `mlp_bwd_gemm_kernel`, `mlp_bwd_reduce_kernel`) | `mlp_fused_pallas` |
 | `vq_nearest_indices` | csrc/vq.cu | `vq_nearest_indices_pallas` |
 | `fused_bias_lrelu` | csrc/fused_act.cu | `fused_bias_lrelu_pallas` |
-| `packed_conv2x2` | csrc/packed_conv.cu | `pallas_conv` (tools/_prof_packedconv.py) |
+| `packed_conv2x2` | csrc/packed_conv.cu (bf16: `packed_conv_wgmma_kernel`, `packed_conv_cp_async_kernel`; f32: `packed_conv_w_split_kernel` + `packed_conv_tf32_kernel`) | `pallas_conv` (tools/_prof_packedconv.py) |
 
 A wrapper given CPU tensors computes its plain version (the CPU tests run
 there). Given CUDA tensors it launches its kernel, or raises on anything the
@@ -23,12 +23,13 @@ hand-written backward kernels
 blocks in one grid, warp-specialized on wgmma with TMA, bf16 and f32 by
 3xTF32 with the streamed tiles split and transposed on chip, the 2-wide
 products in FMAs; no (L, L) tensor in memory and no atomics; csrc/mlp.cu:
-the LayerNorm's backward,
-then row blocks for d[src | msg] and weight blocks for dW1 and dW2 on the
-tensor cores, bf16 on wgmma and f32 by 3xTF32 on mma.sync, then a
-fixed-order reduce: three kernels a call in bf16, whose weight blocks
-recompute a and dh so that nothing (rows, H) wide reaches memory, four in
-f32, whose row blocks hand da and h to the weight blocks). The JAX package has no Pallas backward: it
+the LayerNorm's backward, the products on wgmma, then a fixed-order
+reduce: in bf16 row blocks for d[src | msg] and weight blocks for dW1 and
+dW2 in one grid, whose weight blocks recompute a and dh so that nothing
+(rows, H) wide reaches memory, three kernels a call; in f32 three
+launches of one 3xTF32 GEMM kernel, a and dh to da^T and h^T (H, rows),
+then d[src | msg], then dW1 and dW2, five kernels a call). The JAX
+package has no Pallas backward: it
 differentiates its plain branch, and these kernels compute the gradient of
 the function each forward kernel computes. Each Function takes its forward
 and backward launchers as arguments, so the CPU tests run it with the plain
@@ -580,10 +581,10 @@ def _mlp_stats_launch(src, msg, w1, w2, gamma, beta, approximate: bool):
 
 def mlp_bwd_scratch_bytes(rows: int, c: int, h: int, dtype) -> list:
     """The bytes of each scratch buffer K2's backward kernels take for
-    `rows` rows: dO' (bf16: hi and lo), W2^T, the LayerNorm backward's
-    block sums, the weight blocks' slice partials, and da and h (f32 only;
-    0 in bf16), as csrc/mlp.cu's tiling decides them
-    (`keep_mlp_fused_bwd_scratch`)."""
+    `rows` rows: dO' (bf16: hi and lo), W2^T (f32: then W1^T), the
+    LayerNorm backward's block sums, the weight products' slice partials,
+    and da^T and h^T (f32 only, (H, rows rounded up to 4); 0 in bf16), as
+    csrc/mlp.cu's tiling decides them (`keep_mlp_fused_bwd_scratch`)."""
     sizes = (ctypes.c_longlong * 6)()
     _raise_on(library("mlp").keep_mlp_fused_bwd_scratch(
         rows, c, h, _DTYPE_CODE[dtype], sizes), "mlp backward scratch query")
@@ -762,7 +763,7 @@ def packed_conv2x2_plain(x, w, pads, bias=None, mask_c: Optional[int] = None):
 
 # K6's launch plans (csrc/packed_conv.cu keep_packed_conv): the route's
 # code, the shared memory a block may take on the H100, its SM count
-PACKED_CONV_ROUTES = {"tma": 0, "cp.async": 1, "fma": 2}
+PACKED_CONV_ROUTES = {"tma": 0, "cp.async": 1, "tf32": 2}
 SMEM_LIMIT = 232448
 H100_SMS = 132
 # the TMA kernel's tiles (BM pixels, BN outputs) and the rate of each per
@@ -771,8 +772,12 @@ H100_SMS = 132
 # level-2 res conv2 (H100 80GB HBM3; `tools/torch_k6_check.py --tiles`)
 PACKED_CONV_TILES = {(128, 256): 1.0, (256, 128): 0.9, (128, 128): 0.86,
                      (256, 64): 0.6, (128, 64): 0.57}
+# the f32 (3xTF32) kernel's tiles and rates relative to 128 x 128's, the
+# same way (`tools/torch_k6_check.py --dtype float32 --tiles`)
+PACKED_CONV_F32_TILES = {(128, 128): 1.0, (128, 64): 0.82, (128, 32): 0.5}
 PACKED_CONV_MAX_STAGES = 8   # packed_conv.cu kTMaxStages
 K_STEP = 64                  # input channels a K step, every bf16 route
+K_STEP_F32 = 32              # the f32 route's: 128 bytes, as bf16's 64
 TMA_FIXED_SMEM = 1024 + 1024 + 2 * 16384  # barriers, alignment, epilogue
 
 
@@ -780,12 +785,12 @@ TMA_FIXED_SMEM = 1024 + 1024 + 2 * 16384  # barriers, alignment, epilogue
 class PackedConvPlan:
     """How K6 runs one call: `route` ("tma": the bf16 kernel fed by TMA,
     Cin and Cout multiples of 8; "cp.async": the bf16 kernel for other
-    channel counts; "fma": the f32 kernel), its tile of `bm` output pixels
-    x `bn` output channels and `stages` ring stages; `m_tiles` x `n_tiles`
-    tiles, walked by `grid` blocks (TMA: persistent blocks, block b takes
-    tiles b, b + grid, ..., tile t pixel tile t % m_tiles of output tile
-    t // m_tiles; the others one tile a block); `smem_bytes` a block's
-    shared memory."""
+    channel counts; "tf32": the f32 kernel, 3xTF32 fed by TMA), its tile of
+    `bm` output pixels x `bn` output channels and `stages` ring stages;
+    `m_tiles` x `n_tiles` tiles, walked by `grid` blocks (TMA and tf32:
+    persistent blocks, block b takes tiles b, b + grid, ..., tile t pixel
+    tile t % m_tiles of output tile t // m_tiles; cp.async one tile a
+    block); `smem_bytes` a block's shared memory."""
     route: str
     bm: int
     bn: int
@@ -796,17 +801,40 @@ class PackedConvPlan:
     smem_bytes: int
 
 
-def _tma_stage_bytes(bm: int, bn: int) -> int:
+def _tma_stage_bytes(bm: int, bn: int, dtype=torch.bfloat16) -> int:
+    """A ring stage's bytes: bf16, the patch and the weights (K_STEP
+    channels); f32, the raw patch and the weights' TF32 hi and lo tiles
+    (K_STEP_F32 channels)."""
+    if dtype == torch.float32:
+        return (bm + 2 * bn) * K_STEP_F32 * 4
     return (bm + bn) * K_STEP * 2
 
 
-def _tma_plan(m: int, cout: int, bm: int, bn: int,
-              sms: int) -> PackedConvPlan:
-    stage = _tma_stage_bytes(bm, bn)
+def _tma_plan(m: int, cout: int, bm: int, bn: int, sms: int,
+              dtype=torch.bfloat16) -> PackedConvPlan:
+    stage = _tma_stage_bytes(bm, bn, dtype)
     stages = min(PACKED_CONV_MAX_STAGES, (SMEM_LIMIT - TMA_FIXED_SMEM) // stage)
     mt, nt = -(-m // bm), -(-cout // bn)
-    return PackedConvPlan("tma", bm, bn, stages, mt, nt, min(mt * nt, sms),
+    route = "tf32" if dtype == torch.float32 else "tma"
+    return PackedConvPlan(route, bm, bn, stages, mt, nt, min(mt * nt, sms),
                           TMA_FIXED_SMEM + stages * stage)
+
+
+def _cheapest_tile(m: int, cout: int, tiles: dict, step: int):
+    """Of `tiles` ({(bm, bn): rate}) no wider than Cout rounded up to
+    `step`, the tile whose rounds of H100_SMS tiles, times its area over its
+    rate, cost least (the card's last round runs whole tiles however few),
+    ties to the first listed."""
+    widest = -(-cout // step) * step
+    best = None
+    for (bm, bn), rate in tiles.items():
+        if bn > widest:
+            continue
+        n = -(-m // bm) * -(-cout // bn)
+        cost = -(-n // H100_SMS) * bm * bn / rate
+        if best is None or cost < best[0]:
+            best = (cost, bm, bn)
+    return best[1], best[2]
 
 
 @functools.lru_cache(maxsize=512)
@@ -817,34 +845,24 @@ def packed_conv_plan(b: int, hi: int, wi: int, cin: int, cout: int, kh: int,
     with Cin and Cout multiples of 8 (TMA needs 16-byte strides) takes the
     TMA route: of PACKED_CONV_TILES no wider than Cout rounded up to 64, the
     tile whose rounds of H100_SMS tiles, times its area over its rate, cost
-    least (the card's last round runs whole tiles however few), ties to the
-    larger; as many ring stages as the shared memory holds. Other bf16
-    channel counts take the cp.async route, f32 the FMA kernel, each with
-    its fixed tiling."""
+    least; as many ring stages as the shared memory holds. Other bf16
+    channel counts take the cp.async route with its fixed tiling. f32 (Cin
+    and Cout multiples of 4: 16-byte strides) takes the tf32 route: of
+    PACKED_CONV_F32_TILES no wider than Cout rounded up to 32, picked the
+    same way."""
     (pt, pb), (pl, pr) = pads
     m = b * (hi + pt + pb - kh + 1) * (wi + pl + pr - kw + 1)
     if dtype == torch.float32:
-        bn = 64 if cout <= 64 else 128
-        mt, nt = -(-m // 128), -(-cout // bn)
-        # packed_conv.cu PfLayout, + row_pix, row_i, row_j, row_edges, bias_s
-        smem = 4 * (4 * 128 * 36 + 4 * 32 * bn) + 2560 + 4 * bn
-        return PackedConvPlan("fma", 128, bn, 4, mt, nt, mt * nt, smem)
+        bm, bn = _cheapest_tile(m, cout, PACKED_CONV_F32_TILES, 32)
+        return _tma_plan(m, cout, bm, bn, H100_SMS, dtype)
     if cin % 8 or cout % 8:
         bn = 64 if cout <= 64 else 256
         mt, nt = -(-m // 128), -(-cout // bn)
         # packed_conv.cu WgLayout, + the same per-pixel arrays and bias_s
         smem = 4 * _tma_stage_bytes(128, bn) + 1024 + 2560 + 4 * bn
         return PackedConvPlan("cp.async", 128, bn, 4, mt, nt, mt * nt, smem)
-    widest = -(-cout // 64) * 64
-    best = None
-    for (bm, bn), rate in PACKED_CONV_TILES.items():
-        if bn > widest:
-            continue
-        tiles = -(-m // bm) * -(-cout // bn)
-        cost = -(-tiles // H100_SMS) * bm * bn / rate
-        if best is None or cost < best[0]:
-            best = (cost, bm, bn)
-    return _tma_plan(m, cout, best[1], best[2], H100_SMS)
+    bm, bn = _cheapest_tile(m, cout, PACKED_CONV_TILES, 64)
+    return _tma_plan(m, cout, bm, bn, H100_SMS)
 
 
 @functools.lru_cache(maxsize=512)
@@ -891,7 +909,9 @@ def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
     is taken in f32 and rounded once. On CUDA: kh, kw in {1, 2}, pads in
     {0, 1}, Cin and Cout multiples of 4, x and w contiguous, 16-byte aligned
     and of one dtype (f32 or bf16), the bias contiguous in f32 or x's
-    dtype. The kernel and its tiles follow packed_conv_plan. It serves
+    dtype (f32 for f32 x). The kernel and its tiles follow
+    packed_conv_plan (f32: two device kernels a call, the weights' TF32
+    split and the convolution). It serves
     only: a CUDA input that records a gradient (grad mode on, any tensor
     requiring grad) raises rather than detach."""
     if not x.is_cuda:
@@ -920,11 +940,15 @@ def packed_conv2x2(x, w, pads, bias: Optional[torch.Tensor] = None,
         _check("packed_conv2x2 bias", bias, (out_shape[3],), bias.dtype,
                x.device)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    # f32: the weights' TF32 hi and lo planes, (2, taps, Cout, Cin)
+    wt = (torch.empty(2 * w.numel(), dtype=torch.float32, device=x.device)
+          if x.dtype == torch.float32 else None)
     lib = library("packed_conv")
     with _device(x):
         err = lib.keep_packed_conv(
             xp, wp, None if bias is None else bias.data_ptr(),
-            out.data_ptr(), args, _stream(x))
+            out.data_ptr(), None if wt is None else wt.data_ptr(), args,
+            _stream(x))
     _raise_on(err, "packed_conv2x2 kernel launch")
     _count("packed_conv2x2")
     PACKED_CONV_SHAPES[key] = PACKED_CONV_SHAPES.get(key, 0) + 1

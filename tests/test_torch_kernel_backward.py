@@ -257,16 +257,21 @@ def test_mlp_backward_plain_vs_jax_vjp_unfused_branch():
 # the limit; for K2 in bf16 a third, dO' rounded once too, breaks it at a
 # single row. The model does not see the order of the card's sums within
 # a tile or the tensor core's truncating adds (the kernels cut those chains
-# short: bwf_scores and the per-tile `part` of bwf_consume, mm_nt, mm_nn):
-# the card decides, in chip_smoke.py's phase flow_kernel
-# and tests/test_torch_kernels_cuda.py.
+# short: bwf_scores and the per-tile `part` of bwf_consume; K2's f32
+# products in groups of MLP_F32_CHAIN, each added in f32, which the model
+# follows): the card decides, in chip_smoke.py's phase flow_kernel and
+# tests/test_torch_kernels_cuda.py.
 
 BWD_RATIO = 3.0
 BWD_FLOOR = {torch.float32: 2e-6, torch.bfloat16: 1e-6}
 EMU_FORMS = ("window", "window+mask", "global", "correlation", "mlp_erf",
              "mlp_tanh")
-# K2's weight products: rows a tile of the weight blocks, by dtype
+# K2's weight products: rows a tile of the weight blocks, by dtype (f32:
+# the GEMM kernel's K steps of 32 rows, each added in f32)
 MLP_TILE = {torch.float32: 32, torch.bfloat16: 64}
+# K2's f32 products over C, 2C and H (csrc/mlp.cu mlp_bwd_gemm_kernel):
+# the same K steps of 32, each from zero and added in f32 in order
+MLP_F32_CHAIN = 32
 # K1 / K3's f32 backward: streamed rows a tile (csrc/attention_bwd.cu
 # kFRows), each tile's dQ / dK / dV product added to the gradient in f32
 ATTN_F32_TILE = 16
@@ -304,18 +309,20 @@ def _mm_bf16_a(a, m):
     return torch.matmul(a.to(torch.bfloat16).float(), m)
 
 
-def _emulated_mlp_backward(args, stats, dout, mm_x, mm_do, mm_da, tile):
+def _emulated_mlp_backward(args, stats, dout, mm_x, mm_do, mm_da, tile,
+                           chain=None):
     """mlp_fused_backward_plain's formula with a = [src | msg] W1^T through
     mm_x, the products of dO' (dh = dO' W2, dW2 = dO'^T h) through mm_do and
     those of da (d[src | msg] = da W1, dW1 = da^T [src | msg]) through
     mm_da; the weight products summed over row tiles of `tile` rows, the
-    tiles added in f32 in order. f32 tensors in, gradients in the inputs'
-    dtype."""
+    tiles added in f32 in order, and the others over their inner dimension
+    in tiles of `chain` (_tiled; all of it when None). f32 tensors in,
+    gradients in the inputs' dtype."""
     src, msg, w1, w2, gamma = (x.float() for x in args[:5])
     approximate, o = args[6], stats[1]
     c = src.shape[-1]
     x = torch.cat([src, msg], -1).reshape(-1, 2 * c)
-    a = mm_x(x, w1.t().contiguous())
+    a = _tiled(mm_x, x, w1.t().contiguous(), chain)
     h = torch.nn.functional.gelu(a, approximate="tanh" if approximate
                                  else "none")
     h = h.to(args[0].dtype).float()
@@ -326,8 +333,8 @@ def _emulated_mlp_backward(args, stats, dout, mm_x, mm_do, mm_da, tile):
     g = dy * gamma
     do = rs * (g - g.mean(-1, keepdim=True)
                - oh * (g * oh).mean(-1, keepdim=True))
-    da = mm_do(do, w2) * K.gelu_grad(a, approximate)
-    dx = mm_da(da, w1)
+    da = _tiled(mm_do, do, w2, chain) * K.gelu_grad(a, approximate)
+    dx = _tiled(mm_da, da, w1, chain)
     t = range(0, x.shape[0], tile)
     dw1 = sum(mm_da(da[i:i + tile].t().contiguous(), x[i:i + tile])
               for i in t)
@@ -452,14 +459,14 @@ def _emu_mlp_case(form, dtype, rng, rows, h):
 
 
 def _emulated(form, args, stats, up, mm_in, mm_ds, mm_da=None, tile=64,
-              round_p=False, attn_tile=None):
+              round_p=False, attn_tile=None, chain=None):
     """_emulated_backward (its products over keys or queries in tiles of
     attn_tile rows), or for K2 _emulated_mlp_backward with a through
     mm_in, dO''s products through mm_ds and da's through mm_da (mm_ds when
-    None)."""
+    None), the others' sums in tiles of `chain`."""
     if form.startswith("mlp"):
         return _emulated_mlp_backward(args, stats, up, mm_in, mm_ds,
-                                      mm_da or mm_ds, tile)
+                                      mm_da or mm_ds, tile, chain)
     return _emulated_backward(form, args, stats, up, mm_in, mm_ds, round_p,
                               attn_tile)
 
@@ -472,10 +479,11 @@ def _offs(grads, ref):
 @pytest.mark.parametrize("form", EMU_FORMS)
 def test_kernel_rounding_model_holds_the_gate(form, dtype):
     """The kernels' scheme (3xTF32 in f32, K1 / K3's products over keys or
-    queries in 16-row tiles added in f32; in bf16 exact bf16 products, dS
-    and K2's dO' as hi + lo, K2's da rounded once), modelled on the CPU,
-    stands within BWD_RATIO of the plain backward's distance to float64 on
-    every gradient."""
+    queries in 16-row tiles added in f32, K2's every product in groups of
+    MLP_F32_CHAIN added in f32; in bf16 exact bf16 products, dS and K2's
+    dO' as hi + lo, K2's da rounded once), modelled on the CPU, stands
+    within BWD_RATIO of the plain backward's distance to float64 on every
+    gradient."""
     args, stats, up, ref, want = _emu_case(form, dtype,
                                            EMU_FORMS.index(form))
     if dtype == torch.float32:
@@ -485,7 +493,8 @@ def test_kernel_rounding_model_holds_the_gate(form, dtype):
     got = _emulated(form, args, stats, up, mm_in, mm_ds, mm_da,
                     MLP_TILE[dtype], round_p=dtype == torch.bfloat16,
                     attn_tile=ATTN_F32_TILE if dtype == torch.float32
-                    else None)
+                    else None,
+                    chain=MLP_F32_CHAIN if dtype == torch.float32 else None)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == dtype and g.shape == w.shape
     for k_off, p_off in zip(_offs(got, ref), _offs(want, ref)):
@@ -501,8 +510,9 @@ def test_kernel_rounding_model_controls_break_the_gate(form, control):
     args, stats, up, ref, want = _emu_case(form, torch.float32,
                                            EMU_FORMS.index(form))
     mm = _mm_1xtf32 if control == "1xTF32" else _mm_bf16_operands
-    got = _emulated(form, args, stats, up, mm, mm, tile=32,
-                    attn_tile=ATTN_F32_TILE)
+    got = _emulated(form, args, stats, up, mm, mm,
+                    tile=MLP_TILE[torch.float32], attn_tile=ATTN_F32_TILE,
+                    chain=MLP_F32_CHAIN)
     limits = [max(BWD_RATIO * p, BWD_FLOOR[torch.float32])
               for p in _offs(want, ref)]
     assert any(k > lim for k, lim in zip(_offs(got, ref), limits))

@@ -1,5 +1,6 @@
 """A model of the rounding of the port's f32 forward kernels (csrc/attention.cu
-flash_attention_f32_kernel, csrc/mlp.cu mlp_fused_f32_kernel), which compute
+flash_attention_f32_kernel, csrc/mlp.cu mlp_fused_f32_kernel,
+csrc/packed_conv.cu packed_conv_tf32_kernel), which compute
 every product as 3xTF32 on the tensor cores: x = hi + lo with hi x rounded
 to TF32, a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, f32 sums.
 
@@ -9,9 +10,13 @@ K1 and K3 with their online softmax (scores in log2 units, the running
 max and sum over key tiles of the kernel's width, P kept f32, O rescaled
 when the max moves, one normalisation at the end); K2 with both products
 as 3xTF32, the erf gelu between them in f32, then the LayerNorm and the
-residual. Each scheme is held to float64 (the plain version on float64
-inputs): max|d| over the float64 output's largest must stay within 3x the
-plain f32 forward's own distance. A control with single TF32 products in
+residual; K6 over its K steps (32 input channels of one tap, taps
+innermost), each step's products from zero and added in f32, at its
+deepest K (4 taps x 1024 channels), held as chip_smoke.py holds the
+kernel: within KERNEL_RTOL["float32"] times the plain output's spread of
+the plain f32 version. Each other scheme is held to float64 (the plain
+version on float64 inputs): max|d| over the float64 output's largest must
+stay within 3x the plain f32 forward's own distance. A control with single TF32 products in
 the same model stands far past that limit, so the test tells the schemes
 apart. The model does not see the order of the card's sums or the tensor
 core's truncating adds: the card decides, against the plain versions, in
@@ -150,3 +155,58 @@ def test_f32_forward_rounding_model_1xtf32_control(form):
     model, plain, ref = _case(form, 11)
     out, _ = model(mm_1xtf32)
     assert _off(out, ref[0]) > CONTROL_RATIO * _off(plain[0], ref[0])
+
+
+# K6's f32 form (csrc/packed_conv.cu kFK, packed_conv_plan's f32 route)
+K6_K_STEP = 32
+K6_RTOL = 1e-4    # chip_smoke.py KERNEL_RTOL["float32"]
+
+
+def _k6_case(seed, pixels=96, taps=4, cin=1024, cout=48):
+    """A packed convolution's products at K6's deepest K: per tap the
+    (pixels, Cin) patch and the (Cin, Cout) weights, as chip_smoke.py draws
+    them (unit inputs, weights over sqrt(taps Cin)); the plain f32 version
+    (the taps' products summed in f32) and float64."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((taps, pixels, cin)),
+                        dtype=torch.float32)
+    w = torch.as_tensor(rng.standard_normal((taps, cin, cout))
+                        / math.sqrt(taps * cin), dtype=torch.float32)
+    plain = sum(torch.matmul(x[t], w[t]) for t in range(taps))
+    ref = sum(torch.matmul(x[t].double(), w[t].double())
+              for t in range(taps))
+    return x, w, plain, ref
+
+
+def _k6_model(x, w, mm):
+    """The kernel's sum: K step s takes channels 32 (s // taps) .. of tap s %
+    taps (taps innermost), its products through mm from zero, added to the
+    output in f32 in order."""
+    taps, _, cin = x.shape
+    acc = None
+    for s in range(taps * (cin // K6_K_STEP)):
+        t, c0 = s % taps, (s // taps) * K6_K_STEP
+        part = mm(x[t, :, c0:c0 + K6_K_STEP], w[t, c0:c0 + K6_K_STEP])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k6_f32_rounding_model_3xtf32(seed):
+    """3xTF32 in the kernel's K order stands within KERNEL_RTOL["float32"]
+    of the plain f32 version's output spread, as the card's gate holds it,
+    and about as close to float64 as the plain version."""
+    x, w, plain, ref = _k6_case(seed)
+    got = _k6_model(x, w, mm_3xtf32)
+    spread = (plain - plain.mean()).abs().max().item()
+    assert (got - plain).abs().max().item() <= K6_RTOL * spread
+    assert _off(got, ref) <= RATIO * _off(plain, ref)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k6_f32_rounding_model_1xtf32_control(seed):
+    """Control: single TF32 products in the same order break that gate."""
+    x, w, plain, _ = _k6_case(seed)
+    got = _k6_model(x, w, mm_1xtf32)
+    spread = (plain - plain.mean()).abs().max().item()
+    assert (got - plain).abs().max().item() > K6_RTOL * spread

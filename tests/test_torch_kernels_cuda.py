@@ -18,6 +18,7 @@ holds them.
 """
 import copy
 import functools
+import threading
 
 import numpy as np
 import pytest
@@ -904,6 +905,84 @@ def test_packed_conv_narrow_channels_take_cp_async(cuda):
             assert _rel_err(got, ref) <= RTOL[torch.bfloat16], (cin, cout)
 
 
+F32_TILES = list(K.PACKED_CONV_F32_TILES)
+
+
+def _force_tf32_plan(monkeypatch, bm, bn):
+    real = K.packed_conv_plan
+
+    def plan(b, hi, wi, cin, cout, kh, kw, pads, dtype=torch.bfloat16):
+        p = real(b, hi, wi, cin, cout, kh, kw, pads, dtype)
+        if p.route != "tf32":
+            return p
+        (pt, pb), (pl, pr) = pads
+        m = b * (hi + pt + pb - kh + 1) * (wi + pl + pr - kw + 1)
+        return K._tma_plan(m, cout, bm, bn, K.H100_SMS, torch.float32)
+    monkeypatch.setattr(K, "packed_conv_plan", plan)
+    monkeypatch.setattr(K, "_packed_conv_call", functools.lru_cache()(
+        K._packed_conv_call.__wrapped__))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", F32_TILES,
+                         ids=[f"{a}x{b}" for a, b in F32_TILES])
+def test_packed_conv_tf32_forms_match_plain(cuda, monkeypatch, tile):
+    """Each f32 (3xTF32) tile, forced, at every taps and pads form, with
+    and without the fused bias and mask: 12 channels in and out (TMA's
+    zero fill pads K, the store clips N; an odd phase-block width, mask_c
+    = 3), outputs narrower than the tile (24, 136), Cin over several K
+    steps (512), batches whose pixel tiles cross rows and images (ragged
+    M), one launch a call, two calls bitwise equal."""
+    bm, bn = tile
+    _force_tf32_plan(monkeypatch, bm, bn)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    for b, h, w_, cin, cout in ((3, 7, 30, 12, 24), (2, 11, 14, 256, 12),
+                                (1, 33, 33, 128, 136), (2, 12, 12, 512, 64),
+                                (2, 9, 13, 12, 12)):
+        for taps in ((1, 1), (1, 2), (2, 1), (2, 2)):
+            x, w = _packed_case(g, cuda, torch.float32, b, h, w_, cin, cout,
+                                taps)
+            for pads in PACKED_PADS:
+                for bias, mask_c in _epilogues(g, cout, torch.float32, cuda):
+                    plan = K.packed_conv_plan(b, h, w_, cin, cout, *taps,
+                                              pads, torch.float32)
+                    assert plan.route == "tf32" and plan.bn == bn
+                    before = K.LAUNCHES["packed_conv2x2"]
+                    got = K.packed_conv2x2(x, w, pads, bias, mask_c)
+                    again = K.packed_conv2x2(x, w, pads, bias, mask_c)
+                    torch.cuda.synchronize()
+                    assert K.LAUNCHES["packed_conv2x2"] == before + 2
+                    assert torch.equal(got, again)
+                    ref = K.packed_conv2x2_plain(x, w, pads, bias, mask_c)
+                    assert _rel_err(got, ref) <= RTOL[torch.float32], (
+                        pads, taps, b, h, cin, cout, mask_c)
+
+
+@pytest.mark.cuda
+def test_packed_conv_f32_narrow_channels_take_tf32(cuda):
+    """f32 at the packed path's 12-channel convolutions (the encoder's first,
+    Cin 12, and the generator's last, Cout 12, at their path shapes) and
+    12 in and out: the tf32 route through TMA (16-byte strides), bias and
+    mask, against the plain version and bitwise repeatable."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    same, valid = ((1, 1), (1, 1)), ((0, 0), (0, 0))
+    for b, hi, cin, cout, pads in ((1, 256, 12, 256, same),
+                                   (1, 257, 256, 12, valid),
+                                   (2, 33, 12, 12, same)):
+        plan = K.packed_conv_plan(b, hi, hi, cin, cout, 2, 2, pads,
+                                  torch.float32)
+        assert plan.route == "tf32"
+        x, w = _packed_case(g, cuda, torch.float32, b, hi, hi, cin, cout,
+                            (2, 2), 0.1)
+        for bias, mask_c in _epilogues(g, cout, torch.float32, cuda):
+            got = K.packed_conv2x2(x, w, pads, bias, mask_c)
+            again = K.packed_conv2x2(x, w, pads, bias, mask_c)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (cin, cout)
+            ref = K.packed_conv2x2_plain(x, w, pads, bias, mask_c)
+            assert _rel_err(got, ref) <= RTOL[torch.float32], (cin, cout)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_conv_at_the_level_shapes_batch_2(cuda, dtype):
@@ -1050,9 +1129,10 @@ def _mlp_bwd_bytes(rows, c, h, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("tanh", [False, True])
 @pytest.mark.parametrize("h", [64, 512, 1024])
-# K2's backward tiles rows in 128 (bf16) / 64 (f32) a row block and sums
-# the weight products over slices of 2,048 rows: one row, three, one past
-# a row block, and 5,000 (slices of 2,048, 2,048 and 904 rows)
+# K2's backward tiles rows in 128 a row block (f32: a row tile of its GEMM
+# launches) and sums the weight products over slices of 2,048 rows: one
+# row, three, one past a row block, and 5,000 (slices of 2,048, 2,048 and
+# 904 rows)
 @pytest.mark.parametrize("rows", [1, 3, 129, 5000])
 def test_mlp_gradients_on_the_card_at_the_partitions_edges(
         cuda, monkeypatch, rows, h, tanh, dtype):
@@ -1104,3 +1184,81 @@ def test_mlp_gradients_on_the_card_at_the_partitions_edges(
         k_off = ((got.double() - r64).abs().max() / r64.abs().max()).item()
         p_off = ((p_.double() - r64).abs().max() / r64.abs().max()).item()
         assert k_off <= max(BWD_RATIO * p_off, BWD_FLOOR[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [64, 192])
+@pytest.mark.parametrize("rows", [2, 31, 33, 127, 255])
+def test_mlp_f32_backward_at_small_ragged_rows(cuda, rows, h):
+    """K2's f32 backward (3xTF32 wgmma: its GEMM launches' 128-row tiles,
+    32-row K steps and the padded da^T / h^T rows) at small ragged row
+    counts: each gradient off float64 within BWD_RATIO times the plain
+    backward's distance (or the floor), two calls equal bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(500 + rows + h)
+
+    def r(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    args = (r(1, rows, 128), r(1, rows, 128), r(h, 256, scale=0.05),
+            r(128, h, scale=0.05), r(128), r(128), False)
+    leaves = [a.detach().clone().requires_grad_(True) for a in args[:6]]
+    up = torch.randn((1, rows, 128), generator=g, device="cuda")
+    out = K.mlp_fused(*leaves, False)
+    one = torch.autograd.grad(out, leaves, up, retain_graph=True)
+    two = torch.autograd.grad(out, leaves, up, retain_graph=True)
+    torch.cuda.synchronize()
+    for a, b_ in zip(one, two):
+        assert torch.equal(a, b_)
+    stats = K.mlp_fused_stats_plain(*args)
+    want = K.mlp_fused_backward_plain(*args, *stats, up)
+    a64 = [a.detach().double().requires_grad_(True) for a in args[:6]]
+    ref = torch.autograd.grad(K.mlp_fused_plain(*a64, False), a64,
+                              up.double())
+    for got, p_, r64 in zip(one, want, ref):
+        k_off = ((got.double() - r64).abs().max() / r64.abs().max()).item()
+        p_off = ((p_.double() - r64).abs().max() / r64.abs().max()).item()
+        assert k_off <= max(BWD_RATIO * p_off, BWD_FLOOR[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1], ids=["forward", "backward"])
+@pytest.mark.parametrize("fn_name", ["attention", "mlp_fused"])
+def test_launch_from_a_thread_with_no_cuda_call_yet(cuda, fn_name, which):
+    """A launcher called from a thread that has made no CUDA call, its
+    tensors served by the caching allocator without one (autograd's device
+    thread in a process that has run other kernels): its first CUDA work
+    is a tensor map's encode, which binds the device's context first; the
+    result equals the main thread's bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(41)
+
+    def r(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+    if fn_name == "attention":
+        args = (r(4, 256, 128), r(4, 256, 128), r(4, 256, 128), 0.088, None)
+    else:
+        args = (r(1, 300, 128), r(1, 300, 128), r(512, 256, scale=0.05),
+                r(128, 512, scale=0.05), r(128), r(128), False)
+    fwd, bwd = K.LAUNCHERS[fn_name]
+    saved = fwd(*args)
+    up = torch.randn(saved[0].shape, generator=g, device="cuda")
+    call = (lambda: fwd(*args)) if which == 0 else (
+        lambda: bwd(*args, *saved, up))
+    want = call()           # the main thread's
+    spare = call()          # freed: its blocks serve the thread's call
+    del spare
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = call()
+            torch.cuda.synchronize()
+        except Exception as exc:  # reported below, on the test's thread
+            got["error"] = exc
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in got, got.get("error")
+    for a, b_ in zip(want, got["out"]):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b_)

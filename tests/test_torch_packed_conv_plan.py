@@ -1,21 +1,24 @@
 """K6's launch plans (comfyui_keep_torch/ops/kernels.py:packed_conv_plan)
-and a torch model of the walk of its TMA kernel
-(csrc/packed_conv.cu:packed_conv_wgmma_kernel), on the CPU at small shapes.
+and a torch model of the walk of its TMA kernels
+(csrc/packed_conv.cu:packed_conv_wgmma_kernel, bf16, and
+packed_conv_tf32_kernel, f32), on the CPU at small shapes.
 
 (a) At every geometry of chip_smoke.py's K6_CASES and K6_LEVEL_CASES and
 every taps x pads form of tests/test_torch_kernels_cuda.py's
-test_packed_conv_matches_plain: the plan's tiles, walked by its blocks,
-cover each output pixel and channel exactly once; a block's shared memory
-stays within the H100's 232,448 bytes; the TMA boxes and strides keep TMA's
-limits; the cp.async route is taken exactly where Cin or Cout is not a
-multiple of 8.
-(b) The walk emulated: per tile, per (tap, 64-channel block), the im2col
-box (the bounding box's traversal from the tile's first pixel, each pixel
-read shifted by the tap, zero out of range) and the weight box (zero past
-Cin and Cout), f32 sums, then the bias, the parity-1 mask and one rounding;
-held against packed_conv2x2_plain and, at K6's own form, against JAX's
-pallas_conv in interpret mode (as tests/test_torch_kernels.py runs it),
-from one numpy seed.
+test_packed_conv_matches_plain, in both dtypes: the plan's tiles, walked
+by its blocks, cover each output pixel and channel exactly once; a block's
+shared memory stays within the H100's 232,448 bytes; the TMA boxes and
+strides keep TMA's limits (f32: 16-byte strides at 12 channels too); the
+cp.async route is taken exactly where a bf16 Cin or Cout is not a
+multiple of 8, and f32 always takes the tf32 route.
+(b) The walk emulated: per tile, per (tap, 64-channel block; f32: 32), the
+im2col box (the bounding box's traversal from the tile's first pixel, each
+pixel read shifted by the tap, zero out of range) and the weight box (zero
+past Cin and Cout), f32 sums (f32: each K step's product as 3xTF32, added
+in f32), then the bias, the parity-1 mask and one rounding; held against
+packed_conv2x2_plain and, at K6's own form, against JAX's pallas_conv in
+interpret mode (as tests/test_torch_kernels.py runs it), from one numpy
+seed.
 """
 import contextlib
 import dataclasses
@@ -27,6 +30,7 @@ import torch
 import chip_smoke as cs
 from comfyui_keep_torch.ops import kernels as K
 from tests.test_torch_kernels import _pallas_conv, _jx
+from tests.torch_port_helpers import mm_3xtf32
 
 PADS = [((pt, pb), (pl, pr)) for pt in (0, 1) for pb in (0, 1)
         for pl in (0, 1) for pr in (0, 1)]
@@ -74,12 +78,13 @@ def _walk(plan):
             for blk in range(plan.grid)]
 
 
-def _check_plan(b, hi, wi, cin, cout, kh, kw, pads):
-    plan = K.packed_conv_plan(b, hi, wi, cin, cout, kh, kw, pads)
+def _check_plan(b, hi, wi, cin, cout, kh, kw, pads, dtype=torch.bfloat16):
+    plan = K.packed_conv_plan(b, hi, wi, cin, cout, kh, kw, pads, dtype)
     ho, wo = _out_hw(hi, wi, kh, kw, pads)
     m = b * ho * wo
+    f32 = dtype == torch.float32
     narrow = bool(cin % 8 or cout % 8)
-    assert plan.route == ("cp.async" if narrow else "tma")
+    assert plan.route == ("tf32" if f32 else "cp.async" if narrow else "tma")
     assert plan.smem_bytes <= K.SMEM_LIMIT
     # every output pixel and channel covered exactly once: the tiles tile
     # (m, cout) with one partial row and column at most, each taken once
@@ -90,6 +95,26 @@ def _check_plan(b, hi, wi, cin, cout, kh, kw, pads):
         for mt, nt in tiles:
             cover[mt, nt] += 1
     assert (cover == 1).all()
+    if plan.route == "tf32":
+        assert plan.grid == min(plan.m_tiles * plan.n_tiles, K.H100_SMS)
+        assert (plan.bm, plan.bn) in K.PACKED_CONV_F32_TILES
+        assert plan.bn <= -(-cout // 32) * 32
+        assert 2 <= plan.stages <= K.PACKED_CONV_MAX_STAGES
+        # the raw patch and the weights' TF32 hi and lo tiles, 128-byte rows
+        stage = (plan.bm + 2 * plan.bn) * K.K_STEP_F32 * 4
+        assert plan.smem_bytes == 2048 + 2 * 16384 + plan.stages * stage
+        assert stage < 2 ** 20 and plan.stages * stage + 2048 + 32768 \
+            <= K.SMEM_LIMIT
+        # im2col map: 32 f32 channels (the 128-byte swizzle span) x bm
+        # pixels, its corners as the bf16 kernel's
+        assert K.K_STEP_F32 * 4 == 128 and plan.bm <= 256
+        # x (B, Hi, Wi, Cin), the split weights (2, taps, Cout, Cin) and
+        # the output (M, Cout): every stride a multiple of 16 bytes (Cin
+        # and Cout multiples of 4, 12 included)
+        strides = (cin * 4, cin * wi * 4, cin * wi * hi * 4, cin * 4,
+                   cin * cout * 4, cout * 4)
+        assert all(s % 16 == 0 and s < 2 ** 40 for s in strides)
+        assert max(cin, wi, hi, b, cout, 2 * kh * kw, m) < 2 ** 31
     if plan.route == "tma":
         assert plan.grid == min(plan.m_tiles * plan.n_tiles, K.H100_SMS)
         assert (plan.bm, plan.bn) in K.PACKED_CONV_TILES
@@ -128,16 +153,25 @@ def test_plan_at_the_path_shapes(geom):
         assert plan.bn == 256
 
 
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=[g[0] for g in GEOMETRIES])
+def test_f32_plan_at_the_path_shapes(geom):
+    """Each K6 geometry of chip_smoke.py's case lists in f32: the tf32
+    route (both 12-channel convolutions included), coverage, shared memory,
+    TMA's limits; a Cout of 12 takes the 32-wide tile."""
+    _, b, hi, wi, cin, cout, kh, kw, pads = geom
+    plan = _check_plan(b, hi, wi, cin, cout, kh, kw, pads, torch.float32)
+    if cout == 12:
+        assert plan.bn == 32
+
+
 @pytest.mark.parametrize("taps", TAPS)
 def test_plan_at_the_card_tests_forms(taps):
     """Every taps x pads form of the card tests' shapes, and the dtypes'
-    routes: f32 always the FMA kernel."""
+    routes: f32 always the tf32 kernel."""
     for b, h, w, cin, cout in CARD_SHAPES:
         for pads in PADS:
             _check_plan(b, h, w, cin, cout, *taps, pads)
-            p32 = K.packed_conv_plan(b, h, w, cin, cout, *taps, pads,
-                                     torch.float32)
-            assert p32.route == "fma" and p32.smem_bytes <= K.SMEM_LIMIT
+            _check_plan(b, h, w, cin, cout, *taps, pads, torch.float32)
 
 
 def test_plan_route_by_channels():
@@ -167,7 +201,8 @@ def test_call_arguments_follow_the_plan():
     pads = ((0, 1), (1, 0))
     for dtype, bias_bf16, mask_c in ((torch.bfloat16, 1, 0),
                                      (torch.bfloat16, 0, 64),
-                                     (torch.float32, 0, 0)):
+                                     (torch.float32, 0, 0),
+                                     (torch.float32, 0, 64)):
         shape, args, key = K._packed_conv_call(
             (20, 128, 96, 512), (2, 1, 512, 256), pads, dtype, bias_bf16,
             mask_c or None)
@@ -178,12 +213,22 @@ def test_call_arguments_follow_the_plan():
             K._DTYPE_CODE[dtype], K.PACKED_CONV_ROUTES[plan.route], plan.bm,
             plan.bn, plan.stages]
         assert key == "128x96x512 k2x1 -> 256 pads 0110"
+    # f32 at 12 channels: the tf32 route (code 2), the 32-wide tile
+    same = ((1, 1), (1, 1))
+    shape, args, key = K._packed_conv_call((1, 256, 256, 12), (2, 2, 12, 12),
+                                           same, torch.float32, 0, 3)
+    plan = K.packed_conv_plan(1, 256, 256, 12, 12, 2, 2, same, torch.float32)
+    assert shape == (1, 257, 257, 12) and (plan.bm, plan.bn) == (128, 32)
+    assert list(args) == [1, 256, 256, 12, 12, 2, 2, 1, 1, 1, 1, 0, 3, 0, 2,
+                          128, 32, plan.stages]
 
 
 def _emulate(x, w, pads, plan, bias=None, mask_c=None):
-    """The TMA kernel's output, computed as its blocks compute it: per tile
-    and K step the im2col box and the weight box with TMA's zero-fill, f32
-    sums, then the epilogue. x (B, Hi, Wi, Cin), w (kh, kw, Cin, Cout)."""
+    """The TMA kernels' output, computed as their blocks compute it: per
+    tile and K step (64 channels of one tap; the tf32 route 32) the im2col
+    box and the weight box with TMA's zero-fill, f32 sums (tf32: each K
+    step's product as 3xTF32 from zero, added in f32), then the epilogue.
+    x (B, Hi, Wi, Cin), w (kh, kw, Cin, Cout)."""
     b, hi, wi, cin = x.shape
     kh, kw, _, cout = w.shape
     (pt, pb), (pl, pr) = pads
@@ -193,7 +238,9 @@ def _emulate(x, w, pads, plan, bias=None, mask_c=None):
     lo_w, lo_h, up_w, up_h = -pl, -pt, wo - wi - pl, ho - hi - pt
     xf, wf = x.float(), w.float().reshape(taps, cin, cout)
     out = torch.full((m, cout), float("nan"))
-    ksteps = taps * -(-cin // 64)
+    kc = K.K_STEP_F32 if plan.route == "tf32" else K.K_STEP
+    mm = mm_3xtf32 if plan.route == "tf32" else torch.matmul
+    ksteps = taps * -(-cin // kc)
     for tiles in _walk(plan):
         for mt, nt in tiles:
             m0, n0 = mt * plan.bm, nt * plan.bn
@@ -211,17 +258,17 @@ def _emulate(x, w, pads, plan, bias=None, mask_c=None):
             pix = torch.tensor(pix)
             acc = torch.zeros(plan.bm, plan.bn)
             for s in range(ksteps):
-                tap, c0 = s % taps, (s // taps) * 64
+                tap, c0 = s % taps, (s // taps) * kc
                 n_, h_, w_ = pix[:, 0], pix[:, 1] + tap // kw, \
                     pix[:, 2] + tap % kw
                 ok = (n_ < b) & (h_ >= 0) & (h_ < hi) & (w_ >= 0) & (w_ < wi)
-                a = torch.zeros(plan.bm, 64)
-                cs_ = min(64, cin - c0)
+                a = torch.zeros(plan.bm, kc)
+                cs_ = min(kc, cin - c0)
                 a[ok, :cs_] = xf[n_[ok], h_[ok], w_[ok], c0:c0 + cs_]
-                bt = torch.zeros(64, plan.bn)
+                bt = torch.zeros(kc, plan.bn)
                 ns = min(plan.bn, cout - n0)
                 bt[:cs_, :ns] = wf[tap, c0:c0 + cs_, n0:n0 + ns]
-                acc += a @ bt
+                acc += mm(a, bt)
             rows = min(plan.bm, m - m0)
             ns = min(plan.bn, cout - n0)
             out[m0:m0 + rows, n0:n0 + ns] = acc[:rows, :ns]
@@ -233,11 +280,12 @@ def _emulate(x, w, pads, plan, bias=None, mask_c=None):
     return out.to(x.dtype)
 
 
-def _plan_with(b, hi, wi, cout, kh, kw, pads, bm, bn, sms):
-    """A TMA plan with tile bm x bn, walked by at most sms blocks (more
-    tiles a block than on the card)."""
+def _plan_with(b, hi, wi, cout, kh, kw, pads, bm, bn, sms,
+               dtype=torch.bfloat16):
+    """A TMA plan (f32: tf32) with tile bm x bn, walked by at most sms
+    blocks (more tiles a block than on the card)."""
     ho, wo = _out_hw(hi, wi, kh, kw, pads)
-    return K._tma_plan(b * ho * wo, cout, bm, bn, sms)
+    return K._tma_plan(b * ho * wo, cout, bm, bn, sms, dtype)
 
 
 @pytest.mark.parametrize("tile", list(K.PACKED_CONV_TILES),
@@ -266,6 +314,34 @@ def test_walk_matches_plain(tile, taps):
                                            msg=str((pads, b, h, w_)))
 
 
+@pytest.mark.parametrize("tile", list(K.PACKED_CONV_F32_TILES),
+                         ids=[f"{a}x{b}" for a, b in K.PACKED_CONV_F32_TILES])
+@pytest.mark.parametrize("taps", TAPS)
+def test_walk_f32_matches_plain(tile, taps):
+    """Each tf32 tile at every pads form, f32 (the 3xTF32 K steps): within
+    chip_smoke.py's KERNEL_RTOL["float32"] times the plain output's spread,
+    over pixel tiles that cross rows and images and a grid of 3 blocks;
+    with the bias and the parity-1 mask at pad 1, at 12 channels too (an
+    odd phase-block width, mask_c = 3)."""
+    rng = np.random.default_rng(43)
+    with one_thread():
+        for b, h, w_, cin, cout in ((2, 11, 14, 72, 136), (3, 6, 9, 12, 12)):
+            x = torch.as_tensor(rng.standard_normal((b, h, w_, cin),
+                                                    dtype=np.float32))
+            w = torch.as_tensor(rng.standard_normal((*taps, cin, cout),
+                                                    dtype=np.float32) * 0.1)
+            bias = torch.as_tensor(rng.standard_normal(cout,
+                                                       dtype=np.float32))
+            for pads in PADS:
+                plan = _plan_with(b, h, w_, cout, *taps, pads, *tile, 3,
+                                  torch.float32)
+                mc = cout // 4 if pads == ((1, 1), (1, 1)) else None
+                got = _emulate(x, w, pads, plan, bias, mc)
+                ref = K.packed_conv2x2_plain(x, w, pads, bias, mc)
+                tol = cs.KERNEL_RTOL["float32"] * (ref - ref.mean()).abs().max()
+                assert (got - ref).abs().max() <= tol, (pads, b, h, w_)
+
+
 @pytest.mark.parametrize("label", [cs.K6_OWN, "enc L2 downsample p0"])
 def test_walk_of_the_plan_bf16(label):
     """The plan the path takes (its own tile and ring), at the geometry's
@@ -291,12 +367,14 @@ def test_walk_of_the_plan_bf16(label):
                                atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+@pytest.mark.parametrize("dtype", [np.float32, "bf16", "f32 tf32"])
 def test_walk_vs_pallas_interpret(dtype):
     """K6's own form (a parity-1 packed input, VALID 2x2) cut to (17, 17,
     64) -> 32: the emulated walk of its plan against tools/_prof_packedconv.py's
-    pallas_conv in interpret mode. f32: order of summation (1e-5); bf16:
-    both round the f32 sum once (1 ulp, 2 ** -7)."""
+    pallas_conv in interpret mode. f32 through the bf16 plan's walk: order
+    of summation (1e-5); bf16: both round the f32 sum once (1 ulp, 2 **
+    -7); f32 through its own (tf32) plan: within KERNEL_RTOL["float32"]
+    times the output's spread."""
     rng = np.random.default_rng(42)
     h, ci, co = 17, 64, 32
     x = (rng.standard_normal((h, h, ci))).astype(np.float32)
@@ -305,12 +383,20 @@ def test_walk_vs_pallas_interpret(dtype):
     if dtype == "bf16":
         tx, tw = tx.bfloat16(), tw.bfloat16()
     valid = ((0, 0), (0, 0))
-    plan = K.packed_conv_plan(1, h, h, ci, co, 2, 2, valid)
-    assert plan.route == "tma"
+    f32 = dtype == "f32 tf32"
+    plan = K.packed_conv_plan(1, h, h, ci, co, 2, 2, valid,
+                              torch.float32 if f32 else torch.bfloat16)
+    assert plan.route == ("tf32" if f32 else "tma")
     with one_thread():
         ours = _emulate(tx[None], tw, valid, plan)[0]
-    ref = np.asarray(_pallas_conv(_jx(x, dtype), _jx(w, dtype), 8)
+    jdt = np.float32 if f32 else dtype
+    ref = np.asarray(_pallas_conv(_jx(x, jdt), _jx(w, jdt), 8)
                      .astype(np.float32))
+    if f32:
+        spread = np.abs(ref - ref.mean()).max()
+        assert np.abs(ours.numpy() - ref).max() <= \
+            cs.KERNEL_RTOL["float32"] * spread
+        return
     tol = (dict(atol=1e-5, rtol=1e-5) if dtype == np.float32
            else dict(atol=1e-2, rtol=2 ** -7))
     np.testing.assert_allclose(ours.float().numpy(), ref, **tol)

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The design choices of K2's backward (csrc/mlp.cu: the LayerNorm's
-backward, row blocks for d[src | msg], weight blocks for dW1 / dW2, a
-fixed-order reduce), measured against their alternatives on one NVIDIA GPU.
+backward; bf16, row blocks for d[src | msg] and weight blocks for dW1 /
+dW2 in one grid; f32, the AH, DX and W launches of mlp_bwd_gemm_kernel; a
+fixed-order reduce), measured against their alternatives on one NVIDIA
+GPU.
 
     python3 tools/torch_mlp_bwd_variants.py [--rounds 2] [--only a,b]
 
@@ -9,10 +11,15 @@ Builds mlp.cu as it is and each variant of it from a patched copy of csrc/
 under build/mlp_variants/<name>/ (one nvcc each, all at once; the wrapper
 sizes its scratch by the loaded library's keep_mlp_fused_bwd_scratch, so
 a variant's tiling needs no change in ops/kernels.py):
-  * slice_1024, slice_4096: a weight block sums over 1,024 or 4,096 rows
-    (the source: 2,048);
-  * chains_4_8, chains_8_16: the f32 hi x hi chains of a and dh 4 and 8,
-    or 8 and 16, k steps long (the source: 2 and 4);
+  * slice_1024, slice_4096: a weight product sums over slices of 1,024 or
+    4,096 rows (the source: 2,048);
+  * f32_bn64: the f32 DX and W launches in 64-wide tiles (the source:
+    128; AH is 64 wide in both, as it holds two accumulators);
+  * f32_ring_3: every f32 launch's ring holds 3 K steps (the source: AH
+    5, DX and W 4);
+  * uncached: the f32 launcher encodes its 14 tensor maps and sets its
+    kernels' shared-memory attribute at every call (the source: from
+    sm90.cuh's TmaMapCache, once a device): the host's us a call;
   * ln_rows_32: the LayerNorm's backward takes 32 rows a block (the
     source: 128);
   * rows_only, weights_only: the bf16 grid's row blocks, or its weight
@@ -24,7 +31,9 @@ gradient's distance to the float64 autograd of the plain version over the
 plain backward's own (chip_smoke.BWD_RATIO = 3 is the gate), two calls
 bitwise equal, the bytes a call allocates at its peak, ms a call on CUDA
 events (--rounds rounds, variants in turns) and each device kernel's
-time in one call (torch.profiler). One JSON line a row, also into
+time in one call (torch.profiler: f32's AH, DX and W launches apart) and
+the host's us a call (the wrapper, its tensor maps and launches).
+One JSON line a row, also into
 chiprun_out/mlp_bwd_variants.jsonl; the card's name and power limit first.
 """
 import argparse
@@ -39,22 +48,31 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 CSRC = os.path.join(ROOT, "comfyui_keep_torch", "csrc")
-GRID = "    kb<<<nwb + nrb, kGThreads, S::launch_bytes, stream>>>(a);\n"
+GRID = "  kb<<<nwb + nrb, kGThreads, S::launch_bytes, stream>>>(a);\n"
+GMAP = ("  return sm90::tma_maps<128>().get(\n"
+        "      {(long long)base, d, rows, box_rows, ld, 0, 0, 0}, m,\n"
+        "      [&](CUtensorMap* mm) {\n"
+        "        return sm90::tma_map_f32(mm, base, d, rows, 1, box_rows, "
+        "ld);\n"
+        "      });\n")
 # name: [(file, text in the source, its replacement)]
 VARIANTS = {
     "slice_1024": [("mlp.cu", "constexpr int kSlice = 2048;",
                     "constexpr int kSlice = 1024;")],
     "slice_4096": [("mlp.cu", "constexpr int kSlice = 2048;",
                     "constexpr int kSlice = 4096;")],
-    "chains_4_8": [("mlp.cu", "constexpr int kAChain = 2, kDhChain = 4;",
-                    "constexpr int kAChain = 4, kDhChain = 8;")],
-    "chains_8_16": [("mlp.cu", "constexpr int kAChain = 2, kDhChain = 4;",
-                     "constexpr int kAChain = 8, kDhChain = 16;")],
+    "f32_bn64": [("mlp.cu", "static constexpr int BN = MODE == kModeAH ? 64 "
+                  ": 128;", "static constexpr int BN = 64;")],
+    "f32_ring_3": [("mlp.cu", "static constexpr int stages = MODE == kModeAH "
+                    "? 5 : 4;", "static constexpr int stages = 3;")],
+    "uncached": [("mlp.cu", GMAP, "  return sm90::tma_map_f32(m, base, d, "
+                  "rows, 1, box_rows, ld);\n"),
+                 ("mlp.cu", "  if (sm_count[dev] == 0) {", "  {")],
     "ln_rows_32": [("mlp.cu", "constexpr int kLnRows = 128;",
                     "constexpr int kLnRows = 32;")],
-    "rows_only": [("mlp.cu", GRID, "    a.nwb = 0;\n    kb<<<nrb, kGThreads, "
+    "rows_only": [("mlp.cu", GRID, "  a.nwb = 0;\n  kb<<<nrb, kGThreads, "
                    "S::launch_bytes, stream>>>(a);\n")],
-    "weights_only": [("mlp.cu", GRID, "    kb<<<nwb, kGThreads, "
+    "weights_only": [("mlp.cu", GRID, "  kb<<<nwb, kGThreads, "
                       "S::launch_bytes, stream>>>(a);\n")],
 }
 DIAGNOSTIC = ("rows_only", "weights_only")
@@ -101,7 +119,8 @@ def ptxas(log):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1] if "'" in ln else ln
-        elif name and "bwd" in name and ("registers" in ln or "spill" in ln):
+        elif name and ("bwd" in name or "gemm" in name) and (
+                "registers" in ln or "spill" in ln):
             keep.append(f"{name}: {ln.strip()}")
     return keep
 
@@ -166,6 +185,22 @@ def kernel_times(torch, fn):
     return [(e.name.split("<")[0].split("(")[0][-40:],
              round(e.device_time if hasattr(e, "device_time")
                    else e.cuda_time, 2)) for e in ev]
+
+
+def host_us(torch, fn, calls=20):
+    """Host us a call: the best of 5 runs of `calls` calls queued without a
+    wait (the card is slower at the step's shape, so the runs time the
+    wrapper and its launches alone)."""
+    import time
+    best = float("inf")
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
 
 
 def main():
@@ -243,6 +278,7 @@ def main():
                         row["ms"] = cs.time_ms(torch, call, 20)
                         if rnd == 0:
                             row["kernels_us"] = kernel_times(torch, call)
+                            row["host_us"] = host_us(torch, call)
                     emit(row)
                     torch.cuda.empty_cache()
     finally:
